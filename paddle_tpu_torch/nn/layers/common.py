@@ -1,0 +1,65 @@
+"""Linear and Embedding (counterparts of ``paddle_tpu/nn/layers/common.py``).
+
+``Linear`` keeps Paddle's ``[in_features, out_features]`` weight layout
+(``y = x @ W + b``), so a reference state_dict bridges onto the port with
+names and shapes unchanged. At model-parallel degree 1 the fleet layers
+``ColumnParallelLinear`` / ``RowParallelLinear`` / ``VocabParallelEmbedding``
+reduce to these.
+
+Parameters are created on the device given and initialised from the
+explicit ``torch.Generator`` given (normal, std ``init_std``; biases 0).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def _normal(shape, std, device, generator, dtype):
+    w = torch.empty(shape, device=device, dtype=dtype)
+    w.normal_(0.0, std, generator=generator)
+    return w
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 init_std: float = 0.02):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(_normal(
+            (in_features, out_features), init_std, device, generator, dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
+                                              dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x):
+        y = x @ self.weight
+        return y if self.bias is None else y + self.bias
+
+    def extra_repr(self):
+        return f"in_features={self.in_features}, " \
+               f"out_features={self.out_features}"
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 init_std: float = 0.02):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.weight = nn.Parameter(_normal(
+            (num_embeddings, embedding_dim), init_std, device, generator,
+            dtype))
+
+    def forward(self, ids):
+        return nn.functional.embedding(ids, self.weight)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"

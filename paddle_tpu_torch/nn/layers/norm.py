@@ -1,0 +1,25 @@
+"""LayerNorm (counterpart of ``paddle_tpu/nn/layers/norm.py``): Paddle's
+``epsilon`` argument, weight 1 and bias 0 at init."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape: int, epsilon: float = 1e-5, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.normalized_shape = (int(normalized_shape),)
+        self.epsilon = float(epsilon)
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+                                              device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
+                                             device=device, dtype=dtype))
+
+    def forward(self, x):
+        return nn.functional.layer_norm(x, self.normalized_shape, self.weight,
+                                        self.bias, self.epsilon)
+
+    def extra_repr(self):
+        return f"{self.normalized_shape[0]}, epsilon={self.epsilon}"
