@@ -20,14 +20,32 @@ Phases, each fatal on failure (non-zero exit, no final line):
    checked against the same run on the plain attention;
 5. kernel vs plain through the engine at depth 2, f32 and int8 KV, in
    lockstep: per-step logits compared, greedy streams equal;
-6. a ``kernels`` JSON line, then the result line.
+6. flash attention, kernels K1 (forward), K2a (dQ) and K2b (dK/dV) vs
+   their plain versions: causal on / off, Tq = Tk, Tq < Tk and Tq > Tk
+   (rows with no visible key), a single query row, three keys,
+   G in {1, 2, 4}, D in {64, 128}, bias / bool-mask / broadcast variants,
+   strided q/k/v views, f32 and bf16;
+   then their times at the training shapes (B=2, T=2048, H=16, D=128,
+   causal; f32 and bf16) beside the plain versions, one PyTorch library
+   call (scaled_dot_product_attention forward, its autograd backward) and
+   the card's bound;
+7. training at full width: GPT-3 1.3B (24 layers, random weights from a
+   seed) through ``TrainStep`` + ``AdamW`` (Brown et al. 2020 settings)
+   for 4 steps on one 2 x 2048-token batch, the flash kernels' launch
+   counts checked against 24 layers x 4 steps, the first loss checked
+   against a no-grad forward on the plain attention;
+8. a kernel trainer and a plain-attention trainer in lockstep at depth 2
+   for 3 steps: per-step losses and final parameters compared;
+9. a ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -47,6 +65,29 @@ SHARED_PREFIX = 256
 # the tensor cores
 CARD_PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12),
               "NVL": (3.9e12, 60e12)}
+# dense bf16 tensor-core FLOP/s (the same data sheets)
+BF16_PEAKS = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+# flash kernels vs plain, as max|err| / max|ref|. f32: both accumulate in
+# f32 in different orders. bf16 o and dq are stored in bf16 (one ulp =
+# 2^-8 relative), and the kernel rounds P to bf16 against the running row
+# max where the plain version uses the final one: two ulps. lse, dS and
+# the f32 per-query-head dK / dV keep the f32 tolerance in both dtypes.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# GPT-3 (Brown et al. 2020): Table 2.1 lr for 1.3B, Appendix B AdamW
+ADAMW = dict(learning_rate=2e-4, beta1=0.9, beta2=0.95, epsilon=1e-8,
+             weight_decay=0.1)
+# first full-width loss, kernel vs plain attention: f32 through 24 layers,
+# only the attention's summation order differs; the loss (~ln 50304) is a
+# mean over 4096 tokens
+TRAIN_LOSS_RTOL = 2e-5
+LOCKSTEP_STEPS = 3
+# lockstep parameters: Adam moves an element by about lr * sign(g), so an
+# element whose gradient is float noise on both sides (the key bias: its
+# exact gradient is 0) can drift by up to 2 * lr per step; all elements
+# must stay within that, and all but 1 % within LOCKSTEP_PARAM_ATOL
+# (0.2 % of the 3-step move 3 * lr)
+LOCKSTEP_PARAM_ATOL = 1e-6
 
 
 def log(*a):
@@ -416,10 +457,357 @@ def phase_engine_parity():
             raise AssertionError("greedy streams differ")
 
 
+# -- phase 6: flash attention kernels ----------------------------------------
+
+FLASH_REPLACES = {
+    "fwd": "paddle_tpu/ops/pallas/flash_attention.py:136",
+    "dq": "paddle_tpu/ops/pallas/flash_attention.py:332",
+    "dkv": "paddle_tpu/ops/pallas/flash_attention.py:379",
+}
+
+# (causal, Tq, Tk, H, Hkv, D, dtype, bias code, mask code, strided): bias /
+# mask dims B, H, Q(Tq), K(Tk) or 1
+FLASH_CASES = (
+    (True, 300, 300, 4, 4, 128, torch.float32, None, None, False),
+    (True, 200, 333, 4, 2, 64, torch.float32, "B11K", None, False),
+    (True, 333, 200, 8, 2, 128, torch.float32, None, None, False),
+    (False, 256, 256, 2, 2, 64, torch.float32, "1HQK", None, False),
+    (False, 130, 270, 4, 1, 128, torch.float32, "1111", None, False),
+    (False, 192, 192, 2, 2, 128, torch.float32, None, "B1QK", False),
+    (True, 384, 384, 4, 4, 128, torch.float32, None, None, True),
+    (True, 300, 300, 4, 2, 128, torch.bfloat16, None, None, False),
+    (False, 200, 333, 2, 2, 64, torch.bfloat16, "B11K", None, False),
+    (True, 256, 256, 4, 4, 64, torch.bfloat16, None, None, True),
+    (True, 1, 77, 4, 2, 64, torch.float32, "1H1K", None, False),
+    (False, 17, 3, 2, 2, 128, torch.float32, None, None, False),
+    (True, 65, 65, 16, 16, 128, torch.bfloat16, "11QK", None, False),
+)
+
+
+def _dims(code, b, h, tq, tk):
+    return tuple({"B": b, "H": h, "Q": tq, "K": tk, "1": 1}[c] for c in code)
+
+
+def flash_inputs(gen, b, tq, tk, h, hkv, d, dtype, strided):
+    """q, k, v, dO on the card; strided: q/k/v as the model slices them out
+    of one fused [B, T, H, 3, D] projection."""
+    dev = DEVICE
+    if strided:
+        qkv = torch.randn((b, tq, h, 3, d), generator=gen, device=dev)
+        q, k, v = (qkv.to(dtype)[:, :, :, i] for i in range(3))
+    else:
+        q = torch.randn((b, tq, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, tk, hkv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, tk, hkv, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, tq, h, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _rel(got, ref):
+    """(max|err|, max|err| / max|ref|) in f32."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def compare_flash(fa, q, k, v, do, bias, causal, bias_grad, worst, tag):
+    """Each kernel vs its plain version on the same inputs; the backward
+    halves get the kernel forward's o and lse. Updates worst[kernel] with
+    the largest max|err| and raises past the tolerance."""
+    tol = FLASH_TOL[q.dtype]
+    kw = dict(causal=causal)
+    o, lse = fa.flash_attention_forward_cuda(q, k, v, bias, **kw)
+    o_p, lse_p = fa.flash_attention_forward_plain(q, k, v, bias, **kw)
+    delta = fa._delta(o, do).contiguous()
+    dq, ds = fa.flash_attention_bwd_dq_cuda(q, k, v, bias, do, lse, delta,
+                                            want_ds=bias_grad, **kw)
+    dq_p, ds_p = fa.flash_attention_bwd_dq_plain(q, k, v, bias, do, lse,
+                                                 delta, want_ds=bias_grad,
+                                                 **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, bias, do, lse, delta,
+                                             **kw)
+    dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(q, k, v, bias, do, lse,
+                                                  delta, **kw)
+    torch.cuda.synchronize()
+    live = lse_p > fa.NEG_INF * 0.5
+    if not torch.equal(lse[~live], lse_p[~live]):
+        raise AssertionError(f"{tag}: rows with no visible key differ")
+    if not torch.equal(o.float()[~live.transpose(1, 2)],
+                       torch.zeros_like(o.float()[~live.transpose(1, 2)])):
+        raise AssertionError(f"{tag}: a row with no visible key is not 0")
+    pairs = [("fwd", "o", o, o_p, tol), ("fwd", "lse", lse[live],
+                                          lse_p[live], 1e-4),
+             ("dq", "dq", dq, dq_p, tol), ("dkv", "dk", dk, dk_p, 1e-4),
+             ("dkv", "dv", dv, dv_p, 1e-4)]
+    if bias_grad:
+        pairs.append(("dq", "ds", ds, ds_p, 1e-4))
+    line = []
+    for kern, name, got, ref, t in pairs:
+        if not ref.abs().max().item() > 0:
+            raise AssertionError(f"{tag}: {name} is all zero")
+        err, rel = _rel(got, ref)
+        worst[kern] = max(worst.get(kern, 0.0), err)
+        line.append(f"{name} {rel:.1e}")
+        if not rel <= t:
+            raise AssertionError(f"{tag}: {name} differs from plain: "
+                                 f"{rel} > {t} (max|err| {err})")
+    log(f"{tag}: rel err " + ", ".join(line))
+
+
+def phase_flash_sweep(fa):
+    """Returns the worst max|err| per kernel over the f32 cases."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    worst, worst_bf16 = {}, {}
+    log("# phase 6a: flash kernels vs plain (tolerance max|err|/max|ref|: "
+        f"f32 1e-4, bf16 o/dq {FLASH_TOL[torch.bfloat16]:.2e})")
+    for (causal, tq, tk, h, hkv, d, dt, bcode, mcode,
+         strided) in FLASH_CASES:
+        b = 2
+        q, k, v, do = flash_inputs(gen, b, tq, tk, h, hkv, d, dt, strided)
+        bias = None
+        if bcode is not None:
+            bias = torch.randn(_dims(bcode, b, h, tq, tk), generator=gen,
+                               device=DEVICE)
+        if mcode is not None:
+            keep = torch.rand(_dims(mcode, b, h, tq, tk), generator=gen,
+                              device=DEVICE) > 0.3
+            keep[0, 0, 7] = False  # a row that sees no key
+            bias = torch.where(keep, 0.0, fa.NEG_INF)
+        tag = (f"{'causal' if causal else 'full  '} Tq={tq:3d} Tk={tk:3d} "
+               f"H={h} G={h // hkv} D={d:3d} {str(dt)[6:]:8s} "
+               f"bias={bcode or mcode or '-'}{' strided' if strided else ''}")
+        compare_flash(fa, q, k, v, do, bias, causal,
+                      bcode is not None, worst if dt == torch.float32
+                      else worst_bf16, tag)
+    log(f"worst max|err| f32 {worst}, bf16 {worst_bf16}")
+    return worst
+
+
+def flash_bound(kind, q, k, causal, peaks, bf16_peak):
+    """(ms, 'bytes'|'operations'): each input read once, each output written
+    once; QK, dP, P.V, dQ, dK, dV as 2 * D FLOPs per visible (query, key)
+    pair, at the inputs' type's peak."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    _, bw, f32_peak = peaks
+    qi = np.arange(tq)
+    pairs = (int(np.clip(qi + tk - tq + 1, 0, tk).sum()) if causal
+             else tq * tk)
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    flops = 2 * d * products * pairs * b * h
+    elt = q.element_size()
+    qb, kvb, rows = b * tq * h * d * elt, b * tk * hkv * d * elt, b * h * tq * 4
+    nbytes = {"fwd": 2 * qb + 2 * kvb + rows,
+              "dq": 3 * qb + 2 * kvb + 2 * rows,
+              "dkv": 2 * qb + 2 * kvb + 2 * rows + 2 * b * tk * h * d * 4}[kind]
+    peak = f32_peak if q.dtype == torch.float32 else bf16_peak
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_backend(qh, kh, vh):
+    """The first SDPA backend, in PyTorch's order of preference, that runs
+    these inputs: pinned, so the yardstick names what it timed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a refused backend warns why before it raises
+            with warnings.catch_warnings(), sdpa_kernel([be]):
+                warnings.simplefilter("ignore")
+                sdpa(qh, kh, vh, is_causal=True)
+            return be
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend runs these inputs")
+
+
+def phase_flash_timing(fa, peaks, bf16_peak):
+    """K1, K2a, K2b at the training shapes, q/k/v strided out of one fused
+    projection as in the model."""
+    from torch.nn.attention import sdpa_kernel
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    b, t, h, d = TRAIN_BATCH, TRAIN_SEQ, 16, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = flash_inputs(gen, b, t, t, h, h, d, dt, True)
+        worst = {}
+        compare_flash(fa, q, k, v, do, None, True, False, worst,
+                      f"training shape {str(dt)[6:]}")
+        o, lse = fa.flash_attention_forward_cuda(q, k, v, causal=True)
+        delta = fa._delta(o, do).contiguous()
+        kw = dict(causal=True)
+        calls = {
+            "fwd": (lambda: fa.flash_attention_forward_cuda(q, k, v, **kw),
+                    lambda: fa.flash_attention_forward_plain(q, k, v, **kw)),
+            "dq": (lambda: fa.flash_attention_bwd_dq_cuda(
+                       q, k, v, None, do, lse, delta, **kw),
+                   lambda: fa.flash_attention_bwd_dq_plain(
+                       q, k, v, None, do, lse, delta, **kw)),
+            "dkv": (lambda: fa.flash_attention_bwd_dkv_cuda(
+                        q, k, v, None, do, lse, delta, **kw),
+                    lambda: fa.flash_attention_bwd_dkv_plain(
+                        q, k, v, None, do, lse, delta, **kw)),
+        }
+        qh, kh, vh = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        be = sdpa_backend(qh, kh, vh)
+        with sdpa_kernel([be]):
+            lib_fwd = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+            out = sdpa(qh, kh, vh, is_causal=True)
+            doh = do.transpose(1, 2)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, (qh, kh, vh), doh, retain_graph=True))
+        for kind, (kern, plain) in calls.items():
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, iters=5, warm=1)
+            bound_ms, bound_by = flash_bound(kind, q, k, True, peaks,
+                                             bf16_peak)
+            lib = lib_fwd if kind == "fwd" else lib_bwd
+            rows[(kind, dt)] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib, bound_ms=bound_ms,
+                                    bound_by=bound_by,
+                                    max_abs_err=worst[kind])
+            log(f"{kind:3s} {str(dt)[6:]:8s} B={b} T={t} H={h} D={d} causal:"
+                f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
+                f"[{be.name}] {lib:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {100 * bound_ms / ms:.1f} % of bound")
+        del q, k, v, do, o, lse, delta, qh, kh, vh, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phases 7 and 8: training -------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """The flash route with the kernels' plain versions standing in for the
+    kernels: the reference run of phases 7 and 8."""
+    names = ("forward", "bwd_dq", "bwd_dkv")
+    saved = {n: getattr(fa, f"flash_attention_{n}_cuda") for n in names}
+    try:
+        for n in names:
+            setattr(fa, f"flash_attention_{n}_cuda",
+                    getattr(fa, f"flash_attention_{n}_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(fa, f"flash_attention_{n}_cuda", fn)
+
+
+def train_batch(vocab):
+    """Next-token batch [B, T] of ids and labels, made with numpy."""
+    rng = np.random.default_rng(SEED + 4)
+    tok = rng.integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    tok = torch.as_tensor(tok, device=DEVICE)
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def trainer(model):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **ADAMW)
+    return TrainStep(model, lambda m, ids, lab: m(ids, labels=lab), opt), opt
+
+
+def phase_training(fa, smi):
+    t0 = time.perf_counter()
+    model = build_model(24)
+    step, opt = trainer(model)
+    ids, labels = train_batch(model.config.vocab_size)
+    with plain_attention(fa), torch.no_grad():
+        plain_loss = float(model(ids, labels=labels))
+    torch.cuda.synchronize()
+    log(f"# phase 7: GPT-3 1.3B built and a no-grad plain-attention loss "
+        f"taken in {time.perf_counter() - t0:.2f} s (set-up)")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                "dkv": fa.launches_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    layers = model.config.num_hidden_layers
+    tokens = ids.numel()
+    for i, (l, ms) in enumerate(zip(losses, step_ms)):
+        log(f"step {i}: loss {l:.6f}, {ms:.1f} ms, "
+            f"{tokens / ms * 1e3:.1f} tokens/s")
+    log(f"steps 1-{TRAIN_STEPS - 1} mean {np.mean(step_ms[1:]):.1f} ms = "
+        f"{tokens / np.mean(step_ms[1:]) * 1e3:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} = {layers} layers x "
+        f"{TRAIN_STEPS} steps  [{smi}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if any(n != layers * TRAIN_STEPS for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != {layers} x "
+                             f"{TRAIN_STEPS}")
+    states = [t for st in opt._accumulators for t in st.values()]
+    if not all(x.device.type == DEVICE
+               for x in [*model.parameters(), *states]):
+        raise AssertionError("a parameter or optimizer state is off the card")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    log(f"first loss kernel {losses[0]:.7f} vs plain attention "
+        f"{plain_loss:.7f}: rel {rel:.2e} (rtol {TRAIN_LOSS_RTOL})")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("first loss differs from the plain attention")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms, losses=losses,
+                peak_bytes=peak, tokens=tokens)
+
+
+def phase_train_lockstep(fa):
+    a = build_model(2)
+    b = build_model(2).load_numpy_state(
+        {n: x.detach().cpu().numpy() for n, x in a.state_dict().items()})
+    step_a, _ = trainer(a)
+    step_b, _ = trainer(b)
+    ids, labels = train_batch(a.config.vocab_size)
+    worst = 0.0
+    for i in range(LOCKSTEP_STEPS):
+        la = float(step_a(ids, labels))
+        with plain_attention(fa):
+            lb = float(step_b(ids, labels))
+        rel = abs(la - lb) / abs(lb)
+        worst = max(worst, rel)
+        log(f"# phase 8: depth 2 step {i}: loss kernel {la:.7f} plain "
+            f"{lb:.7f} rel {rel:.2e}")
+    bound = 2 * ADAMW["learning_rate"] * LOCKSTEP_STEPS
+    far = total = 0
+    dmax = 0.0
+    pb = dict(b.named_parameters())
+    for n, p in a.named_parameters():
+        d = (p.detach() - pb[n].detach()).abs()
+        dmax = max(dmax, d.max().item())
+        far += int((d > LOCKSTEP_PARAM_ATOL).sum())
+        total += d.numel()
+    log(f"final params: max |kernel - plain| {dmax:.2e} (bound {bound:.1e}),"
+        f" {far}/{total} beyond {LOCKSTEP_PARAM_ATOL}")
+    if not worst <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"lockstep losses differ: rel {worst}")
+    if not (dmax <= bound and far <= 0.01 * total):
+        raise AssertionError("lockstep parameters differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import build
 
@@ -437,8 +825,9 @@ def main() -> int:
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: need compute capability 9.0, got {cap}")
     peaks = card_peaks(name)
+    bf16_peak = BF16_PEAKS[peaks[0]]
     log(f"bounds use the H100 {peaks[0]} peaks: {peaks[1] / 1e12} TB/s HBM, "
-        f"{peaks[2] / 1e12} TFLOP/s f32")
+        f"{peaks[2] / 1e12} TFLOP/s f32, {bf16_peak / 1e12} TFLOP/s bf16")
 
     t0 = time.perf_counter()
     build.library()
@@ -446,9 +835,13 @@ def main() -> int:
         "(set-up)")
 
     sweep_err = phase_kernel_sweep(pa)
+    flash_err = phase_flash_sweep(fa)
     served = phase_serving(pa, smi)
     timed = time_main_shapes(pa, peaks, served["contexts"])
     phase_engine_parity()
+    flash_timed = phase_flash_timing(fa, peaks, bf16_peak)
+    trained = phase_training(fa, smi)
+    phase_train_lockstep(fa)
 
     dec = timed["decode"]
     kernels = [{
@@ -462,6 +855,20 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
     }]
+    for kind, kernel in (("fwd", "flash_attention_fwd"),
+                         ("dq", "flash_attention_bwd_dq"),
+                         ("dkv", "flash_attention_bwd_dkv")):
+        row = flash_timed[(kind, torch.float32)]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/cuda/flash_attention.cu",
+            "replaces": FLASH_REPLACES[kind],
+            "launches": trained["launches"][kind],
+            "max_abs_err": max(flash_err[kind], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

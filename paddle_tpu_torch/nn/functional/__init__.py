@@ -1,6 +1,6 @@
 """Functional ops of the port (``paddle.nn.functional`` counterparts)."""
-from .attention import (mask_fill_value, paged_attention,
+from .attention import (flash_attention, mask_fill_value, paged_attention,
                         scaled_dot_product_attention)
 
-__all__ = ["mask_fill_value", "paged_attention",
+__all__ = ["flash_attention", "mask_fill_value", "paged_attention",
            "scaled_dot_product_attention"]

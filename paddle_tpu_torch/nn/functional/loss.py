@@ -1,0 +1,28 @@
+"""Losses of the port.
+
+``_parallel_softmax_ce`` is the counterpart of
+``paddle_tpu/distributed/fleet/layers/mpu.py::_parallel_softmax_ce`` (the
+loss under ``GPTPretrainingCriterion``) at model-parallel degree 1: plain
+tensor ops, as in the reference, where it is jnp and no kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _parallel_softmax_ce(logits, label, ignore_index=-100):
+    """Per-token cross entropy of ``logits [..., V]`` against integer
+    ``label [...]``: a max-shifted log-softmax (the max carries no
+    gradient), 0 where ``label == ignore_index``. Returns ``label``'s
+    shape in the logits' dtype."""
+    m = logits.amax(-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(-1, keepdim=True))
+    logprobs = shifted - lse
+    ignored = label == ignore_index
+    safe = torch.where(ignored, torch.zeros_like(label), label).long()
+    picked = torch.gather(logprobs, -1, safe.unsqueeze(-1)).squeeze(-1)
+    return -torch.where(ignored, torch.zeros_like(picked), picked)
+
+
+__all__ = ["_parallel_softmax_ce"]

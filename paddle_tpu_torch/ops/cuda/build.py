@@ -1,16 +1,17 @@
 """Build and bind the port's hand-written CUDA kernels at first use.
 
-All ``.cu`` sources of this directory are compiled in one call for
-``sm_90a`` into ``_build/`` (listed in ``.gitignore``) and loaded as one
-shared library. The kernels export plain C entry points, bound here with
-``ctypes``: no source includes PyTorch's headers, so the build takes
-seconds, not minutes. ``torch.utils.cpp_extension.load`` drives the build
-when ``ninja`` is present; otherwise ``nvcc -shared`` is called directly.
-A failed build raises; nothing stands in for a kernel that did not build.
+Each ``.cu`` source of this directory is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library under ``_build/`` (listed in ``.gitignore``), named by a
+hash of the sources and flags so a stale build is never loaded. The
+kernels export plain C entry points, bound here with ``ctypes``: no source
+includes PyTorch's headers, so the build takes seconds, not minutes. A
+failed build raises; nothing stands in for a kernel that did not build.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -18,7 +19,7 @@ from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "flash_attention.cu")
 LIB_NAME = "paddle_tpu_torch_kernels"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH_FLAGS]
@@ -27,11 +28,21 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: argtypes of each exported entry point (pointers and the stream as
 #: c_void_p so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    "paddle_paged_attention": (
-        [_P] * 8 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _P], _I),
+    "paddle_paged_attention": ([_P] * 8 + [_I] * 8 + [_F, _F, _P], _I),
+    # q, k, v, bias, o, lse, strides, 12 ints, scale, stream
+    "paddle_flash_attention_fwd": ([_P] * 6 + [_STRIDES] + [_I] * 12
+                                   + [_F, _P], _I),
+    # q, k, v, bias, dout, lse, delta, dq, dbias, strides, ...
+    "paddle_flash_attention_bwd_dq": ([_P] * 9 + [_STRIDES] + [_I] * 12
+                                      + [_F, _P], _I),
+    # q, k, v, bias, dout, lse, delta, dk, dv, strides, ...
+    "paddle_flash_attention_bwd_dkv": ([_P] * 9 + [_STRIDES] + [_I] * 12
+                                       + [_F, _P], _I),
 }
 
 
@@ -48,24 +59,39 @@ def _nvcc() -> str:
     return found
 
 
-def _build() -> Path:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(_DIR / s) for s in SOURCES]
-    from torch.utils.cpp_extension import is_ninja_available, load
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's
+    output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{out}")
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
 
-    if is_ninja_available():
-        path = load(name=LIB_NAME, sources=sources,
-                    build_directory=str(BUILD_DIR),
-                    extra_cuda_cflags=NVCC_FLAGS, is_python_module=False,
-                    verbose=False)
-        return Path(path)
-    out = BUILD_DIR / f"lib{LIB_NAME}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(out), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}")
+
+def _build() -> Path:
+    sources = [_DIR / s for s in SOURCES]
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for s in sources:
+        digest.update(s.read_bytes())
+    tag = digest.hexdigest()[:12]
+    out = BUILD_DIR / f"lib{LIB_NAME}_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-Xcompiler", "-fPIC", "-c", str(s), "-o",
+               str(o)] for s, o in zip(sources, objs)])
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    os.replace(tmp, out)
     return out
 
 

@@ -1,0 +1,651 @@
+// Flash attention for Hopper, sm_90a: forward (K1) and the two backward
+// kernels (K2a dQ, K2b dK/dV).
+//
+// Replaces paddle_tpu/ops/pallas/flash_attention.py:
+//   K1  flash_fwd_kernel     <- _fa_forward :248 (body _fwd_kernel :136)
+//   K2a flash_bwd_dq_kernel  <- _fa_backward :422, dQ call :500
+//                               (body _dq_kernel :332)
+//   K2b flash_bwd_dkv_kernel <- _fa_backward :422, dK/dV call :574
+//                               (body _dkv_kernel :379)
+// Same function: blockwise online-softmax attention over [B, T, H, D]
+// (q, dO) and [B, T, Hkv, D] (k, v) with GQA by index (query head h reads
+// kv head h / G, _bh_kv :195), bottom-right causal masking, an additive
+// f32 bias [Bb*Hb, Tq|1, Tk|1] read through its broadcast dims (_bh_bias
+// :201; a (B,1,1,Tk) padding mask is never materialized), masked logits
+// NEG_INF = -1e30, p = 0 where the logit is <= NEG_INF / 2 (a row with no
+// visible key emits zeros and lse = NEG_INF), final divide by
+// max(l, 1e-30). The forward rounds P to v's dtype before P.V (bf16); the
+// backward recomputes P = exp(s - lse) and works in f32; dQ leaves in q's
+// dtype, dK / dV per *query* head in f32 (group-summed and cast by the
+// caller, as in the reference :587-592), dS (dbias) only when asked.
+//
+// Design on this card. The TPU walked the key (or query) blocks as a
+// sequential grid axis with m / l / acc in VMEM scratch. CUDA blocks run
+// in no order, so each block owns one output tile and loops over the other
+// axis itself, accumulators in registers: K1 and K2a own a 64-row query
+// tile of one (batch, head) and walk key tiles up to the tile's causal
+// horizon (_causal_last_kv :103); K2b owns a 64-row key tile and walks
+// query tiles from the first that sees it (_causal_first_q :109), writing
+// per-query-head partials with no atomics, so the result is deterministic.
+// 256 threads form a 16 x 16 grid; thread (ty, tx) holds rows ty + 16 i
+// and columns tx + 16 j of each logits tile and, of each [rows, D]
+// accumulator, D / 16 columns as float4 groups (4 tx + 64 g). Tiles are
+// staged in shared memory as f32 rows padded to D + 4 floats, so the
+// 16-byte loads of a quarter warp fall in distinct banks; inputs may be
+// strided [B, T, H, D] views (q / k / v sliced out of the fused QKV
+// projection) and are read in place, with ragged tails zero-filled and
+// masked in the kernel. The heaviest causal query tiles are launched
+// first.
+//
+// Bound: operations. At the training shapes (B=2, T=2048, H=16, D=128,
+// causal) the forward does ~3.4e10 f32 FLOPs on ~134 MB of q/k/v/o, so the
+// card's f32 FMA rate, not HBM, is the limit. The design computes every
+// product as a register tile (4 x 2 logits, or 4 rows x D / 16 columns of
+// an accumulator, per thread) fed by 16-byte shared-memory loads, and
+// stages each K/V (or Q/dO) tile once per block. A later change moves the
+// products to tensor cores (wgmma in bf16 / TF32 where the caller allows
+// it) and pipelines the tile loads with cp.async / TMA.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16: (ty, tx) = (tid / 16, tid % 16)
+constexpr float kNegInf = -1e30f;
+
+// element strides of a [B, T, H, D] tensor (D has unit stride)
+struct Rows {
+  long long b, t, h;
+};
+
+struct Geom {
+  int B, H, Hkv, Tq, Tk;
+  int bias_b, bias_h, bias_tq, bias_tk;
+  int causal;
+  float scale;
+  Rows q, k, v, dout;
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Stage rows [r0, r0 + ROWS) of one head of a [B, T, H, D] tensor into
+// shared memory as f32, row stride D + 4; rows at or past n are zero.
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src,
+                                      long long base, long long st, int r0,
+                                      int n) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kPerRow = D / V;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * V;
+    float* d = dst + r * (D + 4) + c;
+    if (r0 + r < n) {
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          src + base + static_cast<long long>(r0 + r) * st + c);
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<uint4*>(d) = w;
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(
+            bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+        *reinterpret_cast<float4*>(d + 4) = make_float4(
+            bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(d + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two staged tiles
+template <int D, int RM, int RN>
+__device__ __forceinline__ void dot_tile(float (&s)[RM][RN], const float* a,
+                                         const float* b, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RM], bv[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) av[i] = ld4(a + (ty + 16 * i) * (D + 4) + d);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) bv[j] = ld4(b + (tx + 16 * j) * (D + 4) + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        float x = s[i][j];
+        x = fmaf(av[i].x, bv[j].x, x);
+        x = fmaf(av[i].y, bv[j].y, x);
+        x = fmaf(av[i].z, bv[j].z, x);
+        x = fmaf(av[i].w, bv[j].w, x);
+        s[i][j] = x;
+      }
+  }
+}
+
+// acc[i][g][e] += sum_c p[ty + 16 i][c] * m[c][64 g + 4 tx + e] for c < KC;
+// p has row stride sp, m is a staged tile (row stride D + 4)
+template <int D, int RM, int KC>
+__device__ __forceinline__ void mm_tile(float (&acc)[RM][D / 64][4],
+                                        const float* p, int sp,
+                                        const float* m, int tx, int ty) {
+  constexpr int DG = D / 64;
+#pragma unroll 2
+  for (int c = 0; c < KC; c += 4) {
+    float4 pv[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) pv[i] = ld4(p + (ty + 16 * i) * sp + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float4 mv[DG];
+#pragma unroll
+      for (int g = 0; g < DG; ++g)
+        mv[g] = ld4(m + (c + cc) * (D + 4) + 64 * g + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float pc = cc == 0 ? pv[i].x
+                       : cc == 1 ? pv[i].y
+                       : cc == 2 ? pv[i].z
+                                 : pv[i].w;
+#pragma unroll
+        for (int g = 0; g < DG; ++g) {
+          acc[i][g][0] = fmaf(pc, mv[g].x, acc[i][g][0]);
+          acc[i][g][1] = fmaf(pc, mv[g].y, acc[i][g][1]);
+          acc[i][g][2] = fmaf(pc, mv[g].z, acc[i][g][2]);
+          acc[i][g][3] = fmaf(pc, mv[g].w, acc[i][g][3]);
+        }
+      }
+    }
+  }
+}
+
+// max / sum over the 16 threads (one tx each) that share a row
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// the bias page of one (batch, query head), read through its broadcast dims
+struct BiasPage {
+  const float* p;  // null: no bias
+  int tq, tk;
+  __device__ __forceinline__ float at(int qi, int kj) const {
+    return p[(tq > 1 ? static_cast<long long>(qi) * tk : 0LL) +
+             (tk > 1 ? kj : 0)];
+  }
+};
+
+__device__ __forceinline__ BiasPage bias_page(const Geom& g,
+                                              const float* bias, int b,
+                                              int h) {
+  BiasPage bp{nullptr, g.bias_tq, g.bias_tk};
+  if (bias != nullptr)
+    bp.p = bias + static_cast<long long>((b % g.bias_b) * g.bias_h +
+                                         h % g.bias_h) *
+                      g.bias_tq * g.bias_tk;
+  return bp;
+}
+
+// (q.k) * scale + bias, or NEG_INF where the key is not visible
+__device__ __forceinline__ float masked_logit(const Geom& g,
+                                              const BiasPage& bp, float dot,
+                                              int qi, int kj) {
+  const bool ok = qi < g.Tq && kj < g.Tk &&
+                  (!g.causal || kj <= qi + g.Tk - g.Tq);
+  if (!ok) return kNegInf;
+  float x = dot * g.scale;
+  if (bp.p != nullptr) x += bp.at(qi, kj);
+  return x;
+}
+
+// keys [0, key_end(q0)) can be visible to the query tile starting at q0
+template <int BQ>
+__device__ __forceinline__ int key_end(const Geom& g, int q0) {
+  return g.causal ? min(g.Tk, q0 + BQ + g.Tk - g.Tq) : g.Tk;
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float a, float b, float c,
+                                       float d) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+  } else {
+    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16(a)) |
+                        (static_cast<uint32_t>(
+                             __bfloat16_as_ushort(__float2bfloat16(b)))
+                         << 16);
+    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16(c)) |
+                        (static_cast<uint32_t>(
+                             __bfloat16_as_ushort(__float2bfloat16(d)))
+                         << 16);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+  }
+}
+
+// ---------------------------------------------------------------- K1
+
+template <int D, int BQ, int BK, typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ o, float* __restrict__ lse, Geom g) {
+  constexpr int RM = BQ / 16, RN = BK / 16, DG = D / 64;
+  constexpr int SD = D + 4, SP = BK + 4;
+  extern __shared__ float4 smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* k_s = q_s + BQ * SD;
+  float* v_s = k_s + BK * SD;
+  float* p_s = v_s + BK * SD;  // [BQ][SP]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y, b = bh / g.H, h = bh % g.H;
+  const int hk = h / (g.H / g.Hkv);
+  const BiasPage bp = bias_page(g, bias, b, h);
+
+  stage<D, BQ>(q_s, q, b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
+  float m[RM], l[RM], acc[RM][DG][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < DG; ++gg)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][gg][e] = 0.f;
+  }
+
+  const int k_end = key_end<BQ>(g, q0);
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tile has been consumed
+    stage<D, BK>(k_s, k, b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
+    stage<D, BK>(v_s, v, b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
+    __syncthreads();
+    float s[RM][RN];
+    dot_tile<D, RM, RN>(s, q_s, k_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      float mc = kNegInf;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        s[i][j] = masked_logit(g, bp, s[i][j], qi, k0 + tx + 16 * j);
+        mc = fmaxf(mc, s[i][j]);
+      }
+      const float mn = fmaxf(m[i], row_max(mc));
+      const float alpha = expf(m[i] - mn);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        // a still all-masked row would get exp(NEG_INF - NEG_INF) = 1;
+        // gate on the raw logit so it contributes l = 0 and emits zeros
+        const float p = s[i][j] > kNegInf * 0.5f ? expf(s[i][j] - mn) : 0.f;
+        ps += p;
+        p_s[(ty + 16 * i) * SP + tx + 16 * j] = round_to<T>(p);
+      }
+      l[i] = alpha * l[i] + row_sum(ps);
+      m[i] = mn;
+#pragma unroll
+      for (int gg = 0; gg < DG; ++gg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][gg][e] *= alpha;
+    }
+    __syncthreads();
+    mm_tile<D, RM, BK>(acc, p_s, SP, v_s, tx, ty);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= g.Tq) continue;
+    const float safe = fmaxf(l[i], 1e-30f);
+    T* out = o + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+#pragma unroll
+    for (int gg = 0; gg < DG; ++gg)
+      store4<T>(out + 64 * gg + 4 * tx, acc[i][gg][0] / safe,
+                acc[i][gg][1] / safe, acc[i][gg][2] / safe,
+                acc[i][gg][3] / safe);
+    if (tx == 0)
+      lse[static_cast<long long>(bh) * g.Tq + qi] =
+          l[i] > 0.f ? m[i] + logf(safe) : kNegInf;
+  }
+}
+
+// ---------------------------------------------------------------- K2a
+
+template <int D, int BQ, int BK, typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ bias,
+                    const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    float* __restrict__ dbias, Geom g) {
+  constexpr int RM = BQ / 16, RN = BK / 16, DG = D / 64;
+  constexpr int SD = D + 4, SP = BK + 4;
+  extern __shared__ float4 smem[];
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + BQ * SD;
+  float* k_s = do_s + BQ * SD;
+  float* v_s = k_s + BK * SD;
+  float* ds_s = v_s + BK * SD;  // [BQ][SP]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y, b = bh / g.H, h = bh % g.H;
+  const int hk = h / (g.H / g.Hkv);
+  const BiasPage bp = bias_page(g, bias, b, h);
+
+  stage<D, BQ>(q_s, q, b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
+  stage<D, BQ>(do_s, dout, b * g.dout.b + h * g.dout.h, g.dout.t, q0, g.Tq);
+  float lse_r[RM], delta_r[RM], acc[RM][DG][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const long long r = static_cast<long long>(bh) * g.Tq + qi;
+    lse_r[i] = qi < g.Tq ? lse[r] : 0.f;
+    delta_r[i] = qi < g.Tq ? delta[r] : 0.f;
+#pragma unroll
+    for (int gg = 0; gg < DG; ++gg)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][gg][e] = 0.f;
+  }
+
+  const int k_end = key_end<BQ>(g, q0);
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();
+    stage<D, BK>(k_s, k, b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
+    stage<D, BK>(v_s, v, b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
+    __syncthreads();
+    float s[RM][RN], dp[RM][RN];
+    dot_tile<D, RM, RN>(s, q_s, k_s, ty, tx);
+    dot_tile<D, RM, RN>(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const float x = masked_logit(g, bp, s[i][j], qi, kj);
+        const float p = x > kNegInf * 0.5f ? expf(x - lse_r[i]) : 0.f;
+        const float ds = p * (dp[i][j] - delta_r[i]);
+        ds_s[(ty + 16 * i) * SP + tx + 16 * j] = ds;
+        if (dbias != nullptr && qi < g.Tq && kj < g.Tk)
+          dbias[(static_cast<long long>(bh) * g.Tq + qi) * g.Tk + kj] = ds;
+      }
+    }
+    __syncthreads();
+    mm_tile<D, RM, BK>(acc, ds_s, SP, k_s, tx, ty);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= g.Tq) continue;
+    T* out = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+#pragma unroll
+    for (int gg = 0; gg < DG; ++gg)
+      store4<T>(out + 64 * gg + 4 * tx, acc[i][gg][0] * g.scale,
+                acc[i][gg][1] * g.scale, acc[i][gg][2] * g.scale,
+                acc[i][gg][3] * g.scale);
+  }
+}
+
+// ---------------------------------------------------------------- K2b
+
+template <int D, int BK, int BQ, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Geom g) {
+  // rows are keys, columns are queries
+  constexpr int RM = BK / 16, RN = BQ / 16, DG = D / 64;
+  constexpr int SD = D + 4, SP = BQ + 4;
+  extern __shared__ float4 smem[];
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + BK * SD;
+  float* q_s = v_s + BK * SD;
+  float* do_s = q_s + BQ * SD;
+  float* p_s = do_s + BQ * SD;  // [BK][SP], P transposed
+  float* ds_s = p_s + BK * SP;  // [BK][SP], dS transposed
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = blockIdx.x * BK;
+  const int bh = blockIdx.y, b = bh / g.H, h = bh % g.H;
+  const int hk = h / (g.H / g.Hkv);
+  const BiasPage bp = bias_page(g, bias, b, h);
+
+  stage<D, BK>(k_s, k, b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
+  stage<D, BK>(v_s, v, b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
+  float dk_acc[RM][DG][4], dv_acc[RM][DG][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int gg = 0; gg < DG; ++gg)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[i][gg][e] = dv_acc[i][gg][e] = 0.f;
+
+  // the first query that sees key k0 (bottom-right causal), tile-aligned
+  int q_begin = 0;
+  if (g.causal) {
+    const int first = k0 - (g.Tk - g.Tq);
+    q_begin = first > 0 ? first / BQ * BQ : 0;
+  }
+  for (int q0 = q_begin; q0 < g.Tq; q0 += BQ) {
+    __syncthreads();
+    stage<D, BQ>(q_s, q, b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
+    stage<D, BQ>(do_s, dout, b * g.dout.b + h * g.dout.h, g.dout.t, q0,
+                 g.Tq);
+    float lse_c[RN], delta_c[RN];
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int qj = q0 + tx + 16 * j;
+      const long long r = static_cast<long long>(bh) * g.Tq + qj;
+      lse_c[j] = qj < g.Tq ? lse[r] : 0.f;
+      delta_c[j] = qj < g.Tq ? delta[r] : 0.f;
+    }
+    __syncthreads();
+    float s[RM][RN], dp[RM][RN];
+    dot_tile<D, RM, RN>(s, k_s, q_s, ty, tx);
+    dot_tile<D, RM, RN>(dp, v_s, do_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int kj = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const float x = masked_logit(g, bp, s[i][j], q0 + tx + 16 * j, kj);
+        const float p = x > kNegInf * 0.5f ? expf(x - lse_c[j]) : 0.f;
+        p_s[(ty + 16 * i) * SP + tx + 16 * j] = p;
+        ds_s[(ty + 16 * i) * SP + tx + 16 * j] = p * (dp[i][j] - delta_c[j]);
+      }
+    }
+    __syncthreads();
+    mm_tile<D, RM, BQ>(dv_acc, p_s, SP, do_s, tx, ty);
+    mm_tile<D, RM, BQ>(dk_acc, ds_s, SP, q_s, tx, ty);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= g.Tk) continue;
+    const long long row = ((static_cast<long long>(b) * g.Tk + kj) * g.H + h) * D;
+#pragma unroll
+    for (int gg = 0; gg < DG; ++gg) {
+      const int c = 64 * gg + 4 * tx;
+      *reinterpret_cast<float4*>(dk + row + c) = make_float4(
+          dk_acc[i][gg][0] * g.scale, dk_acc[i][gg][1] * g.scale,
+          dk_acc[i][gg][2] * g.scale, dk_acc[i][gg][3] * g.scale);
+      *reinterpret_cast<float4*>(dv + row + c) =
+          make_float4(dv_acc[i][gg][0], dv_acc[i][gg][1], dv_acc[i][gg][2],
+                      dv_acc[i][gg][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// tiles: K1 and K2a 64 query rows x 32 keys (2 blocks per SM at D = 128),
+// K2b 64 key rows x 32 queries
+constexpr int kFwdBQ = 64, kFwdBK = 32;
+constexpr int kDqBQ = 64, kDqBK = 32;
+constexpr int kDkvBK = 64, kDkvBQ = 32;
+
+template <typename Kernel, typename... Args>
+int launch(Kernel* kernel, dim3 grid, int smem, cudaStream_t stream,
+           Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct Args {
+  const void *q, *k, *v, *bias, *dout, *lse, *delta;
+  void *out0, *out1;  // fwd: o, lse; dq: dq, dbias; dkv: dk, dv
+};
+
+template <int D, typename T>
+int run(int which, const Args& a, const Geom& g, cudaStream_t st) {
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const float* bias = static_cast<const float*>(a.bias);
+  const int bh = g.B * g.H;
+  constexpr int SD = D + 4;
+  if (which == 0) {
+    constexpr int BQ = kFwdBQ, BK = kFwdBK;
+    const int smem = (BQ * SD + 2 * BK * SD + BQ * (BK + 4)) * 4;
+    return launch(flash_fwd_kernel<D, BQ, BK, T>,
+                  dim3((g.Tq + BQ - 1) / BQ, bh), smem, st, q, k, v, bias,
+                  static_cast<T*>(a.out0), static_cast<float*>(a.out1), g);
+  }
+  const T* dout = static_cast<const T*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  if (which == 1) {
+    constexpr int BQ = kDqBQ, BK = kDqBK;
+    const int smem = (2 * BQ * SD + 2 * BK * SD + BQ * (BK + 4)) * 4;
+    return launch(flash_bwd_dq_kernel<D, BQ, BK, T>,
+                  dim3((g.Tq + BQ - 1) / BQ, bh), smem, st, q, k, v, bias,
+                  dout, lse, delta, static_cast<T*>(a.out0),
+                  static_cast<float*>(a.out1), g);
+  }
+  constexpr int BK = kDkvBK, BQ = kDkvBQ;
+  const int smem = (2 * BK * SD + 2 * BQ * SD + 2 * BK * (BQ + 4)) * 4;
+  return launch(flash_bwd_dkv_kernel<D, BK, BQ, T>,
+                dim3((g.Tk + BK - 1) / BK, bh), smem, st, q, k, v, bias, dout,
+                lse, delta, static_cast<float*>(a.out0),
+                static_cast<float*>(a.out1), g);
+}
+
+int dispatch(int which, const Args& a, const long long* strides, int B,
+             int H, int Hkv, int Tq, int Tk, int D, int bias_b, int bias_h,
+             int bias_tq, int bias_tk, int causal, int dtype, float scale,
+             void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || Tq <= 0 || Tk <= 0 ||
+      B * H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((a.bias != nullptr) != (bias_b > 0) ||
+      (a.bias != nullptr && (bias_h <= 0 || bias_tq <= 0 || bias_tk <= 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g;
+  g.B = B;
+  g.H = H;
+  g.Hkv = Hkv;
+  g.Tq = Tq;
+  g.Tk = Tk;
+  g.bias_b = bias_b;
+  g.bias_h = bias_h;
+  g.bias_tq = bias_tq;
+  g.bias_tk = bias_tk;
+  g.causal = causal;
+  g.scale = scale;
+  Rows* rows[4] = {&g.q, &g.k, &g.v, &g.dout};
+  for (int i = 0; i < 4; ++i)
+    *rows[i] = Rows{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64 && dtype == 0) return run<64, float>(which, a, g, st);
+  if (D == 64 && dtype == 1) return run<64, __nv_bfloat16>(which, a, g, st);
+  if (D == 128 && dtype == 0) return run<128, float>(which, a, g, st);
+  if (D == 128 && dtype == 1) return run<128, __nv_bfloat16>(which, a, g, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes (paddle_tpu_torch/ops/cuda/build.py).
+// q [B, Tq, H, D], k / v [B, Tk, Hkv, D] and dout [B, Tq, H, D] are read
+// through `strides` (12 element strides: b, t, h of q, k, v, dout; D has
+// unit stride; rows 16-byte aligned). bias is f32 [Bb * Hb, bias_tq,
+// bias_tk] or null (then bias_b = 0). dtype: 0 = f32, 1 = bf16 (q, k, v,
+// dout, o and dq share it). lse and delta are [B * H, Tq] f32. Outputs are
+// contiguous: o and dq [B, Tq, H, D], dbias [B * H, Tq, Tk] f32 (written
+// only on the visited tiles; null skips it), dk / dv [B, Tk, H, D] f32 per
+// query head. Each launches on `stream`, never synchronises, and returns
+// the launch's cudaError_t (0 on success).
+extern "C" int paddle_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    void* lse, const long long* strides, int B, int H, int Hkv, int Tq,
+    int Tk, int D, int bias_b, int bias_h, int bias_tq, int bias_tk,
+    int causal, int dtype, float scale, void* stream) {
+  const Args a{q, k, v, bias, nullptr, nullptr, nullptr, o, lse};
+  return dispatch(0, a, strides, B, H, Hkv, Tq, Tk, D, bias_b, bias_h,
+                  bias_tq, bias_tk, causal, dtype, scale, stream);
+}
+
+extern "C" int paddle_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, const void* lse, const void* delta, void* dq,
+    void* dbias, const long long* strides, int B, int H, int Hkv, int Tq,
+    int Tk, int D, int bias_b, int bias_h, int bias_tq, int bias_tk,
+    int causal, int dtype, float scale, void* stream) {
+  const Args a{q, k, v, bias, dout, lse, delta, dq, dbias};
+  return dispatch(1, a, strides, B, H, Hkv, Tq, Tk, D, bias_b, bias_h,
+                  bias_tq, bias_tk, causal, dtype, scale, stream);
+}
+
+extern "C" int paddle_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int H, int Hkv, int Tq, int Tk, int D,
+    int bias_b, int bias_h, int bias_tq, int bias_tk, int causal, int dtype,
+    float scale, void* stream) {
+  const Args a{q, k, v, bias, dout, lse, delta, dk, dv};
+  return dispatch(2, a, strides, B, H, Hkv, Tq, Tk, D, bias_b, bias_h,
+                  bias_tq, bias_tk, causal, dtype, scale, stream);
+}

@@ -1,0 +1,148 @@
+"""Optimizers (counterpart of ``paddle_tpu/optimizer/__init__.py``).
+
+``Optimizer`` / ``Adam`` / ``AdamW`` with ``ClipGradByGlobalNorm`` and
+``L2Decay``, applied in the order the reference's functional step (the one
+``TrainStep`` runs) applies them: global-norm clip over all gradients,
+then per parameter the regularizer, then the update rule. Updates run in
+place under ``torch.no_grad()`` as plain tensor ops, the reference's plain
+jnp that XLA fuses; no kernel is called for. State lives on each
+parameter's device, ``beta1_pow`` / ``beta2_pow`` as f32 scalars there, so
+a step never waits on the host.
+
+Difference kept on purpose: like the reference's functional path, AdamW
+decays every parameter; ``apply_decay_param_fun`` is accepted and not
+applied (only the reference's eager ``step`` honours it).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+
+class ClipGradByGlobalNorm:
+    """``g * clip / max(gnorm, clip)`` with the global norm taken in f32
+    over every gradient present."""
+
+    def __init__(self, clip_norm, group_name="default_group"):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        sq = [torch.sum(torch.square(g.float()))
+              for _, g in params_grads if g is not None]
+        if not sq:
+            return params_grads
+        gnorm = torch.sqrt(torch.stack(sq).sum())
+        scale = self.clip_norm / torch.clamp(gnorm, min=self.clip_norm)
+        return [(p, None if g is None else (g * scale).to(g.dtype))
+                for p, g in params_grads]
+
+
+class L2Decay:
+    """Coupled L2 regularization: ``g + coeff * p``."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+    def __call__(self, p, g):
+        return g + self.coeff * p
+
+
+class Optimizer:
+    """Base: holds the parameter list (its order is the state order), the
+    learning rate, the regularizer and the grad clip. ``step`` reads each
+    parameter's ``.grad``."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        if parameters is None:
+            raise ValueError("parameters must be provided (list of "
+                             "Parameters)")
+        self._parameter_list = list(parameters)
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
+        if isinstance(weight_decay, (float, int)):
+            self._regularizer = L2Decay(float(weight_decay))
+        else:
+            self._regularizer = weight_decay
+        self._accumulators: List[Optional[dict]] = (
+            [None] * len(self._parameter_list))
+
+    def get_lr(self) -> float:
+        return float(self._learning_rate)
+
+    def _init_state(self, p) -> dict:
+        return {}
+
+    def _rule(self, p, g, st, lr):
+        """Update ``p`` and ``st`` in place from gradient ``g``."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self):
+        pg = [(p, p.grad if p.requires_grad else None)
+              for p in self._parameter_list]
+        if self._grad_clip is not None:
+            pg = self._grad_clip(pg)
+        lr = self.get_lr()
+        for i, (p, g) in enumerate(pg):
+            if g is None:
+                continue
+            if self._accumulators[i] is None:
+                self._accumulators[i] = self._init_state(p)
+            g = g.to(p.dtype)
+            if self._regularizer is not None:
+                g = self._regularizer(p, g)
+            self._rule(p, g, self._accumulators[i], lr)
+
+    def clear_grad(self, set_to_zero=True):
+        for p in self._parameter_list:
+            p.grad = None
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state(self, p):
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        return {"moment1": torch.zeros_like(p),
+                "moment2": torch.zeros_like(p),
+                "beta1_pow": one, "beta2_pow": one.clone()}
+
+    def _rule(self, p, g, st, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        st["beta1_pow"].mul_(b1)
+        st["beta2_pow"].mul_(b2)
+        m1 = st["moment1"].mul_(b1).add_((1 - b1) * g)
+        m2 = st["moment2"].mul_(b2).add_((1 - b2) * torch.square(g))
+        mhat = m1 / (1 - st["beta1_pow"])
+        vhat = m2 / (1 - st["beta2_pow"])
+        p.sub_(lr * mhat / (torch.sqrt(vhat) + eps))
+
+
+class AdamW(Adam):
+    """Decoupled weight decay: ``p <- p * (1 - lr * wd)`` before the Adam
+    update (reference ``AdamW._rule``)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, multi_precision, name)
+        self._wd = (float(weight_decay)
+                    if isinstance(weight_decay, (int, float)) else 0.01)
+
+    def _rule(self, p, g, st, lr):
+        if self._wd:
+            p.mul_(1.0 - lr * self._wd)
+        super()._rule(p, g, st, lr)
+
+
+__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "L2Decay", "Optimizer"]

@@ -1,4 +1,6 @@
 """Text models of the port."""
-from .gpt import GPTConfig, GPTForCausalLM, GPTModel
+from .gpt import (GPTConfig, GPTForCausalLM, GPTForPretraining,
+                  GPTLMHeadModel, GPTModel, GPTPretrainingCriterion)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTForPretraining",
+           "GPTLMHeadModel", "GPTModel", "GPTPretrainingCriterion"]

@@ -8,7 +8,8 @@ The fused QKV projection is head-major: ``[b, t, H, 3, d]``, so q/k/v are
 LM head is tied to the word embeddings.
 
 The model is built on the device it is given, with weights drawn from an
-explicit ``torch.Generator``. Serving plugs into
+explicit ``torch.Generator``. Training calls ``model(ids, labels=...)``,
+which returns ``GPTPretrainingCriterion``'s loss; serving plugs into
 ``inference.engine.DecodeEngine`` through :meth:`GPTForCausalLM.decode_adapter`.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch import nn
 from ...device import resolve_device
 from ...framework.io_state import state_from_numpy
 from ...nn import functional as F
+from ...nn.functional.loss import _parallel_softmax_ce
 from ...nn.layers.common import Embedding, Linear
 from ...nn.layers.norm import LayerNorm
 
@@ -181,6 +183,24 @@ class GPTModel(nn.Module):
         return self.final_layernorm(x)
 
 
+class GPTPretrainingCriterion(nn.Module):
+    """Masked LM loss (reference ``GPTPretrainingCriterion``). Without
+    ``loss_mask`` the mean over ALL tokens, ignored labels counting as 0;
+    with it ``sum(loss * mask) / max(sum(mask), 1)``."""
+
+    ignore_index = -100
+
+    def __init__(self, config: Optional[GPTConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = _parallel_softmax_ce(logits, labels, self.ignore_index)
+        if loss_mask is not None:
+            lm = loss_mask.reshape(loss.shape).to(loss.dtype)
+            return (loss * lm).sum() / lm.sum().clamp(min=1.0)
+        return loss.mean()
+
+
 class GPTForCausalLM(nn.Module):
     """GPT with a (tied) LM head.
 
@@ -201,14 +221,21 @@ class GPTForCausalLM(nn.Module):
         if not config.tie_word_embeddings:
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   bias=False, **kw)
+        self.criterion = GPTPretrainingCriterion(config)
 
     def _logits(self, hidden):
         if self.config.tie_word_embeddings:
             return hidden @ self.gpt.embeddings.word_embeddings.weight.t()
         return self.lm_head(hidden)
 
-    def forward(self, input_ids, position_ids=None):
-        return self._logits(self.gpt(input_ids, position_ids))
+    def forward(self, input_ids, position_ids=None, labels=None,
+                loss_mask=None):
+        """Logits ``[B, T, V]``, or the scalar loss when ``labels`` are
+        given."""
+        logits = self._logits(self.gpt(input_ids, position_ids))
+        if labels is not None:
+            return self.criterion(logits, labels, loss_mask)
+        return logits
 
     def load_numpy_state(self, np_state: Mapping[str, np.ndarray]):
         """Load the reference's parameters, given as ``{name: ndarray}``;
@@ -223,6 +250,9 @@ class GPTForCausalLM(nn.Module):
     def decode_adapter(self):
         return _GPTDecodeAdapter(self)
 
+
+GPTLMHeadModel = GPTForCausalLM
+GPTForPretraining = GPTForCausalLM
 
 
 class _GPTDecodeAdapter:

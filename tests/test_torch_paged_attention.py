@@ -116,8 +116,10 @@ def test_wrapper_refuses_other_devices():
     start = torch.empty((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tpa.paged_attention(x, pool, pool, table, start)
-    with pytest.raises(NotImplementedError, match="K1"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         TF.scaled_dot_product_attention(x, x, x, is_causal=True)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        TF.scaled_dot_product_attention(x, x, x, dropout_p=0.5)
 
 
 def _kernel_args(d=64, kv=torch.float32, scales=False):
