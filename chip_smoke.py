@@ -36,7 +36,28 @@ Phases, each fatal on failure (non-zero exit, no final line):
    against a no-grad forward on the plain attention;
 8. a kernel trainer and a plain-attention trainer in lockstep at depth 2
    for 3 steps: per-step losses and final parameters compared;
-9. a ``kernels`` JSON line, then the result line.
+9. grouped matmul, kernels K4a (forward, and dlhs on a transposed rhs
+   view) and K4b (drhs) vs their plain versions: the reference tests'
+   group layouts (aligned, ragged, empty groups, trailing empties, a
+   padding tail, a group over several tiles), N = 192, odd K and N, the
+   Mixtral 8x7B top-2 routing (8192 rows, 4096 -> 14336, 8 experts,
+   Dirichlet sizes) and 128 groups over 4096 rows, f32 and bf16;
+10. the five grouped matmuls of one MoE training step at the Mixtral
+   widths, each beside its plain version, one dense ``torch.matmul`` of
+   the same FLOPs, a grouped library call (``torch._grouped_mm`` where it
+   takes the dtype, else a per-expert ``torch.mm`` loop, labelled) and
+   the card's bound;
+11. MoE training at full width: Mixtral 8x7B's MoE block (dim 4096,
+   hidden 14336, 8 experts, top-2; random weights from a seed), dropless,
+   under a ``Linear(4096, 1)`` head with MSE + the aux loss, through
+   ``TrainStep`` + ``AdamW`` (phase 7's settings at lr 1e-5) for 4 steps
+   on one 2 x 2048-token batch:
+   the loss falls, K4a launches 3 and K4b 2 per step, the first loss
+   equals a no-grad forward on the plain grouped matmul;
+12. a kernel trainer and a plain trainer in lockstep at reduced width
+   (dim 1024, hidden 3584): step-1 loss and gradients, then per-step
+   losses and the share of token slots routed alike;
+13. a ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -88,6 +109,30 @@ LOCKSTEP_STEPS = 3
 # must stay within that, and all but 1 % within LOCKSTEP_PARAM_ATOL
 # (0.2 % of the 3-step move 3 * lr)
 LOCKSTEP_PARAM_ATOL = 1e-6
+# Mixtral 8x7B's MoE block (Jiang et al. 2024, arXiv:2401.04088, Table 1):
+# dim, hidden_dim, experts, top-k. The expert is the repo's MoELayer FFN
+# (GELU, with biases), not Mixtral's SwiGLU.
+MOE_DIM, MOE_HIDDEN, MOE_EXPERTS, MOE_TOP_K = 4096, 14336, 8, 2
+MOE_LOCKSTEP_DIMS = (1024, 3584)
+# the MoE runs take phase 7's AdamW and clip with a smaller step: the
+# reference's XavierNormal gives the stacked expert weights [8, 4096,
+# 14336] conv-layout fans and a std of 1.8e-4, below one Adam step at lr
+# 2e-4, and at that lr the loss fell once and then diverged on the card
+# (1.05, 0.93, 8.38, 13.53); 1e-5 moves each weight ~5 % of its std a step
+MOE_ADAMW = dict(ADAMW, learning_rate=1e-5)
+# grouped matmul kernel vs plain, as max|err| / max|ref|: f32 sums of up
+# to 14336 products in another order than cuBLAS (TF32 off); a bf16
+# output is stored in bf16 (one ulp = 2^-8 relative); drhs leaves in f32
+# in both dtypes and keeps the f32 tolerance
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# first MoE loss, kernel vs plain grouped matmul: only the expert
+# products' summation order differs, and the MoE output is ~1e-4 of the
+# ~1.0 MSE, so the loss agrees far inside f32 rounding of its value
+MOE_LOSS_RTOL = 1e-6
+# lockstep step-1 gradients, max|err| / max|grad| per parameter: f32 sums
+# of up to 4096 products in other orders (the gate's gradient flows
+# through the expert outputs)
+MOE_GRAD_RTOL = 1e-4
 
 
 def log(*a):
@@ -803,11 +848,410 @@ def phase_train_lockstep(fa):
         raise AssertionError("lockstep parameters differ")
 
 
+# -- phases 9-12: grouped matmul and MoE training -----------------------------
+
+GMM_REPLACES = {
+    "fwd": "paddle_tpu/ops/pallas/grouped_matmul.py:116",
+    "drhs": "paddle_tpu/ops/pallas/grouped_matmul.py:164",
+}
+
+# (label, group sizes or a group count for a Dirichlet draw, M, K, N)
+GMM_CASES = (
+    ("aligned", [64, 64], 128, 32, 64),
+    ("ragged", [50, 30, 48], 128, 32, 64),
+    ("empty groups", [0, 100, 0, 28], 128, 32, 64),
+    ("trailing empties", [128, 0, 0], 128, 32, 64),
+    ("padding tail", [30, 40], 128, 32, 64),
+    ("multi-tile group", [100, 156], 256, 32, 64),
+    ("N=192", [40, 60, 28], 128, 32, 192),
+    ("odd K", [50, 30, 48], 128, 33, 40),
+    ("odd K and N", [300, 0, 211], 600, 45, 37),
+    ("Mixtral top-2", MOE_EXPERTS, MOE_TOP_K * TRAIN_BATCH * TRAIN_SEQ,
+     MOE_DIM, MOE_HIDDEN),
+    # ~32 rows a group: most row tiles span several groups; G * K * N
+    # passes 2^31, so the last groups' element offsets need 64 bits
+    ("128 groups", 128, 4096, 2048, 8448),
+)
+
+
+def dirichlet_sizes(rng, m, g):
+    """Imbalanced group sizes summing to m: the draw of
+    scripts/bench_gmm_tpu.py (Dirichlet(2) proportions)."""
+    props = rng.dirichlet(np.ones(g) * 2.0)
+    sizes = np.floor(props * m).astype(np.int64)
+    sizes[-1] += m - sizes.sum()
+    return sizes
+
+
+def gmm_inputs(gen, m, k, n, g, dtype):
+    """lhs [m, k], rhs [g, k, n] (scaled by 1/sqrt(k)) and dout [m, n] on
+    the card."""
+    dev = DEVICE
+    lhs = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    rhs = (torch.randn((g, k, n), generator=gen, device=dev)
+           / np.sqrt(k)).to(dtype)
+    dout = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+    return lhs, rhs, dout
+
+
+def compare_gmm(gm, lhs, rhs, dout, sizes, worst, tag):
+    """K4a on (lhs, rhs) and on (dout, rhs^T view), K4b on (lhs, dout),
+    each vs its plain version. Padding rows and empty groups' drhs must be
+    exactly zero. Updates worst[name] with (max|err|, relative) and raises
+    past the tolerance."""
+    tol = GMM_TOL[lhs.dtype]
+    host = sizes.cpu().numpy()
+    total = int(host.sum())
+    empty = torch.as_tensor(np.flatnonzero(host == 0), device=DEVICE)
+    rhs_t = rhs.transpose(1, 2)
+    calls = (("out", gm.grouped_matmul_cuda, gm.grouped_matmul_plain,
+              (lhs, rhs), tol),
+             ("dlhs", gm.grouped_matmul_cuda, gm.grouped_matmul_plain,
+              (dout, rhs_t), tol),
+             ("drhs", gm.grouped_matmul_drhs_cuda,
+              gm.grouped_matmul_drhs_plain, (lhs, dout),
+              GMM_TOL[torch.float32]))
+    line = []
+    for name, kern, plain, args, t in calls:
+        got = kern(*args, sizes)
+        ref = plain(*args, sizes)
+        torch.cuda.synchronize()
+        if name == "drhs":
+            if got[empty].any():
+                raise AssertionError(f"{tag}: an empty group's drhs is not 0")
+        elif got[total:].any():
+            raise AssertionError(f"{tag}: a padding row of {name} is not 0")
+        if not ref.abs().max().item() > 0:
+            raise AssertionError(f"{tag}: {name} is all zero")
+        err, rel = _rel(got, ref)
+        prev = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(prev[0], err), max(prev[1], rel))
+        line.append(f"{name} {rel:.1e}")
+        if not rel <= t:
+            raise AssertionError(f"{tag}: {name} differs from plain: {rel} "
+                                 f"> {t} (max|err| {err})")
+        del got, ref
+    log(f"{tag}: rel err " + ", ".join(line))
+
+
+def phase_gmm_sweep(gm):
+    """Returns the worst (max|err|, relative) per output over the f32
+    cases."""
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    worst, worst_bf16 = {}, {}
+    log("# phase 9: grouped matmul K4a / K4b vs plain (tolerance "
+        f"max|err|/max|ref|: f32 {GMM_TOL[torch.float32]}, bf16 out / dlhs "
+        f"{GMM_TOL[torch.bfloat16]:.2e}, drhs f32 in both)")
+    for label, sizes, m, k, n in GMM_CASES:
+        if isinstance(sizes, int):
+            sizes = dirichlet_sizes(rng, m, sizes)
+        st = torch.as_tensor(np.asarray(sizes), dtype=torch.int32,
+                             device=DEVICE)
+        for dt in (torch.float32, torch.bfloat16):
+            lhs, rhs, dout = gmm_inputs(gen, m, k, n, len(sizes), dt)
+            compare_gmm(gm, lhs, rhs, dout, st,
+                        worst if dt == torch.float32 else worst_bf16,
+                        f"{label:16s} M={m:4d} K={k:4d} N={n:5d} "
+                        f"G={len(sizes):3d} {str(dt)[6:]:8s}")
+            del lhs, rhs, dout
+            torch.cuda.empty_cache()
+    log(f"worst (max|err|, rel) f32 {worst}, bf16 {worst_bf16}")
+    return worst
+
+
+def gmm_bound(kind, lhs, other, host_sizes, peaks, bf16_peak):
+    """(ms, 'bytes'|'operations') for one call: the routed rows of lhs
+    (and of dout) read once, the weights of non-empty groups read (fwd) or
+    written in f32 (drhs) once, the output written once; 2 FLOPs per
+    routed row x K x N at the inputs' type's peak."""
+    _, bw, f32_peak = peaks
+    rows = int(host_sizes.sum())
+    live = int((host_sizes > 0).sum())
+    m, k = lhs.shape
+    elt = lhs.element_size()
+    if kind == "fwd":
+        n = other.shape[2]
+        nbytes = rows * k * elt + live * k * n * elt + m * n * elt
+    else:
+        n = other.shape[1]
+        nbytes = rows * (k + n) * elt + live * k * n * 4
+    nbytes += 4 * len(host_sizes)
+    peak = f32_peak if lhs.dtype == torch.float32 else bf16_peak
+    t_bytes = nbytes / bw * 1e3
+    t_ops = 2 * rows * k * n / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grouped_library(kind, lhs, other, host_sizes, ends):
+    """(call, label): ``torch._grouped_mm`` on these inputs where this
+    torch has it and takes them, else a per-expert ``torch.mm`` loop."""
+    spans = np.concatenate([[0], np.cumsum(host_sizes)])
+    if kind == "fwd":
+        def grouped():
+            return torch._grouped_mm(lhs, other, offs=ends)
+        out = torch.empty((lhs.shape[0], other.shape[2]), dtype=lhs.dtype,
+                          device=DEVICE)
+
+        def loop():
+            for g in range(len(host_sizes)):
+                s, e = int(spans[g]), int(spans[g + 1])
+                torch.mm(lhs[s:e], other[g], out=out[s:e])
+            return out
+    else:
+        def grouped():
+            return torch._grouped_mm(lhs.T, other, offs=ends)
+        out = torch.empty((len(host_sizes), lhs.shape[1], other.shape[1]),
+                          dtype=lhs.dtype, device=DEVICE)
+
+        def loop():
+            for g in range(len(host_sizes)):
+                s, e = int(spans[g]), int(spans[g + 1])
+                torch.mm(lhs[s:e].T, other[s:e], out=out[g])
+            return out
+    try:
+        grouped()
+        torch.cuda.synchronize()
+        return grouped, "torch._grouped_mm"
+    except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
+        log(f"torch._grouped_mm refused {kind} {str(lhs.dtype)[6:]}: "
+            f"{str(exc).splitlines()[0][:120]}")
+        return loop, "per-expert torch.mm loop"
+
+
+def phase_gmm_timing(gm, peaks, bf16_peak):
+    """The five grouped matmuls of one MoE training step at the Mixtral
+    widths (f32, the training path's dtype), and the up projection in
+    bf16."""
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    m, d, f, e = (MOE_TOP_K * TRAIN_BATCH * TRAIN_SEQ, MOE_DIM, MOE_HIDDEN,
+                  MOE_EXPERTS)
+    host = dirichlet_sizes(rng, m, e)
+    sizes = torch.as_tensor(host, dtype=torch.int32, device=DEVICE)
+    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+    log(f"# phase 10: grouped matmuls of one MoE step, M={m} routed rows, "
+        f"dim {d}, hidden {f}, {e} experts, sizes {host.tolist()}")
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * scale).to(dtype)
+
+    x, a = rand(m, d), rand(m, f)
+    w_in, w_out = rand(e, d, f, scale=d ** -0.5), rand(e, f, d,
+                                                       scale=f ** -0.5)
+    dh, dy = rand(m, f), rand(m, d)
+    calls = (("up fwd", "fwd", x, w_in), ("down fwd", "fwd", a, w_out),
+             ("down dlhs", "fwd", dy, w_out.transpose(1, 2)),
+             ("up drhs", "drhs", x, dh), ("down drhs", "drhs", a, dy))
+    xb, wb = x.bfloat16(), w_in.bfloat16()
+    calls += (("up fwd bf16", "fwd", xb, wb),)
+    rows = {}
+    for name, kind, lhs, other in calls:
+        kern = (gm.grouped_matmul_cuda if kind == "fwd"
+                else gm.grouped_matmul_drhs_cuda)
+        plain = (gm.grouped_matmul_plain if kind == "fwd"
+                 else gm.grouped_matmul_drhs_plain)
+        got, ref = kern(lhs, other, sizes), plain(lhs, other, sizes)
+        torch.cuda.synchronize()
+        err, rel = _rel(got, ref)
+        del got, ref
+        tol = GMM_TOL[lhs.dtype if kind == "fwd" else torch.float32]
+        if not rel <= tol:
+            raise AssertionError(f"{name}: kernel disagrees, rel {rel}")
+        ms = cuda_ms(lambda: kern(lhs, other, sizes), iters=10, warm=2)
+        plain_ms = cuda_ms(lambda: plain(lhs, other, sizes), iters=3,
+                           warm=1)
+        if kind == "fwd":
+            dense_ms = cuda_ms(lambda: torch.matmul(lhs, other[0]), iters=10,
+                               warm=2)
+        else:
+            dense_ms = cuda_ms(lambda: torch.matmul(lhs.T, other), iters=10,
+                               warm=2)
+        lib, lib_label = grouped_library(kind, lhs, other, host, ends)
+        lib_ms = cuda_ms(lib, iters=5, warm=1)
+        bound_ms, bound_by = gmm_bound(kind, lhs, other, host, peaks,
+                                       bf16_peak)
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=err,
+            library_ms=lib_ms if lib_label == "torch._grouped_mm" else None)
+        log(f"{name:11s} [{lhs.shape[0]}x{lhs.shape[1]}] {kind:4s}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, dense torch.matmul "
+            f"{dense_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of "
+            f"bound, rel err {rel:.1e}")
+    del x, a, w_in, w_out, dh, dy, xb, wb, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def plain_grouped_matmul(gm):
+    """The grouped matmul's plain versions standing in for K4a / K4b: the
+    reference run of phases 11 and 12."""
+    saved = (gm.grouped_matmul_cuda, gm.grouped_matmul_drhs_cuda)
+    try:
+        gm.grouped_matmul_cuda = gm.grouped_matmul_plain
+        gm.grouped_matmul_drhs_cuda = gm.grouped_matmul_drhs_plain
+        yield
+    finally:
+        gm.grouped_matmul_cuda, gm.grouped_matmul_drhs_cuda = saved
+
+
+def build_moe(dim, hidden):
+    """MoE -> Linear(dim, 1): the composition the JAX package trains its
+    dropless MoE in (tests/test_grouped_matmul.py::test_dropless_moe_trains),
+    weights from a seeded generator on the card."""
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.initializer import XavierNormal
+
+    class MoERegressor(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            self.moe = MoELayer(dim, hidden, MOE_EXPERTS, top_k=MOE_TOP_K,
+                                drop_tokens=False, device=DEVICE,
+                                generator=gen)
+            self.head = Linear(dim, 1, device=DEVICE, generator=gen,
+                               weight_init=XavierNormal())
+
+        def forward(self, x):
+            return self.head(self.moe(x))
+
+    return MoERegressor()
+
+
+def moe_loss(model, x, y):
+    from paddle_tpu_torch.nn.functional import mse_loss
+
+    return mse_loss(model(x), y) + model.moe.last_aux_loss
+
+
+def moe_batch(dim):
+    """x [B, T, dim] and regression targets y [B, T, 1], made with numpy."""
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.standard_normal((TRAIN_BATCH, TRAIN_SEQ, dim), np.float32)
+    y = rng.standard_normal((TRAIN_BATCH, TRAIN_SEQ, 1), np.float32)
+    return torch.as_tensor(x, device=DEVICE), torch.as_tensor(y, device=DEVICE)
+
+
+def moe_trainer(model):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **MOE_ADAMW)
+    return TrainStep(model, moe_loss, opt), opt
+
+
+def phase_moe_training(gm, smi):
+    t0 = time.perf_counter()
+    model = build_moe(MOE_DIM, MOE_HIDDEN)
+    step, opt = moe_trainer(model)
+    x, y = moe_batch(MOE_DIM)
+    with plain_grouped_matmul(gm), torch.no_grad():
+        plain_loss = float(moe_loss(model, x, y))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"# phase 11: MoE (Mixtral 8x7B block: dim {MOE_DIM}, hidden "
+        f"{MOE_HIDDEN}, {MOE_EXPERTS} experts, top-{MOE_TOP_K}; "
+        f"{n_params / 1e9:.3f} B parameters) built and a no-grad plain loss "
+        f"taken in {time.perf_counter() - t0:.2f} s (set-up)")
+    torch.cuda.reset_peak_memory_stats()
+    gm.launches_fwd = gm.launches_drhs = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = {"fwd": gm.launches_fwd, "drhs": gm.launches_drhs}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (l, ms) in enumerate(zip(losses, step_ms)):
+        log(f"step {i}: loss {l:.7f}, {ms:.1f} ms, "
+            f"{tokens / ms * 1e3:.1f} tokens/s")
+    log(f"steps 1-{TRAIN_STEPS - 1} mean {np.mean(step_ms[1:]):.1f} ms = "
+        f"{tokens / np.mean(step_ms[1:]) * 1e3:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} = (3, 2) x "
+        f"{TRAIN_STEPS} steps  [{smi}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    # per step: K4a for both forward products and the down projection's
+    # dlhs (the input x needs no gradient, so the up projection's dlhs is
+    # skipped); K4b for both weight gradients
+    if launches != {"fwd": 3 * TRAIN_STEPS, "drhs": 2 * TRAIN_STEPS}:
+        raise AssertionError(f"grouped matmul launches {launches} != "
+                             f"(3, 2) x {TRAIN_STEPS}")
+    states = [t for st in opt._accumulators for t in st.values()]
+    if not all(t.device.type == DEVICE
+               for t in [*model.parameters(), *states]):
+        raise AssertionError("a parameter or optimizer state is off the card")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    log(f"first loss kernel {losses[0]:.7f} vs plain grouped matmul "
+        f"{plain_loss:.7f}: rel {rel:.2e} (rtol {MOE_LOSS_RTOL})")
+    if not rel <= MOE_LOSS_RTOL:
+        raise AssertionError("first loss differs from the plain grouped "
+                             "matmul")
+    del step, opt, model, x, y
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms, losses=losses,
+                peak_bytes=peak, tokens=tokens)
+
+
+def routed(model, x):
+    """[tokens, k] experts the model's gate picks for x."""
+    with torch.no_grad():
+        logits = model.moe.gate(x.reshape(-1, x.shape[-1]))
+        return torch.topk(torch.softmax(logits.float(), -1), MOE_TOP_K).indices
+
+
+def phase_moe_lockstep(gm):
+    dim, hidden = MOE_LOCKSTEP_DIMS
+    a, b = build_moe(dim, hidden), build_moe(dim, hidden)
+    b.load_state_dict(a.state_dict())
+    x, y = moe_batch(dim)
+    params_a, params_b = list(a.parameters()), list(b.parameters())
+    ga = torch.autograd.grad(moe_loss(a, x, y), params_a)
+    with plain_grouped_matmul(gm):
+        gb = torch.autograd.grad(moe_loss(b, x, y), params_b)
+    worst_grad = 0.0
+    for (n, _), u, v in zip(a.named_parameters(), ga, gb):
+        _, rel = _rel(u, v)
+        worst_grad = max(worst_grad, rel)
+        if not rel <= MOE_GRAD_RTOL:
+            raise AssertionError(f"step-1 gradient of {n} differs: rel {rel}")
+    log(f"# phase 12: MoE dim {dim} hidden {hidden}: step-1 gradients of "
+        f"all {len(ga)} parameters within rel {worst_grad:.2e} (rtol "
+        f"{MOE_GRAD_RTOL})")
+    del ga, gb
+    step_a, _ = moe_trainer(a)
+    step_b, _ = moe_trainer(b)
+    worst = 0.0
+    for i in range(LOCKSTEP_STEPS):
+        alike = (routed(a, x) == routed(b, x)).float().mean().item()
+        la = float(step_a(x, y))
+        with plain_grouped_matmul(gm):
+            lb = float(step_b(x, y))
+        rel = abs(la - lb) / abs(lb)
+        worst = max(worst, rel)
+        log(f"step {i}: loss kernel {la:.7f} plain {lb:.7f} rel {rel:.2e}; "
+            f"token slots routed alike {100 * alike:.3f} %")
+    if not worst <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"lockstep losses differ: rel {worst}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import grouped_matmul as gm
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import build
 
@@ -842,6 +1286,10 @@ def main() -> int:
     flash_timed = phase_flash_timing(fa, peaks, bf16_peak)
     trained = phase_training(fa, smi)
     phase_train_lockstep(fa)
+    gmm_err = phase_gmm_sweep(gm)
+    gmm_timed = phase_gmm_timing(gm, peaks, bf16_peak)
+    moe_trained = phase_moe_training(gm, smi)
+    phase_moe_lockstep(gm)
 
     dec = timed["decode"]
     kernels = [{
@@ -865,6 +1313,21 @@ def main() -> int:
             "replaces": FLASH_REPLACES[kind],
             "launches": trained["launches"][kind],
             "max_abs_err": max(flash_err[kind], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    for kind, kernel, call, outs in (
+            ("fwd", "grouped_matmul_fwd", "up fwd", ("out", "dlhs")),
+            ("drhs", "grouped_matmul_drhs", "up drhs", ("drhs",))):
+        row = gmm_timed[call]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/cuda/grouped_matmul.cu",
+            "replaces": GMM_REPLACES[kind],
+            "launches": moe_trained["launches"][kind],
+            "max_abs_err": max(row["max_abs_err"],
+                               *(gmm_err[o][0] for o in outs)),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],

@@ -1,5 +1,6 @@
 """Losses of the port.
 
+``mse_loss`` mirrors ``paddle_tpu/nn/functional/loss.py::mse_loss``.
 ``_parallel_softmax_ce`` is the counterpart of
 ``paddle_tpu/distributed/fleet/layers/mpu.py::_parallel_softmax_ce`` (the
 loss under ``GPTPretrainingCriterion``) at model-parallel degree 1: plain
@@ -25,4 +26,15 @@ def _parallel_softmax_ce(logits, label, ignore_index=-100):
     return -torch.where(ignored, torch.zeros_like(picked), picked)
 
 
-__all__ = ["_parallel_softmax_ce"]
+def mse_loss(input, label, reduction="mean", name=None):
+    """``(input - label)^2``, averaged (``"mean"``), summed (``"sum"``) or
+    kept elementwise (any other value), as in the reference."""
+    out = torch.square(input - label)
+    if reduction == "mean":
+        return out.mean()
+    if reduction == "sum":
+        return out.sum()
+    return out
+
+
+__all__ = ["_parallel_softmax_ce", "mse_loss"]

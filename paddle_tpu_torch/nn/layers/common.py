@@ -7,7 +7,8 @@ names and shapes unchanged. At model-parallel degree 1 the fleet layers
 reduce to these.
 
 Parameters are created on the device given and initialised from the
-explicit ``torch.Generator`` given (normal, std ``init_std``; biases 0).
+explicit ``torch.Generator`` given (normal, std ``init_std``, or
+``Linear``'s ``weight_init`` initializer where given; biases 0).
 """
 from __future__ import annotations
 
@@ -27,12 +28,16 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, weight_init=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(_normal(
-            (in_features, out_features), init_std, device, generator, dtype))
+        shape = (in_features, out_features)
+        self.weight = nn.Parameter(
+            _normal(shape, init_std, device, generator, dtype)
+            if weight_init is None else
+            weight_init(shape, device=device, dtype=dtype,
+                        generator=generator))
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
                                               dtype=dtype))
                      if bias else None)

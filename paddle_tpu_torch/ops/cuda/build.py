@@ -19,7 +19,7 @@ from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
-SOURCES = ("paged_attention.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "grouped_matmul.cu")
 LIB_NAME = "paddle_tpu_torch_kernels"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH_FLAGS]
@@ -43,6 +43,12 @@ _SIGNATURES = {
     # q, k, v, bias, dout, lse, delta, dk, dv, strides, ...
     "paddle_flash_attention_bwd_dkv": ([_P] * 9 + [_STRIDES] + [_I] * 12
                                        + [_F, _P], _I),
+    # lhs, rhs, offs, out, strides, M, K, N, G, dtype, rhs_k_contig, vec
+    "paddle_grouped_matmul_fwd": ([_P] * 4 + [_STRIDES] + [_I] * 7 + [_P],
+                                  _I),
+    # lhs, dout, offs, drhs, strides, M, K, N, G, dtype, vec
+    "paddle_grouped_matmul_drhs": ([_P] * 4 + [_STRIDES] + [_I] * 6 + [_P],
+                                   _I),
 }
 
 

@@ -4,13 +4,16 @@
 
     python3 scripts/profile_torch.py serving  [--out profile_out]
     python3 scripts/profile_torch.py training [--out profile_out] [--steps 2]
+    python3 scripts/profile_torch.py moe      [--out profile_out] [--steps 2]
 
 ``serving`` drives the configuration and traffic of ``chip_smoke.py``
 phase 4 (GPT-3 1.3B, 8 greedy requests, bf16 paged KV, prefix sharing,
 speculation k=4): one warm run, then a fresh engine serves the same
 requests under the profiler. ``training`` drives phase 7 (GPT-3 1.3B,
 ``TrainStep`` + ``AdamW``, one 2 x 2048-token batch): one warm step, then
-``--steps`` steps under the profiler.
+``--steps`` steps under the profiler. ``moe`` drives phase 11 (Mixtral
+8x7B's MoE block, dropless, under a ``Linear(4096, 1)`` head, ``TrainStep``
++ ``AdamW``, one 2 x 2048-token batch) the same way.
 
 Prints one JSON object: wall time of the profiled run, device busy time
 (sum of kernel time; the rest of the wall is the device's idle share),
@@ -37,7 +40,9 @@ import chip_smoke  # noqa: E402
 OWN_KERNELS = {"paged_attention": "paged_attention_k3",
                "flash_fwd_kernel": "flash_fwd_k1",
                "flash_bwd_dq_kernel": "flash_bwd_dq_k2a",
-               "flash_bwd_dkv_kernel": "flash_bwd_dkv_k2b"}
+               "flash_bwd_dkv_kernel": "flash_bwd_dkv_k2b",
+               "gmm_fwd_kernel": "grouped_matmul_fwd_k4a",
+               "gmm_drhs_kernel": "grouped_matmul_drhs_k4b"}
 
 
 def family(name: str) -> str:
@@ -87,26 +92,37 @@ def serving():
     return prof, wall, 1, extra
 
 
+def profiled_steps(step, batch, steps, tokens):
+    step(*batch)  # warm: cuBLAS handles, allocator, kernel build
+
+    def run():
+        for _ in range(steps):
+            step(*batch)
+
+    prof, wall = profiled(run)
+    return prof, wall, steps, {"tokens_per_step": tokens}
+
+
 def training(steps):
     model = chip_smoke.build_model(24)
     step, _ = chip_smoke.trainer(model)
     ids, labels = chip_smoke.train_batch(model.config.vocab_size)
-    step(ids, labels)  # warm: cuBLAS handles, allocator, kernel build
+    return profiled_steps(step, (ids, labels), steps, ids.numel())
 
-    def run():
-        for _ in range(steps):
-            step(ids, labels)
 
-    prof, wall = profiled(run)
-    return prof, wall, steps, {"tokens_per_step": ids.numel()}
+def moe(steps):
+    model = chip_smoke.build_moe(chip_smoke.MOE_DIM, chip_smoke.MOE_HIDDEN)
+    step, _ = chip_smoke.moe_trainer(model)
+    x, y = chip_smoke.moe_batch(chip_smoke.MOE_DIM)
+    return profiled_steps(step, (x, y), steps, x.shape[0] * x.shape[1])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", choices=("serving", "training"))
+    ap.add_argument("path", choices=("serving", "training", "moe"))
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--steps", type=int, default=2,
-                    help="profiled training steps")
+                    help="profiled training steps (training, moe)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -118,8 +134,10 @@ def main() -> int:
     smi = chip_smoke.smi_line()
     if args.path == "serving":
         prof, wall, n, extra = serving()
-    else:
+    elif args.path == "training":
         prof, wall, n, extra = training(args.steps)
+    else:
+        prof, wall, n, extra = moe(args.steps)
 
     groups: dict = {}
     kernels = []
@@ -138,7 +156,7 @@ def main() -> int:
     prof.export_chrome_trace(os.path.join(args.out,
                                           f"{args.path}_trace.json"))
     kernels.sort(reverse=True)
-    # per run (serving) or per step (training: n steps profiled)
+    # per run (serving) or per step (training, moe: n steps profiled)
     print(json.dumps({
         "card": smi,
         "path": args.path,

@@ -16,28 +16,36 @@ def tiny_gpt_kwargs():
 
 
 @contextlib.contextmanager
-def jax_tiny_gpt(seed=7):
-    """The reference GPTForCausalLM at the tiny size, built with no
-    hybrid-parallel group or global mesh in force (a fleet test may have
-    left one behind in this interpreter)."""
-    import paddle_tpu as paddle
+def no_mesh():
+    """Run the reference with no hybrid-parallel group or global mesh in
+    force (a fleet test may have left one behind in this interpreter)."""
     from paddle_tpu.distributed import mesh as _mesh
     from paddle_tpu.distributed.fleet.topology import (
         get_hybrid_communicate_group, set_hybrid_communicate_group)
-    from paddle_tpu.text.models.gpt import GPTConfig, GPTForCausalLM
 
     prev = get_hybrid_communicate_group()
     prev_mesh = _mesh.get_global_mesh()
     set_hybrid_communicate_group(None)
     _mesh.set_global_mesh(None)
     try:
+        yield
+    finally:
+        set_hybrid_communicate_group(prev)
+        _mesh.set_global_mesh(prev_mesh)
+
+
+@contextlib.contextmanager
+def jax_tiny_gpt(seed=7):
+    """The reference GPTForCausalLM at the tiny size, built and run under
+    :func:`no_mesh`."""
+    import paddle_tpu as paddle
+    from paddle_tpu.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    with no_mesh():
         paddle.seed(seed)
         m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs()))
         m.eval()
         yield m
-    finally:
-        set_hybrid_communicate_group(prev)
-        _mesh.set_global_mesh(prev_mesh)
 
 
 def numpy_state(model):
