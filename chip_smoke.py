@@ -9,15 +9,19 @@ Phases, each fatal on failure (non-zero exit, no final line):
    versions, compute capability 9.0 required, TF32 off;
 2. build the hand-written kernels from the sources in the checkout;
 3. kernel vs plain version: paged attention over f32 / bf16 / int8 pools,
-   T in {1, 5, 256 (S=1)}, G in {1, 4}, D in {64, 128}; then its time at
-   the serving path's shapes beside the plain version, one PyTorch library
-   call (scaled_dot_product_attention over pre-gathered K/V) and the
-   card's bound;
+   T in {1, 5, 256 (S=1)}, G in {1, 4}, D in {64, 128}, and two tail
+   prefills (S=1: T=1024 from position 0, T=200 after a 256-token cached
+   prefix), each call checked to have run the regime its shape picks
+   (``tile`` or ``split``); then its time at the serving path's shapes
+   (decode, verify, prefill) in turns with one PyTorch library call
+   (scaled_dot_product_attention over pre-gathered K/V, its backend
+   named), beside the plain version and the card's two bounds;
 4. serving at full width: GPT-3 1.3B (24 layers, random weights from a
    seed) through ``DecodeEngine`` — 8 greedy requests, paged bf16 KV,
    prefix sharing, prompt-lookup speculation — with the kernel's launch
-   count checked against the layers x programs run, and the token streams
-   checked against the same run on the plain attention;
+   count checked against the layers x programs run (prefills all in the
+   tile regime, decode and verify steps all in the split regime), and the
+   token streams checked against the same run on the plain attention;
 5. kernel vs plain through the engine at depth 2, f32 and int8 KV, in
    lockstep: per-step logits compared, greedy streams equal;
 6. flash attention, kernels K1 (forward), K2a (dQ) and K2b (dK/dV) vs
@@ -82,12 +86,17 @@ KERNEL_ATOL = 1e-4    # f32 accumulation on identical stored inputs
 ENGINE_LOGIT_ATOL = {"f32": 1e-4, "int8": 1e-3}
 PROMPT_LENGTHS = (17, 40, 90, 150, 300, 350, 480, 600)
 SHARED_PREFIX = 256
-# published peaks (NVIDIA data sheets): HBM bytes/s, f32 FLOP/s outside
-# the tensor cores
-CARD_PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12),
-              "NVL": (3.9e12, 60e12)}
-# dense bf16 tensor-core FLOP/s (the same data sheets)
-BF16_PEAKS = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+# published peaks (NVIDIA data sheets, dense): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores, TF32 and bf16 tensor-core FLOP/s
+CARD_PEAKS = {
+    "SXM": dict(bw=3.35e12, f32=67e12, tf32=495e12, bf16=989e12),
+    "PCIe": dict(bw=2.0e12, f32=51e12, tf32=378e12, bf16=756e12),
+    "NVL": dict(bw=3.9e12, f32=60e12, tf32=417.5e12, bf16=835e12),
+}
+# TF32 products per f32-accurate product on the tensor cores: both
+# operands f32 (hi.hi + hi.lo + lo.hi), or one exact in TF32 (a bf16 or
+# int8 value: hi.b + lo.b)
+TF32_PASSES = {"f32": 3, "f32x": 2}
 # flash kernels vs plain, as max|err| / max|ref|. f32: both accumulate in
 # f32 in different orders. bf16 o and dq are stored in bf16 (one ulp =
 # 2^-8 relative), and the kernel rounds P to bf16 against the running row
@@ -148,11 +157,39 @@ def smi_line() -> str:
 
 
 def card_peaks(name: str):
-    """(form factor, HBM bytes/s, f32 FLOP/s) of the card named."""
+    """The published peaks of the card named (``form`` = its form factor)."""
     for form in ("PCIe", "NVL"):
         if form in name:
-            return (form, *CARD_PEAKS[form])
-    return ("SXM", *CARD_PEAKS["SXM"])
+            return dict(CARD_PEAKS[form], form=form)
+    return dict(CARD_PEAKS["SXM"], form="SXM")
+
+
+def bounds(nbytes, flops, kind, peaks):
+    """The least time for a call that moves ``nbytes`` and does ``flops``
+    (2 per multiply-add) of ``kind``: ``"f32"`` (f32 x f32), ``"f32x"``
+    (f32 x a value exact in TF32) or ``"bf16"``. Two bounds: on f32 FMAs
+    (67 TFLOP/s; bf16 at its tensor-core peak), and on tensor cores (the
+    f32-accurate products as TF32_PASSES TF32 products at 495 TFLOP/s,
+    bf16 at 989), each the larger of the bytes' and the operations' time.
+    ``bound_ms`` is the tensor-core bound, the least time of the two: a
+    kernel's share of it cannot pass 100 %."""
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    if kind == "bf16":
+        t_fma = t_tc = flops / peaks["bf16"] * 1e3
+    else:
+        t_fma = flops / peaks["f32"] * 1e3
+        t_tc = flops * TF32_PASSES[kind] / peaks["tf32"] * 1e3
+    return dict(bound_ms=max(t_bytes, t_tc),
+                bound_by="bytes" if t_bytes >= t_tc else "operations",
+                bound_fma_ms=max(t_bytes, t_fma),
+                bound_fma_by="bytes" if t_bytes >= t_fma else "operations")
+
+
+def bound_text(row, ms):
+    """The two bounds of a row and the kernel's share of the least."""
+    return (f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, tensor "
+            f"cores), {row['bound_fma_ms']:.4f} ms ({row['bound_fma_by']}, "
+            f"f32 FMA), {100 * row['bound_ms'] / ms:.1f} % of bound")
 
 
 def cuda_ms(fn, iters=20, warm=3) -> float:
@@ -167,6 +204,33 @@ def cuda_ms(fn, iters=20, warm=3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20, reps=5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so the host's cost of issuing them (a Python
+    wrapper's checks and allocations) drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / (iters * reps)
 
 
 # -- phase 3 helpers ---------------------------------------------------------
@@ -242,11 +306,10 @@ def gathered_for_library(c):
 
 
 def bound(c, peaks):
-    """(ms, 'bytes'|'operations') the card needs at least for this call:
-    each input byte the call needs read once (the live keys of each slot,
-    not whole page slots), the output written once; QK and PV as f32
-    FLOPs over the peak outside the tensor cores."""
-    _, bw, f32_peak = peaks
+    """:func:`bounds` of this call: each input byte the call needs read
+    once (the live keys of each slot, not whole page slots), the output
+    written once; QK and PV f32-accurate, with one operand exact in TF32
+    unless the pool is f32."""
     q, kp = c["q"], c["kp"]
     s, t, h, d = q.shape
     hkv, p = kp.shape[2], c["p"]
@@ -261,41 +324,81 @@ def bound(c, peaks):
     # row t of slot i sees start + t + 1 keys; QK and PV: 2 FLOPs each
     seen = (start[:, None] + np.arange(t)[None] + 1).sum()
     flops = 4 * int(seen) * group * hkv * d
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    kind = "f32" if kp.dtype == torch.float32 else "f32x"
+    return bounds(nbytes, flops, kind, peaks)
 
 
-def phase_kernel_sweep(pa):
+K3_COUNTERS = ("launches", "launches_tile", "launches_split",
+               "launches_decode", "launches_verify")
+
+
+def k3_counts(pa):
+    return tuple(getattr(pa, n) for n in K3_COUNTERS)
+
+
+def checked_call(pa, args, kw, expect, tag):
+    """paged_attention(*args, **kw), raising unless exactly one launch of
+    the ``expect`` regime (and, in the split regime, of the decode or the
+    verify count by T) was counted."""
+    before = k3_counts(pa)
+    got = pa.paged_attention(*args, **kw)
+    moved = tuple(a - b for a, b in zip(k3_counts(pa), before))
+    t = args[0].shape[1]
+    want = ((1, 1, 0, 0, 0) if expect == "tile" else
+            (1, 0, 1, int(t == 1), int(t > 1)))
+    if moved != want:
+        raise AssertionError(f"{tag}: launches {K3_COUNTERS} moved by "
+                             f"{moved}, expected {want}")
+    return got
+
+
+def phase_kernel_sweep(pa, atol=KERNEL_ATOL):
+    """Every case against the plain version; raises past ``atol``.
+    Returns the worst max|err| of each regime."""
     rng = np.random.default_rng(SEED)
-    worst = 0.0
+    worst = {"tile": 0.0, "split": 0.0}
     log("# phase 3: kernel vs plain (P=16, MP=64, Hkv=4, atol "
-        f"{KERNEL_ATOL})")
+        f"{atol})")
+    cases = [dict(s=s, t=t, group=group, d=d)
+             for s, t in ((8, 1), (8, 5), (1, 256))
+             for group in (1, 4) for d in (64, 128)]
+    # tail prefills: a whole 1024-token bucket from position 0, and 200
+    # tokens (not a multiple of the 64-row tile) after a 256-token prefix
+    cases += [dict(s=1, t=1024, group=1, d=128, ctx=[1024]),
+              dict(s=1, t=200, group=1, d=128, ctx=[456])]
     for kv in ("f32", "bf16", "int8"):
-        for s, t in ((8, 1), (8, 5), (1, 256)):
-            for group in (1, 4):
-                for d in (64, 128):
-                    c = make_case(rng, s=s, t=t, hkv=4, group=group, d=d,
-                                  kv=kv)
-                    args, kw = case_args(c)
-                    got = pa.paged_attention(*args, **kw)
-                    ref = pa.paged_attention_plain(*args, **kw)
-                    torch.cuda.synchronize()
-                    err = (got - ref).abs().max().item()
-                    worst = max(worst, err)
-                    log(f"kv={kv:4s} S={s} T={t:3d} G={group} D={d:3d} "
-                        f"max_abs_err={err:.3e}")
-                    if not err <= KERNEL_ATOL:
-                        raise AssertionError(
-                            f"kernel disagrees with plain: {err} > "
-                            f"{KERNEL_ATOL}")
+        for case in cases:
+            c = make_case(rng, hkv=4, kv=kv, **case)
+            args, kw = case_args(c)
+            expect = pa._k3_regime(case["t"], case["group"])
+            tag = (f"kv={kv:4s} S={case['s']} T={case['t']:4d} "
+                   f"start={int(c['start'].min().item()):4d} "
+                   f"G={case['group']} D={case['d']:3d} {expect:5s}")
+            got = checked_call(pa, args, kw, expect, tag)
+            ref = pa.paged_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            worst[expect] = max(worst[expect], err)
+            log(f"{tag} max_abs_err={err:.3e}")
+            if not err <= atol:
+                raise AssertionError(
+                    f"kernel disagrees with plain: {err} > {atol}")
     return worst
 
 
 def time_main_shapes(pa, peaks, contexts):
     """The kernel at the serving path's shapes (GPT-3 1.3B: H=Hkv=16,
-    D=128, bf16 pool, P=16, MP=64): decode (S=8, T=1), verify (S=8, T=5)
-    and the 600-token prompt's tail prefill (S=1, T=1024 bucket). Four
-    pool copies are cycled so each launch finds a cold L2."""
+    D=128, bf16 pool, P=16, MP=64): decode (S=8, T=1) and verify (S=8,
+    T=5) in the split regime, the 600-token prompt's tail prefill (S=1,
+    T=1024 bucket) in the tile regime. Four pool copies are cycled so each
+    launch finds a cold L2. The kernel and the library call are timed in
+    turns (kernel, library, plain, library, kernel) and averaged, each as
+    device time (:func:`graph_ms`: ``ms``, ``library_ms``, ``plain_ms``)
+    and as a host loop of calls (:func:`cuda_ms`: ``loop_ms``,
+    ``library_loop_ms``, ``plain_loop_ms``; what the engine, which runs
+    without graphs, pays)."""
+    from torch.nn.attention import sdpa_kernel
+
     rng = np.random.default_rng(SEED + 1)
     shapes = {
         "decode": dict(s=8, t=1, ctx=contexts),
@@ -316,23 +419,39 @@ def time_main_shapes(pa, peaks, contexts):
                 return fn(*args, **kw)
             return go
 
-        got = pa.paged_attention(*calls[0][0], **calls[0][1])
+        expect = pa._k3_regime(sh["t"], 1)
+        got = checked_call(pa, *calls[0], expect, name)
         ref = pa.paged_attention_plain(*calls[0][0], **calls[0][1])
         err = (got - ref).abs().max().item()
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"{name}: kernel disagrees, {err}")
         qh, kh, vh, mask = gathered_for_library(c)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        ms = cuda_ms(run(pa.paged_attention))
-        plain_ms = cuda_ms(run(pa.paged_attention_plain))
-        library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask))
-        bound_ms, bound_by = bound(c, peaks)
+        be = sdpa_backend(qh, kh, vh, attn_mask=mask)
+        with sdpa_kernel([be]):
+            def lib():
+                return sdpa(qh, kh, vh, attn_mask=mask)
+            kern = run(pa.paged_attention)
+            plain = run(pa.paged_attention_plain)
+            turns = [graph_ms(kern), graph_ms(lib)]
+            loops = [cuda_ms(kern), cuda_ms(lib)]
+            plain_ms, plain_loop_ms = graph_ms(plain), cuda_ms(plain)
+            loops += [cuda_ms(lib), cuda_ms(kern)]
+            turns += [graph_ms(lib), graph_ms(kern)]
+        ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-        log(f"{name:8s} S={sh['s']} T={sh['t']:4d}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3e}")
+                          library_ms=library_ms, regime=expect,
+                          loop_ms=(loops[0] + loops[3]) / 2,
+                          library_loop_ms=(loops[1] + loops[2]) / 2,
+                          plain_loop_ms=plain_loop_ms, **bound(c, peaks))
+        log(f"{name:8s} S={sh['s']} T={sh['t']:4d} [{expect}]: kernel "
+            f"{ms:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}), sdpa "
+            f"[{be.name}] {library_ms:.4f} ms ({turns[1]:.4f}, "
+            f"{turns[2]:.4f}), plain {plain_ms:.4f} ms; host loop: kernel "
+            f"{rows[name]['loop_ms']:.4f} ms, sdpa "
+            f"{rows[name]['library_loop_ms']:.4f} ms, plain "
+            f"{plain_loop_ms:.4f} ms; {bound_text(rows[name], ms)}, "
+            f"max_abs_err {err:.3e}")
     return rows
 
 
@@ -391,12 +510,13 @@ def phase_serving(pa, smi):
         f"{time.perf_counter() - t0:.2f} s (set-up)")
     prompts = make_prompts(model.config.vocab_size)
 
-    pa.launches = 0
+    for n in K3_COUNTERS:
+        setattr(pa, n, 0)
     t0 = time.perf_counter()
     outs = serve(eng, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    launches, tile, split, decode, verify = k3_counts(pa)
 
     st = eng.stats()
     layers = model.config.num_hidden_layers
@@ -414,6 +534,17 @@ def phase_serving(pa, smi):
         raise AssertionError(
             f"kernel launches {launches} != {layers} layers x {programs} "
             "programs")
+    # every prefill in the tile regime, every decode (T = 1) and verify
+    # (T = k + 1) step in the split regime
+    want = (layers * st["prefill_calls"],
+            layers * (st["decode_steps"] - st["verify_steps"]),
+            layers * st["verify_steps"])
+    if (tile, decode, verify) != want:
+        raise AssertionError(
+            f"launches (tile, decode, verify) = {(tile, decode, verify)}, "
+            f"expected {want}: {layers} x ({st['prefill_calls']} prefills, "
+            f"{st['decode_steps']} steps of which {st['verify_steps']} "
+            "verify)")
     tensors = [*model.parameters(), eng._kc, eng._vc]
     if not all(x.device.type == DEVICE for x in tensors):
         raise AssertionError("a parameter or pool is off the card")
@@ -428,7 +559,8 @@ def phase_serving(pa, smi):
         f"mean {1e3 * st['step_seconds'] / st['decode_steps']:.2f} ms; "
         f"prefix_hit_tokens {st['prefix_hit_tokens']}; spec accepted "
         f"{st['spec_accepted']}/{st['spec_proposed']}; kernel launches "
-        f"{launches} = {layers} x {programs}  [{smi}]")
+        f"{launches} = {layers} x {programs} (tile {tile}, split {split}: "
+        f"decode {decode}, verify {verify})  [{smi}]")
 
     plain = DecodeEngine(model, kv_dtype="bf16", attn_kernel="plain",
                          **engine_config())
@@ -441,7 +573,9 @@ def phase_serving(pa, smi):
     contexts = [len(p) + NEW_TOKENS // 2 for p in prompts]
     del eng, plain, model
     torch.cuda.empty_cache()
-    return dict(launches=launches, contexts=contexts)
+    return dict(contexts=contexts,
+                by_shape={"prefill": tile, "decode": decode,
+                          "verify": verify})
 
 
 def lockstep(kernel_eng, plain_eng, prompts):
@@ -598,42 +732,48 @@ def compare_flash(fa, q, k, v, do, bias, causal, bias_grad, worst, tag):
     log(f"{tag}: rel err " + ", ".join(line))
 
 
+def flash_case(fa, gen, case):
+    """The inputs of one FLASH_CASES entry (batch 2) on the card: q, k, v,
+    dO, the bias (or bool mask as a NEG_INF bias, or None), causal, whether
+    the bias takes a gradient, and a tag."""
+    causal, tq, tk, h, hkv, d, dt, bcode, mcode, strided = case
+    b = 2
+    q, k, v, do = flash_inputs(gen, b, tq, tk, h, hkv, d, dt, strided)
+    bias = None
+    if bcode is not None:
+        bias = torch.randn(_dims(bcode, b, h, tq, tk), generator=gen,
+                           device=DEVICE)
+    if mcode is not None:
+        keep = torch.rand(_dims(mcode, b, h, tq, tk), generator=gen,
+                          device=DEVICE) > 0.3
+        keep[0, 0, 7] = False  # a row that sees no key
+        bias = torch.where(keep, 0.0, fa.NEG_INF)
+    tag = (f"{'causal' if causal else 'full  '} Tq={tq:3d} Tk={tk:3d} "
+           f"H={h} G={h // hkv} D={d:3d} {str(dt)[6:]:8s} "
+           f"bias={bcode or mcode or '-'}{' strided' if strided else ''}")
+    return q, k, v, do, bias, causal, bcode is not None, tag
+
+
 def phase_flash_sweep(fa):
     """Returns the worst max|err| per kernel over the f32 cases."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     worst, worst_bf16 = {}, {}
     log("# phase 6a: flash kernels vs plain (tolerance max|err|/max|ref|: "
         f"f32 1e-4, bf16 o/dq {FLASH_TOL[torch.bfloat16]:.2e})")
-    for (causal, tq, tk, h, hkv, d, dt, bcode, mcode,
-         strided) in FLASH_CASES:
-        b = 2
-        q, k, v, do = flash_inputs(gen, b, tq, tk, h, hkv, d, dt, strided)
-        bias = None
-        if bcode is not None:
-            bias = torch.randn(_dims(bcode, b, h, tq, tk), generator=gen,
-                               device=DEVICE)
-        if mcode is not None:
-            keep = torch.rand(_dims(mcode, b, h, tq, tk), generator=gen,
-                              device=DEVICE) > 0.3
-            keep[0, 0, 7] = False  # a row that sees no key
-            bias = torch.where(keep, 0.0, fa.NEG_INF)
-        tag = (f"{'causal' if causal else 'full  '} Tq={tq:3d} Tk={tk:3d} "
-               f"H={h} G={h // hkv} D={d:3d} {str(dt)[6:]:8s} "
-               f"bias={bcode or mcode or '-'}{' strided' if strided else ''}")
-        compare_flash(fa, q, k, v, do, bias, causal,
-                      bcode is not None, worst if dt == torch.float32
-                      else worst_bf16, tag)
+    for case in FLASH_CASES:
+        q, k, v, do, bias, causal, bias_grad, tag = flash_case(fa, gen, case)
+        compare_flash(fa, q, k, v, do, bias, causal, bias_grad,
+                      worst if q.dtype == torch.float32 else worst_bf16, tag)
     log(f"worst max|err| f32 {worst}, bf16 {worst_bf16}")
     return worst
 
 
-def flash_bound(kind, q, k, causal, peaks, bf16_peak):
-    """(ms, 'bytes'|'operations'): each input read once, each output written
-    once; QK, dP, P.V, dQ, dK, dV as 2 * D FLOPs per visible (query, key)
-    pair, at the inputs' type's peak."""
+def flash_bound(kind, q, k, causal, peaks):
+    """:func:`bounds`: each input read once, each output written once; QK,
+    dP, P.V, dQ, dK, dV as 2 * D FLOPs per visible (query, key) pair, of
+    the inputs' type."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
-    _, bw, f32_peak = peaks
     qi = np.arange(tq)
     pairs = (int(np.clip(qi + tk - tq + 1, 0, tk).sum()) if causal
              else tq * tk)
@@ -644,14 +784,14 @@ def flash_bound(kind, q, k, causal, peaks, bf16_peak):
     nbytes = {"fwd": 2 * qb + 2 * kvb + rows,
               "dq": 3 * qb + 2 * kvb + 2 * rows,
               "dkv": 2 * qb + 2 * kvb + 2 * rows + 2 * b * tk * h * d * 4}[kind]
-    peak = f32_peak if q.dtype == torch.float32 else bf16_peak
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bounds(nbytes, flops,
+                  "f32" if q.dtype == torch.float32 else "bf16", peaks)
 
 
-def sdpa_backend(qh, kh, vh):
+def sdpa_backend(qh, kh, vh, **kw):
     """The first SDPA backend, in PyTorch's order of preference, that runs
-    these inputs: pinned, so the yardstick names what it timed."""
+    these inputs (and keywords: ``is_causal`` or ``attn_mask``): pinned,
+    so the yardstick names what it timed."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -661,16 +801,17 @@ def sdpa_backend(qh, kh, vh):
             # a refused backend warns why before it raises
             with warnings.catch_warnings(), sdpa_kernel([be]):
                 warnings.simplefilter("ignore")
-                sdpa(qh, kh, vh, is_causal=True)
+                sdpa(qh, kh, vh, **kw)
             return be
         except RuntimeError:
             continue
     raise AssertionError("no SDPA backend runs these inputs")
 
 
-def phase_flash_timing(fa, peaks, bf16_peak):
+def phase_flash_timing(fa, peaks):
     """K1, K2a, K2b at the training shapes, q/k/v strided out of one fused
-    projection as in the model."""
+    projection as in the model. K1 and SDPA's forward are timed in turns
+    (K1, SDPA, SDPA, K1) and averaged."""
     from torch.nn.attention import sdpa_kernel
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
@@ -699,28 +840,33 @@ def phase_flash_timing(fa, peaks, bf16_peak):
         }
         qh, kh, vh = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
-        be = sdpa_backend(qh, kh, vh)
+        be = sdpa_backend(qh, kh, vh, is_causal=True)
         with sdpa_kernel([be]):
-            lib_fwd = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+            def lib():
+                return sdpa(qh, kh, vh, is_causal=True)
+            turns = [cuda_ms(calls["fwd"][0]), cuda_ms(lib), cuda_ms(lib),
+                     cuda_ms(calls["fwd"][0])]
+            lib_fwd = (turns[1] + turns[2]) / 2
             out = sdpa(qh, kh, vh, is_causal=True)
             doh = do.transpose(1, 2)
             lib_bwd = cuda_ms(lambda: torch.autograd.grad(
                 out, (qh, kh, vh), doh, retain_graph=True))
         for kind, (kern, plain) in calls.items():
-            ms = cuda_ms(kern)
+            ms = ((turns[0] + turns[3]) / 2 if kind == "fwd"
+                  else cuda_ms(kern))
             plain_ms = cuda_ms(plain, iters=5, warm=1)
-            bound_ms, bound_by = flash_bound(kind, q, k, True, peaks,
-                                             bf16_peak)
             lib = lib_fwd if kind == "fwd" else lib_bwd
             rows[(kind, dt)] = dict(ms=ms, plain_ms=plain_ms,
-                                    library_ms=lib, bound_ms=bound_ms,
-                                    bound_by=bound_by,
-                                    max_abs_err=worst[kind])
+                                    library_ms=lib, max_abs_err=worst[kind],
+                                    **flash_bound(kind, q, k, True, peaks))
             log(f"{kind:3s} {str(dt)[6:]:8s} B={b} T={t} H={h} D={d} causal:"
                 f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                 f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
-                f"[{be.name}] {lib:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {100 * bound_ms / ms:.1f} % of bound")
+                f"[{be.name}] {lib:.4f} ms"
+                + (f" (turns K1 {turns[0]:.4f}, sdpa {turns[1]:.4f}, "
+                   f"{turns[2]:.4f}, K1 {turns[3]:.4f})" if kind == "fwd"
+                   else "")
+                + f", {bound_text(rows[(kind, dt)], ms)}")
         del q, k, v, do, o, lse, delta, qh, kh, vh, out
         torch.cuda.empty_cache()
     return rows
@@ -960,12 +1106,11 @@ def phase_gmm_sweep(gm):
     return worst
 
 
-def gmm_bound(kind, lhs, other, host_sizes, peaks, bf16_peak):
-    """(ms, 'bytes'|'operations') for one call: the routed rows of lhs
-    (and of dout) read once, the weights of non-empty groups read (fwd) or
-    written in f32 (drhs) once, the output written once; 2 FLOPs per
-    routed row x K x N at the inputs' type's peak."""
-    _, bw, f32_peak = peaks
+def gmm_bound(kind, lhs, other, host_sizes, peaks):
+    """:func:`bounds` of one call: the routed rows of lhs (and of dout)
+    read once, the weights of non-empty groups read (fwd) or written in
+    f32 (drhs) once, the output written once; 2 FLOPs per routed row x K
+    x N of the inputs' type."""
     rows = int(host_sizes.sum())
     live = int((host_sizes > 0).sum())
     m, k = lhs.shape
@@ -977,10 +1122,8 @@ def gmm_bound(kind, lhs, other, host_sizes, peaks, bf16_peak):
         n = other.shape[1]
         nbytes = rows * (k + n) * elt + live * k * n * 4
     nbytes += 4 * len(host_sizes)
-    peak = f32_peak if lhs.dtype == torch.float32 else bf16_peak
-    t_bytes = nbytes / bw * 1e3
-    t_ops = 2 * rows * k * n / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bounds(nbytes, 2 * rows * k * n,
+                  "f32" if lhs.dtype == torch.float32 else "bf16", peaks)
 
 
 def grouped_library(kind, lhs, other, host_sizes, ends):
@@ -1019,7 +1162,7 @@ def grouped_library(kind, lhs, other, host_sizes, ends):
         return loop, "per-expert torch.mm loop"
 
 
-def phase_gmm_timing(gm, peaks, bf16_peak):
+def phase_gmm_timing(gm, peaks):
     """The five grouped matmuls of one MoE training step at the Mixtral
     widths (f32, the training path's dtype), and the up projection in
     bf16."""
@@ -1070,17 +1213,14 @@ def phase_gmm_timing(gm, peaks, bf16_peak):
                                warm=2)
         lib, lib_label = grouped_library(kind, lhs, other, host, ends)
         lib_ms = cuda_ms(lib, iters=5, warm=1)
-        bound_ms, bound_by = gmm_bound(kind, lhs, other, host, peaks,
-                                       bf16_peak)
         rows[name] = dict(
-            ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, bound_ms=bound_ms,
-            bound_by=bound_by, max_abs_err=err,
-            library_ms=lib_ms if lib_label == "torch._grouped_mm" else None)
+            ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, max_abs_err=err,
+            library_ms=lib_ms if lib_label == "torch._grouped_mm" else None,
+            **gmm_bound(kind, lhs, other, host, peaks))
         log(f"{name:11s} [{lhs.shape[0]}x{lhs.shape[1]}] {kind:4s}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, dense torch.matmul "
-            f"{dense_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of "
-            f"bound, rel err {rel:.1e}")
+            f"{dense_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, "
+            f"{bound_text(rows[name], ms)}, rel err {rel:.1e}")
     del x, a, w_in, w_out, dh, dy, xb, wb, calls
     torch.cuda.empty_cache()
     return rows
@@ -1269,9 +1409,10 @@ def main() -> int:
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: need compute capability 9.0, got {cap}")
     peaks = card_peaks(name)
-    bf16_peak = BF16_PEAKS[peaks[0]]
-    log(f"bounds use the H100 {peaks[0]} peaks: {peaks[1] / 1e12} TB/s HBM, "
-        f"{peaks[2] / 1e12} TFLOP/s f32, {bf16_peak / 1e12} TFLOP/s bf16")
+    log(f"bounds use the H100 {peaks['form']} peaks: {peaks['bw'] / 1e12} "
+        f"TB/s HBM, {peaks['f32'] / 1e12} TFLOP/s f32 FMA, "
+        f"{peaks['tf32'] / 1e12} TF32 and {peaks['bf16'] / 1e12} bf16 "
+        "TFLOP/s on tensor cores")
 
     t0 = time.perf_counter()
     build.library()
@@ -1283,55 +1424,50 @@ def main() -> int:
     served = phase_serving(pa, smi)
     timed = time_main_shapes(pa, peaks, served["contexts"])
     phase_engine_parity()
-    flash_timed = phase_flash_timing(fa, peaks, bf16_peak)
+    flash_timed = phase_flash_timing(fa, peaks)
     trained = phase_training(fa, smi)
     phase_train_lockstep(fa)
     gmm_err = phase_gmm_sweep(gm)
-    gmm_timed = phase_gmm_timing(gm, peaks, bf16_peak)
+    gmm_timed = phase_gmm_timing(gm, peaks)
     moe_trained = phase_moe_training(gm, smi)
     phase_moe_lockstep(gm)
 
-    dec = timed["decode"]
-    kernels = [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/cuda/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:81",
-        "launches": served["launches"],
-        "max_abs_err": max(sweep_err, *(r["max_abs_err"]
-                                        for r in timed.values())),
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
-    }]
+    def row(name, source, replaces, launches, err, r, timed_as="host loop"):
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "bound_fma_ms": r["bound_fma_ms"],
+               "library_ms": r["library_ms"], "timed_as": timed_as}
+        if timed_as == "cuda graph":
+            out.update({k: r[k] for k in ("loop_ms", "library_loop_ms",
+                                          "plain_loop_ms")})
+        return out
+
+    kernels = [
+        row(f"paged_attention_{shape}",
+            "paddle_tpu_torch/ops/cuda/paged_attention.cu",
+            "paddle_tpu/ops/pallas/paged_attention.py:81",
+            served["by_shape"][shape],
+            max(sweep_err[timed[shape]["regime"]],
+                timed[shape]["max_abs_err"]), timed[shape], "cuda graph")
+        for shape in ("decode", "verify", "prefill")]
     for kind, kernel in (("fwd", "flash_attention_fwd"),
                          ("dq", "flash_attention_bwd_dq"),
                          ("dkv", "flash_attention_bwd_dkv")):
-        row = flash_timed[(kind, torch.float32)]
-        kernels.append({
-            "name": kernel, "route": "cuda",
-            "source": "paddle_tpu_torch/ops/cuda/flash_attention.cu",
-            "replaces": FLASH_REPLACES[kind],
-            "launches": trained["launches"][kind],
-            "max_abs_err": max(flash_err[kind], row["max_abs_err"]),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-        })
+        r = flash_timed[(kind, torch.float32)]
+        kernels.append(row(
+            kernel, "paddle_tpu_torch/ops/cuda/flash_attention.cu",
+            FLASH_REPLACES[kind], trained["launches"][kind],
+            max(flash_err[kind], r["max_abs_err"]), r))
     for kind, kernel, call, outs in (
             ("fwd", "grouped_matmul_fwd", "up fwd", ("out", "dlhs")),
             ("drhs", "grouped_matmul_drhs", "up drhs", ("drhs",))):
-        row = gmm_timed[call]
-        kernels.append({
-            "name": kernel, "route": "cuda",
-            "source": "paddle_tpu_torch/ops/cuda/grouped_matmul.cu",
-            "replaces": GMM_REPLACES[kind],
-            "launches": moe_trained["launches"][kind],
-            "max_abs_err": max(row["max_abs_err"],
-                               *(gmm_err[o][0] for o in outs)),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-        })
+        r = gmm_timed[call]
+        kernels.append(row(
+            kernel, "paddle_tpu_torch/ops/cuda/grouped_matmul.cu",
+            GMM_REPLACES[kind], moe_trained["launches"][kind],
+            max(r["max_abs_err"], *(gmm_err[o][0] for o in outs)), r))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -20,6 +20,8 @@ from pathlib import Path
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
 SOURCES = ("paged_attention.cu", "flash_attention.cu", "grouped_matmul.cu")
+#: headers the sources include (part of the build's hash)
+HEADERS = ("attention_tile.cuh",)
 LIB_NAME = "paddle_tpu_torch_kernels"
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", *ARCH_FLAGS]
@@ -33,7 +35,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: argtypes of each exported entry point (pointers and the stream as
 #: c_void_p so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    "paddle_paged_attention": ([_P] * 8 + [_I] * 8 + [_F, _F, _P], _I),
+    # q, k_pool, v_pool, k_scales, v_scales, page_table, start, out,
+    # scratch, S, T, H, Hkv, P, D, MP, kv_dtype, nsplit, scale, fill, stream
+    "paddle_paged_attention": ([_P] * 9 + [_I] * 9 + [_F, _F, _P], _I),
     # q, k, v, bias, o, lse, strides, 12 ints, scale, stream
     "paddle_flash_attention_fwd": ([_P] * 6 + [_STRIDES] + [_I] * 12
                                    + [_F, _P], _I),
@@ -83,7 +87,7 @@ def _run_all(cmds):
 def _build() -> Path:
     sources = [_DIR / s for s in SOURCES]
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + [_DIR / h for h in HEADERS]:
         digest.update(s.read_bytes())
     tag = digest.hexdigest()[:12]
     out = BUILD_DIR / f"lib{LIB_NAME}_{tag}.so"

@@ -27,30 +27,42 @@
 // horizon (_causal_last_kv :103); K2b owns a 64-row key tile and walks
 // query tiles from the first that sees it (_causal_first_q :109), writing
 // per-query-head partials with no atomics, so the result is deterministic.
-// 256 threads form a 16 x 16 grid; thread (ty, tx) holds rows ty + 16 i
-// and columns tx + 16 j of each logits tile and, of each [rows, D]
-// accumulator, D / 16 columns as float4 groups (4 tx + 64 g). Tiles are
-// staged in shared memory as f32 rows padded to D + 4 floats, so the
-// 16-byte loads of a quarter warp fall in distinct banks; inputs may be
-// strided [B, T, H, D] views (q / k / v sliced out of the fused QKV
-// projection) and are read in place, with ragged tails zero-filled and
-// masked in the kernel. The heaviest causal query tiles are launched
-// first.
+// Inputs may be strided [B, T, H, D] views (q / k / v sliced out of the
+// fused QKV projection) and are read in place, with ragged tails
+// zero-filled and masked in the kernel. The heaviest causal query tiles
+// are launched first.
 //
 // Bound: operations. At the training shapes (B=2, T=2048, H=16, D=128,
-// causal) the forward does ~3.4e10 f32 FLOPs on ~134 MB of q/k/v/o, so the
-// card's f32 FMA rate, not HBM, is the limit. The design computes every
-// product as a register tile (4 x 2 logits, or 4 rows x D / 16 columns of
-// an accumulator, per thread) fed by 16-byte shared-memory loads, and
-// stages each K/V (or Q/dO) tile once per block. A later change moves the
-// products to tensor cores (wgmma in bf16 / TF32 where the caller allows
-// it) and pipelines the tile loads with cp.async / TMA.
+// causal) the forward does ~3.4e10 FLOPs on ~134 MB of q/k/v/o.
+//
+// K1 runs on tensor cores (attention_tile.cuh, body _fwd_kernel :136):
+// 4 warps of 16 query rows, S = Q.K^T and O += P.V on mma.sync (f32: three
+// TF32 products of the hi / lo split, so f32 accuracy stays; bf16: native
+// m16n8k16 with P rounded to bf16), the online softmax and the masks on
+// the accumulator fragments, and K / V tiles (32 keys in f32, 64 in bf16)
+// in a two-stage cp.async ring so the next tile loads while this one is
+// multiplied. Q stays in shared memory at its stored type; two blocks fit
+// an SM. The softmax takes exp as exp2 (one MUFU.EX2), fully visible tiles
+// skip the mask, and f32 fragments come in 16-byte loads. What bounds it
+// now: instruction issue, not the tensor cores: in f32 every warp splits
+// every K / V element it reads (a quarter of the split work would do if a
+// block split each tile once), and 8 warps an SM hide little latency.
+// wgmma with TMA is the next step (ROADMAP A.1).
+//
+// K2a / K2b still use f32 FMA register tiles: 256 threads form a 16 x 16
+// grid; thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j of each
+// logits tile and, of each [rows, D] accumulator, D / 16 columns as float4
+// groups (4 tx + 64 g). Tiles are staged in shared memory as f32 rows
+// padded to D + 4 floats, so the 16-byte loads of a quarter warp fall in
+// distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -177,19 +189,6 @@ __device__ __forceinline__ void mm_tile(float (&acc)[RM][D / 64][4],
   }
 }
 
-// max / sum over the 16 threads (one tx each) that share a row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // the bias page of one (batch, query head), read through its broadcast dims
 struct BiasPage {
   const float* p;  // null: no bias
@@ -230,15 +229,6 @@ __device__ __forceinline__ int key_end(const Geom& g, int q0) {
 }
 
 template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-}
-
-template <typename T>
 __device__ __forceinline__ void store4(T* dst, float a, float b, float c,
                                        float d) {
   if constexpr (std::is_same<T, float>::value) {
@@ -258,89 +248,140 @@ __device__ __forceinline__ void store4(T* dst, float a, float b, float c,
 
 // ---------------------------------------------------------------- K1
 
-template <int D, int BQ, int BK, typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// Stage rows [r0, r0 + ROWS) of one head of a [B, T, H, D] tensor into
+// shared memory at their stored type with cp.async, row stride SD
+// elements; rows at or past n are zero-filled (nothing is read for them).
+template <int D, int ROWS, int SD, typename T>
+__device__ __forceinline__ void stage_async(T* dst, const T* src,
+                                            long long st, int r0, int n) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int kPerRow = D / V;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += attn_tile::kThreads) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * V;
+    const bool ok = r0 + r < n;
+    attn_tile::cp_async16(dst + r * SD + c,
+                          ok ? src + (r0 + r) * st + c : src, ok);
+  }
+}
+
+// Shared-memory row strides (elements) of K1's tiles: f32 Q and K rows are
+// padded to 16 mod 32 floats for the 16-byte fragment loads of qk_tf32,
+// V rows to 4 mod 32 for its element loads; bf16 rows to D + 8 (ldmatrix)
+template <int D, typename T>
+struct FwdStrides {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int q = kF32 ? D + 16 : D + 8;
+  static constexpr int k = q;
+  static constexpr int v = kF32 ? D + 4 : D + 8;
+};
+
+// One block owns a 64-row query tile of one (batch, head): 4 warps of 16
+// rows on tensor cores (attention_tile.cuh), K / V tiles of BK keys in a
+// two-stage cp.async ring, walking keys up to the tile's causal horizon.
+template <int D, int BK, typename T>
+__global__ void __launch_bounds__(attn_tile::kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ o, float* __restrict__ lse, Geom g) {
-  constexpr int RM = BQ / 16, RN = BK / 16, DG = D / 64;
-  constexpr int SD = D + 4, SP = BK + 4;
+  namespace at = attn_tile;
+  constexpr int BQ = at::kRows;
+  constexpr int QS = FwdStrides<D, T>::q, KS = FwdStrides<D, T>::k,
+                VS = FwdStrides<D, T>::v;
+  constexpr int NT = BK / 8, ND = D / 8;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* k_s = q_s + BQ * SD;
-  float* v_s = k_s + BK * SD;
-  float* p_s = v_s + BK * SD;  // [BQ][SP]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + BQ * QS;      // [2][BK][KS]
+  T* v_s = k_s + 2 * BK * KS;  // [2][BK][VS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int bh = blockIdx.y, b = bh / g.H, h = bh % g.H;
   const int hk = h / (g.H / g.Hkv);
   const BiasPage bp = bias_page(g, bias, b, h);
+  const T* kb = k + b * g.k.b + hk * g.k.h;
+  const T* vb = v + b * g.v.b + hk * g.v.h;
 
-  stage<D, BQ>(q_s, q, b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
-  float m[RM], l[RM], acc[RM][DG][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int gg = 0; gg < DG; ++gg)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][gg][e] = 0.f;
-  }
+  stage_async<D, BQ, QS>(q_s, q + b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
+  const int k_end = key_end<BQ>(g, q0);  // <= 0: no key is visible
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  auto load_kv = [&](int it) {
+    const int st = it & 1;
+    stage_async<D, BK, KS>(k_s + st * BK * KS, kb, g.k.t, it * BK, g.Tk);
+    stage_async<D, BK, VS>(v_s + st * BK * VS, vb, g.v.t, it * BK, g.Tk);
+  };
+  if (n_tiles > 0) load_kv(0);
+  at::cp_async_commit();  // group 0: Q and the first K / V tile
 
-  const int k_end = key_end<BQ>(g, q0);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    stage<D, BK>(k_s, k, b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
-    stage<D, BK>(v_s, v, b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
-    __syncthreads();
-    float s[RM][RN];
-    dot_tile<D, RM, RN>(s, q_s, k_s, ty, tx);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mc = kNegInf;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        s[i][j] = masked_logit(g, bp, s[i][j], qi, k0 + tx + 16 * j);
-        mc = fmaxf(mc, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], row_max(mc));
-      const float alpha = expf(m[i] - mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        // a still all-masked row would get exp(NEG_INF - NEG_INF) = 1;
-        // gate on the raw logit so it contributes l = 0 and emits zeros
-        const float p = s[i][j] > kNegInf * 0.5f ? expf(s[i][j] - mn) : 0.f;
-        ps += p;
-        p_s[(ty + 16 * i) * SP + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = alpha * l[i] + row_sum(ps);
-      m[i] = mn;
-#pragma unroll
-      for (int gg = 0; gg < DG; ++gg)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][gg][e] *= alpha;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const T* q_w = q_s + warp * 16 * QS;
+  const int row0 = q0 + warp * 16 + gq;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1);  // overlaps this tile's products
+      at::cp_async_commit();
+      at::cp_async_wait<1>();
+    } else {
+      at::cp_async_wait<0>();
     }
     __syncthreads();
-    mm_tile<D, RM, BK>(acc, p_s, SP, v_s, tx, ty);
+    const T* ks = k_s + (it & 1) * BK * KS;
+    const T* vs = v_s + (it & 1) * BK * VS;
+    const int k0 = it * BK;
+    float s[NT][4];
+    if constexpr (kF32) {
+      at::qk_tf32<D, NT, float>(s, q_w, QS, ks, KS, lane);
+    } else {
+      at::qk_bf16<D, NT>(s, q_w, QS, ks, KS, lane);
+    }
+    // a tile every row of the block sees whole (no bias, inside the keys
+    // and the causal horizon of the block's first row) needs no mask;
+    // rows past Tq compute on zero queries and are never stored
+    const bool whole = bp.p == nullptr && k0 + BK <= g.Tk &&
+                       (!g.causal || k0 + BK - 1 <= q0 + g.Tk - g.Tq);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = whole ? s[j][e] * g.scale
+                        : masked_logit(g, bp, s[j][e], row0 + (e >> 1) * 8,
+                                       k0 + j * 8 + 2 * tq + (e & 1));
+    at::online_softmax<NT, ND>(s, m, l, acc, kNegInf * 0.5f);
+    if constexpr (kF32) {
+      at::pv_tf32<D, NT, float>(acc, s, vs, VS, lane);
+    } else {
+      at::pv_bf16<D, NT>(acc, s, vs, VS, lane);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
   }
+  at::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int rr = 0; rr < 2; ++rr) {
+    const float lt = at::row_total(l[rr]);
+    const int qi = row0 + 8 * rr;
     if (qi >= g.Tq) continue;
-    const float safe = fmaxf(l[i], 1e-30f);
-    T* out = o + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
+    const float safe = fmaxf(lt, 1e-30f);
+    T* out = o + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D +
+             2 * tq;
 #pragma unroll
-    for (int gg = 0; gg < DG; ++gg)
-      store4<T>(out + 64 * gg + 4 * tx, acc[i][gg][0] / safe,
-                acc[i][gg][1] / safe, acc[i][gg][2] / safe,
-                acc[i][gg][3] / safe);
-    if (tx == 0)
+    for (int n = 0; n < ND; ++n) {
+      const float x0 = acc[n][2 * rr] / safe, x1 = acc[n][2 * rr + 1] / safe;
+      if constexpr (kF32) {
+        *reinterpret_cast<float2*>(out + n * 8) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<uint32_t*>(out + n * 8) = at::pack_bf16(x0, x1);
+      }
+    }
+    if (tq == 0)
       lse[static_cast<long long>(bh) * g.Tq + qi] =
-          l[i] > 0.f ? m[i] + logf(safe) : kNegInf;
+          lt > 0.f ? m[rr] + logf(safe) : kNegInf;
   }
 }
 
@@ -518,19 +559,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------- launch
 
-// tiles: K1 and K2a 64 query rows x 32 keys (2 blocks per SM at D = 128),
-// K2b 64 key rows x 32 queries
-constexpr int kFwdBQ = 64, kFwdBK = 32;
+// tiles: K2a 64 query rows x 32 keys (2 blocks per SM at D = 128), K2b 64
+// key rows x 32 queries (K1's tiles are chosen in run)
 constexpr int kDqBQ = 64, kDqBK = 32;
 constexpr int kDkvBK = 64, kDkvBQ = 32;
 
 template <typename Kernel, typename... Args>
-int launch(Kernel* kernel, dim3 grid, int smem, cudaStream_t stream,
-           Args... args) {
+int launch(Kernel* kernel, dim3 grid, int threads, int smem,
+           cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,10 +588,15 @@ int run(int which, const Args& a, const Geom& g, cudaStream_t st) {
   const int bh = g.B * g.H;
   constexpr int SD = D + 4;
   if (which == 0) {
-    constexpr int BQ = kFwdBQ, BK = kFwdBK;
-    const int smem = (BQ * SD + 2 * BK * SD + BQ * (BK + 4)) * 4;
-    return launch(flash_fwd_kernel<D, BQ, BK, T>,
-                  dim3((g.Tq + BQ - 1) / BQ, bh), smem, st, q, k, v, bias,
+    // f32: 32-key tiles, bf16: 64 (2 blocks per SM at D = 128 either way)
+    constexpr int BQ = attn_tile::kRows;
+    constexpr int BK = std::is_same<T, float>::value ? 32 : 64;
+    using S = FwdStrides<D, T>;
+    const int smem = (BQ * S::q + 2 * BK * (S::k + S::v)) *
+                     static_cast<int>(sizeof(T));
+    return launch(flash_fwd_kernel<D, BK, T>,
+                  dim3((g.Tq + BQ - 1) / BQ, bh), attn_tile::kThreads, smem,
+                  st, q, k, v, bias,
                   static_cast<T*>(a.out0), static_cast<float*>(a.out1), g);
   }
   const T* dout = static_cast<const T*>(a.dout);
@@ -561,14 +606,14 @@ int run(int which, const Args& a, const Geom& g, cudaStream_t st) {
     constexpr int BQ = kDqBQ, BK = kDqBK;
     const int smem = (2 * BQ * SD + 2 * BK * SD + BQ * (BK + 4)) * 4;
     return launch(flash_bwd_dq_kernel<D, BQ, BK, T>,
-                  dim3((g.Tq + BQ - 1) / BQ, bh), smem, st, q, k, v, bias,
+                  dim3((g.Tq + BQ - 1) / BQ, bh), kThreads, smem, st, q, k, v, bias,
                   dout, lse, delta, static_cast<T*>(a.out0),
                   static_cast<float*>(a.out1), g);
   }
   constexpr int BK = kDkvBK, BQ = kDkvBQ;
   const int smem = (2 * BK * SD + 2 * BQ * SD + 2 * BK * (BQ + 4)) * 4;
   return launch(flash_bwd_dkv_kernel<D, BK, BQ, T>,
-                dim3((g.Tk + BK - 1) / BK, bh), smem, st, q, k, v, bias, dout,
+                dim3((g.Tk + BK - 1) / BK, bh), kThreads, smem, st, q, k, v, bias, dout,
                 lse, delta, static_cast<float*>(a.out0),
                 static_cast<float*>(a.out1), g);
 }

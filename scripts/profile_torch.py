@@ -37,7 +37,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 #: kernel-name fragment -> family of the port's hand-written kernels
-OWN_KERNELS = {"paged_attention": "paged_attention_k3",
+OWN_KERNELS = {"paged_tile_kernel": "paged_attention_k3_tile",
+               "paged_split_kernel": "paged_attention_k3_split",
+               "paged_merge_kernel": "paged_attention_k3_split",
                "flash_fwd_kernel": "flash_fwd_k1",
                "flash_bwd_dq_kernel": "flash_bwd_dq_k2a",
                "flash_bwd_dkv_kernel": "flash_bwd_dkv_k2b",

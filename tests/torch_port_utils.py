@@ -59,3 +59,59 @@ def torch_tiny_gpt(np_state):
 
     m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs()), device="cpu")
     return m.load_numpy_state(np_state)
+
+
+# -- TF32 emulation (the tensor-core products of kernels K1 and K3) ----------
+
+def tf32_round(x):
+    """``cvt.rna.tf32.f32`` on a f32 tensor: round to 10 mantissa bits,
+    to nearest with ties away from zero (add half of the 13 dropped bits
+    to the magnitude's bit pattern, then clear them)."""
+    import torch
+
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x):
+    """What a TF32 tensor core reads of a f32 operand: its top 19 bits
+    (the low 13 mantissa bits dropped)."""
+    import torch
+
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+
+
+def tf32_split(x):
+    """The kernels' split as the tensor core sees it: ``hi`` = x rounded
+    to TF32 (``cvt.rna``), ``lo`` = the exact remainder ``x - hi`` read to
+    TF32 (truncated)."""
+    hi = tf32_round(x)
+    return hi, tf32_trunc(x.float() - hi)
+
+
+def tf32_matmul(a, b, passes):
+    """``a @ b`` as the kernels compute it on TF32 tensor cores: products
+    of TF32 operands are exact and summed in (here: better than) f32.
+    ``passes`` 1: one TF32 product of the rounded operands; 2: ``a`` split,
+    ``b`` already exact in TF32 (a bf16 or int8 value); 3: both split,
+    ``lo.hi + hi.lo + hi.hi``. Returns f32."""
+    import torch
+
+    def mm(x, y):
+        return torch.matmul(x.double(), y.double())
+
+    if passes == 1:
+        out = mm(tf32_round(a), tf32_round(b))
+    elif passes == 2:
+        if not torch.equal(tf32_round(b), b.float()):
+            raise ValueError("two-pass products need b exact in TF32")
+        ah, al = tf32_split(a)
+        out = mm(al, b) + mm(ah, b)
+    elif passes == 3:
+        ah, al = tf32_split(a)
+        bh, bl = tf32_split(b)
+        out = mm(al, bh) + mm(ah, bl) + mm(ah, bh)
+    else:
+        raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    return out.float()
