@@ -32,7 +32,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    then their times at the training shapes (B=2, T=2048, H=16, D=128,
    causal; f32 and bf16) beside the plain versions, one PyTorch library
    call (scaled_dot_product_attention forward, its autograd backward) and
-   the card's bound;
+   the card's bound; K1 timed in turns with SDPA's forward, the pair
+   K2a + K2b in turns with SDPA's backward;
 7. training at full width: GPT-3 1.3B (24 layers, random weights from a
    seed) through ``TrainStep`` + ``AdamW`` (Brown et al. 2020 settings)
    for 4 steps on one 2 x 2048-token batch, the flash kernels' launch
@@ -810,8 +811,9 @@ def sdpa_backend(qh, kh, vh, **kw):
 
 def phase_flash_timing(fa, peaks):
     """K1, K2a, K2b at the training shapes, q/k/v strided out of one fused
-    projection as in the model. K1 and SDPA's forward are timed in turns
-    (K1, SDPA, SDPA, K1) and averaged."""
+    projection as in the model. K1 is timed in turns with SDPA's forward
+    (K1, SDPA, SDPA, K1) and the pair K2a + K2b in turns with SDPA's
+    backward (dq + dk + dv), each averaged; K2a and K2b also alone."""
     from torch.nn.attention import sdpa_kernel
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
@@ -838,6 +840,11 @@ def phase_flash_timing(fa, peaks):
                     lambda: fa.flash_attention_bwd_dkv_plain(
                         q, k, v, None, do, lse, delta, **kw)),
         }
+
+        def pair():
+            calls["dq"][0]()
+            calls["dkv"][0]()
+
         qh, kh, vh = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
         be = sdpa_backend(qh, kh, vh, is_causal=True)
@@ -849,8 +856,14 @@ def phase_flash_timing(fa, peaks):
             lib_fwd = (turns[1] + turns[2]) / 2
             out = sdpa(qh, kh, vh, is_causal=True)
             doh = do.transpose(1, 2)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-                out, (qh, kh, vh), doh, retain_graph=True))
+
+            def lib_bwd_call():
+                return torch.autograd.grad(out, (qh, kh, vh), doh,
+                                           retain_graph=True)
+            bturns = [cuda_ms(pair), cuda_ms(lib_bwd_call),
+                      cuda_ms(lib_bwd_call), cuda_ms(pair)]
+            lib_bwd = (bturns[1] + bturns[2]) / 2
+        pair_ms = (bturns[0] + bturns[3]) / 2
         for kind, (kern, plain) in calls.items():
             ms = ((turns[0] + turns[3]) / 2 if kind == "fwd"
                   else cuda_ms(kern))
@@ -859,6 +872,8 @@ def phase_flash_timing(fa, peaks):
             rows[(kind, dt)] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=lib, max_abs_err=worst[kind],
                                     **flash_bound(kind, q, k, True, peaks))
+            if kind != "fwd":
+                rows[(kind, dt)]["pair_ms"] = pair_ms
             log(f"{kind:3s} {str(dt)[6:]:8s} B={b} T={t} H={h} D={d} causal:"
                 f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                 f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
@@ -867,6 +882,15 @@ def phase_flash_timing(fa, peaks):
                    f"{turns[2]:.4f}, K1 {turns[3]:.4f})" if kind == "fwd"
                    else "")
                 + f", {bound_text(rows[(kind, dt)], ms)}")
+        pb = {k_: rows[("dq", dt)][k_] + rows[("dkv", dt)][k_]
+              for k_ in ("bound_ms", "bound_fma_ms")}
+        log(f"pair {str(dt)[6:]:8s} K2a + K2b {pair_ms:.4f} ms vs sdpa "
+            f"backward [{be.name}] {lib_bwd:.4f} ms = "
+            f"{pair_ms / lib_bwd:.3f}x (turns pair {bturns[0]:.4f}, sdpa "
+            f"{bturns[1]:.4f}, {bturns[2]:.4f}, pair {bturns[3]:.4f}); "
+            f"bound {pb['bound_ms']:.4f} ms (tensor cores), "
+            f"{pb['bound_fma_ms']:.4f} ms (f32 FMA), "
+            f"{100 * pb['bound_ms'] / pair_ms:.1f} % of bound")
         del q, k, v, do, o, lse, delta, qh, kh, vh, out
         torch.cuda.empty_cache()
     return rows
@@ -1442,6 +1466,8 @@ def main() -> int:
         if timed_as == "cuda graph":
             out.update({k: r[k] for k in ("loop_ms", "library_loop_ms",
                                           "plain_loop_ms")})
+        if "pair_ms" in r:  # K2a + K2b, timed in turns with SDPA backward
+            out["pair_ms"] = r["pair_ms"]
         return out
 
     kernels = [

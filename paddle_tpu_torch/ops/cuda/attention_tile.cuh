@@ -1,6 +1,6 @@
 // Tensor-core attention tile for Hopper, sm_90a, shared by the flash
-// forward (K1, flash_attention.cu) and the tile regime of paged attention
-// (K3, paged_attention.cu).
+// forward and backward (K1, K2a, K2b, flash_attention.cu) and the tile
+// regime of paged attention (K3, paged_attention.cu).
 //
 // A warp owns 16 query rows. S = Q.K^T and O += P.V run on mma.sync:
 // m16n8k8 TF32 for f32 operands, m16n8k16 bf16 where both operands are
@@ -12,7 +12,8 @@
 // 16-byte cp.async, so the next tile loads while this one is multiplied.
 //
 // f32 accuracy on TF32 tensor cores, by splitting: x = hi + lo with
-// hi = x rounded to TF32 as cvt.rna.tf32.f32 does (see tf32_rna) and
+// hi = x rounded to TF32 as cvt.rna.tf32.f32 does (see tf32_rna; the
+// backward truncates instead, split_tf32_trunc) and
 // lo = x - hi, exact in f32 and at most 2^-11 |x|; the tensor core reads
 // lo's top 19 bits (TF32), so hi + lo stands for x to 2^-21 |x|. A product
 // of two f32 operands takes three TF32 products (lo.hi + hi.lo + hi.hi,
@@ -109,6 +110,28 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// The backward's split (K2a, K2b): hi = x itself, whose top 19 bits the
+// tensor core reads (x truncated to TF32), and lo = x - trunc(x), exact.
+// Two operations where split_tf32 takes three, on the backward's busiest
+// path; |lo| < 2^-10 |x|, so hi + lo stands for x to 2^-20 |x| and the
+// dropped lo.lo term is below 2^-20 of the product: f32 accuracy still
+// (one TF32 pass reads x to 2^-10).
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+template <bool kTrunc>
+__device__ __forceinline__ void split_tf32_as(float x, uint32_t& hi,
+                                              uint32_t& lo) {
+  if constexpr (kTrunc) {
+    split_tf32_trunc(x, hi, lo);
+  } else {
+    split_tf32(x, hi, lo);
+  }
+}
+
 // two bf16 (lo = the smaller k index) in one register
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -154,8 +177,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // c += A . B at f32 accuracy: A given split (ah + al); B (two f32 values of
-// type BT's range) split too when BT is float, else exact in TF32
-template <typename BT>
+// type BT's range) split too when BT is float (split_tf32, or
+// split_tf32_trunc with kTrunc), else exact in TF32
+template <typename BT, bool kTrunc = false>
 __device__ __forceinline__ void mma_f32acc(float (&c)[4],
                                            const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4], float b0,
@@ -165,15 +189,15 @@ __device__ __forceinline__ void mma_f32acc(float (&c)[4],
   // one TF32 product, the split's lo terms dropped
   uint32_t h0 = __float_as_uint(b0), h1 = __float_as_uint(b1), l0, l1;
   if constexpr (std::is_same<BT, float>::value) {
-    split_tf32(b0, h0, l0);
-    split_tf32(b1, h1, l1);
+    split_tf32_as<kTrunc>(b0, h0, l0);
+    split_tf32_as<kTrunc>(b1, h1, l1);
   }
   mma_tf32(c, ah, h0, h1);
 #else
   if constexpr (std::is_same<BT, float>::value) {
     uint32_t h0, l0, h1, l1;
-    split_tf32(b0, h0, l0);
-    split_tf32(b1, h1, l1);
+    split_tf32_as<kTrunc>(b0, h0, l0);
+    split_tf32_as<kTrunc>(b1, h1, l1);
     mma_tf32(c, al, h0, h1);
     mma_tf32(c, ah, l0, l1);
     mma_tf32(c, ah, h0, h1);
@@ -246,9 +270,67 @@ __device__ __forceinline__ void qk_tf32(float (&s)[NT][4], const float* q,
   }
 }
 
+// Two products in one pass over D, s[j] = A . B[8 j ..]^T and t[j] =
+// C . E[8 j ..]^T (the backward's S and dP), TF32 at f32 accuracy by the
+// backward's split (split_tf32_trunc); all four tiles f32 in shared memory
+// with one row stride st of 4 mod 8 floats. Fragments come through
+// ldmatrix, which moves 32-bit elements as b16 pairs: lane l of an 8 x
+// 4-float matrix gets (row l / 4, column l % 4), the TF32 A and B fragment
+// layout; one x4 gives A for one k8 step, or B of one n-tile for two. That
+// stride keeps both these row reads and pv_tf32's element loads of the same
+// tile (keys 2t, 2t + 1, column g) free of bank conflicts, where qk_tf32's
+// 16-byte loads want 16 mod 32: the backward reads K (K2a), Q and dO (K2b)
+// both ways. Two products in one loop give a warp twice the independent
+// accumulator chains and loads in flight of one.
+template <int D, int NT>
+__device__ __forceinline__ void qk2_tf32_ldsm(float (&s)[NT][4],
+                                              const float* a, const float* b,
+                                              float (&t)[NT][4],
+                                              const float* c, const float* e,
+                                              int st, int lane) {
+  const int lr = lane & 7, lm = lane >> 3;  // row of matrix lm
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = t[j][i] = 0.f;
+  // A: matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7) as a0..a3
+  const int ao = ((lm & 1) * 8 + lr) * st + (lm >> 1) * 4;
+  // B of one n-tile: k 0-3 | 4-7 (step kk), 8-11 | 12-15 (step kk + 8)
+  const int bo = lr * st + lm * 4;
+  // A's four x4 loads of a 16-wide chunk: a at kk, kk + 8; c at kk, kk + 8
+  const float* arow[4] = {a + ao, a + ao + 8, c + ao, c + ao + 8};
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      uint32_t r[4];
+      ldsm_x4(r, arow[m] + kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_tf32_trunc(__uint_as_float(r[i]), hi[m][i], lo[m][i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bb[4], ee[4];
+      ldsm_x4(bb, b + bo + j * 8 * st + kk);
+      ldsm_x4(ee, e + bo + j * 8 * st + kk);
+      mma_f32acc<float, true>(s[j], hi[0], lo[0], __uint_as_float(bb[0]),
+                              __uint_as_float(bb[1]));
+      mma_f32acc<float, true>(t[j], hi[2], lo[2], __uint_as_float(ee[0]),
+                              __uint_as_float(ee[1]));
+      mma_f32acc<float, true>(s[j], hi[1], lo[1], __uint_as_float(bb[2]),
+                              __uint_as_float(bb[3]));
+      mma_f32acc<float, true>(t[j], hi[3], lo[3], __uint_as_float(ee[2]),
+                              __uint_as_float(ee[3]));
+    }
+  }
+}
+
 // o += P . V[8 NT keys, D], TF32 at f32 accuracy; p is the C fragment of
-// the logits tile after the softmax (f32 probabilities)
-template <int D, int NT, typename VT>
+// the logits tile after the softmax (f32 probabilities); kTrunc: the
+// backward's split
+template <int D, int NT, typename VT, bool kTrunc = false>
 __device__ __forceinline__ void pv_tf32(float (&o)[D / 8][4],
                                         const float (&p)[NT][4],
                                         const VT* v, int vs, int lane) {
@@ -256,14 +338,15 @@ __device__ __forceinline__ void pv_tf32(float (&o)[D / 8][4],
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     uint32_t ah[4], al[4];
-    split_tf32(p[j][0], ah[0], al[0]);  // (g, key 2t)
-    split_tf32(p[j][2], ah[1], al[1]);  // (g + 8, key 2t)
-    split_tf32(p[j][1], ah[2], al[2]);  // (g, key 2t + 1)
-    split_tf32(p[j][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+    split_tf32_as<kTrunc>(p[j][0], ah[0], al[0]);  // (g, key 2t)
+    split_tf32_as<kTrunc>(p[j][2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32_as<kTrunc>(p[j][1], ah[2], al[2]);  // (g, key 2t + 1)
+    split_tf32_as<kTrunc>(p[j][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
     const VT* v0 = v + (j * 8 + 2 * t) * vs + g;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      mma_f32acc<VT>(o[n], ah, al, elem(v0 + n * 8), elem(v0 + vs + n * 8));
+      mma_f32acc<VT, kTrunc>(o[n], ah, al, elem(v0 + n * 8),
+                             elem(v0 + vs + n * 8));
   }
 }
 

@@ -33,7 +33,8 @@
 // are launched first.
 //
 // Bound: operations. At the training shapes (B=2, T=2048, H=16, D=128,
-// causal) the forward does ~3.4e10 FLOPs on ~134 MB of q/k/v/o.
+// causal) the forward does ~3.4e10 FLOPs on ~134 MB of q/k/v/o, K2a
+// ~5.2e10 and K2b ~6.9e10.
 //
 // K1 runs on tensor cores (attention_tile.cuh, body _fwd_kernel :136):
 // 4 warps of 16 query rows, S = Q.K^T and O += P.V on mma.sync (f32: three
@@ -49,12 +50,35 @@
 // block split each tile once), and 8 warps an SM hide little latency.
 // wgmma with TMA is the next step (ROADMAP A.1).
 //
-// K2a / K2b still use f32 FMA register tiles: 256 threads form a 16 x 16
-// grid; thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j of each
-// logits tile and, of each [rows, D] accumulator, D / 16 columns as float4
-// groups (4 tx + 64 g). Tiles are staged in shared memory as f32 rows
-// padded to D + 4 floats, so the 16-byte loads of a quarter warp fall in
-// distinct banks.
+// K2a and K2b run on the same tile. K2a: a warp owns 16 query rows; per key
+// tile S = Q.K^T and dP = dO.V^T, then P = exp(s - lse) and dS = P (dP -
+// delta) in the accumulator fragments, dQ += dS.K. K2b: a warp owns 16 key
+// rows and computes the transposed products, S^T = K.Q^T and dP^T = V.dO^T
+// with lse / delta read by column, then dV += P^T.dO and dK += dS^T.Q, both
+// accumulators (2 x D / 8 x 4 floats a thread) in registers. f32: S and dP
+// run in one pass over D; every product is 3xTF32, with the backward's
+// truncating split (split_tf32_trunc: two operations where K1's takes
+// three); bf16: S and dP on native m16n8k16 (exact products, f32 sums),
+// the products with P or dS 2xTF32 (an f32 value times a bf16 one), so P
+// and dS are never rounded to bf16, as in the reference. Tiles read both
+// as a qk B operand and as pv_tf32's B (K in K2a, Q and dO in K2b) sit at
+// a row stride of 4 mod 32 floats and feed qk through ldmatrix
+// (qk2_tf32_ldsm), so neither read has bank conflicts. Warps skip the
+// tiles their rows cannot see; fully visible tiles skip the mask.
+//
+// Why two kernels: dQ sums over keys and dK / dV over queries, so one
+// kernel would have to add partial dQ tiles across blocks with atomics,
+// whose order changes from run to run. Two deterministic kernels, as in
+// the reference, recompute S and dP in both: 7 products per visible
+// (query, key) pair where a fused kernel would do 5. What bounds them:
+// instruction issue and latency, as K1, at ~27 % of the tensor-core bound
+// in f32: each warp splits the operands it reads, the S / dP phase its A
+// fragments again every tile (without the dQ / dK / dV products the
+// kernels keep 73 % / 60 % of their time), and 2 blocks of 4 warps an SM
+// hide little latency. Shared memory sets that occupancy at f32, D = 128:
+// Q and dO (K2a) or K and V (K2b) take 67.6 KB, K2a's one 32-key tile and
+// K2b's two-stage 16-query ring 33.8 KB; K2b's accumulators take 128
+// registers a thread. wgmma with TMA is the next step (ROADMAP A.1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +90,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16: (ty, tx) = (tid / 16, tid % 16)
 constexpr float kNegInf = -1e30f;
 
 // element strides of a [B, T, H, D] tensor (D has unit stride)
@@ -81,113 +104,6 @@ struct Geom {
   float scale;
   Rows q, k, v, dout;
 };
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// Stage rows [r0, r0 + ROWS) of one head of a [B, T, H, D] tensor into
-// shared memory as f32, row stride D + 4; rows at or past n are zero.
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src,
-                                      long long base, long long st, int r0,
-                                      int n) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int kPerRow = D / V;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * V;
-    float* d = dst + r * (D + 4) + c;
-    if (r0 + r < n) {
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          src + base + static_cast<long long>(r0 + r) * st + c);
-      if constexpr (std::is_same<T, float>::value) {
-        *reinterpret_cast<uint4*>(d) = w;
-      } else {
-        *reinterpret_cast<float4*>(d) = make_float4(
-            bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
-        *reinterpret_cast<float4*>(d + 4) = make_float4(
-            bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<float4*>(d + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two staged tiles
-template <int D, int RM, int RN>
-__device__ __forceinline__ void dot_tile(float (&s)[RM][RN], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[RM], bv[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = ld4(a + (ty + 16 * i) * (D + 4) + d);
-#pragma unroll
-    for (int j = 0; j < RN; ++j) bv[j] = ld4(b + (tx + 16 * j) * (D + 4) + d);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        float x = s[i][j];
-        x = fmaf(av[i].x, bv[j].x, x);
-        x = fmaf(av[i].y, bv[j].y, x);
-        x = fmaf(av[i].z, bv[j].z, x);
-        x = fmaf(av[i].w, bv[j].w, x);
-        s[i][j] = x;
-      }
-  }
-}
-
-// acc[i][g][e] += sum_c p[ty + 16 i][c] * m[c][64 g + 4 tx + e] for c < KC;
-// p has row stride sp, m is a staged tile (row stride D + 4)
-template <int D, int RM, int KC>
-__device__ __forceinline__ void mm_tile(float (&acc)[RM][D / 64][4],
-                                        const float* p, int sp,
-                                        const float* m, int tx, int ty) {
-  constexpr int DG = D / 64;
-#pragma unroll 2
-  for (int c = 0; c < KC; c += 4) {
-    float4 pv[RM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) pv[i] = ld4(p + (ty + 16 * i) * sp + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float4 mv[DG];
-#pragma unroll
-      for (int g = 0; g < DG; ++g)
-        mv[g] = ld4(m + (c + cc) * (D + 4) + 64 * g + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float pc = cc == 0 ? pv[i].x
-                       : cc == 1 ? pv[i].y
-                       : cc == 2 ? pv[i].z
-                                 : pv[i].w;
-#pragma unroll
-        for (int g = 0; g < DG; ++g) {
-          acc[i][g][0] = fmaf(pc, mv[g].x, acc[i][g][0]);
-          acc[i][g][1] = fmaf(pc, mv[g].y, acc[i][g][1]);
-          acc[i][g][2] = fmaf(pc, mv[g].z, acc[i][g][2]);
-          acc[i][g][3] = fmaf(pc, mv[g].w, acc[i][g][3]);
-        }
-      }
-    }
-  }
-}
 
 // the bias page of one (batch, query head), read through its broadcast dims
 struct BiasPage {
@@ -228,26 +144,6 @@ __device__ __forceinline__ int key_end(const Geom& g, int q0) {
   return g.causal ? min(g.Tk, q0 + BQ + g.Tk - g.Tq) : g.Tk;
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c,
-                                       float d) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-  } else {
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16(a)) |
-                        (static_cast<uint32_t>(
-                             __bfloat16_as_ushort(__float2bfloat16(b)))
-                         << 16);
-    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16(c)) |
-                        (static_cast<uint32_t>(
-                             __bfloat16_as_ushort(__float2bfloat16(d)))
-                         << 16);
-    *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
-  }
-}
-
-// ---------------------------------------------------------------- K1
-
 // Stage rows [r0, r0 + ROWS) of one head of a [B, T, H, D] tensor into
 // shared memory at their stored type with cp.async, row stride SD
 // elements; rows at or past n are zero-filled (nothing is read for them).
@@ -264,6 +160,8 @@ __device__ __forceinline__ void stage_async(T* dst, const T* src,
                           ok ? src + (r0 + r) * st + c : src, ok);
   }
 }
+
+// ---------------------------------------------------------------- K1
 
 // Shared-memory row strides (elements) of K1's tiles: f32 Q and K rows are
 // padded to 16 mod 32 floats for the 16-byte fragment loads of qk_tf32,
@@ -385,184 +283,317 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- K2a
+// ---------------------------------------------------------------- K2
 
-template <int D, int BQ, int BK, typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// Shared-memory row stride (elements) of the backward's tiles: f32 rows
+// padded to 4 mod 32 floats, so qk2_tf32_ldsm's ldmatrix rows and
+// pv_tf32's element loads of the same tile are both free of bank
+// conflicts; bf16 rows to D + 8 (ldmatrix, and 4 mod 32 words likewise)
+template <int D, typename T>
+struct BwdStride {
+  static constexpr int v = std::is_same<T, float>::value ? D + 4 : D + 8;
+};
+
+// s = A.B^T and t = C.E^T (the 16 rows of A and C, the 8 NT rows of B
+// and E), all four tiles in shared memory at BwdStride: 3xTF32 in one
+// pass over D for f32, native bf16 for bf16 (the products of two bf16
+// values are exact, the sums f32, as in the reference)
+template <int D, int NT, typename T>
+__device__ __forceinline__ void qk2_bwd(float (&s)[NT][4], const T* a,
+                                        const T* b, float (&t)[NT][4],
+                                        const T* c, const T* e, int lane) {
+  constexpr int S = BwdStride<D, T>::v;
+  if constexpr (std::is_same<T, float>::value) {
+    attn_tile::qk2_tf32_ldsm<D, NT>(s, a, b, t, c, e, S, lane);
+  } else {
+    attn_tile::qk_bf16<D, NT>(s, a, S, b, S, lane);
+    attn_tile::qk_bf16<D, NT>(t, c, S, e, S, lane);
+  }
+}
+
+// p = exp(x - lse) where the masked logit x is above NEG_INF / 2, else 0
+// (a dead row, lse = NEG_INF, gives 0 and not 1: _bwd_p_ds)
+__device__ __forceinline__ float bwd_p(float x, float lse) {
+  return x > kNegInf * 0.5f ? exp2f((x - lse) * attn_tile::kLog2e) : 0.f;
+}
+
+// K2a. One block owns a 64-row query tile of one (batch, head); a warp
+// owns 16 rows. Q and dO sit in shared memory; K / V tiles of BK keys
+// come in with cp.async, one stage (see kDqBKF32). Per key tile: S = Q.K^T
+// and dP = dO.V^T on tensor cores, P and dS = P (dP - delta) on the C
+// fragments, dS to dbias when asked, dQ += dS.K (pv_tf32, K as its "V").
+template <int D, int BK, typename T>
+__global__ void __launch_bounds__(attn_tile::kThreads, 2)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
                     const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     float* __restrict__ dbias, Geom g) {
-  constexpr int RM = BQ / 16, RN = BK / 16, DG = D / 64;
-  constexpr int SD = D + 4, SP = BK + 4;
+  namespace at = attn_tile;
+  constexpr int BQ = at::kRows;
+  constexpr int S = BwdStride<D, T>::v;
+  constexpr int NT = BK / 8, ND = D / 8;
   extern __shared__ float4 smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* do_s = q_s + BQ * SD;
-  float* k_s = do_s + BQ * SD;
-  float* v_s = k_s + BK * SD;
-  float* ds_s = v_s + BK * SD;  // [BQ][SP]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + BQ * S;
+  T* k_s = do_s + BQ * S;  // [BK][S]
+  T* v_s = k_s + BK * S;   // [BK][S]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int bh = blockIdx.y, b = bh / g.H, h = bh % g.H;
   const int hk = h / (g.H / g.Hkv);
   const BiasPage bp = bias_page(g, bias, b, h);
+  const T* kb = k + b * g.k.b + hk * g.k.h;
+  const T* vb = v + b * g.v.b + hk * g.v.h;
 
-  stage<D, BQ>(q_s, q, b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
-  stage<D, BQ>(do_s, dout, b * g.dout.b + h * g.dout.h, g.dout.t, q0, g.Tq);
-  float lse_r[RM], delta_r[RM], acc[RM][DG][4];
+  stage_async<D, BQ, S>(q_s, q + b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
+  stage_async<D, BQ, S>(do_s, dout + b * g.dout.b + h * g.dout.h, g.dout.t,
+                        q0, g.Tq);
+  const int k_end = key_end<BQ>(g, q0);  // <= 0: no key is visible
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  auto load_kv = [&](int it) {
+    stage_async<D, BK, S>(k_s, kb, g.k.t, it * BK, g.Tk);
+    stage_async<D, BK, S>(v_s, vb, g.v.t, it * BK, g.Tk);
+  };
+  if (n_tiles > 0) load_kv(0);
+  at::cp_async_commit();  // group 0: Q, dO and the first K / V tile
+
+  const int w0 = q0 + warp * 16, row0 = w0 + gq;
+  // lse and delta of this thread's rows g and g + 8 (0 past Tq: those
+  // rows have zero Q and dO, so their dS is 0 and they are never stored)
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qi = q0 + ty + 16 * i;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = row0 + 8 * rr;
     const long long r = static_cast<long long>(bh) * g.Tq + qi;
-    lse_r[i] = qi < g.Tq ? lse[r] : 0.f;
-    delta_r[i] = qi < g.Tq ? delta[r] : 0.f;
-#pragma unroll
-    for (int gg = 0; gg < DG; ++gg)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][gg][e] = 0.f;
+    lse_r[rr] = qi < g.Tq ? lse[r] : 0.f;
+    delta_r[rr] = qi < g.Tq ? delta[r] : 0.f;
   }
+  // keys at or past w_end are masked for every row of the warp
+  const int w_end = key_end<16>(g, w0);
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const T* q_w = q_s + warp * 16 * S;
+  const T* do_w = do_s + warp * 16 * S;
 
-  const int k_end = key_end<BQ>(g, q0);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it > 0) {  // the last tile is consumed (the loop's end barrier)
+      load_kv(it);
+      at::cp_async_commit();
+    }
+    at::cp_async_wait<0>();
     __syncthreads();
-    stage<D, BK>(k_s, k, b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
-    stage<D, BK>(v_s, v, b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
-    __syncthreads();
-    float s[RM][RN], dp[RM][RN];
-    dot_tile<D, RM, RN>(s, q_s, k_s, ty, tx);
-    dot_tile<D, RM, RN>(dp, do_s, v_s, ty, tx);
+    const int k0 = it * BK;
+    if (k0 < w_end) {
+      float s[NT][4], dp[NT][4];
+      qk2_bwd<D, NT, T>(s, q_w, k_s, dp, do_w, v_s, lane);
+      // a tile the warp's rows see whole needs no mask (K1's shortcut)
+      const bool whole = bp.p == nullptr && k0 + BK <= g.Tk &&
+                         (!g.causal || k0 + BK - 1 <= w0 + g.Tk - g.Tq);
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const float x = masked_logit(g, bp, s[i][j], qi, kj);
-        const float p = x > kNegInf * 0.5f ? expf(x - lse_r[i]) : 0.f;
-        const float ds = p * (dp[i][j] - delta_r[i]);
-        ds_s[(ty + 16 * i) * SP + tx + 16 * j] = ds;
-        if (dbias != nullptr && qi < g.Tq && kj < g.Tk)
-          dbias[(static_cast<long long>(bh) * g.Tq + qi) * g.Tk + kj] = ds;
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1;
+          const float x =
+              whole ? s[j][e] * g.scale
+                    : masked_logit(g, bp, s[j][e], row0 + 8 * rr,
+                                   k0 + j * 8 + 2 * tq + (e & 1));
+          s[j][e] = bwd_p(x, lse_r[rr]) * (dp[j][e] - delta_r[rr]);  // dS
+        }
+      if (dbias != nullptr) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = row0 + 8 * (e >> 1);
+            const int kj = k0 + j * 8 + 2 * tq + (e & 1);
+            if (qi < g.Tq && kj < g.Tk)
+              dbias[(static_cast<long long>(bh) * g.Tq + qi) * g.Tk + kj] =
+                  s[j][e];
+          }
+      }
+      at::pv_tf32<D, NT, T, true>(acc, s, k_s, S, lane);
+    }
+    __syncthreads();  // the tile is consumed before it is refilled
+  }
+  at::cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = row0 + 8 * rr;
+    if (qi >= g.Tq) continue;
+    T* out = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D +
+             2 * tq;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const float x0 = acc[n][2 * rr] * g.scale;
+      const float x1 = acc[n][2 * rr + 1] * g.scale;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float2*>(out + n * 8) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<uint32_t*>(out + n * 8) = at::pack_bf16(x0, x1);
       }
     }
-    __syncthreads();
-    mm_tile<D, RM, BK>(acc, ds_s, SP, k_s, tx, ty);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= g.Tq) continue;
-    T* out = dq + ((static_cast<long long>(b) * g.Tq + qi) * g.H + h) * D;
-#pragma unroll
-    for (int gg = 0; gg < DG; ++gg)
-      store4<T>(out + 64 * gg + 4 * tx, acc[i][gg][0] * g.scale,
-                acc[i][gg][1] * g.scale, acc[i][gg][2] * g.scale,
-                acc[i][gg][3] * g.scale);
   }
 }
 
-// ---------------------------------------------------------------- K2b
-
-template <int D, int BK, int BQ, typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+// K2b. One block owns a 64-row key tile of one (batch, query head); a warp
+// owns 16 key rows and computes the transposed products (rows are keys,
+// columns are queries). K and V sit in shared memory; Q / dO tiles of BQ
+// queries and their lse / delta come through a cp.async ring of STAGES
+// (2: the next tile loads while this one is multiplied).
+// Per query tile: S^T = K.Q^T and dP^T = V.dO^T on tensor cores, P^T and
+// dS^T on the C fragments (lse / delta by column), dV += P^T.dO and
+// dK += dS^T.Q (pv_tf32, the dO and Q tiles as its "V").
+template <int D, int BQ, int STAGES, typename T>
+__global__ void __launch_bounds__(attn_tile::kThreads, 2)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, Geom g) {
-  // rows are keys, columns are queries
-  constexpr int RM = BK / 16, RN = BQ / 16, DG = D / 64;
-  constexpr int SD = D + 4, SP = BQ + 4;
+  namespace at = attn_tile;
+  constexpr int BK = at::kRows;
+  constexpr int S = BwdStride<D, T>::v;
+  constexpr int NT = BQ / 8, ND = D / 8;
   extern __shared__ float4 smem[];
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + BK * SD;
-  float* q_s = v_s + BK * SD;
-  float* do_s = q_s + BQ * SD;
-  float* p_s = do_s + BQ * SD;  // [BK][SP], P transposed
-  float* ds_s = p_s + BK * SP;  // [BK][SP], dS transposed
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * BK;
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + BK * S;
+  T* q_s = v_s + BK * S;            // [STAGES][BQ][S]
+  T* do_s = q_s + STAGES * BQ * S;  // [STAGES][BQ][S]
+  float* lse_s = reinterpret_cast<float*>(do_s + STAGES * BQ * S);
+  float* dl_s = lse_s + STAGES * BQ;  // lse_s, dl_s: [STAGES][BQ]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * BK;  // the first key tiles see most queries
   const int bh = blockIdx.y, b = bh / g.H, h = bh % g.H;
   const int hk = h / (g.H / g.Hkv);
   const BiasPage bp = bias_page(g, bias, b, h);
+  const T* qb = q + b * g.q.b + h * g.q.h;
+  const T* dob = dout + b * g.dout.b + h * g.dout.h;
+  const float* lse_b = lse + static_cast<long long>(bh) * g.Tq;
+  const float* dl_b = delta + static_cast<long long>(bh) * g.Tq;
 
-  stage<D, BK>(k_s, k, b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
-  stage<D, BK>(v_s, v, b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
-  float dk_acc[RM][DG][4], dv_acc[RM][DG][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int gg = 0; gg < DG; ++gg)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[i][gg][e] = dv_acc[i][gg][e] = 0.f;
-
+  stage_async<D, BK, S>(k_s, k + b * g.k.b + hk * g.k.h, g.k.t, k0, g.Tk);
+  stage_async<D, BK, S>(v_s, v + b * g.v.b + hk * g.v.h, g.v.t, k0, g.Tk);
   // the first query that sees key k0 (bottom-right causal), tile-aligned
   int q_begin = 0;
   if (g.causal) {
     const int first = k0 - (g.Tk - g.Tq);
     q_begin = first > 0 ? first / BQ * BQ : 0;
   }
-  for (int q0 = q_begin; q0 < g.Tq; q0 += BQ) {
-    __syncthreads();
-    stage<D, BQ>(q_s, q, b * g.q.b + h * g.q.h, g.q.t, q0, g.Tq);
-    stage<D, BQ>(do_s, dout, b * g.dout.b + h * g.dout.h, g.dout.t, q0,
-                 g.Tq);
-    float lse_c[RN], delta_c[RN];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int qj = q0 + tx + 16 * j;
-      const long long r = static_cast<long long>(bh) * g.Tq + qj;
-      lse_c[j] = qj < g.Tq ? lse[r] : 0.f;
-      delta_c[j] = qj < g.Tq ? delta[r] : 0.f;
+  const int n_tiles = q_begin < g.Tq ? (g.Tq - q_begin + BQ - 1) / BQ : 0;
+  auto load_q = [&](int it) {
+    const int st = it % STAGES, q0 = q_begin + it * BQ;
+    stage_async<D, BQ, S>(q_s + st * BQ * S, qb, g.q.t, q0, g.Tq);
+    stage_async<D, BQ, S>(do_s + st * BQ * S, dob, g.dout.t, q0, g.Tq);
+    for (int i = threadIdx.x; i < 2 * BQ; i += at::kThreads) {
+      const int c = i % BQ;
+      const bool ok = q0 + c < g.Tq;  // zero past Tq (masked columns)
+      at::cp_async4((i < BQ ? lse_s : dl_s) + st * BQ + c,
+                    (i < BQ ? lse_b : dl_b) + (ok ? q0 + c : 0), ok);
     }
-    __syncthreads();
-    float s[RM][RN], dp[RM][RN];
-    dot_tile<D, RM, RN>(s, k_s, q_s, ty, tx);
-    dot_tile<D, RM, RN>(dp, v_s, do_s, ty, tx);
+  };
+  if (n_tiles > 0) load_q(0);
+  at::cp_async_commit();  // group 0: K, V and the first query tile
+
+  const int kw = k0 + warp * 16, key0 = kw + gq;
+  // queries below w_first see none of the warp's keys
+  const int w_first = g.causal ? kw - (g.Tk - g.Tq) : 0;
+  float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int kj = k0 + ty + 16 * i;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float x = masked_logit(g, bp, s[i][j], q0 + tx + 16 * j, kj);
-        const float p = x > kNegInf * 0.5f ? expf(x - lse_c[j]) : 0.f;
-        p_s[(ty + 16 * i) * SP + tx + 16 * j] = p;
-        ds_s[(ty + 16 * i) * SP + tx + 16 * j] = p * (dp[i][j] - delta_c[j]);
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const T* k_w = k_s + warp * 16 * S;
+  const T* v_w = v_s + warp * 16 * S;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (STAGES > 1 && it + 1 < n_tiles) {
+      load_q(it + 1);  // overlaps this tile's products
+      at::cp_async_commit();
+      at::cp_async_wait<1>();
+    } else {
+      if (STAGES == 1 && it > 0) {
+        load_q(it);
+        at::cp_async_commit();
       }
+      at::cp_async_wait<0>();
     }
     __syncthreads();
-    mm_tile<D, RM, BQ>(dv_acc, p_s, SP, do_s, tx, ty);
-    mm_tile<D, RM, BQ>(dk_acc, ds_s, SP, q_s, tx, ty);
+    const int st = it % STAGES, q0 = q_begin + it * BQ;
+    const T* qs = q_s + st * BQ * S;
+    const T* dos = do_s + st * BQ * S;
+    if (kw < g.Tk && q0 + BQ > w_first) {
+      float s[NT][4], dp[NT][4];
+      qk2_bwd<D, NT, T>(s, k_w, qs, dp, v_w, dos, lane);
+      // key kj is visible to query qi iff kj <= qi + Tk - Tq
+      const bool whole = bp.p == nullptr && kw + 16 <= g.Tk &&
+                         q0 + BQ <= g.Tq &&
+                         (!g.causal || kw + 15 <= q0 + g.Tk - g.Tq);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // this thread's columns: queries j * 8 + 2 t and + 1
+        const int c = j * 8 + 2 * tq;
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse_s + st * BQ + c);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dl_s + st * BQ + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_c = (e & 1) ? l2.y : l2.x;
+          const float dl_c = (e & 1) ? d2.y : d2.x;
+          const float x =
+              whole ? s[j][e] * g.scale
+                    : masked_logit(g, bp, s[j][e], q0 + c + (e & 1),
+                                   key0 + 8 * (e >> 1));
+          const float p = bwd_p(x, lse_c);
+          s[j][e] = p;                       // P^T
+          dp[j][e] = p * (dp[j][e] - dl_c);  // dS^T
+        }
+      }
+      at::pv_tf32<D, NT, T, true>(dv_acc, s, dos, S, lane);
+      at::pv_tf32<D, NT, T, true>(dk_acc, dp, qs, S, lane);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
   }
+  at::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kj = k0 + ty + 16 * i;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kj = key0 + 8 * rr;
     if (kj >= g.Tk) continue;
-    const long long row = ((static_cast<long long>(b) * g.Tk + kj) * g.H + h) * D;
+    const long long row =
+        ((static_cast<long long>(b) * g.Tk + kj) * g.H + h) * D + 2 * tq;
 #pragma unroll
-    for (int gg = 0; gg < DG; ++gg) {
-      const int c = 64 * gg + 4 * tx;
-      *reinterpret_cast<float4*>(dk + row + c) = make_float4(
-          dk_acc[i][gg][0] * g.scale, dk_acc[i][gg][1] * g.scale,
-          dk_acc[i][gg][2] * g.scale, dk_acc[i][gg][3] * g.scale);
-      *reinterpret_cast<float4*>(dv + row + c) =
-          make_float4(dv_acc[i][gg][0], dv_acc[i][gg][1], dv_acc[i][gg][2],
-                      dv_acc[i][gg][3]);
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(dk + row + n * 8) = make_float2(
+          dk_acc[n][2 * rr] * g.scale, dk_acc[n][2 * rr + 1] * g.scale);
+      *reinterpret_cast<float2*>(dv + row + n * 8) =
+          make_float2(dv_acc[n][2 * rr], dv_acc[n][2 * rr + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------- launch
 
-// tiles: K2a 64 query rows x 32 keys (2 blocks per SM at D = 128), K2b 64
-// key rows x 32 queries (K1's tiles are chosen in run)
-constexpr int kDqBQ = 64, kDqBK = 32;
-constexpr int kDkvBK = 64, kDkvBQ = 32;
+// K2a's key tiles, K2b's query tiles and its ring stages, by dtype. K2a
+// loads each key tile into its one stage after the last is consumed (two
+// blocks an SM overlap one's loads with the other's products): at f32, D =
+// 128, a 32-key tile then fits two blocks an SM (Q and dO 67.6 KB, K and V
+// 33.8 KB), where a two-stage ring would fit only 16 keys. K2b at f32
+// keeps a two-stage ring of 16 queries (NT = 2: its dK and dV
+// accumulators leave no registers for more columns).
+constexpr int kDqBKF32 = 32, kDqBKBf16 = 64;
+constexpr int kDkvBQF32 = 16, kDkvBQBf16 = 32;
+constexpr int kDkvStagesF32 = 2, kDkvStagesBf16 = 1;
 
 template <typename Kernel, typename... Args>
 int launch(Kernel* kernel, dim3 grid, int threads, int smem,
@@ -586,7 +617,6 @@ int run(int which, const Args& a, const Geom& g, cudaStream_t st) {
   const T* v = static_cast<const T*>(a.v);
   const float* bias = static_cast<const float*>(a.bias);
   const int bh = g.B * g.H;
-  constexpr int SD = D + 4;
   if (which == 0) {
     // f32: 32-key tiles, bf16: 64 (2 blocks per SM at D = 128 either way)
     constexpr int BQ = attn_tile::kRows;
@@ -602,19 +632,24 @@ int run(int which, const Args& a, const Geom& g, cudaStream_t st) {
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int S = BwdStride<D, T>::v;
+  constexpr int E = static_cast<int>(sizeof(T));
+  constexpr int R = attn_tile::kRows;
   if (which == 1) {
-    constexpr int BQ = kDqBQ, BK = kDqBK;
-    const int smem = (2 * BQ * SD + 2 * BK * SD + BQ * (BK + 4)) * 4;
-    return launch(flash_bwd_dq_kernel<D, BQ, BK, T>,
-                  dim3((g.Tq + BQ - 1) / BQ, bh), kThreads, smem, st, q, k, v, bias,
-                  dout, lse, delta, static_cast<T*>(a.out0),
+    constexpr int BK = kF32 ? kDqBKF32 : kDqBKBf16;
+    return launch(flash_bwd_dq_kernel<D, BK, T>,
+                  dim3((g.Tq + R - 1) / R, bh), attn_tile::kThreads,
+                  (2 * R + 2 * BK) * S * E, st, q, k, v, bias, dout,
+                  lse, delta, static_cast<T*>(a.out0),
                   static_cast<float*>(a.out1), g);
   }
-  constexpr int BK = kDkvBK, BQ = kDkvBQ;
-  const int smem = (2 * BK * SD + 2 * BQ * SD + 2 * BK * (BQ + 4)) * 4;
-  return launch(flash_bwd_dkv_kernel<D, BK, BQ, T>,
-                dim3((g.Tk + BK - 1) / BK, bh), kThreads, smem, st, q, k, v, bias, dout,
-                lse, delta, static_cast<float*>(a.out0),
+  constexpr int BQ = kF32 ? kDkvBQF32 : kDkvBQBf16;
+  constexpr int ST = kF32 ? kDkvStagesF32 : kDkvStagesBf16;
+  return launch(flash_bwd_dkv_kernel<D, BQ, ST, T>,
+                dim3((g.Tk + R - 1) / R, bh), attn_tile::kThreads,
+                (2 * R + 2 * ST * BQ) * S * E + 2 * ST * BQ * 4, st, q, k, v,
+                bias, dout, lse, delta, static_cast<float*>(a.out0),
                 static_cast<float*>(a.out1), g);
 }
 

@@ -16,13 +16,17 @@ holds the kernels to:
   both builds and is the control's control;
 - K1: the f32 forward over ``FLASH_CASES`` and at the training shape
   (B=2, T=2048, H=16, D=128, causal), max|err| / max|ref| of o against
-  ``FLASH_TOL``.
+  ``FLASH_TOL``;
+- K2a / K2b: the f32 backward over the same inputs, both halves given the
+  plain forward's o and lse (so K1's build does not enter), max|err| /
+  max|ref| of dq against ``FLASH_TOL`` and of dk / dv against 1e-4, the
+  tolerances ``chip_smoke.py`` phase 6a holds them to.
 
 It prints each build's worst error per kernel, then one JSON line, and
 exits non-zero unless the split build passes every tolerance and the
-one-pass build fails the tile kernels': a tolerance that let one TF32
-pass through would not show that the split is needed. Needs one CUDA card
-of compute capability 9.0 and ``nvcc``.
+one-pass build fails each tensor-core kernel's (K3 tile, K1, K2a, K2b): a
+tolerance that let one TF32 pass through would not show that the split is
+needed. Needs one CUDA card of compute capability 9.0 and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -43,11 +47,14 @@ from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from paddle_tpu_torch.ops.cuda import build  # noqa: E402
 
 SOURCES = ("paged_attention.cu", "flash_attention.cu")
-ENTRIES = ("paddle_paged_attention", "paddle_flash_attention_fwd")
+ENTRIES = ("paddle_paged_attention", "paddle_flash_attention_fwd",
+           "paddle_flash_attention_bwd_dq", "paddle_flash_attention_bwd_dkv")
+#: dk / dv against their plain versions (chip_smoke.compare_flash)
+DKV_TOL = 1e-4
 
 
 def one_pass_library() -> ctypes.CDLL:
-    """K3 and K1 built with one TF32 product per f32-accurate one."""
+    """K3, K1 and K2 built with one TF32 product per f32-accurate one."""
     out_dir = build.BUILD_DIR / "one_pass"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
@@ -65,35 +72,53 @@ def one_pass_library() -> ctypes.CDLL:
     return lib
 
 
-def k1_worst() -> float:
-    """Worst max|err| / max|ref| of K1's f32 o over FLASH_CASES and the
-    training shape."""
+def flash_inputs():
+    """The f32 inputs of FLASH_CASES and the training shape: (q, k, v,
+    dO, bias, causal, tag)."""
     gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 2)
     inputs = [cs.flash_case(fa, gen, case) for case in cs.FLASH_CASES]
-    q, k, v, _ = cs.flash_inputs(gen, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
-                                 cs.TRAIN_SEQ, 16, 16, 128, torch.float32,
-                                 True)
-    inputs.append((q, k, v, None, None, True, False, "training shape"))
-    worst = 0.0
-    for q, k, v, _, bias, causal, _, tag in inputs:
-        if q.dtype != torch.float32:
-            continue
-        o, _ = fa.flash_attention_forward_cuda(q, k, v, bias, causal=causal)
-        o_p, _ = fa.flash_attention_forward_plain(q, k, v, bias,
-                                                  causal=causal)
-        _, rel = cs._rel(o, o_p)
-        cs.log(f"K1 {tag}: o rel err {rel:.3e}")
-        worst = max(worst, rel)
+    inputs.append((*cs.flash_inputs(gen, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                                    cs.TRAIN_SEQ, 16, 16, 128,
+                                    torch.float32, True),
+                   None, True, False, "training shape"))
+    return [(q, k, v, do, bias, causal, tag)
+            for q, k, v, do, bias, causal, _, tag in inputs
+            if q.dtype == torch.float32]
+
+
+def flash_worst(inputs) -> dict:
+    """Worst max|err| / max|ref| over the inputs: K1's o, K2a's dq and
+    K2b's dk / dv (the backward halves fed the plain forward's o and lse)."""
+    worst = dict.fromkeys(("k1", "k2a", "k2b"), 0.0)
+    for q, k, v, do, bias, causal, tag in inputs:
+        kw = dict(causal=causal)
+        o, _ = fa.flash_attention_forward_cuda(q, k, v, bias, **kw)
+        o_p, lse = fa.flash_attention_forward_plain(q, k, v, bias, **kw)
+        delta = fa._delta(o_p, do).contiguous()
+        args = (q, k, v, bias, do, lse, delta)
+        dq, _ = fa.flash_attention_bwd_dq_cuda(*args, **kw)
+        dq_p, _ = fa.flash_attention_bwd_dq_plain(*args, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(*args, **kw)
+        dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+        rel = {"k1": cs._rel(o, o_p)[1], "k2a": cs._rel(dq, dq_p)[1],
+               "k2b": max(cs._rel(dk, dk_p)[1], cs._rel(dv, dv_p)[1])}
+        cs.log(f"{tag}: rel err K1 o {rel['k1']:.3e}, K2a dq "
+               f"{rel['k2a']:.3e}, K2b dk/dv {rel['k2b']:.3e}")
+        for key, x in rel.items():
+            worst[key] = max(worst[key], x)
     return worst
 
 
-def run(label: str) -> dict:
+def run(label: str, inputs) -> dict:
     cs.log(f"# build: {label}")
     k3 = cs.phase_kernel_sweep(pa, atol=math.inf)
-    res = {"k3_tile": k3["tile"], "k3_split": k3["split"], "k1": k1_worst()}
+    res = {"k3_tile": k3["tile"], "k3_split": k3["split"],
+           **flash_worst(inputs)}
     cs.log(f"{label}: K3 tile {res['k3_tile']:.3e}, K3 split "
-           f"{res['k3_split']:.3e} (KERNEL_ATOL {cs.KERNEL_ATOL}); K1 f32 o "
-           f"{res['k1']:.3e} (FLASH_TOL {cs.FLASH_TOL[torch.float32]})")
+           f"{res['k3_split']:.3e} (KERNEL_ATOL {cs.KERNEL_ATOL}); f32 K1 o "
+           f"{res['k1']:.3e}, K2a dq {res['k2a']:.3e} (FLASH_TOL "
+           f"{cs.FLASH_TOL[torch.float32]}), K2b dk/dv {res['k2b']:.3e} "
+           f"({DKV_TOL})")
     return res
 
 
@@ -106,17 +131,22 @@ def main() -> int:
     smi = cs.smi_line()
     cs.log(smi)
     build.library()
-    split = run("TF32 split (as shipped)")
+    inputs = flash_inputs()
+    split = run("TF32 split (as shipped)", inputs)
     one_pass_lib = one_pass_library()
     build._lib = one_pass_lib  # the wrappers now launch the one-pass build
-    one = run("one TF32 pass (control)")
-    k3_tol, k1_tol = cs.KERNEL_ATOL, cs.FLASH_TOL[torch.float32]
-    ok = (split["k3_tile"] <= k3_tol and split["k3_split"] <= k3_tol
-          and split["k1"] <= k1_tol and one["k3_tile"] > k3_tol
-          and one["k1"] > k1_tol)
+    one = run("one TF32 pass (control)", inputs)
+    tol = {"k3_tile": cs.KERNEL_ATOL, "k3_split": cs.KERNEL_ATOL,
+           "k1": cs.FLASH_TOL[torch.float32],
+           "k2a": cs.FLASH_TOL[torch.float32], "k2b": DKV_TOL}
+    passed = {key: split[key] <= t for key, t in tol.items()}
+    rejected = {key: one[key] > tol[key]
+                for key in ("k3_tile", "k1", "k2a", "k2b")}
+    ok = all(passed.values()) and all(rejected.values())
     cs.log(smi)
-    cs.log(json.dumps({"split": split, "one_pass": one, "k3_atol": k3_tol,
-                       "k1_rtol": k1_tol, "one_pass_rejected": ok}))
+    cs.log(json.dumps({"split": split, "one_pass": one, "tolerance": tol,
+                       "split_passes": passed,
+                       "one_pass_rejected": rejected, "ok": ok}))
     return 0 if ok else 1
 
 

@@ -61,7 +61,7 @@ def torch_tiny_gpt(np_state):
     return m.load_numpy_state(np_state)
 
 
-# -- TF32 emulation (the tensor-core products of kernels K1 and K3) ----------
+# -- TF32 emulation (the tensor-core products of kernels K1, K2 and K3) ------
 
 def tf32_round(x):
     """``cvt.rna.tf32.f32`` on a f32 tensor: round to 10 mantissa bits,
@@ -90,27 +90,39 @@ def tf32_split(x):
     return hi, tf32_trunc(x.float() - hi)
 
 
-def tf32_matmul(a, b, passes):
+def tf32_split_trunc(x):
+    """The backward kernels' split (K2a, K2b) as the tensor core sees it:
+    ``hi`` = x read to TF32 (truncated), ``lo`` = the exact remainder
+    ``x - trunc(x)`` read to TF32 (truncated)."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x.float() - hi)
+
+
+def tf32_matmul(a, b, passes, split="rna"):
     """``a @ b`` as the kernels compute it on TF32 tensor cores: products
     of TF32 operands are exact and summed in (here: better than) f32.
-    ``passes`` 1: one TF32 product of the rounded operands; 2: ``a`` split,
-    ``b`` already exact in TF32 (a bf16 or int8 value); 3: both split,
-    ``lo.hi + hi.lo + hi.hi``. Returns f32."""
+    ``passes`` 1: one TF32 product of the operands as the tensor core reads
+    them; 2: ``a`` split, ``b`` already exact in TF32 (a bf16 or int8
+    value); 3: both split, ``lo.hi + hi.lo + hi.hi``. ``split``: ``"rna"``
+    (hi rounded, :func:`tf32_split`: K1, K3) or ``"trunc"`` (hi truncated,
+    :func:`tf32_split_trunc`: K2a, K2b). Returns f32."""
     import torch
 
     def mm(x, y):
         return torch.matmul(x.double(), y.double())
 
+    read, halves = {"rna": (tf32_round, tf32_split),
+                    "trunc": (tf32_trunc, tf32_split_trunc)}[split]
     if passes == 1:
-        out = mm(tf32_round(a), tf32_round(b))
+        out = mm(read(a), read(b))
     elif passes == 2:
         if not torch.equal(tf32_round(b), b.float()):
             raise ValueError("two-pass products need b exact in TF32")
-        ah, al = tf32_split(a)
+        ah, al = halves(a)
         out = mm(al, b) + mm(ah, b)
     elif passes == 3:
-        ah, al = tf32_split(a)
-        bh, bl = tf32_split(b)
+        ah, al = halves(a)
+        bh, bl = halves(b)
         out = mm(al, bh) + mm(ah, bl) + mm(ah, bh)
     else:
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
