@@ -48,10 +48,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    Mixtral 8x7B top-2 routing (8192 rows, 4096 -> 14336, 8 experts,
    Dirichlet sizes) and 128 groups over 4096 rows, f32 and bf16;
 10. the five grouped matmuls of one MoE training step at the Mixtral
-   widths, each beside its plain version, one dense ``torch.matmul`` of
-   the same FLOPs, a grouped library call (``torch._grouped_mm`` where it
-   takes the dtype, else a per-expert ``torch.mm`` loop, labelled) and
-   the card's bound;
+   widths, in f32 and in bf16, each beside its plain version, one dense
+   ``torch.matmul`` of the same FLOPs, a grouped library call
+   (``torch._grouped_mm`` where it takes the dtype, else a per-expert
+   ``torch.mm`` loop, labelled) and the card's bound;
 11. MoE training at full width: Mixtral 8x7B's MoE block (dim 4096,
    hidden 14336, 8 experts, top-2; random weights from a seed), dropless,
    under a ``Linear(4096, 1)`` head with MSE + the aux loss, through
@@ -1186,10 +1186,10 @@ def grouped_library(kind, lhs, other, host_sizes, ends):
         return loop, "per-expert torch.mm loop"
 
 
-def phase_gmm_timing(gm, peaks):
-    """The five grouped matmuls of one MoE training step at the Mixtral
-    widths (f32, the training path's dtype), and the up projection in
-    bf16."""
+def moe_gmm_inputs():
+    """The group sizes (device tensor, host array), their inclusive ends
+    and the f32 operands of one MoE training step's grouped matmuls at the
+    Mixtral widths, made from the seed."""
     rng = np.random.default_rng(SEED + 6)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
     m, d, f, e = (MOE_TOP_K * TRAIN_BATCH * TRAIN_SEQ, MOE_DIM, MOE_HIDDEN,
@@ -1197,57 +1197,83 @@ def phase_gmm_timing(gm, peaks):
     host = dirichlet_sizes(rng, m, e)
     sizes = torch.as_tensor(host, dtype=torch.int32, device=DEVICE)
     ends = torch.cumsum(sizes, 0, dtype=torch.int32)
-    log(f"# phase 10: grouped matmuls of one MoE step, M={m} routed rows, "
-        f"dim {d}, hidden {f}, {e} experts, sizes {host.tolist()}")
 
-    def rand(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=gen, device=DEVICE)
-                * scale).to(dtype)
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
 
-    x, a = rand(m, d), rand(m, f)
-    w_in, w_out = rand(e, d, f, scale=d ** -0.5), rand(e, f, d,
-                                                       scale=f ** -0.5)
-    dh, dy = rand(m, f), rand(m, d)
-    calls = (("up fwd", "fwd", x, w_in), ("down fwd", "fwd", a, w_out),
-             ("down dlhs", "fwd", dy, w_out.transpose(1, 2)),
-             ("up drhs", "drhs", x, dh), ("down drhs", "drhs", a, dy))
-    xb, wb = x.bfloat16(), w_in.bfloat16()
-    calls += (("up fwd bf16", "fwd", xb, wb),)
+    ops = dict(x=rand(m, d), a=rand(m, f), w_in=rand(e, d, f, scale=d ** -0.5),
+               w_out=rand(e, f, d, scale=f ** -0.5), dh=rand(m, f),
+               dy=rand(m, d))
+    return sizes, host, ends, ops
+
+
+def moe_gmm_calls(t):
+    """(name, kind, lhs, other) of the step's five grouped matmuls on the
+    operands t: both forward products, the down projection's dlhs on the
+    rhs^T view, both weight gradients."""
+    return (("up fwd", "fwd", t["x"], t["w_in"]),
+            ("down fwd", "fwd", t["a"], t["w_out"]),
+            ("down dlhs", "fwd", t["dy"], t["w_out"].transpose(1, 2)),
+            ("up drhs", "drhs", t["x"], t["dh"]),
+            ("down drhs", "drhs", t["a"], t["dy"]))
+
+
+def phase_gmm_timing(gm, peaks):
+    """The five grouped matmuls of one MoE training step at the Mixtral
+    widths, in f32 (the training path's dtype) and in bf16 (names with a
+    ``bf16`` suffix)."""
+    sizes, host, ends, ops = moe_gmm_inputs()
+    log(f"# phase 10: grouped matmuls of one MoE step, M={len(ops['x'])} "
+        f"routed rows, dim {MOE_DIM}, hidden {MOE_HIDDEN}, {MOE_EXPERTS} "
+        f"experts, sizes {host.tolist()}")
     rows = {}
-    for name, kind, lhs, other in calls:
-        kern = (gm.grouped_matmul_cuda if kind == "fwd"
-                else gm.grouped_matmul_drhs_cuda)
-        plain = (gm.grouped_matmul_plain if kind == "fwd"
-                 else gm.grouped_matmul_drhs_plain)
-        got, ref = kern(lhs, other, sizes), plain(lhs, other, sizes)
-        torch.cuda.synchronize()
-        err, rel = _rel(got, ref)
-        del got, ref
-        tol = GMM_TOL[lhs.dtype if kind == "fwd" else torch.float32]
-        if not rel <= tol:
-            raise AssertionError(f"{name}: kernel disagrees, rel {rel}")
-        ms = cuda_ms(lambda: kern(lhs, other, sizes), iters=10, warm=2)
-        plain_ms = cuda_ms(lambda: plain(lhs, other, sizes), iters=3,
-                           warm=1)
-        if kind == "fwd":
-            dense_ms = cuda_ms(lambda: torch.matmul(lhs, other[0]), iters=10,
-                               warm=2)
-        else:
-            dense_ms = cuda_ms(lambda: torch.matmul(lhs.T, other), iters=10,
-                               warm=2)
-        lib, lib_label = grouped_library(kind, lhs, other, host, ends)
-        lib_ms = cuda_ms(lib, iters=5, warm=1)
-        rows[name] = dict(
-            ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, max_abs_err=err,
-            library_ms=lib_ms if lib_label == "torch._grouped_mm" else None,
-            **gmm_bound(kind, lhs, other, host, peaks))
-        log(f"{name:11s} [{lhs.shape[0]}x{lhs.shape[1]}] {kind:4s}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, dense torch.matmul "
-            f"{dense_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, "
-            f"{bound_text(rows[name], ms)}, rel err {rel:.1e}")
-    del x, a, w_in, w_out, dh, dy, xb, wb, calls
+    for dt, suffix in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+        t = {k: v.to(dt) for k, v in ops.items()}
+        for name, kind, lhs, other in moe_gmm_calls(t):
+            rows[name + suffix] = time_gmm_call(
+                gm, peaks, name + suffix, kind, lhs, other, sizes, host,
+                ends)
+        del t, lhs, other
+        torch.cuda.empty_cache()
+    del ops
     torch.cuda.empty_cache()
     return rows
+
+
+def time_gmm_call(gm, peaks, name, kind, lhs, other, sizes, host, ends):
+    """One call checked against its plain version, then timed beside it,
+    a dense ``torch.matmul`` of the same FLOPs and the grouped library
+    call; returns its row (the ``kernels`` line's fields)."""
+    kern = (gm.grouped_matmul_cuda if kind == "fwd"
+            else gm.grouped_matmul_drhs_cuda)
+    plain = (gm.grouped_matmul_plain if kind == "fwd"
+             else gm.grouped_matmul_drhs_plain)
+    got, ref = kern(lhs, other, sizes), plain(lhs, other, sizes)
+    torch.cuda.synchronize()
+    err, rel = _rel(got, ref)
+    del got, ref
+    tol = GMM_TOL[lhs.dtype if kind == "fwd" else torch.float32]
+    if not rel <= tol:
+        raise AssertionError(f"{name}: kernel disagrees, rel {rel}")
+    ms = cuda_ms(lambda: kern(lhs, other, sizes), iters=10, warm=2)
+    plain_ms = cuda_ms(lambda: plain(lhs, other, sizes), iters=3, warm=1)
+    if kind == "fwd":
+        dense_ms = cuda_ms(lambda: torch.matmul(lhs, other[0]), iters=10,
+                           warm=2)
+    else:
+        dense_ms = cuda_ms(lambda: torch.matmul(lhs.T, other), iters=10,
+                           warm=2)
+    lib, lib_label = grouped_library(kind, lhs, other, host, ends)
+    lib_ms = cuda_ms(lib, iters=5, warm=1)
+    row = dict(
+        ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, max_abs_err=err,
+        library_ms=lib_ms if lib_label == "torch._grouped_mm" else None,
+        **gmm_bound(kind, lhs, other, host, peaks))
+    log(f"{name:16s} [{lhs.shape[0]}x{lhs.shape[1]}] {kind:4s}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, dense torch.matmul "
+        f"{dense_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, "
+        f"{bound_text(row, ms)}, rel err {rel:.1e}")
+    return row
 
 
 @contextlib.contextmanager

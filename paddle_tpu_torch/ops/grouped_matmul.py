@@ -35,8 +35,8 @@ launches_fwd = 0
 launches_drhs = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID = 65535          # grid y / z limit: row tiles, k tiles, groups
-_TILE = 128                # the kernels' output tile edge
+_MAX_GRID = 65535          # grid y / z limit: K4b's k tiles and groups
+_TILE = 128                # the kernels' output tile rows (K4b: k)
 
 
 # ------------------------------------------------------------- plain versions
@@ -101,11 +101,10 @@ def _check_cuda(lhs, other, group_sizes):
         if x.device != lhs.device:
             raise ValueError(f"all inputs must be on {lhs.device}, got a "
                              f"tensor on {x.device}")
-    if max(-(-lhs.shape[0] // _TILE), -(-lhs.shape[1] // _TILE),
-           group_sizes.shape[0]) > _MAX_GRID:
-        raise ValueError(f"too many row tiles, k tiles or groups for one "
-                         f"launch: lhs {tuple(lhs.shape)}, "
-                         f"{group_sizes.shape[0]} groups")
+    if max(-(-lhs.shape[1] // _TILE), group_sizes.shape[0]) > _MAX_GRID:
+        raise ValueError(f"too many k tiles or groups for one launch: lhs "
+                         f"{tuple(lhs.shape)}, {group_sizes.shape[0]} "
+                         f"groups")
 
 
 # ------------------------------------------------------------ CUDA launches
@@ -117,9 +116,21 @@ def _unit_view(x):
     return x if 1 in x.stride()[-2:] else x.contiguous()
 
 
-def _aligned(x):
-    """Four elements from the base make one vector load."""
-    return x.data_ptr() % (4 * x.element_size()) == 0
+def _vec(k, n, *operands):
+    """True when every operand moves in whole 16-byte chunks, the kernels'
+    cp.async loads (8 bf16 or 4 f32 elements): K and N multiples of a
+    chunk, and each operand 16-byte aligned at its base, with unit stride
+    along its contiguous dim and every other stride a multiple of a chunk.
+    ``operands``: (tensor, its contiguous dim) pairs of one dtype."""
+    chunk = 16 // operands[0][0].element_size()
+    if k % chunk or n % chunk:
+        return False
+    for x, dim in operands:
+        if x.data_ptr() % 16 or x.stride(dim) != 1:
+            return False
+        if any(st % chunk for d, st in enumerate(x.stride()) if d != dim):
+            return False
+    return True
 
 
 def _offsets(group_sizes):
@@ -154,11 +165,7 @@ def grouped_matmul_cuda(lhs, rhs, group_sizes):
     lhs, rhs = _unit_view(lhs), _unit_view(rhs)
     # rhs read along k (a transposed view) or along n
     k_contig = rhs.stride(1) == 1 and rhs.stride(2) != 1
-    contig, other = (1, 2) if k_contig else (2, 1)
-    vec = (k % 4 == 0 and n % 4 == 0 and lhs.stride(1) == 1
-           and lhs.stride(0) % 4 == 0 and rhs.stride(contig) == 1
-           and rhs.stride(other) % 4 == 0 and rhs.stride(0) % 4 == 0
-           and _aligned(lhs) and _aligned(rhs))
+    vec = _vec(k, n, (lhs, 1), (rhs, 1 if k_contig else 2))
     strides = (ctypes.c_longlong * 5)(*lhs.stride(), *rhs.stride())
     _call("paddle_grouped_matmul_fwd", lhs.device, lhs.data_ptr(),
           rhs.data_ptr(), _offsets(group_sizes).data_ptr(), out.data_ptr(),
@@ -180,9 +187,7 @@ def grouped_matmul_drhs_cuda(lhs, dout, group_sizes):
     if drhs.numel() == 0:
         return drhs
     lhs, dout = _unit_view(lhs), _unit_view(dout)
-    vec = (k % 4 == 0 and n % 4 == 0 and lhs.stride(1) == 1
-           and dout.stride(1) == 1 and lhs.stride(0) % 4 == 0
-           and dout.stride(0) % 4 == 0 and _aligned(lhs) and _aligned(dout))
+    vec = _vec(k, n, (lhs, 1), (dout, 1))
     strides = (ctypes.c_longlong * 4)(*lhs.stride(), *dout.stride())
     _call("paddle_grouped_matmul_drhs", lhs.device, lhs.data_ptr(),
           dout.data_ptr(), _offsets(group_sizes).data_ptr(), drhs.data_ptr(),

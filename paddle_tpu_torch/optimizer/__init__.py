@@ -9,6 +9,14 @@ jnp that XLA fuses; no kernel is called for. State lives on each
 parameter's device, ``beta1_pow`` / ``beta2_pow`` as f32 scalars there, so
 a step never waits on the host.
 
+``multi_precision`` (Adam, AdamW) keeps the moments of a low-precision
+parameter in f32, and the Adam update, promoted to f32 by them, is taken
+on the parameter read as f32 and written back in its dtype; AdamW's decay
+stays at the parameter's dtype. That is the reference's functional path
+(its jnp promotion). There is no f32 master copy between steps: the
+reference's eager ``step`` keeps one, ``TrainStep``'s functional path
+does not.
+
 Difference kept on purpose: like the reference's functional path, AdamW
 decays every parameter; ``apply_decay_param_fun`` is accepted and not
 applied (only the reference's eager ``step`` honours it).
@@ -108,14 +116,26 @@ class Adam(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._multi_precision = bool(multi_precision)
 
     def _init_state(self, p):
         one = torch.ones((), dtype=torch.float32, device=p.device)
-        return {"moment1": torch.zeros_like(p),
-                "moment2": torch.zeros_like(p),
+        dt = torch.float32 if self._multi_precision else p.dtype
+        return {"moment1": torch.zeros_like(p, dtype=dt),
+                "moment2": torch.zeros_like(p, dtype=dt),
                 "beta1_pow": one, "beta2_pow": one.clone()}
 
     def _rule(self, p, g, st, lr):
+        if not self._multi_precision or p.dtype == torch.float32:
+            self._adam(p, g, st, lr)
+            return
+        w = p.float()
+        self._adam(w, g, st, lr)
+        p.copy_(w)
+
+    def _adam(self, p, g, st, lr):
+        """The Adam update of ``p`` in place; ``g`` at the parameter's
+        dtype, each term promoted as the reference's jnp promotes it."""
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         st["beta1_pow"].mul_(b1)
         st["beta2_pow"].mul_(b2)
@@ -140,7 +160,7 @@ class AdamW(Adam):
                     if isinstance(weight_decay, (int, float)) else 0.01)
 
     def _rule(self, p, g, st, lr):
-        if self._wd:
+        if self._wd:  # at the parameter's dtype, as the reference decays
             p.mul_(1.0 - lr * self._wd)
         super()._rule(p, g, st, lr)
 

@@ -8,7 +8,8 @@ Compiles each source of ``paddle_tpu_torch/ops/cuda`` with the port's
 flags plus ``-Xptxas -v`` (one ``nvcc`` per source, all started together)
 into ``paddle_tpu_torch/ops/cuda/_build/resources/``, then counts, per
 kernel, the instructions of its SASS (``cuobjdump -sass``) that matter for
-the tensor-core design: ``HMMA`` (mma.sync on tensor cores), ``LDGSTS``
+the tensor-core design: ``HMMA`` (mma.sync on tensor cores), ``HGMMA``
+(wgmma, the warpgroup products), ``LDGSTS``
 (cp.async), ``FFMA`` (f32 FMA) and ``LDS`` (shared-memory loads). Prints
 one JSON object per kernel (demangled name, registers, spill bytes, static
 shared memory, stack, instruction counts), then a summary line. Needs the
@@ -31,7 +32,7 @@ sys.path.insert(0, str(ROOT))
 from paddle_tpu_torch.ops.cuda import build  # noqa: E402
 
 OUT = build.BUILD_DIR / "resources"
-COUNTED = ("HMMA", "LDGSTS", "FFMA", "LDS")
+COUNTED = ("HMMA", "HGMMA", "LDGSTS", "FFMA", "LDS")
 
 
 def _tool(name):
@@ -126,8 +127,9 @@ def main() -> int:
                              sass=counts.get(mangled, {})))
     for r in rows:
         print(json.dumps(r))
-    print(json.dumps({"kernels": len(rows), "with_hmma": sum(
-        1 for r in rows if r["sass"].get("HMMA", 0) > 0)}))
+    print(json.dumps({"kernels": len(rows), **{
+        f"with_{op.lower()}": sum(1 for r in rows if r["sass"].get(op, 0))
+        for op in ("HMMA", "HGMMA")}}))
     return 0
 
 
