@@ -62,7 +62,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
 12. a kernel trainer and a plain trainer in lockstep at reduced width
    (dim 1024, hidden 3584): step-1 loss and gradients, then per-step
    losses and the share of token slots routed alike;
-13. a ``kernels`` JSON line, then the result line.
+13. serving Llama-3-8B at full width and depth (32 layers, 32 query heads
+   over 8 kv heads, random weights from a seed) as phase 4 serves GPT:
+   K3 folds the 4 query heads of each kv head into its rows, so verify
+   steps (20 folded rows) run the tile regime; each regime's launches
+   are checked against ``_k3_regime``; the greedy streams are compared
+   with the plain attention's on f32 caches (``phase_serving`` says why);
+14. phase 5 on Llama-3-8B at depth 2;
+15. K1, K2a + K2b (B=2, T=2048, H=32, Hkv=8, D=128, causal; f32 and bf16,
+   timed in turns with SDPA over GQA inputs) and K3 (decode, verify,
+   prefill over a bf16 pool at Hkv=8, G=4) at the Llama shapes;
+16. training Llama-3-8B's widths at depth 4 as phase 7 trains GPT (AdamW
+   with Touvron et al. 2023 settings): the loss falls, 4 x 4 launches of
+   each flash kernel, the first loss equals the plain attention's;
+17. phase 8 on Llama-3-8B's widths at depth 2;
+18. a ``kernels`` JSON line (the GPT and MoE shapes), then the result
+   line.
 """
 from __future__ import annotations
 
@@ -143,6 +158,23 @@ MOE_LOSS_RTOL = 1e-6
 # of up to 4096 products in other orders (the gate's gradient flows
 # through the expert outputs)
 MOE_GRAD_RTOL = 1e-4
+# Llama-3-8B: the published config.json of meta-llama/Meta-Llama-3-8B
+# (Dubey et al. 2024, arXiv:2407.21783, Table 3: the same layers, widths,
+# heads and RoPE theta). G = 32 / 8 = 4 query heads per kv head.
+LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=8, max_position_embeddings=8192,
+                 rms_norm_eps=1e-5, rope_theta=500000.0,
+                 tie_word_embeddings=False)
+# training keeps every width and cuts the depth: f32 weights, gradients
+# and two Adam moments take 16 B a parameter, 128 GB at 32 layers; 4
+# layers and the untied embeddings / head hold 1.92 B parameters (30.8 GB)
+LLAMA_TRAIN_LAYERS = 4
+# Touvron et al. 2023 (arXiv:2307.09288, section 2.2): AdamW beta1 0.9,
+# beta2 0.95, eps 1e-5, weight decay 0.1, clip 1.0; lr 3e-4 (Dubey et al.
+# 2024's peak for 8B), held constant
+LLAMA_ADAMW = dict(learning_rate=3e-4, beta1=0.9, beta2=0.95, epsilon=1e-5,
+                   weight_decay=0.1)
 
 
 def log(*a):
@@ -387,11 +419,12 @@ def phase_kernel_sweep(pa, atol=KERNEL_ATOL):
     return worst
 
 
-def time_main_shapes(pa, peaks, contexts):
-    """The kernel at the serving path's shapes (GPT-3 1.3B: H=Hkv=16,
-    D=128, bf16 pool, P=16, MP=64): decode (S=8, T=1) and verify (S=8,
-    T=5) in the split regime, the 600-token prompt's tail prefill (S=1,
-    T=1024 bucket) in the tile regime. Four pool copies are cycled so each
+def time_main_shapes(pa, peaks, contexts, hkv=16, group=1):
+    """The kernel at a serving path's shapes (GPT-3 1.3B: H=Hkv=16;
+    Llama-3-8B: Hkv=8, G=4; D=128, bf16 pool, P=16, MP=64): decode (S=8,
+    T=1), verify (S=8, T=5) and the 600-token prompt's tail prefill (S=1,
+    T=1024 bucket), each in the regime ``_k3_regime`` picks (verify: split
+    at G=1, tile at G=4). Four pool copies are cycled so each
     launch finds a cold L2. The kernel and the library call are timed in
     turns (kernel, library, plain, library, kernel) and averaged, each as
     device time (:func:`graph_ms`: ``ms``, ``library_ms``, ``plain_ms``)
@@ -408,8 +441,8 @@ def time_main_shapes(pa, peaks, contexts):
     }
     rows = {}
     for name, sh in shapes.items():
-        c = make_case(rng, hkv=16, group=1, d=128, kv="bf16", layers=4,
-                      **sh)
+        c = make_case(rng, hkv=hkv, group=group, d=128, kv="bf16",
+                      layers=4, **sh)
         calls = [case_args(c, layer) for layer in range(4)]
         state = {"i": 0}
 
@@ -420,7 +453,7 @@ def time_main_shapes(pa, peaks, contexts):
                 return fn(*args, **kw)
             return go
 
-        expect = pa._k3_regime(sh["t"], 1)
+        expect = pa._k3_regime(sh["t"], group)
         got = checked_call(pa, *calls[0], expect, name)
         ref = pa.paged_attention_plain(*calls[0][0], **calls[0][1])
         err = (got - ref).abs().max().item()
@@ -445,7 +478,8 @@ def time_main_shapes(pa, peaks, contexts):
                           loop_ms=(loops[0] + loops[3]) / 2,
                           library_loop_ms=(loops[1] + loops[2]) / 2,
                           plain_loop_ms=plain_loop_ms, **bound(c, peaks))
-        log(f"{name:8s} S={sh['s']} T={sh['t']:4d} [{expect}]: kernel "
+        log(f"{name:8s} S={sh['s']} T={sh['t']:4d} Hkv={hkv} G={group} "
+            f"[{expect}]: kernel "
             f"{ms:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}), sdpa "
             f"[{be.name}] {library_ms:.4f} ms ({turns[1]:.4f}, "
             f"{turns[2]:.4f}), plain {plain_ms:.4f} ms; host loop: kernel "
@@ -490,19 +524,79 @@ def build_model(layers):
     return GPTForCausalLM(cfg, device=DEVICE, seed=SEED)
 
 
+def build_llama(layers):
+    from paddle_tpu_torch.text.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM)
+
+    cfg = LlamaConfig(**dict(LLAMA3_8B, num_hidden_layers=layers))
+    return LlamaForCausalLM(cfg, device=DEVICE, seed=SEED)
+
+
 def serve(engine, prompts):
     rids = [engine.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     engine.run()
     return [engine.result(r) for r in rids]
 
 
-def phase_serving(pa, smi):
+def k3_expected(pa, layers, st, eng, group):
+    """K3 launches the run should count, (tile, split, decode, verify):
+    layers x programs, each program in the regime ``_k3_regime`` picks
+    for its rows (prefill buckets, decode T = 1, verify T = k + 1), and
+    of the split ones the decode (T = 1) and verify (T > 1) counts."""
+    want = dict(tile=0, split=0, decode=0, verify=0)
+    progs = ((min(eng.buckets), st["prefill_calls"]),
+             (1, st["decode_steps"] - st["verify_steps"]),
+             (eng.config.speculate_k + 1, st["verify_steps"]))
+    for t, n in progs:
+        regime = pa._k3_regime(t, group)
+        want[regime] += layers * n
+        if regime == "split":
+            want["decode" if t == 1 else "verify"] += layers * n
+    return tuple(want[k] for k in ("tile", "split", "decode", "verify"))
+
+
+def report_divergence(fa, model, prompts, outs, ref):
+    """Where the kernel and plain engines' streams first part: the request,
+    the token, and the top-2 logits (and their margin) of a full forward
+    over the common context, once with K1 and once on the plain
+    attention."""
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.flatnonzero(np.asarray(a) != np.asarray(b))[0])
+        ctx = torch.as_tensor(np.asarray(a[:j])[None], device=DEVICE)
+        tops = []
+        for plain in (False, True):
+            with (plain_attention(fa) if plain else contextlib.nullcontext()
+                  ), torch.no_grad():
+                v, ix = torch.topk(model(ctx)[0, -1].float(), 2)
+            tops.append(f"{'plain' if plain else 'K1'} top-2 ids "
+                        f"{ix.tolist()} logits {v.tolist()} margin "
+                        f"{(v[0] - v[1]).item():.3e}")
+        log(f"request {i}: first divergent token {j - len(prompts[i])} "
+            f"(position {j}): kernel engine {a[j]}, plain engine {b[j]}; "
+            f"full forward over the common context: " + "; ".join(tops))
+        return
+
+
+def phase_serving(pa, fa, smi, build, label, phase, gate_kv="bf16"):
+    """Serve ``make_prompts`` through ``DecodeEngine`` on the model
+    ``build()`` makes: bf16 KV, prefix sharing, speculation; gates on the
+    tokens, the prefix hit, a verify step, K3's launches per regime, the
+    device of parameters and pools and finite logits. Then greedy streams
+    equal to the plain-attention engine's, both with ``gate_kv`` KV: the
+    timed run itself for bf16 (GPT-3 1.3B). Llama-3-8B compares f32
+    caches: at 32 layers the bf16 cache's rounding turns the kernel's
+    ~2e-6 per-step logit differences from the plain attention (f32 KV)
+    into ~2e-4 (``scripts/engine_kv_drift.py``), above the smallest top-2
+    margins of its random 128256-way logits, so equal bf16 streams would
+    test the cache's rounding, not the kernel."""
     from paddle_tpu_torch.inference.engine import DecodeEngine
 
     t0 = time.perf_counter()
-    model = build_model(24)
+    model = build()
     torch.cuda.synchronize()
-    log(f"# phase 4: GPT-3 1.3B built on the card in "
+    log(f"# phase {phase}: {label} built on the card in "
         f"{time.perf_counter() - t0:.2f} s (set-up)")
     eng = DecodeEngine(model, kv_dtype="bf16", **engine_config())
     t0 = time.perf_counter()
@@ -520,7 +614,8 @@ def phase_serving(pa, smi):
     launches, tile, split, decode, verify = k3_counts(pa)
 
     st = eng.stats()
-    layers = model.config.num_hidden_layers
+    ad = eng.adapter
+    layers, group = ad.num_layers, ad.num_heads // ad.num_kv_heads
     programs = st["prefill_calls"] + st["decode_steps"]
     for p, o in zip(prompts, outs):
         if len(o) != len(p) + NEW_TOKENS:
@@ -535,18 +630,15 @@ def phase_serving(pa, smi):
         raise AssertionError(
             f"kernel launches {launches} != {layers} layers x {programs} "
             "programs")
-    # every prefill in the tile regime, every decode (T = 1) and verify
-    # (T = k + 1) step in the split regime
-    want = (layers * st["prefill_calls"],
-            layers * (st["decode_steps"] - st["verify_steps"]),
-            layers * st["verify_steps"])
-    if (tile, decode, verify) != want:
+    want = k3_expected(pa, layers, st, eng, group)
+    if (tile, split, decode, verify) != want:
         raise AssertionError(
-            f"launches (tile, decode, verify) = {(tile, decode, verify)}, "
-            f"expected {want}: {layers} x ({st['prefill_calls']} prefills, "
-            f"{st['decode_steps']} steps of which {st['verify_steps']} "
-            "verify)")
-    tensors = [*model.parameters(), eng._kc, eng._vc]
+            f"launches (tile, split, decode, verify) = "
+            f"{(tile, split, decode, verify)}, expected {want} from "
+            f"_k3_regime at G={group}: {layers} x ({st['prefill_calls']} "
+            f"prefills, {st['decode_steps']} steps of which "
+            f"{st['verify_steps']} verify)")
+    tensors = [*model.parameters(), *model.buffers(), eng._kc, eng._vc]
     if not all(x.device.type == DEVICE for x in tensors):
         raise AssertionError("a parameter or pool is off the card")
     _, last = eng.last_step
@@ -560,23 +652,29 @@ def phase_serving(pa, smi):
         f"mean {1e3 * st['step_seconds'] / st['decode_steps']:.2f} ms; "
         f"prefix_hit_tokens {st['prefix_hit_tokens']}; spec accepted "
         f"{st['spec_accepted']}/{st['spec_proposed']}; kernel launches "
-        f"{launches} = {layers} x {programs} (tile {tile}, split {split}: "
-        f"decode {decode}, verify {verify})  [{smi}]")
+        f"{launches} = {layers} x {programs} (G={group}: tile {tile}, "
+        f"split {split}: decode {decode}, verify {verify})  [{smi}]")
 
-    plain = DecodeEngine(model, kv_dtype="bf16", attn_kernel="plain",
+    if gate_kv != "bf16":
+        outs = serve(DecodeEngine(model, kv_dtype=gate_kv, **engine_config()),
+                     prompts)
+    plain = DecodeEngine(model, kv_dtype=gate_kv, attn_kernel="plain",
                          **engine_config())
     ref = serve(plain, prompts)
     same = sum(np.array_equal(a, b) for a, b in zip(outs, ref))
-    log(f"full-width greedy streams equal to the plain-attention run: "
-        f"{same}/{len(prompts)}")
+    log(f"full-width greedy streams ({gate_kv} KV) equal to the "
+        f"plain-attention run: {same}/{len(prompts)}")
     if same != len(prompts):
+        report_divergence(fa, model, prompts, outs, ref)
         raise AssertionError("full-width streams differ from plain")
     contexts = [len(p) + NEW_TOKENS // 2 for p in prompts]
     del eng, plain, model
     torch.cuda.empty_cache()
-    return dict(contexts=contexts,
-                by_shape={"prefill": tile, "decode": decode,
-                          "verify": verify})
+    return dict(contexts=contexts, tokens_per_s=tokens / wall,
+                decode_ms=1e3 * st["step_seconds"] / st["decode_steps"],
+                prefill_ms=1e3 * st["prefill_seconds"] / st["prefill_calls"],
+                launches=dict(tile=tile, split=split, decode=decode,
+                              verify=verify))
 
 
 def lockstep(kernel_eng, plain_eng, prompts):
@@ -618,23 +716,28 @@ def lockstep(kernel_eng, plain_eng, prompts):
     return worst, mismatches, steps
 
 
-def phase_engine_parity():
+def phase_engine_parity(build, label, phase):
+    """The kernel and plain engines in :func:`lockstep` on the model
+    ``build()`` makes, f32 and int8 KV."""
     from paddle_tpu_torch.inference.engine import DecodeEngine
 
-    model = build_model(2)
+    model = build()
     prompts = make_prompts(model.config.vocab_size)
     for kv in ("f32", "int8"):
         a = DecodeEngine(model, kv_dtype=kv, **engine_config())
         b = DecodeEngine(model, kv_dtype=kv, attn_kernel="plain",
                          **engine_config())
         worst, mismatches, steps = lockstep(a, b, prompts)
-        log(f"# phase 5: depth 2, kv {kv}: {steps} steps, max |logit "
-            f"kernel - plain| {worst:.3e} (atol {ENGINE_LOGIT_ATOL[kv]}), "
-            f"token mismatches {mismatches}")
+        log(f"# phase {phase}: {label}, kv {kv}: {steps} steps, max "
+            f"|logit kernel - plain| {worst:.3e} (atol "
+            f"{ENGINE_LOGIT_ATOL[kv]}), token mismatches {mismatches}")
         if not worst <= ENGINE_LOGIT_ATOL[kv]:
             raise AssertionError(f"logits differ by {worst}")
         if mismatches:
             raise AssertionError("greedy streams differ")
+        del a, b
+    del model
+    torch.cuda.empty_cache()
 
 
 # -- phase 6: flash attention kernels ----------------------------------------
@@ -809,22 +912,77 @@ def sdpa_backend(qh, kh, vh, **kw):
     raise AssertionError("no SDPA backend runs these inputs")
 
 
-def phase_flash_timing(fa, peaks):
-    """K1, K2a, K2b at the training shapes, q/k/v strided out of one fused
-    projection as in the model. K1 is timed in turns with SDPA's forward
-    (K1, SDPA, SDPA, K1) and the pair K2a + K2b in turns with SDPA's
-    backward (dq + dk + dv), each averaged; K2a and K2b also alone."""
+def sdpa_yardsticks(q, k, v):
+    """SDPA's operands for q, k, v ``[B, T, H|Hkv, D]``: a list of (label,
+    qh, kh, vh, keywords), each q / k / v ``[B, H, T, D]`` leaves that
+    take a gradient. The first is the library's call on these inputs: k /
+    v at Hkv heads with ``enable_gqa`` where this torch takes it, else
+    repeated to every query head. Under GQA with ``enable_gqa``, a second
+    repeats k / v to every query head (a copy outside the timed call, so
+    that the backends without GQA run)."""
+    group = q.shape[2] // k.shape[2]
+
+    def leaves(kv_repeat):
+        qh, kh, vh = (x.detach().transpose(1, 2) for x in (q, k, v))
+        if kv_repeat > 1:
+            kh, vh = (x.repeat_interleave(kv_repeat, 1) for x in (kh, vh))
+        return tuple(x.requires_grad_() for x in (qh, kh, vh))
+
+    if group == 1:
+        return [(f"H={q.shape[2]}", *leaves(1), {})]
+    repeated = ("GQA, K/V repeat_interleave'd", *leaves(group), {})
+    qh, kh, vh = leaves(1)
+    try:
+        torch.nn.functional.scaled_dot_product_attention(
+            qh[:, :, :1], kh[:, :, :1], vh[:, :, :1], enable_gqa=True)
+    except TypeError:
+        return [repeated]
+    return [("GQA, enable_gqa", qh, kh, vh, {"enable_gqa": True}),
+            repeated]
+
+
+def time_in_turns(kern_fwd, kern_pair, yard, do):
+    """K1 in turns with SDPA's forward (K1, SDPA, SDPA, K1) and the pair
+    K2a + K2b in turns with SDPA's backward, on one yardstick of
+    :func:`sdpa_yardsticks`: (label with the backend, forward turns,
+    backward turns)."""
     from torch.nn.attention import sdpa_kernel
 
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    b, t, h, d = TRAIN_BATCH, TRAIN_SEQ, 16, 128
+    label, qh, kh, vh, kw = yard
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    be = sdpa_backend(qh, kh, vh, is_causal=True, **kw)
+    with sdpa_kernel([be]):
+        def lib():
+            return sdpa(qh, kh, vh, is_causal=True, **kw)
+        turns = [cuda_ms(kern_fwd), cuda_ms(lib), cuda_ms(lib),
+                 cuda_ms(kern_fwd)]
+        out = sdpa(qh, kh, vh, is_causal=True, **kw)
+        doh = do.transpose(1, 2)
+
+        def lib_bwd():
+            return torch.autograd.grad(out, (qh, kh, vh), doh,
+                                       retain_graph=True)
+        bturns = [cuda_ms(kern_pair), cuda_ms(lib_bwd), cuda_ms(lib_bwd),
+                  cuda_ms(kern_pair)]
+    return f"{be.name}, {label}", turns, bturns
+
+
+def phase_flash_timing(fa, peaks, h=16, hkv=16, strided=True):
+    """K1, K2a, K2b at a training path's shapes (GPT-3 1.3B: H=Hkv=16, q/k/v
+    strided out of one fused projection as in the model; Llama-3-8B: H=32,
+    Hkv=8, separate projections). K1 is timed in turns with SDPA's forward
+    and the pair K2a + K2b in turns with SDPA's backward (dq + dk + dv),
+    each averaged, on each of :func:`sdpa_yardsticks` (the first gives
+    ``library_ms``; under GQA the repeated-K/V call gives
+    ``library_repeat_ms``); K2a and K2b also alone."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    b, t, d = TRAIN_BATCH, TRAIN_SEQ, 128
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
-        q, k, v, do = flash_inputs(gen, b, t, t, h, h, d, dt, True)
+        q, k, v, do = flash_inputs(gen, b, t, t, h, hkv, d, dt, strided)
         worst = {}
         compare_flash(fa, q, k, v, do, None, True, False, worst,
-                      f"training shape {str(dt)[6:]}")
+                      f"training shape H={h} Hkv={hkv} {str(dt)[6:]}")
         o, lse = fa.flash_attention_forward_cuda(q, k, v, causal=True)
         delta = fa._delta(o, do).contiguous()
         kw = dict(causal=True)
@@ -845,24 +1003,11 @@ def phase_flash_timing(fa, peaks):
             calls["dq"][0]()
             calls["dkv"][0]()
 
-        qh, kh, vh = (x.detach().transpose(1, 2).requires_grad_()
-                      for x in (q, k, v))
-        be = sdpa_backend(qh, kh, vh, is_causal=True)
-        with sdpa_kernel([be]):
-            def lib():
-                return sdpa(qh, kh, vh, is_causal=True)
-            turns = [cuda_ms(calls["fwd"][0]), cuda_ms(lib), cuda_ms(lib),
-                     cuda_ms(calls["fwd"][0])]
-            lib_fwd = (turns[1] + turns[2]) / 2
-            out = sdpa(qh, kh, vh, is_causal=True)
-            doh = do.transpose(1, 2)
-
-            def lib_bwd_call():
-                return torch.autograd.grad(out, (qh, kh, vh), doh,
-                                           retain_graph=True)
-            bturns = [cuda_ms(pair), cuda_ms(lib_bwd_call),
-                      cuda_ms(lib_bwd_call), cuda_ms(pair)]
-            lib_bwd = (bturns[1] + bturns[2]) / 2
+        yards = [time_in_turns(calls["fwd"][0], pair, y, do)
+                 for y in sdpa_yardsticks(q, k, v)]
+        lib_label, turns, bturns = yards[0]
+        lib_fwd = (turns[1] + turns[2]) / 2
+        lib_bwd = (bturns[1] + bturns[2]) / 2
         pair_ms = (bturns[0] + bturns[3]) / 2
         for kind, (kern, plain) in calls.items():
             ms = ((turns[0] + turns[3]) / 2 if kind == "fwd"
@@ -874,10 +1019,11 @@ def phase_flash_timing(fa, peaks):
                                     **flash_bound(kind, q, k, True, peaks))
             if kind != "fwd":
                 rows[(kind, dt)]["pair_ms"] = pair_ms
-            log(f"{kind:3s} {str(dt)[6:]:8s} B={b} T={t} H={h} D={d} causal:"
-                f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            log(f"{kind:3s} {str(dt)[6:]:8s} B={b} T={t} H={h} Hkv={hkv} "
+                f"D={d} causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+                f" sdpa "
                 f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
-                f"[{be.name}] {lib:.4f} ms"
+                f"[{lib_label}] {lib:.4f} ms"
                 + (f" (turns K1 {turns[0]:.4f}, sdpa {turns[1]:.4f}, "
                    f"{turns[2]:.4f}, K1 {turns[3]:.4f})" if kind == "fwd"
                    else "")
@@ -885,13 +1031,23 @@ def phase_flash_timing(fa, peaks):
         pb = {k_: rows[("dq", dt)][k_] + rows[("dkv", dt)][k_]
               for k_ in ("bound_ms", "bound_fma_ms")}
         log(f"pair {str(dt)[6:]:8s} K2a + K2b {pair_ms:.4f} ms vs sdpa "
-            f"backward [{be.name}] {lib_bwd:.4f} ms = "
+            f"backward [{lib_label}] {lib_bwd:.4f} ms = "
             f"{pair_ms / lib_bwd:.3f}x (turns pair {bturns[0]:.4f}, sdpa "
             f"{bturns[1]:.4f}, {bturns[2]:.4f}, pair {bturns[3]:.4f}); "
             f"bound {pb['bound_ms']:.4f} ms (tensor cores), "
             f"{pb['bound_fma_ms']:.4f} ms (f32 FMA), "
             f"{100 * pb['bound_ms'] / pair_ms:.1f} % of bound")
-        del q, k, v, do, o, lse, delta, qh, kh, vh, out
+        for label, ft, bt in yards[1:]:
+            rep_fwd, rep_bwd = (ft[1] + ft[2]) / 2, (bt[1] + bt[2]) / 2
+            rows[("fwd", dt)]["library_repeat_ms"] = rep_fwd
+            for kind in ("dq", "dkv"):
+                rows[(kind, dt)]["library_repeat_ms"] = rep_bwd
+            log(f"sdpa [{label}] {str(dt)[6:]}: forward {rep_fwd:.4f} ms "
+                f"(turns K1 {ft[0]:.4f}, sdpa {ft[1]:.4f}, {ft[2]:.4f}, K1 "
+                f"{ft[3]:.4f}), backward {rep_bwd:.4f} ms (turns pair "
+                f"{bt[0]:.4f}, sdpa {bt[1]:.4f}, {bt[2]:.4f}, pair "
+                f"{bt[3]:.4f})")
+        del q, k, v, do, o, lse, delta, yards
         torch.cuda.empty_cache()
     return rows
 
@@ -923,25 +1079,31 @@ def train_batch(vocab):
     return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
 
 
-def trainer(model):
+def trainer(model, adamw=ADAMW):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 
     opt = AdamW(parameters=model.parameters(),
-                grad_clip=ClipGradByGlobalNorm(1.0), **ADAMW)
+                grad_clip=ClipGradByGlobalNorm(1.0), **adamw)
     return TrainStep(model, lambda m, ids, lab: m(ids, labels=lab), opt), opt
 
 
-def phase_training(fa, smi):
+def phase_training(fa, smi, build, adamw, label, phase):
+    """TRAIN_STEPS steps of ``TrainStep`` + ``AdamW`` on the model
+    ``build()`` makes: the loss falls, each flash kernel launches once a
+    layer a step, the first loss equals a no-grad forward on the plain
+    attention."""
     t0 = time.perf_counter()
-    model = build_model(24)
-    step, opt = trainer(model)
+    model = build()
+    step, opt = trainer(model, adamw)
     ids, labels = train_batch(model.config.vocab_size)
     with plain_attention(fa), torch.no_grad():
         plain_loss = float(model(ids, labels=labels))
     torch.cuda.synchronize()
-    log(f"# phase 7: GPT-3 1.3B built and a no-grad plain-attention loss "
-        f"taken in {time.perf_counter() - t0:.2f} s (set-up)")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"# phase {phase}: {label} ({n_params / 1e9:.3f} B parameters) "
+        f"built and a no-grad plain-attention loss taken in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
     torch.cuda.reset_peak_memory_stats()
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     losses, step_ms = [], []
@@ -985,12 +1147,15 @@ def phase_training(fa, smi):
                 peak_bytes=peak, tokens=tokens)
 
 
-def phase_train_lockstep(fa):
-    a = build_model(2)
-    b = build_model(2).load_numpy_state(
-        {n: x.detach().cpu().numpy() for n, x in a.state_dict().items()})
-    step_a, _ = trainer(a)
-    step_b, _ = trainer(b)
+def phase_train_lockstep(fa, build, adamw, label, phase):
+    """A kernel trainer and a plain-attention trainer from the same
+    weights, LOCKSTEP_STEPS steps each: per-step losses and final
+    parameters compared."""
+    a = build()
+    b = build()
+    b.load_state_dict(a.state_dict())
+    step_a, _ = trainer(a, adamw)
+    step_b, _ = trainer(b, adamw)
     ids, labels = train_batch(a.config.vocab_size)
     worst = 0.0
     for i in range(LOCKSTEP_STEPS):
@@ -999,9 +1164,9 @@ def phase_train_lockstep(fa):
             lb = float(step_b(ids, labels))
         rel = abs(la - lb) / abs(lb)
         worst = max(worst, rel)
-        log(f"# phase 8: depth 2 step {i}: loss kernel {la:.7f} plain "
-            f"{lb:.7f} rel {rel:.2e}")
-    bound = 2 * ADAMW["learning_rate"] * LOCKSTEP_STEPS
+        log(f"# phase {phase}: {label} step {i}: loss kernel {la:.7f} "
+            f"plain {lb:.7f} rel {rel:.2e}")
+    bound = 2 * adamw["learning_rate"] * LOCKSTEP_STEPS
     far = total = 0
     dmax = 0.0
     pb = dict(b.named_parameters())
@@ -1016,6 +1181,8 @@ def phase_train_lockstep(fa):
         raise AssertionError(f"lockstep losses differ: rel {worst}")
     if not (dmax <= bound and far <= 0.01 * total):
         raise AssertionError("lockstep parameters differ")
+    del step_a, step_b, a, b
+    torch.cuda.empty_cache()
 
 
 # -- phases 9-12: grouped matmul and MoE training -----------------------------
@@ -1471,16 +1638,57 @@ def main() -> int:
 
     sweep_err = phase_kernel_sweep(pa)
     flash_err = phase_flash_sweep(fa)
-    served = phase_serving(pa, smi)
+    served = phase_serving(pa, fa, smi, lambda: build_model(24),
+                           "GPT-3 1.3B", 4)
     timed = time_main_shapes(pa, peaks, served["contexts"])
-    phase_engine_parity()
+    phase_engine_parity(lambda: build_model(2), "GPT-3 1.3B depth 2", 5)
     flash_timed = phase_flash_timing(fa, peaks)
-    trained = phase_training(fa, smi)
-    phase_train_lockstep(fa)
+    trained = phase_training(fa, smi, lambda: build_model(24), ADAMW,
+                             "GPT-3 1.3B", 7)
+    phase_train_lockstep(fa, lambda: build_model(2), ADAMW,
+                         "GPT-3 1.3B depth 2", 8)
     gmm_err = phase_gmm_sweep(gm)
     gmm_timed = phase_gmm_timing(gm, peaks)
     moe_trained = phase_moe_training(gm, smi)
     phase_moe_lockstep(gm)
+
+    torch.cuda.empty_cache()
+    g = LLAMA3_8B["num_attention_heads"] // LLAMA3_8B["num_key_value_heads"]
+    llama_served = phase_serving(
+        pa, fa, smi, lambda: build_llama(LLAMA3_8B["num_hidden_layers"]),
+        f"Llama-3-8B ({LLAMA3_8B['num_hidden_layers']} layers, G={g})", 13,
+        gate_kv="f32")
+    phase_engine_parity(lambda: build_llama(2), "Llama-3-8B depth 2", 14)
+    log("# phase 15: K1 / K2 and K3 at the Llama-3-8B shapes")
+    llama_flash = phase_flash_timing(
+        fa, peaks, h=LLAMA3_8B["num_attention_heads"],
+        hkv=LLAMA3_8B["num_key_value_heads"], strided=False)
+    llama_k3 = time_main_shapes(pa, peaks, llama_served["contexts"],
+                                hkv=LLAMA3_8B["num_key_value_heads"],
+                                group=g)
+    llama_trained = phase_training(
+        fa, smi, lambda: build_llama(LLAMA_TRAIN_LAYERS), LLAMA_ADAMW,
+        f"Llama-3-8B widths at depth {LLAMA_TRAIN_LAYERS}", 16)
+    phase_train_lockstep(fa, lambda: build_llama(2), LLAMA_ADAMW,
+                         "Llama-3-8B widths at depth 2", 17)
+    step_ms = np.mean(llama_trained["step_ms"][1:])
+    log(json.dumps({"llama3_8b": {
+        "card": smi,
+        "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
+                                                 "prefill_ms", "launches")},
+        "training": {"layers": LLAMA_TRAIN_LAYERS, "step_ms": step_ms,
+                     "tokens_per_s": llama_trained["tokens"] / step_ms * 1e3,
+                     "peak_gib": llama_trained["peak_bytes"] / 2 ** 30,
+                     "launches": llama_trained["launches"]},
+        "flash": {f"{kind} {str(dt)[6:]}": {
+            k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                              "library_repeat_ms", "pair_ms", "bound_ms",
+                              "bound_fma_ms") if k in r}
+            for (kind, dt), r in llama_flash.items()},
+        "paged": {shape: {k: r[k] for k in (
+            "regime", "ms", "plain_ms", "library_ms", "loop_ms", "bound_ms",
+            "bound_fma_ms")} for shape, r in llama_k3.items()},
+    }}))
 
     def row(name, source, replaces, launches, err, r, timed_as="host loop"):
         out = {"name": name, "route": "cuda", "source": source,
@@ -1500,7 +1708,8 @@ def main() -> int:
         row(f"paged_attention_{shape}",
             "paddle_tpu_torch/ops/cuda/paged_attention.cu",
             "paddle_tpu/ops/pallas/paged_attention.py:81",
-            served["by_shape"][shape],
+            served["launches"][{"decode": "decode", "verify": "verify",
+                                "prefill": "tile"}[shape]],
             max(sweep_err[timed[shape]["regime"]],
                 timed[shape]["max_abs_err"]), timed[shape], "cuda graph")
         for shape in ("decode", "verify", "prefill")]

@@ -1,4 +1,4 @@
 """Framework helpers of the port."""
-from .io_state import state_from_numpy
+from .io_state import load_numpy_state, state_from_numpy
 
-__all__ = ["state_from_numpy"]
+__all__ = ["load_numpy_state", "state_from_numpy"]

@@ -33,3 +33,16 @@ def state_from_numpy(np_state: Mapping[str, np.ndarray], device,
         out[name] = torch.tensor(np.asarray(arr), device=device,
                                  dtype=dtype)
     return out
+
+
+def load_numpy_state(module: torch.nn.Module,
+                     np_state: Mapping[str, np.ndarray]):
+    """Load the reference's state, given as ``{name: ndarray}``, into
+    ``module`` on its device and in its dtypes; names and shapes must
+    match ``module.state_dict()`` exactly. Returns ``module``."""
+    ref = module.state_dict()
+    dev = next(iter(ref.values())).device
+    state = state_from_numpy(np_state, dev, expected=ref)
+    module.load_state_dict(
+        {k: v.to(ref[k].dtype) for k, v in state.items()}, strict=True)
+    return module

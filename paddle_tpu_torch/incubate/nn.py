@@ -1,5 +1,11 @@
-"""Expert-choice MoE (counterpart of ``FusedEcMoe`` / ``fused_ec_moe`` in
-``paddle_tpu/incubate/nn.py``).
+"""``paddle.incubate.nn`` counterparts (``paddle_tpu/incubate/nn.py``):
+the expert-choice MoE and the functionals Llama's ops stand on.
+
+``fused_rms_norm``, ``swiglu`` and ``fused_rotary_position_embedding``
+are compositions of plain tensor ops, as in the reference (a fusion
+upstream, an XLA fusion there); each raises where the reference raises.
+
+Expert-choice MoE (``FusedEcMoe`` / ``fused_ec_moe``):
 
 Each expert picks its top-``C`` tokens by gate score, ``C = max(tokens //
 experts, 1)``; the expert FFN runs as batched einsums over ``[E, C, ...]``
@@ -20,6 +26,8 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
+from ..nn.functional.norm import rms_norm
+from ..text.models.llama import _apply_rope, _rope_cache
 
 #: act_type -> activation, with the defaults of the ``jax.nn`` function of
 #: that name
@@ -104,4 +112,59 @@ def fused_ec_moe(x, gate, bmm0_weight, bmm0_bias, bmm1_weight, bmm1_bias,
                          bmm1_bias, act_type, bmm0_weight.shape[0])
 
 
-__all__ = ["FusedEcMoe", "fused_ec_moe"]
+def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
+                   begin_norm_axis=-1, name=None):
+    """RMSNorm over the last axis (``F.rms_norm``), plus ``norm_bias``
+    when given. Other ``begin_norm_axis`` values raise, as in the
+    reference."""
+    nd = x.dim()
+    if begin_norm_axis % nd != nd - 1:
+        raise NotImplementedError(
+            "fused_rms_norm: only last-axis normalization is supported "
+            f"(begin_norm_axis={begin_norm_axis} on rank-{nd} input)")
+    out = rms_norm(x, norm_weight, epsilon=epsilon)
+    if norm_bias is not None:
+        out = out + norm_bias
+    return out
+
+
+def swiglu(x, y=None, name=None):
+    """``silu(x) * y``; with ``y=None``, ``x`` splits in half on the last
+    axis (the Llama MLP gate form)."""
+    if y is None:
+        x, y = torch.chunk(x, 2, dim=-1)
+    return F.silu(x) * y
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True, name=None):
+    """RoPE on each given input of ``q`` / ``k`` / ``v`` ``[B, T, H, D]``
+    (the reference rotates v too), halves rotated (neox style).
+    ``sin`` / ``cos``: ``[1, T, 1, D]``, ``[T, D]`` (duplicated halves) or
+    ``[T, D/2]``; without them, the theta 10000 tables. ``position_ids``
+    and the interleaved pairing raise, as in the reference."""
+    if position_ids is not None:
+        raise NotImplementedError(
+            "fused_rotary_position_embedding: position_ids offsets are not "
+            "supported; slice the sin/cos caches instead")
+    if not use_neox_rotary_style:
+        raise NotImplementedError(
+            "fused_rotary_position_embedding: interleaved (non-neox) pairing "
+            "is not supported")
+    d = q.shape[-1]
+    if cos is None or sin is None:
+        c_np, s_np = _rope_cache(q.shape[1], d, 10000.0)
+        cos_h = torch.as_tensor(c_np, device=q.device)
+        sin_h = torch.as_tensor(s_np, device=q.device)
+    else:
+        cos_v = cos.reshape(-1, cos.shape[-1])  # [T, D] or [T, D/2]
+        sin_v = sin.reshape(-1, sin.shape[-1])
+        cos_h = cos_v[:, :d // 2] if cos_v.shape[-1] == d else cos_v
+        sin_h = sin_v[:, :d // 2] if sin_v.shape[-1] == d else sin_v
+    return tuple(None if t is None else _apply_rope(t, cos_h, sin_h)
+                 for t in (q, k, v))
+
+
+__all__ = ["FusedEcMoe", "fused_ec_moe", "fused_rms_norm",
+           "fused_rotary_position_embedding", "swiglu"]

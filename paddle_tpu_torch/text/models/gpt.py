@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
-from ...framework.io_state import state_from_numpy
+from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
 from ...nn.functional.loss import _parallel_softmax_ce
 from ...nn.layers.common import Embedding, Linear
@@ -240,12 +240,7 @@ class GPTForCausalLM(nn.Module):
     def load_numpy_state(self, np_state: Mapping[str, np.ndarray]):
         """Load the reference's parameters, given as ``{name: ndarray}``;
         names and shapes must match this model's exactly."""
-        ref = self.state_dict()
-        dev = next(iter(ref.values())).device
-        state = state_from_numpy(np_state, dev, expected=ref)
-        self.load_state_dict(
-            {k: v.to(ref[k].dtype) for k, v in state.items()}, strict=True)
-        return self
+        return load_numpy_state(self, np_state)
 
     def decode_adapter(self):
         return _GPTDecodeAdapter(self)

@@ -5,6 +5,8 @@
     python3 scripts/profile_torch.py serving  [--out profile_out]
     python3 scripts/profile_torch.py training [--out profile_out] [--steps 2]
     python3 scripts/profile_torch.py moe      [--out profile_out] [--steps 2]
+    python3 scripts/profile_torch.py llama_serving  [--out profile_out]
+    python3 scripts/profile_torch.py llama_training [--out profile_out]
 
 ``serving`` drives the configuration and traffic of ``chip_smoke.py``
 phase 4 (GPT-3 1.3B, 8 greedy requests, bf16 paged KV, prefix sharing,
@@ -13,7 +15,9 @@ requests under the profiler. ``training`` drives phase 7 (GPT-3 1.3B,
 ``TrainStep`` + ``AdamW``, one 2 x 2048-token batch): one warm step, then
 ``--steps`` steps under the profiler. ``moe`` drives phase 11 (Mixtral
 8x7B's MoE block, dropless, under a ``Linear(4096, 1)`` head, ``TrainStep``
-+ ``AdamW``, one 2 x 2048-token batch) the same way.
++ ``AdamW``, one 2 x 2048-token batch) the same way. ``llama_serving``
+and ``llama_training`` do the same for phases 13 and 16: Llama-3-8B at
+full width, 32 layers served, 4 layers trained (Touvron et al. AdamW).
 
 Prints one JSON object: wall time of the profiled run, device busy time
 (sum of kernel time; the rest of the wall is the device's idle share),
@@ -57,7 +61,7 @@ def family(name: str) -> str:
     if "index" in n or "gather" in n or "scatter" in n or "copy" in n:
         return "index_copy"
     if ("elementwise" in n or "norm" in n or "reduce" in n
-            or "softmax" in n or "gelu" in n):
+            or "softmax" in n or "gelu" in n or "silu" in n):
         return "elementwise_norm_reduce"
     return "other"
 
@@ -76,10 +80,10 @@ def profiled(run):
     return prof, wall
 
 
-def serving():
+def serving(build):
     from paddle_tpu_torch.inference.engine import DecodeEngine
 
-    model = chip_smoke.build_model(24)
+    model = build()
     prompts = chip_smoke.make_prompts(model.config.vocab_size)
     warm = DecodeEngine(model, kv_dtype="bf16", **chip_smoke.engine_config())
     warm.warmup()
@@ -105,9 +109,9 @@ def profiled_steps(step, batch, steps, tokens):
     return prof, wall, steps, {"tokens_per_step": tokens}
 
 
-def training(steps):
-    model = chip_smoke.build_model(24)
-    step, _ = chip_smoke.trainer(model)
+def training(steps, build, adamw):
+    model = build()
+    step, _ = chip_smoke.trainer(model, adamw)
     ids, labels = chip_smoke.train_batch(model.config.vocab_size)
     return profiled_steps(step, (ids, labels), steps, ids.numel())
 
@@ -121,10 +125,12 @@ def moe(steps):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", choices=("serving", "training", "moe"))
+    ap.add_argument("path", choices=("serving", "training", "moe",
+                                     "llama_serving", "llama_training"))
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--steps", type=int, default=2,
-                    help="profiled training steps (training, moe)")
+                    help="profiled training steps (training, moe, "
+                         "llama_training)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -134,10 +140,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.smi_line()
+    gpt = lambda: chip_smoke.build_model(24)  # noqa: E731
+    llama = chip_smoke.build_llama
+    layers = chip_smoke.LLAMA3_8B["num_hidden_layers"]
     if args.path == "serving":
-        prof, wall, n, extra = serving()
+        prof, wall, n, extra = serving(gpt)
+    elif args.path == "llama_serving":
+        prof, wall, n, extra = serving(lambda: llama(layers))
     elif args.path == "training":
-        prof, wall, n, extra = training(args.steps)
+        prof, wall, n, extra = training(args.steps, gpt, chip_smoke.ADAMW)
+    elif args.path == "llama_training":
+        prof, wall, n, extra = training(
+            args.steps, lambda: llama(chip_smoke.LLAMA_TRAIN_LAYERS),
+            chip_smoke.LLAMA_ADAMW)
     else:
         prof, wall, n, extra = moe(args.steps)
 

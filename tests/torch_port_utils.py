@@ -1,5 +1,6 @@
 """Shared helpers of the PyTorch-port parity tests: a tiny reference GPT
-built in ``paddle_tpu`` (JAX, CPU) and the numpy bridge of its weights."""
+and a tiny reference Llama built in ``paddle_tpu`` (JAX, CPU), and the
+numpy bridge of their weights."""
 import contextlib
 
 import numpy as np
@@ -49,7 +50,8 @@ def jax_tiny_gpt(seed=7):
 
 
 def numpy_state(model):
-    """The reference model's parameters as {name: ndarray}."""
+    """The reference model's state (parameters and buffers) as
+    {name: ndarray}."""
     return {k: np.asarray(raw(v)) for k, v in model.state_dict().items()}
 
 
@@ -58,6 +60,41 @@ def torch_tiny_gpt(np_state):
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
 
     m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs()), device="cpu")
+    return m.load_numpy_state(np_state)
+
+
+def tiny_llama_kwargs(group=2, **kw):
+    """A 2-layer Llama whose query heads share each kv head ``group`` ways:
+    G=2 at hidden 32 (4 heads, 2 kv heads), G=4 at hidden 64 (8 heads, 2
+    kv heads); head_dim 8 in both."""
+    heads = {2: 4, 4: 8}[group]
+    return dict(dict(vocab_size=VOCAB, hidden_size=8 * heads,
+                     num_hidden_layers=2, num_attention_heads=heads,
+                     num_key_value_heads=heads // group,
+                     max_position_embeddings=64, rope_theta=500000.0), **kw)
+
+
+@contextlib.contextmanager
+def jax_tiny_llama(seed=7, **kw):
+    """The reference LlamaForCausalLM at :func:`tiny_llama_kwargs`' size,
+    built and run under :func:`no_mesh`."""
+    import paddle_tpu as paddle
+    from paddle_tpu.text.models.llama import LlamaConfig, LlamaForCausalLM
+
+    with no_mesh():
+        paddle.seed(seed)
+        m = LlamaForCausalLM(LlamaConfig(**tiny_llama_kwargs(**kw)))
+        m.eval()
+        yield m
+
+
+def torch_tiny_llama(np_state, **kw):
+    """The port's Llama on the CPU carrying the bridged reference state."""
+    from paddle_tpu_torch.text.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM)
+
+    m = LlamaForCausalLM(LlamaConfig(**tiny_llama_kwargs(**kw)),
+                         device="cpu")
     return m.load_numpy_state(np_state)
 
 
