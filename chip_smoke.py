@@ -76,8 +76,24 @@ Phases, each fatal on failure (non-zero exit, no final line):
    with Touvron et al. 2023 settings): the loss falls, 4 x 4 launches of
    each flash kernel, the first loss equals the plain attention's;
 17. phase 8 on Llama-3-8B's widths at depth 2;
-18. a ``kernels`` JSON line (the GPT and MoE shapes), then the result
-   line.
+18. mixed precision: GPT-3 1.3B at full width and depth under
+   ``auto_cast(level="O1")``, phase 7's AdamW with a warmup + cosine
+   learning rate from ``optimizer/lr.py``, 4 steps: the loss falls, K1 /
+   K2a / K2b launch in bf16 24 x 4 times each, the first loss is within
+   ``AMP_LOSS_RTOL`` of phase 7's f32 loss on the same weights and batch;
+19. the same at O2 after ``amp.decorate``: every parameter stays bf16,
+   every moment and every master copy f32;
+20. O1 with ``use_recompute=True`` (granularity "full"): the step-1 loss
+   and every gradient bit-equal to the run without, K1 launched twice a
+   layer a step (its forward runs again in the backward) and K2a / K2b
+   once, and the training step's peak memory below phase 18's;
+21. Llama-3-8B's widths at depth 4 under O1 as phase 16 (GQA K1 / K2 in
+   bf16, 4 x 4 launches each, the first loss within ``AMP_LOSS_RTOL`` of
+   phase 16's);
+22. a kernel trainer and a plain-attention trainer under O1 at depth 2
+   (GPT-3 1.3B), step-1 gradients and 3 steps' losses compared;
+23. an ``amp`` JSON line (phases 18-21), a ``kernels`` JSON line (the GPT
+   and MoE shapes), then the result line.
 """
 from __future__ import annotations
 
@@ -175,6 +191,29 @@ LLAMA_TRAIN_LAYERS = 4
 # 2024's peak for 8B), held constant
 LLAMA_ADAMW = dict(learning_rate=3e-4, beta1=0.9, beta2=0.95, epsilon=1e-5,
                    weight_decay=0.1)
+# AMP (phases 18-22). bf16 keeps 8 significant bits: unit roundoff 2^-8.
+BF16_U = 2.0 ** -8
+# first bf16 (O1) loss against the f32 run's on the same weights and batch:
+# the reference's CE runs in bf16 (parallel_cross_entropy is on neither
+# list), so four roundings happen at the loss's own scale, each within
+# 2^-8 of it: the logits, the log-sum-exp, the log-probabilities and the
+# mean; the body's bf16 roundings move single logits, which the mean over
+# 4096 tokens averages
+AMP_LOSS_RTOL = 4 * BF16_U
+# GPT-3's schedule (Brown et al. 2020, Appendix B): linear warmup, then
+# cosine decay to 10 % of the peak; here over a few steps: warmup 2 steps
+# from 10 %, the cosine over 1000
+WARMUP_STEPS, COSINE_STEPS = 2, 1000
+# depth-2 lockstep under O1, kernel vs plain attention: the loss is stored
+# in bf16 (one ulp is 2^-7 of it at most), and the kernels' outputs differ
+# from the plain versions' by up to two bf16 ulps (FLASH_TOL), far below
+# one ulp of the mean over 4096 tokens: the loss may differ in its last bit
+AMP_LOCKSTEP_LOSS_RTOL = 2 * BF16_U
+# step-1 gradients, max|err| / max|grad| per parameter: two ulps (4 u)
+# from the kernels' bf16 outputs, and one ulp (2 u) for each bf16 rounding
+# between them and a weight gradient at depth 2 (the dX product of the
+# layer above, the dW product, its cast): 10 u, rounded up to 16 u
+AMP_GRAD_RTOL = 16 * BF16_U
 
 
 def log(*a):
@@ -515,12 +554,12 @@ def engine_config(**kw):
                 seed=SEED, device=DEVICE, **kw)
 
 
-def build_model(layers):
+def build_model(layers, **kw):
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig.gpt3_1p3b(num_hidden_layers=layers,
                               hidden_dropout_prob=0.0,
-                              attention_probs_dropout_prob=0.0)
+                              attention_probs_dropout_prob=0.0, **kw)
     return GPTForCausalLM(cfg, device=DEVICE, seed=SEED)
 
 
@@ -1603,6 +1642,291 @@ def phase_moe_lockstep(gm):
         raise AssertionError(f"lockstep losses differ: rel {worst}")
 
 
+# -- phases 18-22: mixed precision ---------------------------------------------
+
+
+def reset_flash(fa):
+    """Zero the flash kernels' launch counts, all and bf16."""
+    for kind in ("fwd", "dq", "dkv"):
+        setattr(fa, f"launches_{kind}", 0)
+        setattr(fa, f"launches_{kind}_bf16", 0)
+
+
+def flash_counts(fa):
+    return {f"{kind}{tag}": getattr(fa, f"launches_{kind}{tag}")
+            for tag in ("", "_bf16") for kind in ("fwd", "dq", "dkv")}
+
+
+def amp_loss(level):
+    """``TrainStep``'s loss under ``auto_cast(level)``."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    def loss_fn(model, ids, labels):
+        with auto_cast(level=level):
+            return model(ids, labels=labels)
+
+    return loss_fn
+
+
+def lr_schedule(peak):
+    """Linear warmup from 10 % of ``peak``, then cosine decay to 10 %."""
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(
+        lr.CosineAnnealingDecay(peak, T_max=COSINE_STEPS,
+                                eta_min=peak / 10),
+        warmup_steps=WARMUP_STEPS, start_lr=peak / 10, end_lr=peak)
+
+
+def amp_trainer(model, adamw, level, schedule, decorate=False):
+    """``TrainStep`` + ``AdamW`` (+ clip) under ``auto_cast(level)``, the
+    learning rate from :func:`lr_schedule` when ``schedule``; O2 first
+    ``decorate``s the model and the optimizer. Returns (step, optimizer,
+    scheduler or None)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    sched = lr_schedule(adamw["learning_rate"]) if schedule else None
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                **dict(adamw, learning_rate=sched or adamw["learning_rate"]))
+    if decorate:
+        amp.decorate(model, opt, level="O2")
+    return TrainStep(model, amp_loss(level), opt), opt, sched
+
+
+def check_bf16_launches(launches, fwd_per_step, bwd_per_step, what):
+    """Every flash launch of the run was bf16, and as many as the layers
+    and steps give."""
+    want = {"fwd": fwd_per_step, "dq": bwd_per_step, "dkv": bwd_per_step}
+    for kind, n in want.items():
+        if not launches[kind] == launches[f"{kind}_bf16"] == n:
+            raise AssertionError(f"{what}: flash launches {launches}, want "
+                                 f"{n} bf16 {kind}")
+
+
+def run_steps(step, sched, ids, labels, fa):
+    """TRAIN_STEPS steps from a reset peak and zeroed counts: losses, step
+    ms, peak bytes and flash launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+        if sched is not None:
+            sched.step()
+    return dict(losses=losses, step_ms=step_ms,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=flash_counts(fa), tokens=ids.numel())
+
+
+def report_steps(r, smi, f32=None):
+    """Log a run's steps, beside the f32 run's where given."""
+    for i, (l, ms) in enumerate(zip(r["losses"], r["step_ms"])):
+        log(f"step {i}: loss {l:.6f}, {ms:.1f} ms, "
+            f"{r['tokens'] / ms * 1e3:.1f} tokens/s")
+    ms = float(np.mean(r["step_ms"][1:]))
+    r["mean_ms"] = ms
+    r["tokens_per_s"] = r["tokens"] / ms * 1e3
+    r["peak_gib"] = r["peak_bytes"] / 2 ** 30
+    line = (f"steps 1-{TRAIN_STEPS - 1} mean {ms:.1f} ms = "
+            f"{r['tokens_per_s']:.1f} tokens/s; peak memory "
+            f"{r['peak_gib']:.2f} GiB; launches {r['launches']}")
+    if f32 is not None:
+        f32_ms = float(np.mean(f32["step_ms"][1:]))
+        line += (f"; f32 (same weights) {f32_ms:.1f} ms = "
+                 f"{f32['tokens'] / f32_ms * 1e3:.1f} tokens/s, "
+                 f"{f32['peak_bytes'] / 2 ** 30:.2f} GiB: "
+                 f"{f32_ms / ms:.2f}x")
+    log(f"{line}  [{smi}]")
+    if not all(np.isfinite(r["losses"])):
+        raise AssertionError(f"non-finite loss {r['losses']}")
+    if not r["losses"][-1] < r["losses"][0]:
+        raise AssertionError(f"loss did not fall: {r['losses']}")
+
+
+def check_first_loss(r, f32, what):
+    rel = abs(r["losses"][0] - f32["losses"][0]) / abs(f32["losses"][0])
+    log(f"first loss bf16 {r['losses'][0]:.7f} vs f32 "
+        f"{f32['losses'][0]:.7f}: rel {rel:.2e} (rtol {AMP_LOSS_RTOL:.2e})")
+    if not rel <= AMP_LOSS_RTOL:
+        raise AssertionError(f"{what}: first bf16 loss differs from f32")
+    r["first_loss_rel"] = rel
+
+
+def phase_amp_training(fa, smi, build, adamw, label, phase, level, f32,
+                       schedule, decorate=False):
+    """TRAIN_STEPS steps under ``auto_cast(level)``: the loss falls, K1 /
+    K2a / K2b launch in bf16 once a layer a step; at O1 the first loss is
+    within AMP_LOSS_RTOL of the f32 run's (``f32``, same weights and
+    batch); at O2 every parameter is bf16 and every moment f32."""
+    t0 = time.perf_counter()
+    model = build()
+    step, opt, sched = amp_trainer(model, adamw, level, schedule, decorate)
+    ids, labels = train_batch(model.config.vocab_size)
+    log(f"# phase {phase}: {label}, {level}"
+        f"{' decorated' if decorate else ''}, lr "
+        f"{'warmup + cosine' if schedule else 'held'}: built in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    r = run_steps(step, sched, ids, labels, fa)
+    report_steps(r, smi, f32)
+    layers = model.config.num_hidden_layers
+    check_bf16_launches(r["launches"], layers * TRAIN_STEPS,
+                        layers * TRAIN_STEPS, label)
+    if level == "O1":
+        check_first_loss(r, f32, label)
+    if decorate:
+        params = {p.dtype for p in model.parameters()}
+        moments = {v.dtype for st in opt._accumulators
+                   for k, v in st.items() if k.startswith("moment")}
+        masters = {m.dtype for m in opt._master.values()}
+        log(f"parameters {params}, moments {moments}, {len(opt._master)} "
+            f"masters {masters}")
+        if params != {torch.bfloat16} or moments != {torch.float32}:
+            raise AssertionError("O2: parameters must stay bf16 and "
+                                 "moments f32")
+        if masters != {torch.float32} or \
+                len(opt._master) != len(opt._parameter_list):
+            raise AssertionError("O2: every bf16 parameter needs its f32 "
+                                 "master")
+    if sched is not None:
+        log(f"lr now {opt.get_lr():.4e} after {TRAIN_STEPS} steps")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def o1_grads(model, ids, labels):
+    """Loss and gradients (on the host) of one O1 forward and backward,
+    and the peak memory they took on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = amp_loss("O1")(model, ids, labels)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return loss.detach().cpu(), [g.cpu() for g in grads], peak
+
+
+def phase_recompute(fa, smi, o1, phase):
+    """GPT-3 1.3B at O1 with ``use_recompute`` (granularity "full"): the
+    step-1 loss and every gradient bit-equal to the run without, K1 twice
+    a layer a step and K2a / K2b once, and the training step's peak memory
+    below phase 18's (``o1``: the same model, batch and optimizer without
+    recompute). The forward + backward's peaks on fresh models, with and
+    without, are reported beside it."""
+    build = lambda rc: build_model(24, use_recompute=rc)  # noqa: E731
+    model = build(False)
+    ids, labels = train_batch(model.config.vocab_size)
+    want_loss, want, peak_without = o1_grads(model, ids, labels)
+    del model
+    torch.cuda.empty_cache()
+    model = build(True)
+    reset_flash(fa)
+    loss, got, peak_with = o1_grads(model, ids, labels)
+    one = flash_counts(fa)
+    layers = model.config.num_hidden_layers
+    check_bf16_launches(one, 2 * layers, layers, "recompute, one step")
+    unequal = [n for (n, _), u, v in zip(model.named_parameters(), got, want)
+               if not torch.equal(u, v)]
+    log(f"# phase {phase}: GPT-3 1.3B O1, use_recompute (full): step-1 "
+        f"loss {float(loss):.7f} vs {float(want_loss):.7f} without; "
+        f"{len(got) - len(unequal)}/{len(got)} gradients bit-equal; "
+        f"launches {one}; forward + backward peak memory "
+        f"{peak_with / 2 ** 30:.2f} GiB with recompute, "
+        f"{peak_without / 2 ** 30:.2f} GiB without  [{smi}]")
+    if not torch.equal(loss, want_loss) or unequal:
+        raise AssertionError(f"recompute changed the loss or gradients: "
+                             f"{unequal[:5]}")
+    del got, want
+    step, opt, sched = amp_trainer(model, ADAMW, "O1", schedule=True)
+    r = run_steps(step, sched, ids, labels, fa)
+    report_steps(r, smi, None)
+    check_bf16_launches(r["launches"], 2 * layers * TRAIN_STEPS,
+                        layers * TRAIN_STEPS, "recompute")
+    log(f"training step peak memory with recompute {r['peak_gib']:.2f} GiB,"
+        f" without {o1['peak_gib']:.2f} GiB (phase 18)")
+    if not r["peak_bytes"] < o1["peak_bytes"]:
+        raise AssertionError("recompute did not lower the training step's "
+                             "peak memory")
+    r["fwd_bwd_peak_gib"] = peak_with / 2 ** 30
+    r["fwd_bwd_peak_gib_without"] = peak_without / 2 ** 30
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_amp_lockstep(fa, build, adamw, label, phase):
+    """A kernel trainer and a plain-attention trainer under O1 from the
+    same weights: step-1 gradients, then LOCKSTEP_STEPS losses."""
+    a, b = build(), build()
+    b.load_state_dict(a.state_dict())
+    ids, labels = train_batch(a.config.vocab_size)
+    loss_fn = amp_loss("O1")
+    ga = torch.autograd.grad(loss_fn(a, ids, labels), list(a.parameters()))
+    with plain_attention(fa):
+        gb = torch.autograd.grad(loss_fn(b, ids, labels),
+                                 list(b.parameters()))
+    worst_grad, worst_name = 0.0, None
+    for (n, _), u, v in zip(a.named_parameters(), ga, gb):
+        _, rel = _rel(u, v)
+        if rel > worst_grad:
+            worst_grad, worst_name = rel, n
+    log(f"# phase {phase}: {label}, O1: step-1 gradients of all {len(ga)} "
+        f"parameters within rel {worst_grad:.2e} ({worst_name}; rtol "
+        f"{AMP_GRAD_RTOL:.2e})")
+    if not worst_grad <= AMP_GRAD_RTOL:
+        raise AssertionError(f"O1 lockstep gradient of {worst_name} "
+                             f"differs: rel {worst_grad}")
+    del ga, gb
+    step_a, _, _ = amp_trainer(a, adamw, "O1", schedule=False)
+    step_b, _, _ = amp_trainer(b, adamw, "O1", schedule=False)
+    worst = 0.0
+    for i in range(LOCKSTEP_STEPS):
+        la = float(step_a(ids, labels))
+        with plain_attention(fa):
+            lb = float(step_b(ids, labels))
+        rel = abs(la - lb) / abs(lb)
+        worst = max(worst, rel)
+        log(f"step {i}: loss kernel {la:.7f} plain {lb:.7f} rel {rel:.2e}")
+    if not worst <= AMP_LOCKSTEP_LOSS_RTOL:
+        raise AssertionError(f"O1 lockstep losses differ: rel {worst}")
+    del step_a, step_b, a, b
+    torch.cuda.empty_cache()
+
+
+def phases_amp(fa, smi, gpt_f32, llama_f32):
+    """Phases 18-22; returns their numbers for the ``amp`` JSON line."""
+    o1 = phase_amp_training(fa, smi, lambda: build_model(24), ADAMW,
+                            "GPT-3 1.3B", 18, "O1", gpt_f32, schedule=True)
+    o2 = phase_amp_training(fa, smi, lambda: build_model(24), ADAMW,
+                            "GPT-3 1.3B", 19, "O2", gpt_f32, schedule=True,
+                            decorate=True)
+    rc = phase_recompute(fa, smi, o1, 20)
+    llama = phase_amp_training(
+        fa, smi, lambda: build_llama(LLAMA_TRAIN_LAYERS), LLAMA_ADAMW,
+        f"Llama-3-8B widths at depth {LLAMA_TRAIN_LAYERS}", 21, "O1",
+        llama_f32, schedule=False)
+    phase_amp_lockstep(fa, lambda: build_model(2), ADAMW,
+                       "GPT-3 1.3B depth 2", 22)
+    keys = ("mean_ms", "tokens_per_s", "peak_gib", "launches", "losses")
+    out = {name: {k: r[k] for k in keys}
+           for name, r in (("gpt_o1", o1), ("gpt_o2", o2),
+                           ("gpt_o1_recompute", rc), ("llama_o1", llama))}
+    for name, r in (("gpt_o1", o1), ("llama_o1", llama)):
+        out[name]["first_loss_rel_f32"] = r["first_loss_rel"]
+    for k in ("fwd_bwd_peak_gib", "fwd_bwd_peak_gib_without"):
+        out["gpt_o1_recompute"][k] = rc[k]
+    out["card"] = smi
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1672,6 +1996,7 @@ def main() -> int:
     phase_train_lockstep(fa, lambda: build_llama(2), LLAMA_ADAMW,
                          "Llama-3-8B widths at depth 2", 17)
     step_ms = np.mean(llama_trained["step_ms"][1:])
+    amp_runs = phases_amp(fa, smi, trained, llama_trained)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -1729,6 +2054,7 @@ def main() -> int:
             kernel, "paddle_tpu_torch/ops/cuda/grouped_matmul.cu",
             GMM_REPLACES[kind], moe_trained["launches"][kind],
             max(r["max_abs_err"], *(gmm_err[o][0] for o in outs)), r))
+    log(json.dumps({"amp": amp_runs}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ hand-written kernel K3, CPU tensors take its plain version.
 ``scaled_dot_product_attention`` serves the model's full-sequence forward
 and backward: on CUDA tensors through the flash-attention kernels K1 / K2
 (``ops/flash_attention.py``), on CPU tensors through the dense
-``_sdpa_reference``, as on the reference's CPU.
+``_sdpa_reference``, as on the reference's CPU. It is the reference's
+``sdpa_op``, on the AMP white list: under ``auto_cast`` q / k / v (and a
+float mask) arrive in bf16, and K1 / K2 run in bf16.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import math
 
 import torch
 
+from ...framework.op import amp_op
 from ...ops import flash_attention as _fa
 from ...ops import paged_attention as _pa
 from ...ops.paged_attention import mask_fill_value
@@ -57,6 +60,7 @@ def _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training):
     return out.transpose(1, 2)  # back to [B, T, H, D]
 
 
+@amp_op("sdpa_op", "white")
 def _sdpa(q, k, v, mask, dropout_p, causal, scale, training):
     if mask is not None and mask.dtype != torch.bool:
         # mask semantics on every route: a float mask is never
@@ -74,6 +78,14 @@ def _sdpa(q, k, v, mask, dropout_p, causal, scale, training):
         # an additive mask, not a trained bias: the dS pass is skipped
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    bias=mask, bias_needs_grad=False)
+    return _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training)
+
+
+@amp_op("sdpa_op", "white")
+def _sdpa_dense(q, k, v, mask, dropout_p, causal, scale, training):
+    """The dense route on every device, for a model built with
+    ``use_flash_attention=False``; cast as ``sdpa_op`` like the flash
+    route."""
     return _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training)
 
 

@@ -1,4 +1,6 @@
-"""Linear and Embedding (counterparts of ``paddle_tpu/nn/layers/common.py``).
+"""Linear, Embedding and Dropout (counterparts of
+``paddle_tpu/nn/layers/common.py``), through the functionals of the same
+names, so ``auto_cast`` casts their inputs.
 
 ``Linear`` keeps Paddle's ``[in_features, out_features]`` weight layout
 (``y = x @ W + b``), so a reference state_dict bridges onto the port with
@@ -16,6 +18,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..functional import common as F
 
 
 def _normal(shape, std, device, generator, dtype):
@@ -43,12 +47,17 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in_features={self.in_features}, " \
                f"out_features={self.out_features}"
+
+
+def linear_direct(layer, x):
+    """``layer(x)`` for a :class:`Linear`, without the module call or the
+    AMP gateway (see ``framework.op.amp_op``'s ``raw``)."""
+    return F.linear.raw(x, layer.weight, layer.bias)
 
 
 class Embedding(nn.Module):
@@ -64,7 +73,15 @@ class Embedding(nn.Module):
             dtype))
 
     def forward(self, ids):
-        return nn.functional.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+class Dropout(nn.Dropout):
+    """``torch.nn.Dropout`` run as the reference's ``dropout``: no op at
+    all when not training or at ``p == 0``."""
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training)

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..functional.norm import rms_norm
+from ..functional.norm import _rms_norm, layer_norm, rms_norm
 
 
 class LayerNorm(nn.Module):
@@ -20,8 +20,8 @@ class LayerNorm(nn.Module):
                                              device=device, dtype=dtype))
 
     def forward(self, x):
-        return nn.functional.layer_norm(x, self.normalized_shape, self.weight,
-                                        self.bias, self.epsilon)
+        return layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                          self.epsilon)
 
     def extra_repr(self):
         return f"{self.normalized_shape[0]}, epsilon={self.epsilon}"
@@ -46,3 +46,16 @@ class RMSNorm(nn.Module):
 
     def extra_repr(self):
         return f"{self.normalized_shape}, epsilon={self.epsilon}"
+
+
+def layer_norm_direct(layer, x):
+    """``layer(x)`` for a :class:`LayerNorm`, without the module call or
+    the AMP gateway (see ``framework.op.amp_op``'s ``raw``)."""
+    return nn.functional.layer_norm(x, layer.normalized_shape, layer.weight,
+                                    layer.bias, layer.epsilon)
+
+
+def rms_norm_direct(layer, x):
+    """``layer(x)`` for an :class:`RMSNorm`, likewise."""
+    return _rms_norm.raw(x, layer.weight, layer.epsilon,
+                         x.dim() - layer.weight.dim())

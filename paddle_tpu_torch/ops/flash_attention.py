@@ -19,7 +19,9 @@ dK / dV (after the GQA group-sum) to k's / v's.
 :func:`flash_attention` runs :class:`FlashAttentionFunction`: CPU tensors
 take the plain versions, CUDA tensors launch the hand-written kernels
 (``ops/cuda/flash_attention.cu``) or raise. ``launches_fwd``,
-``launches_dq`` and ``launches_dkv`` count kernel launches.
+``launches_dq`` and ``launches_dkv`` count kernel launches, and
+``launches_fwd_bf16`` / ``launches_dq_bf16`` / ``launches_dkv_bf16`` those
+of them in bf16.
 """
 from __future__ import annotations
 
@@ -31,10 +33,13 @@ import torch
 NEG_INF = -1e30
 
 #: kernel launches of K1, K2a and K2b (plain counts; callers reset them to
-#: 0 around a run they want to attribute)
+#: 0 around a run they want to attribute), and those in bf16
 launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
+launches_fwd_bf16 = 0
+launches_dq_bf16 = 0
+launches_dkv_bf16 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -291,7 +296,7 @@ class _Launch:
 def flash_attention_forward_cuda(q, k, v, bias=None, *, causal=False,
                                  scale=None):
     """Launch K1; same contract as :func:`flash_attention_forward_plain`."""
-    global launches_fwd
+    global launches_fwd, launches_fwd_bf16
     b, tq, h, d = q.shape
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     lc = _Launch(q, k, v, bias, causal, sc)
@@ -299,13 +304,14 @@ def flash_attention_forward_cuda(q, k, v, bias=None, *, causal=False,
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     lc.call("paddle_flash_attention_fwd", o.data_ptr(), lse.data_ptr())
     launches_fwd += 1
+    launches_fwd_bf16 += q.dtype == torch.bfloat16
     return o, lse
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, bias, do, lse, delta, *,
                                 causal=False, scale=None, want_ds=False):
     """Launch K2a; same contract as :func:`flash_attention_bwd_dq_plain`."""
-    global launches_dq
+    global launches_dq, launches_dq_bf16
     b, tq, h, d = q.shape
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     lc = _Launch(q, k, v, bias, causal, sc, do, (lse, delta))
@@ -319,13 +325,14 @@ def flash_attention_bwd_dq_cuda(q, k, v, bias, do, lse, delta, *,
             lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
             dq.data_ptr(), None if ds is None else ds.data_ptr(), do=do)
     launches_dq += 1
+    launches_dq_bf16 += q.dtype == torch.bfloat16
     return dq, ds
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, *,
                                  causal=False, scale=None):
     """Launch K2b; same contract as :func:`flash_attention_bwd_dkv_plain`."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_bf16
     b, _, h, d = q.shape
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     lc = _Launch(q, k, v, bias, causal, sc, do, (lse, delta))
@@ -337,6 +344,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, *,
             lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
             dk.data_ptr(), dv.data_ptr(), do=do)
     launches_dkv += 1
+    launches_dkv_bf16 += q.dtype == torch.bfloat16
     return dk, dv
 
 

@@ -9,13 +9,23 @@ jnp that XLA fuses; no kernel is called for. State lives on each
 parameter's device, ``beta1_pow`` / ``beta2_pow`` as f32 scalars there, so
 a step never waits on the host.
 
-``multi_precision`` (Adam, AdamW) keeps the moments of a low-precision
-parameter in f32, and the Adam update, promoted to f32 by them, is taken
-on the parameter read as f32 and written back in its dtype; AdamW's decay
-stays at the parameter's dtype. That is the reference's functional path
-(its jnp promotion). There is no f32 master copy between steps: the
-reference's eager ``step`` keeps one, ``TrainStep``'s functional path
-does not.
+``multi_precision`` (Adam, AdamW) keeps, for each low-precision
+parameter, an f32 master copy and f32 moments, as the reference's eager
+``step`` does under ``_use_master_weights``: the gradient is read as f32,
+the regularizer, AdamW's decay and the Adam update act on the master, and
+the master is then written into the parameter in its dtype. An update
+below half an ulp of the parameter's dtype so still accumulates. The
+masters are not in ``state_dict`` (as the reference's); after a reload
+each is taken again from its parameter.
+
+The learning rate is a float or an ``lr.LRScheduler``; ``step`` takes it
+rounded to f32, as the reference's ``TrainStep`` passes it to the update
+(``jnp.asarray(get_lr(), jnp.float32)``), and forms AdamW's decay factor
+``1 - lr * wd`` in f32 as the reference's jnp does. (There, that f32
+factor promotes a bf16 parameter to f32 for good; the port keeps each
+parameter's dtype and its f32 master: ROADMAP.md C.8.) ``state_dict``
+holds the moments by parameter position and, with a scheduler, its state
+under ``"LR_Scheduler"``.
 
 Difference kept on purpose: like the reference's functional path, AdamW
 decays every parameter; ``apply_decay_param_fun`` is accepted and not
@@ -25,12 +35,18 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
+
+from . import lr
+from .lr import LRScheduler
 
 
 class ClipGradByGlobalNorm:
     """``g * clip / max(gnorm, clip)`` with the global norm taken in f32
-    over every gradient present."""
+    over every gradient present. The gradients are scaled in place (each
+    rounded to its dtype, as the reference's ``astype``), so no second copy
+    of them is held during the step; the pairs are returned."""
 
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
@@ -42,8 +58,10 @@ class ClipGradByGlobalNorm:
             return params_grads
         gnorm = torch.sqrt(torch.stack(sq).sum())
         scale = self.clip_norm / torch.clamp(gnorm, min=self.clip_norm)
-        return [(p, None if g is None else (g * scale).to(g.dtype))
-                for p, g in params_grads]
+        for _, g in params_grads:
+            if g is not None:
+                g.mul_(scale)
+        return params_grads
 
 
 class L2Decay:
@@ -75,9 +93,21 @@ class Optimizer:
             self._regularizer = weight_decay
         self._accumulators: List[Optional[dict]] = (
             [None] * len(self._parameter_list))
+        self._multi_precision = False
+        self._master = {}  # parameter position -> its f32 master
 
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
         return float(self._learning_rate)
+
+    def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("set_lr cannot be used with an LRScheduler")
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
 
     def _init_state(self, p) -> dict:
         return {}
@@ -92,20 +122,50 @@ class Optimizer:
               for p in self._parameter_list]
         if self._grad_clip is not None:
             pg = self._grad_clip(pg)
-        lr = self.get_lr()
+        lr = float(np.float32(self.get_lr()))
         for i, (p, g) in enumerate(pg):
             if g is None:
                 continue
             if self._accumulators[i] is None:
                 self._accumulators[i] = self._init_state(p)
-            g = g.to(p.dtype)
+            w = p
+            if self._multi_precision and p.dtype != torch.float32:
+                w = self._master.get(i)
+                if w is None:
+                    w = self._master[i] = p.float()
+            g = g.to(w.dtype)
             if self._regularizer is not None:
-                g = self._regularizer(p, g)
-            self._rule(p, g, self._accumulators[i], lr)
+                g = self._regularizer(w, g)
+            self._rule(w, g, self._accumulators[i], lr)
+            if w is not p:
+                p.copy_(w)
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list:
             p.grad = None
+
+    def state_dict(self):
+        """``{"param_{i}.{state}": tensor}`` (copies) for every parameter
+        that has state, and the scheduler's state under ``"LR_Scheduler"``."""
+        out = {f"param_{i}.{k}": v.clone()
+               for i, st in enumerate(self._accumulators) if st is not None
+               for k, v in st.items()}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        return out
+
+    def set_state_dict(self, state):
+        self._master.clear()
+        sched = state.get("LR_Scheduler")
+        if sched and isinstance(self._learning_rate, LRScheduler):
+            self._learning_rate.set_state_dict(sched)
+        for i, p in enumerate(self._parameter_list):
+            st = self._init_state(p)
+            keys = [k for k in st if f"param_{i}.{k}" in state]
+            for k in keys:
+                st[k] = state[f"param_{i}.{k}"].to(st[k].device).clone()
+            if keys:
+                self._accumulators[i] = st
 
 
 class Adam(Optimizer):
@@ -126,16 +186,8 @@ class Adam(Optimizer):
                 "beta1_pow": one, "beta2_pow": one.clone()}
 
     def _rule(self, p, g, st, lr):
-        if not self._multi_precision or p.dtype == torch.float32:
-            self._adam(p, g, st, lr)
-            return
-        w = p.float()
-        self._adam(w, g, st, lr)
-        p.copy_(w)
-
-    def _adam(self, p, g, st, lr):
-        """The Adam update of ``p`` in place; ``g`` at the parameter's
-        dtype, each term promoted as the reference's jnp promotes it."""
+        """The Adam update of ``p`` in place; ``g`` at ``p``'s dtype, each
+        term promoted as the reference's jnp promotes it."""
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         st["beta1_pow"].mul_(b1)
         st["beta2_pow"].mul_(b2)
@@ -160,9 +212,11 @@ class AdamW(Adam):
                     if isinstance(weight_decay, (int, float)) else 0.01)
 
     def _rule(self, p, g, st, lr):
-        if self._wd:  # at the parameter's dtype, as the reference decays
-            p.mul_(1.0 - lr * self._wd)
+        if self._wd:  # the f32 factor; p (or its master) keeps its dtype
+            p.mul_(float(np.float32(1.0)
+                         - np.float32(lr) * np.float32(self._wd)))
         super()._rule(p, g, st, lr)
 
 
-__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "L2Decay", "Optimizer"]
+__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "L2Decay", "Optimizer",
+           "lr"]

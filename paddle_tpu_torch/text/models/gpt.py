@@ -11,6 +11,12 @@ The model is built on the device it is given, with weights drawn from an
 explicit ``torch.Generator``. Training calls ``model(ids, labels=...)``,
 which returns ``GPTPretrainingCriterion``'s loss; serving plugs into
 ``inference.engine.DecodeEngine`` through :meth:`GPTForCausalLM.decode_adapter`.
+
+Each op the reference casts under ``auto_cast`` is called through the
+port's op of the same name (``tensor.add``, ``F.linear``, ...), so AMP O1
+and O2 cast where the reference casts: at O1 the residual stream stays
+f32 and the logits and the loss are bf16. ``use_recompute`` recomputes
+each decoder layer in the backward (``distributed/fleet/utils``).
 """
 from __future__ import annotations
 
@@ -20,17 +26,31 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import tensor as T
 from ...device import resolve_device
+from ...distributed.fleet.utils import recompute
 from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
-from ...nn.functional.loss import _parallel_softmax_ce
-from ...nn.layers.common import Embedding, Linear
-from ...nn.layers.norm import LayerNorm
+from ...nn.functional.attention import _sdpa_dense
+from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
+from ...nn.layers.common import Dropout, Embedding, Linear, linear_direct
+from ...nn.layers.norm import LayerNorm, layer_norm_direct
+
+#: reference flags whose routes the port does not have yet, and the
+#: ROADMAP.md item that ports each
+_UNPORTED_FLAGS = {
+    "sequence_parallel": "§A.7 (distributed)",
+    "fold_layers": "§A.3 (one program over layer-stacked parameters)",
+}
 
 
 class GPTConfig:
-    """Static model hyperparameters (mirrors the reference GPTConfig
-    fields that the port implements)."""
+    """Static model hyperparameters (the reference's ``GPTConfig``).
+
+    ``use_flash_attention`` (default) takes the flash kernels on a CUDA
+    tensor; False takes the dense attention (``_sdpa_reference``) on every
+    device. ``sequence_parallel`` and ``fold_layers`` raise
+    ``NotImplementedError`` when set: the port has no such route yet."""
 
     def __init__(
         self,
@@ -44,9 +64,21 @@ class GPTConfig:
         hidden_dropout_prob: float = 0.1,
         attention_probs_dropout_prob: float = 0.1,
         initializer_range: float = 0.02,
+        use_recompute: bool = False,
+        use_flash_attention: bool = True,
+        sequence_parallel: bool = False,
         tie_word_embeddings: bool = True,
         layer_norm_epsilon: float = 1e-5,
+        fold_layers: bool = False,
+        recompute_granularity: str = "full",
     ):
+        flags = dict(sequence_parallel=sequence_parallel,
+                     fold_layers=fold_layers)
+        for name, on in flags.items():
+            if on:
+                raise NotImplementedError(
+                    f"GPTConfig({name}=True): not ported yet, see "
+                    f"ROADMAP.md {_UNPORTED_FLAGS[name]}")
         if hidden_act != "gelu":
             raise ValueError(f"hidden_act {hidden_act!r} not supported; "
                              "the port implements exact 'gelu'")
@@ -60,8 +92,15 @@ class GPTConfig:
         self.hidden_dropout_prob = hidden_dropout_prob
         self.attention_probs_dropout_prob = attention_probs_dropout_prob
         self.initializer_range = initializer_range
+        self.use_recompute = use_recompute
+        # "full" keeps each layer's input only; "full_attn" / "core_attn"
+        # keep the matmul outputs too (the reference's dots_saveable)
+        self.recompute_granularity = recompute_granularity
+        self.use_flash_attention = use_flash_attention
+        self.sequence_parallel = sequence_parallel
         self.tie_word_embeddings = tie_word_embeddings
         self.layer_norm_epsilon = layer_norm_epsilon
+        self.fold_layers = fold_layers
 
     # canonical sizes (PaddleNLP gpt configs / GPT-3 table)
     @staticmethod
@@ -94,14 +133,14 @@ class GPTEmbeddings(nn.Module):
                                          config.hidden_size, **kw)
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)
-        emb = (self.word_embeddings(input_ids)
-               + self.position_embeddings(position_ids))
+        emb = T.add(self.word_embeddings(input_ids),
+                    self.position_embeddings(position_ids))
         return self.dropout(emb)
 
 
@@ -116,21 +155,27 @@ class GPTAttention(nn.Module):
         self.qkv_proj = Linear(h, 3 * h, **kw)
         self.out_proj = Linear(h, h, **kw)
         self.dropout_p = config.attention_probs_dropout_prob
+        self.use_flash = config.use_flash_attention
 
     def qkv(self, x):
         """Projection + head-major split, each ``[b, t, H, d]``."""
         b, t, _ = x.shape
-        qkv = self.qkv_proj(x).reshape(b, t, self.num_heads, 3,
-                                       self.head_dim)
-        return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        qkv = T.reshape(self.qkv_proj(x),
+                        (b, t, self.num_heads, 3, self.head_dim))
+        return tuple(T.getitem(qkv, (Ellipsis, i, slice(None)))
+                     for i in range(3))
 
     def forward(self, x):
         b, t, h = x.shape
         q, k, v = self.qkv(x)
-        out = F.scaled_dot_product_attention(
-            q, k, v, dropout_p=self.dropout_p, is_causal=True,
-            training=self.training)
-        return self.out_proj(out.reshape(b, t, h))
+        if self.use_flash:
+            out = F.scaled_dot_product_attention(
+                q, k, v, dropout_p=self.dropout_p, is_causal=True,
+                training=self.training)
+        else:
+            p = self.dropout_p if self.training else 0.0
+            out = _sdpa_dense(q, k, v, None, p, True, None, self.training)
+        return self.out_proj(T.reshape(out, (b, t, h)))
 
 
 class GPTMLP(nn.Module):
@@ -142,8 +187,7 @@ class GPTMLP(nn.Module):
                              **kw)
 
     def forward(self, x):
-        return self.fc_out(
-            nn.functional.gelu(self.fc_in(x), approximate="none"))
+        return self.fc_out(F.gelu(self.fc_in(x)))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -157,11 +201,19 @@ class GPTDecoderLayer(nn.Module):
         self.attn = GPTAttention(config, **kw)
         self.ln_2 = LayerNorm(config.hidden_size, eps, device=dev, dtype=dt)
         self.mlp = GPTMLP(config, **kw)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
+        self._use_recompute = config.use_recompute
+        self._recompute_granularity = config.recompute_granularity
+
+    def _block(self, x):
+        x = T.add(x, self.dropout(self.attn(self.ln_1(x))))
+        return T.add(x, self.dropout(self.mlp(self.ln_2(x))))
 
     def forward(self, x):
-        x = x + self.dropout(self.attn(self.ln_1(x)))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        if self._use_recompute:
+            return recompute(self._block, x,
+                             granularity=self._recompute_granularity)
+        return self._block(x)
 
 
 class GPTModel(nn.Module):
@@ -196,9 +248,8 @@ class GPTPretrainingCriterion(nn.Module):
     def forward(self, logits, labels, loss_mask=None):
         loss = _parallel_softmax_ce(logits, labels, self.ignore_index)
         if loss_mask is not None:
-            lm = loss_mask.reshape(loss.shape).to(loss.dtype)
-            return (loss * lm).sum() / lm.sum().clamp(min=1.0)
-        return loss.mean()
+            return _masked_mean(loss, loss_mask)
+        return T.mean(loss)
 
 
 class GPTForCausalLM(nn.Module):
@@ -225,7 +276,8 @@ class GPTForCausalLM(nn.Module):
 
     def _logits(self, hidden):
         if self.config.tie_word_embeddings:
-            return hidden @ self.gpt.embeddings.word_embeddings.weight.t()
+            w = self.gpt.embeddings.word_embeddings.weight
+            return F.linear(hidden, T.t(w))
         return self.lm_head(hidden)
 
     def forward(self, input_ids, position_ids=None, labels=None,
@@ -252,7 +304,12 @@ GPTForPretraining = GPTForCausalLM
 
 class _GPTDecodeAdapter:
     """Per-layer hooks the serving engine drives (the engine owns the
-    residual stream and the paged KV pool)."""
+    residual stream and the paged KV pool).
+
+    The hooks call the layers' ops directly, past the module calls and
+    the AMP gateway: serving runs outside ``auto_cast`` (a decorated model
+    is not served yet, ROADMAP.md A.2c), and its steps are host-bound, so
+    each Python frame shows in the decode step (PERF.md section 6)."""
 
     def __init__(self, lm: GPTForCausalLM):
         cfg = lm.config
@@ -274,22 +331,31 @@ class _GPTDecodeAdapter:
             input_ids, positions.clamp(max=self.max_positions - 1))
 
     def pre_attn(self, layer, x):
-        return self.blocks[layer].ln_1(x)
+        return layer_norm_direct(self.blocks[layer].ln_1, x)
 
     def qkv(self, layer, h, positions):
-        return self.blocks[layer].attn.qkv(h)
+        attn = self.blocks[layer].attn
+        b, t, _ = h.shape
+        qkv = linear_direct(attn.qkv_proj, h).reshape(
+            b, t, attn.num_heads, 3, attn.head_dim)
+        return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
     def attn_out(self, layer, o):
         attn = self.blocks[layer].attn
         b, t = o.shape[0], o.shape[1]
-        return attn.out_proj(o.reshape(b, t, attn.num_heads * attn.head_dim))
+        return linear_direct(
+            attn.out_proj, o.reshape(b, t, attn.num_heads * attn.head_dim))
 
     def mlp(self, layer, x):
         blk = self.blocks[layer]
-        return blk.mlp(blk.ln_2(x))
+        h = linear_direct(blk.mlp.fc_in, layer_norm_direct(blk.ln_2, x))
+        return linear_direct(blk.mlp.fc_out, F.gelu.raw(h))
 
     def final_norm(self, x):
-        return self.lm.gpt.final_layernorm(x)
+        return layer_norm_direct(self.lm.gpt.final_layernorm, x)
 
     def logits(self, hidden):
-        return self.lm._logits(hidden)
+        if self.lm.config.tie_word_embeddings:
+            w = self.lm.gpt.embeddings.word_embeddings.weight
+            return F.linear.raw(hidden, w.t())
+        return linear_direct(self.lm.lm_head, hidden)

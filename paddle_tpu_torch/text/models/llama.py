@@ -18,6 +18,12 @@ their plain versions on CPU tensors); otherwise
 Serving plugs into ``inference.engine.DecodeEngine`` through
 :meth:`LlamaForCausalLM.decode_adapter`, whose pool holds the kv heads
 only (the paged kernel K3 folds each group of query heads into its rows).
+
+As in ``gpt.py``, the ops the reference casts under ``auto_cast`` go
+through the port's ops of the same names: at O1 RMSNorm runs in f32, RoPE
+rotates bf16 q / k by the f32 tables, and the flash kernels take bf16; at
+O2 the tables are cast to bf16 too. ``use_recompute`` recomputes each
+decoder layer in the backward.
 """
 from __future__ import annotations
 
@@ -27,19 +33,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import tensor as T
 from ...device import resolve_device
+from ...distributed.fleet.utils import recompute
 from ...framework.io_state import load_numpy_state
+from ...framework.op import amp_op
 from ...nn import functional as F
 from ...nn import initializer as I
-from ...nn.functional.loss import _parallel_softmax_ce
-from ...nn.layers.common import Embedding, Linear
-from ...nn.layers.norm import RMSNorm
+from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
+from ...nn.layers.common import Embedding, Linear, linear_direct
+from ...nn.layers.norm import RMSNorm, rms_norm_direct
 from ...ops.flash_attention import flash_attention
 
 #: reference flags whose routes the port does not have yet, and the
 #: ROADMAP.md item that ports each
 _UNPORTED_FLAGS = {
-    "use_recompute": "§A.3 (recompute)",
     "fold_layers": "§A.3 (one program over layer-stacked parameters)",
     "sequence_parallel": "§A.7 (distributed)",
 }
@@ -48,7 +56,7 @@ _UNPORTED_FLAGS = {
 class LlamaConfig:
     """Static model hyperparameters (the reference's ``LlamaConfig``).
 
-    ``use_recompute``, ``fold_layers`` and ``sequence_parallel`` raise
+    ``fold_layers`` and ``sequence_parallel`` raise
     ``NotImplementedError`` when set: the port has no such route yet."""
 
     def __init__(
@@ -70,7 +78,7 @@ class LlamaConfig:
         fold_layers: bool = False,
         recompute_granularity: str = "full",
     ):
-        flags = dict(use_recompute=use_recompute, fold_layers=fold_layers,
+        flags = dict(fold_layers=fold_layers,
                      sequence_parallel=sequence_parallel)
         for name, on in flags.items():
             if on:
@@ -117,13 +125,16 @@ def _rotate(x, c, s):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+@amp_op("apply_rope")
 def _apply_rope(x, cos, sin):
     """x ``[B, T, H, D]`` rotated at positions ``0 .. T-1``; cos / sin
-    ``[Tmax, D/2]``."""
+    ``[Tmax, D/2]``. The rotation promotes bf16 x with f32 tables to f32
+    (O1) and is cast back to x's dtype."""
     t = x.shape[1]
     return _rotate(x, cos[:t][None, :, None, :], sin[:t][None, :, None, :])
 
 
+@amp_op("rope_positions")
 def _apply_rope_positions(x, cos, sin, positions):
     """x ``[B, T, H, D]`` rotated at explicit absolute ``positions``:
     ``[T]`` (shared by the batch) or ``[B, T]`` (per row), gathered from
@@ -134,6 +145,12 @@ def _apply_rope_positions(x, cos, sin, positions):
     if pos.dim() == 1:
         c, s = c[None], s[None]
     return _rotate(x, c, s)
+
+
+@amp_op("gqa_flash_attention")
+def _gqa_attention(q, k, v):
+    """Causal flash attention over k / v at their kv heads (K1 / K2)."""
+    return flash_attention(q, k, v, causal=True)
 
 
 class LlamaAttention(nn.Module):
@@ -161,9 +178,11 @@ class LlamaAttention(nn.Module):
         """Projections before RoPE: q ``[b, t, H, d]``, k / v
         ``[b, t, Hkv, d]``."""
         b, t, _ = x.shape
-        q = self.q_proj(x).reshape(b, t, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, t, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, t, self.num_kv_heads, self.head_dim)
+        q = T.reshape(self.q_proj(x), (b, t, self.num_heads, self.head_dim))
+        k = T.reshape(self.k_proj(x),
+                      (b, t, self.num_kv_heads, self.head_dim))
+        v = T.reshape(self.v_proj(x),
+                      (b, t, self.num_kv_heads, self.head_dim))
         return q, k, v
 
     def forward(self, x):
@@ -172,14 +191,14 @@ class LlamaAttention(nn.Module):
         q = _apply_rope(q, self.rope_cos, self.rope_sin)
         k = _apply_rope(k, self.rope_cos, self.rope_sin)
         if self.use_flash:
-            o = flash_attention(q, k, v, causal=True)
+            o = _gqa_attention(q, k, v)
         else:
             group = self.num_heads // self.num_kv_heads
             o = F.scaled_dot_product_attention(
-                q, k.repeat_interleave(group, dim=2),
-                v.repeat_interleave(group, dim=2), is_causal=True,
+                q, T.repeat_interleave(k, group, axis=2),
+                T.repeat_interleave(v, group, axis=2), is_causal=True,
                 training=self.training)
-        return self.o_proj(o.reshape(b, t, h))
+        return self.o_proj(T.reshape(o, (b, t, h)))
 
 
 class LlamaMLP(nn.Module):
@@ -194,7 +213,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = Linear(i, h, **lin)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(T.multiply(F.silu(self.gate_proj(x)),
+                                         self.up_proj(x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -208,10 +228,18 @@ class LlamaDecoderLayer(nn.Module):
         self.self_attn = LlamaAttention(config, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, **norm)
         self.mlp = LlamaMLP(config, **kw)
+        self._use_recompute = config.use_recompute
+        self._recompute_granularity = config.recompute_granularity
+
+    def _block(self, x):
+        x = T.add(x, self.self_attn(self.input_layernorm(x)))
+        return T.add(x, self.mlp(self.post_attention_layernorm(x)))
 
     def forward(self, x):
-        x = x + self.self_attn(self.input_layernorm(x))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        if self._use_recompute:
+            return recompute(self._block, x,
+                             granularity=self._recompute_granularity)
+        return self._block(x)
 
 
 class LlamaModel(nn.Module):
@@ -263,7 +291,7 @@ class LlamaForCausalLM(nn.Module):
 
     def _logits(self, hidden):
         if self.config.tie_word_embeddings:
-            return hidden @ self.llama.embed_tokens.weight.t()
+            return F.linear(hidden, T.t(self.llama.embed_tokens.weight))
         return self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None, loss_mask=None):
@@ -276,11 +304,10 @@ class LlamaForCausalLM(nn.Module):
             return logits
         loss = _parallel_softmax_ce(logits, labels, self.ignore_index)
         if loss_mask is not None:
-            lm = loss_mask.reshape(loss.shape).to(loss.dtype)
-            return (loss * lm).sum() / lm.sum().clamp(min=1.0)
+            return _masked_mean(loss, loss_mask)
         valid = (labels.reshape(loss.shape) != self.ignore_index).to(
             loss.dtype)
-        return loss.sum() / valid.sum().clamp(min=1.0)
+        return T.divide(T.sum(loss), T.clip(T.sum(valid), min=1.0))
 
     def load_numpy_state(self, np_state: Mapping[str, np.ndarray]):
         """Load the reference's state (parameters and RoPE tables), given
@@ -293,9 +320,9 @@ class LlamaForCausalLM(nn.Module):
 
 class _LlamaDecodeAdapter:
     """Per-layer hooks the serving engine drives (see ``_GPTDecodeAdapter``
-    for the contract). RoPE is applied inside :meth:`qkv` at the engine's
-    explicit positions, so prefill buckets and per-slot decode share one
-    code path."""
+    for the contract, and for why the hooks call the ops directly). RoPE
+    is applied inside :meth:`qkv` at the engine's explicit positions, so
+    prefill buckets and per-slot decode share one code path."""
 
     def __init__(self, lm: LlamaForCausalLM):
         cfg = lm.config
@@ -314,7 +341,7 @@ class _LlamaDecodeAdapter:
         return self.lm.llama.embed_tokens(input_ids)
 
     def pre_attn(self, layer, x):
-        return self.blocks[layer].input_layernorm(x)
+        return rms_norm_direct(self.blocks[layer].input_layernorm, x)
 
     def qkv(self, layer, h, positions):
         """q / k rotated at ``positions`` (``[T]`` or ``[B, T]``).
@@ -322,23 +349,36 @@ class _LlamaDecodeAdapter:
         clamped: the reference fills them with NaN, and an out-of-range
         gather on a CUDA tensor is a device-side assert."""
         attn = self.blocks[layer].self_attn
-        q, k, v = attn.qkv(h)
+        b, t, _ = h.shape
+        hq, hkv, d = attn.num_heads, attn.num_kv_heads, attn.head_dim
+        q = linear_direct(attn.q_proj, h).reshape(b, t, hq, d)
+        k = linear_direct(attn.k_proj, h).reshape(b, t, hkv, d)
+        v = linear_direct(attn.v_proj, h).reshape(b, t, hkv, d)
         pos = positions.clamp(max=self.max_positions - 1)
-        q = _apply_rope_positions(q, attn.rope_cos, attn.rope_sin, pos)
-        k = _apply_rope_positions(k, attn.rope_cos, attn.rope_sin, pos)
+        rope = _apply_rope_positions.raw
+        q = rope(q, attn.rope_cos, attn.rope_sin, pos)
+        k = rope(k, attn.rope_cos, attn.rope_sin, pos)
         return q, k, v
 
     def attn_out(self, layer, o):
         attn = self.blocks[layer].self_attn
         b, t = o.shape[0], o.shape[1]
-        return attn.o_proj(o.reshape(b, t, attn.num_heads * attn.head_dim))
+        return linear_direct(
+            attn.o_proj, o.reshape(b, t, attn.num_heads * attn.head_dim))
 
     def mlp(self, layer, x):
         blk = self.blocks[layer]
-        return blk.mlp(blk.post_attention_layernorm(x))
+        mlp = blk.mlp
+        h = rms_norm_direct(blk.post_attention_layernorm, x)
+        return linear_direct(mlp.down_proj,
+                             F.silu.raw(linear_direct(mlp.gate_proj, h))
+                             * linear_direct(mlp.up_proj, h))
 
     def final_norm(self, x):
-        return self.lm.llama.norm(x)
+        return rms_norm_direct(self.lm.llama.norm, x)
 
     def logits(self, hidden):
-        return self.lm._logits(hidden)
+        if self.lm.config.tie_word_embeddings:
+            w = self.lm.llama.embed_tokens.weight
+            return F.linear.raw(hidden, w.t())
+        return linear_direct(self.lm.lm_head, hidden)

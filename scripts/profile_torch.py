@@ -7,6 +7,8 @@
     python3 scripts/profile_torch.py moe      [--out profile_out] [--steps 2]
     python3 scripts/profile_torch.py llama_serving  [--out profile_out]
     python3 scripts/profile_torch.py llama_training [--out profile_out]
+    python3 scripts/profile_torch.py training_amp [--out profile_out]
+    python3 scripts/profile_torch.py llama_training_amp [--out profile_out]
 
 ``serving`` drives the configuration and traffic of ``chip_smoke.py``
 phase 4 (GPT-3 1.3B, 8 greedy requests, bf16 paged KV, prefix sharing,
@@ -18,6 +20,9 @@ requests under the profiler. ``training`` drives phase 7 (GPT-3 1.3B,
 + ``AdamW``, one 2 x 2048-token batch) the same way. ``llama_serving``
 and ``llama_training`` do the same for phases 13 and 16: Llama-3-8B at
 full width, 32 layers served, 4 layers trained (Touvron et al. AdamW).
+``training_amp`` and ``llama_training_amp`` drive phases 18 and 21: the
+same trainers under ``auto_cast(level="O1")`` (GPT with phase 18's warmup
++ cosine learning rate).
 
 Prints one JSON object: wall time of the profiled run, device busy time
 (sum of kernel time; the rest of the wall is the device's idle share),
@@ -56,7 +61,9 @@ def family(name: str) -> str:
     for frag, fam in OWN_KERNELS.items():
         if frag in n:
             return fam
-    if "gemm" in n or "gemv" in n or "sgemm" in n or "cutlass" in n:
+    # cuBLAS's Hopper kernels are named nvjet_* or *xmma*, CUTLASS's
+    # cutlass_*
+    if any(f in n for f in ("gemm", "gemv", "cutlass", "nvjet", "xmma")):
         return "matmul"
     if "index" in n or "gather" in n or "scatter" in n or "copy" in n:
         return "index_copy"
@@ -116,6 +123,13 @@ def training(steps, build, adamw):
     return profiled_steps(step, (ids, labels), steps, ids.numel())
 
 
+def training_amp(steps, build, adamw, schedule):
+    model = build()
+    step, _, _ = chip_smoke.amp_trainer(model, adamw, "O1", schedule)
+    ids, labels = chip_smoke.train_batch(model.config.vocab_size)
+    return profiled_steps(step, (ids, labels), steps, ids.numel())
+
+
 def moe(steps):
     model = chip_smoke.build_moe(chip_smoke.MOE_DIM, chip_smoke.MOE_HIDDEN)
     step, _ = chip_smoke.moe_trainer(model)
@@ -126,11 +140,12 @@ def moe(steps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", choices=("serving", "training", "moe",
-                                     "llama_serving", "llama_training"))
+                                     "llama_serving", "llama_training",
+                                     "training_amp", "llama_training_amp"))
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--steps", type=int, default=2,
-                    help="profiled training steps (training, moe, "
-                         "llama_training)")
+                    help="profiled training steps (the training paths "
+                         "and moe)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -153,6 +168,13 @@ def main() -> int:
         prof, wall, n, extra = training(
             args.steps, lambda: llama(chip_smoke.LLAMA_TRAIN_LAYERS),
             chip_smoke.LLAMA_ADAMW)
+    elif args.path == "training_amp":
+        prof, wall, n, extra = training_amp(args.steps, gpt,
+                                            chip_smoke.ADAMW, True)
+    elif args.path == "llama_training_amp":
+        prof, wall, n, extra = training_amp(
+            args.steps, lambda: llama(chip_smoke.LLAMA_TRAIN_LAYERS),
+            chip_smoke.LLAMA_ADAMW, False)
     else:
         prof, wall, n, extra = moe(args.steps)
 

@@ -363,8 +363,7 @@ def test_config_matches_reference():
         tllama.LlamaConfig(num_attention_heads=12, num_key_value_heads=5)
 
 
-@pytest.mark.parametrize("flag, item", [("use_recompute", "A.3"),
-                                        ("fold_layers", "A.3"),
+@pytest.mark.parametrize("flag, item", [("fold_layers", "A.3"),
                                         ("sequence_parallel", "A.7")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=rf"{flag}.*{item}"):
