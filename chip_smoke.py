@@ -92,8 +92,34 @@ Phases, each fatal on failure (non-zero exit, no final line):
    phase 16's);
 22. a kernel trainer and a plain-attention trainer under O1 at depth 2
    (GPT-3 1.3B), step-1 gradients and 3 steps' losses compared;
-23. an ``amp`` JSON line (phases 18-21), a ``kernels`` JSON line (the GPT
-   and MoE shapes), then the result line.
+23. ERNIE-3.0-base (12 layers, hidden 768, vocab 40000, dropouts 0.1;
+   random weights from a seed) fine-tuned as a sentence-pair classifier
+   through ``paddle.Model``: ``fit`` over an ``io.DataLoader`` (batch 32,
+   max_seq_length 128, real lengths 16-128, shuffled, 2 worker processes)
+   with AdamW under a warmup + linear decay schedule for 32 steps, then
+   ``evaluate`` and ``predict`` over 8 batches: the loss falls (mean of the
+   last 4 steps below the first 4), fit launches no flash kernel
+   (attention dropout 0.1 takes the dense route, as in the reference),
+   evaluate launches K1 12 x 8 times, each non-causal with the [32, 1, 1,
+   128] padding bias, accuracy in [0, 1], and evaluate's logits match the
+   plain attention's on the same weights;
+24. ERNIE at depth 2 with dropouts 0, a kernel model and a plain-attention
+   model in lockstep through ``Model.train_batch`` for 3 steps: the losses
+   agree, K1 / K2a / K2b run 2 x 3 times each, non-causal, with the
+   padding bias and no dS;
+25. BERT-base masked-LM pretraining (Devlin et al. 2019 widths, attention
+   dropout 0, hidden dropout 0.1) at 8 x 512 (real lengths 128-512, 15 %
+   of the real tokens labelled) through ``TrainStep`` + AdamW for 4 steps
+   in f32 and 4 under ``auto_cast`` O1: the loss falls, 12 x 4 launches of
+   each kernel with the padding bias (bf16 under O1), the first O1 loss
+   within ``AMP_LOSS_RTOL`` of the f32 one;
+26. K1, K2a + K2b at the encoders' shapes (ERNIE B=32 T=128, BERT B=8
+   T=512; H=12, D=64, non-causal, padding bias; f32 and bf16), each
+   checked against its plain version and timed beside it, SDPA under the
+   same additive mask and the bound;
+27. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+   23-26), a ``kernels`` JSON line (the GPT, encoder and MoE shapes), then
+   the result line.
 """
 from __future__ import annotations
 
@@ -788,7 +814,9 @@ FLASH_REPLACES = {
 }
 
 # (causal, Tq, Tk, H, Hkv, D, dtype, bias code, mask code, strided): bias /
-# mask dims B, H, Q(Tq), K(Tk) or 1
+# mask dims B, H, Q(Tq), K(Tk) or 1; mask "pad" is the encoders' additive
+# padding mask, [B, 1, 1, Tk] of 0 on each row's kept keys and -1e9 past
+# them, taking no gradient
 FLASH_CASES = (
     (True, 300, 300, 4, 4, 128, torch.float32, None, None, False),
     (True, 200, 333, 4, 2, 64, torch.float32, "B11K", None, False),
@@ -803,6 +831,8 @@ FLASH_CASES = (
     (True, 1, 77, 4, 2, 64, torch.float32, "1H1K", None, False),
     (False, 17, 3, 2, 2, 128, torch.float32, None, None, False),
     (True, 65, 65, 16, 16, 128, torch.bfloat16, "11QK", None, False),
+    (False, 128, 128, 12, 12, 64, torch.float32, None, "pad", True),
+    (False, 200, 200, 12, 12, 64, torch.bfloat16, None, "pad", True),
 )
 
 
@@ -875,6 +905,15 @@ def compare_flash(fa, q, k, v, do, bias, causal, bias_grad, worst, tag):
     log(f"{tag}: rel err " + ", ".join(line))
 
 
+def padding_bias(gen, b, tk):
+    """The encoders' additive mask ``[b, 1, 1, tk]`` f32: row 0 keeps every
+    key, the others a length drawn from ``gen``; -1e9 past the length."""
+    lengths = torch.randint(1, tk + 1, (b,), generator=gen, device=DEVICE)
+    lengths[0] = tk
+    kept = torch.arange(tk, device=DEVICE)[None, :] < lengths[:, None]
+    return torch.where(kept, 0.0, -1e9)[:, None, None, :]
+
+
 def flash_case(fa, gen, case):
     """The inputs of one FLASH_CASES entry (batch 2) on the card: q, k, v,
     dO, the bias (or bool mask as a NEG_INF bias, or None), causal, whether
@@ -886,7 +925,9 @@ def flash_case(fa, gen, case):
     if bcode is not None:
         bias = torch.randn(_dims(bcode, b, h, tq, tk), generator=gen,
                            device=DEVICE)
-    if mcode is not None:
+    if mcode == "pad":
+        bias = padding_bias(gen, b, tk)
+    elif mcode is not None:
         keep = torch.rand(_dims(mcode, b, h, tq, tk), generator=gen,
                           device=DEVICE) > 0.3
         keep[0, 0, 7] = False  # a row that sees no key
@@ -911,22 +952,29 @@ def phase_flash_sweep(fa):
     return worst
 
 
-def flash_bound(kind, q, k, causal, peaks):
+def flash_bound(kind, q, k, causal, peaks, bias=None):
     """:func:`bounds`: each input read once, each output written once; QK,
     dP, P.V, dQ, dK, dV as 2 * D FLOPs per visible (query, key) pair, of
-    the inputs' type."""
+    the inputs' type. A bias (f32, as the kernels read it) adds its bytes;
+    a padding bias ``[B|1, 1, 1, Tk]`` hides its -1e9 keys, and the pairs
+    counted are the kept ones, the work these inputs need."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     qi = np.arange(tq)
     pairs = (int(np.clip(qi + tk - tq + 1, 0, tk).sum()) if causal
-             else tq * tk)
+             else tq * tk) * b
+    if bias is not None and not causal and bias.shape[1:3] == (1, 1):
+        kept = int((bias[:, 0, 0, :] > -1e8).sum()) * (b // bias.shape[0])
+        pairs = tq * kept
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
-    flops = 2 * d * products * pairs * b * h
+    flops = 2 * d * products * pairs * h
     elt = q.element_size()
     qb, kvb, rows = b * tq * h * d * elt, b * tk * hkv * d * elt, b * h * tq * 4
     nbytes = {"fwd": 2 * qb + 2 * kvb + rows,
               "dq": 3 * qb + 2 * kvb + 2 * rows,
               "dkv": 2 * qb + 2 * kvb + 2 * rows + 2 * b * tk * h * d * 4}[kind]
+    if bias is not None:
+        nbytes += bias.numel() * 4
     return bounds(nbytes, flops,
                   "f32" if q.dtype == torch.float32 else "bf16", peaks)
 
@@ -980,22 +1028,23 @@ def sdpa_yardsticks(q, k, v):
             repeated]
 
 
-def time_in_turns(kern_fwd, kern_pair, yard, do):
+def time_in_turns(kern_fwd, kern_pair, yard, do, call_kw=None):
     """K1 in turns with SDPA's forward (K1, SDPA, SDPA, K1) and the pair
     K2a + K2b in turns with SDPA's backward, on one yardstick of
     :func:`sdpa_yardsticks`: (label with the backend, forward turns,
-    backward turns)."""
+    backward turns). ``call_kw`` is SDPA's masking (default causal)."""
     from torch.nn.attention import sdpa_kernel
 
     label, qh, kh, vh, kw = yard
+    kw = dict(kw, **(call_kw or {"is_causal": True}))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    be = sdpa_backend(qh, kh, vh, is_causal=True, **kw)
+    be = sdpa_backend(qh, kh, vh, **kw)
     with sdpa_kernel([be]):
         def lib():
-            return sdpa(qh, kh, vh, is_causal=True, **kw)
+            return sdpa(qh, kh, vh, **kw)
         turns = [cuda_ms(kern_fwd), cuda_ms(lib), cuda_ms(lib),
                  cuda_ms(kern_fwd)]
-        out = sdpa(qh, kh, vh, is_causal=True, **kw)
+        out = sdpa(qh, kh, vh, **kw)
         doh = do.transpose(1, 2)
 
         def lib_bwd():
@@ -1927,6 +1976,554 @@ def phases_amp(fa, smi, gpt_f32, llama_f32):
     return out
 
 
+# -- phases 23-26: the encoders, through paddle.Model and TrainStep ----------
+
+# ERNIE-3.0-base (the reference's ErnieConfig.ernie3_base, PaddleNLP's
+# ernie-3.0-base-zh: hidden 768, 12 layers, 12 heads, FFN 3072, vocab
+# 40000, dropouts 0.1) fine-tuned as a 2-class sentence-pair classifier:
+# batch 32 at max_seq_length 128, real lengths 16-128; AdamW at PaddleNLP's
+# fine-tune settings (lr 3e-5, weight decay 0.01) under a linear warmup
+# into a linear decay to 0
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_MIN_LEN = 32, 128, 16
+ERNIE_STEPS, ERNIE_EVAL_BATCHES = 32, 8
+ERNIE_LR, ERNIE_WD, ERNIE_WARMUP = 3e-5, 0.01, 3
+CLS_ID, SEP_ID, MASK_ID = 1, 2, 103
+# evaluate's logits, kernel vs plain attention on the same weights: each of
+# the 12 layers' attention may differ by FLASH_TOL (relative, f32), and the
+# post-LN blocks renormalise between layers, so the differences add: 12 x
+# FLASH_TOL of the largest logit
+ENCODER_LOGIT_RTOL = 12 * FLASH_TOL[torch.float32]
+# BERT-base masked-LM pretraining (Devlin et al. 2019: L=12, H=768, A=12,
+# vocab 30522; the reference's BertConfig defaults) at sequence 512, batch
+# 8: AdamW with the paper's settings (lr 1e-4, beta2 0.999, eps 1e-6,
+# weight decay 0.01) and a clip at 1.0; 15 % of the real tokens labelled
+BERT_BATCH, BERT_SEQ, BERT_STEPS, MLM_SHARE = 8, 512, 4, 0.15
+BERT_ADAMW = dict(learning_rate=1e-4, beta1=0.9, beta2=0.999, epsilon=1e-6,
+                  weight_decay=0.01)
+ERNIE_BLOCKS = 12
+
+
+class PairData:
+    """Synthetic sentence pairs as a tokenizer pads them: ``[CLS] a [SEP] b
+    [SEP]`` then 0s up to ``seq``, token types 0 on ``a`` and 1 on ``b``,
+    keep-mask 1 on the real tokens, real lengths drawn from the seed. A
+    sample's class (1 for three samples in four, as in an imbalanced
+    sentiment set) shows in its tokens: a quarter of them come from that
+    class's 16 cue ids, so the label is a function of the tokens. Samples
+    are numpy (the DataLoader's worker processes stack them)."""
+
+    CUE_IDS = (1000, 2000)  # class c's cues: CUE_IDS[c] + 0..15
+
+    def __init__(self, n, vocab, seq, seed):
+        rng = np.random.default_rng(seed)
+        self.lengths = rng.integers(ERNIE_MIN_LEN, seq + 1, n)
+        self.labels = (rng.random(n) < 0.75).astype(np.int64)
+        self.ids = np.zeros((n, seq), np.int64)
+        self.types = np.zeros((n, seq), np.int64)
+        self.mask = np.zeros((n, seq), np.int64)
+        for i, real in enumerate(self.lengths):
+            body = rng.integers(SEP_ID + 1, vocab, real)
+            cue = rng.random(real) < 0.25
+            body[cue] = self.CUE_IDS[self.labels[i]] + rng.integers(
+                0, 16, int(cue.sum()))
+            half = real // 2
+            body[0], body[half - 1], body[real - 1] = CLS_ID, SEP_ID, SEP_ID
+            self.ids[i, :real] = body
+            self.types[i, half:real] = 1
+            self.mask[i, :real] = 1
+
+    def __getitem__(self, i):
+        return self.ids[i], self.types[i], self.mask[i], self.labels[i]
+
+    def __len__(self):
+        return len(self.labels)
+
+
+def build_ernie(layers=ERNIE_BLOCKS, dropout=0.1):
+    from paddle_tpu_torch.text.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification)
+
+    kw = dict(hidden_dropout_prob=dropout,
+              attention_probs_dropout_prob=dropout)
+    # ernie3_base fixes the depth; a cut depth keeps its widths
+    cfg = (ErnieConfig.ernie3_base(**kw) if layers == ERNIE_BLOCKS else
+           ErnieConfig(hidden_size=768, num_hidden_layers=layers,
+                       num_attention_heads=12, **kw))
+    return ErnieForSequenceClassification(cfg, num_classes=2, device=DEVICE,
+                                          seed=SEED)
+
+
+def ernie_model(net, steps=None):
+    """``paddle.Model`` of ``net`` prepared as the fine-tune: AdamW with a
+    linear warmup into a linear decay over ``steps`` (without ``steps``,
+    ERNIE_LR held), cross entropy, accuracy."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    sched = ERNIE_LR if steps is None else lr.LinearWarmup(
+        lr.PolynomialDecay(ERNIE_LR, decay_steps=steps - ERNIE_WARMUP,
+                           end_lr=0.0),
+        warmup_steps=ERNIE_WARMUP, start_lr=0.0, end_lr=ERNIE_LR)
+    opt = AdamW(learning_rate=sched, parameters=net.parameters(),
+                weight_decay=ERNIE_WD)
+    return Model(net).prepare(opt, CrossEntropyLoss(), Accuracy())
+
+
+@contextlib.contextmanager
+def flash_calls(fa):
+    """Record how each K1 / K2a / K2b launch was called: ``{kind: [(causal,
+    bias shape or None, want_ds), ...]}`` (launches through the kernels
+    only: a ``plain_attention`` block inside records nothing)."""
+    calls = {"fwd": [], "dq": [], "dkv": []}
+    names = {"fwd": "forward", "dq": "bwd_dq", "dkv": "bwd_dkv"}
+    saved = {k: getattr(fa, f"flash_attention_{n}_cuda")
+             for k, n in names.items()}
+
+    def spy(kind):
+        real = saved[kind]
+
+        def call(q, k, v, bias=None, *a, causal=False, **kw):
+            calls[kind].append((causal, None if bias is None
+                                else tuple(bias.shape),
+                                kw.get("want_ds", False)))
+            return real(q, k, v, bias, *a, causal=causal, **kw)
+        return call
+
+    try:
+        for k, n in names.items():
+            setattr(fa, f"flash_attention_{n}_cuda", spy(k))
+        yield calls
+    finally:
+        for k, n in names.items():
+            setattr(fa, f"flash_attention_{n}_cuda", saved[k])
+
+
+def check_padded_calls(calls, kinds, n, bias_shape, what):
+    """Each kind launched ``n`` times, all non-causal with the padding bias
+    of ``bias_shape`` and no dS."""
+    want = [(False, bias_shape, False)] * n
+    for kind in kinds:
+        if calls[kind] != want:
+            got = sorted(set(calls[kind]))
+            raise AssertionError(f"{what}: {kind} launched "
+                                 f"{len(calls[kind])} times as {got}, want "
+                                 f"{n} x non-causal, bias {bias_shape}, "
+                                 "no dS")
+
+
+def _clock():
+    """A callback timing each training step (the batch is on the card at
+    ``on_train_batch_begin``; ``train_batch`` syncs on the loss)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.ms, self.losses = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ms.append(1e3 * (time.perf_counter() - self._t0))
+            self.losses.append(logs["loss"])
+
+    return StepClock()
+
+
+def phase_ernie_finetune(fa, smi):
+    """Phase 23: ERNIE-3.0-base at full width and depth fine-tuned through
+    ``Model.fit`` over a ``DataLoader`` (shuffled, 2 worker processes),
+    then ``evaluate`` and ``predict``."""
+    from paddle_tpu_torch.io import DataLoader
+
+    t0 = time.perf_counter()
+    net = build_ernie()
+    cfg = net.config
+    train = PairData(ERNIE_STEPS * ERNIE_BATCH, cfg.vocab_size, ERNIE_SEQ,
+                     SEED + 20)
+    evals = PairData(ERNIE_EVAL_BATCHES * ERNIE_BATCH, cfg.vocab_size,
+                     ERNIE_SEQ, SEED + 21)
+    model = ernie_model(net, ERNIE_STEPS)
+    np.random.seed(SEED)
+    loader = DataLoader(train, batch_size=ERNIE_BATCH, shuffle=True,
+                        num_workers=2, device=DEVICE)
+    eval_loader = DataLoader(evals, batch_size=ERNIE_BATCH, num_workers=2,
+                             device=DEVICE)
+    real = []
+    hook = net.register_forward_pre_hook(
+        lambda m, args: real.append(args[2].sum()) if len(args) > 2
+        else None)
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"# phase 23: ERNIE-3.0-base fine-tune ({n_params / 1e6:.1f} M "
+        f"parameters, dropouts {cfg.hidden_dropout_prob}) built in "
+        f"{time.perf_counter() - t0:.2f} s (set-up); {ERNIE_STEPS} steps of "
+        f"{ERNIE_BATCH} x {ERNIE_SEQ} (real lengths "
+        f"{ERNIE_MIN_LEN}-{ERNIE_SEQ}), 2 worker processes")
+    clock = _clock()
+    torch.cuda.synchronize()
+    reset_flash(fa)
+    with flash_calls(fa) as fit_calls:
+        model.fit(loader, epochs=1, verbose=0, callbacks=[clock])
+    fit_launches = flash_counts(fa)
+    train_real = [int(r) for r in real]
+    del real[:]
+    # steps 2 on (the first pays the cuBLAS handles and the allocator)
+    ms = float(np.mean(clock.ms[1:]))
+    padded = ERNIE_BATCH * ERNIE_SEQ
+    real_mean = float(np.mean(train_real[1:]))
+    losses = clock.losses
+    log(f"losses {[round(x, 4) for x in losses]}")
+    log(f"steps 2-{ERNIE_STEPS} mean {ms:.2f} ms = "
+        f"{ERNIE_BATCH / ms * 1e3:.1f} samples/s, "
+        f"{padded / ms * 1e3:.0f} padded tokens/s, "
+        f"{real_mean / ms * 1e3:.0f} real tokens/s ({real_mean:.0f} of "
+        f"{padded} a step); flash launches in fit {fit_launches} "
+        f"(attention dropout {cfg.attention_probs_dropout_prob}: the dense "
+        f"route, as the reference)  [{smi}]")
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"fine-tune loss did not fall: first 4 mean "
+                             f"{first}, last 4 mean {last}")
+    if any(fit_launches.values()) or any(fit_calls.values()):
+        raise AssertionError(f"fit launched flash kernels {fit_launches}: "
+                             "training attention with dropout takes the "
+                             "dense route")
+
+    bias_shape = (ERNIE_BATCH, 1, 1, ERNIE_SEQ)
+    n_eval = ERNIE_BLOCKS * ERNIE_EVAL_BATCHES
+    outs = []
+    capture = net.register_forward_hook(
+        lambda m, args, out: outs.append(out.detach()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    with flash_calls(fa) as calls:
+        t1 = time.perf_counter()
+        result = model.evaluate(eval_loader, verbose=0)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t1
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_launches = fa.launches_fwd
+    check_padded_calls(calls, ("fwd",), n_eval, bias_shape, "evaluate")
+    if calls["dq"] or calls["dkv"]:
+        raise AssertionError("evaluate launched a backward kernel")
+    logits = torch.cat(outs).float().cpu().numpy()
+    outs.clear()
+    with plain_attention(fa):
+        plain_result = model.evaluate(eval_loader, verbose=0)
+    plain = torch.cat(outs).float().cpu().numpy()
+    capture.remove()
+    hook.remove()
+    eval_real = sum(int(r) for r in real[:ERNIE_EVAL_BATCHES])
+    n_eval_samples = ERNIE_EVAL_BATCHES * ERNIE_BATCH
+    # the same evaluate over an in-process loader: what the worker
+    # processes' start-up costs an 8-batch evaluate
+    t1 = time.perf_counter()
+    model.evaluate(DataLoader(evals, batch_size=ERNIE_BATCH, device=DEVICE),
+                   verbose=0)
+    torch.cuda.synchronize()
+    eval_s0 = time.perf_counter() - t1
+    log(f"evaluate {result}: {n_eval_samples / eval_s:.1f} samples/s "
+        f"({eval_s * 1e3:.1f} ms for {ERNIE_EVAL_BATCHES} batches, "
+        f"{eval_real} real tokens; {n_eval_samples / eval_s0:.1f} "
+        f"samples/s over an in-process loader), peak {eval_peak:.2f} GiB, "
+        f"K1 {eval_launches} launches = {ERNIE_BLOCKS} layers x "
+        f"{ERNIE_EVAL_BATCHES} batches, non-causal, bias {bias_shape}  "
+        f"[{smi}]")
+    if not 0.0 <= result["acc"] <= 1.0 or not np.isfinite(result["loss"]):
+        raise AssertionError(f"evaluate gave {result}")
+    err = float(np.abs(logits - plain).max())
+    scale = float(np.abs(plain).max())
+    log(f"evaluate's logits {logits.shape}, kernel vs plain attention "
+        f"(plain: {plain_result}): max|err| {err:.3e} = {err / scale:.2e} "
+        f"of max|logit| {scale:.3f} (rtol {ENCODER_LOGIT_RTOL:.1e})")
+    if logits.shape != (n_eval_samples, 2) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"evaluate gave {logits.shape} logits")
+    if not err <= ENCODER_LOGIT_RTOL * scale:
+        raise AssertionError("evaluate's logits differ from the plain "
+                             "attention's")
+
+    # predict feeds a batch's first field only (the reference's
+    # Model.predict): the ids, with no attention mask, so K1 runs
+    # non-causal without a bias
+    reset_flash(fa)
+    with flash_calls(fa) as calls:
+        predicted = model.predict(eval_loader, stack_outputs=True)[0]
+    predict_launches = fa.launches_fwd
+    check_padded_calls(calls, ("fwd",), n_eval, None, "predict")
+    log(f"predict (ids only, as the reference): outputs "
+        f"{predicted.shape}, K1 {predict_launches} launches, non-causal, "
+        f"no bias")
+    if predicted.shape != (n_eval_samples, 2) or \
+            not np.isfinite(predicted).all():
+        raise AssertionError(f"predict gave {predicted.shape} outputs")
+    out = dict(step_ms=ms, samples_per_s=ERNIE_BATCH / ms * 1e3,
+               padded_tokens_per_s=padded / ms * 1e3,
+               real_tokens_per_s=real_mean / ms * 1e3, losses=losses,
+               fit_launches=fit_launches, eval=result,
+               eval_samples_per_s=n_eval_samples / eval_s,
+               eval_samples_per_s_in_process=n_eval_samples / eval_s0,
+               eval_peak_gib=eval_peak, eval_launches_fwd=eval_launches,
+               predict_launches_fwd=predict_launches,
+               logit_err_vs_plain=err, card=smi)
+    del model, net, loader, eval_loader
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ernie_lockstep(fa):
+    """Phase 24: ERNIE at depth 2 with dropouts 0, a kernel model and a
+    plain-attention model from the same weights through
+    ``Model.train_batch`` for LOCKSTEP_STEPS steps on one batch: the
+    losses agree, K1 / K2a / K2b run once a layer a step, non-causal with
+    the padding bias and no dS."""
+    from paddle_tpu_torch.io import DataLoader
+
+    a, b = build_ernie(2, 0.0), build_ernie(2, 0.0)
+    b.load_state_dict(a.state_dict())
+    ma, mb = ernie_model(a), ernie_model(b)
+    data = PairData(ERNIE_BATCH, a.config.vocab_size, ERNIE_SEQ, SEED + 22)
+    *xs, ys = next(iter(DataLoader(data, batch_size=ERNIE_BATCH,
+                                   device=DEVICE)))
+    worst = 0.0
+    reset_flash(fa)
+    with flash_calls(fa) as calls:
+        for i in range(LOCKSTEP_STEPS):
+            la = ma.train_batch(xs, ys)[0]
+            with plain_attention(fa):
+                lb = mb.train_batch(xs, ys)[0]
+            rel = abs(la - lb) / abs(lb)
+            worst = max(worst, rel)
+            log(f"# phase 24: ERNIE depth 2 step {i}: loss kernel {la:.7f} "
+                f"plain {lb:.7f} rel {rel:.2e}")
+    launches = flash_counts(fa)
+    n = 2 * LOCKSTEP_STEPS
+    check_padded_calls(calls, ("fwd", "dq", "dkv"), n,
+                       (ERNIE_BATCH, 1, 1, ERNIE_SEQ), "lockstep")
+    log(f"launches {launches} = 2 layers x {LOCKSTEP_STEPS} steps, "
+        f"non-causal, padding bias, no dS; worst loss rel {worst:.2e} "
+        f"(rtol {TRAIN_LOSS_RTOL})")
+    if not worst <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"ERNIE lockstep losses differ: rel {worst}")
+    del ma, mb, a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mlm_batch(vocab):
+    """BERT_BATCH sequences padded to BERT_SEQ (real lengths 128-512 drawn
+    from the seed) of Zipf-distributed ids, as natural text is; 15 % of
+    the real tokens between [CLS] and [SEP] replaced by [MASK] and
+    labelled with the original id, the rest -100; token types 0 then 1
+    from the middle."""
+    rng = np.random.default_rng(SEED + 23)
+    b, t = BERT_BATCH, BERT_SEQ
+    lengths = rng.integers(128, t + 1, b)
+    lengths[0] = t
+    ids = np.zeros((b, t), np.int64)
+    types = np.zeros((b, t), np.int64)
+    mask = np.zeros((b, t), np.int64)
+    labels = np.full((b, t), -100, np.int64)
+    for i, real in enumerate(lengths):
+        body = np.minimum(rng.zipf(1.3, real) + MASK_ID, vocab - 1)
+        body[0], body[real - 1] = CLS_ID, SEP_ID
+        picked = np.flatnonzero(rng.random(real - 2) < MLM_SHARE) + 1
+        labels[i, picked] = body[picked]
+        body[picked] = MASK_ID
+        ids[i, :real] = body
+        types[i, real // 2:real] = 1
+        mask[i, :real] = 1
+    return [torch.as_tensor(x, device=DEVICE)
+            for x in (ids, types, mask, labels)], int(lengths.sum())
+
+
+def build_bert():
+    """BERT-base for masked-LM pretraining, attention dropout 0 (the
+    kernels carry no dropout, as the reference's Pallas route)."""
+    from paddle_tpu_torch.text.models.bert import BertConfig, BertForMaskedLM
+
+    return BertForMaskedLM(BertConfig(attention_probs_dropout_prob=0.0),
+                           device=DEVICE, seed=SEED)
+
+
+def bert_trainer(level):
+    """``TrainStep`` + AdamW (+ clip) on BERT-base from the seed, in f32
+    (``level`` None) or under ``auto_cast(level)``, and its batch."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    model = build_bert()
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **BERT_ADAMW)
+
+    def loss_fn(m, ids, types, mask, labels):
+        with amp.auto_cast(enable=level is not None, level=level or "O1"):
+            return m(ids, types, attention_mask=mask, labels=labels)
+
+    batch, real = mlm_batch(model.config.vocab_size)
+    return TrainStep(model, loss_fn, opt), batch, real
+
+
+def bert_run(fa, level):
+    """BERT_STEPS steps of :func:`bert_trainer` from a reset peak and
+    zeroed counts."""
+    step, batch, real = bert_trainer(level)
+    torch.manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    losses, step_ms = [], []
+    with flash_calls(fa) as calls:
+        for _ in range(BERT_STEPS):
+            t0 = time.perf_counter()
+            loss = step(*batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+    r = dict(losses=losses, step_ms=step_ms, launches=flash_counts(fa),
+             peak_bytes=torch.cuda.max_memory_allocated(),
+             tokens=batch[0].numel(), real_tokens=real, calls=calls)
+    del step
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_bert_mlm(fa, smi):
+    """Phase 25: BERT-base masked-LM pretraining at T = 512 in f32 and
+    under O1: the loss falls, K1 / K2a / K2b launch 12 x BERT_STEPS times
+    (bf16 under O1), non-causal with the padding bias; the first O1 loss
+    lies within AMP_LOSS_RTOL of the f32 one."""
+    out = {}
+    n = ERNIE_BLOCKS * BERT_STEPS
+    bias_shape = (BERT_BATCH, 1, 1, BERT_SEQ)
+    for level in (None, "O1"):
+        label = "f32" if level is None else level
+        r = bert_run(fa, level)
+        ms = float(np.mean(r["step_ms"][1:]))
+        log(f"# phase 25: BERT-base MLM {label}, {BERT_BATCH} x {BERT_SEQ} "
+            f"({r['real_tokens']} real tokens): losses "
+            f"{[round(x, 5) for x in r['losses']]}, steps 2-{BERT_STEPS} "
+            f"{ms:.2f} ms = {r['tokens'] / ms * 1e3:.0f} tokens/s "
+            f"({r['real_tokens'] / ms * 1e3:.0f} real), peak "
+            f"{r['peak_bytes'] / 2 ** 30:.2f} GiB, launches {r['launches']}"
+            f"  [{smi}]")
+        if not all(np.isfinite(r["losses"])) or \
+                not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"BERT {label}: loss did not fall: "
+                                 f"{r['losses']}")
+        check_padded_calls(r["calls"], ("fwd", "dq", "dkv"), n, bias_shape,
+                           f"BERT {label}")
+        want_bf16 = n if level else 0
+        if any(r["launches"][f"{k}_bf16"] != want_bf16
+               for k in ("fwd", "dq", "dkv")):
+            raise AssertionError(f"BERT {label}: launches {r['launches']}, "
+                                 f"want {want_bf16} in bf16")
+        out[label] = dict(step_ms=ms, tokens_per_s=r["tokens"] / ms * 1e3,
+                          real_tokens_per_s=r["real_tokens"] / ms * 1e3,
+                          peak_gib=r["peak_bytes"] / 2 ** 30,
+                          launches=r["launches"], losses=r["losses"])
+    f32, o1 = out["f32"]["losses"][0], out["O1"]["losses"][0]
+    rel = abs(o1 - f32) / abs(f32)
+    log(f"first loss O1 {o1:.6f} vs f32 {f32:.6f}: rel {rel:.2e} (rtol "
+        f"{AMP_LOSS_RTOL:.2e})")
+    if not rel <= AMP_LOSS_RTOL:
+        raise AssertionError("BERT: first O1 loss differs from f32")
+    out["first_loss_rel_f32"] = rel
+    out["card"] = smi
+    return out
+
+
+def phase_encoder_flash_timing(fa, peaks, label, b, t, h=12, d=64):
+    """K1, K2a, K2b at an encoder's shapes: non-causal, q / k / v strided
+    out of the fused projection, the padding bias [b, 1, 1, t]; each
+    checked against its plain version, K1 timed in turns with SDPA's
+    forward and K2a + K2b with SDPA's backward under the same additive
+    mask, beside the plain versions and the bound; f32 and bf16."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = flash_inputs(gen, b, t, t, h, h, d, dt, True)
+        bias = padding_bias(gen, b, t)
+        worst = {}
+        tag = f"{label} B={b} T={t} H={h} D={d} {str(dt)[6:]}"
+        compare_flash(fa, q, k, v, do, bias, False, False, worst, tag)
+        o, lse = fa.flash_attention_forward_cuda(q, k, v, bias)
+        delta = fa._delta(o, do).contiguous()
+        calls = {
+            "fwd": (lambda: fa.flash_attention_forward_cuda(q, k, v, bias),
+                    lambda: fa.flash_attention_forward_plain(q, k, v, bias)),
+            "dq": (lambda: fa.flash_attention_bwd_dq_cuda(
+                       q, k, v, bias, do, lse, delta),
+                   lambda: fa.flash_attention_bwd_dq_plain(
+                       q, k, v, bias, do, lse, delta)),
+            "dkv": (lambda: fa.flash_attention_bwd_dkv_cuda(
+                        q, k, v, bias, do, lse, delta),
+                    lambda: fa.flash_attention_bwd_dkv_plain(
+                        q, k, v, bias, do, lse, delta)),
+        }
+
+        def pair():
+            calls["dq"][0]()
+            calls["dkv"][0]()
+
+        yard = sdpa_yardsticks(q, k, v)[0]
+        mask = bias.to(dt)
+        lib_label, turns, bturns = time_in_turns(
+            calls["fwd"][0], pair, yard, do, {"attn_mask": mask})
+        lib_fwd = (turns[1] + turns[2]) / 2
+        lib_bwd = (bturns[1] + bturns[2]) / 2
+        pair_ms = (bturns[0] + bturns[3]) / 2
+        for kind, (kern, plain) in calls.items():
+            ms = ((turns[0] + turns[3]) / 2 if kind == "fwd"
+                  else cuda_ms(kern))
+            plain_ms = cuda_ms(plain, iters=5, warm=1)
+            lib = lib_fwd if kind == "fwd" else lib_bwd
+            r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+                     max_abs_err=worst[kind],
+                     **flash_bound(kind, q, k, False, peaks, bias))
+            if kind != "fwd":
+                r["pair_ms"] = pair_ms
+            rows[(kind, dt)] = r
+            log(f"{kind:3s} {tag} padded: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, sdpa "
+                f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
+                f"[{lib_label}, attn_mask] {lib:.4f} ms, "
+                f"{bound_text(r, ms)}")
+        log(f"pair {tag}: K2a + K2b {pair_ms:.4f} ms vs sdpa backward "
+            f"{lib_bwd:.4f} ms = {pair_ms / lib_bwd:.3f}x")
+        del q, k, v, do, o, lse, delta, yard
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phases_encoders(fa, smi, peaks):
+    """Phases 23-26; returns the ``encoders`` JSON line's numbers and the
+    timed rows per shape."""
+    finetune = phase_ernie_finetune(fa, smi)
+    lockstep = phase_ernie_lockstep(fa)
+    bert = phase_bert_mlm(fa, smi)
+    log("# phase 26: K1 / K2 at the encoders' shapes, padding bias")
+    timed = {
+        "ernie": phase_encoder_flash_timing(fa, peaks, "ERNIE",
+                                            ERNIE_BATCH, ERNIE_SEQ),
+        "bert": phase_encoder_flash_timing(fa, peaks, "BERT", BERT_BATCH,
+                                           BERT_SEQ),
+    }
+    line = {"ernie_finetune": finetune, "ernie_lockstep_launches": lockstep,
+            "bert_mlm": bert,
+            "flash": {f"{shape} {kind} {str(dt)[6:]}": {
+                k: r[k] for k in ("ms", "plain_ms", "library_ms", "pair_ms",
+                                  "bound_ms", "bound_fma_ms") if k in r}
+                for shape, rows in timed.items()
+                for (kind, dt), r in rows.items()}, "card": smi}
+    return line, timed, lockstep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1997,6 +2594,7 @@ def main() -> int:
                          "Llama-3-8B widths at depth 2", 17)
     step_ms = np.mean(llama_trained["step_ms"][1:])
     amp_runs = phases_amp(fa, smi, trained, llama_trained)
+    encoders, enc_timed, enc_lockstep = phases_encoders(fa, smi, peaks)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -2046,6 +2644,29 @@ def main() -> int:
             kernel, "paddle_tpu_torch/ops/cuda/flash_attention.cu",
             FLASH_REPLACES[kind], trained["launches"][kind],
             max(flash_err[kind], r["max_abs_err"]), r))
+    # the same three kernels at the encoders' shapes (phase 26), with the
+    # launches of the phases that ran them there: K1 in phase 23's evaluate
+    # and predict, K2a / K2b in phase 24 (fit's attention is dense at
+    # dropout 0.1); BERT's in phase 25's f32 run
+    ernie_fwd = (encoders["ernie_finetune"]["eval_launches_fwd"]
+                 + encoders["ernie_finetune"]["predict_launches_fwd"])
+    bert_f32 = encoders["bert_mlm"]["f32"]["launches"]
+    for shape, launches in (
+            (f"ERNIE B={ERNIE_BATCH} T={ERNIE_SEQ} H=12 D=64 padded",
+             {"fwd": ernie_fwd, "dq": enc_lockstep["dq"],
+              "dkv": enc_lockstep["dkv"]}),
+            (f"BERT B={BERT_BATCH} T={BERT_SEQ} H=12 D=64 padded",
+             bert_f32)):
+        rows_by = enc_timed["ernie" if shape.startswith("ERNIE") else "bert"]
+        for kind, kernel in (("fwd", "flash_attention_fwd"),
+                             ("dq", "flash_attention_bwd_dq"),
+                             ("dkv", "flash_attention_bwd_dkv")):
+            r = rows_by[(kind, torch.float32)]
+            kernels.append(dict(
+                row(kernel, "paddle_tpu_torch/ops/cuda/flash_attention.cu",
+                    FLASH_REPLACES[kind], launches[kind],
+                    max(flash_err[kind], r["max_abs_err"]), r),
+                shape=shape, bf16_ms=rows_by[(kind, torch.bfloat16)]["ms"]))
     for kind, kernel, call, outs in (
             ("fwd", "grouped_matmul_fwd", "up fwd", ("out", "dlhs")),
             ("drhs", "grouped_matmul_drhs", "up drhs", ("drhs",))):
@@ -2055,6 +2676,7 @@ def main() -> int:
             GMM_REPLACES[kind], moe_trained["launches"][kind],
             max(r["max_abs_err"], *(gmm_err[o][0] for o in outs)), r))
     log(json.dumps({"amp": amp_runs}))
+    log(json.dumps({"encoders": encoders}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

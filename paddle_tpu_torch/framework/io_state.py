@@ -1,12 +1,109 @@
-"""State bridge: parameters of the reference package, handed over as numpy
-arrays by name, become the port's state_dict (names and shapes are the
-same on both sides, see ``nn/layers/common.py``)."""
+"""Saving and loading state (counterpart of
+``paddle_tpu/framework/io_state.py``), and the bridge of the reference's
+parameters handed over as numpy arrays by name.
+
+``save`` / ``load`` write and read the reference's pickle format: a tensor
+is stored as ``{"__tensor__": True, "value": ndarray, "stop_gradient":
+..., "name": ...}`` inside the pickled dicts, lists and tuples, so a
+``.pdparams`` / ``.pdopt`` written by either package loads into the other.
+A bf16 tensor is stored as the reference stores it, an ``ml_dtypes``
+bfloat16 array (saving one needs that package; loading reads its bits
+without it).
+"""
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import os
+import pickle
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _to_tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _to_saveable(obj):
+    if isinstance(obj, torch.Tensor):
+        return {"__tensor__": True, "value": _to_numpy(obj),
+                "stop_gradient": not obj.requires_grad, "name": None}
+    if isinstance(obj, dict):
+        return {k: _to_saveable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_saveable(v) for v in obj)
+    return obj
+
+
+def _from_saved(obj, return_numpy, device):
+    if isinstance(obj, dict):
+        if obj.get("__tensor__"):
+            if return_numpy:
+                return obj["value"]
+            return _to_tensor(obj["value"], device)
+        return {k: _from_saved(v, return_numpy, device)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_from_saved(v, return_numpy, device) for v in obj)
+    return obj
+
+
+def save(obj: Any, path: str, protocol: int = 4, **configs):
+    """Pickle ``obj`` (a state dict, nested dicts / lists of tensors and
+    plain values) to ``path`` in the reference's format."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(_to_saveable(obj), f, protocol=protocol)
+
+
+def load(path: str, return_numpy: bool = False, device=None, **configs):
+    """What :func:`save` (or the reference's ``save``) wrote to ``path``;
+    tensors land on ``device`` (default the CUDA card), or stay numpy
+    arrays with ``return_numpy``."""
+    with open(path, "rb") as f:
+        obj = pickle.load(f)
+    dev = None if return_numpy else resolve_device(device)
+    return _from_saved(obj, return_numpy, dev)
+
+
+def set_state_dict(module: torch.nn.Module, state: Mapping[str, Any]):
+    """Copy ``state`` (tensors or arrays by name) into ``module``'s own
+    state, each cast to the dtype and device it has there, as the
+    reference's ``Layer.set_state_dict``: a shape mismatch raises, and the
+    names missing from ``state`` and those ``module`` lacks are returned
+    as ``(missing, unexpected)``."""
+    own = module.state_dict(keep_vars=True)
+    missing = []
+    with torch.no_grad():
+        for k, t in own.items():
+            if k not in state:
+                missing.append(k)
+                continue
+            v = state[k]
+            v = v if isinstance(v, torch.Tensor) else _to_tensor(v, t.device)
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"shape mismatch for {k}: checkpoint "
+                                 f"{tuple(v.shape)} vs model "
+                                 f"{tuple(t.shape)}")
+            t.copy_(v)
+    return missing, [k for k in state if k not in own]
 
 
 def state_from_numpy(np_state: Mapping[str, np.ndarray], device,
@@ -46,3 +143,7 @@ def load_numpy_state(module: torch.nn.Module,
     module.load_state_dict(
         {k: v.to(ref[k].dtype) for k, v in state.items()}, strict=True)
     return module
+
+
+__all__ = ["load", "load_numpy_state", "save", "set_state_dict",
+           "state_from_numpy"]

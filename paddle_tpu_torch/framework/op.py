@@ -62,13 +62,15 @@ def _amp_cast(opname, *tensors):
                  and t.dtype != target else t for t in tensors)
 
 
-def amp_op(opname, amp=None):
+def amp_op(opname, amp=None, uncast=()):
     """Decorator: run ``fn`` as the reference's op ``opname``, its
     floating-point tensor arguments (positional and keyword) passed through
     :func:`_amp_cast` first. ``amp`` ``"white"`` / ``"black"`` puts the op
-    on that list. The wrapper's ``raw`` is ``fn`` itself, for code that
-    never runs under ``auto_cast`` and pays for every host frame (the
-    serving adapters)."""
+    on that list. Keyword arguments named in ``uncast`` pass as given: they
+    stand for values the reference hands its op as raw arrays, which its
+    gateway does not cast (the encoders' padding mask). The wrapper's
+    ``raw`` is ``fn`` itself, for code that never runs under ``auto_cast``
+    and pays for every host frame (the serving adapters)."""
     if amp not in (None, "white", "black"):
         raise ValueError(f"amp must be None, 'white' or 'black', got {amp!r}")
 
@@ -83,7 +85,8 @@ def amp_op(opname, amp=None):
         def wrapper(*args, **kwargs):
             if not amp_state.enable:
                 return fn(*args, **kwargs)
-            keys = list(kwargs)
+            keys = [k for k in kwargs if k not in uncast]
+            kept = {k: kwargs[k] for k in kwargs if k in uncast}
             vals = list(args) + [kwargs[k] for k in keys]
             idx = [i for i, v in enumerate(vals)
                    if isinstance(v, torch.Tensor) and v.is_floating_point()]
@@ -92,7 +95,7 @@ def amp_op(opname, amp=None):
                                                *(vals[i] for i in idx))):
                     vals[i] = v
             n = len(args)
-            return fn(*vals[:n], **dict(zip(keys, vals[n:])))
+            return fn(*vals[:n], **dict(zip(keys, vals[n:])), **kept)
 
         wrapper.op_name = opname
         wrapper.raw = fn

@@ -26,6 +26,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
+from ..nn.layer import create_parameter
 from ..nn.functional.norm import rms_norm
 from ..text.models.llama import _apply_rope, _rope_cache
 
@@ -70,8 +71,11 @@ class FusedEcMoe(nn.Module):
     """Expert-choice MoE layer (``paddle.incubate.nn.FusedEcMoe``):
     parameters ``gate [hidden, E]``, ``w1 [E, hidden, inter]``, ``b1 [E, 1,
     inter]``, ``w2 [E, inter, hidden]``, ``b2 [E, 1, hidden]``, weights
-    XavierNormal and biases 0 as in the reference. ``weight_attr`` /
-    ``bias_attr`` are accepted and ignored."""
+    XavierNormal and biases 0 as in the reference, unless ``weight_attr`` /
+    ``bias_attr`` (``nn.ParamAttr``, shared by the three weights and by the
+    two biases, as in the reference) name another initializer; they also
+    set ``trainable`` and the optimizer's ``learning_rate`` /
+    ``regularizer``."""
 
     def __init__(self, hidden_size, inter_size, num_experts, act_type="gelu",
                  weight_attr=None, bias_attr=None, *, device=None,
@@ -85,19 +89,21 @@ class FusedEcMoe(nn.Module):
         self.num_experts = num_experts
         self.hidden_size = hidden_size
         self.act_type = act_type
-        init = I.XavierNormal()
         kw = dict(device=dev, dtype=dtype, generator=generator)
 
-        def zeros(*shape):
-            return nn.Parameter(torch.zeros(shape, device=dev, dtype=dtype))
+        def weight(*shape):
+            return create_parameter(shape, weight_attr,
+                                    default_initializer=I.XavierNormal(),
+                                    **kw)
 
-        self.gate = nn.Parameter(init((hidden_size, num_experts), **kw))
-        self.w1 = nn.Parameter(init((num_experts, hidden_size, inter_size),
-                                    **kw))
-        self.b1 = zeros(num_experts, 1, inter_size)
-        self.w2 = nn.Parameter(init((num_experts, inter_size, hidden_size),
-                                    **kw))
-        self.b2 = zeros(num_experts, 1, hidden_size)
+        def bias(*shape):
+            return create_parameter(shape, bias_attr, is_bias=True, **kw)
+
+        self.gate = weight(hidden_size, num_experts)
+        self.w1 = weight(num_experts, hidden_size, inter_size)
+        self.b1 = bias(num_experts, 1, inter_size)
+        self.w2 = weight(num_experts, inter_size, hidden_size)
+        self.b2 = bias(num_experts, 1, hidden_size)
 
     def forward(self, x):
         return _fused_ec_moe(x, self.gate, self.w1, self.b1, self.w2,

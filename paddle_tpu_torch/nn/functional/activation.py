@@ -1,7 +1,7 @@
 """Activations (counterparts of ``paddle_tpu/nn/functional/activation.py``):
 plain tensor ops, as in the reference, where they are ``jax.nn`` calls and
 no kernel. ``softmax`` and ``log_softmax`` are on the AMP black list;
-``gelu`` and ``silu`` on neither (they cast at O2 only)."""
+``gelu``, ``silu`` and ``tanh`` on neither (they cast at O2 only)."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +25,11 @@ def silu(x, name=None):
     return torch.nn.functional.silu(x)
 
 
+@amp_op("tanh")
+def tanh(x, name=None):
+    return torch.tanh(x)
+
+
 @amp_op("softmax", "black")
 def softmax(x, axis=-1, dtype=None, name=None):
     if dtype is not None:
@@ -39,4 +44,4 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
     return torch.log_softmax(x, dim=axis)
 
 
-__all__ = ["gelu", "log_softmax", "relu", "silu", "softmax"]
+__all__ = ["gelu", "log_softmax", "relu", "silu", "softmax", "tanh"]

@@ -60,8 +60,10 @@ def _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training):
     return out.transpose(1, 2)  # back to [B, T, H, D]
 
 
-@amp_op("sdpa_op", "white")
-def _sdpa(q, k, v, mask, dropout_p, causal, scale, training):
+@amp_op("sdpa_op", "white", uncast=("raw_mask",))
+def _sdpa(q, k, v, mask, dropout_p, causal, scale, training, raw_mask=None):
+    if raw_mask is not None:
+        mask = raw_mask
     if mask is not None and mask.dtype != torch.bool:
         # mask semantics on every route: a float mask is never
         # differentiated
@@ -81,12 +83,29 @@ def _sdpa(q, k, v, mask, dropout_p, causal, scale, training):
     return _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training)
 
 
-@amp_op("sdpa_op", "white")
-def _sdpa_dense(q, k, v, mask, dropout_p, causal, scale, training):
+@amp_op("sdpa_op", "white", uncast=("raw_mask",))
+def _sdpa_dense(q, k, v, mask, dropout_p, causal, scale, training,
+                raw_mask=None):
     """The dense route on every device, for a model built with
     ``use_flash_attention=False``; cast as ``sdpa_op`` like the flash
     route."""
+    if raw_mask is not None:
+        mask = raw_mask
     return _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training)
+
+
+def padded_attention(query, key, value, mask, dropout_p=0.0, training=True,
+                     use_flash=True):
+    """The encoders' attention: non-causal, under the additive padding mask
+    ``[B, 1, 1, Tk]`` the model builds from its ``attention_mask``, on
+    :func:`scaled_dot_product_attention`'s routes (``use_flash=False``: the
+    dense route on every device). The reference builds that mask as a raw
+    array, outside its Tensor type, so its gateway casts q / k / v and not
+    the mask; here the mask passes the gateway uncast too."""
+    p = float(dropout_p) if training else 0.0
+    op = _sdpa if use_flash else _sdpa_dense
+    return op(query, key, value, None, p, False, None, training,
+              raw_mask=mask)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -130,5 +149,5 @@ def paged_attention(query, pool_k, pool_v, page_table, start_position,
                                k_scales=k_scales, v_scales=v_scales)
 
 
-__all__ = ["flash_attention", "mask_fill_value", "paged_attention",
-           "scaled_dot_product_attention"]
+__all__ = ["flash_attention", "mask_fill_value", "padded_attention",
+           "paged_attention", "scaled_dot_product_attention"]

@@ -1,6 +1,12 @@
 """Losses of the port.
 
-``mse_loss`` mirrors ``paddle_tpu/nn/functional/loss.py::mse_loss``.
+``cross_entropy``, ``softmax_with_cross_entropy``, ``nll_loss`` and
+``mse_loss`` mirror ``paddle_tpu/nn/functional/loss.py``: hard (integer)
+or soft labels, ``ignore_index`` (a mean over the valid rows only),
+per-class ``weight``, ``axis``, ``label_smoothing`` and
+``use_softmax=False`` (the input is already a distribution). The softmax
+cross entropy is the reference's ``cross_entropy_op``, on the AMP black
+list: it runs in f32 under ``auto_cast``.
 ``_parallel_softmax_ce`` is the counterpart of
 ``paddle_tpu/distributed/fleet/layers/mpu.py::_parallel_softmax_ce`` (the
 loss under ``GPTPretrainingCriterion``) at model-parallel degree 1: plain
@@ -43,10 +49,7 @@ def _masked_mean(loss, loss_mask):
     return T.divide(T.sum(T.multiply(loss, lm)), T.clip(T.sum(lm), min=1.0))
 
 
-def mse_loss(input, label, reduction="mean", name=None):
-    """``(input - label)^2``, averaged (``"mean"``), summed (``"sum"``) or
-    kept elementwise (any other value), as in the reference."""
-    out = torch.square(input - label)
+def _reduce(out, reduction):
     if reduction == "mean":
         return out.mean()
     if reduction == "sum":
@@ -54,4 +57,120 @@ def mse_loss(input, label, reduction="mean", name=None):
     return out
 
 
-__all__ = ["_masked_mean", "_parallel_softmax_ce", "mse_loss"]
+def _hard_labels(label, ndim, axis):
+    """Integer class ids: a trailing singleton class axis squeezed."""
+    if label.dim() == ndim and label.shape[axis] == 1:
+        label = label.squeeze(axis)
+    return label.long()
+
+
+def _pick(logp, label, axis):
+    return torch.gather(logp, axis, label.unsqueeze(axis)).squeeze(axis)
+
+
+@amp_op("cross_entropy_op", "black")
+def _cross_entropy(input, label, weight, ignore_index, reduction, soft_label,
+                   axis, label_smoothing):
+    axis = axis % input.dim()
+    logp = torch.log_softmax(input.float(), dim=axis)
+    if soft_label:
+        soft = label
+        if label_smoothing > 0.0:
+            soft = soft * (1.0 - label_smoothing) \
+                + label_smoothing / input.shape[axis]
+        return _reduce(-(soft * logp).sum(axis), reduction)
+    lbl = _hard_labels(label, input.dim(), axis)
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    picked = _pick(logp, safe, axis)
+    if label_smoothing > 0.0:
+        per = (-(1.0 - label_smoothing) * picked
+               - label_smoothing * logp.mean(axis))
+    else:
+        per = -picked
+    zero = torch.zeros((), dtype=per.dtype, device=per.device)
+    if weight is not None:
+        w = weight[safe]
+        per = torch.where(valid, per * w, zero)
+        if reduction == "mean":
+            return per.sum() / torch.clamp(
+                torch.where(valid, w, zero).sum(), min=1e-12)
+    else:
+        per = torch.where(valid, per, zero)
+        if reduction == "mean":
+            return per.sum() / torch.clamp(valid.float().sum(), min=1.0)
+    return _reduce(per, reduction)
+
+
+@amp_op("log_of")
+def _log_of(x, eps):
+    return torch.log(torch.clamp(x, min=eps))
+
+
+@amp_op("nll_from_logp")
+def _nll_from_logp(logp, label, weight, ignore_index, reduction, soft_label,
+                   axis):
+    axis = axis % logp.dim()
+    if soft_label:
+        return _reduce(-(label * logp).sum(axis), reduction)
+    lbl = _hard_labels(label, logp.dim(), axis)
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    picked = _pick(logp, safe, axis)
+    per = torch.where(valid, -picked, torch.zeros_like(picked))
+    if weight is not None:
+        per = per * weight[safe]
+    if reduction == "mean":
+        return per.sum() / torch.clamp(valid.float().sum(), min=1.0)
+    return _reduce(per, reduction)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Softmax cross entropy of ``input`` (logits along ``axis``) against
+    ``label``: class ids (with a trailing singleton axis or without) or,
+    with ``soft_label``, a distribution. ``reduction`` ``"mean"`` averages
+    over the rows whose label is not ``ignore_index`` (weighted by
+    ``weight`` where given), ``"sum"`` sums, ``"none"`` keeps them. With
+    ``use_softmax=False`` the input is taken as probabilities."""
+    if not use_softmax:
+        return _nll_from_logp(_log_of(input, 1e-12), label, weight,
+                              int(ignore_index), reduction, bool(soft_label),
+                              int(axis))
+    return _cross_entropy(input, label, weight, int(ignore_index), reduction,
+                          bool(soft_label), int(axis), float(label_smoothing))
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """Per-row cross entropy, the class axis kept with size 1; with
+    ``return_softmax`` also the softmax of ``logits``."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis)
+    if loss.dim() < logits.dim():
+        loss = loss.unsqueeze(axis)
+    if return_softmax:
+        from .activation import softmax
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """Negative log-likelihood of log-probabilities ``input`` ``[N, C, ...]``
+    (or ``[C]``) at the class ids ``label``."""
+    return _nll_from_logp(input, label, weight, int(ignore_index), reduction,
+                          False, 1 if input.dim() > 1 else -1)
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    """``(input - label)^2``, averaged (``"mean"``), summed (``"sum"``) or
+    kept elementwise (any other value), as in the reference."""
+    return _reduce(torch.square(input - label), reduction)
+
+
+__all__ = ["_masked_mean", "_parallel_softmax_ce", "cross_entropy",
+           "mse_loss", "nll_loss", "softmax_with_cross_entropy"]

@@ -9,8 +9,12 @@ names and shapes unchanged. At model-parallel degree 1 the fleet layers
 reduce to these.
 
 Parameters are created on the device given and initialised from the
-explicit ``torch.Generator`` given (normal, std ``init_std``, or
-``Linear``'s ``weight_init`` initializer where given; biases 0).
+explicit ``torch.Generator`` given: by ``weight_attr``'s / ``bias_attr``'s
+initializer where a ``ParamAttr`` names one, else ``Linear``'s
+``weight_init`` where given, else normal with std ``init_std``; biases 0.
+A ``ParamAttr`` also sets ``trainable`` and the ``learning_rate`` and
+``regularizer`` the optimizer reads (``nn/layer.py``); ``bias_attr=False``
+drops the bias.
 """
 from __future__ import annotations
 
@@ -19,32 +23,27 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import initializer as I
 from ..functional import common as F
-
-
-def _normal(shape, std, device, generator, dtype):
-    w = torch.empty(shape, device=device, dtype=dtype)
-    w.normal_(0.0, std, generator=generator)
-    return w
+from ..layer import create_parameter
 
 
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 init_std: float = 0.02, weight_init=None):
+                 init_std: float = 0.02, weight_init=None, weight_attr=None,
+                 bias_attr=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        shape = (in_features, out_features)
-        self.weight = nn.Parameter(
-            _normal(shape, init_std, device, generator, dtype)
-            if weight_init is None else
-            weight_init(shape, device=device, dtype=dtype,
-                        generator=generator))
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
-                                              dtype=dtype))
-                     if bias else None)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.weight = create_parameter(
+            (in_features, out_features), weight_attr,
+            default_initializer=weight_init or I.Normal(0.0, init_std), **kw)
+        self.bias = (create_parameter((out_features,), bias_attr,
+                                      is_bias=True, **kw)
+                     if bias and bias_attr is not False else None)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -64,13 +63,14 @@ class Embedding(nn.Module):
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
                  device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, weight_attr=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(_normal(
-            (num_embeddings, embedding_dim), init_std, device, generator,
-            dtype))
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), weight_attr,
+            default_initializer=I.Normal(0.0, init_std), device=device,
+            dtype=dtype, generator=generator)
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)

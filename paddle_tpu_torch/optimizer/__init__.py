@@ -27,6 +27,11 @@ parameter's dtype and its f32 master: ROADMAP.md C.8.) ``state_dict``
 holds the moments by parameter position and, with a scheduler, its state
 under ``"LR_Scheduler"``.
 
+A parameter made with a ``ParamAttr`` (``nn/layer.py``) carries its own
+rate factor, ``optimize_attr["learning_rate"]``: its update takes ``lr``
+times that factor, in f32 as the reference's ``functional_update`` forms
+it; and its own ``regularizer``, applied in place of the optimizer's.
+
 Difference kept on purpose: like the reference's functional path, AdamW
 decays every parameter; ``apply_decay_param_fun`` is accepted and not
 applied (only the reference's eager ``step`` honours it).
@@ -72,6 +77,26 @@ class L2Decay:
 
     def __call__(self, p, g):
         return g + self.coeff * p
+
+
+class L1Decay:
+    """Coupled L1 regularization: ``g + coeff * sign(p)``."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+    def __call__(self, p, g):
+        return g + self.coeff * torch.sign(p)
+
+
+def _param_lr(p, lr):
+    """``lr`` scaled by the parameter's ``ParamAttr`` learning rate, as an
+    f32 product."""
+    factor = getattr(p, "optimize_attr", None)
+    factor = 1.0 if factor is None else factor.get("learning_rate", 1.0)
+    if factor == 1.0:
+        return lr
+    return float(np.float32(lr) * np.float32(factor))
 
 
 class Optimizer:
@@ -134,9 +159,10 @@ class Optimizer:
                 if w is None:
                     w = self._master[i] = p.float()
             g = g.to(w.dtype)
-            if self._regularizer is not None:
-                g = self._regularizer(w, g)
-            self._rule(w, g, self._accumulators[i], lr)
+            reg = getattr(p, "regularizer", None) or self._regularizer
+            if reg is not None:
+                g = reg(w, g)
+            self._rule(w, g, self._accumulators[i], _param_lr(p, lr))
             if w is not p:
                 p.copy_(w)
 
@@ -218,5 +244,5 @@ class AdamW(Adam):
         super()._rule(p, g, st, lr)
 
 
-__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "L2Decay", "Optimizer",
-           "lr"]
+__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "L1Decay", "L2Decay",
+           "Optimizer", "lr"]

@@ -9,6 +9,9 @@
     python3 scripts/profile_torch.py llama_training [--out profile_out]
     python3 scripts/profile_torch.py training_amp [--out profile_out]
     python3 scripts/profile_torch.py llama_training_amp [--out profile_out]
+    python3 scripts/profile_torch.py ernie [--out profile_out] [--steps 2]
+    python3 scripts/profile_torch.py bert  [--out profile_out] [--steps 2]
+    python3 scripts/profile_torch.py bert_amp [--out profile_out]
 
 ``serving`` drives the configuration and traffic of ``chip_smoke.py``
 phase 4 (GPT-3 1.3B, 8 greedy requests, bf16 paged KV, prefix sharing,
@@ -22,7 +25,11 @@ and ``llama_training`` do the same for phases 13 and 16: Llama-3-8B at
 full width, 32 layers served, 4 layers trained (Touvron et al. AdamW).
 ``training_amp`` and ``llama_training_amp`` drive phases 18 and 21: the
 same trainers under ``auto_cast(level="O1")`` (GPT with phase 18's warmup
-+ cosine learning rate).
++ cosine learning rate). ``ernie`` drives phase 23's fine-tune step
+(ERNIE-3.0-base, ``Model.train_batch`` on one 32 x 128 batch of its
+padded sentence pairs, dropouts 0.1: the attention takes the dense route).
+``bert`` and ``bert_amp`` drive phase 25 (BERT-base masked LM, 8 x 512,
+``TrainStep`` + AdamW; in f32 and under ``auto_cast(level="O1")``).
 
 Prints one JSON object: wall time of the profiled run, device busy time
 (sum of kernel time; the rest of the wall is the device's idle share),
@@ -137,11 +144,36 @@ def moe(steps):
     return profiled_steps(step, (x, y), steps, x.shape[0] * x.shape[1])
 
 
+def ernie(steps):
+    from paddle_tpu_torch.io import DataLoader
+
+    net = chip_smoke.build_ernie()
+    model = chip_smoke.ernie_model(net, 1000)
+    data = chip_smoke.PairData(chip_smoke.ERNIE_BATCH, net.config.vocab_size,
+                               chip_smoke.ERNIE_SEQ, chip_smoke.SEED + 20)
+    *xs, ys = next(iter(DataLoader(data, batch_size=chip_smoke.ERNIE_BATCH,
+                                   device=chip_smoke.DEVICE)))
+    prof, wall, n, extra = profiled_steps(
+        lambda *b: model.train_batch(b[:-1], b[-1]), (*xs, ys), steps,
+        xs[0].numel())
+    extra["real_tokens_per_step"] = int(xs[2].sum())
+    return prof, wall, n, extra
+
+
+def bert(steps, level):
+    step, batch, real = chip_smoke.bert_trainer(level)
+    prof, wall, n, extra = profiled_steps(step, batch, steps,
+                                          batch[0].numel())
+    extra["real_tokens_per_step"] = real
+    return prof, wall, n, extra
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", choices=("serving", "training", "moe",
                                      "llama_serving", "llama_training",
-                                     "training_amp", "llama_training_amp"))
+                                     "training_amp", "llama_training_amp",
+                                     "ernie", "bert", "bert_amp"))
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--steps", type=int, default=2,
                     help="profiled training steps (the training paths "
@@ -175,6 +207,11 @@ def main() -> int:
         prof, wall, n, extra = training_amp(
             args.steps, lambda: llama(chip_smoke.LLAMA_TRAIN_LAYERS),
             chip_smoke.LLAMA_ADAMW, False)
+    elif args.path == "ernie":
+        prof, wall, n, extra = ernie(args.steps)
+    elif args.path in ("bert", "bert_amp"):
+        prof, wall, n, extra = bert(args.steps, "O1" if args.path ==
+                                    "bert_amp" else None)
     else:
         prof, wall, n, extra = moe(args.steps)
 

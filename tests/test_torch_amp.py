@@ -7,7 +7,7 @@ the port casts in each op it wraps with ``amp_op``. Both gateways are
 spied on here (a ``monkeypatch`` of each ``_amp_cast``): the sets of
 ``(op name, dtypes after the cast)`` they log over a forward must be equal,
 at O1 and O2, with and without ``decorate``, with custom lists and in
-fp16. Then logits, the loss and the gradients under O1 / O2 (the reference's
+fp16, and for ERNIE's encoder path at O1 / O2. Then logits, the loss and the gradients under O1 / O2 (the reference's
 through its ``TrainStep`` loss, whose ``jax.value_and_grad`` is the path
 that trains), ``decorate``'s in-place casts, and ``GradScaler``'s
 scale / skip / update sequence against the reference's eager path.
@@ -33,8 +33,10 @@ from paddle_tpu_torch.framework import op as top
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.ops import flash_attention as fa
 
-from torch_port_utils import (VOCAB, jax_tiny_gpt, jax_tiny_llama,
-                              numpy_state, torch_tiny_gpt, torch_tiny_llama)
+from torch_port_utils import (VOCAB, encoder_batch, jax_tiny_encoder,
+                              jax_tiny_gpt, jax_tiny_llama, numpy_state,
+                              torch_tiny_encoder, torch_tiny_gpt,
+                              torch_tiny_llama)
 
 BF16_U = 2.0 ** -8  # bf16's unit roundoff (8 significant bits)
 # logits of a bf16 head product on both sides: the f32 sums inside each
@@ -137,6 +139,39 @@ def test_cast_log_matches_reference(model, case, cast_logs):
         assert names["parallel_cross_entropy"] == (dtype,)
     # the custom lists are gone again
     assert "gelu" not in top.AMP_BLACK and "rms_norm_op" not in top.AMP_WHITE
+
+
+ERNIE_CASES = {"O1": ("O1", False), "O2": ("O2", False),
+               "O2-decorate": ("O2", True)}
+
+
+@pytest.mark.parametrize("case", ERNIE_CASES)
+def test_ernie_cast_log_matches_reference(case, cast_logs):
+    """The encoder path (embeddings with the task table, post-LN blocks
+    under the padding mask, pooler, classifier, ``cross_entropy_op``)
+    casts where the reference casts; the mask, a raw array there, is not
+    cast on either side."""
+    level, dec = ERNIE_CASES[case]
+    ref_log, port_log = cast_logs
+    head = "ErnieForSequenceClassification"
+    ids, types, mask = encoder_batch(b=2, t=8)
+    labels = np.array([0, 2])
+    with jax_tiny_encoder("ernie", head) as jm:
+        tm = torch_tiny_encoder(numpy_state(jm), "ernie", head)
+        if dec:
+            ref_amp.decorate(jm, level="O2")
+            amp.decorate(tm, level="O2")
+        with ref_amp.auto_cast(level=level):
+            jm(*(Tensor(jnp.asarray(x)) for x in (ids, types, mask)),
+               labels=Tensor(jnp.asarray(labels)))
+    with amp.auto_cast(level=level):
+        tm(*(torch.from_numpy(x) for x in (ids, types, mask)),
+           labels=torch.from_numpy(labels))
+    assert ref_log and set(port_log) == set(ref_log)
+    names = dict(port_log)
+    assert names["sdpa_op"] == ("bfloat16",) * 3
+    assert names["cross_entropy_op"] == ("float32",)
+    assert ("tanh", ("bfloat16",)) in port_log or level == "O1"
 
 
 def test_op_lists_match_reference():

@@ -60,7 +60,9 @@ def _close(got, want, tol, what):
     assert err <= tol * max(1.0, np.abs(want).max()), (what, err)
 
 
-# (causal, Tq, Tk, H, Hkv, bias shape or None, bias grad, dtype)
+# (causal, Tq, Tk, H, Hkv, bias shape or None, bias grad, dtype[, D]):
+# D is 16 unless given; bias "pad" is the encoders' additive padding mask,
+# [B, 1, 1, Tk] of 0 on each row's kept keys and -1e9 past them
 CASES = {
     "causal-square": (True, 40, 40, 2, 2, None, False, "f32"),
     "causal-tq<tk-gqa-padbias": (True, 24, 40, 4, 2, "B11K", True, "f32"),
@@ -70,6 +72,7 @@ CASES = {
     "full-rowbias-nograd": (False, 40, 24, 2, 1, "11Q1", False, "f32"),
     "causal-bf16-gqa": (True, 32, 32, 4, 2, None, False, "bf16"),
     "full-bf16-padbias": (False, 24, 40, 2, 2, "B11K", True, "bf16"),
+    "padmask-encoder-d64": (False, 32, 32, 2, 2, "pad", False, "f32", 64),
 }
 
 
@@ -77,17 +80,26 @@ def _bias_shape(code, b, h, tq, tk):
     return tuple({"B": b, "H": h, "Q": tq, "K": tk, "1": 1}[c] for c in code)
 
 
+def _bias(rng, code, b, h, tq, tk):
+    if code is None:
+        return None
+    if code == "pad":  # row i keeps its first tk - 13 * i keys
+        kept = np.arange(tk)[None, :] < (tk - 13 * np.arange(b))[:, None]
+        return np.where(kept, 0.0, -1e9).astype(np.float32)[:, None, None]
+    return rng.standard_normal(
+        _bias_shape(code, b, h, tq, tk)).astype(np.float32)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_forward_and_backward_match_pallas_kernels(name):
-    causal, tq, tk, h, hkv, bcode, bgrad, dt = CASES[name]
-    b, d = 2, 16
+    causal, tq, tk, h, hkv, bcode, bgrad, dt, *rest = CASES[name]
+    b, d = 2, (rest or [16])[0]
     rng = np.random.default_rng(sorted(CASES).index(name))
     q = _arr(rng, (b, tq, h, d), dt)
     k = _arr(rng, (b, tk, hkv, d), dt)
     v = _arr(rng, (b, tk, hkv, d), dt)
     do = _arr(rng, (b, tq, h, d), dt)
-    bias = None if bcode is None else rng.standard_normal(
-        _bias_shape(bcode, b, h, tq, tk)).astype(np.float32)
+    bias = _bias(rng, bcode, b, h, tq, tk)
     scale = 1.0 / math.sqrt(d)
     tol = F32_TOL if dt == "f32" else BF16_TOL
 

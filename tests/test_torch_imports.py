@@ -88,3 +88,21 @@ def test_engine_refuses_model_on_another_device():
 def test_engine_rejects_unknown_attention_choice():
     with pytest.raises(ValueError, match="attn_kernel"):
         DecodeEngine(_tiny("cpu"), device="cpu", attn_kernel="einsum")
+
+
+def test_encoders_and_loader_without_device_raise_on_cpu_only_machine(
+        no_cuda):
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.text.models.bert import BertConfig, BertModel
+    from paddle_tpu_torch.text.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification)
+
+    tiny = dict(vocab_size=11, hidden_size=16, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ErnieForSequenceClassification(ErnieConfig(**tiny))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BertModel(BertConfig(**tiny))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DataLoader([1, 2, 3])
+    assert BertModel(BertConfig(**tiny), device="cpu").pooler is not None

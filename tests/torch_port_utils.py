@@ -1,6 +1,6 @@
-"""Shared helpers of the PyTorch-port parity tests: a tiny reference GPT
-and a tiny reference Llama built in ``paddle_tpu`` (JAX, CPU), and the
-numpy bridge of their weights."""
+"""Shared helpers of the PyTorch-port parity tests: a tiny reference GPT,
+Llama and BERT / ERNIE encoders built in ``paddle_tpu`` (JAX, CPU), and
+the numpy bridge of their weights."""
 import contextlib
 
 import numpy as np
@@ -96,6 +96,85 @@ def torch_tiny_llama(np_state, **kw):
     m = LlamaForCausalLM(LlamaConfig(**tiny_llama_kwargs(**kw)),
                          device="cpu")
     return m.load_numpy_state(np_state)
+
+
+def tiny_encoder_kwargs(kind="ernie", **kw):
+    """A 2-layer encoder at hidden 32 with 4 heads (head_dim 8) and
+    dropouts 0; ERNIE with its task-type table."""
+    base = dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
+                num_attention_heads=4, intermediate_size=64,
+                max_position_embeddings=64, hidden_dropout_prob=0.0,
+                attention_probs_dropout_prob=0.0)
+    if kind == "ernie":
+        base.update(type_vocab_size=4, task_type_vocab_size=3)
+    return dict(base, **kw)
+
+
+ENCODER_HEADS = {
+    "bert": ("BertModel", "BertForMaskedLM", "BertForSequenceClassification"),
+    "ernie": ("ErnieModel", "ErnieForMaskedLM",
+              "ErnieForSequenceClassification",
+              "ErnieForTokenClassification"),
+}
+
+
+def _encoder_module(pkg, kind):
+    import importlib
+
+    return importlib.import_module(f"{pkg}.text.models.{kind}")
+
+
+def _encoder_args(kind, head):
+    return {} if head.endswith(("Model", "MaskedLM")) else {"num_classes": 3}
+
+
+@contextlib.contextmanager
+def jax_tiny_encoder(kind="ernie", head="ErnieForSequenceClassification",
+                     seed=7, train=False, **kw):
+    """The reference encoder ``head`` (a class of ``bert.py`` /
+    ``ernie.py``) at :func:`tiny_encoder_kwargs`' size, built and run under
+    :func:`no_mesh`; in eval mode unless ``train``."""
+    import paddle_tpu as paddle
+
+    mod = _encoder_module("paddle_tpu", kind)
+    cfg = getattr(mod, f"{kind.capitalize()}Config")
+    with no_mesh():
+        paddle.seed(seed)
+        m = getattr(mod, head)(cfg(**tiny_encoder_kwargs(kind, **kw)),
+                               **_encoder_args(kind, head))
+        if not train:
+            m.eval()
+        yield m
+
+
+def torch_tiny_encoder(np_state, kind="ernie",
+                       head="ErnieForSequenceClassification", **kw):
+    """The port's encoder ``head`` on the CPU carrying the bridged
+    reference state."""
+    from paddle_tpu_torch.framework.io_state import load_numpy_state
+
+    mod = _encoder_module("paddle_tpu_torch", kind)
+    cfg = getattr(mod, f"{kind.capitalize()}Config")
+    m = getattr(mod, head)(cfg(**tiny_encoder_kwargs(kind, **kw)),
+                           **_encoder_args(kind, head), device="cpu")
+    return load_numpy_state(m, np_state)
+
+
+def encoder_batch(b=3, t=12, seed=5, kind="ernie"):
+    """Ids, token types and a keep-mask ``[b, t]`` as a tokenizer gives
+    them: row i keeps a prefix of a different length (the first row the
+    full length), its first segment type 0 and the rest type 1; padded
+    ids are 0."""
+    rng = np.random.default_rng(seed)
+    lengths = np.linspace(t, max(t // 3, 2), b).astype(int)
+    ids = rng.integers(1, VOCAB, (b, t))
+    types = np.zeros((b, t), np.int64)
+    mask = np.zeros((b, t), np.int64)
+    for i, n in enumerate(lengths):
+        mask[i, :n] = 1
+        ids[i, n:] = 0
+        types[i, n // 2:n] = 1
+    return ids, types, mask
 
 
 # -- TF32 emulation (the tensor-core products of kernels K1, K2 and K3) ------
