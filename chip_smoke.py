@@ -117,9 +117,37 @@ Phases, each fatal on failure (non-zero exit, no final line):
    T=512; H=12, D=64, non-causal, padding bias; f32 and bf16), each
    checked against its plain version and timed beside it, SDPA under the
    same additive mask and the bound;
-27. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
-   23-26), a ``kernels`` JSON line (the GPT, encoder and MoE shapes), then
-   the result line.
+27. ResNet-50 (He et al. 2016, Table 1: 1000 classes; 224 x 224, batch
+   256, random weights from the seed) trained in f32 through
+   ``TrainStep`` + ``Momentum(0.1, 0.9, weight decay 1e-4)`` (the repo's
+   benchmark recipe, its rate ramped linearly from 0.01 over the 12
+   steps) on one fixed batch: step ms (steps 3
+   on), images/s against the f32 bound, peak memory, the device's idle
+   share (kernel time over two profiled steps against the step); the loss
+   falls, every BN buffer is finite and has moved;
+28. the same under ``auto_cast`` O1 and after ``decorate(level="O2")``
+   with ``multi_precision``: a spy on ``torch.nn.functional.conv2d`` /
+   ``batch_norm`` sees 53 convs in bf16 and 53 batch norms in f32 a step,
+   the first O1 loss is within ``AMP_LOSS_RTOL`` of phase 27's, the
+   losses fall; images/s against the bf16 bound;
+29. ResNet-50 through ``paddle.Model``: ``fit`` 8 steps over ``FakeData``
+   (256 x 256 images) through ``RandomResizedCrop(224)``,
+   ``RandomHorizontalFlip``, ``ToTensor``, ``Normalize`` and a
+   ``DataLoader`` of worker processes, with ``Momentum`` under a
+   ``PiecewiseDecay`` and top-1 / top-5 ``Accuracy``; the rate batches
+   arrive at beside phase 27's step rate; ``evaluate`` and ``predict``
+   over 4 batches through ``Resize(256)``, ``CenterCrop(224)``;
+   ``summary`` counts 25,557,032 parameters; ``save`` then ``load`` into a
+   fresh model gives the same eval logits and BN buffers;
+30. card against CPU from the same weights: ResNet-50 (10 classes, 64 x
+   64, batch 8) eval and train logits, the BN buffers, one Momentum
+   step's parameters; a sweep of ``conv2d`` / ``conv2d_transpose`` /
+   ``max_pool2d`` / ``avg_pool2d`` through the explicit-padding routes,
+   forward and gradient;
+31. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+   23-26), a ``vision`` JSON line (phases 27-30), a ``kernels`` JSON line
+   (the GPT, encoder and MoE shapes; no TPU kernel lies on the vision
+   path), then the result line.
 """
 from __future__ import annotations
 
@@ -2524,6 +2552,508 @@ def phases_encoders(fa, smi, peaks):
     return line, timed, lockstep
 
 
+# -- phases 27-30: ResNet-50 --------------------------------------------------
+
+# ResNet-50 (He et al. 2016, Table 1; the reference's resnet50(num_classes=
+# 1000)) at 224 x 224, batch 256, trained with the repo's own benchmark
+# recipe (bench_configs.py::run_resnet50): Momentum(0.1, 0.9, weight decay
+# 1e-4), cross entropy, one fixed batch of standard-normal images and
+# uniform labels
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES, RESNET_STEPS = 256, 224, 1000, 12
+RESNET_LR = 0.1
+RESNET_MOMENTUM = dict(momentum=0.9, weight_decay=1e-4)
+# the learning rate ramps linearly from lr / 10 to lr over the 12 steps
+# (Goyal et al. 2017, section 2.2's gradual warmup). At a constant 0.1
+# from random weights the fixed batch's loss climbs back over steps 5-9,
+# and the gate's margin (the mean of the first 4 steps' losses less the
+# last 4's) was 0.17 and 0.27 in two runs, -0.84 over 16 steps; a 4- or
+# 8-step warmup moves the bump later (0.94, 0.60); the 12-step ramp gave
+# 1.53 with the loss falling almost throughout (scripts/
+# resnet_warmup_sweep.py on an H100; cuDNN's algorithms sum in a
+# run-dependent order, and the trajectory amplifies it)
+RESNET_WARMUP_STEPS, RESNET_WARMUP_START = 12, 0.01
+# a training image costs 3 forwards: ResNet-50's 4.1 GMAC (8.2 GFLOP)
+# forward, and a backward of twice that
+RESNET_TRAIN_FLOP = 3 * 8.2e9
+RESNET_PARAMS = 25_557_032
+# phase 29: paddle.Model over FakeData through the ImageNet transforms
+FIT_STEPS, EVAL_BATCHES, FAKE_HW = 8, 4, 256
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+# phase 30, card against CPU, as max|err| / max|CPU|: f32 sums in other
+# orders (cuDNN's algorithms, TF32 off) through 50 layers
+CARD_CPU_RTOL = 1e-4
+# the op sweep: one conv / pool, f32 sums of at most a few hundred terms
+OP_SWEEP_RTOL = 1e-5
+
+
+def build_resnet(**kw):
+    from paddle_tpu_torch.vision.models import resnet50
+
+    return resnet50(device=kw.pop("device", DEVICE), seed=SEED, **kw)
+
+
+def resnet_batch():
+    """The fixed batch, made with numpy from the seed as the reference's
+    benchmark makes it, then put on the card once."""
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((RESNET_BATCH, 3, RESNET_HW, RESNET_HW),
+                            dtype=np.float32)
+    y = rng.integers(0, RESNET_CLASSES, (RESNET_BATCH,))
+    return torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+
+
+def resnet_trainer(model, level):
+    """``TrainStep`` + ``Momentum`` (under the warmup; the caller steps
+    the schedule) in f32 (``level`` None), under ``auto_cast(level=
+    "O1")``, or after ``decorate(level="O2")`` with ``multi_precision``
+    under ``auto_cast(level="O2")`` (the reference benchmark's setting)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+
+    sched = topt.lr.LinearWarmup(RESNET_LR, RESNET_WARMUP_STEPS,
+                                 RESNET_WARMUP_START, RESNET_LR)
+    opt = topt.Momentum(sched, parameters=model.parameters(),
+                        multi_precision=level == "O2", **RESNET_MOMENTUM)
+    if level == "O2":
+        amp.decorate(model, opt, level="O2")
+
+    def loss_fn(m, x, y):
+        with amp.auto_cast(enable=level is not None, level=level or "O1"):
+            return F.cross_entropy(m(x), y)
+
+    return TrainStep(model, loss_fn, opt)
+
+
+def device_busy_ms(run):
+    """Device time of ``run()`` under ``torch.profiler``: the sum of its
+    kernels' self time, and the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = launches = 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and \
+                evt.self_device_time_total > 0:
+            busy += evt.self_device_time_total / 1e3
+            launches += evt.count
+    return busy, launches
+
+
+def bn_buffers(model):
+    return {k: v for k, v in model.state_dict().items()
+            if k.endswith(("_mean", "_variance"))}
+
+
+@contextlib.contextmanager
+def conv_bn_spy():
+    """The dtypes each ``torch.nn.functional.conv2d`` / ``batch_norm``
+    call of the port receives, as ``{"conv": [...], "bn": [...]}``."""
+    import torch.nn.functional as tF
+
+    seen = {"conv": [], "bn": []}
+    conv, bn = tF.conv2d, tF.batch_norm
+
+    def conv_spy(x, w, *a, **kw):
+        seen["conv"].append((x.dtype, w.dtype))
+        return conv(x, w, *a, **kw)
+
+    def bn_spy(x, mean, var, weight=None, bias=None, *a, **kw):
+        seen["bn"].append((x.dtype, mean.dtype,
+                           None if weight is None else weight.dtype))
+        return bn(x, mean, var, weight, bias, *a, **kw)
+
+    tF.conv2d, tF.batch_norm = conv_spy, bn_spy
+    try:
+        yield seen
+    finally:
+        tF.conv2d, tF.batch_norm = conv, bn
+
+
+def run_resnet(smi, peaks, level, batch, phase, f32=None):
+    """``RESNET_STEPS`` steps of ResNet-50 at ``level`` on ``batch``; the
+    step times (steps 3 on), the peak, the device's busy share over two
+    more profiled steps, and the gates of the phase."""
+    t0 = time.perf_counter()
+    model = build_resnet()
+    step = resnet_trainer(model, level)
+    tag = level or "f32"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    spy_calls = None
+    for i in range(RESNET_STEPS):
+        t1 = time.perf_counter()
+        if i == 0 and level is not None:
+            with conv_bn_spy() as spy_calls:
+                loss = step(*batch)
+        else:
+            loss = step(*batch)
+        losses.append(float(loss))  # syncs
+        ms.append(1e3 * (time.perf_counter() - t1))
+        step._opt._learning_rate.step()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy, launches = device_busy_ms(lambda: [step(*batch) for _ in range(2)])
+    step_ms = float(np.mean(ms[2:]))
+    busy_step = busy / 2
+    images = RESNET_BATCH / step_ms * 1e3
+    peak_kind = "f32" if level is None else "bf16"
+    bound_images = peaks[peak_kind] / RESNET_TRAIN_FLOP
+    out = dict(level=tag, step_ms=step_ms, step_ms_all=ms,
+               images_per_s=images, bound_images_per_s=bound_images,
+               share_of_bound=images / bound_images, peak_gib=peak,
+               device_busy_ms=busy_step,
+               device_idle_share=max(0.0, 1.0 - busy_step / step_ms),
+               launches_per_step=launches // 2, losses=losses, card=smi)
+    log(f"# phase {phase}: ResNet-50 {tag}, {RESNET_BATCH} x {RESNET_HW}^2, "
+        f"Momentum lr {RESNET_LR} (warmup {RESNET_WARMUP_STEPS} steps from "
+        f"{RESNET_WARMUP_START}), {RESNET_MOMENTUM}: steps "
+        f"3-{RESNET_STEPS} {step_ms:.2f} ms "
+        f"= {images:.1f} images/s ({100 * images / bound_images:.1f} % of the "
+        f"{peak_kind} bound {bound_images:.0f} images/s at "
+        f"{peaks[peak_kind] / 1e12:.0f} TFLOP/s), peak {peak:.2f} GiB, "
+        f"device busy {busy_step:.2f} ms a step (idle "
+        f"{100 * out['device_idle_share']:.1f} %), {launches // 2} launches "
+        f"a step; {time.perf_counter() - t0:.1f} s  [{smi}]")
+    log(f"losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in ms]}")
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"ResNet-50 {tag}: loss did not fall on the "
+                             f"fixed batch: first 4 mean {first}, last 4 "
+                             f"mean {last}")
+    bufs = bn_buffers(model)
+    stuck = [k for k, v in bufs.items() if not torch.isfinite(v).all()
+             or torch.all(v == (0.0 if k.endswith("_mean") else 1.0))]
+    if len(bufs) != 106 or stuck:
+        raise AssertionError(f"ResNet-50 {tag}: {len(bufs)} BN buffers, "
+                             f"not finite or unmoved: {stuck[:4]}")
+    if spy_calls is not None:
+        convs, bns = spy_calls["conv"], spy_calls["bn"]
+        bad_conv = [c for c in convs if c != (torch.bfloat16,) * 2]
+        bad_bn = [c for c in bns if c[0] != torch.float32 or c[1]
+                  != torch.float32 or c[2] != torch.float32]
+        log(f"spy, step 1: {len(convs)} conv2d launches, all (x, w) "
+            f"{sorted(set(convs))}; {len(bns)} batch_norm launches, "
+            f"(x, running, weight) {sorted(set(bns))}")
+        if len(convs) != 53 or len(bns) != 53 or bad_conv or bad_bn:
+            raise AssertionError(f"ResNet-50 {tag}: conv / batch norm cast "
+                                 f"points wrong: {len(convs)} convs "
+                                 f"({bad_conv[:2]}), {len(bns)} batch norms "
+                                 f"({bad_bn[:2]})")
+        out["spy"] = dict(convs=len(convs), batch_norms=len(bns))
+    if f32 is not None:
+        rel = abs(losses[0] - f32["losses"][0]) / abs(f32["losses"][0])
+        log(f"first {tag} loss {losses[0]:.6f} vs f32 "
+            f"{f32['losses'][0]:.6f}: {rel:.2e} (rtol "
+            f"{AMP_LOSS_RTOL:.2e} gates O1)")
+        out["first_loss_rel_vs_f32"] = rel
+        if level == "O1" and not rel <= AMP_LOSS_RTOL:
+            raise AssertionError("first O1 loss off the f32 one")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def imagenet_transforms(train):
+    from paddle_tpu_torch.vision import transforms as T
+
+    first = ([T.RandomResizedCrop(RESNET_HW), T.RandomHorizontalFlip()]
+             if train else [T.Resize(FAKE_HW), T.CenterCrop(RESNET_HW)])
+    return T.Compose(first + [T.ToTensor(),
+                              T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+
+
+def resnet_model(net):
+    from paddle_tpu_torch import Model, metric
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as topt
+
+    sched = topt.lr.PiecewiseDecay([FIT_STEPS // 2], [0.1, 0.01])
+    return Model(net).prepare(
+        topt.Momentum(sched, 0.9, parameters=net.parameters(),
+                      weight_decay=1e-4),
+        tnn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)))
+
+
+def phase_resnet_hapi(smi, step_images):
+    """Phase 29: ``Model.fit`` / ``evaluate`` / ``predict`` / ``save`` /
+    ``load`` on ResNet-50 over ``FakeData`` through the reference's
+    ImageNet transforms and a ``DataLoader`` of worker processes."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    train = FakeData(FIT_STEPS * RESNET_BATCH, (FAKE_HW, FAKE_HW, 3),
+                     RESNET_CLASSES, imagenet_transforms(True))
+    evals = FakeData(EVAL_BATCHES * RESNET_BATCH, (FAKE_HW, FAKE_HW, 3),
+                     RESNET_CLASSES, imagenet_transforms(False))
+    np.random.seed(SEED)
+    loader = DataLoader(train, batch_size=RESNET_BATCH, shuffle=True,
+                        num_workers=workers, device=DEVICE)
+    eval_loader = DataLoader(evals, batch_size=RESNET_BATCH,
+                             num_workers=workers, device=DEVICE)
+    net = build_resnet()
+    model = resnet_model(net)
+
+    class Beats(Callback):
+        """The time each batch arrives (the loader's wait included) and
+        each step's loss."""
+
+        def __init__(self):
+            super().__init__()
+            self.t, self.losses = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.t.append(time.perf_counter())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    beats = Beats()
+    t1 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, callbacks=[beats])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    gaps = np.diff(beats.t)
+    fit_images = RESNET_BATCH / float(np.mean(gaps[1:])) if len(gaps) > 1 \
+        else float("nan")
+    log(f"# phase 29: ResNet-50 through paddle.Model: fit {FIT_STEPS} steps "
+        f"of {RESNET_BATCH} FakeData images ({FAKE_HW}^2 -> "
+        f"RandomResizedCrop({RESNET_HW}), flip, ToTensor, Normalize), "
+        f"{workers} worker processes: {fit_s:.2f} s; steps 3-{FIT_STEPS} "
+        f"arrive every {1e3 * float(np.mean(gaps[1:])):.1f} ms = "
+        f"{fit_images:.1f} images/s against phase 27's "
+        f"{step_images:.1f} images/s a step (ratio "
+        f"{fit_images / step_images:.2f}); losses "
+        f"{[round(x, 4) for x in beats.losses]}  [{smi}]")
+    if len(beats.losses) != FIT_STEPS or \
+            not all(np.isfinite(beats.losses)):
+        raise AssertionError(f"fit gave losses {beats.losses}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    result = model.evaluate(eval_loader, verbose=0)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_eval = EVAL_BATCHES * RESNET_BATCH
+    predicted = model.predict(eval_loader)[0]
+    summary = model.summary()
+    log(f"evaluate {result}: {n_eval / eval_s:.1f} images/s ({eval_s:.2f} s "
+        f"for {EVAL_BATCHES} batches, Resize({FAKE_HW}), CenterCrop("
+        f"{RESNET_HW}), worker start included), peak {eval_peak:.2f} GiB; "
+        f"predict {[p.shape for p in predicted]}; summary {summary}")
+    for k in ("acc_top1", "acc_top5"):
+        if not 0.0 <= result[k] <= 1.0:
+            raise AssertionError(f"evaluate gave {result}")
+    if len(predicted) != EVAL_BATCHES or any(
+            p.shape != (RESNET_BATCH, RESNET_CLASSES)
+            or not np.isfinite(p).all() for p in predicted):
+        raise AssertionError("predict gave wrong outputs")
+    if summary["total_params"] != RESNET_PARAMS:
+        raise AssertionError(f"summary counts {summary}")
+
+    # save, then load into a fresh model built from another seed: the
+    # same eval logits on one batch, running statistics included
+    x = next(iter(eval_loader))[0]
+    net.eval()
+    with torch.no_grad():
+        want = net(x).float()
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "resnet50"))
+        from paddle_tpu_torch.vision.models import resnet50
+
+        fresh_net = resnet50(device=DEVICE, seed=SEED + 1)
+        fresh = resnet_model(fresh_net)
+        fresh.load(os.path.join(tmp, "resnet50"))
+    fresh_net.eval()
+    with torch.no_grad():
+        got = fresh_net(x).float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    same_bn = all(torch.equal(a, b) for a, b in zip(
+        bn_buffers(net).values(), bn_buffers(fresh_net).values()))
+    log(f"save / load into a fresh model: eval logits max|err| {err:.3e} "
+        f"of {scale:.3f}, BN buffers equal {same_bn}, velocities "
+        f"{len(fresh._optimizer.state_dict()) - 1}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same_bn or not err <= 1e-6 * scale:
+        raise AssertionError("save / load changed the model")
+    out = dict(fit_images_per_s=fit_images, step_images_per_s=step_images,
+               fit_over_step=fit_images / step_images, fit_s=fit_s,
+               fit_losses=beats.losses, workers=workers, eval=result,
+               eval_images_per_s=n_eval / eval_s, eval_peak_gib=eval_peak,
+               card=smi)
+    del model, net, fresh, fresh_net, loader, eval_loader
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_to_cpu(got, want):
+    """max|got - want| / max|want|, ``got`` on any device, ``want`` on
+    the CPU."""
+    return float((got.cpu().double() - want.double()).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+# name -> (op, input shape, weight shape or None, keyword arguments)
+OP_CASES = {
+    "conv-same-s2": ("conv2d", (2, 3, 10, 11), (5, 3, 3, 3),
+                     dict(stride=2, padding="SAME")),
+    "conv-per-side": ("conv2d", (2, 3, 8, 9), (4, 3, 3, 3),
+                      dict(padding=[1, 0, 2, 1], stride=2)),
+    "conv-groups-dilation": ("conv2d", (2, 4, 11, 10), (6, 2, 3, 3),
+                             dict(padding=2, dilation=2, groups=2)),
+    "conv-nhwc": ("conv2d", (2, 9, 10, 3), (4, 3, 3, 3),
+                  dict(stride=2, padding="SAME", data_format="NHWC")),
+    "convT-opad": ("conv2d_transpose", (2, 4, 5, 5), (4, 3, 3, 3),
+                   dict(stride=2, padding=1, output_padding=1)),
+    "convT-same-groups": ("conv2d_transpose", (2, 4, 5, 6), (4, 2, 3, 3),
+                          dict(stride=2, padding="SAME", groups=2)),
+    "max-ceil": ("max_pool2d", (2, 3, 9, 10), None,
+                 dict(kernel_size=3, stride=2, padding=1, ceil_mode=True)),
+    "max-wide-pad": ("max_pool2d", (2, 3, 9, 10), None,
+                     dict(kernel_size=3, stride=1, padding=2)),
+    "max-nhwc": ("max_pool2d", (2, 9, 10, 3), None,
+                 dict(kernel_size=3, stride=2, padding=1,
+                      data_format="NHWC")),
+    "avg-ceil-excl": ("avg_pool2d", (2, 3, 9, 10), None,
+                      dict(kernel_size=3, stride=2, ceil_mode=True)),
+    "avg-ceil-incl": ("avg_pool2d", (2, 3, 9, 10), None,
+                      dict(kernel_size=3, stride=2, padding=1,
+                           ceil_mode=True, exclusive=False)),
+    "avg-wide-pad": ("avg_pool2d", (2, 3, 9, 10), None,
+                     dict(kernel_size=3, stride=1, padding=[2, 1])),
+}
+
+
+def phase_card_vs_cpu(smi):
+    """Phase 30: ResNet-50 (10 classes) on the card and on the CPU from the
+    same weights, and a sweep of convs and pools through the explicit
+    padding route, forward and gradient."""
+    from paddle_tpu_torch.framework import load_numpy_state
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch import optimizer as topt
+
+    t0 = time.perf_counter()
+    errs = {}
+    cpu = build_resnet(num_classes=10, device="cpu")
+    card = build_resnet(num_classes=10)
+    load_numpy_state(card, {k: v.numpy() for k, v in
+                            cpu.state_dict().items()})
+    rng = np.random.default_rng(SEED + 30)
+    x = torch.from_numpy(rng.standard_normal((8, 3, 64, 64),
+                                             dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (8,)))
+    for m in (cpu, card):
+        m.eval()
+    with torch.no_grad():
+        errs["eval logits"] = rel_to_cpu(card(x.to(DEVICE)), cpu(x))
+    for m in (cpu, card):
+        m.train()
+    with torch.no_grad():
+        errs["train logits"] = rel_to_cpu(card(x.to(DEVICE)), cpu(x))
+    cb, pb = bn_buffers(card), bn_buffers(cpu)
+    errs["BN buffers after a train forward"] = max(
+        rel_to_cpu(cb[k], pb[k]) for k in pb)
+    # one Momentum step through TrainStep at 32 x 32, batch 2, with the
+    # batch norms in inference mode: there the gradient is continuous in
+    # the inputs' rounding (with batch statistics, a ReLU input rounded to
+    # the other side of 0 moves a whole channel's gradient:
+    # tests/test_torch_resnet.py)
+    xs, ys = x[:2, :, :32, :32].contiguous(), y[:2]
+    for m in (cpu, card):
+        m.eval()
+        step = TrainStep(m, lambda mm, a, b: F.cross_entropy(mm(a), b),
+                         topt.Momentum(RESNET_LR,
+                                       parameters=m.parameters(),
+                                       use_nesterov=True,
+                                       **RESNET_MOMENTUM))
+        dev = next(m.parameters()).device
+        step(xs.to(dev), ys.to(dev))
+    cs, ps = card.state_dict(), cpu.state_dict()
+    errs["one Momentum step, parameters"] = max(
+        rel_to_cpu(cs[k], ps[k]) for k in ps)
+    for k, v in errs.items():
+        log(f"card vs CPU, ResNet-50 (10 classes, 64 x 64, batch 8): {k} "
+            f"{v:.2e} (rtol {CARD_CPU_RTOL:.0e})")
+    bad = {k: v for k, v in errs.items() if not v <= CARD_CPU_RTOL}
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    sweep = 0.0
+    for name, (op, xs_, ws, kw) in OP_CASES.items():
+        args = [torch.randn(xs_, generator=gen)]
+        if ws is not None:
+            args.append(0.3 * torch.randn(ws, generator=gen))
+        fn = getattr(F, op)
+        outs = {}
+        for dev in ("cpu", DEVICE):
+            ts = [a.to(dev).requires_grad_(True) for a in args]
+            out = fn(*ts, **kw)
+            cot = torch.ones_like(out) + 0.1 * torch.arange(
+                out.numel(), device=dev, dtype=out.dtype).reshape(
+                out.shape).sin()
+            outs[dev] = [out.detach()] + list(torch.autograd.grad(out, ts,
+                                                                  cot))
+        worst = max(rel_to_cpu(c, p)
+                    for c, p in zip(outs[DEVICE], outs["cpu"]))
+        sweep = max(sweep, worst)
+        if not worst <= OP_SWEEP_RTOL:
+            bad[f"op {name}"] = worst
+    log(f"op sweep card vs CPU ({len(OP_CASES)} conv / transpose / max / "
+        f"avg cases, forward and gradients): worst {sweep:.2e} (rtol "
+        f"{OP_SWEEP_RTOL:.0e}); phase {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"card and CPU differ: {bad}")
+    errs["op sweep"] = sweep
+    del cpu, card
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phases_vision(smi, peaks):
+    """Phases 27-30; returns the ``vision`` JSON line's numbers."""
+    t0 = time.perf_counter()
+    batch = resnet_batch()
+    # cuDNN picks its algorithms by timing them once per shape (the first
+    # step pays it); TF32 stays off
+    torch.backends.cudnn.benchmark = True
+    try:
+        f32 = run_resnet(smi, peaks, None, batch, 27)
+        t1 = time.perf_counter()
+        o1 = run_resnet(smi, peaks, "O1", batch, "28 (O1)", f32)
+        o2 = run_resnet(smi, peaks, "O2", batch, "28 (O2)", f32)
+        log(f"phase 28: {time.perf_counter() - t1:.1f} s")
+        del batch
+        torch.cuda.empty_cache()
+        hapi = phase_resnet_hapi(smi, f32["images_per_s"])
+    finally:
+        torch.backends.cudnn.benchmark = False
+    card_cpu = phase_card_vs_cpu(smi)
+    log(f"phases 27-30: {time.perf_counter() - t0:.1f} s")
+    slim = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                      if k not in ("step_ms_all", "card")}
+    return {"resnet50": {"f32": slim(f32), "O1": slim(o1), "O2": slim(o2),
+                         "hapi": {k: v for k, v in hapi.items()
+                                  if k != "card"},
+                         "card_vs_cpu_rel_err": card_cpu,
+                         "card": smi}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2595,6 +3125,7 @@ def main() -> int:
     step_ms = np.mean(llama_trained["step_ms"][1:])
     amp_runs = phases_amp(fa, smi, trained, llama_trained)
     encoders, enc_timed, enc_lockstep = phases_encoders(fa, smi, peaks)
+    vision = phases_vision(smi, peaks)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -2677,6 +3208,7 @@ def main() -> int:
             max(r["max_abs_err"], *(gmm_err[o][0] for o in outs)), r))
     log(json.dumps({"amp": amp_runs}))
     log(json.dumps({"encoders": encoders}))
+    log(json.dumps({"vision": vision}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

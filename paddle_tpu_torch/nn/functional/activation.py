@@ -1,7 +1,8 @@
 """Activations (counterparts of ``paddle_tpu/nn/functional/activation.py``):
 plain tensor ops, as in the reference, where they are ``jax.nn`` calls and
 no kernel. ``softmax`` and ``log_softmax`` are on the AMP black list;
-``gelu``, ``silu`` and ``tanh`` on neither (they cast at O2 only)."""
+``gelu``, ``relu``, ``silu`` and ``tanh`` on neither (they cast at O2
+only)."""
 from __future__ import annotations
 
 import torch
@@ -16,6 +17,7 @@ def gelu(x, approximate=False, name=None):
         x, approximate="tanh" if approximate else "none")
 
 
+@amp_op("relu")
 def relu(x, name=None):
     return torch.relu(x)
 

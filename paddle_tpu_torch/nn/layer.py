@@ -1,5 +1,5 @@
-"""``ParamAttr`` and parameter creation (counterpart of the parameter part
-of ``paddle_tpu/nn/layer.py``).
+"""``ParamAttr``, parameter creation and the containers ``Sequential`` /
+``LayerList`` (counterparts of those parts of ``paddle_tpu/nn/layer.py``).
 
 A parameter made by :func:`create_parameter` is a ``torch.nn.Parameter``
 that carries the reference ``Parameter``'s attributes: ``trainable``
@@ -12,6 +12,7 @@ unnamed parameters.
 """
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -55,4 +56,36 @@ def create_parameter(shape, attr=None, *, is_bias=False,
     return p
 
 
-__all__ = ["ParamAttr", "create_parameter"]
+class Sequential(nn.Sequential):
+    """Layers called in order. Children are named ``"0"``, ``"1"``, ...
+    as in the reference (so state names read ``downsample.1._mean``); an
+    ``OrderedDict`` or ``(name, layer)`` tuples name them instead."""
+
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0],
+                                           collections.OrderedDict):
+            super().__init__(layers[0])
+            return
+        super().__init__()
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_module(layer[0], layer[1])
+            else:
+                self.add_module(str(i), layer)
+
+    def __getitem__(self, idx):
+        layers = list(self._modules.values())
+        if isinstance(idx, slice):
+            return Sequential(*layers[idx])
+        return layers[idx]
+
+
+class LayerList(nn.ModuleList):
+    """A list of layers named ``"0"``, ``"1"``, ... (the reference's
+    ``LayerList``; ``torch.nn.ModuleList`` names and renumbers alike)."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)
+
+
+__all__ = ["LayerList", "ParamAttr", "Sequential", "create_parameter"]

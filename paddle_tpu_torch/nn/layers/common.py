@@ -1,4 +1,4 @@
-"""Linear, Embedding and Dropout (counterparts of
+"""Linear, Embedding, Dropout, Identity and Flatten (counterparts of
 ``paddle_tpu/nn/layers/common.py``), through the functionals of the same
 names, so ``auto_cast`` casts their inputs.
 
@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ... import tensor as T
 from .. import initializer as I
 from ..functional import common as F
 from ..layer import create_parameter
@@ -85,3 +86,26 @@ class Dropout(nn.Dropout):
 
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training)
+
+
+class Identity(nn.Module):
+    """The input, unchanged; any arguments are ignored."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Flatten(nn.Module):
+    """Axes ``start_axis`` .. ``stop_axis`` merged into one (the
+    reference's ``flatten_op``)."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return T.flatten(x, self.start_axis, self.stop_axis)

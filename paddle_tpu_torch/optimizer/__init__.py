@@ -1,16 +1,17 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/__init__.py``).
 
-``Optimizer`` / ``Adam`` / ``AdamW`` with ``ClipGradByGlobalNorm`` and
-``L2Decay``, applied in the order the reference's functional step (the one
-``TrainStep`` runs) applies them: global-norm clip over all gradients,
+``Optimizer`` / ``SGD`` / ``Momentum`` / ``Adam`` / ``AdamW`` with
+``ClipGradByGlobalNorm``, ``L2Decay`` and ``L1Decay``, applied in the
+order the reference's functional step (the one ``TrainStep`` runs)
+applies them: global-norm clip over all gradients,
 then per parameter the regularizer, then the update rule. Updates run in
 place under ``torch.no_grad()`` as plain tensor ops, the reference's plain
 jnp that XLA fuses; no kernel is called for. State lives on each
 parameter's device, ``beta1_pow`` / ``beta2_pow`` as f32 scalars there, so
 a step never waits on the host.
 
-``multi_precision`` (Adam, AdamW) keeps, for each low-precision
-parameter, an f32 master copy and f32 moments, as the reference's eager
+``multi_precision`` (every optimizer here) keeps, for each low-precision
+parameter, an f32 master copy and f32 state, as the reference's eager
 ``step`` does under ``_use_master_weights``: the gradient is read as f32,
 the regularizer, AdamW's decay and the Adam update act on the master, and
 the master is then written into the parameter in its dtype. An update
@@ -194,6 +195,50 @@ class Optimizer:
                 self._accumulators[i] = st
 
 
+class SGD(Optimizer):
+    """``p <- p - lr * g``."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._multi_precision = bool(multi_precision)
+
+    def _rule(self, p, g, st, lr):
+        p.sub_(lr * g)
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum without dampening (the reference's rule):
+    ``v <- mu * v + g``, then ``p <- p - lr * v``, or under Nesterov
+    ``p <- p - lr * (g + mu * v)``. A float ``weight_decay`` is an L2
+    coefficient folded into the gradient first. The state is
+    ``velocity``, in the parameter's dtype (f32 under
+    ``multi_precision``)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        self._multi_precision = bool(multi_precision)
+
+    def _init_state(self, p):
+        dt = torch.float32 if self._multi_precision else p.dtype
+        return {"velocity": torch.zeros_like(p, dtype=dt)}
+
+    def _rule(self, p, g, st, lr):
+        mu = self._momentum
+        v = st["velocity"].mul_(mu).add_(g)
+        if self._nesterov:
+            p.sub_(lr * (g + mu * v))
+        else:
+            p.sub_(lr * v)
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
@@ -245,4 +290,4 @@ class AdamW(Adam):
 
 
 __all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "L1Decay", "L2Decay",
-           "Optimizer", "lr"]
+           "Momentum", "Optimizer", "SGD", "lr"]

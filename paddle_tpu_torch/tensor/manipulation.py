@@ -10,6 +10,16 @@ def reshape(x, shape, name=None):
     return x.reshape(tuple(shape))
 
 
+@amp_op("flatten_op")
+def _flatten(x, start_axis, stop_axis):
+    return x.flatten(start_axis, stop_axis)
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    """Axes ``start_axis`` .. ``stop_axis`` of ``x`` merged into one."""
+    return _flatten(x, int(start_axis), int(stop_axis))
+
+
 @amp_op("transpose_op")
 def transpose(x, perm, name=None):
     return x.permute(*perm)
@@ -35,4 +45,5 @@ def getitem(x, index):
     return x[index]
 
 
-__all__ = ["getitem", "repeat_interleave", "reshape", "t", "transpose"]
+__all__ = ["flatten", "getitem", "repeat_interleave", "reshape", "t",
+           "transpose"]

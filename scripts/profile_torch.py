@@ -12,6 +12,8 @@
     python3 scripts/profile_torch.py ernie [--out profile_out] [--steps 2]
     python3 scripts/profile_torch.py bert  [--out profile_out] [--steps 2]
     python3 scripts/profile_torch.py bert_amp [--out profile_out]
+    python3 scripts/profile_torch.py resnet [--out profile_out] [--steps 2]
+    python3 scripts/profile_torch.py resnet_amp [--out profile_out]
 
 ``serving`` drives the configuration and traffic of ``chip_smoke.py``
 phase 4 (GPT-3 1.3B, 8 greedy requests, bf16 paged KV, prefix sharing,
@@ -30,6 +32,11 @@ same trainers under ``auto_cast(level="O1")`` (GPT with phase 18's warmup
 padded sentence pairs, dropouts 0.1: the attention takes the dense route).
 ``bert`` and ``bert_amp`` drive phase 25 (BERT-base masked LM, 8 x 512,
 ``TrainStep`` + AdamW; in f32 and under ``auto_cast(level="O1")``).
+``resnet`` and ``resnet_amp`` drive phases 27 and 28 (ResNet-50, batch
+256 at 224 x 224, ``TrainStep`` + Momentum; in f32 and after
+``decorate(level="O2")`` under ``auto_cast(level="O2")``, cuDNN's
+algorithm search on as there), then profile ``Momentum.step`` alone on
+gradients left by one more backward (``momentum_step_ms``).
 
 Prints one JSON object: wall time of the profiled run, device busy time
 (sum of kernel time; the rest of the wall is the device's idle share),
@@ -66,6 +73,16 @@ OWN_KERNELS = {"paged_tile_kernel": "paged_attention_k3_tile",
 def family(name: str) -> str:
     n = name.lower()
     for frag, fam in OWN_KERNELS.items():
+        if frag in n:
+            return fam
+    # cuDNN's convolutions (its kernels name the pass: fprop / dgrad /
+    # wgrad) and batch norms, before the matmul names they share (xmma)
+    for frag, fam in (("wgrad", "conv_wgrad"), ("dgrad", "conv_dgrad"),
+                      ("fprop", "conv_fprop"), ("convolve", "conv_fprop"),
+                      ("winograd", "conv_other"), ("conv", "conv_other"),
+                      ("batch_norm", "batch_norm"), ("bn_", "batch_norm"),
+                      ("max_pool", "pool"), ("avg_pool", "pool"),
+                      ("adaptive", "pool")):
         if frag in n:
             return fam
     # cuBLAS's Hopper kernels are named nvjet_* or *xmma*, CUTLASS's
@@ -168,12 +185,33 @@ def bert(steps, level):
     return prof, wall, n, extra
 
 
+def resnet(steps, level):
+    """Phase 27 / 28's step under the profiler, then ``Momentum.step``
+    alone on the gradients of one more forward and backward."""
+    torch.backends.cudnn.benchmark = True
+    model = chip_smoke.build_resnet()
+    step = chip_smoke.resnet_trainer(model, level)
+    batch = chip_smoke.resnet_batch()
+    prof, wall, n, extra = profiled_steps(step, batch, steps,
+                                          chip_smoke.RESNET_BATCH)
+    opt = step._opt
+    params = [p for p in opt._parameter_list if p.requires_grad]
+    grads = torch.autograd.grad(step._loss_fn(model, *batch), params)
+    for p, g in zip(params, grads):
+        p.grad = g
+    busy, launches = chip_smoke.device_busy_ms(opt.step)
+    extra.update(images_per_step=chip_smoke.RESNET_BATCH,
+                 momentum_step_ms=busy, momentum_launches=launches)
+    return prof, wall, n, extra
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", choices=("serving", "training", "moe",
                                      "llama_serving", "llama_training",
                                      "training_amp", "llama_training_amp",
-                                     "ernie", "bert", "bert_amp"))
+                                     "ernie", "bert", "bert_amp", "resnet",
+                                     "resnet_amp"))
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--steps", type=int, default=2,
                     help="profiled training steps (the training paths "
@@ -212,6 +250,9 @@ def main() -> int:
     elif args.path in ("bert", "bert_amp"):
         prof, wall, n, extra = bert(args.steps, "O1" if args.path ==
                                     "bert_amp" else None)
+    elif args.path in ("resnet", "resnet_amp"):
+        prof, wall, n, extra = resnet(args.steps, "O2" if args.path ==
+                                      "resnet_amp" else None)
     else:
         prof, wall, n, extra = moe(args.steps)
 

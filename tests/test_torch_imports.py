@@ -106,3 +106,23 @@ def test_encoders_and_loader_without_device_raise_on_cpu_only_machine(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DataLoader([1, 2, 3])
     assert BertModel(BertConfig(**tiny), device="cpu").pooler is not None
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.nn.functional.conv", "paddle_tpu_torch.nn.layers.conv",
+    "paddle_tpu_torch.nn.layers.pooling",
+    "paddle_tpu_torch.nn.layers.activation",
+    "paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models.resnet",
+    "paddle_tpu_torch.vision.transforms",
+    "paddle_tpu_torch.vision.datasets"])
+def test_vision_modules_are_guarded(module):
+    """The vision slice's modules are among those the guards above walk."""
+    assert module in MODULES
+
+
+def test_resnet_without_device_raises_on_cpu_only_machine(no_cuda):
+    from paddle_tpu_torch.vision.models import resnet18
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resnet18()
+    assert next(resnet18(device="cpu").parameters()).device.type == "cpu"
