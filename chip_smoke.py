@@ -144,10 +144,31 @@ Phases, each fatal on failure (non-zero exit, no final line):
    step's parameters; a sweep of ``conv2d`` / ``conv2d_transpose`` /
    ``max_pool2d`` / ``avg_pool2d`` through the explicit-padding routes,
    forward and gradient;
-31. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
-   23-26), a ``vision`` JSON line (phases 27-30), a ``kernels`` JSON line
-   (the GPT, encoder and MoE shapes; no TPU kernel lies on the vision
-   path), then the result line.
+31. (A) generation on GPT-3 1.3B at full width and depth (24 layers, f32,
+   random weights from the seed), 4 prompts of 128 tokens, 64 new tokens,
+   through three routes: ``model.generate`` (KV-cached: K1 launches 24
+   times, at the prefill; the decode steps attend through
+   ``F.decode_attention``), ``text.generation.generate(use_engine=False)``
+   (the pow2-bucket loop of full forwards: 24 x 64 K1 launches) and
+   ``generate`` after ``inference.enable_decode_engine`` (f32 KV: K3's
+   launches per regime as phase 4 checks them, no K1); the three greedy
+   streams equal, and a sampled run (top-k 50, top-p 0.9, T 0.8, fixed
+   seed) equal on the cached and loop routes; tokens/s per route;
+32. (B) the same on Llama-3-8B at full width and depth (32 layers, 32 / 8
+   heads; f32 KV on the engine route, as phase 13 gives the reason for),
+   2 prompts of 64 tokens, 32 new: the cached prefill runs K1 on GQA
+   inputs;
+33. (C) ``generate_padded`` and ``beam_search`` (4 beams) at depth 2 on
+   both models: K1 launches 2 layers x forwards, each stream equal to the
+   same call's on the plain attention;
+34. (D) the body of ``examples/train_vision_hapi.py`` on the port on the
+   default device (the card): fit, evaluate, predict, summary, finite
+   logits, every parameter on the card; ``paddle.to_tensor`` on the card,
+   and on the CPU after ``set_device("cpu")`` (restored after);
+35. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+   23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
+   line (phases 31-34), a ``kernels`` JSON line (the GPT, encoder and MoE
+   shapes; no TPU kernel lies on the vision path), then the result line.
 """
 from __future__ import annotations
 
@@ -648,11 +669,12 @@ def k3_expected(pa, layers, st, eng, group):
     return tuple(want[k] for k in ("tile", "split", "decode", "verify"))
 
 
-def report_divergence(fa, model, prompts, outs, ref):
-    """Where the kernel and plain engines' streams first part: the request,
-    the token, and the top-2 logits (and their margin) of a full forward
-    over the common context, once with K1 and once on the plain
-    attention."""
+def report_divergence(fa, model, prompts, outs, ref,
+                      names=("kernel engine", "plain engine")):
+    """Where two runs' streams (``names``: by default the kernel and plain
+    engines) first part: the request, the token, and the top-2 logits
+    (and their margin) of a full forward over the common context, once
+    with K1 and once on the plain attention."""
     for i, (a, b) in enumerate(zip(outs, ref)):
         if np.array_equal(a, b):
             continue
@@ -667,7 +689,7 @@ def report_divergence(fa, model, prompts, outs, ref):
                         f"{ix.tolist()} logits {v.tolist()} margin "
                         f"{(v[0] - v[1]).item():.3e}")
         log(f"request {i}: first divergent token {j - len(prompts[i])} "
-            f"(position {j}): kernel engine {a[j]}, plain engine {b[j]}; "
+            f"(position {j}): {names[0]} {a[j]}, {names[1]} {b[j]}; "
             f"full forward over the common context: " + "; ".join(tops))
         return
 
@@ -3054,6 +3076,274 @@ def phases_vision(smi, peaks):
                          "card": smi}}
 
 
+# -- phases 31-34: the generation API and the top-level namespace ------------
+
+# phase 31: GPT-3 1.3B at full width and depth, 4 prompts of 128 tokens, 64
+# new; phase 32: Llama-3-8B, 2 prompts of 64, 32 new
+GEN_GPT = dict(prompts=4, prompt_len=128, new=64)
+GEN_LLAMA = dict(prompts=2, prompt_len=64, new=32)
+GEN_SAMPLING = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8,
+                    seed=SEED)
+# phase 33: generate_padded and beam_search at depth 2
+GEN_SHORT = dict(prompts=2, prompt_len=32, new=8, beams=4)
+EXAMPLE = "examples/train_vision_hapi.py"
+EXAMPLE_IMPORT = "import paddle_tpu as paddle\n"
+
+
+def gen_prompts(vocab, b, t):
+    return np.random.default_rng(SEED + t).integers(1, vocab, (b, t))
+
+
+def synced(fn):
+    """``fn()`` and its wall time in seconds, the card drained around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_streams(fa, model, prompts, streams, what):
+    """Every stream of ``streams`` ({route: [B, T] ids}) equal to the
+    first; a split is reported as :func:`report_divergence` reports it."""
+    (name0, ref), *rest = streams.items()
+    for name, got in rest:
+        if got.shape == ref.shape and np.array_equal(got, ref):
+            continue
+        report_divergence(fa, model, list(prompts), list(got), list(ref),
+                          names=(name, name0))
+        raise AssertionError(f"{what}: the {name} stream differs from the "
+                             f"{name0} stream")
+
+
+def phase_generation(fa, pa, smi, model, label, phase, prompts, new):
+    """``model.generate`` (KV-cached), ``generate(use_engine=False)`` (the
+    pow2-bucket loop) and ``generate`` through ``enable_decode_engine``
+    on ``prompts``: K1 launches once a layer on the cached route (its
+    prefill; the decode steps attend through ``F.decode_attention``) and
+    once a layer a step on the loop; K3 launches on the engine route in
+    the regimes ``_k3_regime`` picks and K1 not at all. Greedy streams
+    equal on the three routes, sampled ones on the cached and loop
+    routes."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.text import generation
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    group = cfg.num_attention_heads // getattr(
+        cfg, "num_key_value_heads", cfg.num_attention_heads)
+    b, t0 = prompts.shape
+    res = {}
+    reset_flash(fa)
+    cached, secs = synced(lambda: model.generate(prompts, new))
+    if fa.launches_fwd != layers:
+        raise AssertionError(f"cached generate launched K1 "
+                             f"{fa.launches_fwd} times, expected {layers} "
+                             "(the prefill only)")
+    res["cached"] = dict(seconds=secs, tokens_per_s=b * new / secs,
+                         k1_launches=fa.launches_fwd)
+    reset_flash(fa)
+    loop, secs = synced(lambda: generation.generate(model, prompts, new,
+                                                    use_engine=False))
+    if fa.launches_fwd != layers * new:
+        raise AssertionError(f"the loop launched K1 {fa.launches_fwd} "
+                             f"times, expected {layers} x {new}")
+    res["loop"] = dict(seconds=secs, tokens_per_s=b * new / secs,
+                       k1_launches=fa.launches_fwd)
+    eng = inference.enable_decode_engine(
+        model, kv_dtype="f32", num_slots=b,
+        max_length=generation._pow2_bucket(t0 + new), page_size=16,
+        seed=SEED, device=DEVICE)
+    try:
+        reset_flash(fa)
+        for n in K3_COUNTERS:
+            setattr(pa, n, 0)
+        engine, secs = synced(lambda: generation.generate(model, prompts,
+                                                          new))
+        launches, tile, split, decode, verify = k3_counts(pa)
+        st = eng.stats()
+        want = k3_expected(pa, layers, st, eng, group)
+        if (tile, split, decode, verify) != want or not launches:
+            raise AssertionError(
+                f"engine route: K3 launches (tile, split, decode, verify) "
+                f"= {(tile, split, decode, verify)}, expected {want}")
+        if fa.launches_fwd:
+            raise AssertionError("the engine route launched K1")
+    finally:
+        inference.disable_decode_engine(model)
+    res["engine"] = dict(seconds=secs, tokens_per_s=b * new / secs,
+                         k1_launches=fa.launches_fwd,
+                         k3_launches=dict(tile=tile, split=split,
+                                          decode=decode, verify=verify),
+                         prefill_calls=st["prefill_calls"],
+                         decode_steps=st["decode_steps"])
+    streams = {"cached": cached, "loop": loop, "engine": engine}
+    for name, out in streams.items():
+        if out.shape != (b, t0 + new):
+            raise AssertionError(f"{name}: shape {out.shape}")
+        if not ((out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"{name}: token id out of the vocabulary")
+    check_streams(fa, model, prompts, streams, f"{label} greedy")
+    sampled = {"cached": model.generate(prompts, new, **GEN_SAMPLING),
+               "loop": generation.generate(model, prompts, new,
+                                           use_engine=False, **GEN_SAMPLING)}
+    check_streams(fa, model, prompts, sampled, f"{label} sampled")
+    if np.array_equal(sampled["cached"], cached):
+        raise AssertionError("the sampled stream is the greedy one")
+    log(f"# phase {phase}: {label}, {b} prompts of {t0} tokens, {new} new: "
+        + "; ".join(f"{k} {r['tokens_per_s']:.1f} tok/s ({r['seconds']:.3f}"
+                    f" s, K1 {r['k1_launches']})" for k, r in res.items())
+        + f"; K3 {res['engine']['k3_launches']}; greedy streams of the "
+        "three routes equal, sampled (top-k 50, top-p 0.9, T 0.8) cached = "
+        f"loop  [{smi}]")
+    return dict(res, prompts=b, prompt_len=t0, new_tokens=new, card=smi)
+
+
+def phase_generation_plain(fa, build, label, phase):
+    """``generate_padded`` and ``beam_search`` (``GEN_SHORT['beams']``
+    beams) at depth 2: K1 launches once a layer a forward, and each
+    stream equals the same call's on the plain attention."""
+    from paddle_tpu_torch.text import generation
+
+    model = build(2)
+    c = GEN_SHORT
+    prompts = gen_prompts(model.config.vocab_size, c["prompts"],
+                          c["prompt_len"])
+    forwards = []
+    hook = model.register_forward_hook(lambda *a: forwards.append(1))
+    routes = {
+        "generate_padded": lambda: generation.generate_padded(
+            model, prompts, c["prompt_len"] + c["new"], use_engine=False),
+        "beam_search": lambda: generation.beam_search(
+            model, prompts, c["new"], num_beams=c["beams"])}
+    res = {}
+    try:
+        for name, run in routes.items():
+            reset_flash(fa)
+            forwards.clear()
+            got = run()
+            n = len(forwards)
+            if not n or fa.launches_fwd != 2 * n:
+                raise AssertionError(f"{name}: K1 launched "
+                                     f"{fa.launches_fwd} times over {n} "
+                                     "forwards at 2 layers")
+            res[name] = dict(forwards=n, k1_launches=fa.launches_fwd)
+            with plain_attention(fa):
+                want = run()
+            check_streams(fa, model, prompts, {"plain": want, "K1": got},
+                          f"{label} {name}")
+    finally:
+        hook.remove()
+    log(f"# phase {phase}: {label} at depth 2: " + "; ".join(
+        f"{k} {r['forwards']} forwards, K1 {r['k1_launches']}"
+        for k, r in res.items()) + "; streams equal to the plain "
+        "attention's")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_namespace(smi):
+    """The body of ``examples/train_vision_hapi.py`` run against
+    ``paddle_tpu_torch`` on the default device (its one ``import
+    paddle_tpu as paddle`` line replaced in memory): fit, evaluate,
+    predict, summary; finite logits, every parameter on the card. Then
+    ``to_tensor`` on the card, and on the CPU after ``set_device("cpu")``
+    (the default restored after)."""
+    import io
+    from pathlib import Path
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+
+    path = Path(__file__).resolve().parent / EXAMPLE
+    src = path.read_text()
+    if src.count(EXAMPLE_IMPORT) != 1:
+        raise AssertionError(f"{EXAMPLE}: expected one {EXAMPLE_IMPORT!r}")
+    src = src.replace(EXAMPLE_IMPORT, "import paddle_tpu_torch as paddle\n")
+    seen = []
+
+    class Model(paddle.Model):
+        def predict_batch(self, inputs):
+            out = super().predict_batch(inputs)
+            seen.append((self, inputs, out))
+            return out
+
+    saved = paddle.Model
+    paddle.Model = Model
+    printed = io.StringIO()
+    try:
+        ns = {"__name__": "train_vision_hapi", "__file__": str(path)}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            exec(compile(src, str(path), "exec"), ns)
+            ns["main"]()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        paddle.Model = saved
+    (model, inputs, (logits,)), = seen
+    params = list(model.network.parameters())
+    if not all(p.device.type == DEVICE for p in params) or \
+            inputs[0].device.type != DEVICE:
+        raise AssertionError("a parameter or the predict input is off the "
+                             "card")
+    if logits.shape != (4, 10) or not np.isfinite(logits).all() or \
+            not all(torch.isfinite(p).all() for p in params):
+        raise AssertionError("non-finite logits or parameters")
+    evals = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith("eval:")]
+    on_card = paddle.to_tensor(np.ones(3)).device
+    prev = tdevice._default
+    try:
+        paddle.set_device("cpu")
+        on_cpu = paddle.to_tensor(np.ones(3)).device
+        shown = paddle.get_device()
+    finally:
+        tdevice._default = prev
+    if on_card.type != DEVICE or on_cpu.type != "cpu" or shown != "cpu" \
+            or paddle.to_tensor([1.0]).device.type != DEVICE:
+        raise AssertionError(f"to_tensor landed on {on_card} / {on_cpu} "
+                             f"(get_device {shown!r})")
+    log(f"# phase 34: {EXAMPLE} on the port on {paddle.get_device()}: "
+        f"{secs:.2f} s, {evals[0] if evals else 'no eval line'}; logits "
+        f"finite, {len(params)} parameters on the card; to_tensor on "
+        f"{on_card}, on {on_cpu} after set_device('cpu')  [{smi}]")
+    return dict(seconds=secs, eval=evals[0] if evals else None, card=smi)
+
+
+def phases_generation(fa, pa, smi):
+    """Phases 31-34; returns the ``generation`` JSON line's numbers."""
+    t0 = time.perf_counter()
+    model = build_model(24)
+    c = GEN_GPT
+    gpt = phase_generation(
+        fa, pa, smi, model, "GPT-3 1.3B (24 layers)", "31 (A)",
+        gen_prompts(model.config.vocab_size, c["prompts"], c["prompt_len"]),
+        c["new"])
+    del model
+    torch.cuda.empty_cache()
+    model = build_llama(LLAMA3_8B["num_hidden_layers"])
+    c = GEN_LLAMA
+    llama = phase_generation(
+        fa, pa, smi, model,
+        f"Llama-3-8B ({LLAMA3_8B['num_hidden_layers']} layers, G=4)",
+        "32 (B)",
+        gen_prompts(model.config.vocab_size, c["prompts"], c["prompt_len"]),
+        c["new"])
+    del model
+    torch.cuda.empty_cache()
+    short = {"gpt3_1p3b": phase_generation_plain(fa, build_model,
+                                                 "GPT-3 1.3B", "33 (C)"),
+             "llama3_8b": phase_generation_plain(fa, build_llama,
+                                                 "Llama-3-8B", "33 (C)")}
+    namespace = phase_namespace(smi)
+    secs = time.perf_counter() - t0
+    log(f"phases 31-34: {secs:.1f} s")
+    return {"gpt3_1p3b": gpt, "llama3_8b": llama, "depth2": short,
+            "namespace": namespace, "seconds": secs, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3126,6 +3416,7 @@ def main() -> int:
     amp_runs = phases_amp(fa, smi, trained, llama_trained)
     encoders, enc_timed, enc_lockstep = phases_encoders(fa, smi, peaks)
     vision = phases_vision(smi, peaks)
+    generation = phases_generation(fa, pa, smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -3209,6 +3500,7 @@ def main() -> int:
     log(json.dumps({"amp": amp_runs}))
     log(json.dumps({"encoders": encoders}))
     log(json.dumps({"vision": vision}))
+    log(json.dumps({"generation": generation}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -8,12 +8,51 @@ nothing of ``paddle_tpu``. Every kernel the reference wrote in Pallas is a
 hand-written CUDA kernel here (``ops/cuda/``); its plain PyTorch version
 serves CPU tensors only.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+``import paddle_tpu_torch as paddle`` gives the reference's top-level
+names that the port has: the subpackages, the dtype names (as
+``torch.dtype``), the tensor functions, ``seed`` and the RNG state,
+``to_tensor``, ``set_device`` / ``get_device``, the grad switches,
+``Model``, ``save`` / ``load``.
+
+Entry points run on the default device: the CUDA card, unless
+``set_device("cpu")`` was called or the caller passes ``device="cpu"``;
 ``Model`` (``hapi_model.py``) and ``io.DataLoader`` follow the network's
 device and the ``places`` / ``device`` given.
 """
-from .device import resolve_device
-from .framework.io_state import load, save
-from .hapi_model import Model
+import torch as _torch
 
-__all__ = ["Model", "load", "resolve_device", "save"]
+from . import (amp, device, distributed, incubate, inference, io, jit, metric,
+               nn, optimizer, tensor, text, vision)
+from .device import get_device, resolve_device, set_device
+from .framework.io_state import load, save
+from .framework.rng import get_rng_state, seed, set_rng_state
+from .hapi_model import Model
+from .tensor import *  # noqa: F401,F403  (the tensor functions)
+
+no_grad = _torch.no_grad
+enable_grad = _torch.enable_grad
+set_grad_enabled = _torch.set_grad_enabled
+is_grad_enabled = _torch.is_grad_enabled
+
+# dtype names (paddle.float32, ...), those of framework/dtype.py
+bool = _torch.bool  # noqa: A001 — paddle exposes ``paddle.bool``
+uint8 = _torch.uint8
+int8 = _torch.int8
+int16 = _torch.int16
+int32 = _torch.int32
+int64 = _torch.int64
+float16 = _torch.float16
+bfloat16 = _torch.bfloat16
+float32 = _torch.float32
+float64 = _torch.float64
+complex64 = _torch.complex64
+complex128 = _torch.complex128
+
+__all__ = (["Model", "amp", "device", "distributed", "enable_grad",
+            "get_device", "get_rng_state", "incubate", "inference", "io",
+            "is_grad_enabled", "jit", "load", "metric", "nn", "no_grad",
+            "optimizer", "resolve_device", "save", "seed", "set_device",
+            "set_grad_enabled", "set_rng_state", "tensor", "text", "vision",
+            "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+            "bfloat16", "float32", "float64", "complex64", "complex128"]
+           + list(tensor.__all__))

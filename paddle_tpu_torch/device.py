@@ -1,36 +1,82 @@
-"""Device resolution for the PyTorch port.
+"""Device resolution for the PyTorch port (and ``paddle.device``'s
+``set_device`` / ``get_device``).
 
 The port runs on an NVIDIA GPU. Every entry point takes a ``device``
-argument; ``None`` means the CUDA card, and the CPU is used only when a
-caller names it (the CPU tests do). Nothing falls back to the CPU on its
-own: asking for CUDA where there is none raises.
+argument; ``None`` means the default device, which is the CUDA card until
+:func:`set_device` names another, and the CPU is used only when a caller
+names it (the CPU tests do). Nothing falls back to the CPU on its own:
+asking for CUDA where there is none raises.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
 
+#: the device :func:`set_device` chose; None = the current CUDA device
+_default: Optional[torch.device] = None
+
+
+def _cuda(index: Optional[int]) -> torch.device:
+    """CUDA device ``index`` (None: the current one); raises without CUDA."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; paddle_tpu_torch runs on the GPU "
+            "unless device='cpu' is passed explicitly")
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch.device("cuda", index)
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The ``torch.device`` an entry point runs on.
 
-    ``None`` and ``"cuda"`` resolve to the current CUDA device and raise
-    ``RuntimeError`` when CUDA is unavailable; ``"cpu"`` is honoured as
-    given. Other device types are refused.
+    ``None`` is the default device (:func:`set_device`; the current CUDA
+    device until it is called). ``"cuda"`` resolves to the current CUDA
+    device; both raise ``RuntimeError`` when CUDA is unavailable.
+    ``"cpu"`` is honoured as given. Other device types are refused.
     """
-    dev = torch.device("cuda" if device is None else device)
+    if device is None:
+        return _cuda(None) if _default is None else _default
+    dev = torch.device(device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; paddle_tpu_torch runs on the GPU "
-                "unless device='cpu' is passed explicitly")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        return dev
+        return _cuda(dev.index)
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {dev}; expected 'cuda' or 'cpu'")
 
+
+def set_device(device: str) -> torch.device:
+    """paddle.set_device: the default device of every entry point from now
+    on. ``"gpu"``, ``"gpu:N"``, ``"cuda"`` and ``"cuda:N"`` name CUDA
+    device N (0 for ``"gpu"``) and raise when CUDA is unavailable or has
+    no such device; ``"cpu"`` names the CPU; anything else raises
+    ``ValueError``. Returns the device."""
+    global _default
+    kind, _, idx = str(device).lower().partition(":")
+    if kind in ("gpu", "cuda"):
+        dev = _cuda(int(idx) if idx else (0 if kind == "gpu" else None))
+        if dev.index >= torch.cuda.device_count():
+            raise ValueError(f"no CUDA device {dev.index}: "
+                             f"{torch.cuda.device_count()} visible")
+    elif kind == "cpu" and idx in ("", "0"):
+        dev = torch.device("cpu")
+    else:
+        raise ValueError(f"unsupported device {device!r}; expected 'gpu', "
+                         "'gpu:N', 'cuda', 'cuda:N' or 'cpu'")
+    _default = dev
+    return dev
+
+
+def get_device() -> str:
+    """paddle.get_device: ``"gpu:N"`` or ``"cpu"`` for the default device;
+    ``"cpu"`` where none was set and CUDA is unavailable."""
+    if _default is None and not torch.cuda.is_available():
+        return "cpu"
+    dev = resolve_device(None)
+    return "cpu" if dev.type == "cpu" else f"gpu:{dev.index}"
+
+
+__all__ = ["get_device", "resolve_device", "set_device"]

@@ -136,6 +136,40 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     return out, None
 
 
+@amp_op("decode_attention_op", "white")
+def _decode_attention_op(q, ck, cv, cache_position, scale):
+    """Single-token decode attention against a slot-indexed cache, the
+    reference's einsum line by line (no kernel: it is plain jnp there
+    too). q ``[S, 1, H, D]``; ck / cv ``[S, Hkv, T, D]``; keys at
+    positions > ``cache_position[s]`` are masked out per slot. GQA-native:
+    query head h reads kv head ``h // (H / Hkv)``, no head replication."""
+    s_, _, h, d = q.shape
+    hkv, t = ck.shape[1], ck.shape[2]
+    group = h // hkv
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q[:, 0].float().reshape(s_, hkv, group, d)
+    logits = torch.einsum("shgd,shtd->shgt", qf, ck.float()) * sc
+    mask = torch.arange(t, device=q.device)[None, None, None, :] \
+        <= cache_position.to(q.device)[:, None, None, None]
+    logits = torch.where(mask, logits, torch.tensor(
+        mask_fill_value(), dtype=logits.dtype, device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("shgt,shtd->shgd", probs, cv.float())
+    return out.reshape(s_, 1, h, d).to(q.dtype)
+
+
+def decode_attention(query, cache_k, cache_v, cache_position, scale=None,
+                     name=None):
+    """One-step KV-cached attention for decode: ``query`` ``[S, 1, H, D]``;
+    ``cache_k`` / ``cache_v`` ``[S, Hkv, T_max, D]``; ``cache_position``
+    ``[S]`` int (each slot's position of the token being decoded; keys
+    past it are masked). The default scale is ``1 / sqrt(D)``. Plain torch
+    on every device, as the reference's is plain jnp; the model-parallel
+    head sharding waits for ROADMAP.md §A.7."""
+    return _decode_attention_op(query, cache_k, cache_v, cache_position,
+                                scale)
+
+
 def paged_attention(query, pool_k, pool_v, page_table, start_position,
                     scale=None, k_scales=None, v_scales=None):
     """Multi-token KV-cached attention against a paged cache: ``query``
@@ -149,5 +183,6 @@ def paged_attention(query, pool_k, pool_v, page_table, start_position,
                                k_scales=k_scales, v_scales=v_scales)
 
 
-__all__ = ["flash_attention", "mask_fill_value", "padded_attention",
-           "paged_attention", "scaled_dot_product_attention"]
+__all__ = ["decode_attention", "flash_attention", "mask_fill_value",
+           "padded_attention", "paged_attention",
+           "scaled_dot_product_attention"]

@@ -1,7 +1,8 @@
 """Normalization functionals (counterpart of
 ``paddle_tpu/nn/functional/norm.py``): plain tensor ops, as in the
 reference, where they are jnp and no kernel; batch norm calls
-``torch.nn.functional.batch_norm`` (cuDNN on the card). All are on the
+``torch.nn.functional.batch_norm`` (cuDNN on the card), except in
+training over one value per channel, which it refuses. All are on the
 AMP black list: under ``auto_cast`` they take and return f32."""
 from __future__ import annotations
 
@@ -71,9 +72,35 @@ def _bn_train(x, weight, bias, epsilon, data_format, momentum, *,
         return _bn_train.raw(x.movedim(-1, 1), weight, bias, epsilon, "NC",
                              momentum, running_mean=running_mean,
                              running_var=running_var).movedim(1, -1)
+    if x.numel() == x.shape[1]:
+        return _bn_train_one_value(x, weight, bias, epsilon, momentum,
+                                   running_mean, running_var)
     return torch.nn.functional.batch_norm(
         x, running_mean, running_var, weight, bias, True, 1.0 - momentum,
         epsilon)
+
+
+def _bn_train_one_value(x, weight, bias, epsilon, momentum, running_mean,
+                        running_var):
+    """Training over one value per channel, which torch's ``batch_norm``
+    refuses: the reference's arithmetic. The batch variance is 0, so the
+    output is the bias (0 without one); the running variance's batch term
+    is unbiased by ``n / max(n - 1, 1)`` = 1."""
+    shape = [1] * x.dim()
+    shape[1] = x.shape[1]
+    mean = x.reshape(-1)
+    var = torch.zeros_like(mean)
+    out = (x - mean.reshape(shape)) * torch.reciprocal(
+        torch.sqrt(var + epsilon)).reshape(shape)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    with torch.no_grad():
+        running_mean.copy_(running_mean * momentum
+                           + mean * (1 - momentum))
+        running_var.copy_(running_var * momentum + var * (1 - momentum))
+    return out
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import initializer as I
 
 
@@ -41,13 +42,15 @@ def create_parameter(shape, attr=None, *, is_bias=False,
                      generator: Optional[torch.Generator] = None):
     """A new parameter of ``shape``, drawn by ``attr.initializer``, else
     ``default_initializer``, else (as the reference) zeros for a bias and
-    XavierNormal for a weight; ``attr`` a ``ParamAttr``, a name or None."""
+    XavierNormal for a weight; ``attr`` a ``ParamAttr``, a name or None.
+    ``device`` None is the default device (``resolve_device``)."""
     if not isinstance(attr, ParamAttr):
         attr = ParamAttr(name=attr if isinstance(attr, str) else None)
     init = attr.initializer or default_initializer
     if init is None:
         init = I.Constant(0.0) if is_bias else I.XavierNormal()
-    p = nn.Parameter(init(tuple(int(s) for s in shape), device=device,
+    p = nn.Parameter(init(tuple(int(s) for s in shape),
+                          device=resolve_device(device),
                           dtype=dtype, generator=generator),
                      requires_grad=bool(attr.trainable))
     p.optimize_attr = {"learning_rate": attr.learning_rate}

@@ -61,31 +61,51 @@ def linear_direct(layer, x):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 device=None, dtype=torch.float32,
+    """A lookup table ``[num_embeddings, embedding_dim]``. With
+    ``padding_idx`` that row is zeroed at init and the outputs at that id
+    are masked (the reference's rule); ``sparse`` is accepted, the
+    gradient is dense."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx=None, sparse=False, weight_attr=None, name=None,
+                 *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 init_std: float = 0.02, weight_attr=None):
+                 init_std: float = 0.02):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
         self.weight = create_parameter(
             (num_embeddings, embedding_dim), weight_attr,
             default_initializer=I.Normal(0.0, init_std), device=device,
             dtype=dtype, generator=generator)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight, self._padding_idx)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Dropout):
-    """``torch.nn.Dropout`` run as the reference's ``dropout``: no op at
-    all when not training or at ``p == 0``."""
+class Dropout(nn.Module):
+    """The reference's ``Dropout(p, axis, mode)``: no op at all when not
+    training (in ``upscale_in_train``) or at ``p == 0``."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
 
 
 class Identity(nn.Module):

@@ -17,43 +17,60 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...device import resolve_device
 from .. import initializer as I
 from ..functional.norm import _rms_norm, batch_norm, layer_norm, rms_norm
 from ..layer import create_parameter
 
 
+def _shape(normalized_shape):
+    if isinstance(normalized_shape, int):
+        return (int(normalized_shape),)
+    return tuple(int(n) for n in normalized_shape)
+
+
 class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape: int, epsilon: float = 1e-5, *,
-                 device=None, dtype=torch.float32):
+    """LayerNorm over the trailing ``normalized_shape`` axes. The weight
+    (1 at init) and bias (0) follow ``weight_attr`` / ``bias_attr``
+    (``ParamAttr``); ``False`` drops them."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.normalized_shape = (int(normalized_shape),)
+        self.normalized_shape = _shape(normalized_shape)
         self.epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
-                                             device=device, dtype=dtype))
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.weight = (None if weight_attr is False else create_parameter(
+            self.normalized_shape, weight_attr,
+            default_initializer=I.Constant(1.0), **kw))
+        self.bias = (None if bias_attr is False else create_parameter(
+            self.normalized_shape, bias_attr, is_bias=True, **kw))
 
     def forward(self, x):
         return layer_norm(x, self.normalized_shape, self.weight, self.bias,
                           self.epsilon)
 
     def extra_repr(self):
-        return f"{self.normalized_shape[0]}, epsilon={self.epsilon}"
+        return f"{self.normalized_shape}, epsilon={self.epsilon}"
 
 
 class RMSNorm(nn.Module):
     """RMSNorm over the trailing ``normalized_shape`` axes, with a weight
-    only (no bias)."""
+    only (no bias), made by ``weight_attr``."""
 
-    def __init__(self, normalized_shape, epsilon: float = 1e-6, *,
-                 device=None, dtype=torch.float32):
+    def __init__(self, normalized_shape, epsilon: float = 1e-6,
+                 weight_attr=None, name=None, *, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        if isinstance(normalized_shape, int):
-            normalized_shape = (normalized_shape,)
-        self.normalized_shape = tuple(int(n) for n in normalized_shape)
+        self.normalized_shape = _shape(normalized_shape)
         self.epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device, dtype=dtype))
+        self.weight = create_parameter(
+            self.normalized_shape, weight_attr,
+            default_initializer=I.Constant(1.0), device=device, dtype=dtype,
+            generator=generator)
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)
@@ -74,6 +91,7 @@ class _BatchNormBase(nn.Module):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
+        device = resolve_device(device)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.weight = (None if weight_attr is False else create_parameter(
             (num_features,), weight_attr,

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.dtype import convert_dtype
 from ..framework.op import amp_op
 
 
@@ -36,9 +37,14 @@ def _dims(x, axis):
 
 
 @amp_op("sum")
-def sum(x, axis=None, keepdim=False, name=None):
-    """Sum over ``axis`` (all axes when None) in x's dtype."""
-    return torch.sum(x, dim=_dims(x, axis), keepdim=keepdim)
+def sum(x, axis=None, dtype=None, keepdim=False, name=None):
+    """Sum over ``axis`` (all axes when None), accumulated and returned in
+    ``dtype`` (default: x's dtype, where torch would widen an integer x;
+    int64 for a bool x), with the reference's argument order."""
+    dtype = convert_dtype(dtype)
+    if dtype is None:
+        dtype = torch.int64 if x.dtype == torch.bool else x.dtype
+    return torch.sum(x, dim=_dims(x, axis), keepdim=keepdim, dtype=dtype)
 
 
 @amp_op("mean")

@@ -35,6 +35,8 @@ from ...nn.functional.attention import _sdpa_dense
 from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
 from ...nn.layers.common import Dropout, Embedding, Linear, linear_direct
 from ...nn.layers.norm import LayerNorm, layer_norm_direct
+from ..generation import alloc_kv_caches, run_cached_generation
+from .llama import _cache_write, _decode_attention
 
 #: reference flags whose routes the port does not have yet, and the
 #: ROADMAP.md item that ports each
@@ -297,9 +299,69 @@ class GPTForCausalLM(nn.Module):
     def decode_adapter(self):
         return _GPTDecodeAdapter(self)
 
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, top_k: int = 0, top_p: float = 1.0,
+                 temperature: float = 1.0, eos_token_id=None,
+                 pad_token_id=None, seed=None):
+        """KV-cached generation (see ``LlamaForCausalLM.generate``)."""
+        return run_cached_generation(
+            self,
+            lambda ids, caches, pos: _gpt_cached_forward(
+                self.gpt, ids, caches, pos),
+            lambda b, n: _gpt_init_cache(self.gpt, b, n),
+            self._logits,
+            input_ids, max_new_tokens=max_new_tokens, do_sample=do_sample,
+            top_k=top_k, top_p=top_p, temperature=temperature,
+            eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=seed)
+
 
 GPTLMHeadModel = GPTForCausalLM
 GPTForPretraining = GPTForCausalLM
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decoding, as in llama.py (whose cache write and cache
+# attention it shares). The projection is ``GPTAttention.qkv``, the one
+# the full forward runs; the prefill's causal attention is
+# ``scaled_dot_product_attention`` (K1 on the card).
+# ---------------------------------------------------------------------------
+
+
+def _gpt_attn_cached(attn: GPTAttention, x, cache, pos: Optional[int]):
+    """Prefill (``pos`` None) or one-step decode against the cache."""
+    b, t, h = x.shape
+    q, k, v = attn.qkv(x)
+    _cache_write(cache["k"], k, 0 if pos is None else pos)
+    _cache_write(cache["v"], v, 0 if pos is None else pos)
+    if pos is None:
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           training=False)
+    else:
+        o = _decode_attention(q, cache["k"], cache["v"], pos)
+    return attn.out_proj(T.reshape(o, (b, t, h)))
+
+
+def _gpt_cached_forward(model: GPTModel, input_ids, caches,
+                        pos: Optional[int]):
+    """Hidden states ``[B, t, h]``: the prefill (``pos`` None) or one
+    decode step, whose position id ``[1]`` broadcasts over the batch."""
+    if pos is None:
+        x = model.embeddings(input_ids)
+    else:
+        x = model.embeddings(input_ids, torch.arange(
+            pos, pos + 1, device=input_ids.device))
+    for blk, cache in zip(model.decoder, caches):
+        x = T.add(x, _gpt_attn_cached(blk.attn, blk.ln_1(x), cache, pos))
+        x = T.add(x, blk.mlp(blk.ln_2(x)))
+    return model.final_layernorm(x)
+
+
+def _gpt_init_cache(model: GPTModel, batch_size: int, max_length: int):
+    c = model.config
+    return alloc_kv_caches(
+        c.num_hidden_layers, batch_size, max_length, c.num_attention_heads,
+        c.hidden_size // c.num_attention_heads,
+        device=model.embeddings.word_embeddings.weight.device)
 
 
 class _GPTDecodeAdapter:

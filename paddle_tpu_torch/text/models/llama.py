@@ -44,6 +44,7 @@ from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
 from ...nn.layers.common import Embedding, Linear, linear_direct
 from ...nn.layers.norm import RMSNorm, rms_norm_direct
 from ...ops.flash_attention import flash_attention
+from ..generation import alloc_kv_caches, run_cached_generation
 
 #: reference flags whose routes the port does not have yet, and the
 #: ROADMAP.md item that ports each
@@ -316,6 +317,117 @@ class LlamaForCausalLM(nn.Module):
 
     def decode_adapter(self):
         return _LlamaDecodeAdapter(self)
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, top_k: int = 0, top_p: float = 1.0,
+                 temperature: float = 1.0, eos_token_id=None,
+                 pad_token_id=None, seed=None):
+        """KV-cached generation: one prefill over the prompt, then
+        one-token decode steps against preallocated caches (the shared
+        loop ``text.generation.run_cached_generation``). Returns numpy
+        ids ``[B, T0 + n]``."""
+        return run_cached_generation(
+            self,
+            lambda ids, caches, pos: _llama_cached_forward(
+                self.llama, ids, caches, pos),
+            lambda b, n: _llama_init_cache(self.llama, b, n),
+            self._logits,
+            input_ids, max_new_tokens=max_new_tokens, do_sample=do_sample,
+            top_k=top_k, top_p=top_p, temperature=temperature,
+            eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decoding (the reference's ``use_cache`` path): caches are
+# preallocated ``[B, Tmax, Hkv, D]`` f32 buffers written in place by
+# position. The prefill attends causally over the prompt (K1 on the card
+# through ``_gqa_attention``); each decode step attends one query row to
+# the cache through ``F.decode_attention`` (plain torch, an einsum in the
+# reference too).
+# ---------------------------------------------------------------------------
+
+
+@amp_op("rope_at")
+def _apply_rope_at(x, cos, sin, pos):
+    """Rotate a single-step ``[B, 1, H, D]`` tensor at absolute position
+    ``pos``."""
+    return _rotate(x, cos[pos:pos + 1][None, :, None, :],
+                   sin[pos:pos + 1][None, :, None, :])
+
+
+def _cache_write(cache, kv, pos: int):
+    """cache ``[B, Tmax, Hkv, D]`` <- kv ``[B, T, Hkv, D]`` at
+    ``[pos : pos + T]``, in place; returns the cache."""
+    cache[:, pos:pos + kv.shape[1]] = kv.to(cache.dtype)
+    return cache
+
+
+def _decode_attention(q, ck, cv, pos: int):
+    """One-step attention against the cache: q ``[B, 1, H, D]`` over ck /
+    cv ``[B, Tmax, Hkv, D]``, positions > ``pos`` masked. The cache is
+    swapped to ``F.decode_attention``'s ``[B, Hkv, Tmax, D]`` layout and
+    the position broadcast per slot."""
+    b = q.shape[0]
+    pos_s = torch.full((b,), pos, dtype=torch.int32, device=q.device)
+    return F.decode_attention(q, ck.transpose(1, 2), cv.transpose(1, 2),
+                              pos_s)
+
+
+def _attn_prefill(attn: LlamaAttention, x, cache):
+    b, t, h = x.shape
+    q, k, v = attn.qkv(x)
+    q = _apply_rope(q, attn.rope_cos, attn.rope_sin)
+    k = _apply_rope(k, attn.rope_cos, attn.rope_sin)
+    _cache_write(cache["k"], k, 0)
+    _cache_write(cache["v"], v, 0)
+    if attn.use_flash:
+        o = _gqa_attention(q, k, v)
+    else:
+        group = attn.num_heads // attn.num_kv_heads
+        o = F.scaled_dot_product_attention(
+            q, T.repeat_interleave(k, group, axis=2),
+            T.repeat_interleave(v, group, axis=2), is_causal=True,
+            training=False)
+    return attn.o_proj(T.reshape(o, (b, t, h)))
+
+
+def _attn_decode(attn: LlamaAttention, x, cache, pos: int):
+    b, t, h = x.shape  # t == 1
+    q, k, v = attn.qkv(x)
+    q = _apply_rope_at(q, attn.rope_cos, attn.rope_sin, pos)
+    k = _apply_rope_at(k, attn.rope_cos, attn.rope_sin, pos)
+    _cache_write(cache["k"], k, pos)
+    _cache_write(cache["v"], v, pos)
+    o = _decode_attention(q, cache["k"], cache["v"], pos)
+    return attn.o_proj(T.reshape(o, (b, t, h)))
+
+
+def _layer_step(layer: LlamaDecoderLayer, x, cache, pos: Optional[int]):
+    h = layer.input_layernorm(x)
+    if pos is None:
+        a = _attn_prefill(layer.self_attn, h, cache)
+    else:
+        a = _attn_decode(layer.self_attn, h, cache, pos)
+    x = T.add(x, a)
+    return T.add(x, layer.mlp(layer.post_attention_layernorm(x)))
+
+
+def _llama_cached_forward(model: LlamaModel, input_ids, caches,
+                          pos: Optional[int]):
+    """Hidden states ``[B, t, h]``: the prefill over the prompt (``pos``
+    None) or one decode step at position ``pos``."""
+    x = model.embed_tokens(input_ids)
+    for blk, cache in zip(model.layers, caches):
+        x = _layer_step(blk, x, cache, pos)
+    return model.norm(x)
+
+
+def _llama_init_cache(model: LlamaModel, batch_size: int, max_length: int):
+    c = model.config
+    return alloc_kv_caches(
+        c.num_hidden_layers, batch_size, max_length, c.num_key_value_heads,
+        c.hidden_size // c.num_attention_heads,
+        device=model.embed_tokens.weight.device)
 
 
 class _LlamaDecodeAdapter:

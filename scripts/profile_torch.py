@@ -14,6 +14,8 @@
     python3 scripts/profile_torch.py bert_amp [--out profile_out]
     python3 scripts/profile_torch.py resnet [--out profile_out] [--steps 2]
     python3 scripts/profile_torch.py resnet_amp [--out profile_out]
+    python3 scripts/profile_torch.py generate [--out profile_out]
+    python3 scripts/profile_torch.py llama_generate [--out profile_out]
 
 ``serving`` drives the configuration and traffic of ``chip_smoke.py``
 phase 4 (GPT-3 1.3B, 8 greedy requests, bf16 paged KV, prefix sharing,
@@ -37,6 +39,10 @@ padded sentence pairs, dropouts 0.1: the attention takes the dense route).
 ``decorate(level="O2")`` under ``auto_cast(level="O2")``, cuDNN's
 algorithm search on as there), then profile ``Momentum.step`` alone on
 gradients left by one more backward (``momentum_step_ms``).
+``generate`` and ``llama_generate`` drive the KV-cached ``model.generate``
+of phases 31 and 32 (GPT-3 1.3B, 4 x 128 prompt tokens, 64 new;
+Llama-3-8B, 2 x 64, 32 new; greedy): one warm run, then one under the
+profiler.
 
 Prints one JSON object: wall time of the profiled run, device busy time
 (sum of kernel time; the rest of the wall is the device's idle share),
@@ -129,6 +135,16 @@ def serving(build):
     return prof, wall, 1, extra
 
 
+def generate(build, cell):
+    model = build()
+    prompts = chip_smoke.gen_prompts(model.config.vocab_size,
+                                     cell["prompts"], cell["prompt_len"])
+    model.generate(prompts, cell["new"])  # warm
+    prof, wall = profiled(lambda: model.generate(prompts, cell["new"]))
+    return prof, wall, 1, {"tokens": cell["prompts"] * cell["new"],
+                           "steps": cell["new"]}
+
+
 def profiled_steps(step, batch, steps, tokens):
     step(*batch)  # warm: cuBLAS handles, allocator, kernel build
 
@@ -211,7 +227,8 @@ def main() -> int:
                                      "llama_serving", "llama_training",
                                      "training_amp", "llama_training_amp",
                                      "ernie", "bert", "bert_amp", "resnet",
-                                     "resnet_amp"))
+                                     "resnet_amp", "generate",
+                                     "llama_generate"))
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--steps", type=int, default=2,
                     help="profiled training steps (the training paths "
@@ -232,6 +249,11 @@ def main() -> int:
         prof, wall, n, extra = serving(gpt)
     elif args.path == "llama_serving":
         prof, wall, n, extra = serving(lambda: llama(layers))
+    elif args.path == "generate":
+        prof, wall, n, extra = generate(gpt, chip_smoke.GEN_GPT)
+    elif args.path == "llama_generate":
+        prof, wall, n, extra = generate(lambda: llama(layers),
+                                        chip_smoke.GEN_LLAMA)
     elif args.path == "training":
         prof, wall, n, extra = training(args.steps, gpt, chip_smoke.ADAMW)
     elif args.path == "llama_training":

@@ -157,3 +157,33 @@ def test_sync_batchnorm_converts_and_matches_batchnorm():
     ref.load_state_dict(conv[1].state_dict())
     y = torch.randn(2, 4, 3, 3)
     torch.testing.assert_close(conv[1](y), ref(y))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (1, 4, 1)], ids=["nc", "ncl"])
+def test_training_on_one_value_per_channel_matches_reference(shape):
+    """ROADMAP §C.17: ``BatchNorm1D(4)`` trained on one value per channel.
+    torch's ``batch_norm`` refuses it; the reference normalises by the
+    biased variance (0, so the output is the bias) and unbiases the
+    running term by ``n / max(n - 1, 1)``. Outputs of three steps, both
+    running buffers, then an eval forward on them; and the gradients."""
+    ref, port = _pair("BatchNorm1D", None)
+    for i, x in enumerate(_inputs(shape, 3)):
+        want = raw(ref(jnp.asarray(x)))
+        got = port(torch.from_numpy(x))
+        close(got.detach().numpy(), np.asarray(want), what=f"step {i}")
+    for g, w, what in zip(_stats(port, True), _stats(ref),
+                          ("_mean", "_variance")):
+        close(g, w, what=what)
+    assert not np.allclose(_stats(port, True)[0], 0.0)
+    ref.eval()
+    port.eval()
+    x = _inputs(shape, 1, seed=9)[0]
+    close(port(torch.from_numpy(x)).detach().numpy(),
+          np.asarray(raw(ref(jnp.asarray(x)))), what="eval")
+    rng = np.random.default_rng(2)
+    w, b = (1 + 0.3 * rng.standard_normal((2, 4))).astype(np.float32)
+    rfn = lambda x, w, b: rnorm._bn_train(  # noqa: E731
+        x, w, b, epsilon=1e-5, data_format="NCL")[0]
+    tfn = lambda x, w, b: TF.batch_norm(  # noqa: E731
+        x, torch.zeros(4), torch.ones(4), w, b, training=True)
+    check_parity(rfn, tfn, [x, w, b], "one value per channel")

@@ -126,3 +126,27 @@ def test_resnet_without_device_raises_on_cpu_only_machine(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resnet18()
     assert next(resnet18(device="cpu").parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch", "paddle_tpu_torch.device",
+    "paddle_tpu_torch.framework.dtype", "paddle_tpu_torch.framework.rng",
+    "paddle_tpu_torch.tensor.creation", "paddle_tpu_torch.text.generation",
+    "paddle_tpu_torch.inference", "paddle_tpu_torch.nn.functional.attention",
+    "paddle_tpu_torch.text.models.gpt", "paddle_tpu_torch.text.models.llama"])
+def test_generation_and_namespace_modules_are_guarded(module):
+    """The generation slice's modules and the top-level namespace are
+    among those the guards above walk."""
+    assert module in MODULES
+
+
+def test_generation_without_device_raises_on_cpu_only_machine(no_cuda):
+    """The namespace's entry points default to the card too."""
+    import paddle_tpu_torch as paddle
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.to_tensor([1, 2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.inference.enable_decode_engine(_tiny("cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.set_device("gpu")

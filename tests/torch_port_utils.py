@@ -10,10 +10,11 @@ from paddle_tpu.framework.op import raw
 VOCAB = 61
 
 
-def tiny_gpt_kwargs():
-    return dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
-                num_attention_heads=4, max_position_embeddings=128,
-                hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+def tiny_gpt_kwargs(**kw):
+    return dict(dict(vocab_size=VOCAB, hidden_size=32, num_hidden_layers=2,
+                     num_attention_heads=4, max_position_embeddings=128,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0), **kw)
 
 
 @contextlib.contextmanager
@@ -36,15 +37,15 @@ def no_mesh():
 
 
 @contextlib.contextmanager
-def jax_tiny_gpt(seed=7):
-    """The reference GPTForCausalLM at the tiny size, built and run under
-    :func:`no_mesh`."""
+def jax_tiny_gpt(seed=7, **kw):
+    """The reference GPTForCausalLM at the tiny size (``kw`` overrides
+    :func:`tiny_gpt_kwargs`), built and run under :func:`no_mesh`."""
     import paddle_tpu as paddle
     from paddle_tpu.text.models.gpt import GPTConfig, GPTForCausalLM
 
     with no_mesh():
         paddle.seed(seed)
-        m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs()))
+        m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs(**kw)))
         m.eval()
         yield m
 
@@ -55,11 +56,11 @@ def numpy_state(model):
     return {k: np.asarray(raw(v)) for k, v in model.state_dict().items()}
 
 
-def torch_tiny_gpt(np_state):
+def torch_tiny_gpt(np_state, **kw):
     """The port's GPT on the CPU carrying the bridged reference weights."""
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
 
-    m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs()), device="cpu")
+    m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs(**kw)), device="cpu")
     return m.load_numpy_state(np_state)
 
 
