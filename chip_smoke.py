@@ -165,10 +165,33 @@ Phases, each fatal on failure (non-zero exit, no final line):
    default device (the card): fit, evaluate, predict, summary, finite
    logits, every parameter on the card; ``paddle.to_tensor`` on the card,
    and on the CPU after ``set_device("cpu")`` (restored after);
-35. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+35. the tensor API on the card: every case of the CPU sweep
+   (``tests/tensor_api_cases.py``) run on CUDA inputs and on CPU copies,
+   dtypes equal, integers and bools exact, floats within the sweep's
+   tolerance; creation without a device lands on the card; each random
+   function's draw repeats after ``paddle.seed``;
+36. a causal LM written as a ``paddle.nn.Layer`` subclass over the public
+   API (``create_parameter`` for the position table, ``LayerList``,
+   ``Embedding`` / ``Linear`` / ``LayerNorm``, ``paddle.split`` of a
+   fused QKV, ``reshape``, ``transpose``, ``concat``, ``gather``,
+   ``F.scaled_dot_product_attention(is_causal=True)`` in Paddle's
+   ``[B, T, H, D]`` layout, ``F.gelu``, ``F.cross_entropy``) at GPT-3
+   1.3B's widths and depth (hidden 2048, 16 heads, FFN 8192, vocab 50304,
+   24 pre-LN layers, tied head), trained through ``TrainStep`` + ``AdamW``
+   for 4 steps on 2 x 2048 tokens in f32: K1, K2a and K2b each launched
+   24 x 4 times, causal, every loss finite; step ms, tokens/s, peak
+   memory, the device's idle share;
+37. the same class at depth 2 through ``paddle.Model`` (``fit`` and
+   ``evaluate``, 4 batches each), ``save`` then ``set_state_dict`` into a
+   fresh model (bit-equal, ``([], [])``), forward pre / post hooks (once
+   a call, none after ``remove()``), and the card against the CPU on the
+   same weights and a 1 x 256 batch: the loss and every parameter's
+   gradient within phase 30's rule;
+38. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
-   line (phases 31-34), a ``kernels`` JSON line (the GPT, encoder and MoE
-   shapes; no TPU kernel lies on the vision path), then the result line.
+   line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
+   ``kernels`` JSON line (the GPT, encoder and MoE shapes; no TPU kernel
+   lies on the vision path), then the result line.
 """
 from __future__ import annotations
 
@@ -3344,6 +3367,414 @@ def phases_generation(fa, pa, smi):
             "namespace": namespace, "seconds": secs, "card": smi}
 
 
+# -- phases 35-37: nn.Layer and the core tensor API --------------------------
+
+# GPTConfig.gpt3_1p3b's widths and depth (text/models/gpt.py): the
+# user-written LM of phase 36 is built at them, phase 37's at depth 2
+USER_LM = dict(vocab=50304, hidden=2048, heads=16, ffn=8192, layers=24,
+               positions=2048)
+USER_LM_FIT_BATCHES = 4
+# phase 37's card-against-CPU batch, 1 x 256 tokens: the CPU runs the
+# full-width vocab products of a forward and backward in a few seconds
+USER_LM_CPU_SEQ = 256
+# phase 35, card against CPU on the same inputs: f32 within the CPU
+# sweep's tolerance against the reference (tests/test_torch_tensor_api.py)
+API_RTOL, API_ATOL, API_SPECIAL_RTOL = 1e-5, 1e-6, 1e-4
+
+
+def load_api_cases():
+    """The tensor-API sweep's cases (``tests/tensor_api_cases.py``, numpy
+    only), loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "tensor_api_cases.py"
+    spec = importlib.util.spec_from_file_location("tensor_api_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def api_diff(got, want, special, what):
+    """The largest |got - want| of the card's result ``got`` against the
+    CPU's ``want``: same structure, dtypes and shapes, every tensor of
+    ``got`` on the card, integers and bools equal, floats within the
+    sweep's tolerance; raises otherwise."""
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise AssertionError(f"{what}: {type(got)} vs {type(want)}")
+        return max([api_diff(g, w, special, f"{what}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    if not isinstance(want, torch.Tensor):
+        if got != want:
+            raise AssertionError(f"{what}: {got!r} vs {want!r}")
+        return 0.0
+    if not isinstance(got, torch.Tensor) or got.device.type != DEVICE or \
+            got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(
+            f"{what}: card {getattr(got, 'device', type(got))} "
+            f"{getattr(got, 'dtype', '')} {tuple(getattr(got, 'shape', ()))}"
+            f" vs CPU {want.dtype} {tuple(want.shape)}")
+    g = got.detach().cpu().resolve_conj()
+    w = want.detach().resolve_conj()
+    if not (w.is_floating_point() or w.is_complex()):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: integer / bool results differ")
+        return 0.0
+    rtol = API_SPECIAL_RTOL if special else API_RTOL
+    if not torch.allclose(g, w, rtol=rtol, atol=API_ATOL, equal_nan=True):
+        raise AssertionError(f"{what}: max |err| "
+                             f"{float((g - w).abs().nan_to_num(0).max())}")
+    return float((g - w).abs().nan_to_num(0).max()) if w.numel() else 0.0
+
+
+def phase_tensor_api(smi):
+    """Phase 35: every case of the tensor-API sweep run on CUDA inputs and
+    on CPU copies, compared; creation without a device on the card; each
+    random function's draw on the card repeated after ``paddle.seed``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+
+    t0 = time.perf_counter()
+    cases = load_api_cases()
+    names, worst, worst_case = set(), 0.0, None
+    for case in sorted(cases.CASES):
+        name = case.split(":")[0]
+        fn = getattr(paddle, name)
+        args, kwargs = cases.CASES[case](cases.case_rng(case))
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            prev = tdevice._default
+            try:
+                if dev == "cpu":
+                    paddle.set_device("cpu")
+                outs[dev] = fn(*(cases.port_arg(a, dev) for a in args),
+                               **{k: cases.port_arg(v, dev)
+                                  for k, v in kwargs.items()})
+            finally:
+                tdevice._default = prev
+        err = api_diff(outs[DEVICE], outs["cpu"], name in cases.SPECIAL,
+                       case)
+        if err > worst:
+            worst, worst_case = err, case
+        names.add(name)
+    # as_strided, which the reference refuses, beside the CPU's view
+    flat = np.arange(12, dtype=np.float32)
+    api_diff(*(paddle.as_strided(torch.from_numpy(flat).to(dev), [3, 3],
+                                 [2, 1], 1) for dev in (DEVICE, "cpu")),
+             False, "as_strided")
+    names.add("as_strided")
+    drawn = 0
+    for name, (args, kwargs, dtype, check) in sorted(cases.RANDOM.items()):
+        draws = []
+        for _ in range(2):
+            paddle.seed(SEED)
+            draws.append(getattr(paddle, name)(*args, **kwargs))
+        a, b = draws
+        if a.device.type != DEVICE or str(a.dtype) != f"torch.{dtype}" or \
+                not torch.equal(a, b) or \
+                not check(a.cpu().numpy().astype(np.float64)):
+            raise AssertionError(f"{name}: draw on {a.device} {a.dtype} "
+                                 "not repeated or off its law")
+        drawn += 1
+    for name, (x, args, kwargs, check) in sorted(cases.RANDOM_LIKE.items()):
+        draws = []
+        for _ in range(2):
+            paddle.seed(SEED)
+            draws.append(getattr(paddle, name)(
+                torch.from_numpy(x.copy()).to(DEVICE), *args, **kwargs))
+        a, b = draws
+        if a.device.type != DEVICE or not torch.equal(a, b) or \
+                not check(a.cpu().numpy().astype(np.float64), x):
+            raise AssertionError(f"{name}: draw not repeated or off its law")
+        drawn += 1
+    draws = []
+    for _ in range(2):
+        paddle.seed(SEED)
+        draws.append(paddle.binomial(
+            torch.full((4096,), 10, device=DEVICE),
+            torch.full((4096,), 0.3, device=DEVICE)))
+    a, b = draws
+    if not torch.equal(a, b) or a.dtype != torch.int64 or \
+            not 0 <= int(a.min()) <= int(a.max()) <= 10 or \
+            abs(float(a.double().mean()) - 3) > 0.2:
+        raise AssertionError("binomial: draw not repeated or off its law")
+    drawn += 1
+    if not torch.equal(paddle.uniform([64], seed=7),
+                       paddle.uniform([64], seed=7)):
+        raise AssertionError("uniform(seed=) did not repeat")
+    names |= set(cases.RANDOM) | set(cases.RANDOM_LIKE) | {"binomial"}
+    secs = time.perf_counter() - t0
+    log(f"# phase 35: tensor API on the card: {len(names)} functions, "
+        f"{len(cases.CASES) + 1} cases against the same calls on CPU copies "
+        f"(f32 rtol {API_RTOL:.0e} atol {API_ATOL:.0e}, special functions "
+        f"rtol {API_SPECIAL_RTOL:.0e}, integers and bools exact, dtypes "
+        f"equal), largest |err| {worst:.3e} ({worst_case}); creation "
+        f"without a device on the card; {drawn} random functions repeat "
+        f"after paddle.seed; {secs:.1f} s  [{smi}]")
+    return dict(functions=len(names), cases=len(cases.CASES) + 1,
+                max_abs_err=worst, worst_case=worst_case,
+                random_functions=drawn, seconds=secs)
+
+
+def user_lm(paddle, layers):
+    """A causal LM written as Paddle users write one, a ``paddle.nn.Layer``
+    subclass over the public API only, at ``USER_LM``'s widths and
+    ``layers`` deep; and its loss layer. Returns ``(model, loss)``."""
+    nn, F = paddle.nn, paddle.nn.functional
+    c = USER_LM
+    hidden, heads = c["hidden"], c["heads"]
+
+    class Block(nn.Layer):
+        """Pre-LN: causal attention over a fused QKV, then a GELU MLP."""
+
+        def __init__(self):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(hidden)
+            self.qkv = nn.Linear(hidden, 3 * hidden)
+            self.proj = nn.Linear(hidden, hidden)
+            self.ln2 = nn.LayerNorm(hidden)
+            self.fc1 = nn.Linear(hidden, c["ffn"])
+            self.fc2 = nn.Linear(c["ffn"], hidden)
+
+        def forward(self, x):
+            b, t = x.shape[0], x.shape[1]
+            qkv = paddle.reshape(self.qkv(self.ln1(x)),
+                                 [b, t, 3, heads, hidden // heads])
+            q, k, v = (paddle.reshape(z, [b, t, heads, hidden // heads])
+                       for z in paddle.split(
+                           paddle.transpose(qkv, [2, 0, 1, 3, 4]), 3, axis=0))
+            a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + self.proj(paddle.reshape(a, [b, t, hidden]))
+            return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+
+    class UserLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.wte = nn.Embedding(c["vocab"], hidden)
+            self.wpe = self.create_parameter(
+                [c["positions"], hidden],
+                default_initializer=nn.initializer.Normal(0.0, 0.02))
+            self.blocks = nn.LayerList([Block() for _ in range(layers)])
+            self.ln_f = nn.LayerNorm(hidden)
+
+        def forward(self, ids):
+            x = self.wte(ids) + paddle.gather(self.wpe,
+                                              paddle.arange(ids.shape[1]))
+            for block in self.blocks:
+                x = block(x)
+            return paddle.matmul(self.ln_f(x), self.wte.weight,
+                                 transpose_y=True)
+
+    class NextTokenLoss(nn.Layer):
+        """Each position's cross entropy against the next token; the last
+        position, which has none, ignored."""
+
+        def forward(self, logits, ids):
+            tail = paddle.full([ids.shape[0], 1], -100, dtype=ids.dtype)
+            labels = paddle.concat([ids[:, 1:], tail], axis=1)
+            return F.cross_entropy(paddle.reshape(logits, [-1, c["vocab"]]),
+                                   paddle.reshape(labels, [-1]))
+
+    return UserLM(), NextTokenLoss()
+
+
+def phase_user_lm(fa, smi):
+    """Phase 36: the user-written LM at GPT-3 1.3B's widths and depth,
+    ``TRAIN_STEPS`` steps through ``TrainStep`` + ``AdamW`` in f32: K1,
+    K2a and K2b each launched once a layer a step, causal; finite
+    losses."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    paddle.seed(SEED)
+    model, loss_layer = user_lm(paddle, USER_LM["layers"])
+    opt = AdamW(parameters=model.parameters(), **ADAMW)
+    step = TrainStep(model, lambda m, ids: loss_layer(m(ids), ids), opt)
+    ids, _ = train_batch(USER_LM["vocab"])
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    losses, step_ms = [], []
+    with flash_calls(fa) as calls:
+        for _ in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            losses.append(float(step(ids)))  # syncs
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                "dkv": fa.launches_dkv}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy, per_step = device_busy_ms(lambda: step(ids))
+    ms = float(np.mean(step_ms[1:]))
+    tokens = ids.numel()
+    idle = max(0.0, 1.0 - busy / ms)
+    layers = USER_LM["layers"]
+    want = layers * TRAIN_STEPS
+    log(f"# phase 36: user-written paddle.nn.Layer LM at GPT-3 1.3B's "
+        f"widths ({n_params / 1e9:.3f} B parameters, {layers} layers), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW f32: set-up "
+        f"{setup:.2f} s; steps 1-{TRAIN_STEPS - 1} {ms:.1f} ms = "
+        f"{tokens / ms * 1e3:.1f} tokens/s; peak {peak:.2f} GiB; device "
+        f"busy {busy:.1f} ms of a step (idle {100 * idle:.1f} %, "
+        f"{per_step} launches); flash launches {launches}  [{smi}]")
+    log(f"losses {[round(x, 5) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss {losses}")
+    spied = {k: len(v) for k, v in calls.items()}
+    causal = all(c[0] and c[1] is None for v in calls.values() for c in v)
+    if any(n != want for n in launches.values()) or \
+            any(n != want for n in spied.values()) or not causal:
+        raise AssertionError(f"flash launches {launches} / spied {spied} "
+                             f"(all causal, no bias: {causal}) != {layers} "
+                             f"x {TRAIN_STEPS}")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return dict(parameters=n_params, layers=layers, step_ms=ms,
+                step_ms_all=step_ms, tokens_per_s=tokens / ms * 1e3,
+                peak_gib=peak, device_busy_ms=busy, device_idle_share=idle,
+                launches=launches, losses=losses, setup_s=setup, card=smi)
+
+
+class _Tokens:
+    """``n`` rows of next-token ids as ``(ids, ids)`` samples for
+    ``Model``: the loss layer reads the labels off the ids."""
+
+    def __init__(self, n, seq, seed):
+        rng = np.random.default_rng(seed)
+        self.rows = rng.integers(0, USER_LM["vocab"], (n, seq))
+
+    def __getitem__(self, i):
+        return self.rows[i], self.rows[i]
+
+    def __len__(self):
+        return len(self.rows)
+
+
+def phase_user_lm_depth2(fa, smi):
+    """Phase 37: the same class at depth 2 through ``paddle.Model``
+    (``fit`` / ``evaluate``), a save / ``set_state_dict`` round trip,
+    forward hooks, and the card against the CPU on the same weights and
+    batch."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as tdevice
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    paddle.seed(SEED + 37)
+    model, loss_layer = user_lm(paddle, 2)
+    data = type("Data", (_Tokens, paddle.io.Dataset), {})
+    hapi = paddle.Model(model).prepare(
+        AdamW(parameters=model.parameters(), **ADAMW), loss_layer)
+    clock = _clock()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    hapi.fit(data(USER_LM_FIT_BATCHES * TRAIN_BATCH, TRAIN_SEQ, SEED),
+             batch_size=TRAIN_BATCH, epochs=1, shuffle=False, verbose=0,
+             callbacks=[clock])
+    fit_launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                    "dkv": fa.launches_dkv}
+    ev = hapi.evaluate(data(USER_LM_FIT_BATCHES * TRAIN_BATCH, TRAIN_SEQ,
+                            SEED + 1), batch_size=TRAIN_BATCH, verbose=0)
+    fit_losses = [float(np.ravel(x)[0]) for x in clock.losses]
+    want = 2 * USER_LM_FIT_BATCHES
+    if fit_launches != {"fwd": want, "dq": want, "dkv": want} or \
+            len(fit_losses) != USER_LM_FIT_BATCHES or \
+            not np.isfinite(fit_losses).all() or \
+            not np.isfinite(np.ravel(ev["loss"])).all():
+        raise AssertionError(f"Model.fit / evaluate: launches {fit_launches}"
+                             f", losses {fit_losses}, eval {ev}")
+
+    # save, then set_state_dict into a fresh model: bit-equal, ([], [])
+    fresh, _ = user_lm(paddle, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/user_lm.pdparams"
+        paddle.save(model.state_dict(), path)
+        result = fresh.set_state_dict(paddle.load(path))
+    state, back = model.state_dict(), fresh.state_dict()
+    bit_equal = all(torch.equal(state[k], back[k]) for k in state)
+    if result != ([], []) or not bit_equal or set(state) != set(back):
+        raise AssertionError(f"round trip: {result}, bit-equal {bit_equal}")
+    del fresh
+
+    # forward hooks: once per call each, none after remove()
+    seen = []
+    pre = model.register_forward_pre_hook(lambda m, i: seen.append("pre"))
+    post = model.register_forward_post_hook(
+        lambda m, i, o: seen.append("post"))
+    small = torch.as_tensor(_Tokens(1, 64, SEED + 2).rows, device=DEVICE)
+    with torch.no_grad():
+        model(small)
+        pre.remove()
+        post.remove()
+        model(small)
+    if seen != ["pre", "post"]:
+        raise AssertionError(f"hooks fired {seen}")
+
+    # the card against the CPU: one loss and every parameter's gradient
+    ids = torch.as_tensor(_Tokens(1, USER_LM_CPU_SEQ, SEED + 3).rows)
+    cpu_state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        prev = tdevice._default
+        try:
+            if dev == "cpu":
+                paddle.set_device("cpu")
+                net, loss_fn = user_lm(paddle, 2)
+                net.set_state_dict(cpu_state)
+            else:
+                net, loss_fn = model, loss_layer
+            net.clear_gradients(set_to_zero=False)
+            x = ids.to(dev)
+            loss = loss_fn(net(x), x)
+            loss.backward()
+            results[dev] = (loss.detach(),
+                            {k: p.grad for k, p in net.named_parameters()})
+        finally:
+            tdevice._default = prev
+    (lc, gc), (lp, gp) = results[DEVICE], results["cpu"]
+    errs = {"loss": rel_to_cpu(lc, lp)}
+    errs["gradients (worst parameter)"] = max(rel_to_cpu(gc[k], gp[k])
+                                              for k in gp)
+    secs = time.perf_counter() - t0
+    log(f"# phase 37: the same class at depth 2: Model.fit "
+        f"{USER_LM_FIT_BATCHES} batches (losses "
+        f"{[round(x, 4) for x in fit_losses]}, step ms "
+        f"{[round(x, 1) for x in clock.ms]}), evaluate loss "
+        f"{float(np.ravel(ev['loss'])[0]):.4f}; flash launches in fit "
+        f"{fit_launches}; save / set_state_dict bit-equal, {result}; hooks "
+        f"{seen}; card vs CPU (1 x {USER_LM_CPU_SEQ}): loss "
+        f"{errs['loss']:.2e}, gradients {errs['gradients (worst parameter)']:.2e} "
+        f"(rtol {CARD_CPU_RTOL:.0e}); {secs:.1f} s  [{smi}]")
+    bad = {k: v for k, v in errs.items() if not v <= CARD_CPU_RTOL}
+    if bad:
+        raise AssertionError(f"card and CPU differ: {bad}")
+    del model, hapi, results
+    torch.cuda.empty_cache()
+    return dict(fit_losses=fit_losses, fit_step_ms=clock.ms,
+                fit_launches=fit_launches,
+                eval_loss=float(np.ravel(ev["loss"])[0]),
+                round_trip=list(result), card_vs_cpu=errs, seconds=secs,
+                card=smi)
+
+
+def phases_layer(fa, smi):
+    """Phases 35-37; returns the ``layer`` JSON line's numbers."""
+    t0 = time.perf_counter()
+    api = phase_tensor_api(smi)
+    lm = phase_user_lm(fa, smi)
+    depth2 = phase_user_lm_depth2(fa, smi)
+    secs = time.perf_counter() - t0
+    log(f"phases 35-37: {secs:.1f} s")
+    return {"tensor_api": api, "user_lm_1p3b": lm, "depth2": depth2,
+            "seconds": secs, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3417,6 +3848,7 @@ def main() -> int:
     encoders, enc_timed, enc_lockstep = phases_encoders(fa, smi, peaks)
     vision = phases_vision(smi, peaks)
     generation = phases_generation(fa, pa, smi)
+    layer = phases_layer(fa, smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -3501,6 +3933,7 @@ def main() -> int:
     log(json.dumps({"encoders": encoders}))
     log(json.dumps({"vision": vision}))
     log(json.dumps({"generation": generation}))
+    log(json.dumps({"layer": layer}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ serves CPU tensors only.
 
 ``import paddle_tpu_torch as paddle`` gives the reference's top-level
 names that the port has: the subpackages, the dtype names (as
-``torch.dtype``), the tensor functions, ``seed`` and the RNG state,
+``torch.dtype``), the tensor functions (``paddle.slice``, ``einsum``,
+``paddle.linalg`` among them), ``seed`` and the RNG state,
 ``to_tensor``, ``set_device`` / ``get_device``, the grad switches,
 ``Model``, ``save`` / ``load``.
 
@@ -28,6 +29,7 @@ from .framework.io_state import load, save
 from .framework.rng import get_rng_state, seed, set_rng_state
 from .hapi_model import Model
 from .tensor import *  # noqa: F401,F403  (the tensor functions)
+from .tensor import linalg  # noqa: F401  (paddle.linalg)
 
 no_grad = _torch.no_grad
 enable_grad = _torch.enable_grad
@@ -50,8 +52,8 @@ complex128 = _torch.complex128
 
 __all__ = (["Model", "amp", "device", "distributed", "enable_grad",
             "get_device", "get_rng_state", "incubate", "inference", "io",
-            "is_grad_enabled", "jit", "load", "metric", "nn", "no_grad",
-            "optimizer", "resolve_device", "save", "seed", "set_device",
+            "is_grad_enabled", "jit", "linalg", "load", "metric", "nn",
+            "no_grad", "optimizer", "resolve_device", "save", "seed", "set_device",
             "set_grad_enabled", "set_rng_state", "tensor", "text", "vision",
             "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
             "bfloat16", "float32", "float64", "complex64", "complex128"]

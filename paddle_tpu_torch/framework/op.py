@@ -62,10 +62,14 @@ def _amp_cast(opname, *tensors):
                  and t.dtype != target else t for t in tensors)
 
 
+def _floating(v):
+    return isinstance(v, torch.Tensor) and v.is_floating_point()
+
+
 def amp_op(opname, amp=None, uncast=()):
     """Decorator: run ``fn`` as the reference's op ``opname``, its
-    floating-point tensor arguments (positional and keyword) passed through
-    :func:`_amp_cast` first. ``amp`` ``"white"`` / ``"black"`` puts the op
+    floating-point tensor arguments (positional and keyword, and those in a
+    list or tuple argument) passed through :func:`_amp_cast` first. ``amp`` ``"white"`` / ``"black"`` puts the op
     on that list. Keyword arguments named in ``uncast`` pass as given: they
     stand for values the reference hands its op as raw arrays, which its
     gateway does not cast (the encoders' padding mask). The wrapper's
@@ -88,12 +92,28 @@ def amp_op(opname, amp=None, uncast=()):
             keys = [k for k in kwargs if k not in uncast]
             kept = {k: kwargs[k] for k in kwargs if k in uncast}
             vals = list(args) + [kwargs[k] for k in keys]
-            idx = [i for i, v in enumerate(vals)
-                   if isinstance(v, torch.Tensor) and v.is_floating_point()]
-            if idx:
-                for i, v in zip(idx, _amp_cast(opname,
-                                               *(vals[i] for i in idx))):
-                    vals[i] = v
+            # the floating tensors, as arguments or inside a list / tuple
+            # argument (``concat``'s): the reference's gateway casts every
+            # leaf of its arguments
+            slots, seqs = [], {}
+            for i, v in enumerate(vals):
+                if isinstance(v, (list, tuple)):
+                    inner = [j for j, t in enumerate(v) if _floating(t)]
+                    if inner:
+                        seqs[i], vals[i] = type(v), list(v)
+                        slots += [(i, j) for j in inner]
+                elif _floating(v):
+                    slots.append((i, None))
+            if slots:
+                cast = _amp_cast(opname, *(vals[i] if j is None else vals[i][j]
+                                           for i, j in slots))
+                for (i, j), t in zip(slots, cast):
+                    if j is None:
+                        vals[i] = t
+                    else:
+                        vals[i][j] = t
+                for i, kind in seqs.items():
+                    vals[i] = kind(vals[i])
             n = len(args)
             return fn(*vals[:n], **dict(zip(keys, vals[n:])), **kept)
 

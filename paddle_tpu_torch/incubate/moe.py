@@ -29,6 +29,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
+from ..nn.layer import Layer
 from ..nn.layers.common import Linear
 from ..ops.grouped_matmul import grouped_matmul
 
@@ -136,7 +137,7 @@ def _moe_apply_dropless(flat, logits, w_in, b_in, w_out, b_out, act, top_k):
     return out, aux
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """GShard-style MoE FFN (``paddle.incubate`` MoELayer parity).
 
     ``num_experts`` expert FFNs ``act(x @ w_in[e] + b_in[e]) @ w_out[e] +

@@ -26,8 +26,8 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
-from ..nn.layer import create_parameter
 from ..nn.functional.norm import rms_norm
+from ..nn.layer import Layer, create_parameter
 from ..text.models.llama import _apply_rope, _rope_cache
 
 #: act_type -> activation, with the defaults of the ``jax.nn`` function of
@@ -67,7 +67,7 @@ def _fused_ec_moe(x, gate, w1, b1, w2, b2, act, num_experts):
     return out.reshape(b, s, d)
 
 
-class FusedEcMoe(nn.Module):
+class FusedEcMoe(Layer):
     """Expert-choice MoE layer (``paddle.incubate.nn.FusedEcMoe``):
     parameters ``gate [hidden, E]``, ``w1 [E, hidden, inter]``, ``b1 [E, 1,
     inter]``, ``w2 [E, inter, hidden]``, ``b2 [E, 1, hidden]``, weights

@@ -1,5 +1,6 @@
 """Layers and functionals of the port."""
-from .layer import LayerList, ParamAttr, Sequential, create_parameter
+from .layer import (Layer, LayerDict, LayerList, ParamAttr, Parameter,
+                    ParameterList, Sequential, create_parameter)
 from .layers.activation import GELU, LogSoftmax, ReLU, Silu, Softmax, Tanh
 from .layers.common import Dropout, Embedding, Flatten, Identity, Linear
 from .layers.conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
@@ -19,7 +20,8 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "BatchNorm2D", "BatchNorm3D", "Conv1D", "Conv1DTranspose",
            "Conv2D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
            "CrossEntropyLoss", "Dropout", "Embedding", "Flatten", "GELU",
-           "Identity", "LayerList", "LayerNorm", "Linear", "LogSoftmax",
+           "Identity", "Layer", "LayerDict", "LayerList", "LayerNorm", "Linear", "LogSoftmax",
            "MSELoss", "MaxPool1D", "MaxPool2D", "MaxPool3D", "ParamAttr",
+           "Parameter", "ParameterList",
            "RMSNorm", "ReLU", "Sequential", "Silu", "Softmax",
            "SyncBatchNorm", "Tanh", "create_parameter"]

@@ -6,16 +6,15 @@ from __future__ import annotations
 
 import inspect
 
-from torch import nn
-
 from .. import functional as F
+from ..layer import Layer
 
 
 def _simple(fn_name):
     fn = getattr(F, fn_name)
     names = [p for p in inspect.signature(fn).parameters][1:]
 
-    class _Act(nn.Module):
+    class _Act(Layer):
         def __init__(self, *args, **kwargs):
             super().__init__()
             self._kwargs = dict(zip(names, args))

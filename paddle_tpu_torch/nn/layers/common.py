@@ -21,15 +21,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ... import tensor as T
 from .. import initializer as I
 from ..functional import common as F
-from ..layer import create_parameter
+from ..layer import Layer, create_parameter
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
@@ -60,7 +59,7 @@ def linear_direct(layer, x):
     return F.linear.raw(x, layer.weight, layer.bias)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """A lookup table ``[num_embeddings, embedding_dim]``. With
     ``padding_idx`` that row is zeroed at init and the outputs at that id
     are masked (the reference's rule); ``sparse`` is accepted, the
@@ -90,7 +89,7 @@ class Embedding(nn.Module):
         return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """The reference's ``Dropout(p, axis, mode)``: no op at all when not
     training (in ``upscale_in_train``) or at ``p == 0``."""
 
@@ -108,7 +107,7 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     """The input, unchanged; any arguments are ignored."""
 
     def __init__(self, *args, **kwargs):
@@ -118,7 +117,7 @@ class Identity(nn.Module):
         return x
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Axes ``start_axis`` .. ``stop_axis`` merged into one (the
     reference's ``flatten_op``)."""
 

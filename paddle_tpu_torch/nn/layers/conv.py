@@ -12,18 +12,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import initializer as I
 from ..functional import conv as F
-from ..layer import create_parameter
+from ..layer import Layer, create_parameter
 
 
 def _ntuple(v, n):
     return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, nsp, stride,
                  padding, dilation, groups, padding_mode, weight_attr,
                  bias_attr, data_format, transposed=False, output_padding=0,

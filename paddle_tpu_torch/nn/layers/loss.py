@@ -2,12 +2,12 @@
 over the functionals of ``nn/functional/loss.py``."""
 from __future__ import annotations
 
-from torch import nn
 
 from ..functional import loss as F
+from ..layer import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -26,7 +26,7 @@ class CrossEntropyLoss(nn.Module):
                                self.use_softmax, self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction

@@ -20,7 +20,7 @@ from torch import nn
 from ...device import resolve_device
 from .. import initializer as I
 from ..functional.norm import _rms_norm, batch_norm, layer_norm, rms_norm
-from ..layer import create_parameter
+from ..layer import Layer, create_parameter
 
 
 def _shape(normalized_shape):
@@ -29,7 +29,7 @@ def _shape(normalized_shape):
     return tuple(int(n) for n in normalized_shape)
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape`` axes. The weight
     (1 at init) and bias (0) follow ``weight_attr`` / ``bias_attr``
     (``ParamAttr``); ``False`` drops them."""
@@ -56,7 +56,7 @@ class LayerNorm(nn.Module):
         return f"{self.normalized_shape}, epsilon={self.epsilon}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """RMSNorm over the trailing ``normalized_shape`` axes, with a weight
     only (no bias), made by ``weight_attr``."""
 
@@ -79,7 +79,7 @@ class RMSNorm(nn.Module):
         return f"{self.normalized_shape}, epsilon={self.epsilon}"
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None,

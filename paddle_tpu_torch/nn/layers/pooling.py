@@ -6,9 +6,9 @@ return no mask; here ``return_mask=True`` raises (ROADMAP.md §C.16), as
 ``MaxUnPool1D/2D/3D`` wait with their functionals (ROADMAP.md §A.6)."""
 from __future__ import annotations
 
-from torch import nn
 
 from ..functional import conv as F
+from ..layer import Layer
 
 
 def _refuse_mask(return_mask):
@@ -19,7 +19,7 @@ def _refuse_mask(return_mask):
             "§C.16); call the functional max_pool*d(return_mask=True)")
 
 
-class MaxPool1D(nn.Module):
+class MaxPool1D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, name=None):
         super().__init__()
@@ -31,7 +31,7 @@ class MaxPool1D(nn.Module):
         return F.max_pool1d(x, self.k, self.s, self.p, ceil_mode=self.ceil)
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCHW",
                  name=None):
@@ -45,7 +45,7 @@ class MaxPool2D(nn.Module):
                             data_format=self.df)
 
 
-class MaxPool3D(nn.Module):
+class MaxPool3D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCDHW",
                  name=None):
@@ -59,7 +59,7 @@ class MaxPool3D(nn.Module):
                             data_format=self.df)
 
 
-class AvgPool1D(nn.Module):
+class AvgPool1D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
                  ceil_mode=False, name=None):
         super().__init__()
@@ -70,7 +70,7 @@ class AvgPool1D(nn.Module):
         return F.avg_pool1d(x, self.k, self.s, self.p, self.ex, self.ceil)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive=True, divisor_override=None, data_format="NCHW",
                  name=None):
@@ -84,7 +84,7 @@ class AvgPool2D(nn.Module):
                             self.divisor_override, data_format=self.df)
 
 
-class AvgPool3D(nn.Module):
+class AvgPool3D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive=True, divisor_override=None, data_format="NCDHW",
                  name=None):
@@ -98,7 +98,7 @@ class AvgPool3D(nn.Module):
                             self.divisor_override, data_format=self.df)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size, name=None):
         super().__init__()
         self.output_size = output_size
@@ -107,7 +107,7 @@ class AdaptiveAvgPool1D(nn.Module):
         return F.adaptive_avg_pool1d(x, self.output_size)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -117,7 +117,7 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self.output_size, self.df)
 
 
-class AdaptiveAvgPool3D(nn.Module):
+class AdaptiveAvgPool3D(Layer):
     def __init__(self, output_size, data_format="NCDHW", name=None):
         super().__init__()
         self.output_size = output_size
@@ -127,7 +127,7 @@ class AdaptiveAvgPool3D(nn.Module):
         return F.adaptive_avg_pool3d(x, self.output_size, self.df)
 
 
-class AdaptiveMaxPool1D(nn.Module):
+class AdaptiveMaxPool1D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         _refuse_mask(return_mask)
@@ -137,7 +137,7 @@ class AdaptiveMaxPool1D(nn.Module):
         return F.adaptive_max_pool1d(x, self.output_size)
 
 
-class AdaptiveMaxPool2D(nn.Module):
+class AdaptiveMaxPool2D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         _refuse_mask(return_mask)
@@ -147,7 +147,7 @@ class AdaptiveMaxPool2D(nn.Module):
         return F.adaptive_max_pool2d(x, self.output_size)
 
 
-class AdaptiveMaxPool3D(nn.Module):
+class AdaptiveMaxPool3D(Layer):
     def __init__(self, output_size, return_mask=False, name=None):
         super().__init__()
         _refuse_mask(return_mask)

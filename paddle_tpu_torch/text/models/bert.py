@@ -33,7 +33,7 @@ from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.functional.attention import padded_attention
-from ...nn.layer import ParamAttr, create_parameter
+from ...nn.layer import Layer, LayerList, ParamAttr, create_parameter
 from ...nn.layers.common import Dropout, Embedding, Linear
 from ...nn.layers.norm import LayerNorm
 
@@ -112,7 +112,7 @@ def padding_mask(attention_mask):
     return ((1.0 - m) * -1e9)[:, None, None, :]
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config: BertConfig, **kw):
         super().__init__()
         init = ParamAttr(initializer=I.Normal(std=config.initializer_range))
@@ -141,7 +141,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertSelfAttention(nn.Module):
+class BertSelfAttention(Layer):
     """Non-causal self-attention over a fused head-major QKV projection."""
 
     def __init__(self, config: BertConfig, **kw):
@@ -165,7 +165,7 @@ class BertSelfAttention(nn.Module):
         return self.out_proj(T.reshape(out, (b, t, h)))
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     """Post-LN encoder block (the BERT convention)."""
 
     def __init__(self, config: BertConfig, **kw):
@@ -187,7 +187,7 @@ class BertLayer(nn.Module):
             x, self.dropout(self.fc_out(self.act(self.fc_in(x))))))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, config: BertConfig, **kw):
         super().__init__()
         self.dense = Linear(config.hidden_size, config.hidden_size,
@@ -197,13 +197,13 @@ class BertPooler(nn.Module):
         return F.tanh(self.dense(T.getitem(hidden, (slice(None), 0))))
 
 
-class _Encoder(nn.Module):
+class _Encoder(Layer):
     """Embeddings, the stack of :class:`BertLayer` and the optional pooler:
     the body that ``BertModel`` and ``ErnieModel`` share. ``embeddings`` is
     built by the subclass."""
 
     def _build_stack(self, config, block_config, add_pooling_layer, kw):
-        self.encoder = nn.ModuleList(
+        self.encoder = LayerList(
             BertLayer(block_config, **kw)
             for _ in range(config.num_hidden_layers))
         self.pooler = (BertPooler(block_config, **kw) if add_pooling_layer
@@ -240,7 +240,7 @@ class BertModel(_Encoder):
         return self._run(x, attention_mask)
 
 
-class BertLMPredictionHead(nn.Module):
+class BertLMPredictionHead(Layer):
     """Transform (dense, GELU, LayerNorm), then the vocabulary projection:
     the word embeddings' transpose when ``embedding_weights`` is given
     (held by reference, not registered again, so the state names are the
@@ -274,7 +274,7 @@ def _mlm_loss(logits, labels):
                            labels.reshape(-1), ignore_index=-100)
 
 
-class _Loadable(nn.Module):
+class _Loadable(Layer):
     def load_numpy_state(self, np_state: Mapping[str, np.ndarray]):
         """Load the reference's parameters, given as ``{name: ndarray}``;
         names and shapes must match this model's exactly."""
@@ -330,7 +330,7 @@ class BertForSequenceClassification(_Loadable):
         return logits
 
 
-class BertPretrainingCriterion(nn.Module):
+class BertPretrainingCriterion(Layer):
     """Masked-LM cross entropy (labels -100 ignored), plus the next-
     sentence cross entropy where both its scores and labels are given."""
 

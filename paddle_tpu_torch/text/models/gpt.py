@@ -33,6 +33,7 @@ from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
 from ...nn.functional.attention import _sdpa_dense
 from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
+from ...nn.layer import Layer, LayerList
 from ...nn.layers.common import Dropout, Embedding, Linear, linear_direct
 from ...nn.layers.norm import LayerNorm, layer_norm_direct
 from ..generation import alloc_kv_caches, run_cached_generation
@@ -128,7 +129,7 @@ def _init_kw(config, device, generator, dtype):
                 init_std=config.initializer_range)
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         self.word_embeddings = Embedding(config.vocab_size,
@@ -146,7 +147,7 @@ class GPTEmbeddings(nn.Module):
         return self.dropout(emb)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     """Causal self-attention over a fused head-major QKV projection."""
 
     def __init__(self, config: GPTConfig, **kw):
@@ -180,7 +181,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(T.reshape(out, (b, t, h)))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         self.fc_in = Linear(config.hidden_size, config.intermediate_size,
@@ -192,7 +193,7 @@ class GPTMLP(nn.Module):
         return self.fc_out(F.gelu(self.fc_in(x)))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN block."""
 
     def __init__(self, config: GPTConfig, **kw):
@@ -218,12 +219,12 @@ class GPTDecoderLayer(nn.Module):
         return self._block(x)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         self.config = config
         self.embeddings = GPTEmbeddings(config, **kw)
-        self.decoder = nn.ModuleList(
+        self.decoder = LayerList(
             GPTDecoderLayer(config, **kw)
             for _ in range(config.num_hidden_layers))
         self.final_layernorm = LayerNorm(
@@ -237,7 +238,7 @@ class GPTModel(nn.Module):
         return self.final_layernorm(x)
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Masked LM loss (reference ``GPTPretrainingCriterion``). Without
     ``loss_mask`` the mean over ALL tokens, ignored labels counting as 0;
     with it ``sum(loss * mask) / max(sum(mask), 1)``."""
@@ -254,7 +255,7 @@ class GPTPretrainingCriterion(nn.Module):
         return T.mean(loss)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with a (tied) LM head.
 
     ``device`` defaults to the CUDA card (``"cpu"`` only when asked);

@@ -41,6 +41,7 @@ from ...framework.op import amp_op
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
+from ...nn.layer import Layer, LayerList
 from ...nn.layers.common import Embedding, Linear, linear_direct
 from ...nn.layers.norm import RMSNorm, rms_norm_direct
 from ...ops.flash_attention import flash_attention
@@ -154,7 +155,7 @@ def _gqa_attention(q, k, v):
     return flash_attention(q, k, v, causal=True)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         h = config.hidden_size
@@ -202,7 +203,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(T.reshape(o, (b, t, h)))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
 
     def __init__(self, config: LlamaConfig, **kw):
@@ -218,7 +219,7 @@ class LlamaMLP(nn.Module):
                                          self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     """Pre-RMSNorm block with two residuals."""
 
     def __init__(self, config: LlamaConfig, **kw):
@@ -243,14 +244,14 @@ class LlamaDecoderLayer(nn.Module):
         return self._block(x)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       init_std=config.initializer_range,
                                       **kw)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             LlamaDecoderLayer(config, **kw)
             for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
@@ -263,7 +264,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Llama with an untied LM head (tied to the embeddings under
     ``tie_word_embeddings``).
 

@@ -23,9 +23,10 @@ from ...device import resolve_device
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                    MaxPool2D, ReLU, Sequential)
 from ...nn import initializer as I
+from ...nn.layer import Layer
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -51,7 +52,7 @@ class BasicBlock(nn.Module):
         return self.relu(T.add(out, identity))
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -82,7 +83,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(T.add(out, identity))
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """He et al. 2016's ResNet: a 7x7 stem, four stages of ``block`` and,
     with ``num_classes > 0``, global average pooling and a ``Linear``
     head."""

@@ -150,3 +150,35 @@ def test_generation_without_device_raises_on_cpu_only_machine(no_cuda):
         paddle.inference.enable_decode_engine(_tiny("cpu"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         paddle.set_device("gpu")
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.tensor.creation",
+    "paddle_tpu_torch.tensor.logic", "paddle_tpu_torch.tensor.random",
+    "paddle_tpu_torch.tensor.manipulation", "paddle_tpu_torch.tensor.math",
+    "paddle_tpu_torch.tensor.linalg"])
+def test_layer_and_tensor_modules_are_guarded(module):
+    """The ``nn.Layer`` / tensor-API slice's modules are among those the
+    guards above walk."""
+    assert module in MODULES
+
+
+@pytest.mark.parametrize("call", [
+    lambda p: p.zeros([2]), lambda p: p.ones([2], "int32"),
+    lambda p: p.full([2], 1.5), lambda p: p.arange(3),
+    lambda p: p.linspace(0, 1, 3), lambda p: p.eye(2),
+    lambda p: p.tril_indices(3, 3), lambda p: p.rand([2]),
+    lambda p: p.randn([2]), lambda p: p.randint(0, 5, [2]),
+    lambda p: p.randperm(4), lambda p: p.uniform([2], seed=3),
+    lambda p: p.nn.Layer().create_parameter([2])],
+    ids=["zeros", "ones", "full", "arange", "linspace", "eye",
+         "tril_indices", "rand", "randn", "randint", "randperm",
+         "uniform-seed", "create_parameter"])
+def test_creation_without_device_raises_on_cpu_only_machine(no_cuda, call):
+    """A creation or random function given no device creates on the
+    default device: without CUDA it raises, as the namespace's entry points
+    do, and never falls back to the CPU."""
+    import paddle_tpu_torch as paddle
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(paddle)
