@@ -187,11 +187,28 @@ Phases, each fatal on failure (non-zero exit, no final line):
    a call, none after ``remove()``), and the card against the CPU on the
    same weights and a 1 x 256 batch: the loss and every parameter's
    gradient within phase 30's rule;
-38. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+38. hybrid-parallel training through ``paddle.distributed`` at NCCL world
+   size 1: ``init_parallel_env`` on a ``file://`` store (NCCL, the default
+   device being the card), ``fleet.init`` -> ``distributed_model`` ->
+   ``distributed_optimizer`` -> ``DistTrainStep``, GPT-3 1.3B at full
+   width and depth for 4 steps on phase 7's batch and AdamW: K1 / K2a /
+   K2b 24 x 4 launches each, the gradient all-reduces counted, step ms
+   beside phase 7's; then a depth-2 ``DistTrainStep`` and ``TrainStep``
+   from the same weights for 3 steps: losses and parameters bit-equal;
+39. two processes on the one card over gloo (``backend="gloo"`` given):
+   GPT-3 1.3B's widths at depth 2 in three configurations, mp 2 with
+   sequence parallelism, dp 2 and sharding 2 (ZeRO-1), 3 AdamW steps on
+   the global 2 x 2048 batch each, against a single-process ``TrainStep``
+   on the same full weights (losses within ``TRAIN_LOSS_RTOL``, gathered
+   parameters within phase 8's rule, the mp ranks' replicated parameters
+   bit-equal); each rank's K1 / K2a / K2b launches at H = 8 (mp) or 16;
+40. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
-   ``kernels`` JSON line (the GPT, encoder and MoE shapes; no TPU kernel
-   lies on the vision path), then the result line.
+   ``distributed`` JSON line (phases 38-39), a ``kernels`` JSON line (the
+   GPT, encoder and MoE shapes, the K1 / K2 rows with their launches in
+   phases 38-39; no TPU kernel lies on the vision path), then the result
+   line.
 """
 from __future__ import annotations
 
@@ -3775,6 +3792,315 @@ def phases_layer(fa, smi):
             "seconds": secs, "card": smi}
 
 
+# -- phases 38-39: hybrid-parallel training (paddle.distributed) -------------
+
+# phase 39's configurations (two ranks on the one card over gloo): mp 2
+# with sequence parallelism, dp 2, sharding 2 (ZeRO-1); GPT-3 1.3B's
+# widths at depth 2, LOCKSTEP_STEPS AdamW steps on phase 7's batch
+FLEET_CONFIGS = {"mp2_sp": dict(mp_degree=2, sequence_parallel=True),
+                 "dp2": dict(dp_degree=2),
+                 "sharding2": dict(sharding_degree=2)}
+FLEET_DEPTH = 2
+# a collective gloo refuses on CUDA tensors (the card's check before
+# phase 39): point-to-point, whose send passes the device pointer to the
+# socket (writev: Bad address); no configuration of phase 39 sends one
+GLOO_CUDA_REFUSED = ("send / recv / batch_isend_irecv",)
+
+
+@contextlib.contextmanager
+def launch_env(**env):
+    """The launch environment ``init_parallel_env`` reads, restored after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_trainer(model, adamw=ADAMW):
+    """``fleet.distributed_model`` / ``distributed_optimizer`` /
+    ``DistTrainStep`` over ``trainer``'s AdamW and clip."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **adamw)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(model, lambda m, ids, lab: m(ids, labels=lab),
+                               opt)
+    return step, opt
+
+
+def fleet_init(**degrees):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update({"dp_degree": -1, **degrees})
+    fleet.init(is_collective=True, strategy=s)
+
+
+def phase_fleet_nccl(fa, smi, trained):
+    """Phase 38: ``init_parallel_env`` on a ``file://`` store at world size
+    1 (NCCL: the default device is the card), ``fleet.init``, then GPT-3
+    1.3B at full depth through ``DistTrainStep`` for TRAIN_STEPS steps
+    (K1 / K2a / K2b 24 x 4 launches, the NCCL all-reduces counted), and a
+    depth-2 ``DistTrainStep`` against ``TrainStep`` on the same weights
+    and batch: losses and parameters bit-equal (an all-reduce over one
+    rank is the identity, the division by 1 exact)."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    with launch_env(PADDLE_TRAINER_ID=0, PADDLE_TRAINERS_NUM=1,
+                    PADDLE_MASTER=f"file://{tmp}/rendezvous"):
+        dist.init_parallel_env()
+    backend = dist.get_backend()
+    if backend != "NCCL":
+        raise AssertionError(f"init_parallel_env chose {backend}, not NCCL")
+    fleet_init()
+    model = build_model(24)
+    step, opt = dist_trainer(model)
+    ids, labels = train_batch(model.config.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    collective.reset_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    launches = {k: getattr(fa, f"launches_{k}") for k in ("fwd", "dq", "dkv")}
+    counts = dict(collective.counts)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = ids.numel()
+    ms = float(np.mean(step_ms[1:]))
+    log(f"# phase 38: GPT-3 1.3B (24 layers) through fleet.init -> "
+        f"distributed_model -> distributed_optimizer -> DistTrainStep, "
+        f"backend {backend}, world size {dist.get_world_size()}")
+    for i, (l, t) in enumerate(zip(losses, step_ms)):
+        log(f"step {i}: loss {l:.6f}, {t:.1f} ms")
+    log(f"steps 1-{TRAIN_STEPS - 1} mean {ms:.1f} ms = "
+        f"{tokens / ms * 1e3:.1f} tokens/s (phase 7's TrainStep "
+        f"{np.mean(trained['step_ms'][1:]):.1f} ms); peak memory "
+        f"{peak / 2**30:.2f} GiB; NCCL collectives {counts}; flash "
+        f"launches {launches}  [{smi}]")
+    layers = model.config.num_hidden_layers
+    if any(n != layers * TRAIN_STEPS for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != {layers} x "
+                             f"{TRAIN_STEPS}")
+    if not counts.get("all_reduce", 0) >= TRAIN_STEPS:
+        raise AssertionError(f"no gradient all-reduce ran: {counts}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses}")
+    buckets = counts["all_reduce"] // TRAIN_STEPS
+    del step, opt, model
+    torch.cuda.empty_cache()
+
+    a, b = build_model(FLEET_DEPTH), build_model(FLEET_DEPTH)
+    step_a, _ = dist_trainer(a)
+    step_b, _ = trainer(b)
+    for i in range(LOCKSTEP_STEPS):
+        la, lb = step_a(ids, labels), step_b(ids, labels)
+        log(f"# phase 38: depth {FLEET_DEPTH} step {i}: DistTrainStep "
+            f"{float(la):.7f} TrainStep {float(lb):.7f}")
+        if not torch.equal(la, lb):
+            raise AssertionError("DistTrainStep's loss differs from "
+                                 "TrainStep's")
+    pb = dict(b.named_parameters())
+    differ = [n for n, p in a.named_parameters() if not torch.equal(p, pb[n])]
+    log(f"# phase 38: {len(pb) - len(differ)}/{len(pb)} parameters "
+        "bit-equal to TrainStep's after "
+        f"{LOCKSTEP_STEPS} steps")
+    if differ:
+        raise AssertionError(f"parameters differ from TrainStep: {differ}")
+    del step_a, step_b, a, b
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return dict(backend=backend, step_ms=step_ms, losses=losses,
+                tokens_per_s=tokens / ms * 1e3, peak_gib=peak / 2 ** 30,
+                collectives=counts, buckets_per_step=buckets,
+                launches=launches,
+                trainstep_step_ms=float(np.mean(trained["step_ms"][1:])),
+                lockstep_bit_equal=True)
+
+
+def _rank_fleet(out_dir, configs):
+    """One rank of phase 39 (run by ``paddle.distributed.spawn``): each
+    configuration in turn, its results pickled to ``out_dir``."""
+    import hashlib
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.layers import mpu
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend()}
+    for name, degrees in configs.items():
+        degrees = dict(degrees)
+        sp = degrees.pop("sequence_parallel", False)
+        fleet_init(**degrees)
+        hcg = fleet.get_hybrid_communicate_group()
+        model = build_model(FLEET_DEPTH, sequence_parallel=sp)
+        step, _ = dist_trainer(model)
+        ids, labels = train_batch(model.config.vocab_size)
+        reset_flash(fa)
+        losses, step_ms = [], []
+        for _ in range(LOCKSTEP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels)))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: getattr(fa, f"launches_{k}")
+                    for k in ("fwd", "dq", "dkv")}
+        # the replicated parameters, bit-equal on the mp ranks
+        mp = hcg.get_model_parallel_group()
+        rep_equal = True
+        for _, p in model.named_parameters():
+            if not mpu.is_mp_shard(p):
+                got = dist.all_gather(None, p.detach(), group=mp)
+                rep_equal &= all(torch.equal(g, got[0]) for g in got)
+        full = gather_full_state(model)
+        digest = hashlib.sha1()
+        for n in sorted(full):
+            digest.update(full[n].cpu().numpy().tobytes())
+        res = dict(losses=losses, step_ms=step_ms, launches=launches,
+                   digest=digest.hexdigest(),
+                   heads=model.gpt.decoder[0].attn.num_heads,
+                   replicated_bit_equal=bool(rep_equal),
+                   mp_rank=hcg.get_model_parallel_rank())
+        del step, model
+        # the single-process reference is built with no hybrid group in
+        # force: its layers are the plain ones
+        fleet.topology.set_hybrid_communicate_group(None)
+        if rank == 0:
+            ref = build_model(FLEET_DEPTH)
+            ref_step, _ = trainer(ref)
+            res["ref_losses"] = [float(ref_step(ids, labels))
+                                 for _ in range(LOCKSTEP_STEPS)]
+            dmax, far, total = 0.0, 0, 0
+            for n, p in ref.named_parameters():
+                d = (full[n] - p.detach()).abs()
+                dmax = max(dmax, d.max().item())
+                far += int((d > LOCKSTEP_PARAM_ATOL).sum())
+                total += d.numel()
+            res.update(param_max=dmax, param_far=far, param_total=total)
+            del ref_step, ref
+        del full
+        torch.cuda.empty_cache()
+        out[name] = res
+        dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_fleet_gloo(smi, timeout=600):
+    """Phase 39: two processes on the one card over gloo (``backend="gloo"``
+    given explicitly: NCCL runs one rank per device), each configuration
+    of FLEET_CONFIGS at GPT-3 1.3B's widths and depth 2 against a
+    single-process ``TrainStep`` on the same full weights: losses within
+    TRAIN_LOSS_RTOL, gathered parameters within phase 8's rule, the mp
+    ranks' replicated parameters bit-equal, sharding 2 bit-equal to dp 2;
+    each rank's K1 / K2a / K2b launches at its heads (8 at mp 2, 16
+    otherwise)."""
+    import os
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    t0 = time.perf_counter()
+    ctx = dist.spawn(_rank_fleet, (tmp, FLEET_CONFIGS), nprocs=2,
+                     join=False, backend="gloo",
+                     master=f"file://{tmp}/rendezvous")
+    join_spawned(ctx, timeout)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    out = {"seconds": secs, "backend": res[0]["backend"],
+           "refused_on_cuda": list(GLOO_CUDA_REFUSED)}
+    bound = 2 * ADAMW["learning_rate"] * LOCKSTEP_STEPS
+    for name in FLEET_CONFIGS:
+        a, b = res[0][name], res[1][name]
+        rel = max(abs(x - y) / abs(y)
+                  for x, y in zip(a["losses"], a["ref_losses"]))
+        heads = 8 if name.startswith("mp") else 16
+        want = FLEET_DEPTH * LOCKSTEP_STEPS
+        log(f"# phase 39: {name}: losses {a['losses']} vs TrainStep "
+            f"{a['ref_losses']} (rel {rel:.2e}); params max |d| "
+            f"{a['param_max']:.2e} (bound {bound:.1e}), "
+            f"{a['param_far']}/{a['param_total']} beyond "
+            f"{LOCKSTEP_PARAM_ATOL}; step ms {a['step_ms']}; launches "
+            f"rank 0 {a['launches']} rank 1 {b['launches']} at H={a['heads']}"
+            f"; replicated bit-equal {a['replicated_bit_equal']}  [{smi}]")
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{name}: losses differ from TrainStep")
+        if not (a["param_max"] <= bound
+                and a["param_far"] <= 0.01 * a["param_total"]):
+            raise AssertionError(f"{name}: parameters differ from TrainStep")
+        if not (a["replicated_bit_equal"] and b["replicated_bit_equal"]):
+            raise AssertionError(f"{name}: replicated parameters differ "
+                                 "across the mp ranks")
+        for r in (a, b):
+            if r["heads"] != heads or any(n != want
+                                          for n in r["launches"].values()):
+                raise AssertionError(f"{name}: launches {r['launches']} at "
+                                     f"H={r['heads']}")
+        out[name] = {k: a[k] for k in ("losses", "ref_losses", "step_ms",
+                                       "launches", "heads", "param_max",
+                                       "param_far")}
+        out[name]["rank1_launches"] = b["launches"]
+    # ZeRO-1 at sharding 2 against dp 2: the same two data ranks, the same
+    # gradients, an elementwise update
+    zero_equal = (res[0]["sharding2"]["losses"] == res[0]["dp2"]["losses"]
+                  and res[0]["sharding2"]["digest"] == res[0]["dp2"]["digest"])
+    log(f"# phase 39: sharding2 bit-equal to dp2 (losses and every "
+        f"parameter): {zero_equal}")
+    if not zero_equal:
+        raise AssertionError("ZeRO-1 differs from dp 2")
+    out["sharding2_bit_equal_dp2"] = zero_equal
+    log(f"# phase 39: {secs:.1f} s (two processes, spawn, build and run)")
+    return out
+
+
+def phases_distributed(fa, smi, trained):
+    """Phases 38-39; returns the ``distributed`` JSON line's numbers."""
+    t0 = time.perf_counter()
+    nccl = phase_fleet_nccl(fa, smi, trained)
+    gloo = phase_fleet_gloo(smi)
+    secs = time.perf_counter() - t0
+    log(f"phases 38-39: {secs:.1f} s")
+    return {"fleet_nccl_1p3b": nccl, "gloo_two_ranks": gloo,
+            "seconds": secs, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3849,6 +4175,7 @@ def main() -> int:
     vision = phases_vision(smi, peaks)
     generation = phases_generation(fa, pa, smi)
     layer = phases_layer(fa, smi)
+    distributed = phases_distributed(fa, smi, trained)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -3894,10 +4221,17 @@ def main() -> int:
                          ("dq", "flash_attention_bwd_dq"),
                          ("dkv", "flash_attention_bwd_dkv")):
         r = flash_timed[(kind, torch.float32)]
-        kernels.append(row(
+        gloo = distributed["gloo_two_ranks"]
+        kernels.append(dict(row(
             kernel, "paddle_tpu_torch/ops/cuda/flash_attention.cu",
             FLASH_REPLACES[kind], trained["launches"][kind],
-            max(flash_err[kind], r["max_abs_err"]), r))
+            max(flash_err[kind], r["max_abs_err"]), r),
+            launches_distributed=dict(
+                fleet_nccl_1p3b=distributed["fleet_nccl_1p3b"][
+                    "launches"][kind],
+                **{f"gloo_{c}_rank{i}_h{gloo[c]['heads']}":
+                   gloo[c]["launches" if i == 0 else "rank1_launches"][kind]
+                   for c in FLEET_CONFIGS for i in (0, 1)})))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -3934,6 +4268,7 @@ def main() -> int:
     log(json.dumps({"vision": vision}))
     log(json.dumps({"generation": generation}))
     log(json.dumps({"layer": layer}))
+    log(json.dumps({"distributed": distributed}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

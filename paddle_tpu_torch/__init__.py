@@ -13,7 +13,7 @@ names that the port has: the subpackages, the dtype names (as
 ``torch.dtype``), the tensor functions (``paddle.slice``, ``einsum``,
 ``paddle.linalg`` among them), ``seed`` and the RNG state,
 ``to_tensor``, ``set_device`` / ``get_device``, the grad switches,
-``Model``, ``save`` / ``load``.
+``Model``, ``DataParallel``, ``save`` / ``load``.
 
 Entry points run on the default device: the CUDA card, unless
 ``set_device("cpu")`` was called or the caller passes ``device="cpu"``;
@@ -25,6 +25,7 @@ import torch as _torch
 from . import (amp, device, distributed, incubate, inference, io, jit, metric,
                nn, optimizer, tensor, text, vision)
 from .device import get_device, resolve_device, set_device
+from .distributed.parallel import DataParallel
 from .framework.io_state import load, save
 from .framework.rng import get_rng_state, seed, set_rng_state
 from .hapi_model import Model
@@ -50,11 +51,12 @@ float64 = _torch.float64
 complex64 = _torch.complex64
 complex128 = _torch.complex128
 
-__all__ = (["Model", "amp", "device", "distributed", "enable_grad",
-            "get_device", "get_rng_state", "incubate", "inference", "io",
-            "is_grad_enabled", "jit", "linalg", "load", "metric", "nn",
-            "no_grad", "optimizer", "resolve_device", "save", "seed", "set_device",
-            "set_grad_enabled", "set_rng_state", "tensor", "text", "vision",
-            "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
-            "bfloat16", "float32", "float64", "complex64", "complex128"]
+__all__ = (["DataParallel", "Model", "amp", "device", "distributed",
+            "enable_grad", "get_device", "get_rng_state", "incubate",
+            "inference", "io", "is_grad_enabled", "jit", "linalg", "load",
+            "metric", "nn", "no_grad", "optimizer", "resolve_device", "save",
+            "seed", "set_device", "set_grad_enabled", "set_rng_state",
+            "tensor", "text", "vision", "bool", "uint8", "int8", "int16",
+            "int32", "int64", "float16", "bfloat16", "float32", "float64",
+            "complex64", "complex128"]
            + list(tensor.__all__))

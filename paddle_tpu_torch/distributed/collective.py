@@ -1,0 +1,352 @@
+"""Collective communication (counterpart of
+``paddle_tpu/distributed/collective.py`` :238-595), on
+``torch.distributed``.
+
+Paddle's signatures and its in-place semantics: ``all_reduce`` /
+``broadcast`` / ``reduce`` / ``scatter`` / ``recv`` write into the tensor
+given; ``src`` / ``dst`` / ``peer`` are global ranks; every call returns a
+task whose ``wait()`` blocks until the collective is done (already done
+when ``sync_op`` is True). The reference is one process holding every
+device, so its eager collectives act as if every rank held the same value
+(``all_reduce`` of ``v`` gives ``n * v``); here each rank contributes its
+own tensor, and ``reduce`` defines the result on ``dst`` only, as Paddle
+does (the reference's is an all-reduce).
+
+``ReduceOp.AVG`` is a sum divided by the group's size (gloo has no
+average). ``counts`` counts the collectives issued, by name, for the
+on-card check that a path really communicated; ``reset_counts`` zeroes it.
+
+Not here: the quantized collectives ``psum_quantized`` /
+``all_gather_quantized`` (reference :109-236), which come with
+``mp_comm`` (ROADMAP.md §A.7).
+"""
+from __future__ import annotations
+
+import collections
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from .env import Group, _resolve_group, get_rank
+
+counts: collections.Counter = collections.Counter()
+
+
+def reset_counts():
+    counts.clear()
+
+
+class ReduceOp:
+    SUM = 0
+    MAX = 1
+    MIN = 2
+    PROD = 3
+    AVG = 4
+
+
+_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
+              ReduceOp.MIN: dist.ReduceOp.MIN,
+              ReduceOp.PROD: dist.ReduceOp.PRODUCT,
+              ReduceOp.AVG: dist.ReduceOp.SUM}
+
+
+class _Task:
+    """What a collective returns: ``wait()`` finishes it (and the AVG
+    division, when there is one); ``is_completed()`` reports it."""
+
+    def __init__(self, work=None, then=None):
+        self._work, self._then = work, then
+
+    def wait(self, timeout=None):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._then is not None:
+            self._then()
+            self._then = None
+        return True
+
+    def is_completed(self):
+        return self._work is None or self._work.is_completed()
+
+
+def _issue(name, fn, group, sync_op, then=None):
+    """Run ``fn(pg, async_op)`` on ``group``; a process outside the group
+    does nothing, as in Paddle."""
+    g = _resolve_group(group)
+    if not g.is_member():
+        return _Task()
+    counts[name] += 1
+    work = fn(g.process_group, not sync_op)
+    # a synchronous torch call returns None (recv: the sender's rank)
+    task = _Task(work if hasattr(work, "wait") else None, then)
+    if sync_op:
+        task.wait()
+    return task
+
+
+def _avg_then(tensor, op, g: Group):
+    """AVG's division after the sum (truncating on integers)."""
+    if op != ReduceOp.AVG:
+        return None
+    mode = None if tensor.is_floating_point() else "trunc"
+    return lambda: tensor.div_(g.nranks, rounding_mode=mode)
+
+
+# ---------------------------------------------------------------- reductions
+def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
+               sync_op=True):
+    """Reduce ``tensor`` over the group, in place on every rank."""
+    g = _resolve_group(group)
+    return _issue("all_reduce",
+                  lambda pg, a: dist.all_reduce(tensor, _TORCH_OPS[op], pg,
+                                                async_op=a),
+                  g, sync_op, _avg_then(tensor, op, g))
+
+
+def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
+    """Reduce ``tensor`` over the group onto global rank ``dst``, in place
+    there; elsewhere the tensor's content is not defined."""
+    g = _resolve_group(group)
+    then = _avg_then(tensor, op, g) if get_rank() == dst else None
+    return _issue("reduce",
+                  lambda pg, a: dist.reduce(tensor, dst, _TORCH_OPS[op], pg,
+                                            async_op=a),
+                  g, sync_op, then)
+
+
+def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
+                   sync_op=True):
+    """Reduce over the group and keep this rank's part in ``tensor``.
+
+    ``tensor_list`` a list: part ``i`` is the reduction of every rank's
+    ``tensor_list[i]``. A tensor: it is cut into ``nranks`` equal parts
+    along dim 0. None (the reference's functional form): ``tensor`` is the
+    input, and the new ``[k, ...]`` part is returned instead of a task."""
+    g = _resolve_group(group)
+    functional = tensor_list is None
+    if functional:
+        inp = tensor
+        tensor = inp.new_empty((inp.shape[0] // g.nranks,) + inp.shape[1:])
+    else:
+        inp = tensor_list
+    if isinstance(inp, (list, tuple)):
+        fn = lambda pg, a: dist.reduce_scatter(  # noqa: E731
+            tensor, list(inp), _TORCH_OPS[op], pg, async_op=a)
+    else:
+        fn = lambda pg, a: _reduce_scatter_tensor(  # noqa: E731
+            tensor, inp.contiguous(), _TORCH_OPS[op], pg, async_op=a)
+    task = _issue("reduce_scatter", fn, g, sync_op,
+                  _avg_then(tensor, op, g))
+    return tensor if functional else task
+
+
+# ----------------------------------------------------------------- gathering
+def all_gather(tensor_list, tensor=None, group=None, sync_op=True, axis=0):
+    """Every rank's ``tensor``, in group order.
+
+    ``tensor_list`` a list: the ``nranks`` tensors are appended to it. A
+    tensor: it receives them concatenated along ``axis``. None: the list
+    is returned instead of a task."""
+    g = _resolve_group(group)
+    if isinstance(tensor_list, torch.Tensor):
+        out = tensor_list
+        if axis == 0:
+            return _issue("all_gather", lambda pg, a: _all_gather_tensor(
+                out, tensor.contiguous(), pg, async_op=a), g, sync_op)
+        parts = [torch.empty_like(tensor) for _ in range(g.nranks)]
+        return _issue("all_gather", lambda pg, a: dist.all_gather(
+            parts, tensor.contiguous(), pg, async_op=a), g, sync_op,
+            lambda: out.copy_(torch.cat(parts, dim=axis)))
+    parts = [torch.empty_like(tensor) for _ in range(g.nranks)]
+    task = _issue("all_gather", lambda pg, a: dist.all_gather(
+        parts, tensor.contiguous(), pg, async_op=a), g, sync_op)
+    if tensor_list is None:
+        task.wait()
+        return parts
+    tensor_list.extend(parts)
+    return task
+
+
+def all_gather_object(object_list, obj, group=None):
+    """Every rank's picklable ``obj``, appended to ``object_list``."""
+    g = _resolve_group(group)
+    out = [None] * g.nranks
+    counts["all_gather_object"] += 1
+    dist.all_gather_object(out, obj, group=g.process_group)
+    object_list.extend(out)
+    return object_list
+
+
+def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
+    """Every rank's ``tensor`` onto global rank ``dst``, appended to
+    ``gather_list`` there (other ranks' lists stay as they are)."""
+    g = _resolve_group(group)
+    on_dst = get_rank() == dst
+    parts = [torch.empty_like(tensor) for _ in range(g.nranks)] \
+        if on_dst else None
+    task = _issue("gather", lambda pg, a: dist.gather(
+        tensor.contiguous(), parts, dst, pg, async_op=a), g, sync_op)
+    if on_dst and gather_list is not None:
+        task.wait()
+        gather_list.extend(parts)
+    return task
+
+
+# ----------------------------------------------------------------- broadcast
+def broadcast(tensor, src=0, group=None, sync_op=True):
+    """Global rank ``src``'s ``tensor`` written into every rank's."""
+    return _issue("broadcast", lambda pg, a: dist.broadcast(
+        tensor, src, pg, async_op=a), group, sync_op)
+
+
+def broadcast_object_list(object_list, src=0, group=None):
+    """Global rank ``src``'s objects written into every rank's list, in
+    place."""
+    g = _resolve_group(group)
+    counts["broadcast_object_list"] += 1
+    dist.broadcast_object_list(object_list, src, group=g.process_group)
+    return object_list
+
+
+def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
+    """Part ``i`` of ``src``'s ``tensor_list`` written into group rank
+    ``i``'s ``tensor``."""
+    on_src = get_rank() == src
+    lst = [t.contiguous() for t in tensor_list] if on_src else None
+    return _issue("scatter", lambda pg, a: dist.scatter(
+        tensor, lst, src, pg, async_op=a), group, sync_op)
+
+
+def scatter_object_list(out_object_list, in_object_list=None, src=0,
+                        group=None):
+    """Object ``i`` of ``src``'s ``in_object_list`` appended to group rank
+    ``i``'s ``out_object_list``."""
+    g = _resolve_group(group)
+    out = [None]
+    counts["scatter_object_list"] += 1
+    dist.scatter_object_list(out, in_object_list if get_rank() == src
+                             else None, src, group=g.process_group)
+    out_object_list.append(out[0])
+    return out_object_list
+
+
+# ------------------------------------------------------------------ all-to-all
+def alltoall(out_tensor_list, in_tensor_list=None, group=None, sync_op=True):
+    """Rank ``i``'s ``in_tensor_list[j]`` goes to rank ``j``'s
+    ``out_tensor_list[i]``. An empty ``out_tensor_list`` is filled."""
+    g = _resolve_group(group)
+    ins = [t.contiguous() for t in in_tensor_list]
+    if not out_tensor_list:
+        out_tensor_list.extend(torch.empty_like(t) for t in ins)
+    return _issue("alltoall", lambda pg, a: dist.all_to_all(
+        out_tensor_list, ins, pg, async_op=a), g, sync_op)
+
+
+def alltoall_single(out_tensor, in_tensor=None, in_split_sizes=None,
+                    out_split_sizes=None, group=None, sync_op=True):
+    """All-to-all of one tensor cut along dim 0 (equal parts, or the split
+    sizes given), written into ``out_tensor``."""
+    return _issue("alltoall_single", lambda pg, a: dist.all_to_all_single(
+        out_tensor, in_tensor.contiguous(), out_split_sizes, in_split_sizes,
+        pg, async_op=a), group, sync_op)
+
+
+# --------------------------------------------------------------- point to point
+def send(tensor, dst=0, group=None, sync_op=True):
+    return _issue("send", lambda pg, a: (dist.isend if a else dist.send)(
+        tensor.contiguous(), dst, pg), group, sync_op)
+
+
+def recv(tensor, src=0, group=None, sync_op=True):
+    return _issue("recv", lambda pg, a: (dist.irecv if a else dist.recv)(
+        tensor, src, pg), group, sync_op)
+
+
+def isend(tensor, dst, group=None):
+    return send(tensor, dst, group, sync_op=False)
+
+
+def irecv(tensor, src=None, group=None):
+    return recv(tensor, src, group, sync_op=False)
+
+
+class P2POp:
+    """paddle.distributed.P2POp: one send or receive of a batch for
+    :func:`batch_isend_irecv`; ``peer`` a global rank."""
+
+    def __init__(self, op, tensor, peer, group=None):
+        if op not in (send, recv, isend, irecv):
+            raise ValueError("P2POp op must be paddle.distributed "
+                             "isend / irecv (or send / recv)")
+        self.op, self.tensor, self.peer, self.group = op, tensor, peer, group
+
+
+def batch_isend_irecv(p2p_op_list):
+    """Issue every op of the batch at once; returns their tasks."""
+    ops = []
+    for p in p2p_op_list:
+        g = _resolve_group(p.group)
+        fn = dist.isend if p.op in (send, isend) else dist.irecv
+        ops.append(dist.P2POp(fn, p.tensor, p.peer, g.process_group))
+    if not ops:
+        return []
+    counts["batch_isend_irecv"] += 1
+    return [_Task(w) for w in dist.batch_isend_irecv(ops)]
+
+
+# ----------------------------------------------------------------------- misc
+def barrier(group=None):
+    g = _resolve_group(group)
+    if g.is_member():
+        counts["barrier"] += 1
+        dist.barrier(group=g.process_group)
+
+
+def wait(tensor, group=None, use_calc_stream=True):
+    """Block until the device has finished the work queued so far (the
+    collectives on ``tensor`` among it)."""
+    if tensor.is_cuda:
+        torch.cuda.current_stream(tensor.device).synchronize()
+    return tensor
+
+
+def get_backend(group=None):
+    """``"NCCL"`` or ``"GLOO"``, as Paddle names them."""
+    return str(dist.get_backend(_resolve_group(group).process_group)).upper()
+
+
+def _all_gather_tensor(out, inp, pg, async_op):
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    return fn(out, inp, group=pg, async_op=async_op)
+
+
+def _reduce_scatter_tensor(out, inp, op, pg, async_op):
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    return fn(out, inp, op=op, group=pg, async_op=async_op)
+
+
+class stream:
+    """paddle.distributed.stream: the same collectives (a comm stream of
+    its own is not modelled)."""
+    all_reduce = staticmethod(all_reduce)
+    all_gather = staticmethod(all_gather)
+    reduce_scatter = staticmethod(reduce_scatter)
+    alltoall = staticmethod(alltoall)
+    alltoall_single = staticmethod(alltoall_single)
+    broadcast = staticmethod(broadcast)
+    scatter = staticmethod(scatter)
+    reduce = staticmethod(reduce)
+    send = staticmethod(send)
+    recv = staticmethod(recv)
+
+
+__all__ = ["P2POp", "ReduceOp", "all_gather", "all_gather_object",
+           "all_reduce", "alltoall", "alltoall_single", "barrier",
+           "batch_isend_irecv", "broadcast", "broadcast_object_list",
+           "counts", "gather", "get_backend", "irecv", "isend", "recv",
+           "reduce", "reduce_scatter", "reset_counts", "scatter",
+           "scatter_object_list", "send", "stream", "wait"]

@@ -1,1 +1,316 @@
-"""Fleet utilities of the port (``paddle.distributed.fleet``)."""
+"""Fleet: the hybrid-parallel training entry (counterpart of
+``paddle_tpu/distributed/fleet/__init__.py``).
+
+``fleet.init(strategy=...)`` joins the default process group and builds
+the topology ``(data, pipe, sharding, sep, model)``, dp filled up to the
+world size, with one process group per axis slice;
+``distributed_model`` broadcasts the parameters so every rank starts
+equal (all of them over the data and sharding groups, the replicated ones
+over mp); ``distributed_optimizer`` wraps the optimizer into a
+:class:`HybridParallelOptimizer`; :class:`DistTrainStep` runs one step.
+The model is built after ``fleet.init``: its mp layers read the model
+parallel group then.
+
+ZeRO (``sharding_degree > 1``, stage 1 or 2) shards the optimizer by whole
+parameters, as upstream Paddle's ``DygraphShardingOptimizer`` does: each
+parameter has one owner in its sharding group (greedy by size, in
+parameter order), and only the owner keeps its AdamW moments and, under
+``multi_precision``, its f32 master, and updates it; each owner then
+broadcasts its updated parameters, packed in one buffer per dtype. The
+gradients reach every rank by the data group's all-reduce, so the update
+is the unsharded one bit for bit (AdamW is elementwise). Stage 2 also
+drops, before the update, the gradients a rank does not own.
+
+:class:`DistTrainStep` takes the *global* batch on every rank, as the
+reference does, and keeps the rank's rows over the data axes (data and
+sharding, data-major): an array whose first dim does not divide stays
+whole on every rank (the reference's ``data_spec_for`` gives ``P()``).
+It runs forward and backward, sums the sequence-parallel parameters'
+gradients over mp, averages all gradients over the data group in flat
+buckets (``grad_comm``), then steps the optimizer. It returns the global
+mean loss. While the loss runs on split rows, a masked mean divides by
+the kept count summed over the data group (``nn/functional/loss.py``), so
+the loss is the global masked mean however the mask splits.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ...jit import TrainStep
+from ...nn.functional import loss as _loss
+from ...optimizer import ClipGradByGlobalNorm
+from .. import collective as C
+from .. import grad_comm
+from ..env import get_rank, get_world_size, init_parallel_env
+from . import topology  # noqa: F401
+from .layers import mpu  # noqa: F401
+from .strategy import DistributedStrategy, check_ported
+from .topology import (CommunicateTopology, HybridCommunicateGroup,
+                       get_hybrid_communicate_group,
+                       set_hybrid_communicate_group)
+from .utils import hybrid_parallel_util as _hpu
+from .utils import recompute, sequence_parallel_utils  # noqa: F401
+
+_strategy: Optional[DistributedStrategy] = None
+
+
+class UserDefinedRoleMaker:
+    """Accepted for script compatibility; collective roles are implicit."""
+
+    def __init__(self, *a, **k):
+        pass
+
+
+class PaddleCloudRoleMaker(UserDefinedRoleMaker):
+    pass
+
+
+def init(role_maker=None, is_collective: bool = False,
+         strategy: Optional[DistributedStrategy] = None):
+    """fleet.init: check the strategy, join the default group, build the
+    hybrid topology and its groups."""
+    global _strategy
+    strategy = strategy or DistributedStrategy()
+    check_ported(strategy)
+    init_parallel_env()
+    world = get_world_size()
+    hc = strategy.hybrid_configs
+    mp = int(hc.get("mp_degree", 1))
+    pp = int(hc.get("pp_degree", 1))
+    sh = int(hc.get("sharding_degree", 1))
+    sep = int(hc.get("sep_degree", 1))
+    dp = int(hc.get("dp_degree", 1))
+    fixed = mp * pp * sh * sep
+    if dp in (-1, 0) or dp * fixed != world:
+        if world % fixed:
+            raise ValueError(
+                f"hybrid degrees mp={mp} pp={pp} sharding={sh} sep={sep} "
+                f"do not divide the world size {world}")
+        dp = world // fixed
+        hc["dp_degree"] = dp
+    _strategy = strategy
+    topo = CommunicateTopology(("data", "pipe", "sharding", "sep", "model"),
+                               (dp, pp, sh, sep, mp))
+    set_hybrid_communicate_group(HybridCommunicateGroup(topo))
+
+
+def is_initialized() -> bool:
+    return get_hybrid_communicate_group() is not None
+
+
+def fleet_strategy() -> Optional[DistributedStrategy]:
+    return _strategy
+
+
+def worker_index() -> int:
+    return get_rank()
+
+
+def worker_num() -> int:
+    return get_world_size()
+
+
+def is_first_worker() -> bool:
+    return worker_index() == 0
+
+
+def barrier_worker():
+    C.barrier()
+
+
+def _require_hcg():
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        raise RuntimeError("call fleet.init() first")
+    return hcg
+
+
+def distributed_model(model):
+    """Broadcast ``model``'s parameters so every rank starts equal; returns
+    the model."""
+    hcg = _require_hcg()
+    _hpu.broadcast_dp_parameters(model, hcg)
+    _hpu.broadcast_sharding_parameters(model, hcg)
+    _hpu.broadcast_mp_parameters(model, hcg)
+    return model
+
+
+def _partition(params, world):
+    """Owner (sharding rank) of each parameter: in order, to the rank
+    holding the fewest elements so far."""
+    load = [0] * world
+    owner = []
+    for p in params:
+        r = min(range(world), key=lambda i: load[i])
+        owner.append(r)
+        load[r] += p.numel()
+    return owner
+
+
+class HybridParallelOptimizer:
+    """``fleet.distributed_optimizer``'s product: the inner optimizer's
+    step over the hybrid groups. With mp > 1 a ``ClipGradByGlobalNorm``
+    takes the norm of the whole model (the mp shards' squares summed over
+    mp); with sharding > 1 the update is sharded by parameter (see the
+    module docstring). Anything else is the inner optimizer's."""
+
+    def __init__(self, optimizer, hcg=None, strategy=None):
+        self._inner_opt = optimizer
+        self._hcg = hcg or _require_hcg()
+        self._strategy = strategy or _strategy or DistributedStrategy()
+        self._stage = int(self._strategy.sharding_configs.get("stage", 1))
+        sg = self._hcg.get_sharding_parallel_group()
+        self._sharding_group = sg
+        self._shard_states = sg.nranks > 1
+        self._owner = (_partition(optimizer._parameter_list, sg.nranks)
+                       if self._shard_states else None)
+        self._me = self._hcg.get_sharding_parallel_rank()
+
+    def __getattr__(self, name):
+        return getattr(self._inner_opt, name)
+
+    def owns(self, i) -> bool:
+        """Whether this rank updates parameter ``i``."""
+        return self._owner is None or self._owner[i] == self._me
+
+    def _clip(self, pg):
+        clip = self._inner_opt._grad_clip
+        mp = self._hcg.get_model_parallel_group()
+        if not isinstance(clip, ClipGradByGlobalNorm) or mp.nranks == 1:
+            return clip(pg)
+        rep, shard = [], []
+        for p, g in pg:
+            if g is not None:
+                (shard if mpu.is_mp_shard(p)
+                 else rep).append(torch.sum(torch.square(g.float())))
+        zero = torch.zeros((), device=pg[0][0].device)
+        shard_sq = torch.stack(shard).sum() if shard else zero
+        C.all_reduce(shard_sq, group=mp)
+        gnorm = torch.sqrt((torch.stack(rep).sum() if rep else zero)
+                           + shard_sq)
+        scale = clip.clip_norm / torch.clamp(gnorm, min=clip.clip_norm)
+        for _, g in pg:
+            if g is not None:
+                g.mul_(scale)
+        return pg
+
+    @torch.no_grad()
+    def step(self):
+        opt = self._inner_opt
+        pg = [(p, p.grad if p.requires_grad else None)
+              for p in opt._parameter_list]
+        if opt._grad_clip is not None:
+            pg = self._clip(pg)
+        if self._stage == 2:
+            for i, (p, _) in enumerate(pg):
+                if not self.owns(i):
+                    p.grad = None
+            pg = [(p, g if self.owns(i) else None)
+                  for i, (p, g) in enumerate(pg)]
+        lr = float(np.float32(opt.get_lr()))
+        for i, (p, g) in enumerate(pg):
+            if g is not None and self.owns(i):
+                opt._update(i, p, g, lr)
+        if self._shard_states:
+            self._broadcast_updates()
+
+    def _broadcast_updates(self):
+        params = self._inner_opt._parameter_list
+        sg = self._sharding_group
+        for r in range(sg.nranks):
+            mine = [p for i, p in enumerate(params)
+                    if self._owner[i] == r and p.requires_grad]
+            for dtype in dict.fromkeys(p.dtype for p in mine):
+                same = [p for p in mine if p.dtype == dtype]
+                flat = torch.cat([p.detach().reshape(-1) for p in same])
+                C.broadcast(flat, src=sg.ranks[r], group=sg)
+                if r != self._me:
+                    off = 0
+                    for p in same:
+                        p.data.copy_(flat[off:off + p.numel()].view_as(p))
+                        off += p.numel()
+
+    def clear_grad(self, *a, **k):
+        self._inner_opt.clear_grad(*a, **k)
+
+    clear_gradients = clear_grad
+
+    def state_dict(self):
+        """This rank's state: under ZeRO, that of the parameters it owns
+        (by position in the full parameter list)."""
+        return self._inner_opt.state_dict()
+
+    def set_state_dict(self, state):
+        return self._inner_opt.set_state_dict(state)
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    strategy = strategy or _strategy or DistributedStrategy()
+    check_ported(strategy)
+    for knob in ("dgc", "localsgd", "adaptive_localsgd"):
+        if getattr(strategy, knob, False):
+            import warnings
+
+            warnings.warn(
+                f"DistributedStrategy.{knob} is ignored: the gradient "
+                "all-reduce is exact and runs every step (as in the "
+                "reference, a deliberate non-goal)", stacklevel=2)
+    return HybridParallelOptimizer(optimizer, _require_hcg(), strategy)
+
+
+class DistTrainStep(TrainStep):
+    """One hybrid-parallel training step over the global batch (see the
+    module docstring). Returns the global mean loss, detached."""
+
+    def __init__(self, model, loss_fn, optimizer):
+        if not isinstance(optimizer, HybridParallelOptimizer):
+            optimizer = HybridParallelOptimizer(optimizer)
+        super().__init__(model, loss_fn, optimizer)
+        hcg = _require_hcg()
+        self._data_group = hcg.get_data_sharding_parallel_group()
+        self._data_rank = hcg.get_data_sharding_parallel_rank()
+        self._bucket_mb = grad_comm.resolve_config(
+            optimizer._strategy).bucket_mb
+
+    def _rows(self, v):
+        n = self._data_group.nranks
+        if not isinstance(v, torch.Tensor) or v.dim() == 0 or n == 1 \
+                or v.shape[0] % n:
+            return v, False
+        k = v.shape[0] // n
+        return v[self._data_rank * k:(self._data_rank + 1) * k], True
+
+    def __call__(self, *batch):
+        rows = [self._rows(v) for v in batch]
+        split = any(s for _, s in rows)
+        trained = [p for p in self._params if p.requires_grad]
+        with _loss.split_batch(self._data_group if split else None):
+            loss = self._loss_fn(self._model, *(v for v, _ in rows))
+        grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        sequence_parallel_utils.allreduce_sequence_parallel_grads(
+            trained, grads)
+        grad_comm.allreduce_mean(grads, self._data_group, self._bucket_mb)
+        for p, g in zip(trained, grads):
+            p.grad = g
+        del grads  # ZeRO-2 drops the gradients it does not own
+        self._opt.step()
+        for p in trained:
+            p.grad = None
+        loss = loss.detach()
+        if split:
+            loss = loss.clone()
+            C.all_reduce(loss, C.ReduceOp.AVG, group=self._data_group)
+        return loss
+
+
+from . import meta_parallel  # noqa: E402,F401  (needs the classes above)
+
+__all__ = ["CommunicateTopology", "DistTrainStep", "DistributedStrategy",
+           "HybridCommunicateGroup", "HybridParallelOptimizer",
+           "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "barrier_worker",
+           "distributed_model", "distributed_optimizer", "fleet_strategy",
+           "get_hybrid_communicate_group", "init", "is_first_worker",
+           "is_initialized", "worker_index", "worker_num"]

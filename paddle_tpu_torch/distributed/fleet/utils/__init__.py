@@ -1,4 +1,8 @@
-"""``fleet.utils`` counterparts: activation recompute."""
+"""``fleet.utils`` counterparts: activation recompute, sequence
+parallelism and the hybrid-parallel synchronisation helpers."""
 from .recompute_helper import policy_for_granularity, recompute
+from . import sequence_parallel_utils  # noqa: F401
+from . import hybrid_parallel_util  # noqa: F401
 
-__all__ = ["policy_for_granularity", "recompute"]
+__all__ = ["hybrid_parallel_util", "policy_for_granularity", "recompute",
+           "sequence_parallel_utils"]

@@ -132,11 +132,33 @@ def state_from_numpy(np_state: Mapping[str, np.ndarray], device,
     return out
 
 
+def _mp_shards(module: torch.nn.Module):
+    """``{name: split_axis}`` of ``module``'s model-parallel shards (the
+    parameters of the fleet mp layers at mp degree > 1), and the mp group
+    (None at degree 1)."""
+    from ..distributed.fleet.layers.mpu import _mp_group, is_mp_shard
+
+    group, world, _ = _mp_group()
+    if world == 1:
+        return {}, None
+    return ({n: p.split_axis for n, p in module.named_parameters()
+             if is_mp_shard(p)}, group)
+
+
 def load_numpy_state(module: torch.nn.Module,
                      np_state: Mapping[str, np.ndarray]):
     """Load the reference's state, given as ``{name: ndarray}``, into
     ``module`` on its device and in its dtypes; names and shapes must
-    match ``module.state_dict()`` exactly. Returns ``module``."""
+    match ``module.state_dict()`` exactly, except that a model-parallel
+    shard takes the full array and keeps this rank's part along its
+    ``split_axis``. Returns ``module``."""
+    from ..distributed.fleet.layers.mpu import shard_of
+
+    shards, group = _mp_shards(module)
+    if shards:
+        np_state = {k: (np.ascontiguousarray(shard_of(
+            np.asarray(v), shards[k], group.rank, group.nranks))
+            if k in shards else v) for k, v in np_state.items()}
     ref = module.state_dict()
     dev = next(iter(ref.values())).device
     state = state_from_numpy(np_state, dev, expected=ref)
@@ -145,5 +167,17 @@ def load_numpy_state(module: torch.nn.Module,
     return module
 
 
-__all__ = ["load", "load_numpy_state", "save", "set_state_dict",
-           "state_from_numpy"]
+def gather_full_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``module.state_dict()`` with every model-parallel shard all-gathered
+    along its ``split_axis`` into the full tensor: the inverse of
+    :func:`load_numpy_state`. A collective: every mp rank calls it."""
+    from ..distributed.fleet.layers.mpu import full_of
+
+    shards, group = _mp_shards(module)
+    return {k: (full_of(v.detach(), shards[k], group) if k in shards
+                else v.detach())
+            for k, v in module.state_dict().items()}
+
+
+__all__ = ["gather_full_state", "load", "load_numpy_state", "save",
+           "set_state_dict", "state_from_numpy"]

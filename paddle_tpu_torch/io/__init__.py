@@ -16,12 +16,13 @@ the next batch's copy overlaps the current step.
 process builds the device tensors), falling back to worker threads with a
 warning when the processes cannot be set up, as the reference does; a
 custom ``collate_fn`` runs on the threads. ``DistributedBatchSampler``
-waits for the distributed port (ROADMAP.md §A.7).
+gives one data-parallel rank's batches.
 """
 from __future__ import annotations
 
 import collections
 import itertools
+import math
 import queue
 import threading
 import warnings
@@ -242,6 +243,67 @@ class BatchSampler(Sampler):
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+
+class DistributedBatchSampler(BatchSampler):
+    """The batches of one data-parallel rank (reference
+    ``paddle_tpu/io/__init__.py:217``): the indices, shuffled by
+    ``RandomState(epoch)`` when ``shuffle``, padded by wrapping to a
+    multiple of ``num_replicas``, then every ``num_replicas``-th from
+    ``rank``. ``num_replicas`` and ``rank`` default to the data-parallel
+    degree and rank (the data and sharding axes of ``fleet.init``'s
+    topology), else the world size and rank."""
+
+    def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
+                 shuffle=False, drop_last=False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        if num_replicas is None or rank is None:
+            from ..distributed import get_rank, get_world_size
+            from ..distributed.fleet import get_hybrid_communicate_group
+
+            hcg = get_hybrid_communicate_group()
+            if num_replicas is None:
+                num_replicas = (
+                    hcg.get_data_sharding_parallel_world_size()
+                    if hcg is not None else get_world_size())
+            if rank is None:
+                rank = (hcg.get_data_sharding_parallel_rank()
+                        if hcg is not None else get_rank())
+        self.nranks = num_replicas
+        self.local_rank = rank
+        self.epoch = 0
+        self.num_samples = int(math.ceil(len(dataset) / self.nranks))
+        self.total_size = self.num_samples * self.nranks
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            indices = np.random.RandomState(self.epoch).permutation(
+                n).tolist()
+            self.epoch += 1
+        else:
+            indices = list(range(n))
+        indices += indices[:(self.total_size - len(indices))]
+        indices = indices[self.local_rank:self.total_size:self.nranks]
+        batch = []
+        for idx in indices:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size
 
 
 def _np_leaf(x):
@@ -510,7 +572,7 @@ def get_worker_info():
 
 
 __all__ = ["BatchSampler", "ChainDataset", "ComposeDataset", "ConcatDataset",
-           "DataLoader", "Dataset", "IterableDataset", "RandomSampler",
+           "DataLoader", "Dataset", "DistributedBatchSampler", "IterableDataset", "RandomSampler",
            "Sampler", "SequenceSampler", "Subset", "SubsetRandomSampler",
            "TensorDataset", "WeightedRandomSampler", "default_collate_fn",
            "get_worker_info", "random_split"]

@@ -13,9 +13,12 @@ loss under ``GPTPretrainingCriterion``) at model-parallel degree 1: plain
 tensor ops, as in the reference, where it is jnp and no kernel. It is on
 neither AMP list, as in the reference: under ``auto_cast`` it runs in the
 logits' dtype, bf16 included (upstream Paddle keeps its softmax cross
-entropy in f32; ROADMAP.md C lists the difference).
+entropy in f32; ROADMAP.md C lists the difference). Its vocab-parallel
+form is ``distributed/fleet/layers/mpu.py::parallel_cross_entropy``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -39,14 +42,47 @@ def _parallel_softmax_ce(logits, label, ignore_index=-100):
     return -torch.where(ignored, torch.zeros_like(picked), picked)
 
 
+#: the data-parallel group whose ranks each hold a part of the batch
+#: while ``fleet.DistTrainStep`` runs the loss (None otherwise)
+_split_group = None
+
+
+@contextlib.contextmanager
+def split_batch(group):
+    """Within: the batch is split over ``group``'s ranks (None: not split),
+    and :func:`_denominator` counts over all of them."""
+    global _split_group
+    prev, _split_group = _split_group, group
+    try:
+        yield
+    finally:
+        _split_group = prev
+
+
+def _denominator(count):
+    """``max(count, 1)``. On a batch split over a data-parallel group of
+    ``n`` ranks, ``max(total, 1) / n`` with ``total`` the count summed over
+    the group (no gradient): each rank's loss is then ``n`` times its share
+    of the global mean, and the ranks' mean (the gradients' average) is
+    the global mean however the count splits."""
+    if _split_group is None:
+        return T.clip(count, min=1.0)
+    from ...distributed import collective
+
+    total = count.detach().clone()
+    collective.all_reduce(total, group=_split_group)
+    return torch.clamp(total, min=1.0) / _split_group.nranks
+
+
 def _masked_mean(loss, loss_mask):
     """``sum(loss * mask) / max(sum(mask), 1)`` with the reference's ops:
     a float mask promotes with the loss (a bf16 loss with an f32 mask
-    gives f32)."""
+    gives f32). The denominator counts over a split batch's data group
+    (:func:`_denominator`)."""
     lm = T.reshape(loss_mask, loss.shape)
     if not lm.is_floating_point():
         lm = lm.to(loss.dtype)
-    return T.divide(T.sum(T.multiply(loss, lm)), T.clip(T.sum(lm), min=1.0))
+    return T.divide(T.sum(T.multiply(loss, lm)), _denominator(T.sum(lm)))
 
 
 def _reduce(out, reduction):
@@ -172,5 +208,5 @@ def mse_loss(input, label, reduction="mean", name=None):
     return _reduce(torch.square(input - label), reduction)
 
 
-__all__ = ["_masked_mean", "_parallel_softmax_ce", "cross_entropy",
+__all__ = ["_denominator", "_masked_mean", "_parallel_softmax_ce", "cross_entropy",
            "mse_loss", "nll_loss", "softmax_with_cross_entropy"]

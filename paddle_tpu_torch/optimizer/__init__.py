@@ -150,22 +150,27 @@ class Optimizer:
             pg = self._grad_clip(pg)
         lr = float(np.float32(self.get_lr()))
         for i, (p, g) in enumerate(pg):
-            if g is None:
-                continue
-            if self._accumulators[i] is None:
-                self._accumulators[i] = self._init_state(p)
-            w = p
-            if self._multi_precision and p.dtype != torch.float32:
-                w = self._master.get(i)
-                if w is None:
-                    w = self._master[i] = p.float()
-            g = g.to(w.dtype)
-            reg = getattr(p, "regularizer", None) or self._regularizer
-            if reg is not None:
-                g = reg(w, g)
-            self._rule(w, g, self._accumulators[i], _param_lr(p, lr))
-            if w is not p:
-                p.copy_(w)
+            if g is not None:
+                self._update(i, p, g, lr)
+
+    def _update(self, i, p, g, lr):
+        """The update of parameter ``i`` (``p``) from its gradient ``g``:
+        its state made on first use, the regularizer, then the rule (on
+        the f32 master under ``multi_precision``)."""
+        if self._accumulators[i] is None:
+            self._accumulators[i] = self._init_state(p)
+        w = p
+        if self._multi_precision and p.dtype != torch.float32:
+            w = self._master.get(i)
+            if w is None:
+                w = self._master[i] = p.float()
+        g = g.to(w.dtype)
+        reg = getattr(p, "regularizer", None) or self._regularizer
+        if reg is not None:
+            g = reg(w, g)
+        self._rule(w, g, self._accumulators[i], _param_lr(p, lr))
+        if w is not p:
+            p.copy_(w)
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list:

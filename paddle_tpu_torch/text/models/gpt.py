@@ -2,10 +2,26 @@
 ``paddle_tpu/text/models/gpt.py``).
 
 Same configuration, layer structure and parameter names as the reference
-(``gpt.decoder.{i}.attn.qkv_proj.weight`` ...), at model-parallel degree 1.
-The fused QKV projection is head-major: ``[b, t, H, 3, d]``, so q/k/v are
-``qkv[:, :, :, 0/1/2]`` — not a ``[3, H, d]`` split. GELU is exact and the
-LM head is tied to the word embeddings.
+(``gpt.decoder.{i}.attn.qkv_proj.weight`` ...), built, as the reference's,
+from the fleet mp layers (``VocabParallelEmbedding``,
+``ColumnParallelLinear`` / ``RowParallelLinear``, ``ParallelCrossEntropy``),
+which at model-parallel degree 1 are the plain layers. The fused QKV
+projection is head-major: ``[b, t, H, 3, d]``, so q/k/v are
+``qkv[:, :, :, 0/1/2]`` — not a ``[3, H, d]`` split — and a contiguous mp
+shard of its columns is a whole group of ``H / mp`` heads, which each rank
+runs through the flash kernels. GELU is exact and the LM head is tied to
+the word embeddings: at mp > 1 it gives vocab-sharded logits to the
+vocab-parallel cross entropy.
+
+Built after ``fleet.init`` with ``mp_degree > 1``, each rank holds its
+shards (drawn whole from the generator and cut, so the full weights are
+the same at every degree); ``load_numpy_state`` takes the full arrays.
+``sequence_parallel=True`` (Megatron-SP, at mp > 1) splits the residual
+stream along the sequence after the embedding, all-gathers it before each
+column-parallel linear, reduce-scatters after each row-parallel one and
+all-gathers it before the head; the norms and the row linears' biases are
+sequence-parallel parameters (``fleet.utils.sequence_parallel_utils``).
+At mp degree 1 it changes nothing, as in the reference.
 
 The model is built on the device it is given, with weights drawn from an
 explicit ``torch.Generator``. Training calls ``model(ids, labels=...)``,
@@ -28,13 +44,16 @@ from torch import nn
 
 from ... import tensor as T
 from ...device import resolve_device
+from ...distributed.fleet.layers import mpu
 from ...distributed.fleet.utils import recompute
+from ...distributed.fleet.utils import sequence_parallel_utils as spu
 from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
+from ...nn import initializer as I
 from ...nn.functional.attention import _sdpa_dense
-from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
+from ...nn.functional.loss import _masked_mean
 from ...nn.layer import Layer, LayerList
-from ...nn.layers.common import Dropout, Embedding, Linear, linear_direct
+from ...nn.layers.common import Dropout, Embedding, linear_direct
 from ...nn.layers.norm import LayerNorm, layer_norm_direct
 from ..generation import alloc_kv_caches, run_cached_generation
 from .llama import _cache_write, _decode_attention
@@ -42,7 +61,6 @@ from .llama import _cache_write, _decode_attention
 #: reference flags whose routes the port does not have yet, and the
 #: ROADMAP.md item that ports each
 _UNPORTED_FLAGS = {
-    "sequence_parallel": "§A.7 (distributed)",
     "fold_layers": "§A.3 (one program over layer-stacked parameters)",
 }
 
@@ -52,8 +70,8 @@ class GPTConfig:
 
     ``use_flash_attention`` (default) takes the flash kernels on a CUDA
     tensor; False takes the dense attention (``_sdpa_reference``) on every
-    device. ``sequence_parallel`` and ``fold_layers`` raise
-    ``NotImplementedError`` when set: the port has no such route yet."""
+    device. ``fold_layers`` raises ``NotImplementedError`` when set: the
+    port has no such route yet."""
 
     def __init__(
         self,
@@ -75,13 +93,10 @@ class GPTConfig:
         fold_layers: bool = False,
         recompute_granularity: str = "full",
     ):
-        flags = dict(sequence_parallel=sequence_parallel,
-                     fold_layers=fold_layers)
-        for name, on in flags.items():
-            if on:
-                raise NotImplementedError(
-                    f"GPTConfig({name}=True): not ported yet, see "
-                    f"ROADMAP.md {_UNPORTED_FLAGS[name]}")
+        if fold_layers:
+            raise NotImplementedError(
+                "GPTConfig(fold_layers=True): not ported yet, see "
+                f"ROADMAP.md {_UNPORTED_FLAGS['fold_layers']}")
         if hidden_act != "gelu":
             raise ValueError(f"hidden_act {hidden_act!r} not supported; "
                              "the port implements exact 'gelu'")
@@ -129,11 +144,20 @@ def _init_kw(config, device, generator, dtype):
                 init_std=config.initializer_range)
 
 
+def _linear(config, kind, n_in, n_out, kw, **extra):
+    """A parallel linear (``spu.parallel_linear``) initialized as the
+    port's ``Linear``: normal at ``initializer_range``."""
+    return spu.parallel_linear(
+        kind, n_in, n_out, config.sequence_parallel, device=kw["device"],
+        dtype=kw["dtype"], generator=kw["generator"],
+        weight_init=I.Normal(0.0, kw["init_std"]), **extra)
+
+
 class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
-        self.word_embeddings = Embedding(config.vocab_size,
-                                         config.hidden_size, **kw)
+        self.word_embeddings = mpu.VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, **kw)
         self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
@@ -153,24 +177,31 @@ class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
-        self.head_dim = h // self.num_heads
-        self.qkv_proj = Linear(h, 3 * h, **kw)
-        self.out_proj = Linear(h, h, **kw)
+        mp = mpu._mp_group()[1]
+        if config.num_attention_heads % mp:
+            raise ValueError(f"num_attention_heads "
+                             f"{config.num_attention_heads} does not divide "
+                             f"by the mp degree {mp}")
+        self.num_heads = config.num_attention_heads // mp  # this rank's
+        self.head_dim = h // config.num_attention_heads
+        self.qkv_proj = _linear(config, "col", h, 3 * h, kw)
+        self.out_proj = _linear(config, "row", h, h, kw)
         self.dropout_p = config.attention_probs_dropout_prob
         self.use_flash = config.use_flash_attention
 
     def qkv(self, x):
-        """Projection + head-major split, each ``[b, t, H, d]``."""
-        b, t, _ = x.shape
-        qkv = T.reshape(self.qkv_proj(x),
-                        (b, t, self.num_heads, 3, self.head_dim))
+        """Projection + head-major split, each ``[b, t, H / mp, d]`` (``t``
+        the full sequence under sequence parallelism)."""
+        y = self.qkv_proj(x)
+        b, t = y.shape[0], y.shape[1]
+        qkv = T.reshape(y, (b, t, self.num_heads, 3, self.head_dim))
         return tuple(T.getitem(qkv, (Ellipsis, i, slice(None)))
                      for i in range(3))
 
     def forward(self, x):
-        b, t, h = x.shape
         q, k, v = self.qkv(x)
+        b, t = q.shape[0], q.shape[1]
+        h = self.num_heads * self.head_dim
         if self.use_flash:
             out = F.scaled_dot_product_attention(
                 q, k, v, dropout_p=self.dropout_p, is_causal=True,
@@ -184,10 +215,10 @@ class GPTAttention(Layer):
 class GPTMLP(Layer):
     def __init__(self, config: GPTConfig, **kw):
         super().__init__()
-        self.fc_in = Linear(config.hidden_size, config.intermediate_size,
-                            **kw)
-        self.fc_out = Linear(config.intermediate_size, config.hidden_size,
-                             **kw)
+        self.fc_in = _linear(config, "col", config.hidden_size,
+                             config.intermediate_size, kw)
+        self.fc_out = _linear(config, "row", config.intermediate_size,
+                              config.hidden_size, kw)
 
     def forward(self, x):
         return self.fc_out(F.gelu(self.fc_in(x)))
@@ -205,6 +236,8 @@ class GPTDecoderLayer(Layer):
         self.ln_2 = LayerNorm(config.hidden_size, eps, device=dev, dtype=dt)
         self.mlp = GPTMLP(config, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
+        spu.mark_sequence_parallel_layers(config.sequence_parallel, self.ln_1,
+                                          self.ln_2)
         self._use_recompute = config.use_recompute
         self._recompute_granularity = config.recompute_granularity
 
@@ -230,9 +263,17 @@ class GPTModel(Layer):
         self.final_layernorm = LayerNorm(
             config.hidden_size, config.layer_norm_epsilon,
             device=kw["device"], dtype=kw["dtype"])
+        spu.mark_sequence_parallel_layers(config.sequence_parallel,
+                                          self.final_layernorm)
+        self._sequence_parallel = spu.sequence_parallel_on(
+            config.sequence_parallel)
 
     def forward(self, input_ids, position_ids=None):
+        """The final hidden states; under sequence parallelism this
+        rank's part of the sequence."""
         x = self.embeddings(input_ids, position_ids)
+        if self._sequence_parallel:
+            x = spu.ScatterOp.apply(x)
         for blk in self.decoder:
             x = blk(x)
         return self.final_layernorm(x)
@@ -249,7 +290,7 @@ class GPTPretrainingCriterion(Layer):
         super().__init__()
 
     def forward(self, logits, labels, loss_mask=None):
-        loss = _parallel_softmax_ce(logits, labels, self.ignore_index)
+        loss = mpu.parallel_cross_entropy(logits, labels, self.ignore_index)
         if loss_mask is not None:
             return _masked_mean(loss, loss_mask)
         return T.mean(loss)
@@ -273,15 +314,24 @@ class GPTForCausalLM(Layer):
         self.config = config
         self.gpt = GPTModel(config, **kw)
         if not config.tie_word_embeddings:
-            self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  bias=False, **kw)
+            self.lm_head = _linear(config, "col", config.hidden_size,
+                                   config.vocab_size, kw, has_bias=False)
         self.criterion = GPTPretrainingCriterion(config)
 
     def _logits(self, hidden):
+        """Logits (vocab-sharded at mp > 1) of the final hidden states."""
         if self.config.tie_word_embeddings:
-            w = self.gpt.embeddings.word_embeddings.weight
-            return F.linear(hidden, T.t(w))
+            emb = self.gpt.embeddings.word_embeddings
+            hidden = spu.tied_head_input(hidden, emb,
+                                         self.gpt._sequence_parallel)
+            return F.linear(hidden, T.t(emb.weight))
         return self.lm_head(hidden)
+
+    def _single_rank(self, what):
+        if self.gpt.embeddings.word_embeddings.world_size > 1:
+            raise NotImplementedError(
+                f"GPTForCausalLM.{what} at mp > 1 is not ported yet, see "
+                "ROADMAP.md §A.7")
 
     def forward(self, input_ids, position_ids=None, labels=None,
                 loss_mask=None):
@@ -294,10 +344,12 @@ class GPTForCausalLM(Layer):
 
     def load_numpy_state(self, np_state: Mapping[str, np.ndarray]):
         """Load the reference's parameters, given as ``{name: ndarray}``;
-        names and shapes must match this model's exactly."""
+        names and (full) shapes must match this model's exactly; an mp
+        shard keeps its part of the full array."""
         return load_numpy_state(self, np_state)
 
     def decode_adapter(self):
+        self._single_rank("decode_adapter")
         return _GPTDecodeAdapter(self)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -305,6 +357,7 @@ class GPTForCausalLM(Layer):
                  temperature: float = 1.0, eos_token_id=None,
                  pad_token_id=None, seed=None):
         """KV-cached generation (see ``LlamaForCausalLM.generate``)."""
+        self._single_rank("generate")
         return run_cached_generation(
             self,
             lambda ids, caches, pos: _gpt_cached_forward(

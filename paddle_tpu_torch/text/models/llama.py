@@ -2,8 +2,14 @@
 (counterpart of ``paddle_tpu/text/models/llama.py``).
 
 Same configuration, layer structure and state names as the reference
-(``llama.layers.{i}.self_attn.q_proj.weight`` ...), at model-parallel
-degree 1 with a plain ``ModuleList`` of decoder layers. Each attention
+(``llama.layers.{i}.self_attn.q_proj.weight`` ...), built from the fleet
+mp layers as the reference's is (plain layers at model-parallel degree
+1). Built after ``fleet.init`` with ``mp_degree > 1``, each rank holds
+its shards and runs ``H / mp`` query heads over ``Hkv / mp`` kv heads (the
+kv heads must divide by mp: a GQA group stays whole on one rank); the
+untied head gives vocab-sharded logits to the vocab-parallel cross
+entropy; ``sequence_parallel=True`` splits the residual stream along the
+sequence as ``gpt.py`` does. Each attention
 layer carries its RoPE tables as persistent buffers ``rope_cos`` /
 ``rope_sin`` ``[max_position_embeddings, head_dim / 2]``, built in numpy
 float64 and cast to f32 as the reference builds them, so a bridged state
@@ -35,14 +41,16 @@ from torch import nn
 
 from ... import tensor as T
 from ...device import resolve_device
+from ...distributed.fleet.layers import mpu
 from ...distributed.fleet.utils import recompute
+from ...distributed.fleet.utils import sequence_parallel_utils as spu
 from ...framework.io_state import load_numpy_state
 from ...framework.op import amp_op
 from ...nn import functional as F
 from ...nn import initializer as I
-from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
+from ...nn.functional.loss import _denominator, _masked_mean
 from ...nn.layer import Layer, LayerList
-from ...nn.layers.common import Embedding, Linear, linear_direct
+from ...nn.layers.common import linear_direct
 from ...nn.layers.norm import RMSNorm, rms_norm_direct
 from ...ops.flash_attention import flash_attention
 from ..generation import alloc_kv_caches, run_cached_generation
@@ -51,15 +59,14 @@ from ..generation import alloc_kv_caches, run_cached_generation
 #: ROADMAP.md item that ports each
 _UNPORTED_FLAGS = {
     "fold_layers": "§A.3 (one program over layer-stacked parameters)",
-    "sequence_parallel": "§A.7 (distributed)",
 }
 
 
 class LlamaConfig:
     """Static model hyperparameters (the reference's ``LlamaConfig``).
 
-    ``fold_layers`` and ``sequence_parallel`` raise
-    ``NotImplementedError`` when set: the port has no such route yet."""
+    ``fold_layers`` raises ``NotImplementedError`` when set: the port has
+    no such route yet."""
 
     def __init__(
         self,
@@ -80,13 +87,10 @@ class LlamaConfig:
         fold_layers: bool = False,
         recompute_granularity: str = "full",
     ):
-        flags = dict(fold_layers=fold_layers,
-                     sequence_parallel=sequence_parallel)
-        for name, on in flags.items():
-            if on:
-                raise NotImplementedError(
-                    f"LlamaConfig({name}=True): not ported yet, see "
-                    f"ROADMAP.md {_UNPORTED_FLAGS[name]}")
+        if fold_layers:
+            raise NotImplementedError(
+                "LlamaConfig(fold_layers=True): not ported yet, see "
+                f"ROADMAP.md {_UNPORTED_FLAGS['fold_layers']}")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         # Llama SwiGLU sizing: 8/3 * h rounded up to a multiple of 256
@@ -155,19 +159,32 @@ def _gqa_attention(q, k, v):
     return flash_attention(q, k, v, causal=True)
 
 
+def _linear(config, kind, n_in, n_out, kw):
+    """A bias-free parallel linear (``spu.parallel_linear``), XavierNormal
+    as in the reference."""
+    return spu.parallel_linear(kind, n_in, n_out, config.sequence_parallel,
+                               has_bias=False, weight_init=I.XavierNormal(),
+                               **kw)
+
+
 class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
-        self.head_dim = h // self.num_heads
-        kv_h = self.num_kv_heads * self.head_dim
-        lin = dict(bias=False, weight_init=I.XavierNormal(), **kw)
-        self.q_proj = Linear(h, h, **lin)
-        self.k_proj = Linear(h, kv_h, **lin)
-        self.v_proj = Linear(h, kv_h, **lin)
-        self.o_proj = Linear(h, h, **lin)
+        mp = mpu._mp_group()[1]
+        if config.num_key_value_heads % mp:
+            raise ValueError(
+                f"mp={mp} must divide num_key_value_heads="
+                f"{config.num_key_value_heads}: each rank holds whole kv "
+                "heads (a GQA group stays on one rank)")
+        self.num_heads = config.num_attention_heads // mp  # this rank's
+        self.num_kv_heads = config.num_key_value_heads // mp
+        self.head_dim = h // config.num_attention_heads
+        kv_h = config.num_key_value_heads * self.head_dim
+        self.q_proj = _linear(config, "col", h, h, kw)
+        self.k_proj = _linear(config, "col", h, kv_h, kw)
+        self.v_proj = _linear(config, "col", h, kv_h, kw)
+        self.o_proj = _linear(config, "row", h, h, kw)
         cos, sin = _rope_cache(config.max_position_embeddings, self.head_dim,
                                config.rope_theta)
         self.register_buffer("rope_cos", torch.as_tensor(cos,
@@ -178,9 +195,11 @@ class LlamaAttention(Layer):
 
     def qkv(self, x):
         """Projections before RoPE: q ``[b, t, H, d]``, k / v
-        ``[b, t, Hkv, d]``."""
-        b, t, _ = x.shape
-        q = T.reshape(self.q_proj(x), (b, t, self.num_heads, self.head_dim))
+        ``[b, t, Hkv, d]`` (this rank's heads; ``t`` the full sequence
+        under sequence parallelism)."""
+        q = self.q_proj(x)
+        b, t = q.shape[0], q.shape[1]
+        q = T.reshape(q, (b, t, self.num_heads, self.head_dim))
         k = T.reshape(self.k_proj(x),
                       (b, t, self.num_kv_heads, self.head_dim))
         v = T.reshape(self.v_proj(x),
@@ -188,8 +207,9 @@ class LlamaAttention(Layer):
         return q, k, v
 
     def forward(self, x):
-        b, t, h = x.shape
         q, k, v = self.qkv(x)
+        b, t = q.shape[0], q.shape[1]
+        h = self.num_heads * self.head_dim
         q = _apply_rope(q, self.rope_cos, self.rope_sin)
         k = _apply_rope(k, self.rope_cos, self.rope_sin)
         if self.use_flash:
@@ -209,10 +229,9 @@ class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        lin = dict(bias=False, weight_init=I.XavierNormal(), **kw)
-        self.gate_proj = Linear(h, i, **lin)
-        self.up_proj = Linear(h, i, **lin)
-        self.down_proj = Linear(i, h, **lin)
+        self.gate_proj = _linear(config, "col", h, i, kw)
+        self.up_proj = _linear(config, "col", h, i, kw)
+        self.down_proj = _linear(config, "row", i, h, kw)
 
     def forward(self, x):
         return self.down_proj(T.multiply(F.silu(self.gate_proj(x)),
@@ -230,6 +249,9 @@ class LlamaDecoderLayer(Layer):
         self.self_attn = LlamaAttention(config, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, **norm)
         self.mlp = LlamaMLP(config, **kw)
+        spu.mark_sequence_parallel_layers(config.sequence_parallel,
+                                          self.input_layernorm,
+                                          self.post_attention_layernorm)
         self._use_recompute = config.use_recompute
         self._recompute_granularity = config.recompute_granularity
 
@@ -248,17 +270,25 @@ class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, **kw):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      init_std=config.initializer_range,
-                                      **kw)
+        self.embed_tokens = mpu.VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size,
+            init_std=config.initializer_range, **kw)
         self.layers = LayerList(
             LlamaDecoderLayer(config, **kw)
             for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=kw["device"], dtype=kw["dtype"])
+        spu.mark_sequence_parallel_layers(config.sequence_parallel,
+                                          self.norm)
+        self._sequence_parallel = spu.sequence_parallel_on(
+            config.sequence_parallel)
 
     def forward(self, input_ids):
+        """The final hidden states; under sequence parallelism this
+        rank's part of the sequence."""
         x = self.embed_tokens(input_ids)
+        if self._sequence_parallel:
+            x = spu.ScatterOp.apply(x)
         for blk in self.layers:
             x = blk(x)
         return self.norm(x)
@@ -287,14 +317,23 @@ class LlamaForCausalLM(Layer):
         self.config = config
         self.llama = LlamaModel(config, **kw)
         if not config.tie_word_embeddings:
-            self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  bias=False, weight_init=I.XavierNormal(),
-                                  **kw)
+            self.lm_head = _linear(config, "col", config.hidden_size,
+                                   config.vocab_size, kw)
 
     def _logits(self, hidden):
+        """Logits (vocab-sharded at mp > 1) of the final hidden states."""
         if self.config.tie_word_embeddings:
-            return F.linear(hidden, T.t(self.llama.embed_tokens.weight))
+            emb = self.llama.embed_tokens
+            hidden = spu.tied_head_input(hidden, emb,
+                                         self.llama._sequence_parallel)
+            return F.linear(hidden, T.t(emb.weight))
         return self.lm_head(hidden)
+
+    def _single_rank(self, what):
+        if self.llama.embed_tokens.world_size > 1:
+            raise NotImplementedError(
+                f"LlamaForCausalLM.{what} at mp > 1 is not ported yet, see "
+                "ROADMAP.md §A.7")
 
     def forward(self, input_ids, labels=None, loss_mask=None):
         """Logits ``[B, T, V]``, or the scalar loss when ``labels`` (already
@@ -304,12 +343,12 @@ class LlamaForCausalLM(Layer):
         logits = self._logits(self.llama(input_ids))
         if labels is None:
             return logits
-        loss = _parallel_softmax_ce(logits, labels, self.ignore_index)
+        loss = mpu.parallel_cross_entropy(logits, labels, self.ignore_index)
         if loss_mask is not None:
             return _masked_mean(loss, loss_mask)
         valid = (labels.reshape(loss.shape) != self.ignore_index).to(
             loss.dtype)
-        return T.divide(T.sum(loss), T.clip(T.sum(valid), min=1.0))
+        return T.divide(T.sum(loss), _denominator(T.sum(valid)))
 
     def load_numpy_state(self, np_state: Mapping[str, np.ndarray]):
         """Load the reference's state (parameters and RoPE tables), given
@@ -317,6 +356,7 @@ class LlamaForCausalLM(Layer):
         return load_numpy_state(self, np_state)
 
     def decode_adapter(self):
+        self._single_rank("decode_adapter")
         return _LlamaDecodeAdapter(self)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -327,6 +367,7 @@ class LlamaForCausalLM(Layer):
         one-token decode steps against preallocated caches (the shared
         loop ``text.generation.run_cached_generation``). Returns numpy
         ids ``[B, T0 + n]``."""
+        self._single_rank("generate")
         return run_cached_generation(
             self,
             lambda ids, caches, pos: _llama_cached_forward(

@@ -182,3 +182,44 @@ def test_creation_without_device_raises_on_cpu_only_machine(no_cuda, call):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call(paddle)
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.distributed", "paddle_tpu_torch.distributed.env",
+    "paddle_tpu_torch.distributed.collective",
+    "paddle_tpu_torch.distributed.communication",
+    "paddle_tpu_torch.distributed.parallel",
+    "paddle_tpu_torch.distributed.grad_comm",
+    "paddle_tpu_torch.distributed.sharding",
+    "paddle_tpu_torch.distributed.fleet",
+    "paddle_tpu_torch.distributed.fleet.strategy",
+    "paddle_tpu_torch.distributed.fleet.topology",
+    "paddle_tpu_torch.distributed.fleet.layers",
+    "paddle_tpu_torch.distributed.fleet.layers.mpu",
+    "paddle_tpu_torch.distributed.fleet.utils",
+    "paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util",
+    "paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils",
+    "paddle_tpu_torch.distributed.fleet.meta_parallel",
+    "paddle_tpu_torch.distributed.fleet.meta_parallel.tensor_parallel",
+    "paddle_tpu_torch.distributed.fleet.meta_parallel.sharding"])
+def test_distributed_modules_are_guarded(module):
+    """The distributed slice's modules are among those the guards above
+    walk."""
+    assert module in MODULES
+
+
+def test_distributed_entry_points_default_to_the_card(no_cuda):
+    """``init_parallel_env`` picks NCCL on the default device, the card:
+    without CUDA it raises instead of switching to gloo on the CPU, and so
+    does an explicit NCCL; ``fleet.init`` goes through it."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dist.init_parallel_env()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist.init_parallel_env(backend="nccl")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fleet.init(is_collective=True)
+    assert not dist.is_initialized()
+    assert not torch.distributed.is_initialized()

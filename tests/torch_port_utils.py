@@ -1,11 +1,17 @@
 """Shared helpers of the PyTorch-port parity tests: a tiny reference GPT,
-Llama and BERT / ERNIE encoders built in ``paddle_tpu`` (JAX, CPU), and
-the numpy bridge of their weights."""
+Llama and BERT / ERNIE encoders built in ``paddle_tpu`` (JAX, CPU), the
+numpy bridge of their weights, and the multi-process runner of the
+distributed tests.
+
+Importing this module loads neither JAX nor the reference package (each
+helper imports what it needs), so the processes the distributed tests
+spawn import it cheaply."""
 import contextlib
+import os
+import pickle
+import time
 
 import numpy as np
-
-from paddle_tpu.framework.op import raw
 
 VOCAB = 61
 
@@ -53,6 +59,8 @@ def jax_tiny_gpt(seed=7, **kw):
 def numpy_state(model):
     """The reference model's state (parameters and buffers) as
     {name: ndarray}."""
+    from paddle_tpu.framework.op import raw
+
     return {k: np.asarray(raw(v)) for k, v in model.state_dict().items()}
 
 
@@ -244,3 +252,501 @@ def tf32_matmul(a, b, passes, split="rna"):
     else:
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
     return out.float()
+
+
+# -- multi-process runs of the distributed tests (CPU, gloo) -----------------
+# Each spawn rendezvouses on a file under the test's tmp_path (never a
+# fixed TCP port: xdist runs files side by side), and is joined under its
+# own time limit: a hung gloo collective kills the children and fails the
+# one test instead of stalling the suite.
+
+SPAWN_TIMEOUT = 240
+
+
+def spawn_ranks(fn, nprocs, out_dir, *args):
+    """Start ``fn(out_dir, *args)`` in ``nprocs`` processes (spawn start
+    method) as ranks of one world, by the port's ``distributed.spawn``.
+    Returns the context; :func:`join_ranks` collects the results."""
+    from paddle_tpu_torch.distributed import spawn
+
+    os.makedirs(out_dir, exist_ok=True)
+    master = "file://" + os.path.join(str(out_dir), "rendezvous")
+    return spawn(_rank_main, (fn, str(out_dir)) + tuple(args),
+                 nprocs=nprocs, join=False, master=master, backend="gloo")
+
+
+def join_ranks(ctx, out_dir, timeout=SPAWN_TIMEOUT):
+    """Wait for the ranks (killing them past ``timeout`` s) and return
+    each rank's pickled result, by rank."""
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    join_spawned(ctx, timeout)
+    out = []
+    for r in range(len(ctx.processes)):
+        with open(os.path.join(str(out_dir), f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank_main(fn, out_dir, *args):
+    import torch
+
+    torch.set_num_threads(1)
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+
+    paddle.set_device("cpu")
+    dist.init_parallel_env(backend="gloo")
+    result = fn(*args)
+    rank = dist.get_rank()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl.tmp"), "wb") as f:
+        pickle.dump(result, f)
+    os.replace(os.path.join(out_dir, f"rank{rank}.pkl.tmp"),
+               os.path.join(out_dir, f"rank{rank}.pkl"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+FLEET_LR = 1e-3
+
+
+def fleet_adamw(params, opt_mod, clip, multi_precision=False):
+    """The AdamW of the fleet trajectories (both packages)."""
+    kw = dict(multi_precision=True) if multi_precision else {}
+    return opt_mod.AdamW(learning_rate=FLEET_LR, beta1=0.9, beta2=0.95,
+                         epsilon=1e-8, parameters=params, weight_decay=0.1,
+                         grad_clip=clip(1.0), **kw)
+
+
+def port_model(kind, state, sequence_parallel=False):
+    """The port's tiny GPT (``kind`` "gpt", vocab 64) or Llama (G = 2) on
+    the CPU, built after ``fleet.init`` if any, carrying the full
+    reference ``state``."""
+    if kind == "gpt":
+        from paddle_tpu_torch.text.models.gpt import GPTConfig as C
+        from paddle_tpu_torch.text.models.gpt import GPTForCausalLM as M
+
+        cfg = C(**tiny_gpt_kwargs(vocab_size=64,
+                                  sequence_parallel=sequence_parallel))
+    else:
+        from paddle_tpu_torch.text.models.llama import LlamaConfig as C
+        from paddle_tpu_torch.text.models.llama import LlamaForCausalLM as M
+
+        cfg = C(**tiny_llama_kwargs(vocab_size=64,
+                                    sequence_parallel=sequence_parallel))
+    return M(cfg, device="cpu").load_numpy_state(state)
+
+
+def fleet_job(job, state, batch):
+    """One ``DistTrainStep`` trajectory on this rank: ``fleet.init`` at the
+    job's degrees, the model, ``distributed_model`` /
+    ``distributed_optimizer``, ``job["steps"]`` steps on the global
+    ``batch``. Returns the losses, the gathered full parameters, this
+    rank's own parameters and its optimizer's state counts."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import is_mp_shard
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=job.get("dp", -1),
+                            mp_degree=job.get("mp", 1),
+                            sharding_degree=job.get("sharding", 1))
+    s.sharding_configs["stage"] = job.get("stage", 1)
+    fleet.init(is_collective=True, strategy=s)
+    model = port_model(job["model"], state, job.get("sp", False))
+    mpre = job.get("multi_precision", False)
+    if mpre:
+        model.to(torch.bfloat16)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm,
+                      mpre)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    if "mask" in batch:
+        def loss_fn(m, i, lab, k):
+            return m(i, labels=lab, loss_mask=k)
+    else:
+        def loss_fn(m, i, lab):
+            return m(i, labels=lab)
+    step = fleet.DistTrainStep(model, loss_fn, opt)
+    args = [torch.from_numpy(batch[k]) for k in ("ids", "labels", "mask")
+            if k in batch]
+    t0 = time.perf_counter()
+    losses = [float(step(*args)) for _ in range(job.get("steps", 3))]
+    hcg = fleet.get_hybrid_communicate_group()
+    inner = opt._inner_opt
+    out = dict(
+        losses=losses, seconds=time.perf_counter() - t0,
+        full={k: v.float().numpy()
+              for k, v in gather_full_state(model).items()},
+        local={n: p.detach().float().numpy()
+               for n, p in model.named_parameters()},
+        distributed=[n for n, p in model.named_parameters()
+                     if is_mp_shard(p)],
+        sequence_parallel=[n for n, p in model.named_parameters()
+                           if getattr(p, "sequence_parallel", False)],
+        mp_rank=hcg.get_model_parallel_rank(),
+        data_rank=hcg.get_data_sharding_parallel_rank(),
+        states=sum(st is not None for st in inner._accumulators),
+        masters=len(inner._master),
+        owned=sum(opt.owns(i) for i in range(len(inner._parameter_list))))
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def _eager_steps(model, opt, batch, rows, sync):
+    """``steps`` eager steps on this rank's ``rows`` of the batch: loss,
+    backward, ``sync()`` (the gradient exchange, if any), step."""
+    import torch
+
+    ids, labels = (torch.from_numpy(batch[k][rows]) for k in ("ids",
+                                                              "labels"))
+    losses = []
+    for _ in range(3):
+        loss = model(ids, labels=labels)
+        loss.backward()
+        sync()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses
+
+
+def data_parallel_job(job, state, batch):
+    """``DataParallel`` over the world: each rank's quarter of the batch,
+    the gradients averaged by the wrapper's backward hook."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+
+    model = dist.DataParallel(port_model(job["model"], state))
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    k = batch["ids"].shape[0] // dist.get_world_size()
+    rows = slice(dist.get_rank() * k, (dist.get_rank() + 1) * k)
+    losses = _eager_steps(model, opt, batch, rows, lambda: None)
+    return dict(losses=losses, full={n: p.detach().numpy() for n, p in
+                                     model._layers.named_parameters()})
+
+
+def group_sharded_job(job, state, batch):
+    """``group_sharded_parallel`` at sharding = world size: an eager loop
+    with ``fused_allreduce_gradients`` between backward and step."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.utils import hybrid_parallel_util
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=1, sharding_degree=dist.get_world_size())
+    fleet.init(is_collective=True, strategy=s)
+    model = port_model(job["model"], state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    model, opt, _ = group_sharded_parallel(model, opt, job["level"])
+    hcg = fleet.get_hybrid_communicate_group()
+    k = batch["ids"].shape[0] // hcg.get_data_sharding_parallel_world_size()
+    r = hcg.get_data_sharding_parallel_rank()
+    params = list(model.parameters())
+    losses = _eager_steps(
+        model, opt, batch, slice(r * k, (r + 1) * k),
+        lambda: hybrid_parallel_util.fused_allreduce_gradients(params))
+    out = dict(losses=losses,
+               full={n: p.detach().numpy()
+                     for n, p in model.named_parameters()},
+               states=sum(st is not None
+                          for st in opt._inner_opt._accumulators))
+    save_group_sharded_model(model, os.path.join(job["save_dir"], "gs"),
+                             opt)
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def api_job(job, state, batch):
+    """Under ``fleet.init(mp)``: ``DistributedBatchSampler``'s index lists
+    with the default replicas and rank, the ``TensorParallel`` /
+    ``GroupShardedStage2`` wrappers, and the sequence-parallel gradient
+    hooks on a ``RowSequenceParallelLinear``'s bias."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        sequence_parallel_utils as spu)
+    from paddle_tpu_torch.io import DistributedBatchSampler
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=-1, mp_degree=job["mp"])
+    fleet.init(is_collective=True, strategy=s)
+    out = {}
+    for shuffle, drop_last in ((False, False), (True, True)):
+        bs = DistributedBatchSampler(list(range(11)), batch_size=2,
+                                     shuffle=shuffle, drop_last=drop_last)
+        out[(shuffle, drop_last)] = (bs.nranks, bs.local_rank, list(bs),
+                                     len(bs))
+    model = port_model("gpt", state)
+    tp = meta_parallel.TensorParallel(model)
+    ids = torch.from_numpy(batch["ids"])
+    with torch.no_grad():
+        out["tensor_parallel"] = (
+            sorted(tp.state_dict()) == sorted(model.state_dict()),
+            torch.equal(tp(ids), model(ids)))
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    gs = meta_parallel.GroupShardedStage2(model, opt)
+    out["group_sharded_stage"] = gs._optim._stage
+    row = spu.RowSequenceParallelLinear(16, 8, device="cpu")
+    spu.register_sequence_parallel_allreduce_hooks(row)
+    x = torch.ones(3, 4, 16 // job["mp"])
+    row(x).sum().backward()
+    out["sp_bias_grad"] = row.bias.grad.numpy()
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+JOB_KINDS = {"train": fleet_job, "data_parallel": data_parallel_job,
+             "group_sharded": group_sharded_job, "api": api_job}
+
+
+def fleet_jobs(jobs, state_of, batch_of):
+    """Run ``jobs`` in order on this rank (``state_of`` / ``batch_of`` map
+    a job's model / batch key to the full state / batch; ``kind`` picks
+    the runner, default a ``DistTrainStep`` trajectory)."""
+    return {j["name"]: JOB_KINDS[j.get("kind", "train")](
+                j, state_of.get(j.get("model")),
+                batch_of.get(j.get("batch", j.get("model"))))
+            for j in jobs}
+
+
+COLLECTIVE_DTYPES = ("float32", "bfloat16", "int64")
+
+
+def collective_inputs(world, dtype):
+    """Rank r's input ``[world * 2, 3]`` of small integers (exact in every
+    dtype and under any summation order), as numpy f32 / int64."""
+    rng = np.random.default_rng(17)
+    x = rng.integers(-3, 4, (world, world * 2, 3))
+    x[x == 0] = 1                                  # PROD stays non-zero
+    return x.astype(np.int64 if dtype == "int64" else np.float32)
+
+
+def collective_job():
+    """Every collective of ``paddle_tpu_torch.distributed`` at this world
+    size, per dtype: ``{(dtype, case): numpy result}`` on this rank."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+
+    def np_(t):
+        return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+    for dt in COLLECTIVE_DTYPES:
+        tdt = getattr(torch, dt)
+        xs = torch.from_numpy(collective_inputs(world, dt)).to(tdt)
+        x = xs[rank].clone()
+        for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+            t = x.clone()
+            dist.all_reduce(t, getattr(dist.ReduceOp, op))
+            out[dt, f"all_reduce_{op}"] = np_(t)
+        t = x.clone()
+        dist.reduce(t, dst=1)
+        if rank == 1:
+            out[dt, "reduce"] = np_(t)
+        lst = []
+        dist.all_gather(lst, x)
+        out[dt, "all_gather"] = np.stack([np_(v) for v in lst])
+        t = torch.empty((x.shape[0], x.shape[1] * world), dtype=tdt)
+        dist.all_gather(t, x, axis=1)
+        out[dt, "all_gather_axis1"] = np_(t)
+        t = x.clone()
+        dist.broadcast(t, src=2)
+        out[dt, "broadcast"] = np_(t)
+        t = torch.empty((x.shape[0] // world,) + x.shape[1:], dtype=tdt)
+        dist.reduce_scatter(t, x)
+        out[dt, "reduce_scatter"] = np_(t)
+        out[dt, "reduce_scatter_functional"] = np_(dist.reduce_scatter(x))
+        t = torch.empty_like(x[:2])
+        dist.reduce_scatter(t, list(x.chunk(world)))
+        out[dt, "reduce_scatter_list"] = np_(t)
+        t = torch.empty_like(x[0])
+        dist.scatter(t, list(x)[:world] if rank == 0 else None, src=0)
+        out[dt, "scatter"] = np_(t)
+        lst = []
+        dist.alltoall(lst, list(x.chunk(world)))
+        out[dt, "alltoall"] = np.concatenate([np_(v) for v in lst])
+        t = torch.empty_like(x)
+        dist.alltoall_single(t, x)
+        out[dt, "alltoall_single"] = np_(t)
+        lst = []
+        dist.gather(x, lst, dst=3)
+        if rank == 3:
+            out[dt, "gather"] = np.stack([np_(v) for v in lst])
+        t = torch.empty_like(x)
+        if rank % 2 == 0:
+            dist.send(x, dst=rank + 1)
+        else:
+            dist.recv(t, src=rank - 1)
+            out[dt, "send_recv"] = np_(t)
+        fwd, bwd = torch.empty_like(x), torch.empty_like(x)
+        tasks = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, (rank + 1) % world),
+            dist.P2POp(dist.isend, x * 10, (rank - 1) % world),
+            dist.P2POp(dist.irecv, fwd, (rank - 1) % world),
+            dist.P2POp(dist.irecv, bwd, (rank + 1) % world)])
+        for task in tasks:
+            task.wait()
+        out[dt, "ring_fwd"], out[dt, "ring_bwd"] = np_(fwd), np_(bwd)
+        # every rank holding the same value: the reference's eager
+        # (single-controller) reading of a collective
+        same = xs[0].clone()
+        t = same.clone()
+        dist.all_reduce(t)
+        out[dt, "eager_all_reduce"] = np_(t)
+        lst = []
+        dist.all_gather(lst, same)
+        out[dt, "eager_all_gather"] = [np_(v) for v in lst]
+        t = same.clone()
+        dist.broadcast(t, src=0)
+        out[dt, "eager_broadcast"] = np_(t)
+        out[dt, "eager_reduce_scatter"] = np_(dist.reduce_scatter(same))
+        t = x.clone()
+        task = dist.all_reduce(t, sync_op=False)
+        task.wait()
+        out[dt, "async_all_reduce"] = np_(t)
+        t = x.clone()
+        dist.stream.all_reduce(t)
+        out[dt, "stream_all_reduce"] = np_(t)
+    objs = []
+    dist.all_gather_object(objs, {"rank": rank})
+    out["all_gather_object"] = objs
+    objs = [rank, f"r{rank}"]
+    dist.broadcast_object_list(objs, src=1)
+    out["broadcast_object_list"] = objs
+    got = []
+    dist.scatter_object_list(got, [f"part{i}" for i in range(world)]
+                             if rank == 2 else None, src=2)
+    out["scatter_object_list"] = got
+    dist.barrier()
+    out["backend"] = dist.get_backend()
+    out["world"] = (dist.get_world_size(), dist.get_rank(),
+                    dist.ParallelEnv().world_size, dist.ParallelEnv().rank)
+    sub = dist.new_group([1, 3])
+    t = torch.ones(2)
+    dist.all_reduce(t, group=sub)
+    out["subgroup"] = (sub.rank, t.numpy())
+    out["counts"] = dict(dist.collective.counts)
+    return out
+
+
+def mpu_inputs():
+    """Full weights and inputs of the mp-layer tests (numpy, seeded)."""
+    rng = np.random.default_rng(31)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    logits = f(3, 5, 10) * 3
+    labels = rng.integers(0, 10, (3, 5))
+    labels[0, :2] = -100
+    labels[2, 4] = -100
+    return dict(col_w=f(8, 16), col_b=f(16), row_w=f(16, 8), row_b=f(8),
+                emb_w=f(32, 8), x=f(4, 8), ids=rng.integers(0, 32, (4, 6)),
+                logits=logits, labels=labels, seq=f(2, 8, 4),
+                seq_grad=f(2, 8, 4))
+
+
+def mpu_job(inp, gpt_state):
+    """The mp layers at this world size (all of it mp): outputs and the
+    gathered full gradients, the SP ops, the full <-> shard round trip."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.layers import mpu
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        sequence_parallel_utils as spu)
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+
+    world = dist.get_world_size()
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["mp_degree"] = world
+    fleet.init(is_collective=True, strategy=s)
+    group = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in inp.items()}
+    out = {}
+
+    def load(layer, **full):
+        for name, v in full.items():
+            p = getattr(layer, name)
+            axis = p.split_axis if mpu.is_mp_shard(p) else None
+            with torch.no_grad():
+                p.copy_(v if axis is None else mpu.shard_of(
+                    v, axis, group.rank, world))
+        return layer
+
+    def grads(layer):
+        return {n: (mpu.full_of(p.grad, p.split_axis, group)
+                    if mpu.is_mp_shard(p) else p.grad).numpy()
+                for n, p in layer.named_parameters()}
+
+    for gather_output, input_is_parallel in ((False, True), (True, False)):
+        col = load(mpu.ColumnParallelLinear(
+            8, 16, gather_output=gather_output, device="cpu"),
+            weight=t["col_w"], bias=t["col_b"])
+        row = load(mpu.RowParallelLinear(
+            16, 8, input_is_parallel=input_is_parallel, device="cpu"),
+            weight=t["row_w"], bias=t["row_b"])
+        x = t["x"].clone().requires_grad_(True)
+        y = row(col(x))
+        (y * y).sum().backward()
+        key = f"linear_{gather_output}"
+        out[key] = dict(y=y.detach().numpy(), dx=x.grad.numpy(),
+                        col=grads(col), row=grads(row))
+    emb = load(mpu.VocabParallelEmbedding(32, 8, device="cpu"),
+               weight=t["emb_w"])
+    e = emb(t["ids"])
+    (e * e).sum().backward()
+    out["embedding"] = dict(y=e.detach().numpy(), grads=grads(emb))
+    shard = mpu.shard_of(t["logits"], 2, group.rank, world).clone()
+    shard.requires_grad_(True)
+    ce = mpu.ParallelCrossEntropy(ignore_index=-100)
+    loss = ce(shard, t["labels"])
+    (loss * torch.arange(1.0, 16.0).reshape(3, 5)).sum().backward()
+    out["ce"] = dict(loss=loss.detach().numpy(),
+                     dlogits=mpu.full_of(shard.grad, 2, group).numpy())
+    # sequence-parallel ops on [b, t, h] along t, forward and backward
+    for name, op in (("scatter", spu.ScatterOp), ("gather", spu.GatherOp),
+                     ("all_gather", spu.AllGatherOp),
+                     ("reduce_scatter", spu.ReduceScatterOp)):
+        src = t["seq"]
+        if name in ("gather", "all_gather"):
+            src = mpu.shard_of(src, 1, group.rank, world)
+        src = src.clone().requires_grad_(True)
+        y = op.apply(src)
+        g = t["seq_grad"]
+        if name in ("scatter", "reduce_scatter"):
+            g = mpu.shard_of(g, 1, group.rank, world)
+        y.backward(g.contiguous())
+        out[f"sp_{name}"] = dict(y=y.detach().numpy(), dx=src.grad.numpy())
+    # paddle.distributed.split: a column-split linear and an embedding
+    torch.manual_seed(0)
+    out["split_linear"] = dist.split(t["x"], (8, 16), "linear", axis=1,
+                                     gather_out=True).detach().numpy()
+    out["split_embedding"] = dist.split(t["ids"], (32, 8),
+                                        "embedding").detach().numpy()
+    # full -> shards -> full on the tiny GPT
+    model = port_model("gpt", gpt_state)
+    out["shapes"] = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    out["round_trip"] = {k: v.numpy()
+                         for k, v in gather_full_state(model).items()}
+    # RNG streams: "global_seed" alike on every rank, "local_seed" not
+    mpu.model_parallel_random_seed(5)
+    tracker = mpu.get_rng_state_tracker()
+    draws = {}
+    for name in ("global_seed", "local_seed"):
+        with tracker.rng_state(name):
+            draws[name] = torch.rand(4).numpy()
+    out["rng"] = draws
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
