@@ -202,13 +202,30 @@ Phases, each fatal on failure (non-zero exit, no final line):
    on the same full weights (losses within ``TRAIN_LOSS_RTOL``, gathered
    parameters within phase 8's rule, the mp ranks' replicated parameters
    bit-equal); each rank's K1 / K2a / K2b launches at H = 8 (mp) or 16;
-40. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+40. ``fold_layers=True``: GPT-3 1.3B (24 layers) folded through
+   ``TrainStep`` for 3 steps on phase 7's weights and batch, its losses
+   against phase 7's (bit-equal, else within ``TRAIN_LOSS_RTOL``), its
+   parameters against an unfolded ``TrainStep``'s by phase 8's rule, K1 /
+   K2a / K2b 24 x 3 launches, step ms beside phase 7's;
+41. pipeline parallelism at pp 2, two processes on the one card over gloo
+   (point to point staged through pinned host buffers): GPT-3 1.3B at 24
+   layers under 1F1B with 4 micro-batches of 1 x 1024, then gpipe,
+   zero-bubble and interleaved 1F1B (V = 2) at depth 4, 3 steps each
+   through ``fleet.init`` -> ``distributed_model`` ->
+   ``distributed_optimizer`` -> ``DistTrainStep`` against a
+   single-process ``TrainStep`` on the same weights and batch (losses
+   within ``TRAIN_LOSS_RTOL``, gathered parameters by phase 8's rule, the
+   replicated parameters bit-equal on both ranks); each rank's K1 / K2a /
+   K2b launches (144 at 24 layers), the staged bytes equal to the chunk
+   boundaries' activations and cotangents, the replicated gradients summed
+   once a step, ``schedule_info``'s bubble fractions beside the step ms;
+42. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
-   ``distributed`` JSON line (phases 38-39), a ``kernels`` JSON line (the
-   GPT, encoder and MoE shapes, the K1 / K2 rows with their launches in
-   phases 38-39; no TPU kernel lies on the vision path), then the result
-   line.
+   ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
+   (phases 40-41), a ``kernels`` JSON line (the GPT, encoder and MoE
+   shapes, the K1 / K2 rows with their launches in phases 38-41; no TPU
+   kernel lies on the vision path), then the result line.
 """
 from __future__ import annotations
 
@@ -4101,6 +4118,361 @@ def phases_distributed(fa, smi, trained):
             "seconds": secs, "card": smi}
 
 
+# -- phases 40-41: fold_layers and pipeline parallelism ------------------------
+
+# phase 41's batch: PP_MICROBATCHES micro-batches of one PP_SEQ-token row
+PP_BATCH, PP_SEQ, PP_MICROBATCHES = 4, 1024, 4
+# phase 41's configurations (pp 2, two ranks on the one card over gloo):
+# GPT-3 1.3B at full depth under 1F1B, then the other schedules at depth 4
+PP_CONFIGS = {"1f1b_24": dict(layers=24, schedule="1f1b", vpp=1),
+              "gpipe_4": dict(layers=4, schedule="gpipe", vpp=1),
+              "zero_bubble_4": dict(layers=4, schedule="zero_bubble", vpp=1),
+              "1f1b_v2_4": dict(layers=4, schedule="1f1b", vpp=2)}
+
+
+def pp_batch(vocab, device=None):
+    """Next-token batch [PP_BATCH, PP_SEQ] of ids and labels (numpy)."""
+    rng = np.random.default_rng(SEED + 41)
+    tok = rng.integers(0, vocab, (PP_BATCH, PP_SEQ + 1))
+    tok = torch.as_tensor(tok, device=device or DEVICE)
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def param_gap(got, want):
+    """Phase 8's rule on ``{name: tensor}`` pairs: ``(max |d|, elements
+    beyond LOCKSTEP_PARAM_ATOL, elements)``."""
+    dmax, far, total = 0.0, 0, 0
+    for n, w in want.items():
+        d = (got[n].to(w.device) - w).abs()
+        dmax = max(dmax, d.max().item())
+        far += int((d > LOCKSTEP_PARAM_ATOL).sum())
+        total += d.numel()
+    return dmax, far, total
+
+
+def check_param_gap(gap, steps, what):
+    dmax, far, total = gap
+    if not (dmax <= 2 * ADAMW["learning_rate"] * steps
+            and far <= 0.01 * total):
+        raise AssertionError(f"{what}: parameters differ from TrainStep "
+                             f"(max {dmax}, {far}/{total} beyond)")
+
+
+def unstacked(state, order, prefix="gpt.decoder."):
+    """A gathered stacked state under the unfolded names: the stacked
+    ``{prefix}{leaf with __}`` ``[L, ...]`` (layers in ``order``) as
+    ``{prefix}{layer}.{leaf}``."""
+    out = {}
+    for k, v in state.items():
+        if k.startswith(prefix) and "__" in k[len(prefix):]:
+            leaf = k[len(prefix):].replace("__", ".")
+            for pos, layer in enumerate(order):
+                out[f"{prefix}{layer}.{leaf}"] = v[pos]
+        else:
+            out[k] = v
+    return out
+
+
+def timed_steps(step, batch, steps, sync):
+    losses, step_ms = [], []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, step_ms
+
+
+def phase_fold(fa, smi, trained):
+    """Phase 40: GPT-3 1.3B (24 layers) with ``fold_layers=True`` through
+    ``TrainStep``, LOCKSTEP_STEPS steps on phase 7's weights and batch:
+    the losses against phase 7's (bit-equal, else within TRAIN_LOSS_RTOL),
+    the final parameters against an unfolded ``TrainStep``'s by phase 8's
+    rule, K1 / K2a / K2b 24 x LOCKSTEP_STEPS launches."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import SpmdPipeline
+
+    model = build_model(24, fold_layers=True)
+    if not isinstance(model.gpt.decoder, SpmdPipeline) \
+            or model.gpt.decoder.pipelined:
+        raise AssertionError("fold_layers did not build the fold")
+    step, _ = trainer(model)
+    batch = train_batch(model.config.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    losses, step_ms = timed_steps(step, batch, LOCKSTEP_STEPS,
+                                  torch.cuda.synchronize)
+    launches = {k: getattr(fa, f"launches_{k}") for k in ("fwd", "dq", "dkv")}
+    peak = torch.cuda.max_memory_allocated()
+    want = trained["losses"][:LOCKSTEP_STEPS]
+    bit_equal = losses == want
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    folded = {n.replace("decoder.blocks.", "decoder."): p.detach()
+              for n, p in model.named_parameters()}
+    del step, model
+    torch.cuda.empty_cache()
+    ref = build_model(24)
+    ref_step, _ = trainer(ref)
+    for _ in range(LOCKSTEP_STEPS):
+        ref_step(*batch)
+    gap = param_gap(folded, {n: p.detach() for n, p in ref.named_parameters()})
+    del ref_step, ref, folded
+    torch.cuda.empty_cache()
+    layers = 24
+    log(f"# phase 40: GPT-3 1.3B (24 layers) fold_layers=True through "
+        f"TrainStep: losses {losses} vs phase 7's {want}: "
+        f"{'bit-equal' if bit_equal else f'rel {rel:.2e}'}; params max |d| "
+        f"{gap[0]:.2e}, {gap[1]}/{gap[2]} beyond {LOCKSTEP_PARAM_ATOL}; "
+        f"step ms {[round(t, 1) for t in step_ms]} (phase 7's "
+        f"{[round(t, 1) for t in trained['step_ms'][:LOCKSTEP_STEPS]]}); "
+        f"peak {peak / 2**30:.2f} GiB; launches {launches}  [{smi}]")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("the folded losses differ from phase 7's")
+    check_param_gap(gap, LOCKSTEP_STEPS, "phase 40")
+    if any(n != layers * LOCKSTEP_STEPS for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != {layers} x "
+                             f"{LOCKSTEP_STEPS}")
+    return dict(losses=losses, phase7_losses=want, bit_equal=bit_equal,
+                rel=rel, step_ms=step_ms,
+                phase7_step_ms=trained["step_ms"][:LOCKSTEP_STEPS],
+                peak_gib=peak / 2 ** 30, param_max=gap[0],
+                param_far=gap[1], launches=launches)
+
+
+def _boundary_messages(S, V, stage):
+    """Chunk boundaries this stage sends or receives across, per
+    micro-batch and direction: chunk c hands on to chunk c + 1."""
+    return sum((c % S == stage) + ((c + 1) % S == stage)
+               for c in range(S * V - 1))
+
+
+def pp_launches(c, stage):
+    """K1 / K2a / K2b launches of one pp-2 rank over LOCKSTEP_STEPS steps:
+    one of each per local layer and micro-batch, but under zero_bubble a
+    chunk with an input cotangent to send runs its backward twice (the
+    input-gradient tick, then the deferred weight-gradient pass through the
+    same graph, as the reference's weight-gradient scan does)."""
+    chunk = c["layers"] // (2 * c["vpp"])
+    bwd = sum(chunk * (2 if c["schedule"] == "zero_bubble"
+                       and v * 2 + stage > 0 else 1)
+              for v in range(c["vpp"]))
+    n = PP_MICROBATCHES * LOCKSTEP_STEPS
+    return {"fwd": chunk * c["vpp"] * n, "dq": bwd * n, "dkv": bwd * n}
+
+
+def _rank_pipeline(out_dir, configs, spec):
+    """One rank of phase 41 (run by ``paddle.distributed.spawn``): each
+    configuration in turn at pp 2 through ``fleet.init`` ->
+    ``distributed_model`` -> ``distributed_optimizer`` -> ``DistTrainStep``,
+    its results pickled to ``out_dir``; rank 0 then trains the same
+    weights through a single-process ``TrainStep``. ``spec``: the device,
+    and the model's config for a rehearsal (None: ``build_model``)."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        pipeline_parallel as pp)
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = spec["device"]
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if spec.get("prepare"):
+        spec["prepare"]()
+
+    def build(layers):
+        if spec.get("model") is None:
+            return build_model(layers)
+        from paddle_tpu_torch.text.models.gpt import (GPTConfig,
+                                                      GPTForCausalLM)
+
+        return GPTForCausalLM(GPTConfig(**dict(
+            spec["model"], num_hidden_layers=layers)), device=device,
+            seed=SEED)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend()}
+    for name, c in configs.items():
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update(dp_degree=-1, pp_degree=2)
+        s.pipeline_configs.update(schedule=c["schedule"],
+                                  virtual_pp_degree=c["vpp"],
+                                  accumulate_steps=PP_MICROBATCHES)
+        fleet.init(is_collective=True, strategy=s)
+        hcg = fleet.get_hybrid_communicate_group()
+        model = build(c["layers"])
+        pipe = model.gpt.decoder
+        if not (isinstance(pipe, pp.SpmdPipeline) and pipe.pipelined):
+            raise AssertionError(f"{name}: the decoder is not pipelined")
+        step, _ = dist_trainer(model)
+        batch = pp_batch(model.config.vocab_size, device)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_flash(fa)
+        collective.reset_counts()
+        pp.reset_counts()
+        losses, step_ms = timed_steps(step, batch, LOCKSTEP_STEPS, sync)
+        launches = {k: getattr(fa, f"launches_{k}")
+                    for k in ("fwd", "dq", "dkv")}
+        hidden = model.config.hidden_size
+        group = hcg.get_pipe_parallel_group()
+        rep = [p for p in model.parameters() if not pp.is_pipeline_local(p)]
+        rep_equal = True
+        for p in rep:
+            got = dist.all_gather(None, p.detach(), group=group)
+            rep_equal &= all(torch.equal(g, got[0]) for g in got)
+        res = dict(
+            losses=losses, step_ms=step_ms, launches=launches,
+            stage=hcg.get_stage_id(), local_blocks=len(pipe.blocks),
+            staged_bytes=collective.counts.get("p2p_staged_bytes", 0),
+            boundary_bytes=PP_BATCH // PP_MICROBATCHES * PP_SEQ * hidden * 4,
+            boundary_messages=_boundary_messages(2, c["vpp"],
+                                                 hcg.get_stage_id()),
+            replicated_grad_bytes=pp.counts["replicated_grad_bytes"],
+            replicated_bytes=sum(p.numel() * p.element_size() for p in rep),
+            ops=dict(pp.counts), replicated_bit_equal=bool(rep_equal),
+            peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                      if on_card else 0.0),
+            schedule_info=pipe.schedule_info(PP_BATCH))
+        order = list(pipe._layer_order)
+        full = gather_full_state(model)
+        del step, model, pipe, rep
+        fleet.topology.set_hybrid_communicate_group(None)
+        if rank == 0:
+            if on_card:
+                torch.cuda.empty_cache()
+            ref = build(c["layers"])
+            ref_step, _ = trainer(ref)
+            res["ref_losses"], res["ref_step_ms"] = timed_steps(
+                ref_step, batch, LOCKSTEP_STEPS, sync)
+            gap = param_gap(unstacked(full, order),
+                            {n: p.detach() for n, p in ref.named_parameters()})
+            res.update(param_max=gap[0], param_far=gap[1],
+                       param_total=gap[2])
+            del ref_step, ref
+        del full
+        if on_card:
+            torch.cuda.empty_cache()
+        out[name] = res
+        dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_pipeline_gloo(smi, timeout=600, spec=None):
+    """Phase 41: pipeline parallelism at pp 2, two processes on the one
+    card over gloo (``backend="gloo"`` given explicitly: NCCL runs one
+    rank per device), point to point staged through pinned host buffers.
+    Each configuration of PP_CONFIGS (GPT-3 1.3B at 24 layers under 1F1B,
+    then gpipe, zero_bubble and interleaved 1F1B at depth 4) against a
+    single-process ``TrainStep`` on the same full weights and batch:
+    losses within TRAIN_LOSS_RTOL, gathered parameters by phase 8's rule,
+    the replicated parameters bit-equal on both ranks, each rank's K1 /
+    K2a / K2b launches = its layers x micro-batches x steps, the staged
+    bytes = the chunk boundaries' activations and cotangents, the
+    replicated gradients summed over the pipe group once a step."""
+    import os
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    spec = spec or {"device": DEVICE}
+    configs = PP_CONFIGS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    t0 = time.perf_counter()
+    ctx = dist.spawn(_rank_pipeline, (tmp, configs, spec), nprocs=2,
+                     join=False, backend="gloo",
+                     master=f"file://{tmp}/rendezvous")
+    join_spawned(ctx, timeout)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    out = {"seconds": secs, "backend": res[0]["backend"]}
+    for name, c in configs.items():
+        a, b = res[0][name], res[1][name]
+        rel = max(abs(x - y) / abs(y)
+                  for x, y in zip(a["losses"], a["ref_losses"]))
+        info = a["schedule_info"]
+        log(f"# phase 41: pp 2 {c['schedule']} V={c['vpp']} at "
+            f"{c['layers']} layers, M={PP_MICROBATCHES}: losses "
+            f"{a['losses']} vs TrainStep {a['ref_losses']} (rel "
+            f"{rel:.2e}); params max |d| {a['param_max']:.2e}, "
+            f"{a['param_far']}/{a['param_total']} beyond "
+            f"{LOCKSTEP_PARAM_ATOL}; step ms rank 0 "
+            f"{[round(t, 1) for t in a['step_ms']]} rank 1 "
+            f"{[round(t, 1) for t in b['step_ms']]} (TrainStep "
+            f"{[round(t, 1) for t in a['ref_step_ms']]}); bubble fraction "
+            f"{info['bubble_fraction']:.3f} analytic "
+            f"{info['analytic_bubble_fraction']:.3f} measured "
+            f"{info['measured_bubble_fraction']:.3f}; launches rank 0 "
+            f"{a['launches']} rank 1 {b['launches']}; staged "
+            f"{a['staged_bytes']} / {b['staged_bytes']} B; replicated "
+            f"gradients {a['replicated_grad_bytes']} B; peak "
+            f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB; replicated "
+            f"bit-equal {a['replicated_bit_equal']}  [{smi}]")
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{name}: losses differ from TrainStep")
+        check_param_gap((a["param_max"], a["param_far"], a["param_total"]),
+                        LOCKSTEP_STEPS, f"phase 41 {name}")
+        if not (a["replicated_bit_equal"] and b["replicated_bit_equal"]):
+            raise AssertionError(f"{name}: replicated parameters differ "
+                                 "across the pp ranks")
+        if {a["stage"], b["stage"]} != {0, 1}:
+            raise AssertionError(f"{name}: stages {a['stage']}, {b['stage']}")
+        for r in (a, b):
+            want = pp_launches(c, r["stage"])
+            if r["local_blocks"] * 2 != c["layers"] or r["launches"] != want:
+                raise AssertionError(f"{name}: launches {r['launches']} "
+                                     f"!= {want}")
+            staged = (r["boundary_messages"] * 2 * PP_MICROBATCHES
+                      * r["boundary_bytes"] * LOCKSTEP_STEPS)
+            if spec["device"] == "cuda" and r["staged_bytes"] != staged:
+                raise AssertionError(f"{name}: staged {r['staged_bytes']} B "
+                                     f"!= {staged} B")
+            if r["replicated_grad_bytes"] != \
+                    r["replicated_bytes"] * LOCKSTEP_STEPS:
+                raise AssertionError(f"{name}: replicated gradients "
+                                     f"{r['replicated_grad_bytes']} B")
+        out[name] = {k: a[k] for k in (
+            "losses", "ref_losses", "step_ms", "ref_step_ms", "launches",
+            "param_max", "param_far", "staged_bytes", "boundary_bytes",
+            "replicated_grad_bytes", "peak_gib", "schedule_info")}
+        out[name].update(rank1_launches=b["launches"],
+                         rank1_step_ms=b["step_ms"],
+                         rank1_staged_bytes=b["staged_bytes"],
+                         rank1_peak_gib=b["peak_gib"],
+                         staged_per_step=a["staged_bytes"] // LOCKSTEP_STEPS)
+    log(f"# phase 41: {secs:.1f} s (two processes, spawn, build and run)")
+    return out
+
+
+def phases_pipeline(fa, smi, trained):
+    """Phases 40-41; returns the ``pipeline`` JSON line's numbers."""
+    t0 = time.perf_counter()
+    fold = phase_fold(fa, smi, trained)
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline_gloo(smi)
+    secs = time.perf_counter() - t0
+    log(f"phases 40-41: {secs:.1f} s")
+    return {"fold_1p3b": fold, "pp2_gloo": pipe, "seconds": secs,
+            "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4176,6 +4548,7 @@ def main() -> int:
     generation = phases_generation(fa, pa, smi)
     layer = phases_layer(fa, smi)
     distributed = phases_distributed(fa, smi, trained)
+    pipeline = phases_pipeline(fa, smi, trained)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -4222,6 +4595,7 @@ def main() -> int:
                          ("dkv", "flash_attention_bwd_dkv")):
         r = flash_timed[(kind, torch.float32)]
         gloo = distributed["gloo_two_ranks"]
+        pp2 = pipeline["pp2_gloo"]
         kernels.append(dict(row(
             kernel, "paddle_tpu_torch/ops/cuda/flash_attention.cu",
             FLASH_REPLACES[kind], trained["launches"][kind],
@@ -4231,7 +4605,12 @@ def main() -> int:
                     "launches"][kind],
                 **{f"gloo_{c}_rank{i}_h{gloo[c]['heads']}":
                    gloo[c]["launches" if i == 0 else "rank1_launches"][kind]
-                   for c in FLEET_CONFIGS for i in (0, 1)})))
+                   for c in FLEET_CONFIGS for i in (0, 1)}),
+            launches_pipeline=dict(
+                fold_1p3b=pipeline["fold_1p3b"]["launches"][kind],
+                **{f"pp2_{c}_rank{i}":
+                   pp2[c]["launches" if i == 0 else "rank1_launches"][kind]
+                   for c in PP_CONFIGS for i in (0, 1)})))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -4269,6 +4648,7 @@ def main() -> int:
     log(json.dumps({"generation": generation}))
     log(json.dumps({"layer": layer}))
     log(json.dumps({"distributed": distributed}))
+    log(json.dumps({"pipeline": pipeline}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

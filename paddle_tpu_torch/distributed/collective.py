@@ -16,6 +16,15 @@ does (the reference's is an all-reduce).
 average). ``counts`` counts the collectives issued, by name, for the
 on-card check that a path really communicated; ``reset_counts`` zeroes it.
 
+Point to point on a gloo group stages a CUDA tensor through a pinned host
+buffer (gloo's send hands the tensor's pointer to its socket, which
+refuses a device address): ``send`` / ``isend`` copy the tensor there
+and send that, ``recv`` / ``irecv`` receive there and copy into the
+tensor when the task completes, and ``batch_isend_irecv`` does the same
+for each op. The choice is made by the group's backend: an NCCL group and
+a CPU tensor pass the tensor as it is. ``counts["p2p_staged_bytes"]``
+adds up the bytes staged.
+
 Not here: the quantized collectives ``psum_quantized`` /
 ``all_gather_quantized`` (reference :109-236), which come with
 ``mp_comm`` (ROADMAP.md §A.7).
@@ -55,8 +64,9 @@ class _Task:
     """What a collective returns: ``wait()`` finishes it (and the AVG
     division, when there is one); ``is_completed()`` reports it."""
 
-    def __init__(self, work=None, then=None):
-        self._work, self._then = work, then
+    def __init__(self, work=None, then=None, keep=None):
+        # ``keep``: a buffer the pending op reads or writes, held until done
+        self._work, self._then, self._keep = work, then, keep
 
     def wait(self, timeout=None):
         if self._work is not None:
@@ -65,6 +75,7 @@ class _Task:
         if self._then is not None:
             self._then()
             self._then = None
+        self._keep = None
         return True
 
     def is_completed(self):
@@ -254,14 +265,54 @@ def alltoall_single(out_tensor, in_tensor=None, in_split_sizes=None,
 
 
 # --------------------------------------------------------------- point to point
+def _host_staged(tensor, pg) -> bool:
+    """Whether a point-to-point op on ``tensor`` over the process group
+    ``pg`` goes through a pinned host buffer: a CUDA tensor on a gloo
+    group (decided by the backend, never by trying)."""
+    return tensor.is_cuda and str(dist.get_backend(pg)) == "gloo"
+
+
+def _p2p_buffer(tensor, pg, sending):
+    """``(buffer, then)``: what a point-to-point op on ``tensor`` over
+    ``pg`` passes to ``torch.distributed``, and what runs once it
+    completes. A host-staged op (:func:`_host_staged`) goes through a
+    pinned host buffer, filled now for a send, copied into ``tensor``
+    after a receive; anything else passes as it is."""
+    if not _host_staged(tensor, pg):
+        return (tensor.contiguous() if sending else tensor), None
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    counts["p2p_staged_bytes"] += host.numel() * host.element_size()
+    if sending:
+        host.copy_(tensor)
+        return host, None
+    return host, lambda: tensor.copy_(host)
+
+
+def _p2p(name, tensor, peer, group, sync_op, sending, tag=0):
+    g = _resolve_group(group)
+    if not g.is_member():
+        return _Task()
+    counts[name] += 1
+    buf, then = _p2p_buffer(tensor, g.process_group, sending)
+    if sync_op:
+        (dist.send if sending else dist.recv)(buf, peer, g.process_group,
+                                              tag)
+        work = None
+    else:
+        work = (dist.isend if sending else dist.irecv)(
+            buf, peer, g.process_group, tag)
+    task = _Task(work, then, buf)
+    if sync_op:
+        task.wait()
+    return task
+
+
 def send(tensor, dst=0, group=None, sync_op=True):
-    return _issue("send", lambda pg, a: (dist.isend if a else dist.send)(
-        tensor.contiguous(), dst, pg), group, sync_op)
+    return _p2p("send", tensor, dst, group, sync_op, True)
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
-    return _issue("recv", lambda pg, a: (dist.irecv if a else dist.recv)(
-        tensor, src, pg), group, sync_op)
+    return _p2p("recv", tensor, src, group, sync_op, False)
 
 
 def isend(tensor, dst, group=None):
@@ -274,26 +325,37 @@ def irecv(tensor, src=None, group=None):
 
 class P2POp:
     """paddle.distributed.P2POp: one send or receive of a batch for
-    :func:`batch_isend_irecv`; ``peer`` a global rank."""
+    :func:`batch_isend_irecv`; ``peer`` a global rank. ``tag`` (not in
+    Paddle's signature) keeps apart two streams between the same pair of
+    ranks on gloo; NCCL matches by order only."""
 
-    def __init__(self, op, tensor, peer, group=None):
+    def __init__(self, op, tensor, peer, group=None, tag=0):
         if op not in (send, recv, isend, irecv):
             raise ValueError("P2POp op must be paddle.distributed "
                              "isend / irecv (or send / recv)")
         self.op, self.tensor, self.peer, self.group = op, tensor, peer, group
+        self.tag = tag
 
 
 def batch_isend_irecv(p2p_op_list):
     """Issue every op of the batch at once; returns their tasks."""
-    ops = []
+    ops, thens, bufs = [], [], []
     for p in p2p_op_list:
         g = _resolve_group(p.group)
-        fn = dist.isend if p.op in (send, isend) else dist.irecv
-        ops.append(dist.P2POp(fn, p.tensor, p.peer, g.process_group))
+        sending = p.op in (send, isend)
+        buf, then = _p2p_buffer(p.tensor, g.process_group, sending)
+        ops.append(dist.P2POp(dist.isend if sending else dist.irecv, buf,
+                              p.peer, g.process_group, p.tag))
+        thens.append(then)
+        bufs.append(buf)
     if not ops:
         return []
     counts["batch_isend_irecv"] += 1
-    return [_Task(w) for w in dist.batch_isend_irecv(ops)]
+    works = dist.batch_isend_irecv(ops)
+    if len(works) != len(ops):
+        # NCCL coalesces the batch into one work; nothing was staged
+        return [_Task(w, keep=bufs) for w in works]
+    return [_Task(w, t, b) for w, t, b in zip(works, thens, bufs)]
 
 
 # ----------------------------------------------------------------------- misc

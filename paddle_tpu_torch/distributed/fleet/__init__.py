@@ -31,6 +31,18 @@ buckets (``grad_comm``), then steps the optimizer. It returns the global
 mean loss. While the loss runs on split rows, a masked mean divides by
 the kept count summed over the data group (``nn/functional/loss.py``), so
 the loss is the global masked mean however the mask splits.
+
+Pipeline parallelism (``pp_degree > 1``): a model whose layer stack is a
+pipelined ``meta_parallel.SpmdPipeline`` (GPT / Llama built after
+``fleet.init``, or a ``PipelineLayer``) trains through the same
+``DistTrainStep``, which hands its forward and backward to the per-rank
+schedule (``meta_parallel/pipeline_parallel.py::forward_backward``: the
+replicated parameters' gradients come back summed over the pipe group);
+the rest of the step is the one above. ``distributed_model`` also
+broadcasts the replicated parameters over the pipe group and wraps a
+``PipelineLayer`` in ``PipelineParallel``; the global-norm clip sums the
+stage-local squares over the pipe group and counts the replicated
+parameters once.
 """
 from __future__ import annotations
 
@@ -130,11 +142,16 @@ def _require_hcg():
 
 def distributed_model(model):
     """Broadcast ``model``'s parameters so every rank starts equal; returns
-    the model."""
+    the model, a ``PipelineLayer`` at pp > 1 wrapped in
+    ``PipelineParallel`` (reference ``fleet/__init__.py:270-287``)."""
     hcg = _require_hcg()
     _hpu.broadcast_dp_parameters(model, hcg)
     _hpu.broadcast_sharding_parameters(model, hcg)
     _hpu.broadcast_mp_parameters(model, hcg)
+    _hpu.broadcast_pp_replicated_parameters(model, hcg)
+    if hcg.get_pipe_parallel_world_size() > 1 and isinstance(
+            model, _pp.PipelineLayer):
+        return _pp.PipelineParallel(model, hcg, _strategy)
     return model
 
 
@@ -177,20 +194,35 @@ class HybridParallelOptimizer:
         return self._owner is None or self._owner[i] == self._me
 
     def _clip(self, pg):
+        """A ``ClipGradByGlobalNorm`` over the whole model: the mp shards'
+        squares summed over mp, the stage-local ones over the pipe group,
+        the parameters replicated over pp counted once."""
         clip = self._inner_opt._grad_clip
         mp = self._hcg.get_model_parallel_group()
-        if not isinstance(clip, ClipGradByGlobalNorm) or mp.nranks == 1:
+        pp = self._hcg.get_pipe_parallel_group()
+        if not isinstance(clip, ClipGradByGlobalNorm) or (
+                mp.nranks == 1 and pp.nranks == 1):
             return clip(pg)
-        rep, shard = [], []
+        # [replicated, mp shard] x [replicated over pp, stage-local]
+        parts = [[], [], [], []]
         for p, g in pg:
             if g is not None:
-                (shard if mpu.is_mp_shard(p)
-                 else rep).append(torch.sum(torch.square(g.float())))
+                parts[mpu.is_mp_shard(p)
+                      + 2 * is_pipeline_local(p)].append(
+                    torch.sum(torch.square(g.float())))
         zero = torch.zeros((), device=pg[0][0].device)
-        shard_sq = torch.stack(shard).sum() if shard else zero
-        C.all_reduce(shard_sq, group=mp)
-        gnorm = torch.sqrt((torch.stack(rep).sum() if rep else zero)
-                           + shard_sq)
+        rep, shard, local_rep, local_shard = (
+            torch.stack(v).sum() if v else zero for v in parts)
+        if mp.nranks > 1:
+            shards = torch.stack([shard, local_shard])
+            C.all_reduce(shards, group=mp)
+            shard, local_shard = shards[0], shards[1]
+        gsq = rep + shard
+        if pp.nranks > 1:
+            local = local_rep + local_shard
+            C.all_reduce(local, group=pp)
+            gsq = gsq + local
+        gnorm = torch.sqrt(gsq)
         scale = clip.clip_norm / torch.clamp(gnorm, min=clip.clip_norm)
         for _, g in pg:
             if g is not None:
@@ -274,6 +306,7 @@ class DistTrainStep(TrainStep):
         self._data_rank = hcg.get_data_sharding_parallel_rank()
         self._bucket_mb = grad_comm.resolve_config(
             optimizer._strategy).bucket_mb
+        self._pipe = _pp.pipelined_stack(model)
 
     def _rows(self, v):
         n = self._data_group.nranks
@@ -286,10 +319,16 @@ class DistTrainStep(TrainStep):
     def __call__(self, *batch):
         rows = [self._rows(v) for v in batch]
         split = any(s for _, s in rows)
+        args = [v for v, _ in rows]
         trained = [p for p in self._params if p.requires_grad]
-        with _loss.split_batch(self._data_group if split else None):
-            loss = self._loss_fn(self._model, *(v for v, _ in rows))
-        grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        group = self._data_group if split else None
+        if self._pipe is None:
+            with _loss.split_batch(group):
+                loss = self._loss_fn(self._model, *args)
+            grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        else:
+            loss, grads = _pp.forward_backward(
+                self._pipe, self._model, self._loss_fn, args, trained, group)
         sequence_parallel_utils.allreduce_sequence_parallel_grads(
             trained, grads)
         grad_comm.allreduce_mean(grads, self._data_group, self._bucket_mb)
@@ -307,6 +346,8 @@ class DistTrainStep(TrainStep):
 
 
 from . import meta_parallel  # noqa: E402,F401  (needs the classes above)
+from .meta_parallel import pipeline_parallel as _pp  # noqa: E402
+from .meta_parallel.pipeline_parallel import is_pipeline_local  # noqa: E402
 
 __all__ = ["CommunicateTopology", "DistTrainStep", "DistributedStrategy",
            "HybridCommunicateGroup", "HybridParallelOptimizer",

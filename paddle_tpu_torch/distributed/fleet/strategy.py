@@ -132,8 +132,6 @@ def check_ported(strategy: DistributedStrategy):
     """Raise ``NotImplementedError`` for the first knob set that this port
     does not implement, naming its ROADMAP.md item."""
     hc = strategy.hybrid_configs
-    if int(hc.get("pp_degree", 1)) > 1:
-        _unported("pp_degree > 1 (pipeline parallel)", "§A.7")
     if int(hc.get("sep_degree", 1)) > 1:
         _unported("sep_degree > 1 (the sep axis and ring attention)", "§A.7")
     if int(strategy.sharding_configs.get("stage", 1)) == 3:

@@ -64,5 +64,20 @@ def broadcast_sharding_parameters(model, hcg=None):
         _broadcast(model, hcg.get_sharding_parallel_group(), False)
 
 
+def broadcast_pp_replicated_parameters(model, hcg=None):
+    """The parameters outside a pipelined stack (replicated on every pipe
+    rank) from the first stage to the others."""
+    from ..meta_parallel.pipeline_parallel import is_pipeline_local
+
+    hcg = hcg or _hcg()
+    if hcg is None or hcg.get_pipe_parallel_world_size() <= 1:
+        return
+    group = hcg.get_pipe_parallel_group()
+    for p in model.parameters():
+        if not is_pipeline_local(p):
+            C.broadcast(p.data, src=group.ranks[0], group=group)
+
+
 __all__ = ["broadcast_dp_parameters", "broadcast_mp_parameters",
+           "broadcast_pp_replicated_parameters",
            "broadcast_sharding_parameters", "fused_allreduce_gradients"]

@@ -6,7 +6,9 @@ about ``bucket_mb`` MiB each: :func:`build_buckets` groups the tensors in
 their given order (reference :232), :func:`make_layouts` records each
 bucket's offsets, :func:`pack_bucket` / :func:`unpack_bucket` concatenate
 and split (reference :253-310). :func:`allreduce_mean` all-reduces each
-bucket over a group and divides it by the group's size. The bucket size
+bucket over a group and divides it by the group's size;
+:func:`allreduce_sum` leaves the sum (a pipeline's replicated
+parameters, over the pipe group). The bucket size
 is ``DistributedStrategy.fuse_grad_size_in_MB`` (32 by default), or
 ``grad_comm_configs["bucket_mb"]``, overridden by the environment
 variable ``PADDLE_TPU_GRAD_COMM`` (see :func:`resolve_config`).
@@ -216,6 +218,16 @@ def allreduce_mean(tensors, group, bucket_mb=32.0):
     ``bucket_mb`` MiB (tensors grouped by dtype, in order) is packed,
     all-reduced, divided by the group's size and unpacked. Returns the
     number of buckets."""
+    return _allreduce_buckets(tensors, group, bucket_mb, average=True)
+
+
+def allreduce_sum(tensors, group, bucket_mb=32.0):
+    """Sum ``tensors`` over ``group`` in place, bucketed as
+    :func:`allreduce_mean`. Returns the number of buckets."""
+    return _allreduce_buckets(tensors, group, bucket_mb, average=False)
+
+
+def _allreduce_buckets(tensors, group, bucket_mb, average):
     from . import collective as C
 
     tensors = [t for t in tensors if t is not None]
@@ -228,7 +240,8 @@ def allreduce_mean(tensors, group, bucket_mb=32.0):
         for lay in layouts:
             flat = pack_bucket(same, lay)
             C.all_reduce(flat, group=group)
-            flat.div_(group.nranks)
+            if average:
+                flat.div_(group.nranks)
             for i, v in unpack_bucket(flat, lay):
                 same[i].copy_(v)
         n += len(layouts)
@@ -259,6 +272,6 @@ def dequantize_absmax(q, scale, dtype=torch.float32):
 
 
 __all__ = ["BucketLayout", "GradCommConfig", "WIRE_DTYPES", "allreduce_mean",
-           "build_buckets", "dequantize_absmax", "make_layouts",
-           "pack_bucket", "quantize_absmax", "resolve_config",
+           "allreduce_sum", "build_buckets", "dequantize_absmax",
+           "make_layouts", "pack_bucket", "quantize_absmax", "resolve_config",
            "unpack_bucket"]

@@ -88,21 +88,23 @@ def set_state_dict(module: torch.nn.Module, state: Mapping[str, Any]):
     state, each cast to the dtype and device it has there, as the
     reference's ``Layer.set_state_dict``: a shape mismatch raises, and the
     names missing from ``state`` and those ``module`` lacks are returned
-    as ``(missing, unexpected)``."""
-    own = module.state_dict(keep_vars=True)
-    missing = []
-    with torch.no_grad():
-        for k, t in own.items():
-            if k not in state:
-                missing.append(k)
-                continue
-            v = state[k]
-            v = v if isinstance(v, torch.Tensor) else _to_tensor(v, t.device)
-            if tuple(v.shape) != tuple(t.shape):
-                raise ValueError(f"shape mismatch for {k}: checkpoint "
-                                 f"{tuple(v.shape)} vs model "
-                                 f"{tuple(t.shape)}")
-            t.copy_(v)
+    as ``(missing, unexpected)``. The copy goes through
+    ``load_state_dict``, so a layer with a state layout of its own (a
+    folded stack's stacked entries) takes it apart."""
+    own = module.state_dict()
+    missing, given = [], {}
+    for k, t in own.items():
+        if k not in state:
+            missing.append(k)
+            continue
+        v = state[k]
+        v = v if isinstance(v, torch.Tensor) else _to_tensor(v, t.device)
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {k}: checkpoint "
+                             f"{tuple(v.shape)} vs model "
+                             f"{tuple(t.shape)}")
+        given[k] = v.to(t.device, t.dtype)
+    module.load_state_dict(given, strict=False)
     return missing, [k for k in state if k not in own]
 
 
@@ -132,17 +134,31 @@ def state_from_numpy(np_state: Mapping[str, np.ndarray], device,
     return out
 
 
-def _mp_shards(module: torch.nn.Module):
-    """``{name: split_axis}`` of ``module``'s model-parallel shards (the
-    parameters of the fleet mp layers at mp degree > 1), and the mp group
-    (None at degree 1)."""
+def _layouts(module: torch.nn.Module):
+    """How ``module.state_dict()``'s entries are split over the ranks:
+    ``({name: split_axis}, mp group)`` of its model-parallel shards (the
+    fleet mp layers' parameters at mp degree > 1; a stacked entry's axis
+    one past its block's) and ``{name: pipe group}`` of the stacked entries
+    of a pipelined stack (each rank holds its stage's slice along dim 0)."""
     from ..distributed.fleet.layers.mpu import _mp_group, is_mp_shard
+    from ..distributed.fleet.meta_parallel.pipeline_parallel import (
+        SpmdPipeline)
 
     group, world, _ = _mp_group()
-    if world == 1:
-        return {}, None
-    return ({n: p.split_axis for n, p in module.named_parameters()
-             if is_mp_shard(p)}, group)
+    shards = {} if world == 1 else {
+        n: p.split_axis for n, p in module.named_parameters()
+        if is_mp_shard(p)}
+    cuts = {}
+    for prefix, m in module.named_modules():
+        if not isinstance(m, SpmdPipeline):
+            continue
+        for key, leaf in m.stacked_leaves().items():
+            name = f"{prefix}.{key}" if prefix else key
+            if world > 1 and is_mp_shard(leaf):
+                shards[name] = leaf.split_axis + 1
+            if m.pipelined:
+                cuts[name] = m
+    return shards, (group if world > 1 else None), cuts
 
 
 def load_numpy_state(module: torch.nn.Module,
@@ -151,17 +167,21 @@ def load_numpy_state(module: torch.nn.Module,
     ``module`` on its device and in its dtypes; names and shapes must
     match ``module.state_dict()`` exactly, except that a model-parallel
     shard takes the full array and keeps this rank's part along its
-    ``split_axis``. Returns ``module``."""
+    ``split_axis``, and a pipelined stack's stacked entry takes the full
+    ``[L, ...]`` array and keeps this stage's slice. Returns ``module``."""
     from ..distributed.fleet.layers.mpu import shard_of
 
-    shards, group = _mp_shards(module)
-    if shards:
-        np_state = {k: (np.ascontiguousarray(shard_of(
-            np.asarray(v), shards[k], group.rank, group.nranks))
-            if k in shards else v) for k, v in np_state.items()}
+    shards, group, cuts = _layouts(module)
+    out = {}
+    for k, v in np_state.items():
+        if k in cuts:
+            v = shard_of(np.asarray(v), 0, cuts[k].stage, cuts[k].num_stages)
+        if k in shards:
+            v = shard_of(np.asarray(v), shards[k], group.rank, group.nranks)
+        out[k] = np.ascontiguousarray(v) if k in cuts or k in shards else v
     ref = module.state_dict()
     dev = next(iter(ref.values())).device
-    state = state_from_numpy(np_state, dev, expected=ref)
+    state = state_from_numpy(out, dev, expected=ref)
     module.load_state_dict(
         {k: v.to(ref[k].dtype) for k, v in state.items()}, strict=True)
     return module
@@ -169,14 +189,22 @@ def load_numpy_state(module: torch.nn.Module,
 
 def gather_full_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``module.state_dict()`` with every model-parallel shard all-gathered
-    along its ``split_axis`` into the full tensor: the inverse of
-    :func:`load_numpy_state`. A collective: every mp rank calls it."""
+    along its ``split_axis`` and every pipelined stack's stacked entry
+    along dim 0 over the pipe group, into the full tensors: the inverse of
+    :func:`load_numpy_state`. A collective: every mp and pp rank calls
+    it."""
     from ..distributed.fleet.layers.mpu import full_of
 
-    shards, group = _mp_shards(module)
-    return {k: (full_of(v.detach(), shards[k], group) if k in shards
-                else v.detach())
-            for k, v in module.state_dict().items()}
+    shards, group, cuts = _layouts(module)
+    out = {}
+    for k, v in module.state_dict().items():
+        v = v.detach()
+        if k in shards:
+            v = full_of(v, shards[k], group)
+        if k in cuts:
+            v = full_of(v.contiguous(), 0, cuts[k]._group)
+        out[k] = v
+    return out
 
 
 __all__ = ["gather_full_state", "load", "load_numpy_state", "save",

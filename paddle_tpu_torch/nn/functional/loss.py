@@ -45,6 +45,9 @@ def _parallel_softmax_ce(logits, label, ignore_index=-100):
 #: the data-parallel group whose ranks each hold a part of the batch
 #: while ``fleet.DistTrainStep`` runs the loss (None otherwise)
 _split_group = None
+#: the counts that :func:`_denominator` met in the pipeline schedule's
+#: current micro-batch (None outside one)
+_micro_counts = None
 
 
 @contextlib.contextmanager
@@ -59,12 +62,31 @@ def split_batch(group):
         _split_group = prev
 
 
+@contextlib.contextmanager
+def micro_batch():
+    """Within: the loss of one pipeline micro-batch. :func:`_denominator`
+    records its count in the list this yields and divides by 1, so a
+    masked mean gives the micro-batch's sum: the pipeline schedule divides
+    the summed gradients by the total count once every micro-batch is in
+    (a micro-batch's own count cannot wait for the others under 1F1B)."""
+    global _micro_counts
+    prev, _micro_counts = _micro_counts, []
+    try:
+        yield _micro_counts
+    finally:
+        _micro_counts = prev
+
+
 def _denominator(count):
     """``max(count, 1)``. On a batch split over a data-parallel group of
     ``n`` ranks, ``max(total, 1) / n`` with ``total`` the count summed over
     the group (no gradient): each rank's loss is then ``n`` times its share
     of the global mean, and the ranks' mean (the gradients' average) is
-    the global mean however the count splits."""
+    the global mean however the count splits. In a pipeline micro-batch
+    (:func:`micro_batch`), 1, the count recorded."""
+    if _micro_counts is not None:
+        _micro_counts.append(count.detach())
+        return torch.ones_like(count)
     if _split_group is None:
         return T.clip(count, min=1.0)
     from ...distributed import collective

@@ -17,7 +17,10 @@ Weights as the reference initialises them: embeddings normal with std
 ``initializer_range`` (through ``ParamAttr``), projections XavierNormal,
 biases 0; drawn from an explicit ``torch.Generator`` on the device the
 model is built on. The masked-LM head is tied to the word embeddings and
-adds its own ``decoder_bias``.
+adds its own ``decoder_bias``. ``fold_layers`` makes the encoder the
+one-stage fold (``distributed/fleet/meta_parallel/pipeline_parallel.py``),
+the padding mask given to every block, the state in the reference's
+stacked layout (``bert.encoder.ln_1__weight`` ``[L, h]`` ...).
 """
 from __future__ import annotations
 
@@ -29,33 +32,22 @@ from torch import nn
 
 from ... import tensor as T
 from ...device import resolve_device
+from ...distributed.fleet.meta_parallel.pipeline_parallel import (
+    fold_or_list, run_stack)
 from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.functional.attention import padded_attention
-from ...nn.layer import Layer, LayerList, ParamAttr, create_parameter
+from ...nn.layer import Layer, ParamAttr, create_parameter
 from ...nn.layers.common import Dropout, Embedding, Linear
 from ...nn.layers.norm import LayerNorm
-
-#: reference flags whose routes the port does not have yet, and the
-#: ROADMAP.md item that ports each
-_UNPORTED_FLAGS = {
-    "fold_layers": "§A.3 (one program over layer-stacked parameters)",
-}
-
-
-def _check_flags(name, config):
-    for flag, item in _UNPORTED_FLAGS.items():
-        if getattr(config, flag, False):
-            raise NotImplementedError(
-                f"{name}({flag}=True): not ported yet, see ROADMAP.md {item}")
 
 
 class BertConfig:
     """Static model hyperparameters (the reference's ``BertConfig``; the
     defaults are BERT-base: Devlin et al. 2019). ``use_flash_attention``
     False takes the dense attention on every device; ``fold_layers``
-    raises ``NotImplementedError``."""
+    builds the encoder as the one-stage fold."""
 
     def __init__(
         self,
@@ -90,7 +82,6 @@ class BertConfig:
         self.layer_norm_eps = layer_norm_eps
         self.use_flash_attention = use_flash_attention
         self.fold_layers = fold_layers
-        _check_flags(type(self).__name__, self)
 
 
 def _build_kw(device, dtype, generator, seed):
@@ -203,17 +194,17 @@ class _Encoder(Layer):
     built by the subclass."""
 
     def _build_stack(self, config, block_config, add_pooling_layer, kw):
-        self.encoder = LayerList(
-            BertLayer(block_config, **kw)
-            for _ in range(config.num_hidden_layers))
+        self.encoder = fold_or_list(
+            [BertLayer(block_config, **kw)
+             for _ in range(config.num_hidden_layers)],
+            config.fold_layers)
         self.pooler = (BertPooler(block_config, **kw) if add_pooling_layer
                        else None)
 
     def _run(self, x, attention_mask):
-        mask = None if attention_mask is None else padding_mask(
-            attention_mask)
-        for blk in self.encoder:
-            x = blk(x, mask)
+        extra = () if attention_mask is None else (
+            padding_mask(attention_mask),)
+        x = run_stack(self.encoder, x, *extra)
         pooled = self.pooler(x) if self.pooler is not None else None
         return x, pooled
 
@@ -228,7 +219,6 @@ class BertModel(_Encoder):
                  *, device=None, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, seed: int = 0):
         super().__init__()
-        _check_flags("BertConfig", config)
         kw = _build_kw(device, dtype, generator, seed)
         self.config = config
         self.embeddings = BertEmbeddings(config, **kw)

@@ -19,12 +19,12 @@ from ...nn import initializer as I
 from ...nn.layer import ParamAttr
 from ...nn.layers.common import Dropout, Embedding, Linear
 from .bert import (BertEmbeddings, BertLMPredictionHead, _build_kw,
-                   _check_flags, _Encoder, _Loadable, _mlm_loss)
+                   _Encoder, _Loadable, _mlm_loss)
 
 
 class ErnieConfig:
     """Static model hyperparameters (the reference's ``ErnieConfig``);
-    ``fold_layers`` raises ``NotImplementedError``."""
+    ``fold_layers`` makes the encoder the one-stage fold."""
 
     def __init__(
         self,
@@ -63,7 +63,6 @@ class ErnieConfig:
         self.layer_norm_eps = layer_norm_eps
         self.use_flash_attention = use_flash_attention
         self.fold_layers = fold_layers
-        _check_flags(type(self).__name__, self)
 
     @staticmethod
     def ernie3_base(**kw):
@@ -122,7 +121,6 @@ class ErnieModel(_Encoder):
                  *, device=None, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, seed: int = 0):
         super().__init__()
-        _check_flags("ErnieConfig", config)
         kw = _build_kw(device, dtype, generator, seed)
         self.config = config
         self.embeddings = ErnieEmbeddings(config, **kw)

@@ -23,6 +23,16 @@ all-gathers it before the head; the norms and the row linears' biases are
 sequence-parallel parameters (``fleet.utils.sequence_parallel_utils``).
 At mp degree 1 it changes nothing, as in the reference.
 
+Built after ``fleet.init`` with ``pp_degree > 1`` and a depth that it
+divides, the decoder is a pipelined ``SpmdPipeline`` (this rank's stage of
+the blocks; ``virtual_pp_degree`` / ``pp_schedule`` set on the config
+override the strategy's), trained through ``fleet.DistTrainStep``; the
+embeddings, the final norm and the tied head stay on every pipe rank, as
+in the reference. ``fold_layers`` makes the decoder the one-stage fold,
+whose ``state_dict`` holds the reference's stacked layout
+(``gpt.decoder.ln_1__weight`` of shape ``[L, h]`` ...). The KV-cached
+routes need the plain decoder.
+
 The model is built on the device it is given, with weights drawn from an
 explicit ``torch.Generator``. Training calls ``model(ids, labels=...)``,
 which returns ``GPTPretrainingCriterion``'s loss; serving plugs into
@@ -45,6 +55,8 @@ from torch import nn
 from ... import tensor as T
 from ...device import resolve_device
 from ...distributed.fleet.layers import mpu
+from ...distributed.fleet.meta_parallel.pipeline_parallel import (
+    SpmdPipeline, _pipe_degree, fold_or_list, run_stack)
 from ...distributed.fleet.utils import recompute
 from ...distributed.fleet.utils import sequence_parallel_utils as spu
 from ...framework.io_state import load_numpy_state
@@ -58,20 +70,13 @@ from ...nn.layers.norm import LayerNorm, layer_norm_direct
 from ..generation import alloc_kv_caches, run_cached_generation
 from .llama import _cache_write, _decode_attention
 
-#: reference flags whose routes the port does not have yet, and the
-#: ROADMAP.md item that ports each
-_UNPORTED_FLAGS = {
-    "fold_layers": "§A.3 (one program over layer-stacked parameters)",
-}
-
 
 class GPTConfig:
     """Static model hyperparameters (the reference's ``GPTConfig``).
 
     ``use_flash_attention`` (default) takes the flash kernels on a CUDA
     tensor; False takes the dense attention (``_sdpa_reference``) on every
-    device. ``fold_layers`` raises ``NotImplementedError`` when set: the
-    port has no such route yet."""
+    device. ``fold_layers`` builds the decoder as the one-stage fold."""
 
     def __init__(
         self,
@@ -93,10 +98,6 @@ class GPTConfig:
         fold_layers: bool = False,
         recompute_granularity: str = "full",
     ):
-        if fold_layers:
-            raise NotImplementedError(
-                "GPTConfig(fold_layers=True): not ported yet, see "
-                f"ROADMAP.md {_UNPORTED_FLAGS['fold_layers']}")
         if hidden_act != "gelu":
             raise ValueError(f"hidden_act {hidden_act!r} not supported; "
                              "the port implements exact 'gelu'")
@@ -257,9 +258,21 @@ class GPTModel(Layer):
         super().__init__()
         self.config = config
         self.embeddings = GPTEmbeddings(config, **kw)
-        self.decoder = LayerList(
-            GPTDecoderLayer(config, **kw)
-            for _ in range(config.num_hidden_layers))
+        blocks = [GPTDecoderLayer(config, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        pp = _pipe_degree()
+        if pp > 1 and config.num_hidden_layers % pp == 0:
+            self.decoder = SpmdPipeline(
+                blocks, num_stages=pp, recompute_block=config.use_recompute,
+                recompute_granularity=config.recompute_granularity,
+                # per-model overrides; None defers to the strategy's
+                # pipeline_configs / PADDLE_TPU_PP_SCHEDULE
+                num_virtual_stages=getattr(config, "virtual_pp_degree", None),
+                schedule=getattr(config, "pp_schedule", None))
+        else:
+            self.decoder = fold_or_list(
+                blocks, config.fold_layers, recompute=config.use_recompute,
+                recompute_granularity=config.recompute_granularity)
         self.final_layernorm = LayerNorm(
             config.hidden_size, config.layer_norm_epsilon,
             device=kw["device"], dtype=kw["dtype"])
@@ -274,8 +287,7 @@ class GPTModel(Layer):
         x = self.embeddings(input_ids, position_ids)
         if self._sequence_parallel:
             x = spu.ScatterOp.apply(x)
-        for blk in self.decoder:
-            x = blk(x)
+        x = run_stack(self.decoder, x)
         return self.final_layernorm(x)
 
 
@@ -399,6 +411,10 @@ def _gpt_cached_forward(model: GPTModel, input_ids, caches,
                         pos: Optional[int]):
     """Hidden states ``[B, t, h]``: the prefill (``pos`` None) or one
     decode step, whose position id ``[1]`` broadcasts over the batch."""
+    if not isinstance(model.decoder, LayerList):
+        raise NotImplementedError(
+            "KV-cache decoding requires the non-pipelined decoder "
+            "(pp_degree=1); pipelined serving uses generate_padded")
     if pos is None:
         x = model.embeddings(input_ids)
     else:
@@ -428,6 +444,10 @@ class _GPTDecodeAdapter:
     each Python frame shows in the decode step (PERF.md section 6)."""
 
     def __init__(self, lm: GPTForCausalLM):
+        if not isinstance(lm.gpt.decoder, LayerList):
+            raise NotImplementedError(
+                "the decode engine requires the non-pipelined, unfolded "
+                "decoder (pp_degree=1, fold_layers=False)")
         cfg = lm.config
         self.lm = lm
         self.blocks = list(lm.gpt.decoder)

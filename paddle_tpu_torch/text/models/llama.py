@@ -30,9 +30,16 @@ through the port's ops of the same names: at O1 RMSNorm runs in f32, RoPE
 rotates bf16 q / k by the f32 tables, and the flash kernels take bf16; at
 O2 the tables are cast to bf16 too. ``use_recompute`` recomputes each
 decoder layer in the backward.
+
+``pp_degree > 1`` and ``fold_layers`` build ``layers`` as ``gpt.py``
+builds its decoder (a depth the pipe degree does not divide warns and
+runs unpipelined, as the reference does); the stacked state carries the
+RoPE tables as ``llama.layers.self_attn__rope_cos_stacked`` ``[L, T,
+d / 2]``.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Mapping, Optional
 
 import numpy as np
@@ -42,6 +49,8 @@ from torch import nn
 from ... import tensor as T
 from ...device import resolve_device
 from ...distributed.fleet.layers import mpu
+from ...distributed.fleet.meta_parallel.pipeline_parallel import (
+    SpmdPipeline, _pipe_degree, fold_or_list, run_stack)
 from ...distributed.fleet.utils import recompute
 from ...distributed.fleet.utils import sequence_parallel_utils as spu
 from ...framework.io_state import load_numpy_state
@@ -55,18 +64,10 @@ from ...nn.layers.norm import RMSNorm, rms_norm_direct
 from ...ops.flash_attention import flash_attention
 from ..generation import alloc_kv_caches, run_cached_generation
 
-#: reference flags whose routes the port does not have yet, and the
-#: ROADMAP.md item that ports each
-_UNPORTED_FLAGS = {
-    "fold_layers": "§A.3 (one program over layer-stacked parameters)",
-}
-
 
 class LlamaConfig:
-    """Static model hyperparameters (the reference's ``LlamaConfig``).
-
-    ``fold_layers`` raises ``NotImplementedError`` when set: the port has
-    no such route yet."""
+    """Static model hyperparameters (the reference's ``LlamaConfig``);
+    ``fold_layers`` builds ``layers`` as the one-stage fold."""
 
     def __init__(
         self,
@@ -87,10 +88,6 @@ class LlamaConfig:
         fold_layers: bool = False,
         recompute_granularity: str = "full",
     ):
-        if fold_layers:
-            raise NotImplementedError(
-                "LlamaConfig(fold_layers=True): not ported yet, see "
-                f"ROADMAP.md {_UNPORTED_FLAGS['fold_layers']}")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         # Llama SwiGLU sizing: 8/3 * h rounded up to a multiple of 256
@@ -273,9 +270,24 @@ class LlamaModel(Layer):
         self.embed_tokens = mpu.VocabParallelEmbedding(
             config.vocab_size, config.hidden_size,
             init_std=config.initializer_range, **kw)
-        self.layers = LayerList(
-            LlamaDecoderLayer(config, **kw)
-            for _ in range(config.num_hidden_layers))
+        blocks = [LlamaDecoderLayer(config, **kw)
+                  for _ in range(config.num_hidden_layers)]
+        pp = _pipe_degree()
+        if pp > 1 and config.num_hidden_layers % pp == 0:
+            self.layers = SpmdPipeline(
+                blocks, num_stages=pp, recompute_block=config.use_recompute,
+                recompute_granularity=config.recompute_granularity,
+                num_virtual_stages=getattr(config, "virtual_pp_degree", None),
+                schedule=getattr(config, "pp_schedule", None))
+        else:
+            if pp > 1:
+                warnings.warn(
+                    f"num_hidden_layers={config.num_hidden_layers} not "
+                    f"divisible by pp_degree={pp}: Llama decoder runs "
+                    "WITHOUT pipeline partitioning")
+            self.layers = fold_or_list(
+                blocks, config.fold_layers, recompute=config.use_recompute,
+                recompute_granularity=config.recompute_granularity)
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=kw["device"], dtype=kw["dtype"])
         spu.mark_sequence_parallel_layers(config.sequence_parallel,
@@ -289,8 +301,7 @@ class LlamaModel(Layer):
         x = self.embed_tokens(input_ids)
         if self._sequence_parallel:
             x = spu.ScatterOp.apply(x)
-        for blk in self.layers:
-            x = blk(x)
+        x = run_stack(self.layers, x)
         return self.norm(x)
 
 
@@ -458,6 +469,10 @@ def _llama_cached_forward(model: LlamaModel, input_ids, caches,
                           pos: Optional[int]):
     """Hidden states ``[B, t, h]``: the prefill over the prompt (``pos``
     None) or one decode step at position ``pos``."""
+    if not isinstance(model.layers, LayerList):
+        raise NotImplementedError(
+            "KV-cache decoding requires the non-pipelined decoder "
+            "(pp_degree=1); pipelined serving uses generate_padded")
     x = model.embed_tokens(input_ids)
     for blk, cache in zip(model.layers, caches):
         x = _layer_step(blk, x, cache, pos)
@@ -479,6 +494,10 @@ class _LlamaDecodeAdapter:
     prefill buckets and per-slot decode share one code path."""
 
     def __init__(self, lm: LlamaForCausalLM):
+        if not isinstance(lm.llama.layers, LayerList):
+            raise NotImplementedError(
+                "the decode engine requires the non-pipelined, unfolded "
+                "decoder (pp_degree=1, fold_layers=False)")
         cfg = lm.config
         self.lm = lm
         self.blocks = list(lm.llama.layers)

@@ -194,8 +194,16 @@ def test_mask_is_the_reference_additive_mask():
 
 @pytest.mark.parametrize("cfg", [tbert.BertConfig, ternie.ErnieConfig])
 def test_fold_layers_raises(cfg):
-    with pytest.raises(NotImplementedError, match="§A.3"):
-        cfg(fold_layers=True)
+    """``fold_layers`` raised until the fold was ported (ROADMAP §A.3, now
+    done): the config takes it, and the encoder is the one-stage fold
+    (tests/test_torch_fold_layers.py holds it against the reference)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import SpmdPipeline
+
+    config = cfg(hidden_size=16, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=32, vocab_size=32, fold_layers=True)
+    model = (tbert.BertModel if cfg is tbert.BertConfig
+             else ternie.ErnieModel)(config, device="cpu")
+    assert config.fold_layers and isinstance(model.encoder, SpmdPipeline)
 
 
 def test_encoder_takes_the_flash_route_with_the_padding_bias(monkeypatch):

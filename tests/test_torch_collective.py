@@ -181,3 +181,36 @@ def test_backend_world_groups_and_counts(port):
         counts = port[r]["counts"]
         assert counts["all_reduce"] == 3 * 8 + (1 if member else 0)
         assert counts["batch_isend_irecv"] == 3
+        # send / recv / batch_isend_irecv ran on CPU tensors: nothing was
+        # staged through the host
+        assert counts["send" if r % 2 == 0 else "recv"] == 3
+        assert counts.get("p2p_staged_bytes", 0) == 0
+
+
+class _CudaStandIn:
+    """What the staging choice reads of a CUDA tensor."""
+
+    is_cuda = True
+
+
+@pytest.mark.parametrize("backend, cuda, staged", [
+    ("gloo", True, True), ("nccl", True, False), ("gloo", False, False),
+    ("nccl", False, False)])
+def test_point_to_point_staging_is_chosen_by_backend(monkeypatch, backend,
+                                                     cuda, staged):
+    """A CUDA tensor on a gloo group goes through a pinned host buffer
+    (gloo's send hands the pointer to its socket); on NCCL it passes as
+    it is, and a CPU tensor is never staged. The choice reads the
+    group's backend (the staging itself runs on the card, chip_smoke.py
+    phase 41, which counts its bytes)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective as C
+
+    monkeypatch.setattr(C.dist, "get_backend", lambda pg: pg)
+    t = _CudaStandIn() if cuda else torch.ones(2)
+    assert C._host_staged(t, backend) is staged
+    if not cuda:
+        before = dict(C.counts)
+        buf, then = C._p2p_buffer(t, backend, True)
+        assert buf is t and then is None and dict(C.counts) == before

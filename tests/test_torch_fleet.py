@@ -359,9 +359,17 @@ def test_distributed_batch_sampler_defaults_to_the_data_axes(runs):
     ("lamb", "§A.3"), ("auto_plan", "§A.7")])
 def test_unported_knobs_raise(knob, item):
     """Each raises in fleet.init, before any process group is set up, and
-    in distributed_optimizer."""
+    in distributed_optimizer. pp_degree > 1 raised until pipeline
+    parallelism was ported (tests/test_torch_pipeline.py): the strategy
+    check passes it now."""
+    from paddle_tpu_torch.distributed.fleet.strategy import check_ported
+
     s = fleet.DistributedStrategy()
-    if knob in ("pp", "sep"):
+    if knob == "pp":
+        s.hybrid_configs["pp_degree"] = 2
+        check_ported(s)
+        return
+    if knob == "sep":
         s.hybrid_configs[f"{knob}_degree"] = 2
     elif knob == "stage3":
         s.sharding_configs["stage"] = 3

@@ -378,8 +378,13 @@ def test_unported_flags_raise(flag, item):
         with pytest.raises(NotImplementedError, match=rf"sep_degree.*{item}"):
             fleet.init(is_collective=True, strategy=strategy)
         return
-    with pytest.raises(NotImplementedError, match=rf"{flag}.*{item}"):
-        tllama.LlamaConfig(**{flag: True})
+    # fold_layers raised until the fold was ported (ROADMAP §A.3, now
+    # done; tests/test_torch_fold_layers.py holds it against the reference)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import SpmdPipeline
+
+    cfg = tllama.LlamaConfig(**tiny_llama_kwargs(**{flag: True}))
+    model = tllama.LlamaForCausalLM(cfg, device="cpu")
+    assert isinstance(model.llama.layers, SpmdPipeline)
 
 
 def test_bridge_rejects_missing_rope_table(bridged):

@@ -210,10 +210,9 @@ def test_config_accepts_the_reference_fields(model):
     for k in fields:
         assert getattr(got, k) == getattr(want, k), k
     # sequence parallelism is ported (a no-op at mp degree 1, as in the
-    # reference); fold_layers still raises naming its ROADMAP item
+    # reference); so is fold_layers (tests/test_torch_fold_layers.py)
     assert tcfg(**kwargs(), sequence_parallel=True).sequence_parallel
-    with pytest.raises(NotImplementedError, match=r"fold_layers.*A.3"):
-        tcfg(fold_layers=True)
+    assert tcfg(**kwargs(), fold_layers=True).fold_layers
     with pytest.raises(ValueError, match="granularity"):
         _port(model, None, use_recompute=True,
               recompute_granularity="selective")(

@@ -310,31 +310,65 @@ def _rank_main(fn, out_dir, *args):
 FLEET_LR = 1e-3
 
 
-def fleet_adamw(params, opt_mod, clip, multi_precision=False):
+def fleet_adamw(params, opt_mod, clip, multi_precision=False,
+                clip_norm=1.0):
     """The AdamW of the fleet trajectories (both packages)."""
     kw = dict(multi_precision=True) if multi_precision else {}
     return opt_mod.AdamW(learning_rate=FLEET_LR, beta1=0.9, beta2=0.95,
                          epsilon=1e-8, parameters=params, weight_decay=0.1,
-                         grad_clip=clip(1.0), **kw)
+                         grad_clip=clip(clip_norm), **kw)
 
 
-def port_model(kind, state, sequence_parallel=False):
+def port_model(kind, state, sequence_parallel=False, **kw):
     """The port's tiny GPT (``kind`` "gpt", vocab 64) or Llama (G = 2) on
-    the CPU, built after ``fleet.init`` if any, carrying the full
-    reference ``state``."""
+    the CPU, built after ``fleet.init`` if any (``kw`` overrides the
+    config), carrying the full reference ``state`` (unfolded names; a
+    folded or pipelined stack takes it stacked, :func:`to_stacked`)."""
     if kind == "gpt":
         from paddle_tpu_torch.text.models.gpt import GPTConfig as C
         from paddle_tpu_torch.text.models.gpt import GPTForCausalLM as M
 
         cfg = C(**tiny_gpt_kwargs(vocab_size=64,
-                                  sequence_parallel=sequence_parallel))
+                                  sequence_parallel=sequence_parallel, **kw))
     else:
         from paddle_tpu_torch.text.models.llama import LlamaConfig as C
         from paddle_tpu_torch.text.models.llama import LlamaForCausalLM as M
 
         cfg = C(**tiny_llama_kwargs(vocab_size=64,
-                                    sequence_parallel=sequence_parallel))
-    return M(cfg, device="cpu").load_numpy_state(state)
+                                    sequence_parallel=sequence_parallel,
+                                    **kw))
+    m = M(cfg, device="cpu")
+    return m.load_numpy_state(to_stacked(m, state))
+
+
+def _stacks(model):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import SpmdPipeline
+
+    return [(f"{p}." if p else "", m) for p, m in model.named_modules()
+            if isinstance(m, SpmdPipeline)]
+
+
+def to_stacked(model, state):
+    """An unfolded state (``{prefix}.{layer}.{leaf}``) in the stacked
+    layout of ``model``'s stacks (``{prefix}.{leaf with __}`` of shape
+    ``[L, ...]``, layers in the stack's ``_layer_order``)."""
+    out = dict(state)
+    for prefix, m in _stacks(model):
+        for leaf, key in m._leaves:
+            per = [out.pop(f"{prefix}{i}.{leaf}") for i in range(m.num_layers)]
+            out[prefix + key] = np.stack([per[i] for i in m._layer_order])
+    return out
+
+
+def from_stacked(model, state):
+    """The inverse of :func:`to_stacked` on a full (gathered) state."""
+    out = dict(state)
+    for prefix, m in _stacks(model):
+        for leaf, key in m._leaves:
+            full = np.asarray(out.pop(prefix + key))
+            for pos, layer in enumerate(m._layer_order):
+                out[f"{prefix}{layer}.{leaf}"] = full[pos]
+    return out
 
 
 def fleet_job(job, state, batch):
@@ -505,8 +539,142 @@ def api_job(job, state, batch):
     return out
 
 
+def _pp_strategy(job):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=job.get("dp", -1),
+                            mp_degree=job.get("mp", 1),
+                            pp_degree=job["pp"],
+                            sharding_degree=job.get("sharding", 1))
+    s.pipeline_configs.update(schedule=job.get("schedule", "gpipe"),
+                              virtual_pp_degree=job.get("vpp", 1),
+                              accumulate_steps=job.get("acc", 1))
+    return s
+
+
+def pipeline_job(job, state, batch):
+    """One pipelined ``DistTrainStep`` trajectory on this rank (the tiny
+    model at ``job["layers"]`` layers, ``fleet.init`` at the job's pp /
+    dp / mp / sharding and schedule). Returns the losses, the gathered
+    full state (unfolded names and the stacked one), this rank's
+    parameters replicated over pp, its coordinates and the schedule runner's
+    counts."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        pipeline_parallel as pp)
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+
+    fleet.init(is_collective=True, strategy=_pp_strategy(job))
+    model = port_model(job["model"], state, job.get("sp", False),
+                       num_hidden_layers=job["layers"],
+                       use_recompute=job.get("use_recompute", False))
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm,
+                      clip_norm=job.get("clip", 1.0))
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    if "mask" in batch:
+        def loss_fn(m, i, lab, k):
+            return m(i, labels=lab, loss_mask=k)
+    else:
+        def loss_fn(m, i, lab):
+            return m(i, labels=lab)
+    step = fleet.DistTrainStep(model, loss_fn, opt)
+    args = [torch.from_numpy(batch[k]) for k in ("ids", "labels", "mask")
+            if k in batch]
+    collective.reset_counts()
+    pp.reset_counts()
+    losses = [float(step(*args)) for _ in range(job.get("steps", 3))]
+    hcg = fleet.get_hybrid_communicate_group()
+    stacked = {k: v.float().numpy()
+               for k, v in gather_full_state(model).items()}
+    out = dict(
+        losses=losses, stacked=stacked, full=from_stacked(model, stacked),
+        replicated={n: p.detach().numpy() for n, p in model.named_parameters()
+                    if not pp.is_pipeline_local(p)},
+        stage=hcg.get_stage_id(), mp_rank=hcg.get_model_parallel_rank(),
+        counts=dict(pp.counts),
+        staged=collective.counts.get("p2p_staged_bytes", 0),
+        p2p=collective.counts.get("batch_isend_irecv", 0))
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+PIPE_LM = dict(vocab=64, hidden=16, blocks=4)
+
+
+def pipe_layer_lm(pkg):
+    """``(descs, loss_fn)`` of a small LM as a ``PipelineLayer`` list in
+    ``pkg`` (``paddle_tpu`` or ``paddle_tpu_torch``): a shared embedding,
+    PIPE_LM["blocks"] residual tanh blocks, the embedding again as the
+    tied head (``SharedLayerDesc``'s ``forward_func``), mean token cross
+    entropy."""
+    nn, F = pkg.nn, pkg.nn.functional
+    mp = pkg.distributed.fleet.meta_parallel
+    v, h = PIPE_LM["vocab"], PIPE_LM["hidden"]
+
+    class Block(nn.Layer):
+        def __init__(self, width):
+            super().__init__()
+            self.fc = nn.Linear(width, width)
+
+        def forward(self, x):
+            return x + F.tanh(self.fc(x))
+
+    def head(emb, x):
+        return pkg.matmul(x, emb.weight, transpose_y=True)
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape([-1, v]), labels.reshape([-1]))
+
+    descs = ([mp.SharedLayerDesc("emb", nn.Embedding, None, "weight", v, h)]
+             + [mp.LayerDesc(Block, h) for _ in range(PIPE_LM["blocks"])]
+             + [mp.SharedLayerDesc("emb", nn.Embedding, head, "weight", v,
+                                   h)])
+    return descs, loss_fn
+
+
+def pipeline_layer_job(job, state, batch):
+    """``PipelineLayer`` -> ``distributed_model`` (``PipelineParallel``) ->
+    ``train_batch`` at pp 2, then ``eval_batch`` with and without the
+    loss."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpar
+    from paddle_tpu_torch.framework.io_state import (gather_full_state,
+                                                     load_numpy_state)
+
+    fleet.init(is_collective=True, strategy=_pp_strategy(job))
+    descs, loss_fn = pipe_layer_lm(paddle)
+    model = mpar.PipelineLayer(descs, loss_fn=loss_fn)
+    load_numpy_state(model, state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    wrapped = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    x, y = (torch.from_numpy(batch[k]) for k in ("ids", "labels"))
+    losses = [float(wrapped.train_batch((x, y), opt)) for _ in range(3)]
+    ev = wrapped.eval_batch((x, y))
+    logits = wrapped.eval_batch((x, y), compute_loss=False)
+    out = dict(losses=losses, eval_loss=float(ev),
+               logits=None if logits is None else logits.numpy(),
+               wrapper=type(wrapped).__name__,
+               kinds=[type(s).__name__ for s in model._segments],
+               stage=fleet.get_hybrid_communicate_group().get_stage_id(),
+               full={k: v.numpy() for k, v in
+                     gather_full_state(model).items()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
 JOB_KINDS = {"train": fleet_job, "data_parallel": data_parallel_job,
-             "group_sharded": group_sharded_job, "api": api_job}
+             "group_sharded": group_sharded_job, "api": api_job,
+             "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job}
 
 
 def fleet_jobs(jobs, state_of, batch_of):
