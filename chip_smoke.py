@@ -219,13 +219,31 @@ Phases, each fatal on failure (non-zero exit, no final line):
    K2b launches (144 at 24 layers), the staged bytes equal to the chunk
    boundaries' activations and cotangents, the replicated gradients summed
    once a step, ``schedule_info``'s bubble fractions beside the step ms;
-42. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+42. the sep axis, two processes on the one card over gloo: (a) the ring
+   at GPT-3 1.3B's attention shape (B 2, T 2048, H 16, D 128, causal) at
+   sep 2, f32 and bf16, on the kernels (K1 per visible block, K2a / K2b
+   with the merged lse) against the plain ring on the same blocks in f32,
+   forward and the three gradients, and the gathered output against K1
+   on the whole sequence; (b) GPT-3 1.3B at 24 layers at sep 2 through
+   ``DistTrainStep`` for 3 steps on phase 7's weights and batch, its
+   losses against phase 7's within ``TRAIN_LOSS_RTOL``, each rank's K1 /
+   K2a / K2b launches (24 x 3 x its ring blocks: 1 on rank 0, 2 on rank
+   1), its staged bytes equal to the K/V arithmetic, step ms and peak;
+43. expert parallelism: Mixtral 8x7B's MoE block on the capacity path
+   at EP 2 (over sharding, 4 experts a rank) on the same two processes,
+   3 steps through ``DistTrainStep`` against a single-process
+   ``TrainStep`` on the same weights and batch: losses within
+   ``TRAIN_LOSS_RTOL``, each rank's expert slice by phase 8's rule, the
+   ``global_scatter`` / ``global_gather`` bytes equal to the ``[E, C,
+   h]`` arithmetic, step ms and peak;
+44. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
-   (phases 40-41), a ``kernels`` JSON line (the GPT, encoder and MoE
-   shapes, the K1 / K2 rows with their launches in phases 38-41; no TPU
-   kernel lies on the vision path), then the result line.
+   (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a ``kernels``
+   JSON line (the GPT, encoder and MoE shapes, the K1 / K2 rows with
+   their launches in phases 38-42; no TPU kernel lies on the vision path
+   or the capacity MoE path), then the result line.
 """
 from __future__ import annotations
 
@@ -4150,10 +4168,12 @@ def param_gap(got, want):
     return dmax, far, total
 
 
-def check_param_gap(gap, steps, what):
+def check_param_gap(gap, steps, what, lr=ADAMW["learning_rate"]):
+    """Phase 8's rule: max |d| within twice AdamW's move over ``steps`` at
+    learning rate ``lr``, at most 1% of the elements beyond
+    LOCKSTEP_PARAM_ATOL."""
     dmax, far, total = gap
-    if not (dmax <= 2 * ADAMW["learning_rate"] * steps
-            and far <= 0.01 * total):
+    if not (dmax <= 2 * lr * steps and far <= 0.01 * total):
         raise AssertionError(f"{what}: parameters differ from TrainStep "
                              f"(max {dmax}, {far}/{total} beyond)")
 
@@ -4473,6 +4493,425 @@ def phases_pipeline(fa, smi, trained):
             "card": smi}
 
 
+# -- phases 42-43: the sep axis and expert parallelism ------------------------
+
+# phase 42a's ring: GPT-3 1.3B's attention at phase 7's batch, split in two
+SEP_RING = dict(b=TRAIN_BATCH, t=TRAIN_SEQ, h=16, d=128)
+SEP_DEGREE = 2
+SEP_LAYERS = 24
+# phase 43: Mixtral 8x7B's MoE block on the capacity path, experts split
+# over sharding 2 (4 a rank)
+EP_DEGREE = 2
+EP_CAPACITY_FACTOR = 1.25
+
+
+def ring_blocks(shape, dtype, device, n, rank):
+    """Global causal-attention inputs q, k, v, dO ``[B, T, H, D]`` from one
+    seeded generator (the same on every rank) and this rank's contiguous
+    blocks of them."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    full = [torch.randn((shape["b"], shape["t"], shape["h"], shape["d"]),
+                        generator=gen, device=device).to(dtype)
+            for _ in range(4)]
+    tl = shape["t"] // n
+    return full, [x[:, rank * tl:(rank + 1) * tl].contiguous() for x in full]
+
+
+def ring_run(fn, blocks, group):
+    """``fn``'s output and q / k / v gradients under dO on one rank."""
+    q, k, v = (x.detach().clone().requires_grad_() for x in blocks[:3])
+    o = fn(q, k, v, group, causal=True)
+    o.backward(blocks[3])
+    return [o.detach(), q.grad, k.grad, v.grad]
+
+
+def staged_per_step(layers, n, b, tl, h, d):
+    """Bytes a rank stages through pinned host memory in one f32 training
+    step of ``layers`` ring attentions at sep ``n``: every rotation stages
+    its send and its receive; the forward rotates K/V ``n - 1`` times, the
+    backward (which keeps the blocks received) their f32 dK / dV ``n - 1``
+    times."""
+    kv = 2 * b * tl * h * d * 4
+    return layers * 2 * 2 * (n - 1) * kv
+
+
+def build_ep_moe(dim, hidden, device=None):
+    """Phase 11's regressor on the capacity path (``drop_tokens=True``),
+    built after ``fleet.init`` when one is in force (its experts then
+    split over the expert axis)."""
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.initializer import XavierNormal
+
+    dev = device or DEVICE
+
+    class MoERegressor(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            self.moe = MoELayer(dim, hidden, MOE_EXPERTS, top_k=MOE_TOP_K,
+                                capacity_factor=EP_CAPACITY_FACTOR,
+                                device=dev, generator=gen)
+            self.head = Linear(dim, 1, device=dev, generator=gen,
+                               weight_init=XavierNormal())
+
+        def forward(self, x):
+            return self.head(self.moe(x))
+
+    return MoERegressor()
+
+
+def _rank_sep_ep(out_dir, trained_losses, spec):
+    """One rank of phases 42-43 (run by ``paddle.distributed.spawn``), its
+    results pickled to ``out_dir``. 42a: the kernel ring against the plain
+    ring at SEP_RING, f32 and bf16, and (rank 0) the gathered output
+    against K1 on the whole sequence; 42b: GPT-3 1.3B at SEP_LAYERS layers
+    through ``DistTrainStep`` at sep 2, then (rank 0) a single-process
+    ``TrainStep`` on the same weights and batch; 43: the capacity MoE block
+    at EP 2 through ``DistTrainStep``, then (each rank) a single-process
+    ``TrainStep`` on the same weights and batch. ``spec``: the device, and
+    for a rehearsal a tiny ``GPTConfig`` dict, ring shape, MoE widths and
+    a ``prepare`` function the child runs first."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.functional import ring_attention as ra
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    device = spec["device"]
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if spec.get("prepare"):
+        spec["prepare"]()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend()}
+
+    # -- 42a: the ring on the kernels against the plain ring
+    fleet_init(sep_degree=SEP_DEGREE)
+    group = fleet.get_hybrid_communicate_group().get_sep_parallel_group()
+    shape = spec.get("ring", SEP_RING)
+    ring = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        full, blocks = ring_blocks(shape, dtype, device, SEP_DEGREE,
+                                   group.rank)
+        got = ring_run(ra.ring_flash_attention, blocks, group)
+        # the plain ring on the same values in f32 (the exact math)
+        want = ring_run(ra.ring_flash_attention_plain,
+                        [x.float() for x in blocks], group)
+        sync()
+        errs = {name: _rel(g, w) for name, g, w in
+                zip(("o", "dq", "dk", "dv"), got, want)}
+        gathered = dist.all_gather(None, got[0].contiguous(), group=group)
+        whole = None
+        if rank == 0:
+            o_full, _ = fa.flash_attention_forward_cuda(*full[:3],
+                                                        causal=True)
+            whole = _rel(torch.cat(gathered, dim=1), o_full)
+        times = {}
+        for route, fn, ins in (
+                ("kernels", ra.ring_flash_attention, blocks),
+                ("plain", ra.ring_flash_attention_plain,
+                 [x.float() for x in blocks])):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            ring_run(fn, ins, group)
+            sync()
+            times[route] = 1e3 * (time.perf_counter() - t0)
+        ring[str(dtype)[6:]] = dict(errs=errs, whole=whole, ms=times,
+                                    shape=shape)
+        del full, blocks, got, want, gathered
+    out["ring"] = ring
+    fleet.topology.set_hybrid_communicate_group(None)
+
+    # -- 42b: GPT-3 1.3B at sep 2 through DistTrainStep
+    def build(layers):
+        if spec.get("model") is None:
+            return build_model(layers)
+        from paddle_tpu_torch.text.models.gpt import (GPTConfig,
+                                                      GPTForCausalLM)
+
+        return GPTForCausalLM(GPTConfig(**dict(
+            spec["model"], num_hidden_layers=layers)), device=device,
+            seed=SEED)
+
+    fleet_init(sep_degree=SEP_DEGREE)
+    model = build(SEP_LAYERS)
+    step = dist_trainer(model)[0]
+    ids, labels = train_batch(model.config.vocab_size)
+    reset_peak()
+    reset_flash(fa)
+    collective.reset_counts()
+    losses, step_ms = timed_steps(step, (ids, labels), LOCKSTEP_STEPS, sync)
+    cfg = model.config
+    heads = cfg.num_attention_heads
+    full = gather_full_state(model)
+    out["sep"] = dict(
+        losses=losses, step_ms=step_ms, peak_gib=peak_gib(),
+        launches={k: getattr(fa, f"launches_{k}")
+                  for k in ("fwd", "dq", "dkv")},
+        sep_rank=group.rank,
+        staged_bytes=collective.counts.get("p2p_staged_bytes", 0),
+        staged_want=staged_per_step(
+            SEP_LAYERS, SEP_DEGREE, ids.shape[0],
+            ids.shape[1] // SEP_DEGREE, heads,
+            cfg.hidden_size // heads) * LOCKSTEP_STEPS,
+        rotations=collective.counts.get("batch_isend_irecv", 0),
+        digests={k: v.double().sum().item() for k, v in full.items()},
+        ref_losses=list(trained_losses[:LOCKSTEP_STEPS]))
+    del step, model
+    fleet.topology.set_hybrid_communicate_group(None)
+    reset_peak()
+    if rank == 0:
+        # the same weights and batch through a single-process TrainStep
+        ref = build(SEP_LAYERS)
+        ref_step, ref_opt = trainer(ref)
+        timed_steps(ref_step, (ids, labels), LOCKSTEP_STEPS, sync)
+        out["sep"]["param_gap"] = param_gap(
+            full, {n: p.detach() for n, p in ref.named_parameters()})
+        del ref_step, ref_opt, ref
+    del full
+    reset_peak()
+    dist.barrier()
+
+    # -- 43: the capacity MoE block at EP 2 through DistTrainStep
+    dim, hidden = spec.get("moe", (MOE_DIM, MOE_HIDDEN))
+    fleet_init(sharding_degree=EP_DEGREE)
+    hcg = fleet.get_hybrid_communicate_group()
+    model = build_ep_moe(dim, hidden, device)
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **MOE_ADAMW)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(model, moe_loss, opt)
+    rng = np.random.default_rng(SEED + 43)
+    x = torch.as_tensor(rng.standard_normal(
+        (TRAIN_BATCH, TRAIN_SEQ, dim), np.float32), device=device)
+    y = torch.as_tensor(rng.standard_normal(
+        (TRAIN_BATCH, TRAIN_SEQ, 1), np.float32), device=device)
+    reset_peak()
+    collective.reset_counts()
+    losses, step_ms = timed_steps(step, (x, y), LOCKSTEP_STEPS, sync)
+    er = hcg.get_expert_parallel_rank()
+    el = MOE_EXPERTS // EP_DEGREE
+    g = TRAIN_BATCH * TRAIN_SEQ
+    cap = max(MOE_TOP_K, int(np.ceil(MOE_TOP_K * EP_CAPACITY_FACTOR * g
+                                     / MOE_EXPERTS)))
+    ep = dict(
+        losses=losses, step_ms=step_ms, peak_gib=peak_gib(),
+        expert_rank=er, expert_axis=hcg.get_expert_parallel_axis(),
+        local_experts=int(model.moe.w_in.shape[0]),
+        scatter_bytes=collective.counts.get("global_scatter_bytes", 0),
+        gather_bytes=collective.counts.get("global_gather_bytes", 0),
+        # a step sends the [E, C, h] buffer out (global_scatter) and its
+        # output back (global_gather); the backward returns the output's
+        # cotangent (global_gather's backward) and, only when the block's
+        # input takes a gradient, the buffer's (not here: x is data)
+        scatter_want=MOE_EXPERTS * cap * dim * 4 * LOCKSTEP_STEPS,
+        gather_want=2 * MOE_EXPERTS * cap * dim * 4 * LOCKSTEP_STEPS,
+        capacity=cap)
+    mine = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del step, opt, model
+    fleet.topology.set_hybrid_communicate_group(None)
+    reset_peak()
+    ref = build_ep_moe(dim, hidden, device)
+    ref_opt = AdamW(parameters=ref.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0), **MOE_ADAMW)
+    ref_step = TrainStep(ref, moe_loss, ref_opt)
+    ep["ref_losses"], ep["ref_step_ms"] = timed_steps(
+        ref_step, (x, y), LOCKSTEP_STEPS, sync)
+    want = {}
+    for n, p in ref.named_parameters():
+        w = p.detach()
+        if n.startswith("moe.") and n != "moe.gate.weight" and \
+                n != "moe.gate.bias":
+            w = w[er * el:(er + 1) * el]
+        want[n] = w
+    ep["param_gap"] = param_gap(mine, want)
+    gate = ("moe.gate.weight", "moe.gate.bias")
+    ep["gate_gap"] = param_gap({n: mine[n] for n in gate},
+                               {n: want[n] for n in gate})
+    out["ep"] = ep
+    del ref_step, ref_opt, ref, mine, want, x, y
+    reset_peak()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phases_sep_ep(fa, smi, trained, timeout=900, spec=None):
+    """Phases 42-43, two processes on the one card over gloo (point to
+    point staged through pinned host buffers). Phase 42: the ring at
+    GPT-3 1.3B's attention shape (kernels against the plain ring, the
+    gathered output against K1 on the whole sequence), then GPT-3 1.3B at
+    SEP_LAYERS layers at sep 2 against phase 7's ``TrainStep`` losses on
+    the same weights and batch, the parameters (each leaf's sum equal on
+    both ranks) against a single-process ``TrainStep``'s by phase 8's
+    rule, each rank's K1 / K2a / K2b launches (rank ``r`` runs ``r + 1``
+    ring blocks a layer) and its staged bytes against the K/V
+    arithmetic. Phase 43: Mixtral 8x7B's MoE block on the capacity path
+    at EP 2 (over sharding) against a single-process ``TrainStep``:
+    losses, each rank's expert slice by phase 8's rule at MOE_ADAMW's
+    rate, every element of the gate's leaves within LOCKSTEP_PARAM_ATOL,
+    the exchange's bytes against the ``[E, C, h]`` arithmetic. Returns the
+    ``sep_ep`` JSON line's numbers."""
+    import os
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    spec = spec or {"device": DEVICE}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sep_ep_")
+    t0 = time.perf_counter()
+    ctx = dist.spawn(_rank_sep_ep, (tmp, trained["losses"], spec), nprocs=2,
+                     join=False, backend="gloo",
+                     master=f"file://{tmp}/rendezvous")
+    join_spawned(ctx, timeout)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    a, b = res
+    out = {"seconds": secs, "backend": a["backend"], "card": smi}
+
+    # 42a
+    for dt, ra_ in a["ring"].items():
+        tol = FLASH_TOL[getattr(torch, dt)]
+        for r, rr in enumerate((ra_, b["ring"][dt])):
+            sh = rr["shape"]
+            log(f"# phase 42a: ring {dt} B={sh['b']} T={sh['t']} "
+                f"H={sh['h']} D={sh['d']} sep {SEP_DEGREE} rank "
+                f"{r}: kernels vs plain ring rel "
+                + ", ".join(f"{k} {v[1]:.1e}" for k, v in rr["errs"].items())
+                + f" (tol {tol:.1e}); ms kernels {rr['ms']['kernels']:.1f} "
+                f"plain {rr['ms']['plain']:.1f} (forward + backward, host "
+                f"staged rotations)  [{smi}]")
+            for k, (err, rel) in rr["errs"].items():
+                if not rel <= tol:
+                    raise AssertionError(f"phase 42a: {dt} rank {r} {k} "
+                                         f"differs: {rel} > {tol}")
+        err, rel = ra_["whole"]
+        log(f"# phase 42a: {dt} gathered ring output vs K1 on the whole "
+            f"sequence: rel {rel:.1e} (tol {tol:.1e})")
+        if not rel <= tol:
+            raise AssertionError(f"phase 42a: {dt} ring differs from K1")
+    out["ring"] = {"rank0": a["ring"], "rank1": b["ring"]}
+
+    # 42b
+    sa, sb = a["sep"], b["sep"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(sa["losses"],
+                                                  sa["ref_losses"]))
+    log(f"# phase 42b: GPT-3 1.3B ({SEP_LAYERS} layers) at sep "
+        f"{SEP_DEGREE}, {TRAIN_BATCH} x {TRAIN_SEQ}: losses {sa['losses']} "
+        f"vs phase 7's TrainStep {sa['ref_losses']} (rel {rel:.2e}); step "
+        f"ms rank 0 {[round(t, 1) for t in sa['step_ms']]} rank 1 "
+        f"{[round(t, 1) for t in sb['step_ms']]}; peak {sa['peak_gib']:.2f}"
+        f" / {sb['peak_gib']:.2f} GiB; launches rank 0 {sa['launches']} "
+        f"rank 1 {sb['launches']}; staged {sa['staged_bytes']} / "
+        f"{sb['staged_bytes']} B (K/V arithmetic {sa['staged_want']} B); "
+        f"params vs TrainStep max |d| {sa['param_gap'][0]:.2e}, "
+        f"{sa['param_gap'][1]}/{sa['param_gap'][2]} beyond "
+        f"{LOCKSTEP_PARAM_ATOL}  [{smi}]")
+    if sa["losses"] != sb["losses"]:
+        raise AssertionError("phase 42b: the ranks' losses differ")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 42b: losses differ from TrainStep")
+    if sa["digests"] != sb["digests"]:
+        raise AssertionError("phase 42b: the sep ranks' parameters differ")
+    check_param_gap(sa["param_gap"], LOCKSTEP_STEPS, "phase 42b")
+    for s_ in (sa, sb):
+        blocks = s_["sep_rank"] + 1
+        want = SEP_LAYERS * blocks * LOCKSTEP_STEPS
+        if any(n != want for n in s_["launches"].values()):
+            raise AssertionError(f"phase 42b: launches {s_['launches']} != "
+                                 f"{SEP_LAYERS} x {blocks} x "
+                                 f"{LOCKSTEP_STEPS}")
+        if spec["device"] == "cuda" and \
+                s_["staged_bytes"] != s_["staged_want"]:
+            raise AssertionError(f"phase 42b: staged {s_['staged_bytes']} "
+                                 f"B != {s_['staged_want']} B")
+    out["sep_1p3b"] = dict(
+        {k: sa[k] for k in ("losses", "ref_losses", "step_ms", "peak_gib",
+                            "launches", "staged_bytes", "staged_want")},
+        rel=rel, param_max=sa["param_gap"][0], param_far=sa["param_gap"][1],
+        rank1_step_ms=sb["step_ms"], rank1_peak_gib=sb["peak_gib"],
+        rank1_launches=sb["launches"],
+        rank1_staged_bytes=sb["staged_bytes"],
+        staged_per_step=sa["staged_bytes"] // LOCKSTEP_STEPS)
+
+    # 43
+    ea, eb = a["ep"], b["ep"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(ea["losses"],
+                                                  ea["ref_losses"]))
+    log(f"# phase 43: Mixtral 8x7B MoE block (capacity path, "
+        f"{MOE_EXPERTS} experts, top-{MOE_TOP_K}, C={ea['capacity']}) at EP "
+        f"{EP_DEGREE} over {ea['expert_axis']}: losses {ea['losses']} vs "
+        f"TrainStep {ea['ref_losses']} (rel {rel:.2e}); params max |d| "
+        f"{ea['param_gap'][0]:.2e} / {eb['param_gap'][0]:.2e}, "
+        f"{ea['param_gap'][1]} + {eb['param_gap'][1]} beyond "
+        f"{LOCKSTEP_PARAM_ATOL} (gate max |d| {ea['gate_gap'][0]:.2e} / "
+        f"{eb['gate_gap'][0]:.2e}); step ms rank 0 "
+        f"{[round(t, 1) for t in ea['step_ms']]} rank 1 "
+        f"{[round(t, 1) for t in eb['step_ms']]} (TrainStep "
+        f"{[round(t, 1) for t in ea['ref_step_ms']]}); peak "
+        f"{ea['peak_gib']:.2f} / {eb['peak_gib']:.2f} GiB; global_scatter "
+        f"{ea['scatter_bytes']} B, global_gather {ea['gather_bytes']} B "
+        f"([E, C, h] arithmetic {ea['scatter_want']} / {ea['gather_want']} "
+        f"B)  [{smi}]")
+    if ea["losses"] != eb["losses"]:
+        raise AssertionError("phase 43: the ranks' losses differ")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 43: losses differ from TrainStep")
+    if {ea["expert_rank"], eb["expert_rank"]} != {0, 1}:
+        raise AssertionError("phase 43: expert ranks")
+    for e_ in (ea, eb):
+        check_param_gap(e_["param_gap"], LOCKSTEP_STEPS, "phase 43",
+                        MOE_ADAMW["learning_rate"])
+        # the gate's leaves, which the gate's all-reduced sums feed, on
+        # their own: every element
+        if e_["gate_gap"][1]:
+            raise AssertionError(f"phase 43: gate parameters differ from "
+                                 f"TrainStep (max {e_['gate_gap'][0]})")
+        if e_["local_experts"] != MOE_EXPERTS // EP_DEGREE:
+            raise AssertionError(f"phase 43: {e_['local_experts']} experts "
+                                 "on a rank")
+        if e_["scatter_bytes"] != e_["scatter_want"] or \
+                e_["gather_bytes"] != e_["gather_want"]:
+            raise AssertionError("phase 43: exchange bytes differ from the "
+                                 "[E, C, h] arithmetic")
+    out["ep_mixtral_block"] = dict(
+        {k: ea[k] for k in ("losses", "ref_losses", "step_ms",
+                            "ref_step_ms", "peak_gib", "scatter_bytes",
+                            "gather_bytes", "scatter_want", "gather_want",
+                            "capacity", "expert_axis")},
+        rel=rel, param_max=max(ea["param_gap"][0], eb["param_gap"][0]),
+        gate_max=max(ea["gate_gap"][0], eb["gate_gap"][0]),
+        rank1_step_ms=eb["step_ms"], rank1_peak_gib=eb["peak_gib"])
+    log(f"# phases 42-43: {secs:.1f} s (two processes, spawn, build and "
+        "run)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4549,6 +4988,8 @@ def main() -> int:
     layer = phases_layer(fa, smi)
     distributed = phases_distributed(fa, smi, trained)
     pipeline = phases_pipeline(fa, smi, trained)
+    torch.cuda.empty_cache()
+    sep_ep = phases_sep_ep(fa, smi, trained)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -4610,7 +5051,11 @@ def main() -> int:
                 fold_1p3b=pipeline["fold_1p3b"]["launches"][kind],
                 **{f"pp2_{c}_rank{i}":
                    pp2[c]["launches" if i == 0 else "rank1_launches"][kind]
-                   for c in PP_CONFIGS for i in (0, 1)})))
+                   for c in PP_CONFIGS for i in (0, 1)}),
+            launches_sep={
+                f"sep2_1p3b_rank{i}": sep_ep["sep_1p3b"][
+                    "launches" if i == 0 else "rank1_launches"][kind]
+                for i in (0, 1)}))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -4649,6 +5094,7 @@ def main() -> int:
     log(json.dumps({"layer": layer}))
     log(json.dumps({"distributed": distributed}))
     log(json.dumps({"pipeline": pipeline}))
+    log(json.dumps({"sep_ep": sep_ep}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -5,14 +5,15 @@
 - ``collective`` / ``communication``: Paddle's collectives;
 - ``parallel``: ``DataParallel`` and ``spawn``;
 - ``fleet``: the hybrid topology, the mp layers, sequence parallelism,
-  ZeRO-1/2 and ``DistTrainStep``;
+  ZeRO-1/2, pipeline parallelism, the sep axis (the sequence split and
+  the ring attention of ``nn/functional/ring_attention.py``), expert
+  parallelism (with ``incubate/moe.py``) and ``DistTrainStep``;
 - ``sharding``: ``group_sharded_parallel``;
 - ``grad_comm``: the gradient buckets (and the int8 helpers the serving
   engine uses);
 - ``split``: a tensor-parallel embedding or linear, built and applied.
 
-Not ported yet (ROADMAP.md §A.7): pipeline parallelism, the sep axis and
-ring attention, expert parallelism, ZeRO-3, the quantized wires, the
+Not ported yet (ROADMAP.md §A.7): ZeRO-3, the quantized wires, the
 mesh / auto-parallel / reshard / checkpoint modules, mpmd, the launch
 CLI, elastic, rpc and the parameter server.
 """

@@ -26,11 +26,29 @@ reference does, and keeps the rank's rows over the data axes (data and
 sharding, data-major): an array whose first dim does not divide stays
 whole on every rank (the reference's ``data_spec_for`` gives ``P()``).
 It runs forward and backward, sums the sequence-parallel parameters'
-gradients over mp, averages all gradients over the data group in flat
-buckets (``grad_comm``), then steps the optimizer. It returns the global
-mean loss. While the loss runs on split rows, a masked mean divides by
+gradients over mp, averages the gradients over the data (x sep) ranks in
+flat buckets (``grad_comm``), then steps the optimizer. It returns the
+global mean loss. While the loss runs on split rows, a masked mean divides by
 the kept count summed over the data group (``nn/functional/loss.py``), so
 the loss is the global masked mean however the mask splits.
+
+The sep axis (``sep_degree > 1``, context parallelism): after its rows,
+each rank keeps its contiguous ``T / sep`` block of dim 1 of every batch
+tensor of rank >= 2 (PaddleNLP's ``split_inputs_sequence_dim``; a length
+that does not divide raises). The model runs under
+``ring_attention.sequence_split``: its attention is the ring over the sep
+group and its default positions start at the block's first. The loss's
+denominators, the loss and the replicated parameters' gradients then
+count and average over the data x sep ranks. An op of the user's own that
+mixes tokens along the sequence, other than attention, sees only the
+rank's block (ROADMAP.md §C).
+
+Expert parallelism: a capacity ``MoELayer`` built after ``fleet.init``
+keeps its slice of the experts over the expert axis
+(``incubate/moe.py``). Its slices' gradients are summed over the ranks
+holding the same experts and divided by the data x sep degree; under ZeRO
+each slice stays with the rank that holds it, and the global-norm clip
+sums the slices' squares once over the expert axis.
 
 Pipeline parallelism (``pp_degree > 1``): a model whose layer stack is a
 pipelined ``meta_parallel.SpmdPipeline`` (GPT / Llama built after
@@ -51,8 +69,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...incubate.moe import is_expert_slice
 from ...jit import TrainStep
 from ...nn.functional import loss as _loss
+from ...nn.functional import ring_attention as _ring
 from ...optimizer import ClipGradByGlobalNorm
 from .. import collective as C
 from .. import grad_comm
@@ -147,6 +167,7 @@ def distributed_model(model):
     hcg = _require_hcg()
     _hpu.broadcast_dp_parameters(model, hcg)
     _hpu.broadcast_sharding_parameters(model, hcg)
+    _hpu.broadcast_sep_parameters(model, hcg)
     _hpu.broadcast_mp_parameters(model, hcg)
     _hpu.broadcast_pp_replicated_parameters(model, hcg)
     if hcg.get_pipe_parallel_world_size() > 1 and isinstance(
@@ -157,10 +178,14 @@ def distributed_model(model):
 
 def _partition(params, world):
     """Owner (sharding rank) of each parameter: in order, to the rank
-    holding the fewest elements so far."""
+    holding the fewest elements so far; None for an expert slice, which
+    its own rank updates."""
     load = [0] * world
     owner = []
     for p in params:
+        if is_expert_slice(p):
+            owner.append(None)
+            continue
         r = min(range(world), key=lambda i: load[i])
         owner.append(r)
         load[r] += p.numel()
@@ -191,22 +216,24 @@ class HybridParallelOptimizer:
 
     def owns(self, i) -> bool:
         """Whether this rank updates parameter ``i``."""
-        return self._owner is None or self._owner[i] == self._me
+        return self._owner is None or self._owner[i] in (None, self._me)
 
     def _clip(self, pg):
         """A ``ClipGradByGlobalNorm`` over the whole model: the mp shards'
-        squares summed over mp, the stage-local ones over the pipe group,
-        the parameters replicated over pp counted once."""
+        squares summed over mp, the expert slices' over the expert axis,
+        the stage-local ones over the pipe group, the parameters
+        replicated over pp counted once."""
         clip = self._inner_opt._grad_clip
         mp = self._hcg.get_model_parallel_group()
         pp = self._hcg.get_pipe_parallel_group()
+        experts = [g for p, g in pg if g is not None and is_expert_slice(p)]
         if not isinstance(clip, ClipGradByGlobalNorm) or (
-                mp.nranks == 1 and pp.nranks == 1):
+                mp.nranks == 1 and pp.nranks == 1 and not experts):
             return clip(pg)
         # [replicated, mp shard] x [replicated over pp, stage-local]
         parts = [[], [], [], []]
         for p, g in pg:
-            if g is not None:
+            if g is not None and not is_expert_slice(p):
                 parts[mpu.is_mp_shard(p)
                       + 2 * is_pipeline_local(p)].append(
                     torch.sum(torch.square(g.float())))
@@ -218,6 +245,11 @@ class HybridParallelOptimizer:
             C.all_reduce(shards, group=mp)
             shard, local_shard = shards[0], shards[1]
         gsq = rep + shard
+        if experts:
+            esq = torch.stack([torch.sum(torch.square(g.float()))
+                               for g in experts]).sum()
+            C.all_reduce(esq, group=self._hcg.get_expert_parallel_group())
+            gsq = gsq + esq
         if pp.nranks > 1:
             local = local_rep + local_shard
             C.all_reduce(local, group=pp)
@@ -302,8 +334,12 @@ class DistTrainStep(TrainStep):
             optimizer = HybridParallelOptimizer(optimizer)
         super().__init__(model, loss_fn, optimizer)
         hcg = _require_hcg()
+        self._hcg = hcg
         self._data_group = hcg.get_data_sharding_parallel_group()
         self._data_rank = hcg.get_data_sharding_parallel_rank()
+        self._sep_group = (hcg.get_sep_parallel_group()
+                           if hcg.get_sep_parallel_world_size() > 1
+                           else None)
         self._bucket_mb = grad_comm.resolve_config(
             optimizer._strategy).bucket_mb
         self._pipe = _pp.pipelined_stack(model)
@@ -316,14 +352,38 @@ class DistTrainStep(TrainStep):
         k = v.shape[0] // n
         return v[self._data_rank * k:(self._data_rank + 1) * k], True
 
+    def _sequence(self, v):
+        """This rank's block of dim 1 at sep > 1 (tensors of rank >= 2)."""
+        g = self._sep_group
+        if g is None or not isinstance(v, torch.Tensor) or v.dim() < 2:
+            return v, False
+        if v.shape[1] % g.nranks:
+            raise ValueError(
+                f"sep_degree {g.nranks} does not divide the sequence "
+                f"length {v.shape[1]} (dim 1 of a batch tensor "
+                f"{tuple(v.shape)})")
+        k = v.shape[1] // g.nranks
+        return v[:, g.rank * k:(g.rank + 1) * k], True
+
+    def _token_group(self, rows, seq):
+        """The group the loss averages over: the ranks holding distinct
+        tokens (data x sep, data or sep as the batch split), or None."""
+        if rows and seq:
+            return self._hcg.get_dp_sep_parallel_group()
+        if rows:
+            return self._data_group
+        return self._sep_group if seq else None
+
     def __call__(self, *batch):
         rows = [self._rows(v) for v in batch]
-        split = any(s for _, s in rows)
-        args = [v for v, _ in rows]
+        seqs = [self._sequence(v) for v, _ in rows]
+        args = [v for v, _ in seqs]
+        split_seq = any(s for _, s in seqs)
+        group = self._token_group(any(s for _, s in rows), split_seq)
         trained = [p for p in self._params if p.requires_grad]
-        group = self._data_group if split else None
         if self._pipe is None:
-            with _loss.split_batch(group):
+            with _loss.split_batch(group), _ring.sequence_split(
+                    self._sep_group if split_seq else None):
                 loss = self._loss_fn(self._model, *args)
             grads = torch.autograd.grad(loss, trained, allow_unused=True)
         else:
@@ -331,7 +391,7 @@ class DistTrainStep(TrainStep):
                 self._pipe, self._model, self._loss_fn, args, trained, group)
         sequence_parallel_utils.allreduce_sequence_parallel_grads(
             trained, grads)
-        grad_comm.allreduce_mean(grads, self._data_group, self._bucket_mb)
+        _hpu.allreduce_gradients(trained, grads, self._hcg, self._bucket_mb)
         for p, g in zip(trained, grads):
             p.grad = g
         del grads  # ZeRO-2 drops the gradients it does not own
@@ -339,9 +399,9 @@ class DistTrainStep(TrainStep):
         for p in trained:
             p.grad = None
         loss = loss.detach()
-        if split:
+        if group is not None:
             loss = loss.clone()
-            C.all_reduce(loss, C.ReduceOp.AVG, group=self._data_group)
+            C.all_reduce(loss, C.ReduceOp.AVG, group=group)
         return loss
 
 

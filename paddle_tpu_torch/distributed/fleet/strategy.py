@@ -132,8 +132,9 @@ def check_ported(strategy: DistributedStrategy):
     """Raise ``NotImplementedError`` for the first knob set that this port
     does not implement, naming its ROADMAP.md item."""
     hc = strategy.hybrid_configs
-    if int(hc.get("sep_degree", 1)) > 1:
-        _unported("sep_degree > 1 (the sep axis and ring attention)", "§A.7")
+    if int(hc.get("sep_degree", 1)) > 1 and int(hc.get("pp_degree", 1)) > 1:
+        _unported("sep_degree > 1 with pp_degree > 1 (the ring inside a "
+                  "pipeline)", "§A.7 item 1")
     if int(strategy.sharding_configs.get("stage", 1)) == 3:
         _unported('sharding_configs["stage"] == 3 (ZeRO-3)', "§A.7")
     from ..grad_comm import resolve_config

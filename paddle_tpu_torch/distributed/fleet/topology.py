@@ -8,10 +8,16 @@ one group are neighbours. ``HybridCommunicateGroup`` gives this rank's
 coordinate and, per axis, the group of ranks that differ from it only on
 that axis. Each group is a ``torch.distributed`` process group; every
 process creates all of them (each axis's slices in ``get_comm_list``
-order, then the fused data group), in the same order, as
+order, then the fused groups), in the same order, as
 ``torch.distributed.new_group`` requires. The fused data group spans the
-``data`` and ``sharding`` axes: the batch is split over it and the
-gradients are averaged over it.
+``data`` and ``sharding`` axes: the batch's rows are split over it. The
+fused data x sep group adds the ``sep`` axis, over which the sequence is
+split: the loss and the replicated parameters' gradients are averaged over
+it. The expert axis is the first of ``sharding``, ``data``, ``sep`` whose
+degree is above 1 (the reference's ``incubate/moe.py::_expert_axis``): a
+MoE layer's experts are split over its group, and the expert replica group
+(the data x sep ranks that hold the same experts) averages their
+gradients.
 
 Without an initialized process group (``torch.distributed`` not set up)
 the groups hold their rank lists only, for inspecting a layout.
@@ -109,6 +115,13 @@ class HybridCommunicateGroup:
         lists = [(_AXIS_ALIAS[n], topology.get_comm_list(n)) for n in names]
         fused = [n for n in ("data", "sharding") if n in names]
         lists.append(("dp_sharding", topology.get_fused_comm_list(fused)))
+        tokens = [n for n in ("data", "sharding", "sep") if n in names]
+        lists.append(("dp_sep", topology.get_fused_comm_list(tokens)))
+        self._expert_axis = next(
+            (n for n in ("sharding", "data", "sep") if self._dim(n) > 1),
+            None)
+        lists.append(("expert_replica", topology.get_fused_comm_list(
+            [n for n in tokens if n != self._expert_axis])))
         for axis, comm_lists in lists:
             for ranks in comm_lists:
                 g = new_group(ranks) if live else Group(ranks)
@@ -162,6 +175,30 @@ class HybridCommunicateGroup:
 
     def get_data_sharding_parallel_group(self) -> Group:
         return self._groups["dp_sharding"]
+
+    # the tokens' split: the data, sharding and sep axes together
+    def get_dp_sep_parallel_world_size(self):
+        return self.get_data_sharding_parallel_world_size() \
+            * self._sep_degree
+
+    def get_dp_sep_parallel_group(self) -> Group:
+        return self._groups["dp_sep"]
+
+    # experts: the axis they are split over, its group, and the ranks that
+    # hold the same experts
+    def get_expert_parallel_axis(self) -> Optional[str]:
+        return self._expert_axis
+
+    def get_expert_parallel_rank(self):
+        ax = self._expert_axis
+        return 0 if ax is None else self._axis_coord(ax)
+
+    def get_expert_parallel_group(self) -> Optional[Group]:
+        ax = self._expert_axis
+        return None if ax is None else self._groups[_AXIS_ALIAS[ax]]
+
+    def get_expert_replica_group(self) -> Group:
+        return self._groups["expert_replica"]
 
     # model (tensor) parallel
     def get_model_parallel_rank(self):

@@ -4,12 +4,15 @@ hybrid-parallel training scripts call between backward and step, and at
 init:
 
 - ``fused_allreduce_gradients``: average every present gradient over the
-  data-parallel group (data and sharding axes together), in flat buckets
-  of ``fuse_grad_size_in_MB`` (``distributed/grad_comm.py``);
+  data-parallel group (data, sharding and sep axes together), in flat
+  buckets of ``fuse_grad_size_in_MB`` (``distributed/grad_comm.py``); a
+  MoE layer's expert slices over the ranks that hold the same experts
+  (:func:`allreduce_gradients`);
 - ``broadcast_dp_parameters`` / ``broadcast_mp_parameters`` /
-  ``broadcast_sharding_parameters``: every parameter from the first rank
-  of that axis's group; over mp only the replicated ones (an mp shard
-  differs by rank on purpose, and is equal across the other axes).
+  ``broadcast_sharding_parameters`` / ``broadcast_sep_parameters``: every
+  parameter from the first rank of that axis's group; over mp only the
+  replicated ones (an mp shard differs by rank on purpose, and is equal
+  across the other axes), and over the expert axis not the expert slices.
 """
 from __future__ import annotations
 
@@ -24,24 +27,47 @@ def _hcg():
     return get_hybrid_communicate_group()
 
 
+def allreduce_gradients(params, grads, hcg, bucket_mb):
+    """Average ``grads`` (those of ``params``, None where absent) over the
+    hybrid group's data x sep ranks, in place: the replicated parameters'
+    by a bucketed mean; a MoE layer's expert slices summed over the ranks
+    holding the same experts and divided by the data x sep degree (each
+    slice's gradient already sums the tokens the exchange brought it)."""
+    from ....incubate.moe import is_expert_slice
+
+    rep, expert = [], []
+    for p, g in zip(params, grads):
+        if g is not None:
+            (expert if is_expert_slice(p) else rep).append(g)
+    grad_comm.allreduce_mean(rep, hcg.get_dp_sep_parallel_group(), bucket_mb)
+    if expert:
+        grad_comm.allreduce_sum(expert, hcg.get_expert_replica_group(),
+                                bucket_mb)
+        n = hcg.get_dp_sep_parallel_world_size()
+        for g in expert:
+            g.div_(n)
+
+
 def fused_allreduce_gradients(parameter_list, hcg=None, bucket_mb=None):
     """Average the ``.grad`` of ``parameter_list`` over the data-parallel
-    group, in place."""
+    group, in place (:func:`allreduce_gradients`)."""
     hcg = hcg or _hcg()
     if hcg is None:
         return
-    group = hcg.get_data_sharding_parallel_group()
     params = [p for p in parameter_list if getattr(p, "grad", None) is not None]
     if bucket_mb is None:
         bucket_mb = grad_comm.resolve_config().bucket_mb
-    grad_comm.allreduce_mean([p.grad for p in params], group, bucket_mb)
+    allreduce_gradients(params, [p.grad for p in params], hcg, bucket_mb)
 
 
-def _broadcast(model, group, skip_distributed):
+def _broadcast(model, group, axis, skip_distributed=False):
+    """Every parameter from the group's first rank, but the mp shards (with
+    ``skip_distributed``) and the expert slices split over ``axis``."""
     if group is None or group.nranks <= 1:
         return
     for p in model.parameters():
-        if skip_distributed and is_mp_shard(p):
+        if skip_distributed and is_mp_shard(p) or \
+                p.__dict__.get("expert_axis") == axis:
             continue
         C.broadcast(p.data, src=group.ranks[0], group=group)
 
@@ -49,19 +75,25 @@ def _broadcast(model, group, skip_distributed):
 def broadcast_dp_parameters(model, hcg=None):
     hcg = hcg or _hcg()
     if hcg is not None:
-        _broadcast(model, hcg.get_data_parallel_group(), False)
+        _broadcast(model, hcg.get_data_parallel_group(), "data")
 
 
 def broadcast_mp_parameters(model, hcg=None):
     hcg = hcg or _hcg()
     if hcg is not None:
-        _broadcast(model, hcg.get_model_parallel_group(), True)
+        _broadcast(model, hcg.get_model_parallel_group(), "model", True)
 
 
 def broadcast_sharding_parameters(model, hcg=None):
     hcg = hcg or _hcg()
     if hcg is not None:
-        _broadcast(model, hcg.get_sharding_parallel_group(), False)
+        _broadcast(model, hcg.get_sharding_parallel_group(), "sharding")
+
+
+def broadcast_sep_parameters(model, hcg=None):
+    hcg = hcg or _hcg()
+    if hcg is not None:
+        _broadcast(model, hcg.get_sep_parallel_group(), "sep")
 
 
 def broadcast_pp_replicated_parameters(model, hcg=None):
@@ -78,6 +110,7 @@ def broadcast_pp_replicated_parameters(model, hcg=None):
             C.broadcast(p.data, src=group.ranks[0], group=group)
 
 
-__all__ = ["broadcast_dp_parameters", "broadcast_mp_parameters",
-           "broadcast_pp_replicated_parameters",
-           "broadcast_sharding_parameters", "fused_allreduce_gradients"]
+__all__ = ["allreduce_gradients", "broadcast_dp_parameters",
+           "broadcast_mp_parameters", "broadcast_pp_replicated_parameters",
+           "broadcast_sep_parameters", "broadcast_sharding_parameters",
+           "fused_allreduce_gradients"]

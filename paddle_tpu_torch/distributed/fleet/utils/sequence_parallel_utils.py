@@ -21,7 +21,11 @@ gradient is summed over the mp group, by ``fleet.DistTrainStep`` or by the
 hooks :func:`register_sequence_parallel_allreduce_hooks` adds for an
 eager loop. At mp degree 1 every op is the identity.
 
-The ``sep`` (Ulysses) helpers wait for the sep axis (ROADMAP.md §A.7).
+The ``sep`` (Ulysses) helpers move between the sequence split over the
+sep group and a split of the heads: :func:`sep_reshard_to_heads` takes
+``[b, s/sep, h, d]`` to ``[b, s, h/sep, d]`` and
+:func:`sep_reshard_to_sequence` back, each an all-to-all over the sep
+group whose backward is the other. At sep degree 1 both are the identity.
 """
 from __future__ import annotations
 
@@ -250,12 +254,57 @@ def mark_sequence_parallel_layers(sequence_parallel, *layers):
                 mark_as_sequence_parallel_parameter(p)
 
 
-def _sep_unported(*a, **k):
-    raise NotImplementedError(
-        "the sep (Ulysses) axis is not ported yet, see ROADMAP.md §A.7")
+def _sep_group():
+    from ..topology import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    if hcg is None or hcg.get_sep_parallel_world_size() == 1:
+        return None
+    return hcg.get_sep_parallel_group()
 
 
-sep_reshard_to_heads = sep_reshard_to_sequence = _sep_unported
+def _exchange(x, group, split_axis, concat_axis):
+    """Part ``j`` of ``x`` along ``split_axis`` to group rank ``j``; the
+    parts received, in rank order, concatenated along ``concat_axis``."""
+    from ... import collective as C
+
+    n = group.nranks
+    if x.shape[split_axis] % n:
+        raise ValueError(f"sep all-to-all: dim {split_axis} of "
+                         f"{tuple(x.shape)} does not divide by the sep "
+                         f"degree {n}")
+    parts = torch.stack(x.chunk(n, split_axis)).contiguous()
+    out = torch.empty_like(parts)
+    C.alltoall_single(out, parts, group=group)
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+class _SepAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, concat_axis, split_axis)
+        return _exchange(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, *ctx.args), None, None, None
+
+
+def sep_reshard_to_heads(x, head_dim_axis=2):
+    """``[b, s/sep, h, d]`` (this rank's block of the sequence, dim 1) to
+    ``[b, s, h/sep, d]`` (this rank's heads of the whole sequence)."""
+    group = _sep_group()
+    if group is None:
+        return x
+    return _SepAllToAll.apply(x, group, head_dim_axis, 1)
+
+
+def sep_reshard_to_sequence(x, seq_dim=1):
+    """The inverse of :func:`sep_reshard_to_heads` (heads on dim 2)."""
+    group = _sep_group()
+    if group is None:
+        return x
+    return _SepAllToAll.apply(x, group, seq_dim, 2)
 
 __all__ = ["AllGatherOp", "ColumnSequenceParallelLinear", "GatherOp",
            "ReduceScatterOp", "RowSequenceParallelLinear", "ScatterOp",
@@ -264,4 +313,5 @@ __all__ = ["AllGatherOp", "ColumnSequenceParallelLinear", "GatherOp",
            "mark_as_sequence_parallel_parameter",
            "mark_sequence_parallel_layers", "parallel_linear",
            "sequence_parallel_on", "tied_head_input",
-           "register_sequence_parallel_allreduce_hooks", "scatter"]
+           "register_sequence_parallel_allreduce_hooks", "scatter",
+           "sep_reshard_to_heads", "sep_reshard_to_sequence"]

@@ -27,6 +27,7 @@ from ..device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.functional.norm import rms_norm
+from ..nn.functional.ring_attention import sequence_offset
 from ..nn.layer import Layer, create_parameter
 from ..text.models.llama import _apply_rope, _rope_cache
 
@@ -160,7 +161,9 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
             "is not supported")
     d = q.shape[-1]
     if cos is None or sin is None:
-        c_np, s_np = _rope_cache(q.shape[1], d, 10000.0)
+        # to the block's last global position under a sequence split
+        c_np, s_np = _rope_cache(sequence_offset(q.shape[1]) + q.shape[1],
+                                 d, 10000.0)
         cos_h = torch.as_tensor(c_np, device=q.device)
         sin_h = torch.as_tensor(s_np, device=q.device)
     else:

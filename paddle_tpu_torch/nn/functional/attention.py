@@ -10,6 +10,12 @@ and backward: on CUDA tensors through the flash-attention kernels K1 / K2
 ``_sdpa_reference``, as on the reference's CPU. It is the reference's
 ``sdpa_op``, on the AMP white list: under ``auto_cast`` q / k / v (and a
 float mask) arrive in bf16, and K1 / K2 run in bf16.
+
+Under a sequence split (``ring_attention.sequence_split``: ``fleet.
+DistTrainStep`` at ``sep_degree > 1``) both routes run as the ring over the
+sep group: the flash route on the kernels, the dense route on the ring's
+plain version. A mask, a bias or attention dropout there raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from ...framework.op import amp_op
 from ...ops import flash_attention as _fa
 from ...ops import paged_attention as _pa
 from ...ops.paged_attention import mask_fill_value
+from . import ring_attention as _ring
 
 #: test hook, the counterpart of the reference's
 #: ``PADDLE_TPU_PALLAS_INTERPRET=1``: when True, CPU tensors take the flash
@@ -35,6 +42,9 @@ _paged_attention_op = _pa.paged_attention_plain
 
 def _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training):
     # q, k, v: [B, T, H, D]
+    if _ring.split_group() is not None:
+        return _ring_route(q, k, v, mask, dropout_p, causal, scale, training,
+                           flash=False)
     qt = q.transpose(1, 2)  # [B, H, T, D]
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)
@@ -60,10 +70,23 @@ def _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training):
     return out.transpose(1, 2)  # back to [B, T, H, D]
 
 
+def _ring_route(q, k, v, mask, dropout_p, causal, scale, training, flash):
+    """Attention over the split sequence: the ring (the kernels' route when
+    ``flash``, else its plain version)."""
+    if mask is not None:
+        _ring.unported_under_split("attention with a mask or bias")
+    if dropout_p and training:
+        _ring.unported_under_split("attention dropout")
+    return _ring.ring_attention(q, k, v, causal, scale, flash)
+
+
 @amp_op("sdpa_op", "white", uncast=("raw_mask",))
 def _sdpa(q, k, v, mask, dropout_p, causal, scale, training, raw_mask=None):
     if raw_mask is not None:
         mask = raw_mask
+    if _ring.split_group() is not None:
+        return _ring_route(q, k, v, mask, dropout_p, causal, scale, training,
+                           flash=_fa._is_cuda(q) or _FLASH_ON_CPU)
     if mask is not None and mask.dtype != torch.bool:
         # mask semantics on every route: a float mask is never
         # differentiated

@@ -42,8 +42,9 @@ def _parallel_softmax_ce(logits, label, ignore_index=-100):
     return -torch.where(ignored, torch.zeros_like(picked), picked)
 
 
-#: the data-parallel group whose ranks each hold a part of the batch
-#: while ``fleet.DistTrainStep`` runs the loss (None otherwise)
+#: the group whose ranks each hold a part of the batch (rows over the data
+#: axes, sequence blocks over sep) while ``fleet.DistTrainStep`` runs the
+#: loss (None otherwise); MoE gating reads it too
 _split_group = None
 #: the counts that :func:`_denominator` met in the pipeline schedule's
 #: current micro-batch (None outside one)

@@ -62,6 +62,7 @@ from ...distributed.fleet.utils import sequence_parallel_utils as spu
 from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
 from ...nn import initializer as I
+from ...nn.functional import ring_attention as _ring
 from ...nn.functional.attention import _sdpa_dense
 from ...nn.functional.loss import _masked_mean
 from ...nn.layer import Layer, LayerList
@@ -165,7 +166,9 @@ class GPTEmbeddings(Layer):
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
+            t = input_ids.shape[1]
+            off = _ring.sequence_offset(t)  # the rank's block when split
+            position_ids = torch.arange(off, off + t,
                                         device=input_ids.device)
         emb = T.add(self.word_embeddings(input_ids),
                     self.position_embeddings(position_ids))

@@ -57,6 +57,7 @@ from ...framework.io_state import load_numpy_state
 from ...framework.op import amp_op
 from ...nn import functional as F
 from ...nn import initializer as I
+from ...nn.functional import ring_attention as _ring
 from ...nn.functional.loss import _denominator, _masked_mean
 from ...nn.layer import Layer, LayerList
 from ...nn.layers.common import linear_direct
@@ -130,11 +131,17 @@ def _rotate(x, c, s):
 
 @amp_op("apply_rope")
 def _apply_rope(x, cos, sin):
-    """x ``[B, T, H, D]`` rotated at positions ``0 .. T-1``; cos / sin
+    """x ``[B, T, H, D]`` rotated at positions ``0 .. T-1`` (under a
+    sequence split, the rank's block's global positions); cos / sin
     ``[Tmax, D/2]``. The rotation promotes bf16 x with f32 tables to f32
     (O1) and is cast back to x's dtype."""
     t = x.shape[1]
-    return _rotate(x, cos[:t][None, :, None, :], sin[:t][None, :, None, :])
+    off = _ring.sequence_offset(t)
+    if off + t > cos.shape[0]:
+        raise ValueError(f"RoPE tables of {cos.shape[0]} positions do not "
+                         f"reach position {off + t - 1}")
+    pos = slice(off, off + t)
+    return _rotate(x, cos[pos][None, :, None, :], sin[pos][None, :, None, :])
 
 
 @amp_op("rope_positions")
@@ -152,7 +159,10 @@ def _apply_rope_positions(x, cos, sin, positions):
 
 @amp_op("gqa_flash_attention")
 def _gqa_attention(q, k, v):
-    """Causal flash attention over k / v at their kv heads (K1 / K2)."""
+    """Causal flash attention over k / v at their kv heads (K1 / K2; the
+    ring over the sep group under a sequence split)."""
+    if _ring.split_group() is not None:
+        return _ring.ring_attention(q, k, v, True, None, flash=True)
     return flash_attention(q, k, v, causal=True)
 
 

@@ -361,7 +361,9 @@ def test_unported_knobs_raise(knob, item):
     """Each raises in fleet.init, before any process group is set up, and
     in distributed_optimizer. pp_degree > 1 raised until pipeline
     parallelism was ported (tests/test_torch_pipeline.py): the strategy
-    check passes it now."""
+    check passes it now. sep_degree > 1 alone passes too since the sep
+    axis was ported (tests/test_torch_sep.py); with pp_degree > 1 it
+    still raises."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -371,6 +373,8 @@ def test_unported_knobs_raise(knob, item):
         return
     if knob == "sep":
         s.hybrid_configs[f"{knob}_degree"] = 2
+        check_ported(s)
+        s.hybrid_configs["pp_degree"] = 2
     elif knob == "stage3":
         s.sharding_configs["stage"] = 3
     elif knob.startswith("grad_comm"):

@@ -208,6 +208,16 @@ def test_distributed_modules_are_guarded(module):
     assert module in MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.nn.functional.ring_attention",
+    "paddle_tpu_torch.incubate.moe",
+    "paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils"])
+def test_sep_and_expert_modules_are_guarded(module):
+    """The sep axis's and expert parallelism's modules are among those the
+    guards above walk."""
+    assert module in MODULES
+
+
 def test_distributed_entry_points_default_to_the_card(no_cuda):
     """``init_parallel_env`` picks NCCL on the default device, the card:
     without CUDA it raises instead of switching to gloo on the CPU, and so

@@ -367,14 +367,15 @@ def test_config_matches_reference():
                                         ("sequence_parallel", "A.7")])
 def test_unported_flags_raise(flag, item):
     if flag == "sequence_parallel":
-        # Megatron sequence parallelism is ported (test_torch_fleet.py);
-        # the other sequence-parallel axis, sep, still raises naming its
-        # ROADMAP item, before any process group is set up
+        # Megatron sequence parallelism is ported (test_torch_fleet.py),
+        # and so is the sep axis (test_torch_sep.py); sep inside a
+        # pipeline still raises naming its ROADMAP item, before any
+        # process group is set up
         from paddle_tpu_torch.distributed import fleet
 
         assert tllama.LlamaConfig(sequence_parallel=True).sequence_parallel
         strategy = fleet.DistributedStrategy()
-        strategy.hybrid_configs["sep_degree"] = 2
+        strategy.hybrid_configs.update(sep_degree=2, pp_degree=2)
         with pytest.raises(NotImplementedError, match=rf"sep_degree.*{item}"):
             fleet.init(is_collective=True, strategy=strategy)
         return

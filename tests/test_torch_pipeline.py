@@ -401,17 +401,20 @@ def test_pipeline_layer_train_batch_matches_reference(runs):
 
 
 def test_pp_degree_trains_and_other_knobs_still_raise():
-    """pp_degree > 1 passes the strategy check; sep and ZeRO-3 still
-    raise, naming their ROADMAP item."""
+    """pp_degree > 1 passes the strategy check, and so does sep_degree >
+    1; sep with pp and ZeRO-3 still raise, naming their ROADMAP item."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
     s.hybrid_configs["pp_degree"] = 2
     check_ported(s)
-    for knob in ("sep", "stage3"):
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["sep_degree"] = 2
+    check_ported(s)
+    for knob in ("sep_pp", "stage3"):
         s = fleet.DistributedStrategy()
-        if knob == "sep":
-            s.hybrid_configs["sep_degree"] = 2
+        if knob == "sep_pp":
+            s.hybrid_configs.update(sep_degree=2, pp_degree=2)
         else:
             s.sharding_configs["stage"] = 3
         with pytest.raises(NotImplementedError, match="§A.7"):

@@ -380,17 +380,13 @@ def fleet_job(job, state, batch):
     import torch
 
     from paddle_tpu_torch import optimizer as topt
-    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import collective, fleet
     from paddle_tpu_torch.distributed.fleet.layers.mpu import is_mp_shard
     from paddle_tpu_torch.framework.io_state import gather_full_state
 
-    s = fleet.DistributedStrategy()
-    s.hybrid_configs.update(dp_degree=job.get("dp", -1),
-                            mp_degree=job.get("mp", 1),
-                            sharding_degree=job.get("sharding", 1))
-    s.sharding_configs["stage"] = job.get("stage", 1)
-    fleet.init(is_collective=True, strategy=s)
-    model = port_model(job["model"], state, job.get("sp", False))
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    model = port_model(job["model"], state, job.get("sp", False),
+                       **job.get("config", {}))
     mpre = job.get("multi_precision", False)
     if mpre:
         model.to(torch.bfloat16)
@@ -407,12 +403,14 @@ def fleet_job(job, state, batch):
     step = fleet.DistTrainStep(model, loss_fn, opt)
     args = [torch.from_numpy(batch[k]) for k in ("ids", "labels", "mask")
             if k in batch]
+    collective.reset_counts()
     t0 = time.perf_counter()
     losses = [float(step(*args)) for _ in range(job.get("steps", 3))]
     hcg = fleet.get_hybrid_communicate_group()
     inner = opt._inner_opt
     out = dict(
         losses=losses, seconds=time.perf_counter() - t0,
+        counts=dict(collective.counts),
         full={k: v.float().numpy()
               for k, v in gather_full_state(model).items()},
         local={n: p.detach().float().numpy()
@@ -672,9 +670,374 @@ def pipeline_layer_job(job, state, batch):
     return out
 
 
+MOE_VOCAB = 64
+
+
+def moe_net(paddle, **moe_kw):
+    """The reference's ``_run_moe`` network (``tests/test_loss_parity.py``
+    :175-206: an embedding, a capacity ``MoELayer`` of 8 experts, top-2,
+    a linear head; the loss is the cross entropy plus the gate's aux loss)
+    written against ``paddle``'s public API, built in either package.
+    ``moe_kw`` overrides the ``MoELayer`` arguments."""
+    nn, F = paddle.nn, paddle.nn.functional
+    kw = dict(dict(d_model=32, d_hidden=64, num_experts=8, top_k=2), **moe_kw)
+    moe = paddle.incubate.MoELayer(**kw)
+    head = nn.Linear(32, MOE_VOCAB)
+    emb = nn.Embedding(MOE_VOCAB, 32)
+
+    class Wrap(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb, self.moe, self.head = emb, moe, head
+
+        def forward(self, ids, labels=None):
+            logits = self.head(self.moe(self.emb(ids)))
+            ce = F.cross_entropy(paddle.reshape(logits, [-1, MOE_VOCAB]),
+                                 paddle.reshape(labels, [-1]))
+            return ce + self.moe.last_aux_loss
+
+    return Wrap()
+
+
+def moe_example_net(paddle):
+    """``MoENet`` of ``examples/train_moe.py`` :30-41 against ``paddle``'s
+    public API, and its loss (cross entropy plus the aux loss)."""
+    nn, F = paddle.nn, paddle.nn.functional
+
+    class MoENet(nn.Layer):
+        def __init__(self, d_model=32, d_hidden=64, experts=8, classes=4):
+            super().__init__()
+            self.embed = nn.Linear(16, d_model)
+            self.moe = paddle.incubate.MoELayer(
+                d_model=d_model, d_hidden=d_hidden, num_experts=experts,
+                top_k=2)
+            self.head = nn.Linear(d_model, classes)
+
+        def forward(self, x):
+            h = F.relu(self.embed(x))
+            return self.head(self.moe(h).mean(axis=1))
+
+    def loss_fn(m, x, y):
+        return F.cross_entropy(m(x), y) + m.moe.last_aux_loss
+
+    return MoENet(), loss_fn
+
+
+def _strategy(job):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=job.get("dp", -1),
+                            mp_degree=job.get("mp", 1),
+                            sharding_degree=job.get("sharding", 1),
+                            sep_degree=job.get("sep", 1))
+    s.sharding_configs["stage"] = job.get("stage", 1)
+    return s
+
+
+def sep_tiny_lm(paddle):
+    """The reference's sep ``TinyLM`` (``tests/test_loss_parity.py``
+    :122-166: embedding, fused QKV, causal attention through
+    ``context_parallel_attention``, head, cross entropy) in either
+    package."""
+    attn = _cp_attention(paddle, "cp_attn_test")
+
+    class TinyLM(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = paddle.nn.Embedding(64, 32)
+            self.qkv = paddle.nn.Linear(32, 96)
+            self.out = paddle.nn.Linear(32, 64)
+
+        def forward(self, ids, labels=None):
+            h = self.emb(ids)
+            q, k, v = paddle.split(self.qkv(h), 3, axis=-1)
+
+            def r(t):
+                return t.reshape((t.shape[0], t.shape[1], 2, 16))
+            a = attn(r(q), r(k), r(v))
+            logits = self.out(a.reshape((h.shape[0], h.shape[1], 32)))
+            return paddle.nn.functional.cross_entropy(
+                logits.reshape((-1, 64)), labels.reshape((-1,)))
+
+    return TinyLM()
+
+
+LONG_CONTEXT = dict(vocab=128, hidden=64, heads=4)
+
+
+def long_context_lm(paddle):
+    """``LongContextLM`` of ``examples/train_long_context.py`` :48-71 (one
+    ring-attention block and an LM head) in either package."""
+    vocab, hid, heads = (LONG_CONTEXT[k] for k in ("vocab", "hidden",
+                                                   "heads"))
+    attn = _cp_attention(paddle, "ring_attn_example")
+    nn = paddle.nn
+
+    class LongContextLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(vocab, hid)
+            self.qkv = nn.Linear(hid, 3 * hid)
+            self.proj = nn.Linear(hid, hid)
+            self.norm = nn.LayerNorm(hid)
+            self.head = nn.Linear(hid, vocab)
+
+        def forward(self, ids, labels=None):
+            h = self.emb(ids)
+            q, k, v = paddle.split(self.qkv(h), 3, axis=-1)
+
+            def r(t):
+                return t.reshape((t.shape[0], t.shape[1], heads,
+                                  hid // heads))
+            a = attn(r(q), r(k), r(v))
+            h = self.norm(h + self.proj(
+                a.reshape((h.shape[0], h.shape[1], hid))))
+            return paddle.nn.functional.cross_entropy(
+                self.head(h).reshape((-1, vocab)), labels.reshape((-1,)))
+
+    return LongContextLM()
+
+
+def _cp_attention(paddle, name):
+    """Causal ``context_parallel_attention`` of ``paddle``'s package (the
+    reference's wrapped as an op, as its callers do)."""
+    if paddle.__name__ == "paddle_tpu":
+        from paddle_tpu.framework.op import defop
+        from paddle_tpu.nn.functional.ring_attention import (
+            context_parallel_attention)
+
+        return defop(name=name)(
+            lambda q, k, v: context_parallel_attention(q, k, v, causal=True))
+    from paddle_tpu_torch.nn.functional.ring_attention import (
+        context_parallel_attention)
+
+    return lambda q, k, v: context_parallel_attention(q, k, v, causal=True)
+
+
+USER_LMS = {"sep_tiny_lm": sep_tiny_lm, "long_context_lm": long_context_lm}
+
+
+def user_lm_job(job, state, batch):
+    """A ``DistTrainStep`` trajectory of the user-written LM
+    ``USER_LMS[job["model"]]`` on the full reference ``state``, one step
+    per ``(ids, labels)`` of ``batch``. Returns the losses and the gathered
+    full state."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.framework.io_state import (gather_full_state,
+                                                     load_numpy_state)
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    model = USER_LMS[job["model"]](paddle)
+    load_numpy_state(model, state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(model, lambda m, i, lab: m(i, labels=lab),
+                               opt)
+    collective.reset_counts()
+    losses = [float(step(torch.from_numpy(i), torch.from_numpy(lab)))
+              for i, lab in zip(batch["ids"], batch["labels"])]
+    out = dict(losses=losses, counts=dict(collective.counts),
+               full={k: v.float().numpy()
+                     for k, v in gather_full_state(model).items()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def moe_job(job, state, batch):
+    """A ``DistTrainStep`` trajectory of :func:`moe_net` (or, with
+    ``job["net"] == "example"``, of :func:`moe_example_net`) in eval mode
+    (the gate without noise) on the full reference ``state``, one step per
+    entry of ``batch["x"]`` (labels ``batch["y"]``, else the ids). Returns
+    the losses, the gathered full state, this rank's expert slices, its
+    coordinates and the exchange's byte counts."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.framework.io_state import (gather_full_state,
+                                                     load_numpy_state)
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    if job.get("net") == "example":
+        model, loss_fn = moe_example_net(paddle)
+    else:
+        model = moe_net(paddle, drop_tokens=job.get("drop_tokens", True))
+
+        def loss_fn(m, ids, labels):
+            return m(ids, labels=labels)
+    model.eval()
+    load_numpy_state(model, state)
+    loaded = {n: p.detach().numpy().copy()
+              for n, p in model.named_parameters()}
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(model, loss_fn, opt)
+    collective.reset_counts()
+    xs = batch["x"]
+    ys = batch.get("y", xs)
+    losses = [float(step(torch.from_numpy(x), torch.from_numpy(y)))
+              for x, y in zip(xs, ys)]
+    counts = dict(collective.counts)
+    hcg = fleet.get_hybrid_communicate_group()
+    local = {n: p.detach().numpy().copy()
+             for n, p in model.named_parameters()}
+    full = model.state_dict()
+    # a full checkpoint written back leaves every rank's slice as it was
+    missing, unexpected = model.set_state_dict(full)
+    out = dict(
+        losses=losses, loaded=loaded, local=local,
+        full={k: v.float().numpy()
+              for k, v in gather_full_state(model).items()},
+        round_trip=(not missing and not unexpected and all(
+            np.array_equal(p.detach().numpy(), local[n])
+            for n, p in model.named_parameters())),
+        data_rank=hcg.get_data_sharding_parallel_rank(),
+        expert_rank=hcg.get_expert_parallel_rank(),
+        expert_axis=hcg.get_expert_parallel_axis(),
+        owned=sum(opt.owns(i) for i in range(
+            len(opt._inner_opt._parameter_list))),
+        counts=counts)
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def moe_eager_job(job, state, batch):
+    """An eager step of :func:`moe_net` (eval mode, the full reference
+    ``state``) after ``fleet.init`` at the job's degrees, outside
+    ``DistTrainStep``: rank ``r`` of the data x sharding group runs the
+    forward on its own rows ``r * b:(r + 1) * b`` of ``batch["x"][0]``,
+    then the backward and ``fused_allreduce_gradients``. Returns the loss,
+    the rows, the expert rank and every parameter's gradient (the expert
+    leaves this rank's slices)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.utils.hybrid_parallel_util \
+        import fused_allreduce_gradients
+    from paddle_tpu_torch.framework.io_state import load_numpy_state
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    hcg = fleet.get_hybrid_communicate_group()
+    model = moe_net(paddle)
+    model.eval()
+    load_numpy_state(model, state)
+    ids = batch["x"][0]
+    r = hcg.get_data_sharding_parallel_rank()
+    b = ids.shape[0] // hcg.get_data_sharding_parallel_world_size()
+    mine = torch.from_numpy(ids[r * b:(r + 1) * b])
+    loss = model(mine, labels=mine)
+    loss.backward()
+    fused_allreduce_gradients(list(model.parameters()), hcg)
+    out = dict(loss=float(loss), rows=(r * b, (r + 1) * b),
+               expert_rank=hcg.get_expert_parallel_rank(),
+               grads={n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def exchange_job(job, state, batch):
+    """``global_scatter`` / ``global_gather`` over the expert group of
+    ``fleet.init`` at the job's degrees: the dense form on this rank's
+    ``batch["dense"][rank]`` (``[E, rows, h]``) and upstream's counted form
+    on its rows of ``batch["rows"][rank]`` with ``batch["counts"][rank]``
+    (rows for each global expert). Returns both forms' outputs, the
+    round trips, the input gradients of ``sum(gather(scatter(x)) * x)``
+    and the byte counts."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.incubate import global_gather, global_scatter
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    hcg = fleet.get_hybrid_communicate_group()
+    group = hcg.get_expert_parallel_group()
+    r, n = group.rank, group.nranks
+    out = dict(expert_rank=r, members=list(group.ranks))
+    collective.reset_counts()
+    x = torch.from_numpy(batch["dense"][r]).requires_grad_()
+    y = global_scatter(x)
+    back = global_gather(y)
+    (g,) = torch.autograd.grad((back * x.detach()).sum(), x)
+    out["dense"] = dict(out=y.detach().numpy(), back=back.detach().numpy(),
+                        grad=g.numpy())
+    out["dense_counts"] = dict(collective.counts)
+    counts = batch["counts"]                       # [n, n * E_local]
+    el = counts.shape[1] // n
+    local = torch.as_tensor(counts[r])
+    glob = torch.as_tensor(np.concatenate(
+        [counts[j, r * el:(r + 1) * el] for j in range(n)]))
+    x = torch.from_numpy(batch["rows"][r]).requires_grad_()
+    y = global_scatter(x, local, glob)
+    back = global_gather(y, local, glob)
+    (g,) = torch.autograd.grad((back * x.detach()).sum(), x)
+    out["counted"] = dict(out=y.detach().numpy(),
+                          back=back.detach().numpy(), grad=g.numpy())
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def ring_job(job, state, batch):
+    """This rank's block of the ring attention over the sep group of
+    ``fleet.init(sep_degree=job["sep"])`` (dp filling the world) on the
+    global ``batch`` q / k / v / dout ``[B, T, H, D]`` (k / v may carry
+    fewer heads): the output and the gradients of q, k, v on the plain
+    ring and on the kernels' route (their plain versions here), and the
+    Ulysses pair on ``batch["x"]`` ``[b, s, h, d]``: this rank's
+    ``sep_reshard_to_heads`` output, the round trip back, and the input
+    gradient of ``sum(heads * c)``."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        sequence_parallel_utils as spu)
+    from paddle_tpu_torch.nn.functional import ring_attention as ra
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    hcg = fleet.get_hybrid_communicate_group()
+    group = hcg.get_sep_parallel_group()
+    n, r = group.nranks, group.rank
+
+    def block(a, axis=1):
+        k = a.shape[axis] // n
+        return torch.from_numpy(np.ascontiguousarray(
+            np.take(a, range(r * k, (r + 1) * k), axis=axis)))
+
+    out = dict(sep_rank=r)
+    q, k, v, do = (block(batch[x]) for x in ("q", "k", "v", "do"))
+    for route, fn in (("plain", ra.ring_flash_attention_plain),
+                      ("kernels", ra.ring_flash_attention)):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qq, kk, vv, group, causal=job["causal"])
+        o.backward(do)
+        out[route] = dict(o=o.detach().numpy(), dq=qq.grad.numpy(),
+                          dk=kk.grad.numpy(), dv=vv.grad.numpy())
+    if "x" in batch:
+        x = block(batch["x"]).requires_grad_()
+        heads = spu.sep_reshard_to_heads(x, 2)
+        back = spu.sep_reshard_to_sequence(heads, 1)
+        c = block(batch["c"], axis=2)
+        (g,) = torch.autograd.grad((heads * c).sum(), x)
+        out.update(heads=heads.detach().numpy(), back=back.detach().numpy(),
+                   x_grad=g.numpy())
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
 JOB_KINDS = {"train": fleet_job, "data_parallel": data_parallel_job,
              "group_sharded": group_sharded_job, "api": api_job,
-             "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job}
+             "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job,
+             "moe": moe_job, "moe_eager": moe_eager_job, "ring": ring_job,
+             "user_lm": user_lm_job, "exchange": exchange_job}
 
 
 def fleet_jobs(jobs, state_of, batch_of):
