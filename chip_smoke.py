@@ -4912,6 +4912,452 @@ def phases_sep_ep(fa, smi, trained, timeout=900, spec=None):
     return out
 
 
+# -- phases 44-45: ZeRO-3, the quantized wires and gradient merge ------------
+
+# phase 44: GPT-3 1.3B at 24 layers, phase 7's batch and AdamW, sharding 2
+# at stage 3; phase 45: its widths at depth 2 under the gradient wire (dp
+# 2) and the mp wire (mp 2), and gradient merge over k micro-batches
+ZERO3_DEGREE = 2
+WIRE_LAYERS = 2
+# the trajectories against the exact exchange, as the reference's tests
+# bound them: the bf16 gradient wire within 5e-3 of the f32 exchange
+# (tests/test_grad_comm.py :304), the int8 + error-feedback one converging
+# (:311: one absmax scale a bucket sends a gradient below 1/254 of the
+# bucket's largest as 0, which Adam's normalised step then does not move
+# until the residual carries it), the int8 mp wire within 5e-2 of the wire
+# off (tests/test_mp_comm.py :346)
+GRAD_WIRE_ATOL = {"bf16": 5e-3, "int8_ef": None}
+MP_WIRE_ATOL = 5e-2
+# the gradient wires of phase 45 (name -> grad_comm_configs); f32 is the
+# exact all-reduce they are held against
+GRAD_WIRES = {"f32": None, "bf16": dict(wire_dtype="bf16"),
+              "int8_ef": dict(wire_dtype="int8", error_feedback=True)}
+# gradient merge: k micro-batches of one MERGE_SEQ-token row each
+MERGE_K, MERGE_SEQ = 4, 1024
+
+
+def wire_strategy(grad_wire=None, mp_wire=None, **degrees):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update({"dp_degree": -1, **degrees})
+    if grad_wire:
+        s.grad_comm = True
+        s.grad_comm_configs.update(grad_wire)
+    if mp_wire:
+        s.mp_comm = True
+        s.mp_comm_configs.update(wire_dtype=mp_wire)
+    return s
+
+
+def zero3_gather_want(model, n):
+    """The bytes a rank receives by the forward's gathers of one step: the
+    other ranks' part of every sliced parameter, the tied embedding twice
+    (the embedding and the LM head each gather it)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        sharding_stage3 as z3)
+
+    part = {n_: p.numel() * p.element_size() * (n - 1)
+            for n_, p in model.named_parameters() if z3.is_zero3_slice(p)}
+    tied = part.get("gpt.embeddings.word_embeddings.weight", 0) \
+        if model.config.tie_word_embeddings else 0
+    return sum(part.values()) + tied
+
+
+def mp_wire_want(cfg, b, t, n, steps):
+    """The int8 mp wire's bytes a rank sends over ``steps`` steps: each
+    summed activation ``[b, t, hidden]`` once to the n - 1 others with an
+    f32 scale a row. A step sums the embedding's lookup and, per layer,
+    the two row-parallel outputs in the forward, and per layer the two
+    column-parallel inputs' gradients and the tied head's input gradient
+    in the backward."""
+    sites = 1 + 2 * cfg.num_hidden_layers + 2 * cfg.num_hidden_layers + 1
+    per = (n - 1) * (b * t * cfg.hidden_size + b * t * 4)
+    return sites * per * steps
+
+
+def _rank_zero3_wires(out_dir, trained_losses, spec):
+    """One rank of phases 44-45 (run by ``paddle.distributed.spawn``), its
+    results pickled to ``out_dir``. 44: GPT-3 1.3B at 24 layers through
+    ``DistTrainStep`` at sharding 2, stage 3, then (rank 0) a
+    single-process ``TrainStep`` on the same weights and batch. 45: the
+    depth-2 model at dp 2 under each gradient wire of GRAD_WIRES, then at
+    mp 2 with the mp wire off and int8. ``spec``: the device, and for a
+    rehearsal a tiny ``GPTConfig`` dict, a sequence length and a
+    ``prepare`` function the child runs first."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = spec["device"]
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if spec.get("prepare"):
+        spec["prepare"]()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def build(layers):
+        if spec.get("model") is None:
+            return build_model(layers)
+        from paddle_tpu_torch.text.models.gpt import (GPTConfig,
+                                                      GPTForCausalLM)
+
+        return GPTForCausalLM(GPTConfig(**dict(
+            spec["model"], num_hidden_layers=layers)), device=device,
+            seed=SEED)
+
+    def launches():
+        return {k: getattr(fa, f"launches_{k}") for k in ("fwd", "dq", "dkv")}
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend()}
+
+    # -- 44: GPT-3 1.3B at ZeRO-3 over sharding 2
+    layers = spec.get("layers", 24)
+    s = wire_strategy(sharding_degree=ZERO3_DEGREE)
+    s.sharding_configs["stage"] = 3
+    fleet.init(is_collective=True, strategy=s)
+    model = build(layers)
+    total_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    step, opt = dist_trainer(model)
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    gather_want = zero3_gather_want(model, ZERO3_DEGREE)
+    ids, labels = train_batch(model.config.vocab_size)
+    reset_peak()
+    reset_flash(fa)
+    collective.reset_counts()
+    losses, step_ms = timed_steps(step, (ids, labels), LOCKSTEP_STEPS, sync)
+    c = collective.counts
+    full = gather_full_state(model)
+    out["zero3"] = dict(
+        losses=losses, step_ms=step_ms, peak_gib=peak_gib(),
+        launches=launches(), layers=layers,
+        ref_losses=list(trained_losses[:LOCKSTEP_STEPS]),
+        model_bytes=total_bytes, held_bytes=held,
+        gather_bytes=c.get("zero3_gather_bytes", 0) // LOCKSTEP_STEPS,
+        regather_bytes=c.get("zero3_regather_bytes", 0) // LOCKSTEP_STEPS,
+        reduce_scatter_bytes=c.get("zero3_reduce_scatter_bytes", 0)
+        // LOCKSTEP_STEPS,
+        gather_want=gather_want,
+        moments=sum(v.numel() * v.element_size()
+                    for st in opt._inner_opt._accumulators if st
+                    for v in st.values()))
+    del step, opt, model
+    fleet.topology.set_hybrid_communicate_group(None)
+    reset_peak()
+    if rank == 0:
+        ref = build(layers)
+        ref_step, ref_opt = trainer(ref)
+        out["zero3"]["ref_step_ms"] = timed_steps(
+            ref_step, (ids, labels), LOCKSTEP_STEPS, sync)[1]
+        out["zero3"]["param_gap"] = param_gap(
+            full, {n: p.detach() for n, p in ref.named_parameters()})
+        del ref_step, ref_opt, ref
+    del full
+    reset_peak()
+    dist.barrier()
+
+    # -- 45a: the gradient wire at dp 2
+    wires = {}
+    for name, cfg in GRAD_WIRES.items():
+        fleet.init(is_collective=True, strategy=wire_strategy(
+            grad_wire=cfg, dp_degree=2))
+        model = build(WIRE_LAYERS)
+        step, opt = dist_trainer(model)
+        reset_flash(fa)
+        collective.reset_counts()
+        w_losses, w_ms = timed_steps(step, (ids, labels), LOCKSTEP_STEPS,
+                                     sync)
+        wire = opt._grad_wire()
+        wires[name] = dict(
+            losses=w_losses, step_ms=w_ms, launches=launches(),
+            wire_bytes=collective.counts.get("grad_wire_bytes", 0),
+            f32_bytes=collective.counts.get("grad_wire_f32_bytes", 0),
+            want=None if wire is None else dict(
+                bytes_wire=wire.bytes_wire, bytes_f32=wire.bytes_f32,
+                buckets=len(wire.zero_layouts) + len(wire.tail_layouts),
+                n_elems=wire.n_elems),
+            n_params=sum(p.numel() for p in model.parameters()),
+            residuals=sum(k.startswith("grad_comm.")
+                          for k in opt.state_dict()))
+        del step, opt, model
+        fleet.topology.set_hybrid_communicate_group(None)
+        reset_peak()
+    out["grad_wire"] = wires
+
+    # -- 45b: the mp wire at mp 2
+    mp = {}
+    for name, wire in (("off", None), ("int8", "int8")):
+        fleet.init(is_collective=True, strategy=wire_strategy(
+            mp_wire=wire, mp_degree=2))
+        model = build(WIRE_LAYERS)
+        step, _ = dist_trainer(model)
+        reset_flash(fa)
+        collective.reset_counts()
+        m_losses, m_ms = timed_steps(step, (ids, labels), LOCKSTEP_STEPS,
+                                     sync)
+        mp[name] = dict(
+            losses=m_losses, step_ms=m_ms, launches=launches(),
+            wire_bytes=collective.counts.get("mp_wire_bytes", 0),
+            f32_bytes=collective.counts.get("mp_wire_f32_bytes", 0),
+            want=mp_wire_want(model.config, ids.shape[0], ids.shape[1], 2,
+                              LOCKSTEP_STEPS))
+        del step, model
+        fleet.topology.set_hybrid_communicate_group(None)
+        reset_peak()
+    out["mp_wire"] = mp
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_gradient_merge(fa, smi, build=None):
+    """Phase 45c: gradient merge (``GradientMergeOptimizer``, k = MERGE_K)
+    over MERGE_K one-row micro-batches against ``TrainStep`` on the whole
+    batch, LOCKSTEP_STEPS updates at GPT-3 1.3B's widths and depth
+    WIRE_LAYERS: each cycle's mean micro-batch loss against the whole
+    batch's loss within TRAIN_LOSS_RTOL, the parameters by phase 8's rule,
+    the parameters still between boundaries."""
+    from paddle_tpu_torch.distributed.fleet import GradientMergeOptimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    build = build or (lambda: build_model(WIRE_LAYERS))
+    model = build()
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(SEED + 45)
+    tok = torch.as_tensor(rng.integers(0, vocab, (MERGE_K, MERGE_SEQ + 1)),
+                          device=DEVICE)
+    ids, labels = tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+    opt = GradientMergeOptimizer(
+        AdamW(parameters=model.parameters(),
+              grad_clip=ClipGradByGlobalNorm(1.0), **ADAMW),
+        k_steps=MERGE_K)
+    step = TrainStep(model, lambda m, i, lab: m(i, labels=lab), opt)
+    reset_flash(fa)
+    losses, still = [], True
+    t0 = time.perf_counter()
+    for _ in range(LOCKSTEP_STEPS):
+        micro = []
+        for j in range(MERGE_K):
+            before = model.gpt.decoder[0].mlp.fc_in.weight.detach().clone()
+            micro.append(float(step(ids[j:j + 1], labels[j:j + 1])))
+            if j < MERGE_K - 1:
+                still &= torch.equal(
+                    before, model.gpt.decoder[0].mlp.fc_in.weight.detach())
+        losses.append(sum(micro) / MERGE_K)
+    secs = time.perf_counter() - t0
+    merged_launches = {k: getattr(fa, f"launches_{k}")
+                       for k in ("fwd", "dq", "dkv")}
+    ref = build()
+    ref_step, _ = trainer(ref)
+    ref_losses = [float(ref_step(ids, labels))
+                  for _ in range(LOCKSTEP_STEPS)]
+    gap = param_gap({n: p.detach() for n, p in model.named_parameters()},
+                    {n: p.detach() for n, p in ref.named_parameters()})
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    log(f"# phase 45c: gradient merge k={MERGE_K} over [1, {MERGE_SEQ}] "
+        f"micro-batches, depth {WIRE_LAYERS}: mean micro-batch losses "
+        f"{losses} vs TrainStep on the [{MERGE_K}, {MERGE_SEQ}] batch "
+        f"{ref_losses} (rel {rel:.2e}); params max |d| {gap[0]:.2e}, "
+        f"{gap[1]}/{gap[2]} beyond {LOCKSTEP_PARAM_ATOL}; parameters held "
+        f"between boundaries {still}; launches {merged_launches}; "
+        f"{secs:.1f} s  [{smi}]")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 45c: merged losses differ from the "
+                             "whole batch's")
+    check_param_gap(gap, LOCKSTEP_STEPS, "phase 45c")
+    if not still:
+        raise AssertionError("phase 45c: parameters moved within a cycle")
+    n = WIRE_LAYERS * MERGE_K * LOCKSTEP_STEPS
+    if any(v != n for v in merged_launches.values()):
+        raise AssertionError(f"phase 45c: launches {merged_launches} != {n}")
+    del step, opt, model, ref_step, ref
+    return dict(losses=losses, ref_losses=ref_losses, rel=rel,
+                param_max=gap[0], param_far=gap[1], launches=merged_launches,
+                seconds=secs)
+
+
+def phases_zero3_wires(fa, smi, trained, timeout=900, spec=None):
+    """Phases 44-45. Phase 44: GPT-3 1.3B at 24 layers at ZeRO-3 over
+    sharding 2, two processes on the one card over gloo, against phase
+    7's ``TrainStep`` losses (within TRAIN_LOSS_RTOL) and a single-process
+    ``TrainStep``'s parameters (phase 8's rule); each rank's K1 / K2a /
+    K2b launches (24 x LOCKSTEP_STEPS), the bytes its forward gathers
+    (the other rank's half of every sliced parameter, the tied embedding
+    twice) and reduce-scatters a step, the parameter bytes it holds.
+    Phase 45: the depth-2 model at dp 2 with the bf16 and the int8 +
+    error-feedback gradient wire against the f32 exchange, at mp 2 with
+    the int8 mp wire against the wire off (each within the tier-1
+    tolerance; the bytes each rank sends against the arithmetic), and
+    gradient merge (phase 45c, one process; ``spec["merge"]`` builds its
+    model in a rehearsal). Returns the ``zero3_wires`` JSON line's
+    numbers."""
+    import os
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    spec = spec or {"device": DEVICE}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero3_")
+    t0 = time.perf_counter()
+    child = {k: v for k, v in spec.items() if k != "merge"}
+    ctx = dist.spawn(_rank_zero3_wires, (tmp, trained["losses"], child),
+                     nprocs=2, join=False, backend="gloo",
+                     master=f"file://{tmp}/rendezvous")
+    join_spawned(ctx, timeout)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    a, b = res
+    out = {"seconds": secs, "backend": a["backend"], "card": smi}
+
+    # 44
+    za, zb = a["zero3"], b["zero3"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(za["losses"],
+                                                  za["ref_losses"]))
+    n_steps, layers = LOCKSTEP_STEPS, za["layers"]
+    log(f"# phase 44: GPT-3 1.3B ({layers} layers) at ZeRO-3 over sharding "
+        f"{ZERO3_DEGREE}, {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+        f"{za['losses']} vs phase 7's TrainStep {za['ref_losses']} (rel "
+        f"{rel:.2e}); params vs TrainStep max |d| {za['param_gap'][0]:.2e}, "
+        f"{za['param_gap'][1]}/{za['param_gap'][2]} beyond "
+        f"{LOCKSTEP_PARAM_ATOL}; step ms rank 0 "
+        f"{[round(t, 1) for t in za['step_ms']]} rank 1 "
+        f"{[round(t, 1) for t in zb['step_ms']]} (TrainStep "
+        f"{[round(t, 1) for t in za['ref_step_ms']]}); peak "
+        f"{za['peak_gib']:.2f} / {zb['peak_gib']:.2f} GiB; launches rank 0 "
+        f"{za['launches']} rank 1 {zb['launches']}; a step gathers "
+        f"{za['gather_bytes']} B (want {za['gather_want']}), gathers again "
+        f"{za['regather_bytes']} B in the backward, reduce-scatters "
+        f"{za['reduce_scatter_bytes']} B; parameters held "
+        f"{za['held_bytes']} / {zb['held_bytes']} B of {za['model_bytes']}, "
+        f"moments {za['moments']} B  [{smi}]")
+    if za["losses"] != zb["losses"]:
+        raise AssertionError("phase 44: the ranks' losses differ")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 44: losses differ from phase 7's")
+    check_param_gap(za["param_gap"], n_steps, "phase 44")
+    for z in (za, zb):
+        if any(v != layers * n_steps for v in z["launches"].values()):
+            raise AssertionError(f"phase 44: launches {z['launches']} != "
+                                 f"{layers} x {n_steps}")
+        if z["gather_bytes"] != z["gather_want"] or \
+                z["reduce_scatter_bytes"] != z["gather_bytes"]:
+            raise AssertionError("phase 44: gathered / reduce-scattered "
+                                 "bytes differ from the arithmetic")
+        if not z["held_bytes"] < 0.6 * z["model_bytes"]:
+            raise AssertionError("phase 44: a rank holds more than its "
+                                 "slices")
+    out["zero3_1p3b"] = dict(
+        {k: za[k] for k in ("losses", "ref_losses", "step_ms",
+                            "ref_step_ms", "peak_gib", "launches",
+                            "gather_bytes", "regather_bytes",
+                            "reduce_scatter_bytes", "held_bytes",
+                            "model_bytes", "moments")},
+        rel=rel, param_max=za["param_gap"][0], param_far=za["param_gap"][1],
+        rank1_step_ms=zb["step_ms"], rank1_peak_gib=zb["peak_gib"],
+        rank1_launches=zb["launches"])
+
+    # 45a
+    base = a["grad_wire"]["f32"]
+    gw = {}
+    for name, w in a["grad_wire"].items():
+        wb = b["grad_wire"][name]
+        err = max(abs(x - y) for x, y in zip(w["losses"], base["losses"]))
+        tol = GRAD_WIRE_ATOL.get(name, 0.0)
+        log(f"# phase 45a: depth {WIRE_LAYERS} at dp 2, {name} gradient "
+            f"wire: losses {w['losses']} (f32 exchange {base['losses']}, "
+            f"max |d| {err:.2e}, "
+            f"{'converging' if tol is None else f'tol {tol}'}); step ms "
+            f"{[round(t, 1) for t in w['step_ms']]}; wire bytes "
+            f"{w['wire_bytes']} (f32 {w['f32_bytes']}; plan {w['want']}); "
+            f"residual buffers in state_dict {w['residuals']}; launches "
+            f"{w['launches']}  [{smi}]")
+        if w["losses"] != wb["losses"]:
+            raise AssertionError(f"phase 45a {name}: the ranks differ")
+        if not (w["losses"][-1] < w["losses"][0] if tol is None
+                else err <= tol):
+            raise AssertionError(f"phase 45a {name}: losses differ from "
+                                 "the f32 exchange")
+        for r in (w, wb):
+            if any(v != WIRE_LAYERS * n_steps
+                   for v in r["launches"].values()):
+                raise AssertionError(f"phase 45a {name}: launches")
+        if name != "f32":
+            want, n = w["want"], w["n_params"]
+            per = 2 * n if name == "bf16" else n + 4 * want["buckets"]
+            if not (want["bytes_wire"] == per and want["n_elems"] == n
+                    and w["wire_bytes"] == per * n_steps
+                    and w["f32_bytes"] == 4 * n * n_steps
+                    and w["wire_bytes"] < w["f32_bytes"]):
+                raise AssertionError(f"phase 45a {name}: wire bytes differ "
+                                     "from the arithmetic")
+            if name == "int8_ef" and w["residuals"] != want["buckets"]:
+                raise AssertionError("phase 45a: residuals not in the "
+                                     "optimizer state")
+        gw[name] = dict({k: w[k] for k in ("losses", "step_ms", "launches",
+                                           "wire_bytes", "f32_bytes")},
+                        max_abs_loss_d=err, rank1_launches=wb["launches"])
+    out["grad_wire_dp2"] = gw
+
+    # 45b
+    off, q = a["mp_wire"]["off"], a["mp_wire"]["int8"]
+    err = max(abs(x - y) for x, y in zip(q["losses"], off["losses"]))
+    log(f"# phase 45b: depth {WIRE_LAYERS} at mp 2, int8 mp wire: losses "
+        f"{q['losses']} (wire off {off['losses']}, max |d| {err:.2e}, tol "
+        f"{MP_WIRE_ATOL}); step ms {[round(t, 1) for t in q['step_ms']]} "
+        f"(off {[round(t, 1) for t in off['step_ms']]}); wire bytes "
+        f"{q['wire_bytes']} (arithmetic {q['want']}; the f32 all-reduces "
+        f"{q['f32_bytes']}); launches {q['launches']}  [{smi}]")
+    for name in ("off", "int8"):
+        if a["mp_wire"][name]["losses"] != b["mp_wire"][name]["losses"]:
+            raise AssertionError(f"phase 45b {name}: the ranks differ")
+    if not err <= MP_WIRE_ATOL or not q["losses"][-1] < q["losses"][0]:
+        raise AssertionError("phase 45b: int8 losses differ from the wire "
+                             "off")
+    if q["wire_bytes"] != q["want"] or \
+            not q["wire_bytes"] <= 0.6 * q["f32_bytes"] or off["wire_bytes"]:
+        raise AssertionError("phase 45b: mp wire bytes differ from the "
+                             "arithmetic")
+    for r in (a, b):
+        for name in ("off", "int8"):
+            if any(v != WIRE_LAYERS * n_steps for v in
+                   r["mp_wire"][name]["launches"].values()):
+                raise AssertionError(f"phase 45b {name}: launches")
+    out["mp_wire_mp2"] = dict(
+        {k: q[k] for k in ("losses", "step_ms", "launches", "wire_bytes",
+                           "f32_bytes")},
+        off_losses=off["losses"], off_step_ms=off["step_ms"],
+        max_abs_loss_d=err, rank1_launches=b["mp_wire"]["int8"]["launches"])
+    log(f"# phases 44-45b: {secs:.1f} s (two processes, spawn, build and "
+        "run)")
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+    out["gradient_merge"] = phase_gradient_merge(fa, smi, spec.get("merge"))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4990,6 +5436,8 @@ def main() -> int:
     pipeline = phases_pipeline(fa, smi, trained)
     torch.cuda.empty_cache()
     sep_ep = phases_sep_ep(fa, smi, trained)
+    torch.cuda.empty_cache()
+    zero3 = phases_zero3_wires(fa, smi, trained)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -5055,7 +5503,18 @@ def main() -> int:
             launches_sep={
                 f"sep2_1p3b_rank{i}": sep_ep["sep_1p3b"][
                     "launches" if i == 0 else "rank1_launches"][kind]
-                for i in (0, 1)}))
+                for i in (0, 1)},
+            launches_zero3_wires=dict(
+                **{f"zero3_1p3b_rank{i}": zero3["zero3_1p3b"][
+                    "launches" if i == 0 else "rank1_launches"][kind]
+                   for i in (0, 1)},
+                **{f"grad_wire_{w}_rank{i}": zero3["grad_wire_dp2"][w][
+                    "launches" if i == 0 else "rank1_launches"][kind]
+                   for w in GRAD_WIRES for i in (0, 1)},
+                **{f"mp_wire_int8_rank{i}": zero3["mp_wire_mp2"][
+                    "launches" if i == 0 else "rank1_launches"][kind]
+                   for i in (0, 1)},
+                gradient_merge=zero3["gradient_merge"]["launches"][kind])))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -5095,6 +5554,7 @@ def main() -> int:
     log(json.dumps({"distributed": distributed}))
     log(json.dumps({"pipeline": pipeline}))
     log(json.dumps({"sep_ep": sep_ep}))
+    log(json.dumps({"zero3_wires": zero3}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

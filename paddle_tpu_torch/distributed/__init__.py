@@ -5,21 +5,23 @@
 - ``collective`` / ``communication``: Paddle's collectives;
 - ``parallel``: ``DataParallel`` and ``spawn``;
 - ``fleet``: the hybrid topology, the mp layers, sequence parallelism,
-  ZeRO-1/2, pipeline parallelism, the sep axis (the sequence split and
-  the ring attention of ``nn/functional/ring_attention.py``), expert
-  parallelism (with ``incubate/moe.py``) and ``DistTrainStep``;
+  ZeRO-1/2/3, gradient merge, pipeline parallelism, the sep axis (the
+  sequence split and the ring attention of
+  ``nn/functional/ring_attention.py``), expert parallelism (with
+  ``incubate/moe.py``) and ``DistTrainStep``;
 - ``sharding``: ``group_sharded_parallel``;
-- ``grad_comm``: the gradient buckets (and the int8 helpers the serving
-  engine uses);
+- ``grad_comm``: the gradient buckets and the quantized gradient wire
+  (and the int8 helpers the serving engine uses);
+- ``mp_comm``: the quantized mp activation wire;
 - ``split``: a tensor-parallel embedding or linear, built and applied.
 
-Not ported yet (ROADMAP.md §A.7): ZeRO-3, the quantized wires, the
-mesh / auto-parallel / reshard / checkpoint modules, mpmd, the launch
-CLI, elastic, rpc and the parameter server.
+Not ported yet (ROADMAP.md §A.7): the mesh / auto-parallel / reshard /
+checkpoint modules, mpmd, the launch CLI, elastic, rpc and the parameter
+server.
 """
 from __future__ import annotations
 
-from . import collective, communication, env, grad_comm  # noqa: F401
+from . import collective, communication, env, grad_comm, mp_comm  # noqa: F401
 from .collective import (  # noqa: F401
     P2POp,
     ReduceOp,

@@ -25,9 +25,15 @@ for each op. The choice is made by the group's backend: an NCCL group and
 a CPU tensor pass the tensor as it is. ``counts["p2p_staged_bytes"]``
 adds up the bytes staged.
 
-Not here: the quantized collectives ``psum_quantized`` /
-``all_gather_quantized`` (reference :109-236), which come with
-``mp_comm`` (ROADMAP.md §A.7).
+The quantized collectives (reference :109-236): :func:`psum_quantized`
+sums each rank's value after one pass through a reduced-precision wire
+(bf16, or int8 with one absmax scale), the payload all-gathered in the
+wire dtype and the sum taken in f32 in rank order; its backward sums the
+cotangents round-tripped through the wire. :func:`all_gather_quantized`
+gathers a flat f32 vector in the wire dtype (int8 with one scale a
+segment); its backward reduce-scatters the round-tripped cotangent.
+Both are autograd functions over a group (the reference's take a mesh
+axis).
 """
 from __future__ import annotations
 
@@ -391,6 +397,122 @@ def _reduce_scatter_tensor(out, inp, op, pg, async_op):
     return fn(out, inp, op=op, group=pg, async_op=async_op)
 
 
+# ---------------------------------------------------- quantized collectives
+def stacked_all_gather(x, group=None):
+    """Every rank's ``x`` stacked on a new dim 0, in group order; moved as
+    bytes, so a payload in any dtype (int8, bf16) crosses as it is."""
+    g = _resolve_group(group)
+    x = x.contiguous()
+    out = torch.empty((g.nranks,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    all_gather(out.view(torch.uint8).reshape(-1),
+               x.view(torch.uint8).reshape(-1), group=g)
+    return out
+
+
+def rank_order_sum(parts):
+    """``parts[0] + parts[1] + ...`` over dim 0 in f32, in that order (the
+    same value on every rank that holds the same parts)."""
+    parts = parts.float()
+    acc = parts[0].clone()
+    for r in range(1, parts.shape[0]):
+        acc += parts[r]
+    return acc
+
+
+def _psum_wire(v, g: Group, wire_dtype):
+    from .grad_comm import quantize_absmax
+
+    v32 = v.float()
+    if wire_dtype == "int8":
+        q, scale = quantize_absmax(v32)
+        parts = stacked_all_gather(q, g).float() \
+            * stacked_all_gather(scale, g)
+    elif wire_dtype == "bf16":
+        parts = stacked_all_gather(v32.to(torch.bfloat16), g)
+    else:
+        out = v.clone()
+        all_reduce(out, group=g)
+        return out
+    return rank_order_sum(parts).to(v.dtype)
+
+
+class _PsumQuantized(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, g, wire_dtype):
+        ctx.g, ctx.wire = g, wire_dtype
+        return _psum_wire(v, g, wire_dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from .grad_comm import quantize_roundtrip
+
+        ctq = quantize_roundtrip(ct.float(), ctx.wire)
+        all_reduce(ctq, group=ctx.g)
+        return ctq.to(ct.dtype), None, None
+
+
+def psum_quantized(v, group=None, wire_dtype="bf16", via="gather"):
+    """The sum of every rank's ``v`` through a reduced-precision wire: each
+    rank's value quantized once (bf16, or int8 with one absmax scale),
+    gathered in the wire dtype, dequantized and summed in f32 in rank
+    order, returned in ``v``'s dtype. ``via`` is the reference's choice
+    between a simulated and a real exchange; here the exchange is always
+    the real one, whose numbers both give."""
+    return _PsumQuantized.apply(v, _resolve_group(group), wire_dtype)
+
+
+class _AllGatherQuantized(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, g, wire_dtype, segs, grad_wire):
+        ctx.g, ctx.grad_wire = g, grad_wire
+        v32 = v.float()
+        if wire_dtype == "bf16":
+            return stacked_all_gather(v32.to(torch.bfloat16),
+                                      g).float().reshape(-1)
+        qs, scales = [], []
+        for seg in torch.split(v32, list(segs)):
+            s = torch.clamp(seg.abs().amax() / 127.0, min=1e-12)
+            qs.append(torch.clamp(torch.round(seg / s), -127.0,
+                                  127.0).to(torch.int8))
+            scales.append(s)
+        q = stacked_all_gather(torch.cat(qs), g).float()    # [n, total]
+        sc = stacked_all_gather(torch.stack(scales), g)      # [n, n_segs]
+        sexp = torch.repeat_interleave(
+            sc, torch.tensor(list(segs), device=sc.device), dim=1)
+        return (q * sexp).reshape(-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from .grad_comm import quantize_roundtrip
+
+        ctq = quantize_roundtrip(ct.float(), ctx.grad_wire)
+        out = ctq.new_empty(ctq.numel() // ctx.g.nranks)
+        reduce_scatter(out, ctq, group=ctx.g)
+        return out.to(ct.dtype), None, None, None, None
+
+
+def all_gather_quantized(v, group=None, *, wire_dtype="int8",
+                         segments=None, grad_wire=None):
+    """Every rank's flat f32 ``v`` concatenated, through the wire: int8
+    with one f32 absmax scale a segment (``segments``, the flat sizes of
+    the leaves packed in ``v``; one scale when None), or bf16. The
+    backward reduce-scatters the cotangent round-tripped through
+    ``grad_wire`` (the forward's wire when None)."""
+    g = _resolve_group(group)
+    if wire_dtype not in ("bf16", "int8"):
+        out = v.new_empty(g.nranks * v.numel())
+        all_gather(out, v.contiguous(), group=g)
+        return out
+    segs = (int(v.shape[0]),) if segments is None else \
+        tuple(int(n) for n in segments)
+    if sum(segs) != int(v.shape[0]):
+        raise ValueError(f"all_gather_quantized: segments sum {sum(segs)} "
+                         f"!= payload length {int(v.shape[0])}")
+    return _AllGatherQuantized.apply(v, g, wire_dtype, segs,
+                                     grad_wire or wire_dtype)
+
+
 class stream:
     """paddle.distributed.stream: the same collectives (a comm stream of
     its own is not modelled)."""
@@ -407,8 +529,11 @@ class stream:
 
 
 __all__ = ["P2POp", "ReduceOp", "all_gather", "all_gather_object",
+           "all_gather_quantized",
            "all_reduce", "alltoall", "alltoall_single", "barrier",
            "batch_isend_irecv", "broadcast", "broadcast_object_list",
-           "counts", "gather", "get_backend", "irecv", "isend", "recv",
+           "counts", "gather", "get_backend", "irecv", "isend",
+           "psum_quantized", "rank_order_sum", "recv",
            "reduce", "reduce_scatter", "reset_counts", "scatter",
+           "stacked_all_gather",
            "scatter_object_list", "send", "stream", "wait"]

@@ -19,7 +19,15 @@ parameter order), and only the owner keeps its AdamW moments and, under
 broadcasts its updated parameters, packed in one buffer per dtype. The
 gradients reach every rank by the data group's all-reduce, so the update
 is the unsharded one bit for bit (AdamW is elementwise). Stage 2 also
-drops, before the update, the gradients a rank does not own.
+drops, before the update, the gradients a rank does not own. Stage 3
+(``meta_parallel/sharding_stage3.py``) cuts the parameters themselves to
+slices over the sharding group in ``distributed_model``: every rank
+updates its slices, with slice-shaped moments, and broadcasts nothing.
+
+``strategy.gradient_merge`` wraps the optimizer in a
+:class:`GradientMergeOptimizer` (``distributed_optimizer``, as the
+reference does); the quantized gradient wire (``grad_comm``) replaces the
+data group's f32 all-reduce where the reference's explicit exchange runs.
 
 :class:`DistTrainStep` takes the *global* batch on every rank, as the
 reference does, and keeps the rank's rows over the data axes (data and
@@ -28,9 +36,17 @@ whole on every rank (the reference's ``data_spec_for`` gives ``P()``).
 It runs forward and backward, sums the sequence-parallel parameters'
 gradients over mp, averages the gradients over the data (x sep) ranks in
 flat buckets (``grad_comm``), then steps the optimizer. It returns the
-global mean loss. While the loss runs on split rows, a masked mean divides by
-the kept count summed over the data group (``nn/functional/loss.py``), so
-the loss is the global masked mean however the mask splits.
+global mean loss. While the loss runs on split rows, every reduction over
+the batch that the port's functionals make is global, as in the
+reference's one program over the global batch (ROADMAP.md §C.26): a
+masked or ``ignore_index`` / class-weighted mean divides by the count
+(or weight) summed over the data group, a ``reduction="sum"`` is scaled
+by the group's size (``nn/functional/loss.py``), and batch norm in
+training sums its statistics over the group (``nn/functional/norm.py``),
+so the running buffers come out equal on every rank. Only batch tensors
+whose dim 0 is the first batch tensor's are cut (a ``[C]`` class weight
+stays whole). A reduction of the user's own over the batch sees the
+rank's rows.
 
 The sep axis (``sep_degree > 1``, context parallelism): after its rows,
 each rank keeps its contiguous ``T / sep`` block of dim 1 of every batch
@@ -64,6 +80,7 @@ parameters once.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -160,16 +177,28 @@ def _require_hcg():
     return hcg
 
 
+def _sharding_stage(strategy) -> int:
+    return int((strategy or DistributedStrategy()).sharding_configs.get(
+        "stage", 1))
+
+
 def distributed_model(model):
-    """Broadcast ``model``'s parameters so every rank starts equal; returns
-    the model, a ``PipelineLayer`` at pp > 1 wrapped in
-    ``PipelineParallel`` (reference ``fleet/__init__.py:270-287``)."""
+    """Broadcast ``model``'s parameters so every rank starts equal, then at
+    ZeRO-3 cut them to this rank's slices; returns the model, a
+    ``PipelineLayer`` at pp > 1 wrapped in ``PipelineParallel`` (reference
+    ``fleet/__init__.py:270-287``)."""
+    return _distribute(model, _sharding_stage(_strategy))
+
+
+def _distribute(model, stage):
     hcg = _require_hcg()
     _hpu.broadcast_dp_parameters(model, hcg)
     _hpu.broadcast_sharding_parameters(model, hcg)
     _hpu.broadcast_sep_parameters(model, hcg)
     _hpu.broadcast_mp_parameters(model, hcg)
     _hpu.broadcast_pp_replicated_parameters(model, hcg)
+    if stage == 3 and hcg.get_sharding_parallel_world_size() > 1:
+        _z3.shard_parameters(model, hcg.get_sharding_parallel_group())
     if hcg.get_pipe_parallel_world_size() > 1 and isinstance(
             model, _pp.PipelineLayer):
         return _pp.PipelineParallel(model, hcg, _strategy)
@@ -201,15 +230,19 @@ class HybridParallelOptimizer:
 
     def __init__(self, optimizer, hcg=None, strategy=None):
         self._inner_opt = optimizer
-        self._hcg = hcg or _require_hcg()
+        self._hcg = hcg or get_hybrid_communicate_group()
         self._strategy = strategy or _strategy or DistributedStrategy()
-        self._stage = int(self._strategy.sharding_configs.get("stage", 1))
-        sg = self._hcg.get_sharding_parallel_group()
+        self._stage = _sharding_stage(self._strategy)
+        sg = (self._hcg.get_sharding_parallel_group()
+              if self._hcg is not None else None)
         self._sharding_group = sg
-        self._shard_states = sg.nranks > 1
+        # ZeRO-3: every rank updates its slices, nothing is broadcast
+        self._shard_states = sg is not None and sg.nranks > 1 \
+            and self._stage != 3
         self._owner = (_partition(optimizer._parameter_list, sg.nranks)
                        if self._shard_states else None)
-        self._me = self._hcg.get_sharding_parallel_rank()
+        self._me = (self._hcg.get_sharding_parallel_rank()
+                    if self._hcg is not None else 0)
 
     def __getattr__(self, name):
         return getattr(self._inner_opt, name)
@@ -220,26 +253,36 @@ class HybridParallelOptimizer:
 
     def _clip(self, pg):
         """A ``ClipGradByGlobalNorm`` over the whole model: the mp shards'
-        squares summed over mp, the expert slices' over the expert axis,
-        the stage-local ones over the pipe group, the parameters
-        replicated over pp counted once."""
+        squares summed over mp, the ZeRO-3 slices' over the sharding
+        group, the expert slices' over the expert axis, the stage-local
+        ones over the pipe group, the parameters replicated over pp
+        counted once."""
         clip = self._inner_opt._grad_clip
+        if self._hcg is None:
+            return clip(pg)
         mp = self._hcg.get_model_parallel_group()
         pp = self._hcg.get_pipe_parallel_group()
         experts = [g for p, g in pg if g is not None and is_expert_slice(p)]
+        sliced = any(g is not None and is_zero3_slice(p) for p, g in pg)
         if not isinstance(clip, ClipGradByGlobalNorm) or (
-                mp.nranks == 1 and pp.nranks == 1 and not experts):
+                mp.nranks == 1 and pp.nranks == 1 and not experts
+                and not sliced):
             return clip(pg)
         # [replicated, mp shard] x [replicated over pp, stage-local]
-        parts = [[], [], [], []]
+        # x [whole, ZeRO-3 slice]
+        parts = [[] for _ in range(8)]
         for p, g in pg:
             if g is not None and not is_expert_slice(p):
-                parts[mpu.is_mp_shard(p)
-                      + 2 * is_pipeline_local(p)].append(
+                parts[mpu.is_mp_shard(p) + 2 * is_pipeline_local(p)
+                      + 4 * is_zero3_slice(p)].append(
                     torch.sum(torch.square(g.float())))
         zero = torch.zeros((), device=pg[0][0].device)
-        rep, shard, local_rep, local_shard = (
-            torch.stack(v).sum() if v else zero for v in parts)
+        sums = [torch.stack(v).sum() if v else zero for v in parts]
+        if sliced:
+            slices = torch.stack(sums[4:])
+            C.all_reduce(slices, group=self._sharding_group)
+            sums = [sums[i] + slices[i] for i in range(4)]
+        rep, shard, local_rep, local_shard = sums[:4]
         if mp.nranks > 1:
             shards = torch.stack([shard, local_shard])
             C.all_reduce(shards, group=mp)
@@ -266,6 +309,11 @@ class HybridParallelOptimizer:
         opt = self._inner_opt
         pg = [(p, p.grad if p.requires_grad else None)
               for p in opt._parameter_list]
+        if isinstance(opt, GradientMergeOptimizer):
+            pg = opt._merge(pg)
+            if pg is None:  # within a merge cycle: nothing to apply
+                return
+            opt = opt._inner
         if opt._grad_clip is not None:
             pg = self._clip(pg)
         if self._stage == 2:
@@ -302,16 +350,165 @@ class HybridParallelOptimizer:
 
     clear_gradients = clear_grad
 
+    def _grad_wire(self):
+        """The quantized gradient exchange of this optimizer's trainable
+        parameters, or None (``hybrid_parallel_util.wire_exchange``)."""
+        if self._hcg is None:
+            return None
+        return _hpu.wire_exchange(
+            [p for p in self._inner_opt._parameter_list if p.requires_grad],
+            self._hcg, self._strategy)
+
     def state_dict(self):
-        """This rank's state: under ZeRO, that of the parameters it owns
-        (by position in the full parameter list)."""
-        return self._inner_opt.state_dict()
+        """This rank's state: under ZeRO-1/2, that of the parameters it owns
+        (by position in the full parameter list), under ZeRO-3 its slices;
+        with the error-feedback wire, the rank's residuals under
+        ``"grad_comm.residual_{bucket}"``."""
+        out = self._inner_opt.state_dict()
+        wire = self._grad_wire()
+        if wire is not None and wire.residuals is not None:
+            for b, r in enumerate(wire.residuals):
+                out[f"grad_comm.residual_{b}"] = r.clone()
+        return out
 
     def set_state_dict(self, state):
+        wire = self._grad_wire()
+        if wire is not None and wire.residuals is not None:
+            state = dict(state)
+            for b in range(len(wire.residuals)):
+                r = state.pop(f"grad_comm.residual_{b}", None)
+                if r is not None:
+                    wire.residuals[b] = torch.as_tensor(r).to(
+                        wire.residuals[b].device, torch.float32).clone()
         return self._inner_opt.set_state_dict(state)
 
 
+class GradientMergeOptimizer:
+    """``strategy.gradient_merge`` (counterpart of the reference's
+    ``GradientMergeOptimizer``, ``fleet/__init__.py:389-649``): the
+    gradients of ``k_steps`` calls are added in f32 accumulators (one per
+    parameter, shaped as the parameter: a ZeRO-3 slice's is slice-shaped),
+    and every ``k_steps``-th call applies one update of the inner optimizer
+    (its clip, decay and rule) with the merged gradient, divided by ``k``
+    with ``avg``; the other calls leave the parameters as they are.
+
+    The reference's functional semantics (the step ``TrainStep`` compiles),
+    whatever drives ``step``: the cycle counter advances on a call in which
+    some parameter has a gradient; a parameter that had one at some call
+    of the cycle (an exact zero included) is updated at the boundary, even
+    if it has none at the boundary call; one that had none all cycle is
+    left untouched; the boundary zeroes every accumulator.
+    ``state_dict`` holds the inner state as ``param_{i}.inner_{key}``
+    beside ``param_{i}.gm_acc`` / ``gm_ctr`` / ``gm_saw``, so a checkpoint
+    taken mid-cycle resumes the cycle."""
+
+    def __init__(self, inner, k_steps=1, avg=True):
+        self._inner = inner
+        self._k = max(int(k_steps), 1)
+        self._avg = bool(avg)
+        self._parameter_list = inner._parameter_list
+        n = len(self._parameter_list)
+        self._acc = [None] * n
+        self._saw = [False] * n
+        self._ctr = 0
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+    def _merge(self, pg):
+        """Add the gradients of ``pg`` (parameter, gradient or None); at a
+        boundary return the pairs to apply (the merged gradient of each
+        parameter that had one this cycle, else None) and restart the
+        cycle, otherwise None."""
+        live = [g is not None and p.requires_grad for p, g in pg]
+        if not any(live):
+            return None
+        for i, ((p, g), ok) in enumerate(zip(pg, live)):
+            if ok:
+                g = g.detach().float()
+                self._acc[i] = g.clone() if self._acc[i] is None \
+                    else self._acc[i].add_(g)
+                self._saw[i] = True
+        self._ctr += 1
+        if self._ctr % self._k:
+            return None
+        scale = 1.0 / self._k if self._avg else 1.0
+        out = [(p, (self._acc[i] * scale).to(p.dtype)
+                if self._saw[i] and p.requires_grad else None)
+               for i, (p, _) in enumerate(pg)]
+        self._acc = [None] * len(pg)
+        self._saw = [False] * len(pg)
+        return out
+
+    @torch.no_grad()
+    def step(self):
+        pg = self._merge([(p, p.grad if p.requires_grad else None)
+                          for p in self._parameter_list])
+        if pg is not None:
+            self._inner._apply(pg)
+
+    def clear_grad(self, *a, **k):
+        return self._inner.clear_grad(*a, **k)
+
+    clear_gradients = clear_grad
+
+    def state_dict(self):
+        out = {}
+        for k, v in self._inner.state_dict().items():
+            if k.startswith("param_") and "." in k:
+                i, key = k.split(".", 1)
+                out[f"{i}.inner_{key}"] = v
+            else:
+                out[k] = v
+        for i, p in enumerate(self._parameter_list):
+            if not p.requires_grad:
+                continue
+            acc = self._acc[i]
+            out[f"param_{i}.gm_acc"] = (acc.clone() if acc is not None
+                                        else torch.zeros_like(
+                                            p, dtype=torch.float32))
+            out[f"param_{i}.gm_ctr"] = torch.tensor(self._ctr,
+                                                    dtype=torch.int32)
+            out[f"param_{i}.gm_saw"] = torch.tensor(int(self._saw[i]),
+                                                    dtype=torch.int32)
+        return out
+
+    def set_state_dict(self, state):
+        if not any(".gm_" in k for k in state):
+            # a checkpoint of a plain run: the inner state, a fresh cycle
+            self._acc = [None] * len(self._parameter_list)
+            self._saw = [False] * len(self._parameter_list)
+            self._ctr = 0
+            return self._inner.set_state_dict(state)
+        inner = {}
+        for k, v in state.items():
+            i, _, key = k.partition(".")
+            if key.startswith("inner_"):
+                inner[f"{i}.{key[len('inner_'):]}"] = v
+            elif not key.startswith("gm_"):
+                inner[k] = v
+        for i, p in enumerate(self._parameter_list):
+            acc = state.get(f"param_{i}.gm_acc")
+            if acc is None:
+                continue
+            saw = state.get(f"param_{i}.gm_saw")
+            acc = torch.as_tensor(acc).to(p.device, torch.float32)
+            # a checkpoint without the flag: infer it from the accumulator
+            self._saw[i] = bool(int(saw)) if saw is not None \
+                else bool(acc.ne(0).any())
+            self._acc[i] = acc.clone() if self._saw[i] else None
+            self._ctr = int(state[f"param_{i}.gm_ctr"])
+        return self._inner.set_state_dict(inner)
+
+
 def distributed_optimizer(optimizer, strategy=None):
+    """``optimizer`` wrapped for the hybrid groups (the reference's
+    ``fleet/__init__.py:656-674``): in a ``GradientMergeOptimizer`` first
+    with ``strategy.gradient_merge``, then in a
+    ``HybridParallelOptimizer`` (which, before ``fleet.init``, is the
+    inner optimizer's step)."""
     strategy = strategy or _strategy or DistributedStrategy()
     check_ported(strategy)
     for knob in ("dgc", "localsgd", "adaptive_localsgd"):
@@ -322,7 +519,13 @@ def distributed_optimizer(optimizer, strategy=None):
                 f"DistributedStrategy.{knob} is ignored: the gradient "
                 "all-reduce is exact and runs every step (as in the "
                 "reference, a deliberate non-goal)", stacklevel=2)
-    return HybridParallelOptimizer(optimizer, _require_hcg(), strategy)
+    if getattr(strategy, "gradient_merge", False):
+        cfg = dict(getattr(strategy, "gradient_merge_configs", {}) or {})
+        optimizer = GradientMergeOptimizer(
+            optimizer, k_steps=int(cfg.get("k_steps", 1)),
+            avg=bool(cfg.get("avg", True)))
+    return HybridParallelOptimizer(optimizer, get_hybrid_communicate_group(),
+                                   strategy)
 
 
 class DistTrainStep(TrainStep):
@@ -343,11 +546,15 @@ class DistTrainStep(TrainStep):
         self._bucket_mb = grad_comm.resolve_config(
             optimizer._strategy).bucket_mb
         self._pipe = _pp.pipelined_stack(model)
+        self._zero3 = _z3.is_zero3_model(model)
 
-    def _rows(self, v):
+    def _rows(self, v, batch):
+        """This rank's rows of ``v`` when its dim 0 is the batch's (that of
+        the first batch tensor) and divides over the data ranks; anything
+        else (a ``[C]`` class weight) stays whole."""
         n = self._data_group.nranks
         if not isinstance(v, torch.Tensor) or v.dim() == 0 or n == 1 \
-                or v.shape[0] % n:
+                or v.shape[0] != batch or v.shape[0] % n:
             return v, False
         k = v.shape[0] // n
         return v[self._data_rank * k:(self._data_rank + 1) * k], True
@@ -375,7 +582,10 @@ class DistTrainStep(TrainStep):
         return self._sep_group if seq else None
 
     def __call__(self, *batch):
-        rows = [self._rows(v) for v in batch]
+        first = next((v for v in batch if isinstance(v, torch.Tensor)
+                      and v.dim() > 0), None)
+        size = None if first is None else first.shape[0]
+        rows = [self._rows(v, size) for v in batch]
         seqs = [self._sequence(v) for v, _ in rows]
         args = [v for v, _ in seqs]
         split_seq = any(s for _, s in seqs)
@@ -383,7 +593,9 @@ class DistTrainStep(TrainStep):
         trained = [p for p in self._params if p.requires_grad]
         if self._pipe is None:
             with _loss.split_batch(group), _ring.sequence_split(
-                    self._sep_group if split_seq else None):
+                    self._sep_group if split_seq else None), \
+                    (_z3.forward_scope() if self._zero3
+                     else contextlib.nullcontext()):
                 loss = self._loss_fn(self._model, *args)
             grads = torch.autograd.grad(loss, trained, allow_unused=True)
         else:
@@ -408,9 +620,12 @@ class DistTrainStep(TrainStep):
 from . import meta_parallel  # noqa: E402,F401  (needs the classes above)
 from .meta_parallel import pipeline_parallel as _pp  # noqa: E402
 from .meta_parallel.pipeline_parallel import is_pipeline_local  # noqa: E402
+from .meta_parallel import sharding_stage3 as _z3  # noqa: E402
+from .meta_parallel.sharding_stage3 import is_zero3_slice  # noqa: E402
 
 __all__ = ["CommunicateTopology", "DistTrainStep", "DistributedStrategy",
-           "HybridCommunicateGroup", "HybridParallelOptimizer",
+           "GradientMergeOptimizer", "HybridCommunicateGroup",
+           "HybridParallelOptimizer",
            "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "barrier_worker",
            "distributed_model", "distributed_optimizer", "fleet_strategy",
            "get_hybrid_communicate_group", "init", "is_first_worker",

@@ -20,6 +20,12 @@ holds the same full weights at any degree. At mp degree 1 every layer is
 the plain one (``nn.Linear``, ``nn.Embedding``, ``_parallel_softmax_ce``):
 the same ops, the same names and numerics.
 
+With the activation wire on (``distributed/mp_comm.py``: ``mp_comm`` with
+a bf16 / int8 ``wire_dtype``) the row-parallel sum, the vocab-parallel
+lookup's sum and the column-parallel input's gradient go through the
+quantized wire; off, the layers compute exactly what they compute without
+it.
+
 ``ParallelCrossEntropy`` is the vocab-parallel softmax cross entropy:
 all-reduce MAX of the row max, all-reduce SUM of the exp-sum and of the
 picked logit, ``ignore_index`` rows 0; its backward is
@@ -131,6 +137,16 @@ def _c_identity(x, group):
     return _CIdentity.apply(x, group)
 
 
+def mp_wire(world_size) -> Optional[str]:
+    """The activation wire's dtype (``distributed/mp_comm.py``) when it is
+    on and the mp degree above 1, else None (the exact collectives)."""
+    if world_size <= 1:
+        return None
+    from ... import mp_comm
+
+    return mp_comm.resolve_config().act_wire
+
+
 def _mp_allreduce(x, group):
     return _MPAllReduce.apply(x, group)
 
@@ -223,6 +239,11 @@ class ColumnParallelLinear(_ParallelLayer):
                      if has_bias and bias_attr is not False else None)
 
     def _input(self, x):
+        wire = mp_wire(self.world_size)
+        if wire:
+            from ... import mp_comm
+
+            return mp_comm.wire_identity(x, wire, self._group)
         return _c_identity(x, self._group)
 
     def forward(self, x):
@@ -257,6 +278,11 @@ class RowParallelLinear(_ParallelLayer):
                      if has_bias and bias_attr is not False else None)
 
     def _output(self, y):
+        wire = mp_wire(self.world_size)
+        if wire:
+            from ... import mp_comm
+
+            return mp_comm.wire_allreduce(y, wire, self._group)
         return _mp_allreduce(y, self._group)
 
     def forward(self, x):
@@ -290,6 +316,12 @@ class VocabParallelEmbedding(_ParallelLayer):
     def forward(self, ids):
         if self.world_size == 1:
             return F.embedding(ids, self.weight)
+        wire = mp_wire(self.world_size)
+        if wire:
+            from ... import mp_comm
+
+            return mp_comm.vocab_parallel_embedding(
+                self.weight, ids, self.vocab_start, wire, self._group)
         local = ids - self.vocab_start
         outside = (local < 0) | (local >= self.weight.shape[0])
         out = F.embedding(torch.where(outside, 0, local), self.weight)
@@ -428,5 +460,5 @@ def model_parallel_random_seed(seed: int = 0):
 __all__ = ["ColumnParallelLinear", "ParallelCrossEntropy", "RNGStatesTracker",
            "RowParallelLinear", "VocabParallelEmbedding", "full_of",
            "get_rng_state_tracker", "is_mp_shard",
-           "model_parallel_random_seed",
+           "model_parallel_random_seed", "mp_wire",
            "parallel_cross_entropy", "shard_of"]

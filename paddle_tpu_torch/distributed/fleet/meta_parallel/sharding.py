@@ -2,8 +2,10 @@
 ``paddle_tpu/distributed/fleet/meta_parallel/sharding.py``): stage 1
 shards the optimizer state by parameter over the sharding group, stage 2
 also drops the gradients a rank does not own
-(``fleet.HybridParallelOptimizer``). Stage 3 (sharded parameters) waits
-for ROADMAP.md §A.7."""
+(``fleet.HybridParallelOptimizer``); stage 3 cuts the parameters to
+slices over the sharding group (``sharding_stage3.py``), and its
+``state_dict`` / ``set_state_dict`` read and write the full arrays (every
+rank calls them: the gather is a collective)."""
 from __future__ import annotations
 
 from ....nn.layer import Layer
@@ -15,14 +17,10 @@ class _GroupShardedBase(Layer):
     def __init__(self, layer, optimizer=None, group=None, sync_buffers=False,
                  **kwargs):
         super().__init__()
-        if self.stage == 3:
-            raise NotImplementedError(
-                "GroupShardedStage3 (ZeRO-3) is not ported yet, see "
-                "ROADMAP.md §A.7")
         from .. import (DistributedStrategy, HybridParallelOptimizer,
-                        distributed_model, fleet_strategy)
+                        _distribute, fleet_strategy)
 
-        self._layers = distributed_model(layer)
+        self._layers = _distribute(layer, self.stage)
         if optimizer is not None and \
                 not isinstance(optimizer, HybridParallelOptimizer):
             strategy = fleet_strategy() or DistributedStrategy()
@@ -34,6 +32,10 @@ class _GroupShardedBase(Layer):
         return self._layers(*args, **kwargs)
 
     def state_dict(self, *a, **k):
+        if self.stage == 3:
+            from ....framework.io_state import gather_full_state
+
+            return gather_full_state(self._layers)
         return self._layers.state_dict(*a, **k)
 
     def set_state_dict(self, *a, **k):

@@ -132,19 +132,19 @@ def check_ported(strategy: DistributedStrategy):
     """Raise ``NotImplementedError`` for the first knob set that this port
     does not implement, naming its ROADMAP.md item."""
     hc = strategy.hybrid_configs
-    if int(hc.get("sep_degree", 1)) > 1 and int(hc.get("pp_degree", 1)) > 1:
+    pp = int(hc.get("pp_degree", 1)) > 1
+    if int(hc.get("sep_degree", 1)) > 1 and pp:
         _unported("sep_degree > 1 with pp_degree > 1 (the ring inside a "
                   "pipeline)", "§A.7 item 1")
-    if int(strategy.sharding_configs.get("stage", 1)) == 3:
-        _unported('sharding_configs["stage"] == 3 (ZeRO-3)', "§A.7")
+    if int(strategy.sharding_configs.get("stage", 1)) == 3 and pp:
+        _unported('sharding_configs["stage"] == 3 (ZeRO-3) with '
+                  "pp_degree > 1 (sliced parameters inside a pipeline)",
+                  "§A.7 item 1")
     from ..grad_comm import resolve_config
+    from ..mp_comm import resolve_config as resolve_mp_config
 
-    if resolve_config(strategy).quantized:
-        _unported("the quantized grad_comm wire (bf16 / int8)", "§A.7")
-    if strategy.mp_comm:
-        _unported("mp_comm (the quantized mp activation wire)", "§A.7")
-    if strategy.gradient_merge:
-        _unported("gradient_merge", "§A.7")
+    resolve_config(strategy)  # a bad wire raises here
+    resolve_mp_config(strategy)
     if strategy.lars or strategy.lamb:
         _unported("the Lars / Lamb meta-optimizers", "§A.3")
     if strategy.auto_plan:

@@ -122,6 +122,8 @@ class HybridCommunicateGroup:
             None)
         lists.append(("expert_replica", topology.get_fused_comm_list(
             [n for n in tokens if n != self._expert_axis])))
+        lists.append(("slice_replica", topology.get_fused_comm_list(
+            [n for n in tokens if n != "sharding"])))
         for axis, comm_lists in lists:
             for ranks in comm_lists:
                 g = new_group(ranks) if live else Group(ranks)
@@ -199,6 +201,11 @@ class HybridCommunicateGroup:
 
     def get_expert_replica_group(self) -> Group:
         return self._groups["expert_replica"]
+
+    def get_slice_replica_group(self) -> Group:
+        """The ranks that hold the same ZeRO-3 slices: data x sep at this
+        sharding coordinate."""
+        return self._groups["slice_replica"]
 
     # model (tensor) parallel
     def get_model_parallel_rank(self):

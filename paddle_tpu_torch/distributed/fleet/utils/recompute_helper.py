@@ -12,6 +12,9 @@ Granularity, as the reference maps it onto XLA's policies:
   products (``aten.mm`` / ``addmm`` / ``bmm``) are kept too, the
   elementwise tail runs again (the reference's ``dots_saveable``).
 
+Under ZeRO-3 the forward run again in the backward gathers the sliced
+weights again, as the first run did.
+
 The flash-attention kernel K1 is not a product of either policy, so it
 runs again in the backward under every granularity: a recomputed layer
 launches K1 twice a step.
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ....framework import op as _op
+from ..meta_parallel import sharding_stage3 as _z3
 
 #: the products ``dots_saveable`` keeps
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -55,9 +59,10 @@ def recompute(function, *args, use_reentrant=True, preserve_rng_state=True,
     if policy is None:
         policy = policy_for_granularity(granularity)
     state = _op.snapshot()
+    gathering = _z3.gathering()
 
     def run(*a, **k):
-        with _op.policy(state):
+        with _op.policy(state), _z3.resumed(gathering):
             return function(*a, **k)
 
     extra = {}

@@ -195,6 +195,7 @@ class ColumnSequenceParallelLinear(mpu.ColumnParallelLinear):
         super().__init__(*args, gather_output=False, **kw)
 
     def _input(self, x):
+        _no_wire(self.world_size)
         return AllGatherOp.apply(x, 1, self._group)
 
 
@@ -211,7 +212,17 @@ class RowSequenceParallelLinear(mpu.RowParallelLinear):
             mark_as_sequence_parallel_parameter(self.bias)
 
     def _output(self, y):
+        _no_wire(self.world_size)
         return ReduceScatterOp.apply(y, 1, self._group)
+
+
+def _no_wire(world_size):
+    """The activation wire does not cover the sequence-parallel
+    collectives yet: raise rather than run them exact unasked."""
+    if mpu.mp_wire(world_size):
+        raise NotImplementedError(
+            "mp_comm's quantized wire with sequence_parallel is not ported "
+            "yet, see ROADMAP.md §A.7 item 3")
 
 
 def sequence_parallel_on(flag) -> bool:
@@ -237,11 +248,18 @@ def tied_head_input(hidden, embedding, sequence_parallel):
     """``hidden`` as an LM head tied to a ``VocabParallelEmbedding`` takes
     it at mp > 1: all-gathered along the sequence (its gradient
     reduce-scattered) when ``sequence_parallel`` is on, else passed with
-    its gradient summed over mp (each rank's vocab shard contributes)."""
+    its gradient summed over mp (each rank's vocab shard contributes;
+    through the activation wire when it is on)."""
     if embedding.world_size == 1:
         return hidden
     if sequence_parallel:
+        _no_wire(embedding.world_size)
         return AllGatherOp.apply(hidden, 1, embedding._group)
+    wire = mpu.mp_wire(embedding.world_size)
+    if wire:  # the gradient's sum through the activation wire
+        from ... import mp_comm
+
+        return mp_comm.wire_identity(hidden, wire, embedding._group)
     return mpu._c_identity(hidden, embedding._group)
 
 

@@ -5,10 +5,11 @@ and ``save_group_sharded_model``.
 Levels: ``"os"`` (ZeRO-1, optimizer state sharded by parameter over the
 sharding group) and ``"os_g"`` (ZeRO-2, also the gradients a rank does not
 own dropped before the update), both through
-``fleet.HybridParallelOptimizer``; ``"p_g_os"`` (ZeRO-3, sharded
-parameters) waits for ROADMAP.md §A.7. ``fleet.init`` with a sharding
-degree must come first. ``buffer_max_size`` sets the gradient buckets'
-size, as in the reference.
+``fleet.HybridParallelOptimizer``; ``"p_g_os"`` (ZeRO-3: the parameters,
+their gradients and their optimizer state cut to slices over the sharding
+group, ``fleet/meta_parallel/sharding_stage3.py``). ``fleet.init`` with a
+sharding degree must come first. ``buffer_max_size`` sets the gradient
+buckets' size, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,19 +28,15 @@ def group_sharded_parallel(model, optimizer, level: str = "os_g",
     if level not in _LEVELS:
         raise ValueError(f"level must be one of {list(_LEVELS)}, "
                          f"got {level!r}")
-    if _LEVELS[level] == 3:
-        raise NotImplementedError(
-            'group_sharded_parallel(level="p_g_os") (ZeRO-3) is not ported '
-            "yet, see ROADMAP.md §A.7")
     from ..fleet import (DistributedStrategy, HybridParallelOptimizer,
-                         distributed_model, fleet_strategy)
+                         _distribute, fleet_strategy)
 
     strategy = fleet_strategy() or DistributedStrategy()
     strategy.sharding_configs["stage"] = _LEVELS[level]
     if buffer_max_size:
         strategy.grad_comm_configs["bucket_mb"] = \
             float(buffer_max_size) / 2 ** 20
-    model = distributed_model(model)
+    model = _distribute(model, _LEVELS[level])
     if isinstance(optimizer, HybridParallelOptimizer):
         optimizer = optimizer._inner_opt
     return model, HybridParallelOptimizer(optimizer, strategy=strategy), \
@@ -47,7 +44,8 @@ def group_sharded_parallel(model, optimizer, level: str = "os_g",
 
 
 def save_group_sharded_model(model, output, optimizer=None):
-    """Save the model's full state (the mp shards gathered) to
+    """Save the model's full state (the mp shards and ZeRO-3 slices
+    gathered) to
     ``output + ".pdparams"`` from global rank 0, and with ``optimizer``
     each rank's own optimizer state to ``output + ".rank{r}.pdopt"``.
     Every rank calls it (the gather is a collective)."""

@@ -91,7 +91,10 @@ def set_state_dict(module: torch.nn.Module, state: Mapping[str, Any]):
     as ``(missing, unexpected)``. The copy goes through
     ``load_state_dict``, so a layer with a state layout of its own (a
     folded stack's stacked entries) takes it apart."""
+    from ..distributed.fleet.layers.mpu import shard_of
+
     own = module.state_dict()
+    sliced = _layouts(module)[3]
     missing, given = [], {}
     for k, t in own.items():
         if k not in state:
@@ -99,6 +102,11 @@ def set_state_dict(module: torch.nn.Module, state: Mapping[str, Any]):
             continue
         v = state[k]
         v = v if isinstance(v, torch.Tensor) else _to_tensor(v, t.device)
+        if k in sliced and tuple(v.shape) != tuple(t.shape):
+            dim, group = sliced[k]  # a full array for a ZeRO-3 slice
+            if v.dim() == t.dim() and \
+                    v.shape[dim] == t.shape[dim] * group.nranks:
+                v = shard_of(v, dim, group.rank, group.nranks)
         if tuple(v.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {k}: checkpoint "
                              f"{tuple(v.shape)} vs model "
@@ -138,16 +146,21 @@ def _layouts(module: torch.nn.Module):
     """How ``module.state_dict()``'s entries are split over the ranks:
     ``({name: split_axis}, mp group)`` of its model-parallel shards (the
     fleet mp layers' parameters at mp degree > 1; a stacked entry's axis
-    one past its block's) and ``{name: pipe group}`` of the stacked entries
-    of a pipelined stack (each rank holds its stage's slice along dim 0)."""
+    one past its block's), ``{name: pipe group}`` of the stacked entries
+    of a pipelined stack (each rank holds its stage's slice along dim 0)
+    and ``{name: (dim, sharding group)}`` of the ZeRO-3 slices (cut from
+    the mp shard)."""
     from ..distributed.fleet.layers.mpu import _mp_group, is_mp_shard
     from ..distributed.fleet.meta_parallel.pipeline_parallel import (
         SpmdPipeline)
+    from ..distributed.fleet.meta_parallel.sharding_stage3 import zero3_spec
 
     group, world, _ = _mp_group()
     shards = {} if world == 1 else {
         n: p.split_axis for n, p in module.named_parameters()
         if is_mp_shard(p)}
+    sliced = {n: (zero3_spec(p).dim, zero3_spec(p).group)
+              for n, p in module.named_parameters() if zero3_spec(p)}
     cuts = {}
     for prefix, m in module.named_modules():
         if not isinstance(m, SpmdPipeline):
@@ -156,9 +169,12 @@ def _layouts(module: torch.nn.Module):
             name = f"{prefix}.{key}" if prefix else key
             if world > 1 and is_mp_shard(leaf):
                 shards[name] = leaf.split_axis + 1
+            if zero3_spec(leaf):
+                sliced[name] = (zero3_spec(leaf).dim + 1,
+                                zero3_spec(leaf).group)
             if m.pipelined:
                 cuts[name] = m
-    return shards, (group if world > 1 else None), cuts
+    return shards, (group if world > 1 else None), cuts, sliced
 
 
 def load_numpy_state(module: torch.nn.Module,
@@ -168,17 +184,22 @@ def load_numpy_state(module: torch.nn.Module,
     match ``module.state_dict()`` exactly, except that a model-parallel
     shard takes the full array and keeps this rank's part along its
     ``split_axis``, and a pipelined stack's stacked entry takes the full
-    ``[L, ...]`` array and keeps this stage's slice. Returns ``module``."""
+    ``[L, ...]`` array and keeps this stage's slice, and a ZeRO-3 slice
+    its part of that. Returns ``module``."""
     from ..distributed.fleet.layers.mpu import shard_of
 
-    shards, group, cuts = _layouts(module)
+    shards, group, cuts, sliced = _layouts(module)
     out = {}
     for k, v in np_state.items():
         if k in cuts:
             v = shard_of(np.asarray(v), 0, cuts[k].stage, cuts[k].num_stages)
         if k in shards:
             v = shard_of(np.asarray(v), shards[k], group.rank, group.nranks)
-        out[k] = np.ascontiguousarray(v) if k in cuts or k in shards else v
+        if k in sliced:
+            dim, g = sliced[k]
+            v = shard_of(np.asarray(v), dim, g.rank, g.nranks)
+        out[k] = np.ascontiguousarray(v) \
+            if k in cuts or k in shards or k in sliced else v
     ref = module.state_dict()
     dev = next(iter(ref.values())).device
     state = state_from_numpy(out, dev, expected=ref)
@@ -188,17 +209,19 @@ def load_numpy_state(module: torch.nn.Module,
 
 
 def gather_full_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """``module.state_dict()`` with every model-parallel shard all-gathered
-    along its ``split_axis`` and every pipelined stack's stacked entry
-    along dim 0 over the pipe group, into the full tensors: the inverse of
-    :func:`load_numpy_state`. A collective: every mp and pp rank calls
-    it."""
+    """``module.state_dict()`` with every ZeRO-3 slice all-gathered over
+    the sharding group, every model-parallel shard along its
+    ``split_axis`` and every pipelined stack's stacked entry along dim 0
+    over the pipe group, into the full tensors: the inverse of
+    :func:`load_numpy_state`. A collective: every rank calls it."""
     from ..distributed.fleet.layers.mpu import full_of
 
-    shards, group, cuts = _layouts(module)
+    shards, group, cuts, sliced = _layouts(module)
     out = {}
     for k, v in module.state_dict().items():
         v = v.detach()
+        if k in sliced:
+            v = full_of(v.contiguous(), *sliced[k])
         if k in shards:
             v = full_of(v, shards[k], group)
         if k in cuts:
@@ -207,5 +230,91 @@ def gather_full_state(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-__all__ = ["gather_full_state", "load", "load_numpy_state", "save",
+def _param_layout(p):
+    """``(mp split axis or None, mp group, ZeRO-3 spec or None)`` of a
+    parameter."""
+    from ..distributed.fleet.layers.mpu import _mp_group, is_mp_shard
+    from ..distributed.fleet.meta_parallel.sharding_stage3 import zero3_spec
+
+    group, world, _ = _mp_group()
+    axis = p.split_axis if world > 1 and is_mp_shard(p) else None
+    return axis, group, zero3_spec(p)
+
+
+def _optimizer_parts(optimizer):
+    """``(rule optimizer, owner of each position or None, sharding
+    group)``: the inner optimizer of a ``HybridParallelOptimizer`` and its
+    ZeRO-1/2 owners."""
+    owner = getattr(optimizer, "_owner", None)
+    group = getattr(optimizer, "_sharding_group", None)
+    inner = getattr(optimizer, "_inner_opt", optimizer)
+    return inner, owner, group
+
+
+def gather_full_optimizer_state(optimizer) -> Dict[str, torch.Tensor]:
+    """The optimizer's state with every parameter-shaped entry as the full
+    array (``param_{i}.{key}``, as ``Optimizer.state_dict``; the
+    scheduler's under ``"LR_Scheduler"``): ZeRO-1/2 state broadcast from
+    its owner, ZeRO-3 slices and mp shards gathered. A collective: every
+    rank calls it. With :func:`load_full_optimizer_state` a run resumes
+    under other parallel degrees."""
+    from ..distributed import collective as C
+    from ..distributed.fleet.layers.mpu import full_of
+
+    inner, owner, sgroup = _optimizer_parts(optimizer)
+    out = {}
+    for i, p in enumerate(inner._parameter_list):
+        st = inner._accumulators[i]
+        if owner is not None and owner[i] is not None:
+            st = st or inner._init_state(p)
+            for v in st.values():
+                C.broadcast(v, src=sgroup.ranks[owner[i]], group=sgroup)
+        if st is None:
+            continue
+        axis, mgroup, spec = _param_layout(p)
+        for k, v in st.items():
+            v = v.detach()
+            if tuple(v.shape) == tuple(p.shape):
+                if spec is not None:
+                    v = full_of(v.contiguous(), spec.dim, spec.group)
+                if axis is not None:
+                    v = full_of(v.contiguous(), axis, mgroup)
+            out[f"param_{i}.{k}"] = v.clone()
+    sched = inner.state_dict().get("LR_Scheduler")
+    if sched is not None:
+        out["LR_Scheduler"] = sched
+    return out
+
+
+def load_full_optimizer_state(optimizer, state):
+    """Load :func:`gather_full_optimizer_state`'s full arrays into
+    ``optimizer``, each cut to this rank's layout of its parameter (only
+    the owner's under ZeRO-1/2)."""
+    from ..distributed.fleet.layers.mpu import shard_of
+
+    inner, owner, _ = _optimizer_parts(optimizer)
+    local = {}
+    if "LR_Scheduler" in state:
+        local["LR_Scheduler"] = state["LR_Scheduler"]
+    for i, p in enumerate(inner._parameter_list):
+        if owner is not None and owner[i] not in (None, optimizer._me):
+            continue
+        axis, mgroup, spec = _param_layout(p)
+        for k, ref in inner._init_state(p).items():
+            v = state.get(f"param_{i}.{k}")
+            if v is None:
+                continue
+            v = torch.as_tensor(v)
+            if tuple(ref.shape) == tuple(p.shape):
+                if axis is not None:
+                    v = shard_of(v, axis, mgroup.rank, mgroup.nranks)
+                if spec is not None:
+                    v = shard_of(v, spec.dim, spec.group.rank,
+                                 spec.group.nranks)
+            local[f"param_{i}.{k}"] = v.contiguous()
+    return inner.set_state_dict(local)
+
+
+__all__ = ["gather_full_optimizer_state", "gather_full_state", "load",
+           "load_full_optimizer_state", "load_numpy_state", "save",
            "set_state_dict", "state_from_numpy"]

@@ -15,6 +15,12 @@ neither AMP list, as in the reference: under ``auto_cast`` it runs in the
 logits' dtype, bf16 included (upstream Paddle keeps its softmax cross
 entropy in f32; ROADMAP.md C lists the difference). Its vocab-parallel
 form is ``distributed/fleet/layers/mpu.py::parallel_cross_entropy``.
+
+Under ``fleet.DistTrainStep`` (:func:`split_batch`) each rank runs the
+loss on its rows of the global batch: every count or weight a mean
+divides by is summed over the group first (:func:`_denominator`) and a
+sum is scaled by the group's size (:func:`_batch_sum`), so the ranks'
+mean is the reference's loss over the global batch.
 """
 from __future__ import annotations
 
@@ -78,23 +84,35 @@ def micro_batch():
         _micro_counts = prev
 
 
-def _denominator(count):
-    """``max(count, 1)``. On a batch split over a data-parallel group of
-    ``n`` ranks, ``max(total, 1) / n`` with ``total`` the count summed over
-    the group (no gradient): each rank's loss is then ``n`` times its share
-    of the global mean, and the ranks' mean (the gradients' average) is
-    the global mean however the count splits. In a pipeline micro-batch
-    (:func:`micro_batch`), 1, the count recorded."""
+def _denominator(count, floor=1.0, clip=T.clip):
+    """``clip(count, min=floor)`` (``T.clip``, the reference's op of a
+    masked mean; a loss whose reference divides inside one op passes
+    ``torch.clamp``). On a batch split over a data-parallel group of
+    ``n`` ranks, ``max(total, floor) / n`` with ``total`` the count summed
+    over the group (no gradient): each rank's loss is then ``n`` times its
+    share of the global mean, and the ranks' mean (the gradients'
+    average) is the global mean however the count splits. In a pipeline
+    micro-batch (:func:`micro_batch`), 1, the count recorded."""
     if _micro_counts is not None:
         _micro_counts.append(count.detach())
         return torch.ones_like(count)
     if _split_group is None:
-        return T.clip(count, min=1.0)
+        return clip(count, min=floor)
     from ...distributed import collective
 
     total = count.detach().clone()
     collective.all_reduce(total, group=_split_group)
-    return torch.clamp(total, min=1.0) / _split_group.nranks
+    return torch.clamp(total, min=floor) / _split_group.nranks
+
+
+def _batch_sum(out):
+    """``out.sum()``; on a batch split over ``n`` ranks (outside a pipeline
+    micro-batch) ``n`` times the rank's sum, so that the ranks' mean is
+    the global sum, as :func:`_denominator` makes a mean global."""
+    total = out.sum()
+    if _split_group is None or _micro_counts is not None:
+        return total
+    return total * _split_group.nranks
 
 
 def _masked_mean(loss, loss_mask):
@@ -109,10 +127,12 @@ def _masked_mean(loss, loss_mask):
 
 
 def _reduce(out, reduction):
+    """A mean over equal row counts is global as it is (the split cuts
+    equal rows); a sum goes through :func:`_batch_sum`."""
     if reduction == "mean":
         return out.mean()
     if reduction == "sum":
-        return out.sum()
+        return _batch_sum(out)
     return out
 
 
@@ -152,12 +172,13 @@ def _cross_entropy(input, label, weight, ignore_index, reduction, soft_label,
         w = weight[safe]
         per = torch.where(valid, per * w, zero)
         if reduction == "mean":
-            return per.sum() / torch.clamp(
-                torch.where(valid, w, zero).sum(), min=1e-12)
+            return per.sum() / _denominator(
+                torch.where(valid, w, zero).sum(), 1e-12, torch.clamp)
     else:
         per = torch.where(valid, per, zero)
         if reduction == "mean":
-            return per.sum() / torch.clamp(valid.float().sum(), min=1.0)
+            return per.sum() / _denominator(valid.float().sum(), 1.0,
+                                            torch.clamp)
     return _reduce(per, reduction)
 
 
@@ -180,7 +201,8 @@ def _nll_from_logp(logp, label, weight, ignore_index, reduction, soft_label,
     if weight is not None:
         per = per * weight[safe]
     if reduction == "mean":
-        return per.sum() / torch.clamp(valid.float().sum(), min=1.0)
+        return per.sum() / _denominator(valid.float().sum(), 1.0,
+                                            torch.clamp)
     return _reduce(per, reduction)
 
 

@@ -2,8 +2,10 @@
 ``paddle_tpu/nn/functional/norm.py``): plain tensor ops, as in the
 reference, where they are jnp and no kernel; batch norm calls
 ``torch.nn.functional.batch_norm`` (cuDNN on the card), except in
-training over one value per channel, which it refuses. All are on the
-AMP black list: under ``auto_cast`` they take and return f32."""
+training over one value per channel, which it refuses, and in training
+on a batch split over data-parallel ranks, where its statistics are the
+global batch's. All are on the AMP black list: under ``auto_cast`` they
+take and return f32."""
 from __future__ import annotations
 
 import torch
@@ -72,12 +74,64 @@ def _bn_train(x, weight, bias, epsilon, data_format, momentum, *,
         return _bn_train.raw(x.movedim(-1, 1), weight, bias, epsilon, "NC",
                              momentum, running_mean=running_mean,
                              running_var=running_var).movedim(1, -1)
+    from .loss import _split_group
+
+    if _split_group is not None:
+        return _bn_train_split(x, weight, bias, epsilon, momentum,
+                               running_mean, running_var, _split_group)
     if x.numel() == x.shape[1]:
         return _bn_train_one_value(x, weight, bias, epsilon, momentum,
                                    running_mean, running_var)
     return torch.nn.functional.batch_norm(
         x, running_mean, running_var, weight, bias, True, 1.0 - momentum,
         epsilon)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ``group`` in the forward and in the backward: each
+    rank's statistic feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ...distributed import collective
+
+        ctx.group = group
+        out = x.clone()
+        collective.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g, ctx.group), None
+
+
+def _bn_train_split(x, weight, bias, epsilon, momentum, running_mean,
+                    running_var, group):
+    """Training on a batch split over ``group`` (``fleet.DistTrainStep``):
+    the statistics of the global batch, as the reference's one program
+    over the global batch takes them (upstream Paddle's SyncBatchNorm).
+    The per-channel sums are summed over the group, then the sums of
+    squared deviations from the global mean (two passes, as ``jnp.var``);
+    the gradient flows through both sums. The running buffers come out
+    equal on every rank."""
+    axes = [a for a in range(x.dim()) if a != 1]
+    shape = [1] * x.dim()
+    shape[1] = x.shape[1]
+    n = (x.numel() // x.shape[1]) * group.nranks
+    mean = _AllReduceSum.apply(x.sum(axes), group) / n
+    d = x - mean.reshape(shape)
+    var = _AllReduceSum.apply(torch.square(d).sum(axes), group) / n
+    out = d * torch.reciprocal(torch.sqrt(var + epsilon)).reshape(shape)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        running_mean.copy_(running_mean * momentum + mean * (1 - momentum))
+        running_var.copy_(running_var * momentum
+                          + unbiased * (1 - momentum))
+    return out
 
 
 def _bn_train_one_value(x, weight, bias, epsilon, momentum, running_mean,

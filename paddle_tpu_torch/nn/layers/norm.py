@@ -140,8 +140,11 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Batch norm whose statistics would span every replica; on one card
-    it is :class:`BatchNorm`."""
+    """Batch norm whose statistics span every replica: under
+    ``fleet.DistTrainStep`` every batch norm in training takes the global
+    batch's statistics (``nn/functional/norm.py``), as the reference's one
+    program over the global batch does; on one rank it is
+    :class:`BatchNorm`."""
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

@@ -144,8 +144,12 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        pg = [(p, p.grad if p.requires_grad else None)
-              for p in self._parameter_list]
+        self._apply([(p, p.grad if p.requires_grad else None)
+                     for p in self._parameter_list])
+
+    def _apply(self, pg):
+        """The step from the ``(parameter, gradient or None)`` pairs, in the
+        parameter list's order: the clip, then each update."""
         if self._grad_clip is not None:
             pg = self._grad_clip(pg)
         lr = float(np.float32(self.get_lr()))

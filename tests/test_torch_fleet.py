@@ -28,9 +28,11 @@ from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
 from paddle_tpu_torch.jit import TrainStep
 
-from torch_port_utils import (FLEET_LR, fleet_adamw, fleet_jobs, join_ranks,
-                              no_mesh, numpy_state, port_model, spawn_ranks,
-                              tiny_gpt_kwargs, tiny_llama_kwargs)
+from torch_port_utils import (FLEET_LR, batched_inputs, batched_loss,
+                              batched_net, fleet_adamw, fleet_jobs,
+                              join_ranks, no_mesh, numpy_state, port_model,
+                              spawn_ranks, tiny_gpt_kwargs,
+                              tiny_llama_kwargs)
 
 WORLD = 4
 STEPS = 3
@@ -89,6 +91,17 @@ EXTRA_JOBS = [
          level="os_g"),
     dict(name="api", kind="api", model="gpt", mp=2),
 ]
+# batch-coupled reductions (ROADMAP.md §C.26): each case at dp 4 and at
+# dp 2 x sharding 2 against the reference's DistTrainStep at dp 2
+BATCHED_CASES = ("ignore", "weight", "sum", "bn")
+BATCHED_CONFIGS = {"dp4": {}, "dp2_sh2": dict(dp=2, sharding=2)}
+BATCHED_JOBS = [dict(name=f"batched_{c}_{k}", kind="batched", case=c,
+                     model="batched_bn" if c == "bn" else "batched",
+                     batch=f"batched_{c}", **kw)
+                for c in BATCHED_CASES for k, kw in BATCHED_CONFIGS.items()]
+# losses of the §C.26 cases: f32 through two small layers, the reduction
+# orders differ by ulps
+BATCHED_RTOL = 1e-6
 
 
 def _batches():
@@ -139,6 +152,29 @@ def _trajectory(step, model, batch):
                     model.named_parameters()}
 
 
+def _ref_batched(case, state, batch):
+    """The reference's DistTrainStep at dp 2 on the §C.26 case: one
+    program over the global batch."""
+    with no_mesh():
+        s = ref_fleet.DistributedStrategy()
+        s.hybrid_configs.update(dp_degree=2)
+        ref_fleet.init(is_collective=True, strategy=s)
+        m = batched_net(paddle, case == "bn")
+        m.set_state_dict({k: Tensor(jnp.asarray(v)) for k, v in state.items()})
+        opt = fleet_adamw(m.parameters(), paddle.optimizer,
+                          paddle.nn.ClipGradByGlobalNorm)
+        m = ref_fleet.distributed_model(m)
+        opt = ref_fleet.distributed_optimizer(opt)
+        step = ref_fleet.DistTrainStep(
+            m, batched_loss(paddle.nn.functional, case), opt)
+        args = [Tensor(jnp.asarray(batch[k])) for k in ("x", "y", "w")
+                if k in batch]
+        losses = [float(np.asarray(raw(step(*args)))) for _ in range(STEPS)]
+        return losses, {n: np.asarray(raw(p)) for n, p in
+                        m.named_parameters()}, {
+            n: np.asarray(raw(b)) for n, b in m.named_buffers()}
+
+
 def _ref_train(kind, state, batch):
     with no_mesh():
         m = _ref_model(kind, state)
@@ -168,10 +204,16 @@ def runs(tmp_path_factory):
     """The port's jobs (one spawn of WORLD ranks) and the reference's
     trajectories, computed while the ranks run."""
     batches = _batches()
+    batches.update({f"batched_{c}": b
+                    for c, b in batched_inputs().items()})
     with no_mesh():
         states = {k: numpy_state(_ref_model(k, None)) for k in MODELS}
+        for key, bn in (("batched", False), ("batched_bn", True)):
+            paddle.seed(26)
+            states[key] = numpy_state(batched_net(paddle, bn))
     jobs = [dict(name=f"{m}_{c}", model=m, **kw)
-            for m in MODELS for c, kw in CONFIGS.items()] + EXTRA_JOBS
+            for m in MODELS for c, kw in CONFIGS.items()] + EXTRA_JOBS \
+        + BATCHED_JOBS
     out = tmp_path_factory.mktemp("fleet")
     for job in jobs:
         job["save_dir"] = str(out)
@@ -185,6 +227,10 @@ def runs(tmp_path_factory):
                     m, states[m], batches[m], kw.get("mp", 1),
                     kw.get("sharding", 1), kw.get("sp", False))
         ref["gpt_mask"] = _ref_train("gpt", states["gpt"], batches["gpt_mask"])
+        for c in BATCHED_CASES:
+            ref[f"batched_{c}"] = _ref_batched(
+                c, states["batched_bn" if c == "bn" else "batched"],
+                batches[f"batched_{c}"])
     finally:
         port = join_ranks(ctx, out)
     return dict(port=port, ref=ref, states=states, batches=batches,
@@ -288,6 +334,32 @@ def test_uneven_loss_mask_is_the_global_masked_mean(runs, name):
     _assert_params_close(got["full"], want)
 
 
+@pytest.mark.parametrize("config", list(BATCHED_CONFIGS))
+@pytest.mark.parametrize("case", BATCHED_CASES)
+def test_batch_coupled_reductions_are_global(runs, case, config):
+    """ROADMAP.md §C.26: an ``ignore_index`` mean whose valid counts differ
+    by rank, a ``[C]`` class weight given as a batch argument (it stays
+    whole), a ``reduction="sum"`` loss and batch norm in training reduce
+    over the global batch, as the reference's one program does: the
+    losses, the parameters after 3 steps and the running buffers (equal
+    on every rank) match its DistTrainStep at dp 2."""
+    name = f"batched_{case}_{config}"
+    want_losses, want, want_buffers = runs["ref"][f"batched_{case}"]
+    got = runs["port"][0][name]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=BATCHED_RTOL)
+    assert sorted(got["full"]) == sorted(want)
+    _assert_params_close(got["full"], want)
+    assert sorted(got["buffers"]) == sorted(want_buffers)
+    for n, v in want_buffers.items():
+        np.testing.assert_allclose(got["buffers"][n], v, rtol=BATCHED_RTOL,
+                                   atol=1e-7)
+    for r in range(1, WORLD):
+        other = runs["port"][r][name]
+        assert other["losses"] == got["losses"]
+        for n, v in got["buffers"].items():
+            assert np.array_equal(other["buffers"][n], v), (n, r)
+
+
 def test_batch_that_does_not_divide_stays_whole(runs):
     state, batch = runs["states"]["gpt"], runs["batches"]["gpt_b3"]
     m = port_model("gpt", state)
@@ -363,7 +435,8 @@ def test_unported_knobs_raise(knob, item):
     parallelism was ported (tests/test_torch_pipeline.py): the strategy
     check passes it now. sep_degree > 1 alone passes too since the sep
     axis was ported (tests/test_torch_sep.py); with pp_degree > 1 it
-    still raises."""
+    still raises. ZeRO-3, the bf16 / int8 gradient wire, mp_comm and
+    gradient_merge pass since they were ported."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -371,15 +444,24 @@ def test_unported_knobs_raise(knob, item):
         s.hybrid_configs["pp_degree"] = 2
         check_ported(s)
         return
+    if knob in ("stage3", "grad_comm_bf16", "grad_comm_int8", "mp_comm",
+                "gradient_merge"):
+        # ported: ZeRO-3 (tests/test_torch_zero3.py), the gradient wire
+        # (test_torch_grad_wire.py), the mp wire (test_torch_mp_comm.py)
+        # and gradient merge (test_torch_gradient_merge.py)
+        if knob == "stage3":
+            s.sharding_configs["stage"] = 3
+        elif knob.startswith("grad_comm"):
+            s.grad_comm = True
+            s.grad_comm_configs["wire_dtype"] = knob.rsplit("_", 1)[1]
+        else:
+            setattr(s, knob, True)
+        check_ported(s)
+        return
     if knob == "sep":
         s.hybrid_configs[f"{knob}_degree"] = 2
         check_ported(s)
         s.hybrid_configs["pp_degree"] = 2
-    elif knob == "stage3":
-        s.sharding_configs["stage"] = 3
-    elif knob.startswith("grad_comm"):
-        s.grad_comm = True
-        s.grad_comm_configs["wire_dtype"] = knob.rsplit("_", 1)[1]
     else:
         setattr(s, knob, True)
     with pytest.raises(NotImplementedError, match=item):
@@ -389,14 +471,15 @@ def test_unported_knobs_raise(knob, item):
     assert fleet.get_hybrid_communicate_group() is None
 
 
-def test_zero3_entry_points_raise():
-    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
-        GroupShardedStage3)
-
-    with pytest.raises(NotImplementedError, match="ZeRO-3.*§A.7"):
-        group_sharded_parallel(None, None, level="p_g_os")
-    with pytest.raises(NotImplementedError, match="ZeRO-3.*§A.7"):
-        GroupShardedStage3(torch.nn.Linear(2, 2))
+def test_zero3_entry_points_raise(runs):
+    """Both ZeRO-3 entry points raised until ZeRO-3 was ported; now they
+    return (``api_job`` calls them at sharding 4: each rank keeps a
+    quarter of the ``[8, 8]`` weight), and a level that does not exist
+    still raises."""
+    for r in range(WORLD):
+        got = runs["port"][r]["api"]["zero3_entry_points"]
+        assert got == dict(group_sharded_stage=3, level_p_g_os=3,
+                           weight_shape=(2, 8)), (r, got)
     with pytest.raises(ValueError, match="level"):
         group_sharded_parallel(None, None, level="p")
 

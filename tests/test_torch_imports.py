@@ -37,6 +37,16 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "paddle_tpu"), (path, name)
 
 
+def test_distributed_modules_are_covered():
+    """The guard's module list holds every distributed module, the ZeRO-3
+    layout and the mp wire among them."""
+    for m in ("paddle_tpu_torch.distributed.mp_comm",
+              "paddle_tpu_torch.distributed.grad_comm",
+              "paddle_tpu_torch.distributed.fleet.meta_parallel."
+              "sharding_stage3"):
+        assert m in MODULES, m
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"

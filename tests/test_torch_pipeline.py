@@ -401,8 +401,9 @@ def test_pipeline_layer_train_batch_matches_reference(runs):
 
 
 def test_pp_degree_trains_and_other_knobs_still_raise():
-    """pp_degree > 1 passes the strategy check, and so does sep_degree >
-    1; sep with pp and ZeRO-3 still raise, naming their ROADMAP item."""
+    """pp_degree > 1 passes the strategy check, and so do sep_degree > 1
+    and ZeRO-3; sep or ZeRO-3 with pp still raise, naming their ROADMAP
+    item."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -415,9 +416,11 @@ def test_pp_degree_trains_and_other_knobs_still_raise():
         s = fleet.DistributedStrategy()
         if knob == "sep_pp":
             s.hybrid_configs.update(sep_degree=2, pp_degree=2)
-        else:
+        else:  # ZeRO-3 alone is ported (tests/test_torch_zero3.py)
             s.sharding_configs["stage"] = 3
-        with pytest.raises(NotImplementedError, match="§A.7"):
+            check_ported(s)
+            s.hybrid_configs["pp_degree"] = 2
+        with pytest.raises(NotImplementedError, match="§A.7 item 1"):
             check_ported(s)
 
 

@@ -533,8 +533,32 @@ def api_job(job, state, batch):
     x = torch.ones(3, 4, 16 // job["mp"])
     row(x).sum().backward()
     out["sp_bias_grad"] = row.bias.grad.numpy()
+    out["zero3_entry_points"] = _zero3_entry_points()
     fleet.topology.set_hybrid_communicate_group(None)
     return out
+
+
+def _zero3_entry_points():
+    """``GroupShardedStage3`` and ``group_sharded_parallel(level="p_g_os")``
+    at sharding = world size: what they return."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import nn, optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=1, sharding_degree=dist.get_world_size())
+    fleet.init(is_collective=True, strategy=s)
+    lin = nn.Linear(8, 8)
+    gs = meta_parallel.GroupShardedStage3(
+        lin, topt.AdamW(parameters=lin.parameters()))
+    lin2 = nn.Linear(8, 8)
+    _, opt, _ = group_sharded_parallel(
+        lin2, topt.AdamW(parameters=lin2.parameters()), level="p_g_os")
+    return dict(group_sharded_stage=gs._optim._stage,
+                level_p_g_os=opt._stage,
+                weight_shape=tuple(lin.weight.shape))
 
 
 def _pp_strategy(job):
@@ -1033,7 +1057,511 @@ def ring_job(job, state, batch):
     return out
 
 
-JOB_KINDS = {"train": fleet_job, "data_parallel": data_parallel_job,
+# -- batch-coupled reductions under a split batch (ROADMAP.md §C.26) -------
+BATCHED_NET = dict(inp=8, hidden=16, classes=8, batch=16)
+
+
+def batched_net(paddle, bn):
+    """``Linear -> BatchNorm1D -> Linear`` (``bn``) or ``Linear -> tanh ->
+    Linear``, built in either package (``paddle`` the package's root).
+    The linear before the batch norm has no bias: its gradient would be 0
+    up to float noise (the norm takes the mean out), which Adam's
+    normalised step turns into moves of up to lr either way."""
+    nn = paddle.nn
+    d = BATCHED_NET
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.l1 = nn.Linear(d["inp"], d["hidden"],
+                                bias_attr=False if bn else None)
+            self.bn = nn.BatchNorm1D(d["hidden"]) if bn else None
+            self.l2 = nn.Linear(d["hidden"], d["classes"])
+
+        def forward(self, x):
+            h = self.l1(x)
+            h = self.bn(h) if self.bn is not None else paddle.tanh(h)
+            return self.l2(h)
+
+    return Net()
+
+
+def batched_loss(F, case):
+    """The loss of each §C.26 case: an ``ignore_index`` mean, a class
+    weight (a ``[C]`` batch argument), a sum, and a plain mean through the
+    batch norm."""
+    if case == "weight":
+        return lambda m, x, y, w: F.cross_entropy(m(x), y, weight=w)
+    if case == "sum":
+        return lambda m, x, y: F.cross_entropy(m(x), y, reduction="sum")
+    return lambda m, x, y: F.cross_entropy(m(x), y)
+
+
+def batched_inputs():
+    """Per case, the global batch: ``x [16, 8]``, labels ``y [16]`` (the
+    ignore case drops 7 of the first 8 rows and 1 of the last 8, so every
+    data rank keeps another count) and the weight case's ``w [8]``."""
+    d = BATCHED_NET
+    rng = np.random.default_rng(26)
+    x = rng.standard_normal((d["batch"], d["inp"])).astype(np.float32)
+    y = rng.integers(0, d["classes"], d["batch"]).astype(np.int64)
+    ign = y.copy()
+    ign[[0, 1, 2, 3, 4, 5, 6, 12]] = -100
+    w = rng.uniform(0.5, 2.0, d["classes"]).astype(np.float32)
+    return {"ignore": dict(x=x, y=ign), "weight": dict(x=x, y=y, w=w),
+            "sum": dict(x=x, y=y), "bn": dict(x=x, y=y)}
+
+
+def batched_job(job, state, batch):
+    """A ``DistTrainStep`` trajectory of :func:`batched_net` on the global
+    batch: the losses, the parameters and every buffer after 3 steps."""
+    import torch
+
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io_state import load_numpy_state
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    net = load_numpy_state(batched_net(tpaddle, job["case"] == "bn"), state)
+    opt = fleet_adamw(net.parameters(), topt, topt.ClipGradByGlobalNorm)
+    net = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(net, batched_loss(tpaddle.nn.functional,
+                                                 job["case"]), opt)
+    args = [torch.from_numpy(batch[k]) for k in ("x", "y", "w")
+            if k in batch]
+    losses = [float(step(*args)) for _ in range(3)]
+    out = dict(losses=losses,
+               full={n: p.detach().numpy()
+                     for n, p in net.named_parameters()},
+               buffers={n: b.detach().numpy()
+                        for n, b in net.named_buffers()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+# -- ZeRO-3 (the reference's loss-parity TinyLM and its reshard test) -------
+TINY_LM = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+               num_attention_heads=2, intermediate_size=64,
+               max_position_embeddings=16, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+TINY_LM_STEPS = 10
+
+
+def tiny_lm_data():
+    """The ``[8, 16]`` id batches of ``tests/test_loss_parity.py::_data``."""
+    rng = np.random.default_rng(42)
+    return [rng.integers(0, TINY_LM["vocab_size"], (8, 16)).astype(np.int32)
+            for _ in range(TINY_LM_STEPS)]
+
+
+def _strategy_of(degrees, stage):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dict(dict(dp_degree=-1), **degrees))
+    s.sharding_configs["stage"] = stage
+    return s
+
+
+def tiny_lm_job(job, state, data):
+    """The TinyLM trained by ``DistTrainStep`` (AdamW, lr 1e-3) through
+    ``job["phases"]``: ``(degrees, stage, steps)`` each; a later phase
+    builds the model anew under its degrees from the full model and
+    optimizer state the one before gathered (a resume under other
+    parallel degrees). Returns the losses, the full parameters and, of
+    the first phase, the bytes of the parameters this rank holds and of
+    those ZeRO-3 left whole."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding_stage3 \
+        import is_zero3_slice
+    from paddle_tpu_torch.framework import io_state
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    losses, opt_state, out, done = [], None, {}, 0
+    for degrees, stage, steps in job["phases"]:
+        fleet.init(is_collective=True, strategy=_strategy_of(degrees, stage))
+        model = GPTForCausalLM(GPTConfig(
+            sequence_parallel=job.get("sp", False), **TINY_LM),
+            device="cpu")
+        io_state.load_numpy_state(model, state)
+        opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+        if opt_state is not None:
+            io_state.load_full_optimizer_state(opt, opt_state)
+        step = fleet.DistTrainStep(
+            model, lambda m, ids, lbl: m(ids, labels=lbl), opt)
+        if not out:
+            held = [p for p in model.parameters()]
+            out["resident_bytes"] = sum(p.numel() * p.element_size()
+                                        for p in held)
+            out["whole_bytes"] = sum(p.numel() * p.element_size()
+                                     for p in held if not is_zero3_slice(p))
+            out["sliced"] = sum(is_zero3_slice(p) for p in held)
+        for ids in data[done:done + steps]:
+            t = torch.from_numpy(ids)
+            losses.append(float(step(t, t)))
+        done += steps
+        state = {k: v.numpy()
+                 for k, v in io_state.gather_full_state(model).items()}
+        opt_state = io_state.gather_full_optimizer_state(opt)
+        fleet.topology.set_hybrid_communicate_group(None)
+    out.update(losses=losses, full=state)
+    return out
+
+
+def zero3_eager_job(job, state, batch):
+    """ZeRO-3 in an eager loop at sharding = world size, through
+    ``group_sharded_parallel(level="p_g_os")`` or ``GroupShardedStage3``
+    (``job["api"]``): each rank's rows, backward, then
+    ``fused_allreduce_gradients``; the wrapper's full ``state_dict`` and
+    ``save_group_sharded_model`` after."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel
+    from paddle_tpu_torch.distributed.fleet.utils import hybrid_parallel_util
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=1, sharding_degree=dist.get_world_size())
+    fleet.init(is_collective=True, strategy=s)
+    model = port_model(job["model"], state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    if job["api"] == "group_sharded_parallel":
+        model, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
+        wrapper_state = None
+    else:
+        wrapper = meta_parallel.GroupShardedStage3(model, opt)
+        model, opt = wrapper, wrapper._optim
+    hcg = fleet.get_hybrid_communicate_group()
+    k = batch["ids"].shape[0] // hcg.get_data_sharding_parallel_world_size()
+    r = hcg.get_data_sharding_parallel_rank()
+    params = list(model.parameters())
+    losses = _eager_steps(
+        model, opt, batch, slice(r * k, (r + 1) * k),
+        lambda: hybrid_parallel_util.fused_allreduce_gradients(params))
+    if job["api"] != "group_sharded_parallel":
+        wrapper_state = {n: v.numpy()
+                         for n, v in model.state_dict().items()}
+    out = dict(losses=losses,
+               full={n: v.numpy()
+                     for n, v in gather_full_state(model).items()},
+               wrapper_state=wrapper_state,
+               local_shapes={n: tuple(p.shape)
+                             for n, p in model.named_parameters()})
+    save_group_sharded_model(model, os.path.join(job["save_dir"],
+                                                 job["name"]), opt)
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def zero3_slices_job(job, state, batch):
+    """This rank's slice of every parameter of the model at ZeRO-3 over
+    ``job["sharding"]`` ranks, before any step."""
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    model = fleet.distributed_model(port_model(job["model"], state))
+    out = {n: p.detach().numpy() for n, p in model.named_parameters()}
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def merge_job(job, state, batch):
+    """Gradient merge (``job["k_steps"]``) under ``DistTrainStep``: two
+    cycles over the halves of the batch; the losses, whether any
+    parameter moved at each call, and the full parameters."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+
+    s = _strategy(job)
+    s.gradient_merge = True
+    s.gradient_merge_configs = {"k_steps": job["k_steps"], "avg": True}
+    fleet.init(is_collective=True, strategy=s)
+    model = port_model(job["model"], state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(model, lambda m, i, lab: m(i, labels=lab), opt)
+    losses, moved = [], []
+    half = batch["ids"].shape[0] // 2
+    for _ in range(2):
+        for rows in (slice(0, half), slice(half, None)):
+            before = [p.detach().clone() for p in model.parameters()]
+            losses.append(float(step(torch.from_numpy(batch["ids"][rows]),
+                                     torch.from_numpy(
+                                         batch["labels"][rows]))))
+            moved.append(any(not torch.equal(a, p.detach()) for a, p in
+                             zip(before, model.parameters())))
+    out = dict(losses=losses, moved=moved,
+               full={k: v.numpy() for k, v in
+                     gather_full_state(model).items()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+# -- the quantized gradient wire (tests/test_grad_comm.py's _Net) -----------
+WIRE_VOCAB = 32
+
+
+def wire_net(paddle):
+    """``tests/test_grad_comm.py::_Net`` in either package."""
+    nn = paddle.nn
+    F = paddle.nn.functional
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(WIRE_VOCAB, 16)
+            self.l1 = nn.Linear(16, 24)
+            self.l2 = nn.Linear(24, 16)
+            self.norm = nn.LayerNorm(16)
+            self.head = nn.Linear(16, WIRE_VOCAB)
+
+        def forward(self, ids):
+            h = self.emb(ids)
+            h = F.gelu(self.l1(h))
+            h = self.norm(self.l2(h))
+            return self.head(h)
+
+    return Net()
+
+
+def wire_loss(F):
+    def loss_fn(m, ids, lbl):
+        return F.cross_entropy(m(ids).reshape([-1, WIRE_VOCAB]),
+                               lbl.reshape([-1]))
+    return loss_fn
+
+
+def wire_ids():
+    rng = np.random.RandomState(0)
+    return rng.randint(0, WIRE_VOCAB, (16, 4)).astype(np.int32)
+
+
+def wire_strategy(job, pkg_fleet):
+    """The job's degrees and gradient wire in either package's strategy."""
+    s = pkg_fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=job.get("dp", 1),
+                            mp_degree=job.get("mp", 1),
+                            sharding_degree=job.get("sharding", 1))
+    s.sharding_configs["stage"] = job.get("stage", 1)
+    if job.get("wire"):
+        s.grad_comm = True
+        s.grad_comm_configs.update(wire_dtype=job["wire"],
+                                   error_feedback=job.get("ef", False))
+    return s
+
+
+def wire_job(job, state, batch):
+    """``_Net`` trained 3 steps under the job's gradient wire, through
+    ``DistTrainStep`` or (``job["eager"]``) an eager loop with
+    ``fused_allreduce_gradients``: losses, counts, full parameters, the
+    exchange's byte arithmetic and the warnings raised."""
+    import warnings
+
+    import torch
+
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet.utils import hybrid_parallel_util
+    from paddle_tpu_torch.framework.io_state import (gather_full_state,
+                                                     load_numpy_state)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fleet.init(is_collective=True, strategy=wire_strategy(job, fleet))
+        net = load_numpy_state(wire_net(tpaddle), state)
+        opt = topt.AdamW(learning_rate=1e-2, parameters=net.parameters())
+        net = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(opt)
+        ids = torch.from_numpy(batch)
+        loss_fn = wire_loss(tpaddle.nn.functional)
+        collective.reset_counts()
+        losses = []
+        if job.get("eager"):
+            hcg = fleet.get_hybrid_communicate_group()
+            k = ids.shape[0] // hcg.get_data_sharding_parallel_world_size()
+            r = hcg.get_data_sharding_parallel_rank()
+            mine = ids[r * k:(r + 1) * k]
+            params = [p for p in net.parameters()]
+            for _ in range(3):
+                loss = loss_fn(net, mine, mine)
+                loss.backward()
+                hybrid_parallel_util.fused_allreduce_gradients(params)
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss))
+        else:
+            step = fleet.DistTrainStep(net, loss_fn, opt)
+            losses = [float(step(ids, ids)) for _ in range(3)]
+    wire = opt._grad_wire()
+    sd = opt.state_dict()
+    out = dict(
+        losses=losses, counts=dict(collective.counts),
+        full={k: v.numpy() for k, v in gather_full_state(net).items()},
+        wire=None if wire is None else dict(
+            bytes_wire=wire.bytes_wire, bytes_f32=wire.bytes_f32,
+            buckets=len(wire.zero_layouts) + len(wire.tail_layouts),
+            zero_buckets=len(wire.zero_layouts), n_elems=wire.n_elems),
+        residuals={k: tuple(v.shape) for k, v in sd.items()
+                   if k.startswith("grad_comm.")},
+        warnings=[str(w.message) for w in caught
+                  if "grad_comm" in str(w.message)],
+        n_params=sum(p.numel() for p in net.parameters()))
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def quantized_collective_job(job, state, batch):
+    """``psum_quantized`` (bf16, int8; the value and its gradient) and
+    ``all_gather_quantized`` (int8 with segments, bf16) of this rank's
+    row of ``batch``."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+
+    r = dist.get_rank()
+    out = {}
+    for wire in ("bf16", "int8"):
+        v = torch.from_numpy(batch["psum"][r]).requires_grad_()
+        s = C.psum_quantized(v, wire_dtype=wire)
+        s.sum().backward()
+        out[f"psum_{wire}"] = (s.detach().numpy(), v.grad.numpy())
+        g = torch.from_numpy(batch["gather"][r]).requires_grad_()
+        a = C.all_gather_quantized(g, wire_dtype=wire, segments=(5, 3),
+                                   grad_wire="int8")
+        a.sum().backward()
+        out[f"gather_{wire}"] = (a.detach().numpy(), g.grad.numpy())
+    try:
+        C.all_gather_quantized(torch.zeros(8), wire_dtype="int8",
+                               segments=(8, 1))
+    except ValueError as e:
+        out["bad_segments"] = str(e)
+    return out
+
+
+# -- the quantized mp wire (tests/test_mp_comm.py) ---------------------------
+MP_WIRE_GPT = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                   num_attention_heads=4, max_position_embeddings=64,
+                   hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+
+
+def mp_wire_inputs():
+    """The arrays of ``tests/test_mp_comm.py``'s function cases."""
+    r0, r1, r2, r6 = (np.random.RandomState(i) for i in (0, 1, 2, 6))
+    logits = r6.randn(4, 12).astype(np.float32)
+    logits[1] = 0.0
+    logits[1, 2] = logits[1, 9] = 7.5   # a tie across blocks
+    return dict(
+        row_x=r0.randn(4, 6, 8).astype(np.float32),
+        row_w=r0.randn(8, 12).astype(np.float32),
+        col_x=r1.randn(4, 6, 8).astype(np.float32),
+        col_w=r1.randn(8, 12).astype(np.float32),
+        emb_w=r2.randn(8, 6).astype(np.float32),
+        emb_ids=r2.randint(0, 8, (3, 4)).astype(np.int64),
+        logits=logits)
+
+
+def mp_wire_fns_job(job, state, inp):
+    """Each wire function on this rank's shards of ``mp_wire_inputs`` over
+    an mp group of ``job["mp"]`` ranks (the world split into such groups):
+    values and gradients, for the bf16 and int8 wires."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import mp_comm
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import shard_of
+
+    g = job["mp"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    groups = [dist.new_group(list(range(i, i + g)))
+              for i in range(0, world, g)]
+    group = groups[rank // g]
+    j = rank % g
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    out = {}
+    for wire in ("bf16", "int8"):
+        x = shard_of(t["row_x"], 2, j, g).clone().requires_grad_()
+        w = shard_of(t["row_w"], 0, j, g).clone().requires_grad_()
+        y = mp_comm.row_parallel_matmul(x, w, wire, group)
+        torch.sin(y).sum().backward()
+        out[f"row_{wire}"] = (y.detach().numpy(), x.grad.numpy(),
+                              w.grad.numpy())
+        x = t["col_x"].clone().requires_grad_()
+        w = shard_of(t["col_w"], 1, j, g).clone().requires_grad_()
+        y = mp_comm.column_parallel_linear(x, w, wire, group)
+        torch.sin(y).sum().backward()
+        out[f"col_{wire}"] = (y.detach().numpy(), x.grad.numpy(),
+                              w.grad.numpy())
+        w = shard_of(t["emb_w"], 0, j, g).clone().requires_grad_()
+        e = mp_comm.vocab_parallel_embedding(w, t["emb_ids"], j * w.shape[0],
+                                             wire, group)
+        (e ** 2).sum().backward()
+        out[f"emb_{wire}"] = (e.detach().numpy(), w.grad.numpy())
+        z = torch.from_numpy(np.full((5, 7), j + 1.0, np.float32)
+                             ).requires_grad_()
+        mp_comm._WireSum.apply(z, wire, group).sum().backward()
+        out[f"sum_grad_{wire}"] = z.grad.numpy()
+        wl, exact = mp_comm.quantized_logit_gather(
+            shard_of(t["logits"], 1, j, g), wire, group)
+        out[f"logits_{wire}"] = (wl.numpy(), exact.numpy())
+    out["logits_f32"] = mp_comm.quantized_logit_gather(
+        shard_of(t["logits"], 1, j, g), "f32", group)
+    return out
+
+
+def mp_wire_gpt_job(job, state, ids):
+    """The reference test's dp 2 x mp 2 GPT, 3 AdamW steps (lr 3e-4) with
+    ``job["mode"]`` in ``PADDLE_TPU_MP_COMM``: losses and the mp wire's
+    counted bytes."""
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.framework.io_state import load_numpy_state
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    os.environ["PADDLE_TPU_MP_COMM"] = job["mode"]
+    try:
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update(dp_degree=2, mp_degree=2)
+        fleet.init(is_collective=True, strategy=s)
+        m = load_numpy_state(GPTForCausalLM(GPTConfig(**MP_WIRE_GPT),
+                                            device="cpu"), state)
+        opt = topt.AdamW(learning_rate=3e-4, parameters=m.parameters())
+        m = fleet.distributed_model(m)
+        opt = fleet.distributed_optimizer(opt)
+        step = fleet.DistTrainStep(m, lambda mm, i, lbl: mm(i, labels=lbl),
+                                   opt)
+        t = torch.from_numpy(ids)
+        collective.reset_counts()
+        losses = [float(step(t, t)) for _ in range(3)]
+        out = dict(losses=losses, counts=dict(collective.counts))
+    finally:
+        del os.environ["PADDLE_TPU_MP_COMM"]
+        fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+JOB_KINDS = {"train": fleet_job, "batched": batched_job, "merge": merge_job,
+             "mp_wire_fns": mp_wire_fns_job, "mp_wire_gpt": mp_wire_gpt_job,
+             "wire": wire_job, "quantized": quantized_collective_job,
+             "tiny_lm": tiny_lm_job, "zero3_eager": zero3_eager_job,
+             "zero3_slices": zero3_slices_job, "data_parallel": data_parallel_job,
              "group_sharded": group_sharded_job, "api": api_job,
              "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job,
              "moe": moe_job, "moe_eager": moe_eager_job, "ring": ring_job,
