@@ -236,14 +236,39 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ``TRAIN_LOSS_RTOL``, each rank's expert slice by phase 8's rule, the
    ``global_scatter`` / ``global_gather`` bytes equal to the ``[E, C,
    h]`` arithmetic, step ms and peak;
-44. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+44. ZeRO-3 (``sharding_configs["stage"] = 3``): GPT-3 1.3B at 24 layers
+   at sharding 2 on two gloo processes for 3 steps against phase 7's
+   losses and a single-process ``TrainStep``'s parameters, each rank's
+   K1 / K2a / K2b launches, the bytes its forward gathers and its
+   backward reduce-scatters against the arithmetic, the parameter bytes
+   it holds;
+45. the quantized gradient wire (bf16, int8 + error feedback) at dp 2 and
+   the int8 mp wire at mp 2 at depth 2 against the exact exchange, the
+   wire bytes against the arithmetic; gradient merge over 4 micro-batches
+   against ``TrainStep`` on the whole batch;
+46. ZeRO-3 and the sep axis inside the pipeline: GPT-3 6.7B's widths
+   (hidden 4096, 32 heads, ffn 16384, vocab 50304) at depth 4 on four
+   gloo processes sharing the card, a 4 x 2048 batch in 2 micro-batches
+   a rank under 1F1B, after a single-process ``TrainStep`` baseline: (a)
+   pp 2 x
+   sharding 2 at stage 3 in f32, 3 steps, losses and gathered parameters
+   against the baseline, the ZeRO-3 bytes gathered, gathered again and
+   reduce-scattered and the staged bytes against the arithmetic; (b) the
+   same at the reference's knobs (bf16 parameters, block recompute), 2
+   steps, the loss finite and falling; (c) pp 2 x sep 2 in f32, 3 steps,
+   losses against the baseline, each sep rank's ring launches, the staged
+   bytes equal to the boundaries and the ring's rotations; each rank's
+   step ms and peak;
+47. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
-   (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a ``kernels``
-   JSON line (the GPT, encoder and MoE shapes, the K1 / K2 rows with
-   their launches in phases 38-42; no TPU kernel lies on the vision path
-   or the capacity MoE path), then the result line.
+   (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a
+   ``zero3_wires`` JSON line (phases 44-45), a ``pp_compose`` JSON line
+   (phase 46), a ``kernels`` JSON line (the GPT, encoder and MoE shapes,
+   the K1 / K2 rows with their launches in phases 38-46; no TPU kernel
+   lies on the vision path or the capacity MoE path), then the result
+   line.
 """
 from __future__ import annotations
 
@@ -5358,6 +5383,385 @@ def phases_zero3_wires(fa, smi, trained, timeout=900, spec=None):
     return out
 
 
+# -- phase 46: ZeRO-3 and the sep axis inside the pipeline -------------------
+
+# GPT-3 6.7B's widths (BASELINE.json's fifth configuration, the reference's
+# bench_configs.py::run_gpt_6p7b_ppsharding) at depth 4, two layers a
+# stage, phase 7's AdamW, on four gloo ranks sharing the one card: 46a pp
+# 2 x sharding 2 at stage 3 in f32, 46b the same with the reference's knobs
+# (bf16 parameters, block recompute), 46c pp 2 x sep 2 in f32. The batch,
+# COMPOSE_BATCH x TRAIN_SEQ, gives every rank 2 micro-batches under 1F1B:
+# the sharding axis splits the rows (1 a micro-batch), sep the sequence (2
+# rows of TRAIN_SEQ / 2 a micro-batch)
+COMPOSE_LAYERS = 4
+COMPOSE_BATCH = 4
+COMPOSE_MICROBATCHES = 2
+COMPOSE_RANKS = 4
+COMPOSE_CONFIGS = {
+    "pp2_zero3": dict(sharding_degree=2, stage=3, steps=LOCKSTEP_STEPS),
+    "pp2_zero3_bf16_recompute": dict(sharding_degree=2, stage=3, steps=2,
+                                     bf16=True, recompute=True),
+    "pp2_sep2": dict(sep_degree=2, steps=LOCKSTEP_STEPS),
+}
+
+
+def build_6p7b(spec, **kw):
+    """GPT-3 6.7B's widths (vocab 50304, dropout 0) at COMPOSE_LAYERS, or
+    ``spec["model"]``'s config in a rehearsal, on ``spec``'s device, its
+    weights from SEED."""
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    if spec.get("model") is None:
+        cfg = GPTConfig.gpt3_6p7b(
+            vocab_size=50304, num_hidden_layers=COMPOSE_LAYERS,
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, **kw)
+    else:
+        cfg = GPTConfig(**dict(spec["model"],
+                               num_hidden_layers=COMPOSE_LAYERS, **kw))
+    return GPTForCausalLM(cfg, device=spec["device"], seed=SEED)
+
+
+def compose_batch(vocab):
+    """Next-token batch [COMPOSE_BATCH, TRAIN_SEQ] of ids and labels, made
+    with numpy."""
+    rng = np.random.default_rng(SEED + 46)
+    tok = rng.integers(0, vocab, (COMPOSE_BATCH, TRAIN_SEQ + 1))
+    tok = torch.as_tensor(tok, device=DEVICE)
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def pp_zero3_want(slices, stage, stages, m, steps, recompute):
+    """The ZeRO-3 bytes a rank of a pipelined GPT under 1F1B moves in
+    ``steps`` steps of ``m`` micro-batches, from ``slices`` (``{name:
+    bytes one gather of that slice brings from the other ranks}``).
+    Every forward op gathers its blocks and the embeddings (the layers
+    before the stack run on every stage); the last stage's also the final
+    norm and the tied head (the word embedding again). The backward
+    reduce-scatters what reaches the loss (the embeddings on the first
+    stage only) and gathers again each weight an op saved (the linear
+    weights, the norms' weights and biases, the tied head), or every
+    block parameter when the blocks recompute."""
+    blocks = sum(b for n, b in slices.items() if ".decoder." in n)
+    saved = blocks if recompute else sum(
+        b for n, b in slices.items() if ".decoder." in n
+        and not (n.endswith(".bias") and ".ln_" not in n))
+    emb = sum(b for n, b in slices.items() if ".embeddings." in n)
+    head = sum(b for n, b in slices.items() if "final_layernorm" in n) \
+        + slices["gpt.embeddings.word_embeddings.weight"]
+    first, last = stage == 0, stage == stages - 1
+    return dict(gather=steps * m * (blocks + emb + last * head),
+                reduce_scatter=steps * m * (blocks + first * emb
+                                            + last * head),
+                regather=steps * m * (saved + last * head))
+
+
+def pp_staged_want(r, steps):
+    """The bytes a rank of a pp-2 GPT stages through pinned host memory in
+    ``steps`` steps: per micro-batch its chunk boundary's activation and
+    cotangent (in the parameters' dtype), and at sep > 1 its layers' f32
+    ring rotations (``staged_per_step``)."""
+    mb, tl, h, d = r["rows"], r["tokens"], r["heads"], r["head_dim"]
+    boundary = 2 * _boundary_messages(2, 1, r["stage"]) * mb * tl * h * d \
+        * r["elem"]
+    ring = (staged_per_step(r["layers_local"], r["sep"], mb, tl, h, d)
+            if r["sep"] > 1 else 0)
+    return steps * r["microbatches"] * (boundary + ring)
+
+
+def _rank_pp_compose(out_dir, base_path, spec):
+    """One rank of phase 46 (run by ``paddle.distributed.spawn``): each
+    configuration of COMPOSE_CONFIGS in turn at pp 2 through ``fleet.init``
+    -> ``distributed_model`` -> ``distributed_optimizer`` ->
+    ``DistTrainStep``, its results pickled to ``out_dir``; after 46a the
+    full state gathered and (rank 0) held against the baseline's final
+    parameters at ``base_path``. ``spec``: the device, and for a
+    rehearsal a tiny ``GPTConfig`` dict and a ``prepare`` function the
+    child runs first."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        pipeline_parallel as pp)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding_stage3 \
+        import zero3_spec
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    device = spec["device"]
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if spec.get("prepare"):
+        spec["prepare"]()
+    # four ranks' peaks come to ~64 GiB of the card: segments that grow
+    # leave no reserved-but-free blocks behind a configuration (read at
+    # the process's first CUDA allocation, which comes after this)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend()}
+    for name, c in COMPOSE_CONFIGS.items():
+        s = wire_strategy(pp_degree=2, **{k: c[k] for k in (
+            "sharding_degree", "sep_degree") if k in c})
+        s.sharding_configs["stage"] = c.get("stage", 1)
+        s.pipeline_configs.update(schedule="1f1b",
+                                  accumulate_steps=COMPOSE_MICROBATCHES)
+        fleet.init(is_collective=True, strategy=s)
+        hcg = fleet.get_hybrid_communicate_group()
+        model = build_6p7b(spec, use_recompute=c.get("recompute", False))
+        if c.get("bf16"):
+            model.bfloat16()
+        pipe = model.gpt.decoder
+        if not (isinstance(pipe, pp.SpmdPipeline) and pipe.pipelined):
+            raise AssertionError(f"phase 46 {name}: the decoder is not "
+                                 "pipelined")
+        stage_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        step, opt = dist_trainer(model)
+        params = dict(model.named_parameters())
+        slices = {n: p.numel() * p.element_size()
+                  * (zero3_spec(p).group.nranks - 1)
+                  for n, p in params.items() if zero3_spec(p)}
+        ids, labels = compose_batch(model.config.vocab_size)
+        reset_peak()
+        reset_flash(fa)
+        collective.reset_counts()
+        pp.reset_counts()
+        steps = c["steps"]
+        losses, step_ms = timed_steps(step, (ids, labels), steps, sync)
+        cfg = model.config
+        sep = hcg.get_sep_parallel_world_size()
+        res = dict(
+            losses=losses, step_ms=step_ms, launches=flash_counts(fa),
+            peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                      if on_card else 0.0),
+            stage=hcg.get_stage_id(), sep=sep,
+            sep_rank=hcg.get_sep_parallel_rank(),
+            layers_local=len(pipe.blocks),
+            microbatches=pp.counts["forward_ops"] // steps,
+            rows=ids.shape[0] // hcg.get_data_sharding_parallel_world_size()
+            // (pp.counts["forward_ops"] // steps),
+            tokens=ids.shape[1] // sep, heads=cfg.num_attention_heads,
+            elem=next(model.parameters()).element_size(),
+            head_dim=cfg.hidden_size // cfg.num_attention_heads,
+            counts={k: collective.counts.get(k, 0) for k in (
+                "zero3_gather_bytes", "zero3_regather_bytes",
+                "zero3_reduce_scatter_bytes", "p2p_staged_bytes")},
+            slices=slices, stage_bytes=stage_bytes,
+            held_bytes=sum(p.numel() * p.element_size()
+                           for p in params.values()),
+            held_params=sum(p.numel() for p in params.values()),
+            whole_bytes=sum(p.numel() * p.element_size()
+                            for p in params.values() if not zero3_spec(p)),
+            moments=sum(v.numel() * v.element_size()
+                        for st in opt._inner_opt._accumulators if st
+                        for v in st.values()))
+        order = list(pipe._layer_order)
+        del step, opt, pipe, params
+        if name == "pp2_zero3":
+            full = gather_full_state(model)
+            del model
+            reset_peak()
+            if rank == 0:
+                want = torch.load(base_path, mmap=True)
+                res["param_gap"] = param_gap(unstacked(full, order), want)
+                del want
+            del full
+        else:
+            del model
+        fleet.topology.set_hybrid_communicate_group(None)
+        reset_peak()
+        out[name] = res
+        dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def compose_baseline(spec, path):
+    """Phase 46's single-process ``TrainStep`` on the same weights, depth
+    and batch, LOCKSTEP_STEPS steps: its losses, step ms and peak; its
+    final parameters saved to ``path`` (host memory), its device memory
+    freed before the ranks start."""
+    on_card = spec["device"] == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = build_6p7b(spec)
+    step, opt = trainer(model)
+    ids, labels = compose_batch(model.config.vocab_size)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = timed_steps(step, (ids, labels), LOCKSTEP_STEPS, sync)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               path)
+    n_params = sum(p.numel() for p in model.parameters())
+    del step, opt, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, peak_gib=peak,
+                n_params=n_params)
+
+
+def phase_pp_compose(smi, timeout=900, spec=None):
+    """Phase 46: ZeRO-3 and the sep axis inside the pipeline, GPT-3 6.7B's
+    widths at depth 4, four processes on the one card over gloo. First a
+    single-process ``TrainStep`` (the baseline, its memory freed); then
+    46a pp 2 x sharding 2 at stage 3 in f32 (losses equal on the ranks and
+    within TRAIN_LOSS_RTOL of the baseline, the gathered parameters by
+    phase 8's rule, K1 / K2a / K2b = local layers x micro-batches x steps,
+    the ZeRO-3 bytes gathered, gathered again and reduce-scattered and the
+    staged bytes equal to the arithmetic, a rank holding half its stage's
+    sliced parameters), 46b with bf16 parameters and block recompute (the
+    loss finite and falling, K1 twice a layer, the bytes with one more
+    gather of every block parameter), 46c pp 2 x sep 2 in f32 (losses
+    within TRAIN_LOSS_RTOL of the baseline, sep rank r launching r + 1
+    ring blocks a layer, the staged bytes equal to the boundaries and the
+    ring's rotations). Returns the ``pp_compose`` JSON line's numbers."""
+    import gc
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    spec = spec or {"device": DEVICE}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_compose_")
+    t0 = time.perf_counter()
+    # the four ranks need the card: earlier phases' tensors held by
+    # reference cycles go first
+    gc.collect()
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+    base_path = os.path.join(tmp, "baseline.pt")
+    base = compose_baseline(spec, base_path)
+    gc.collect()
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+    t_base = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() / 2 ** 30
+            if spec["device"] == "cuda" else 0.0)
+    log(f"# phase 46: the parent holds {held:.2f} GiB on the card while the "
+        "ranks run")
+    log(f"# phase 46: baseline TrainStep, GPT-3 6.7B widths at depth "
+        f"{COMPOSE_LAYERS} ({base['n_params']} parameters), "
+        f"{COMPOSE_BATCH} x {TRAIN_SEQ}: losses {base['losses']}, step ms "
+        f"{[round(t, 1) for t in base['step_ms']]}, peak "
+        f"{base['peak_gib']:.2f} GiB; {t_base:.1f} s  [{smi}]")
+    ctx = dist.spawn(_rank_pp_compose, (tmp, base_path, spec),
+                     nprocs=COMPOSE_RANKS, join=False, backend="gloo",
+                     master=f"file://{tmp}/rendezvous")
+    join_spawned(ctx, timeout)
+    res = []
+    for r in range(COMPOSE_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    out = {"seconds": secs, "backend": res[0]["backend"], "card": smi,
+           "baseline": base, "parent_gib": held}
+    for name, c in COMPOSE_CONFIGS.items():
+        rs = [r[name] for r in res]
+        a, steps = rs[0], c["steps"]
+        tag = {"pp2_zero3": "46a", "pp2_zero3_bf16_recompute": "46b",
+               "pp2_sep2": "46c"}[name]
+        if any(r["losses"] != a["losses"] for r in rs):
+            raise AssertionError(f"phase {tag}: the ranks' losses differ")
+        rel = None
+        if not c.get("bf16"):
+            rel = max(abs(x - y) / abs(y) for x, y in zip(
+                a["losses"], base["losses"]))
+        log(f"# phase {tag}: pp 2 x "
+            f"{'sep 2' if c.get('sep_degree') else 'sharding 2 at stage 3'}"
+            f"{', bf16 parameters, recompute' if c.get('bf16') else ''}, "
+            f"GPT-3 6.7B widths at depth {COMPOSE_LAYERS}, "
+            f"{COMPOSE_MICROBATCHES} micro-batches, 1F1B: losses "
+            f"{a['losses']}"
+            + ("" if rel is None else
+               f" vs the baseline {base['losses'][:steps]} (rel {rel:.2e})")
+            + (f"; params max |d| {a['param_gap'][0]:.2e}, "
+               f"{a['param_gap'][1]}/{a['param_gap'][2]} beyond "
+               f"{LOCKSTEP_PARAM_ATOL}" if "param_gap" in a else "")
+            + f"  [{smi}]")
+        for i, r in enumerate(rs):
+            log(f"#   rank {i} (stage {r['stage']}, sep rank "
+                f"{r['sep_rank']}): step ms "
+                f"{[round(t, 1) for t in r['step_ms']]}; peak "
+                f"{r['peak_gib']:.2f} GiB; launches {r['launches']}; "
+                f"bytes {r['counts']}; parameters held {r['held_params']} "
+                f"({r['held_bytes']} B of its stage's {r['stage_bytes']}), "
+                f"moments {r['moments']} B")
+        if rel is not None and not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"phase {tag}: losses differ from the "
+                                 "baseline's")
+        if c.get("bf16") and not (all(np.isfinite(a["losses"]))
+                                  and a["losses"][-1] < a["losses"][0]):
+            raise AssertionError(f"phase {tag}: the loss is not finite and "
+                                 "falling")
+        if "param_gap" in a:
+            check_param_gap(a["param_gap"], steps, f"phase {tag}")
+        for r in rs:
+            n = r["layers_local"] * r["microbatches"] * steps
+            blocks = r["sep_rank"] + 1 if r["sep"] > 1 else 1
+            bf = "_bf16" if c.get("bf16") else ""
+            want = {f"fwd{bf}": n * blocks * (2 if c.get("recompute")
+                                              else 1),
+                    f"dq{bf}": n * blocks, f"dkv{bf}": n * blocks}
+            if r["microbatches"] != COMPOSE_MICROBATCHES or any(
+                    r["launches"][k] != v for k, v in want.items()):
+                raise AssertionError(f"phase {tag}: launches "
+                                     f"{r['launches']} != {want}")
+            staged = pp_staged_want(r, steps)
+            # CPU tensors are not staged (a rehearsal may count them)
+            if (spec["device"] == "cuda" or spec.get("staged")) and \
+                    r["counts"]["p2p_staged_bytes"] != staged:
+                raise AssertionError(
+                    f"phase {tag}: staged {r['counts']['p2p_staged_bytes']}"
+                    f" B != {staged} B")
+            if c.get("stage") == 3:
+                z = pp_zero3_want(r["slices"], r["stage"], 2,
+                                  r["microbatches"], steps,
+                                  c.get("recompute", False))
+                got = {"gather": r["counts"]["zero3_gather_bytes"],
+                       "regather": r["counts"]["zero3_regather_bytes"],
+                       "reduce_scatter":
+                           r["counts"]["zero3_reduce_scatter_bytes"]}
+                if got != z:
+                    raise AssertionError(f"phase {tag}: ZeRO-3 bytes {got} "
+                                         f"!= {z}")
+                sliced = r["stage_bytes"] - r["whole_bytes"]
+                if r["held_bytes"] != sliced // 2 + r["whole_bytes"]:
+                    raise AssertionError(f"phase {tag}: a rank holds more "
+                                         "than its slices")
+        out[name] = dict(
+            {k: a[k] for k in ("losses", "step_ms", "peak_gib", "launches",
+                               "counts", "held_params", "held_bytes",
+                               "stage_bytes", "moments")},
+            rel=rel, param_gap=a.get("param_gap"),
+            ranks=[{k: r[k] for k in ("stage", "sep_rank", "step_ms",
+                                      "peak_gib", "launches", "counts",
+                                      "held_params")} for r in rs])
+    peaks = [max(r[n]["peak_gib"] for n in COMPOSE_CONFIGS) for r in res]
+    out["peak_gib_sum"] = sum(peaks)
+    log(f"# phase 46: {secs:.1f} s (baseline {t_base:.1f} s; four "
+        f"processes, spawn, build and run); the ranks' peaks "
+        f"{[round(p, 2) for p in peaks]} GiB, {sum(peaks):.2f} GiB together "
+        f"beside four CUDA contexts")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5438,6 +5842,8 @@ def main() -> int:
     sep_ep = phases_sep_ep(fa, smi, trained)
     torch.cuda.empty_cache()
     zero3 = phases_zero3_wires(fa, smi, trained)
+    torch.cuda.empty_cache()
+    compose = phase_pp_compose(smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -5514,7 +5920,12 @@ def main() -> int:
                 **{f"mp_wire_int8_rank{i}": zero3["mp_wire_mp2"][
                     "launches" if i == 0 else "rank1_launches"][kind]
                    for i in (0, 1)},
-                gradient_merge=zero3["gradient_merge"]["launches"][kind])))
+                gradient_merge=zero3["gradient_merge"]["launches"][kind]),
+            launches_pp_compose={
+                f"{c}_rank{i}": compose[c]["ranks"][i]["launches"][
+                    kind + ("_bf16" if COMPOSE_CONFIGS[c].get("bf16")
+                            else "")]
+                for c in COMPOSE_CONFIGS for i in range(COMPOSE_RANKS)}))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -5555,6 +5966,7 @@ def main() -> int:
     log(json.dumps({"pipeline": pipeline}))
     log(json.dumps({"sep_ep": sep_ep}))
     log(json.dumps({"zero3_wires": zero3}))
+    log(json.dumps({"pp_compose": compose}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

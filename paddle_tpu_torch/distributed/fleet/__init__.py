@@ -76,7 +76,10 @@ the rest of the step is the one above. ``distributed_model`` also
 broadcasts the replicated parameters over the pipe group and wraps a
 ``PipelineLayer`` in ``PipelineParallel``; the global-norm clip sums the
 stage-local squares over the pipe group and counts the replicated
-parameters once.
+parameters once. ZeRO-3 and the sep axis compose with it: each stage
+slices the parameters it holds, the clip sums the slices' squares over
+sharding before pipe, and the loss's split (its token group, the
+sequence split) spans the whole schedule, backward included.
 """
 from __future__ import annotations
 
@@ -591,16 +594,19 @@ class DistTrainStep(TrainStep):
         split_seq = any(s for _, s in seqs)
         group = self._token_group(any(s for _, s in rows), split_seq)
         trained = [p for p in self._params if p.requires_grad]
-        if self._pipe is None:
-            with _loss.split_batch(group), _ring.sequence_split(
-                    self._sep_group if split_seq else None), \
-                    (_z3.forward_scope() if self._zero3
-                     else contextlib.nullcontext()):
-                loss = self._loss_fn(self._model, *args)
-            grads = torch.autograd.grad(loss, trained, allow_unused=True)
-        else:
-            loss, grads = _pp.forward_backward(
-                self._pipe, self._model, self._loss_fn, args, trained, group)
+        # the split spans the backward too: a ring's rotations back and a
+        # recomputed block run there
+        with _loss.split_batch(group), _ring.sequence_split(
+                self._sep_group if split_seq else None):
+            if self._pipe is None:
+                with (_z3.forward_scope() if self._zero3
+                      else contextlib.nullcontext()):
+                    loss = self._loss_fn(self._model, *args)
+                grads = torch.autograd.grad(loss, trained, allow_unused=True)
+            else:
+                loss, grads = _pp.forward_backward(
+                    self._pipe, self._model, self._loss_fn, args, trained,
+                    group)
         sequence_parallel_utils.allreduce_sequence_parallel_grads(
             trained, grads)
         _hpu.allreduce_gradients(trained, grads, self._hcg, self._bucket_mb)

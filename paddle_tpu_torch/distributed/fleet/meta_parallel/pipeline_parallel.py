@@ -47,6 +47,18 @@ drives stages this way):
   tied head) are replicated on every pp rank, as in the reference; their
   gradients are summed over the pipe group in one bucket, so they stay
   bit-equal across the pp ranks.
+* ZeRO-3 and the sep axis run inside a stage. The ranks of a sharding
+  group and of a sep group share a pipe stage (the topology's order), so
+  they replay the same row of the table and their gathers,
+  reduce-scatters and ring rotations meet in one order. Each stage
+  slices its own blocks (and the replicated parameters); a forward op
+  runs in a ZeRO-3 forward scope of its own, closed when the op ends
+  (by ``_StageDone`` too), so no gathered weight outlives it and a
+  backward op gathers again what it reads (zero bubble's deferred pass a
+  second time). ``fleet.DistTrainStep`` keeps the sequence split over
+  the whole schedule: every forward op and every backward op (a ring's
+  rotations back, a recomputed block) sees the rank's block, and the
+  boundaries carry ``[mb, T / sep, H]``.
 
 :class:`PipelineLayer` folds the longest homogeneous run of its
 ``LayerDesc`` list into a :class:`SpmdPipeline`; the layers around it are
@@ -71,6 +83,7 @@ from ... import collective as C
 from ... import grad_comm
 from ..topology import get_hybrid_communicate_group
 from ..utils.recompute_helper import policy_for_granularity, recompute
+from . import sharding_stage3 as _z3
 from .pp_utils.p2p_communication import P2pHelper
 
 #: what the schedule runner did, for the on-card check: forward /
@@ -231,7 +244,13 @@ def _pipe_degree() -> int:
 def is_pipeline_local(p) -> bool:
     """Whether ``p`` belongs to this rank's stage of a pipelined stack
     (else it is replicated on every pipe rank)."""
-    return p.__dict__.get("pipeline_local", False) is True
+    return pipeline_slot(p) is not None
+
+
+def pipeline_slot(p):
+    """``(stack, local block, position in the block)`` of a parameter of
+    this rank's stage of a pipelined stack, else None."""
+    return p.__dict__.get("pipeline_slot")
 
 
 class SpmdPipeline(Layer):
@@ -310,10 +329,12 @@ class SpmdPipeline(Layer):
         # this rank's blocks, in stacked order (the others are dropped)
         self.blocks = LayerList(blocks[l] for l in
                                 order[self.stage * per:(self.stage + 1) * per])
-        if self.pipelined:
-            for p in self.blocks.parameters():
-                p.__dict__["pipeline_local"] = True
         params = [n for n, _ in blocks[0].named_parameters()]
+        if self.pipelined:
+            for j, blk in enumerate(self.blocks):
+                for k, p in enumerate(blk.parameters()):
+                    p.__dict__["pipeline_slot"] = (self, j, k)
+        self._block_params = params
         self._leaves = [(n, n.replace(".", "__")) for n in params] + [
             (n, n.replace(".", "__") + "_stacked")
             for n in blocks[0].state_dict() if n not in params]
@@ -343,6 +364,14 @@ class SpmdPipeline(Layer):
             for i in range(n):
                 state[f"{prefix}blocks.{i}.{leaf}"] = v[i]
 
+    def slot_position(self, j, k, stage=None):
+        """The position of parameter ``k`` of local block ``j`` of
+        ``stage`` (default: this rank's) among the stack's parameters in
+        layer order, as the unpipelined stack lists them."""
+        stage = self.stage if stage is None else stage
+        layer = self._layer_order[stage * len(self.blocks) + j]
+        return layer * len(self._block_params) + k
+
     def stacked_leaves(self):
         """``{state key suffix: a block's parameter or buffer}`` of the
         stacked layout (the block's tensor carries its mp attributes)."""
@@ -350,7 +379,7 @@ class SpmdPipeline(Layer):
         return {key: first[leaf] for leaf, key in self._leaves}
 
     # -- execution -----------------------------------------------------------
-    def _apply(self, blk, x, *extra):
+    def _run_block(self, blk, x, *extra):
         if self.recompute_block and not getattr(blk, "_use_recompute", False):
             return recompute(blk, x, *extra,
                              granularity=self.recompute_granularity)
@@ -360,7 +389,7 @@ class SpmdPipeline(Layer):
         """Apply this rank's local chunk ``v`` (global chunk ``v * S + s``)."""
         lo = v * self._chunk_len
         for blk in self.blocks[lo:lo + self._chunk_len]:
-            h = self._apply(blk, h)
+            h = self._run_block(blk, h)
         return h
 
     def forward(self, x, *extra):
@@ -369,8 +398,8 @@ class SpmdPipeline(Layer):
         :func:`run_schedule`."""
         if not self.pipelined:
             for l in range(self.num_layers):
-                x = self._apply(self.blocks[int(self._inv_order[l])], x,
-                                *extra)
+                x = self._run_block(self.blocks[int(self._inv_order[l])],
+                                    x, *extra)
             return x
         if extra:
             raise NotImplementedError(
@@ -635,13 +664,18 @@ def run_schedule(pipe: SpmdPipeline, model, loss_fn: Callable, args,
     zero_bubble = train and sched == "zero_bubble"
     p2p = P2pHelper(pipe._group, s, S)
     last = S * V - 1
+    # ZeRO-3: one forward scope a micro-batch, closed when its forward ends
+    # (on a stage that hands on, by _StageDone): no gathered weight lives on
+    # into another op, and a backward op gathers what it reads again
+    scope = (_z3.forward_scope if _z3.is_zero3_model(model)
+             else contextlib.nullcontext)
     stash, deferred, results, mb_counts = {}, [], [], []
     for _, kind, mb, v in phased_stage_table(S, V, M, sched)[s]:
         c = v * S + s
         if kind == "F":
             op = _ForwardOp(p2p, v, c, last, train)
             with _running(op), _loss.micro_batch() as recorded, \
-                    torch.set_grad_enabled(train):
+                    torch.set_grad_enabled(train), scope():
                 try:
                     res = loss_fn(model, *mbs[mb])
                 except _StageDone:
@@ -941,6 +975,6 @@ class PipelineParallel(Layer):
 __all__ = ["LayerDesc", "PP_SCHEDULES", "PipelineLayer", "PipelineParallel",
            "PpScheduleConfig", "SharedLayerDesc", "SpmdPipeline",
            "counts", "fold_or_list", "forward_backward", "is_pipeline_local",
-           "phased_stage_table", "pipelined_stack", "reduce_loss",
-           "reset_counts", "resolve_pp_schedule", "run_schedule",
-           "run_stack", "schedule_info"]
+           "phased_stage_table", "pipeline_slot", "pipelined_stack",
+           "reduce_loss", "reset_counts", "resolve_pp_schedule",
+           "run_schedule", "run_stack", "schedule_info"]

@@ -27,6 +27,10 @@ parameter (the Parameter object stays, its data cut along that dim), and:
   weight's storage as a reference to the slice and its view, and unpacks
   it by gathering again.
 
+In a pipeline each stage slices the blocks it holds (the reference's
+dim on the stacked ``[L, ...]`` leaf is this one + 1) and the schedule
+opens one forward scope a forward op (``pipeline_parallel.run_schedule``).
+
 ``fleet.DistTrainStep`` and ``fused_allreduce_gradients`` then sum the
 slices' gradients over the ranks holding the same slices (data x sep) and
 divide by the data-parallel degree; ``HybridParallelOptimizer`` updates
@@ -104,15 +108,16 @@ def gathering() -> bool:
 @contextlib.contextmanager
 def resumed(on: bool):
     """Within: attribute access gathers if ``on`` (the recomputed forward
-    of a checkpointed block, run in the backward)."""
+    of a checkpointed block, run in the backward: its gathers are the
+    backward's, counted as ``zero3_regather_bytes``)."""
     if not on or gathering():
         yield
         return
-    _tls.depth = 1
+    _tls.depth, _tls.again = 1, True
     try:
         yield
     finally:
-        _tls.depth = 0
+        _tls.depth, _tls.again = 0, False
 
 
 class _Saved:
@@ -175,6 +180,9 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, spec):
         ctx.spec = spec
+        if getattr(_tls, "again", False):  # a recomputed forward
+            C.counts["zero3_regather"] += 1
+            return _gather(shard, spec, "zero3_regather_bytes")
         full = _gather(shard, spec)
         _gathered[full.untyped_storage().data_ptr()] = (weakref.ref(full),
                                                         shard)

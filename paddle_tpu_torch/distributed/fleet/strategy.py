@@ -131,15 +131,6 @@ def _unported(what, item):
 def check_ported(strategy: DistributedStrategy):
     """Raise ``NotImplementedError`` for the first knob set that this port
     does not implement, naming its ROADMAP.md item."""
-    hc = strategy.hybrid_configs
-    pp = int(hc.get("pp_degree", 1)) > 1
-    if int(hc.get("sep_degree", 1)) > 1 and pp:
-        _unported("sep_degree > 1 with pp_degree > 1 (the ring inside a "
-                  "pipeline)", "§A.7 item 1")
-    if int(strategy.sharding_configs.get("stage", 1)) == 3 and pp:
-        _unported('sharding_configs["stage"] == 3 (ZeRO-3) with '
-                  "pp_degree > 1 (sliced parameters inside a pipeline)",
-                  "§A.7 item 1")
     from ..grad_comm import resolve_config
     from ..mp_comm import resolve_config as resolve_mp_config
 

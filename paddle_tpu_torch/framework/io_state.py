@@ -241,6 +241,29 @@ def _param_layout(p):
     return axis, group, zero3_spec(p)
 
 
+def _full_positions(params):
+    """Where each of ``params`` (an optimizer's list) stands in the list
+    the same model has unpipelined: a pipelined stack's parameters in the
+    place of its first, all its blocks there in layer order. Without a
+    pipelined stack, each its own index."""
+    from ..distributed.fleet.meta_parallel.pipeline_parallel import (
+        pipeline_slot)
+
+    out, first, n = [], {}, 0
+    for p in params:
+        slot = pipeline_slot(p)
+        if slot is None:
+            out.append(n)
+            n += 1
+            continue
+        pipe, j, k = slot
+        if id(pipe) not in first:
+            first[id(pipe)] = n
+            n += pipe.num_layers * len(pipe._block_params)
+        out.append(first[id(pipe)] + pipe.slot_position(j, k))
+    return out
+
+
 def _optimizer_parts(optimizer):
     """``(rule optimizer, owner of each position or None, sharding
     group)``: the inner optimizer of a ``HybridParallelOptimizer`` and its
@@ -255,13 +278,20 @@ def gather_full_optimizer_state(optimizer) -> Dict[str, torch.Tensor]:
     """The optimizer's state with every parameter-shaped entry as the full
     array (``param_{i}.{key}``, as ``Optimizer.state_dict``; the
     scheduler's under ``"LR_Scheduler"``): ZeRO-1/2 state broadcast from
-    its owner, ZeRO-3 slices and mp shards gathered. A collective: every
-    rank calls it. With :func:`load_full_optimizer_state` a run resumes
-    under other parallel degrees."""
+    its owner, ZeRO-3 slices and mp shards gathered, and a pipelined
+    stack's entries from every stage, ``i`` the parameter's position in
+    the model unpipelined (:func:`_full_positions`; the stages hold the
+    same parameters of their blocks in the same places, so each entry is
+    all-gathered over the pipe group). A collective: every rank calls it.
+    With :func:`load_full_optimizer_state` a run resumes under other
+    parallel degrees, pp included."""
     from ..distributed import collective as C
     from ..distributed.fleet.layers.mpu import full_of
+    from ..distributed.fleet.meta_parallel.pipeline_parallel import (
+        pipeline_slot)
 
     inner, owner, sgroup = _optimizer_parts(optimizer)
+    pos = _full_positions(inner._parameter_list)
     out = {}
     for i, p in enumerate(inner._parameter_list):
         st = inner._accumulators[i]
@@ -279,7 +309,16 @@ def gather_full_optimizer_state(optimizer) -> Dict[str, torch.Tensor]:
                     v = full_of(v.contiguous(), spec.dim, spec.group)
                 if axis is not None:
                     v = full_of(v.contiguous(), axis, mgroup)
-            out[f"param_{i}.{k}"] = v.clone()
+            slot = pipeline_slot(p)
+            if slot is None:
+                out[f"param_{pos[i]}.{k}"] = v.clone()
+                continue
+            pipe, j, kk = slot
+            base = pos[i] - pipe.slot_position(j, kk)
+            for stage, part in enumerate(C.all_gather(
+                    None, v.contiguous(), group=pipe._group)):
+                out[f"param_{base + pipe.slot_position(j, kk, stage)}"
+                    f".{k}"] = part
     sched = inner.state_dict().get("LR_Scheduler")
     if sched is not None:
         out["LR_Scheduler"] = sched
@@ -293,6 +332,7 @@ def load_full_optimizer_state(optimizer, state):
     from ..distributed.fleet.layers.mpu import shard_of
 
     inner, owner, _ = _optimizer_parts(optimizer)
+    pos = _full_positions(inner._parameter_list)
     local = {}
     if "LR_Scheduler" in state:
         local["LR_Scheduler"] = state["LR_Scheduler"]
@@ -301,7 +341,7 @@ def load_full_optimizer_state(optimizer, state):
             continue
         axis, mgroup, spec = _param_layout(p)
         for k, ref in inner._init_state(p).items():
-            v = state.get(f"param_{i}.{k}")
+            v = state.get(f"param_{pos[i]}.{k}")
             if v is None:
                 continue
             v = torch.as_tensor(v)

@@ -433,9 +433,10 @@ def test_unported_knobs_raise(knob, item):
     """Each raises in fleet.init, before any process group is set up, and
     in distributed_optimizer. pp_degree > 1 raised until pipeline
     parallelism was ported (tests/test_torch_pipeline.py): the strategy
-    check passes it now. sep_degree > 1 alone passes too since the sep
-    axis was ported (tests/test_torch_sep.py); with pp_degree > 1 it
-    still raises. ZeRO-3, the bf16 / int8 gradient wire, mp_comm and
+    check passes it now. sep_degree > 1 passes too since the sep axis was
+    ported (tests/test_torch_sep.py), and with pp_degree > 1 since the
+    ring runs inside a pipeline (tests/test_torch_pp_compose.py). ZeRO-3
+    (with pp as well), the bf16 / int8 gradient wire, mp_comm and
     gradient_merge pass since they were ported."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
@@ -451,6 +452,8 @@ def test_unported_knobs_raise(knob, item):
         # and gradient merge (test_torch_gradient_merge.py)
         if knob == "stage3":
             s.sharding_configs["stage"] = 3
+            check_ported(s)
+            s.hybrid_configs["pp_degree"] = 2
         elif knob.startswith("grad_comm"):
             s.grad_comm = True
             s.grad_comm_configs["wire_dtype"] = knob.rsplit("_", 1)[1]
@@ -462,8 +465,9 @@ def test_unported_knobs_raise(knob, item):
         s.hybrid_configs[f"{knob}_degree"] = 2
         check_ported(s)
         s.hybrid_configs["pp_degree"] = 2
-    else:
-        setattr(s, knob, True)
+        check_ported(s)
+        return
+    setattr(s, knob, True)
     with pytest.raises(NotImplementedError, match=item):
         fleet.init(is_collective=True, strategy=s)
     with pytest.raises(NotImplementedError, match=item):

@@ -368,16 +368,21 @@ def test_config_matches_reference():
 def test_unported_flags_raise(flag, item):
     if flag == "sequence_parallel":
         # Megatron sequence parallelism is ported (test_torch_fleet.py),
-        # and so is the sep axis (test_torch_sep.py); sep inside a
-        # pipeline still raises naming its ROADMAP item, before any
-        # process group is set up
+        # and so is the sep axis (test_torch_sep.py), inside a pipeline
+        # too (test_torch_pp_compose.py); a knob still refused with them
+        # raises naming its ROADMAP item, before any process group is
+        # set up
         from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
         assert tllama.LlamaConfig(sequence_parallel=True).sequence_parallel
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs.update(sep_degree=2, pp_degree=2)
-        with pytest.raises(NotImplementedError, match=rf"sep_degree.*{item}"):
+        check_ported(strategy)
+        strategy.auto_plan = True
+        with pytest.raises(NotImplementedError, match=rf"auto_plan.*{item}"):
             fleet.init(is_collective=True, strategy=strategy)
+        assert fleet.get_hybrid_communicate_group() is None
         return
     # fold_layers raised until the fold was ported (ROADMAP §A.3, now
     # done; tests/test_torch_fold_layers.py holds it against the reference)

@@ -402,8 +402,9 @@ def test_pipeline_layer_train_batch_matches_reference(runs):
 
 def test_pp_degree_trains_and_other_knobs_still_raise():
     """pp_degree > 1 passes the strategy check, and so do sep_degree > 1
-    and ZeRO-3; sep or ZeRO-3 with pp still raise, naming their ROADMAP
-    item."""
+    and ZeRO-3, alone and with pp (the ring and the slices inside a
+    pipeline, ``tests/test_torch_pp_compose.py``); the knobs still
+    refused raise with pp as without, naming their ROADMAP item."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -420,7 +421,12 @@ def test_pp_degree_trains_and_other_knobs_still_raise():
             s.sharding_configs["stage"] = 3
             check_ported(s)
             s.hybrid_configs["pp_degree"] = 2
-        with pytest.raises(NotImplementedError, match="§A.7 item 1"):
+        check_ported(s)
+    for knob, item in (("lamb", "§A.3"), ("auto_plan", "§A.7")):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["pp_degree"] = 2
+        setattr(s, knob, True)
+        with pytest.raises(NotImplementedError, match=item):
             check_ported(s)
 
 

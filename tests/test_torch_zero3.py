@@ -15,9 +15,10 @@ of it. Held here:
 - the tiny GPT (tied embeddings) and Llama at sharding 4 against the
   reference's TrainStep, and with recompute and with the fold;
 - the eager loop through both entry points;
-- resuming a stage-3 run under dp 2 x mp 2 and the reverse from the full
-  model and optimizer arrays (``tests/test_checkpoint_reshard.py``, pp
-  dropped: stage 3 with pp raises);
+- resuming a stage-3 run under mp 2 x pp 2 and the reverse from the full
+  model and optimizer arrays (``tests/test_checkpoint_reshard.py``'s
+  dp 2 x mp 2 x pp 2 at world size 4; a pipelined stage-3 run resumes in
+  ``tests/test_torch_pp_compose.py``);
 - the parameter bytes a rank holds (``tests/test_memory_analysis.py``).
 """
 import numpy as np
@@ -47,7 +48,7 @@ TINY_CONFIGS = {
     "dp2_sh2": ({"dp_degree": 2, "sharding_degree": 2}, False),
     "mp2_sp_sh2": ({"mp_degree": 2, "sharding_degree": 2}, True),
 }
-HYBRID = {"dp_degree": 2, "mp_degree": 2}
+HYBRID = {"mp_degree": 2, "pp_degree": 2}
 ZERO = {"sharding_degree": 4}
 MODEL_JOBS = [
     dict(name="gpt_slices", kind="zero3_slices", model="gpt", dp=1,
@@ -258,11 +259,30 @@ def test_rank_holds_its_slices(runs):
 
 
 def test_stage3_with_pipeline_raises():
+    """ZeRO-3 with pp passes the strategy check (the slices inside a
+    pipeline, ``tests/test_torch_pp_compose.py``); what still raises in a
+    pipeline at stage 3 is a MoE layer whose experts split over the
+    sharding axis, naming §A.7 item 1 (the reference has no pipelined MoE
+    model to hold it against)."""
+    from paddle_tpu_torch import incubate
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
+    from paddle_tpu_torch.distributed.fleet.topology import (
+        CommunicateTopology, HybridCommunicateGroup,
+        get_hybrid_communicate_group, set_hybrid_communicate_group)
 
     s = fleet.DistributedStrategy()
     s.sharding_configs["stage"] = 3
     s.hybrid_configs["pp_degree"] = 2
-    with pytest.raises(NotImplementedError, match="§A.7 item 1"):
-        check_ported(s)
+    check_ported(s)
+    topo = CommunicateTopology(("data", "pipe", "sharding", "sep", "model"),
+                               (1, 2, 2, 1, 1))
+    prev = get_hybrid_communicate_group()
+    # rank lists only: the layer raises before it reaches a collective
+    set_hybrid_communicate_group(HybridCommunicateGroup(topo, global_rank=0))
+    try:
+        with pytest.raises(NotImplementedError, match="§A.7 item 1"):
+            incubate.MoELayer(d_model=8, d_hidden=16, num_experts=4, top_k=2,
+                              device="cpu")
+    finally:
+        set_hybrid_communicate_group(prev)

@@ -568,7 +568,9 @@ def _pp_strategy(job):
     s.hybrid_configs.update(dp_degree=job.get("dp", -1),
                             mp_degree=job.get("mp", 1),
                             pp_degree=job["pp"],
-                            sharding_degree=job.get("sharding", 1))
+                            sharding_degree=job.get("sharding", 1),
+                            sep_degree=job.get("sep", 1))
+    s.sharding_configs["stage"] = job.get("stage", 1)
     s.pipeline_configs.update(schedule=job.get("schedule", "gpipe"),
                               virtual_pp_degree=job.get("vpp", 1),
                               accumulate_steps=job.get("acc", 1))
@@ -588,12 +590,17 @@ def pipeline_job(job, state, batch):
     from paddle_tpu_torch.distributed import collective, fleet
     from paddle_tpu_torch.distributed.fleet.meta_parallel import (
         pipeline_parallel as pp)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding_stage3 \
+        import zero3_spec
     from paddle_tpu_torch.framework.io_state import gather_full_state
 
     fleet.init(is_collective=True, strategy=_pp_strategy(job))
     model = port_model(job["model"], state, job.get("sp", False),
                        num_hidden_layers=job["layers"],
                        use_recompute=job.get("use_recompute", False))
+    if job.get("bf16"):
+        model.bfloat16()
+    alive = _watch_gathered() if job.get("stage") == 3 else None
     opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm,
                       clip_norm=job.get("clip", 1.0))
     model = fleet.distributed_model(model)
@@ -609,20 +616,58 @@ def pipeline_job(job, state, batch):
             if k in batch]
     collective.reset_counts()
     pp.reset_counts()
-    losses = [float(step(*args)) for _ in range(job.get("steps", 3))]
+    steps = job.get("steps", 3)
+    losses = [float(step(*args)) for _ in range(steps)]
+    counts = dict(collective.counts)
     hcg = fleet.get_hybrid_communicate_group()
     stacked = {k: v.float().numpy()
                for k, v in gather_full_state(model).items()}
     out = dict(
         losses=losses, stacked=stacked, full=from_stacked(model, stacked),
-        replicated={n: p.detach().numpy() for n, p in model.named_parameters()
+        replicated={n: p.detach().float().numpy()
+                    for n, p in model.named_parameters()
                     if not pp.is_pipeline_local(p)},
         stage=hcg.get_stage_id(), mp_rank=hcg.get_model_parallel_rank(),
-        counts=dict(pp.counts),
-        staged=collective.counts.get("p2p_staged_bytes", 0),
-        p2p=collective.counts.get("batch_isend_irecv", 0))
+        microbatches=pp.counts["forward_ops"] // (
+            pp.pipelined_stack(model).num_virtual_stages * steps),
+        # the bytes a gather of each ZeRO-3 slice brings from the others
+        slice_bytes={n: p.numel() * p.element_size()
+                     * (zero3_spec(p).group.nranks - 1)
+                     for n, p in model.named_parameters() if zero3_spec(p)},
+        counts=dict(pp.counts), collective=counts,
+        staged=counts.get("p2p_staged_bytes", 0),
+        p2p=counts.get("batch_isend_irecv", 0),
+        alive_after_forward=None if alive is None else alive())
     fleet.topology.set_hybrid_communicate_group(None)
     return out
+
+
+def _watch_gathered():
+    """Record how many gathered ZeRO-3 weights are still alive each time a
+    ZeRO-3 forward ends (a pipeline's forward op); returns the reader of
+    that list. Patches ``sharding_stage3`` in this process."""
+    import weakref
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        sharding_stage3 as z3)
+
+    live, seen = weakref.WeakSet(), []
+    gather, scope = z3._gather, z3.forward_scope
+
+    def watched_gather(shard, spec, counter="zero3_gather_bytes"):
+        full = gather(shard, spec, counter)
+        live.add(full)
+        return full
+
+    @contextlib.contextmanager
+    def watched_scope():
+        with scope():
+            yield
+        if not z3.gathering():
+            seen.append(len(live))
+
+    z3._gather, z3.forward_scope = watched_gather, watched_scope
+    return lambda: list(seen)
 
 
 PIPE_LM = dict(vocab=64, hidden=16, blocks=4)
@@ -660,15 +705,18 @@ def pipe_layer_lm(pkg):
 
 
 def pipeline_layer_job(job, state, batch):
-    """``PipelineLayer`` -> ``distributed_model`` (``PipelineParallel``) ->
-    ``train_batch`` at pp 2, then ``eval_batch`` with and without the
-    loss."""
+    """``PipelineLayer`` -> ``distributed_model`` (``PipelineParallel``;
+    with ``job["api"] == "group_sharded_parallel"`` that at level
+    ``"p_g_os"``) -> ``train_batch`` at pp 2, then ``eval_batch`` with and
+    without the loss."""
     import torch
 
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet import meta_parallel as mpar
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding_stage3 \
+        import is_zero3_slice
     from paddle_tpu_torch.framework.io_state import (gather_full_state,
                                                      load_numpy_state)
 
@@ -677,8 +725,14 @@ def pipeline_layer_job(job, state, batch):
     model = mpar.PipelineLayer(descs, loss_fn=loss_fn)
     load_numpy_state(model, state)
     opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
-    wrapped = fleet.distributed_model(model)
-    opt = fleet.distributed_optimizer(opt)
+    if job.get("api") == "group_sharded_parallel":
+        from paddle_tpu_torch.distributed.sharding import (
+            group_sharded_parallel)
+
+        wrapped, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
+    else:
+        wrapped = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
     x, y = (torch.from_numpy(batch[k]) for k in ("ids", "labels"))
     losses = [float(wrapped.train_batch((x, y), opt)) for _ in range(3)]
     ev = wrapped.eval_batch((x, y))
@@ -688,8 +742,26 @@ def pipeline_layer_job(job, state, batch):
                wrapper=type(wrapped).__name__,
                kinds=[type(s).__name__ for s in model._segments],
                stage=fleet.get_hybrid_communicate_group().get_stage_id(),
+               sliced=sum(is_zero3_slice(p) for p in model.parameters()),
                full={k: v.numpy() for k, v in
                      gather_full_state(model).items()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def pp_zero3_slices_job(job, state, batch):
+    """At pp x sharding, stage 3, before any step: this rank's
+    ``state_dict`` (its stage's stacked entries and the replicated ones,
+    each cut to its ZeRO-3 slice) and its (pipe, sharding) coordinate."""
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(is_collective=True, strategy=_pp_strategy(job))
+    model = fleet.distributed_model(port_model(job["model"], state,
+                                               num_hidden_layers=job["layers"]))
+    hcg = fleet.get_hybrid_communicate_group()
+    out = dict(state={k: v.detach().numpy()
+                      for k, v in model.state_dict().items()},
+               coord=(hcg.get_stage_id(), hcg.get_sharding_parallel_rank()))
     fleet.topology.set_hybrid_communicate_group(None)
     return out
 
@@ -1170,7 +1242,8 @@ def tiny_lm_job(job, state, data):
     ``job["phases"]``: ``(degrees, stage, steps)`` each; a later phase
     builds the model anew under its degrees from the full model and
     optimizer state the one before gathered (a resume under other
-    parallel degrees). Returns the losses, the full parameters and, of
+    parallel degrees; a pipelined decoder's stacked entries under the
+    unfolded names). Returns the losses, the full parameters and, of
     the first phase, the bytes of the parameters this rank holds and of
     those ZeRO-3 left whole."""
     import torch
@@ -1188,7 +1261,7 @@ def tiny_lm_job(job, state, data):
         model = GPTForCausalLM(GPTConfig(
             sequence_parallel=job.get("sp", False), **TINY_LM),
             device="cpu")
-        io_state.load_numpy_state(model, state)
+        io_state.load_numpy_state(model, to_stacked(model, state))
         opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters())
         model = fleet.distributed_model(model)
         opt = fleet.distributed_optimizer(opt)
@@ -1207,8 +1280,8 @@ def tiny_lm_job(job, state, data):
             t = torch.from_numpy(ids)
             losses.append(float(step(t, t)))
         done += steps
-        state = {k: v.numpy()
-                 for k, v in io_state.gather_full_state(model).items()}
+        full = io_state.gather_full_state(model)
+        state = from_stacked(model, {k: v.numpy() for k, v in full.items()})
         opt_state = io_state.gather_full_optimizer_state(opt)
         fleet.topology.set_hybrid_communicate_group(None)
     out.update(losses=losses, full=state)
@@ -1562,6 +1635,7 @@ JOB_KINDS = {"train": fleet_job, "batched": batched_job, "merge": merge_job,
              "wire": wire_job, "quantized": quantized_collective_job,
              "tiny_lm": tiny_lm_job, "zero3_eager": zero3_eager_job,
              "zero3_slices": zero3_slices_job, "data_parallel": data_parallel_job,
+             "pp_zero3_slices": pp_zero3_slices_job,
              "group_sharded": group_sharded_job, "api": api_job,
              "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job,
              "moe": moe_job, "moe_eager": moe_eager_job, "ring": ring_job,
