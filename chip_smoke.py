@@ -259,16 +259,33 @@ Phases, each fatal on failure (non-zero exit, no final line):
    losses against the baseline, each sep rank's ring launches, the staged
    bytes equal to the boundaries and the ring's rotations; each rank's
    step ms and peak;
-47. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+47. the training features of ROADMAP §A.3 through fleet: (a) BERT-base
+   MLM (phase 25's model, batch and AdamW) made Lamb by
+   ``strategy.lamb``, 4 ``DistTrainStep`` s at NCCL world size 1: the
+   loss falls, K1 / K2a / K2b 12 x 4 with the padding bias, the first
+   update against the port's CPU Lamb on the card's parameters and
+   gradients, the state keys Lamb's; (b) ResNet-50 (256 x 224, f32) made
+   Lars by ``strategy.lars``, 3 steps, the first update against the CPU
+   Lars; (c) GPT-3 1.3B's widths at depth 2, mp 2 under Lamb on two
+   gloo processes sharing the card, against a single-process Lamb run:
+   phase 39's gates and each trust ratio's sums of squares equal to the
+   whole parameter's; (d) ``flash_attn_unpadded`` on five packed causal
+   sequences (2048 + 1024 + 512 + 384 + 128) and 64 padding tokens at
+   H=16, D=128, f32 and bf16: one K1 / K2a / K2b launch each, against
+   the plain versions, the tail's rows 0, timed beside the sequences
+   padded to 5 x 2048, SDPA with the bool mask and the bounds of the
+   square and of the needed work; each with its step ms, peak and
+   launches;
+48. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
    (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a
    ``zero3_wires`` JSON line (phases 44-45), a ``pp_compose`` JSON line
-   (phase 46), a ``kernels`` JSON line (the GPT, encoder and MoE shapes,
-   the K1 / K2 rows with their launches in phases 38-46; no TPU kernel
-   lies on the vision path or the capacity MoE path), then the result
-   line.
+   (phase 46), an ``a3`` JSON line (phase 47), a ``kernels`` JSON line
+   (the GPT, encoder and MoE shapes, the K1 / K2 rows with their
+   launches in phases 38-47; no TPU kernel lies on the vision path or
+   the capacity MoE path), then the result line.
 """
 from __future__ import annotations
 
@@ -1102,7 +1119,7 @@ def phase_flash_sweep(fa):
     return worst
 
 
-def flash_bound(kind, q, k, causal, peaks, bias=None):
+def flash_bound(kind, q, k, causal, peaks, bias=None, needed_pairs=None):
     """:func:`bounds`: each input read once, each output written once; QK,
     dP, P.V, dQ, dK, dV as 2 * D FLOPs per visible (query, key) pair, of
     the inputs' type. A bias (f32, as the kernels read it) adds its bytes;
@@ -1116,6 +1133,8 @@ def flash_bound(kind, q, k, causal, peaks, bias=None):
     if bias is not None and not causal and bias.shape[1:3] == (1, 1):
         kept = int((bias[:, 0, 0, :] > -1e8).sum()) * (b // bias.shape[0])
         pairs = tq * kept
+    if needed_pairs is not None:  # the pairs a call needs, given
+        pairs = needed_pairs
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     flops = 2 * d * products * pairs * h
     elt = q.element_size()
@@ -1317,12 +1336,18 @@ def train_batch(vocab):
     return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
 
 
-def trainer(model, adamw=ADAMW):
+def trainer(model, adamw=ADAMW, meta=None):
+    """``TrainStep`` + AdamW + clip on ``model``; with ``meta`` ("lamb" /
+    "lars") the optimizer fleet's meta-optimizer swaps it for."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 
     opt = AdamW(parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0), **adamw)
+    if meta is not None:
+        from paddle_tpu_torch.distributed import fleet
+
+        opt = fleet._apply_meta_optimizers(opt, meta_strategy(meta))
     return TrainStep(model, lambda m, ids, lab: m(ids, labels=lab), opt), opt
 
 
@@ -3899,10 +3924,25 @@ def dist_trainer(model, adamw=ADAMW):
     return step, opt
 
 
-def fleet_init(**degrees):
+def meta_strategy(meta=None, strategy=None):
+    """``strategy`` (default a new one) with the meta-optimizer ``meta``
+    set: "lamb" (A3_LAMB) or "lars" (A3_LARS)."""
     from paddle_tpu_torch.distributed import fleet
 
-    s = fleet.DistributedStrategy()
+    s = strategy or fleet.DistributedStrategy()
+    if meta == "lamb":
+        s.lamb = True
+        s.lamb_configs.update(A3_LAMB)
+    elif meta == "lars":
+        s.lars = True
+        s.lars_configs.update(A3_LARS)
+    return s
+
+
+def fleet_init(meta=None, **degrees):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = meta_strategy(meta)
     s.hybrid_configs.update({"dp_degree": -1, **degrees})
     fleet.init(is_collective=True, strategy=s)
 
@@ -4017,12 +4057,16 @@ def _rank_fleet(out_dir, configs):
     for name, degrees in configs.items():
         degrees = dict(degrees)
         sp = degrees.pop("sequence_parallel", False)
-        fleet_init(**degrees)
+        meta = degrees.pop("meta", None)
+        fleet_init(meta, **degrees)
         hcg = fleet.get_hybrid_communicate_group()
         model = build_model(FLEET_DEPTH, sequence_parallel=sp)
-        step, _ = dist_trainer(model)
+        step, opt = dist_trainer(model)
         ids, labels = train_batch(model.config.vocab_size)
         reset_flash(fa)
+        torch.cuda.reset_peak_memory_stats()
+        sq_sums, unwatch = (record_sq_sums(opt._inner_opt, model)
+                            if meta else ({}, None))
         losses, step_ms = [], []
         for _ in range(LOCKSTEP_STEPS):
             torch.cuda.synchronize()
@@ -4030,6 +4074,8 @@ def _rank_fleet(out_dir, configs):
             losses.append(float(step(ids, labels)))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
+            if unwatch is not None:  # the first step's norms only
+                unwatch = unwatch()
         launches = {k: getattr(fa, f"launches_{k}")
                     for k in ("fwd", "dq", "dkv")}
         # the replicated parameters, bit-equal on the mp ranks
@@ -4047,16 +4093,23 @@ def _rank_fleet(out_dir, configs):
                    digest=digest.hexdigest(),
                    heads=model.gpt.decoder[0].attn.num_heads,
                    replicated_bit_equal=bool(rep_equal),
-                   mp_rank=hcg.get_model_parallel_rank())
-        del step, model
+                   mp_rank=hcg.get_model_parallel_rank(),
+                   inner=type(opt._inner_opt).__name__, sq_sums=sq_sums,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del step, opt, model
         # the single-process reference is built with no hybrid group in
         # force: its layers are the plain ones
         fleet.topology.set_hybrid_communicate_group(None)
         if rank == 0:
             ref = build_model(FLEET_DEPTH)
-            ref_step, _ = trainer(ref)
-            res["ref_losses"] = [float(ref_step(ids, labels))
-                                 for _ in range(LOCKSTEP_STEPS)]
+            ref_step, ref_opt = trainer(ref, meta=meta)
+            res["ref_sq_sums"], unwatch = (
+                record_sq_sums(ref_opt, ref) if meta else ({}, None))
+            res["ref_losses"] = []
+            for _ in range(LOCKSTEP_STEPS):
+                res["ref_losses"].append(float(ref_step(ids, labels)))
+                if unwatch is not None:
+                    unwatch = unwatch()
             dmax, far, total = 0.0, 0, 0
             for n, p in ref.named_parameters():
                 d = (full[n] - p.detach()).abs()
@@ -4064,7 +4117,7 @@ def _rank_fleet(out_dir, configs):
                 far += int((d > LOCKSTEP_PARAM_ATOL).sum())
                 total += d.numel()
             res.update(param_max=dmax, param_far=far, param_total=total)
-            del ref_step, ref
+            del ref_step, ref_opt, ref
         del full
         torch.cuda.empty_cache()
         out[name] = res
@@ -4073,6 +4126,69 @@ def _rank_fleet(out_dir, configs):
         pickle.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def spawn_fleet_ranks(configs, timeout):
+    """``_rank_fleet`` on two processes sharing the card over gloo: each
+    rank's results and the seconds taken."""
+    import os
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    t0 = time.perf_counter()
+    ctx = dist.spawn(_rank_fleet, (tmp, configs), nprocs=2, join=False,
+                     backend="gloo", master=f"file://{tmp}/rendezvous")
+    join_spawned(ctx, timeout)
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res, secs
+
+
+def check_gloo_config(name, a, b, smi, phase):
+    """The gates of one two-rank configuration (ranks ``a``, ``b``) against
+    rank 0's single-process ``TrainStep``: equal losses on the ranks, within
+    TRAIN_LOSS_RTOL of the baseline, the gathered parameters by phase 8's
+    rule, the mp ranks' replicated parameters bit-equal, each rank's
+    K1 / K2a / K2b launches at its heads (8 at mp 2, 16 otherwise)."""
+    bound = 2 * ADAMW["learning_rate"] * LOCKSTEP_STEPS
+    rel = max(abs(x - y) / abs(y)
+              for x, y in zip(a["losses"], a["ref_losses"]))
+    heads = 8 if name.startswith("mp") else 16
+    want = FLEET_DEPTH * LOCKSTEP_STEPS
+    log(f"# phase {phase}: {name}: {a['inner']}, losses {a['losses']} vs "
+        f"TrainStep {a['ref_losses']} (rel {rel:.2e}); params max |d| "
+        f"{a['param_max']:.2e} (bound {bound:.1e}), "
+        f"{a['param_far']}/{a['param_total']} beyond "
+        f"{LOCKSTEP_PARAM_ATOL}; step ms {a['step_ms']}; peak "
+        f"{a['peak_gib']:.2f} GiB; launches rank 0 {a['launches']} rank 1 "
+        f"{b['launches']} at H={a['heads']}; replicated bit-equal "
+        f"{a['replicated_bit_equal']}  [{smi}]")
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"{name}: the ranks' losses differ")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{name}: losses differ from TrainStep")
+    if not (a["param_max"] <= bound
+            and a["param_far"] <= 0.01 * a["param_total"]):
+        raise AssertionError(f"{name}: parameters differ from TrainStep")
+    if not (a["replicated_bit_equal"] and b["replicated_bit_equal"]):
+        raise AssertionError(f"{name}: replicated parameters differ "
+                             "across the mp ranks")
+    for r in (a, b):
+        if r["heads"] != heads or any(n != want
+                                      for n in r["launches"].values()):
+            raise AssertionError(f"{name}: launches {r['launches']} at "
+                                 f"H={r['heads']}")
+    out = {k: a[k] for k in ("losses", "ref_losses", "step_ms", "launches",
+                             "heads", "param_max", "param_far", "peak_gib")}
+    out["rank1_launches"] = b["launches"]
+    return out
 
 
 def phase_fleet_gloo(smi, timeout=600):
@@ -4084,59 +4200,12 @@ def phase_fleet_gloo(smi, timeout=600):
     ranks' replicated parameters bit-equal, sharding 2 bit-equal to dp 2;
     each rank's K1 / K2a / K2b launches at its heads (8 at mp 2, 16
     otherwise)."""
-    import os
-    import pickle
-    import tempfile
-
-    from paddle_tpu_torch import distributed as dist
-    from paddle_tpu_torch.distributed.parallel import join_spawned
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
-    t0 = time.perf_counter()
-    ctx = dist.spawn(_rank_fleet, (tmp, FLEET_CONFIGS), nprocs=2,
-                     join=False, backend="gloo",
-                     master=f"file://{tmp}/rendezvous")
-    join_spawned(ctx, timeout)
-    secs = time.perf_counter() - t0
-    res = []
-    for r in range(2):
-        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-            res.append(pickle.load(f))
+    res, secs = spawn_fleet_ranks(FLEET_CONFIGS, timeout)
     out = {"seconds": secs, "backend": res[0]["backend"],
            "refused_on_cuda": list(GLOO_CUDA_REFUSED)}
-    bound = 2 * ADAMW["learning_rate"] * LOCKSTEP_STEPS
     for name in FLEET_CONFIGS:
-        a, b = res[0][name], res[1][name]
-        rel = max(abs(x - y) / abs(y)
-                  for x, y in zip(a["losses"], a["ref_losses"]))
-        heads = 8 if name.startswith("mp") else 16
-        want = FLEET_DEPTH * LOCKSTEP_STEPS
-        log(f"# phase 39: {name}: losses {a['losses']} vs TrainStep "
-            f"{a['ref_losses']} (rel {rel:.2e}); params max |d| "
-            f"{a['param_max']:.2e} (bound {bound:.1e}), "
-            f"{a['param_far']}/{a['param_total']} beyond "
-            f"{LOCKSTEP_PARAM_ATOL}; step ms {a['step_ms']}; launches "
-            f"rank 0 {a['launches']} rank 1 {b['launches']} at H={a['heads']}"
-            f"; replicated bit-equal {a['replicated_bit_equal']}  [{smi}]")
-        if a["losses"] != b["losses"]:
-            raise AssertionError(f"{name}: the ranks' losses differ")
-        if not rel <= TRAIN_LOSS_RTOL:
-            raise AssertionError(f"{name}: losses differ from TrainStep")
-        if not (a["param_max"] <= bound
-                and a["param_far"] <= 0.01 * a["param_total"]):
-            raise AssertionError(f"{name}: parameters differ from TrainStep")
-        if not (a["replicated_bit_equal"] and b["replicated_bit_equal"]):
-            raise AssertionError(f"{name}: replicated parameters differ "
-                                 "across the mp ranks")
-        for r in (a, b):
-            if r["heads"] != heads or any(n != want
-                                          for n in r["launches"].values()):
-                raise AssertionError(f"{name}: launches {r['launches']} at "
-                                     f"H={r['heads']}")
-        out[name] = {k: a[k] for k in ("losses", "ref_losses", "step_ms",
-                                       "launches", "heads", "param_max",
-                                       "param_far")}
-        out[name]["rank1_launches"] = b["launches"]
+        out[name] = check_gloo_config(name, res[0][name], res[1][name], smi,
+                                      "39")
     # ZeRO-1 at sharding 2 against dp 2: the same two data ranks, the same
     # gradients, an elementwise update
     zero_equal = (res[0]["sharding2"]["losses"] == res[0]["dp2"]["losses"]
@@ -5762,6 +5831,467 @@ def phase_pp_compose(smi, timeout=900, spec=None):
     return out
 
 
+# -- phase 47: §A.3's optimizers through fleet, and the packed route --------
+
+# fleet's meta-optimizer configs: Lamb as BERT's large-batch recipe (You et
+# al. 2020, the LAMB paper: decoupled weight decay 0.01), Lars as ResNet's
+# (You et al. 2017: coefficient 0.001, weight decay 5e-4)
+A3_LAMB = dict(lamb_weight_decay=0.01)
+A3_LARS = dict(lars_coeff=0.001, lars_weight_decay=5e-4)
+RESNET_LARS_STEPS = 3
+# the card's first update against the port's plain CPU path on the card's
+# parameters and gradients of that step, per tensor max|err| / max|CPU|:
+# the same f32 operations, the norms summed in other orders
+A3_UPDATE_RTOL = 1e-6
+# phase 47c: each trust ratio's sums of squares on a rank (after the sum
+# over the mp group) against the single-process run's for the whole
+# parameter: f32 sums of up to 100 M terms in other orders, on gradients
+# that differ by f32 noise; a shard's own sums would be about half
+A3_SQ_RTOL = 1e-4
+A3_GLOO_CONFIGS = {"mp2_lamb": dict(mp_degree=2, meta="lamb")}
+# phase 47d: a packed batch of causal sequences (a packed SFT batch's
+# spread of lengths) and a tail of padding tokens, at GPT-3 1.3B's
+# attention widths
+UNPADDED_SEGMENTS, UNPADDED_TAIL = (2048, 1024, 512, 384, 128), 64
+UNPADDED_H, UNPADDED_D = 16, 128
+
+
+@contextlib.contextmanager
+def nccl_world1():
+    """The default process group at world size 1 over NCCL (a ``file://``
+    store, as phase 38), destroyed on leaving."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_a3_")
+    with launch_env(PADDLE_TRAINER_ID=0, PADDLE_TRAINERS_NUM=1,
+                    PADDLE_MASTER=f"file://{tmp}/rendezvous"):
+        dist.init_parallel_env()
+    try:
+        if dist.get_backend() != "NCCL":
+            raise AssertionError(f"init_parallel_env chose "
+                                 f"{dist.get_backend()}, not NCCL")
+        yield
+    finally:
+        fleet.topology.set_hybrid_communicate_group(None)
+        dist.destroy_process_group()
+
+
+def record_sq_sums(opt, model):
+    """Record, by parameter name, the sums of squares each trust ratio of
+    ``opt`` reads (``Optimizer._sq_sums``: after the sum over a split
+    parameter's group). Returns the dict and the function that stops the
+    recording (it returns None)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    sums, real = {}, opt._sq_sums
+
+    def recorded(*xs):
+        out = real(*xs)
+        sums.setdefault(names[id(opt._updating)], out.detach().cpu().tolist())
+        return out
+
+    opt._sq_sums = recorded
+    return sums, lambda: opt.__dict__.pop("_sq_sums", None) and None
+
+
+def capture_first_update(step):
+    """Have ``step``'s first optimizer step keep host copies of the
+    parameters before and after it and of their gradients (before the
+    clip)."""
+    opt = step._opt
+    params = list(opt._inner_opt._parameter_list)
+    got = {}
+
+    def first():
+        del opt.step  # the class's step from now on
+        got["before"] = [p.detach().cpu().clone() for p in params]
+        got["grads"] = [None if p.grad is None else p.grad.detach().cpu()
+                        .clone() for p in params]
+        opt.step()
+        got["after"] = [p.detach().cpu().clone() for p in params]
+
+    opt.step = first
+    return got
+
+
+def check_first_update(got, make_opt, meta, card_keys, what):
+    """The card's first update against the port's plain CPU path: CPU
+    parameters from the host copies with their gradients, the optimizer
+    ``make_opt`` makes over them swapped by fleet's meta-optimizer
+    ``meta``, one step. Raises past A3_UPDATE_RTOL or when the state keys
+    differ; returns the worst relative difference and the optimizer's
+    class name."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn.layer import Parameter
+
+    params = [Parameter(b.clone()) for b in got["before"]]
+    for p, g in zip(params, got["grads"]):
+        p.grad = g
+    opt = fleet._apply_meta_optimizers(make_opt(params), meta_strategy(meta))
+    t0 = time.perf_counter()
+    opt.step()
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for p, card in zip(params, got["after"]):
+        want = p.detach()
+        err = (card - want).abs().max().item()
+        worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+    keys = sorted(opt.state_dict())
+    log(f"# {what}: first update, card vs the CPU {type(opt).__name__} on "
+        f"its parameters and gradients ({len(params)} tensors, "
+        f"{sum(p.numel() for p in params)} values, CPU step {cpu_s:.2f} s): "
+        f"max|err|/max|CPU| {worst:.2e} (rtol {A3_UPDATE_RTOL:.0e}); state "
+        f"keys equal: {keys == card_keys} ({len(keys)})")
+    if not worst <= A3_UPDATE_RTOL:
+        raise AssertionError(f"{what}: the first update differs from the "
+                             f"CPU path: {worst}")
+    if keys != card_keys:
+        raise AssertionError(f"{what}: state keys differ from the CPU "
+                             f"{type(opt).__name__}'s")
+    return worst, type(opt).__name__
+
+
+def fleet_steps(step, batch, n):
+    """``n`` steps of ``step`` on ``batch`` from a reset peak: losses, step
+    ms and the peak in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    return losses, step_ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_bert_lamb(fa, smi, adamw_f32):
+    """Phase 47a: BERT-base MLM (phase 25's model, batch and AdamW + clip)
+    with ``strategy.lamb``: ``fleet.distributed_optimizer`` makes it Lamb;
+    BERT_STEPS ``DistTrainStep`` s at NCCL world size 1. The loss is finite
+    and falls, K1 / K2a / K2b launch 12 x BERT_STEPS times with the padding
+    bias, the first update equals the CPU path's, the state keys
+    Lamb's."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    def make(params):
+        return AdamW(parameters=params, grad_clip=ClipGradByGlobalNorm(1.0),
+                     **BERT_ADAMW)
+
+    with nccl_world1():
+        fleet_init(meta="lamb")
+        model = fleet.distributed_model(build_bert())
+        opt = fleet.distributed_optimizer(make(model.parameters()))
+        step = fleet.DistTrainStep(
+            model, lambda m, ids, types, mask, labels: m(
+                ids, types, attention_mask=mask, labels=labels), opt)
+        batch, real = mlm_batch(model.config.vocab_size)
+        got = capture_first_update(step)
+        reset_flash(fa)
+        with flash_calls(fa) as calls:
+            losses, step_ms, peak = fleet_steps(step, batch, BERT_STEPS)
+        launches = flash_counts(fa)
+        card_keys = sorted(opt.state_dict())
+        inner = type(opt._inner_opt).__name__
+        del step, opt, model
+        torch.cuda.empty_cache()
+    ms = float(np.mean(step_ms[1:]))
+    tokens = batch[0].numel()
+    log(f"# phase 47a: BERT-base MLM under {inner} (fleet.distributed_"
+        f"optimizer, strategy.lamb {A3_LAMB}), {BERT_BATCH} x {BERT_SEQ}, "
+        f"DistTrainStep at NCCL world 1: losses "
+        f"{[round(x, 6) for x in losses]}, steps 2-{BERT_STEPS} {ms:.2f} ms "
+        f"= {tokens / ms * 1e3:.0f} tokens/s (phase 25's AdamW f32 "
+        f"{adamw_f32['step_ms']:.2f} ms), peak {peak:.2f} GiB, launches "
+        f"{launches}  [{smi}]")
+    if inner != "Lamb":
+        raise AssertionError(f"BERT: strategy.lamb gave {inner}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"BERT Lamb: loss did not fall: {losses}")
+    check_padded_calls(calls, ("fwd", "dq", "dkv"), ERNIE_BLOCKS * BERT_STEPS,
+                       (BERT_BATCH, 1, 1, BERT_SEQ), "BERT Lamb")
+    worst, _ = check_first_update(got, make, "lamb", card_keys,
+                                  "phase 47a BERT")
+    return dict(losses=losses, step_ms=step_ms, mean_step_ms=ms,
+                tokens_per_s=tokens / ms * 1e3, real_tokens=real,
+                peak_gib=peak, launches=launches, first_update_rel=worst,
+                adamw_f32_step_ms=adamw_f32["step_ms"], card=smi)
+
+
+def phase_resnet_lars(smi):
+    """Phase 47b: ResNet-50 at RESNET_BATCH x RESNET_HW in f32,
+    ``Momentum(RESNET_LR, **RESNET_MOMENTUM)`` made Lars by
+    ``strategy.lars``, RESNET_LARS_STEPS ``DistTrainStep`` s at NCCL world
+    size 1: the loss finite, the first update equal to the CPU path's."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def make(params):
+        return Momentum(RESNET_LR, parameters=params, **RESNET_MOMENTUM)
+
+    with nccl_world1():
+        fleet_init(meta="lars")
+        model = fleet.distributed_model(build_resnet())
+        opt = fleet.distributed_optimizer(make(model.parameters()))
+        step = fleet.DistTrainStep(
+            model, lambda m, x, y: F.cross_entropy(m(x), y), opt)
+        batch = resnet_batch()
+        got = capture_first_update(step)
+        losses, step_ms, peak = fleet_steps(step, batch, RESNET_LARS_STEPS)
+        card_keys = sorted(opt.state_dict())
+        inner = type(opt._inner_opt).__name__
+        del step, opt, model, batch
+        torch.cuda.empty_cache()
+    ms = float(np.mean(step_ms[1:]))
+    log(f"# phase 47b: ResNet-50 under {inner} (strategy.lars {A3_LARS}), "
+        f"{RESNET_BATCH} x {RESNET_HW}^2 f32, DistTrainStep at NCCL world "
+        f"1: losses {[round(x, 5) for x in losses]}, steps "
+        f"2-{RESNET_LARS_STEPS} {ms:.2f} ms = "
+        f"{RESNET_BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB, no "
+        f"kernel of the repo on this path  [{smi}]")
+    if inner != "Lars":
+        raise AssertionError(f"ResNet: strategy.lars gave {inner}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet Lars: losses {losses}")
+    worst, _ = check_first_update(got, make, "lars", card_keys,
+                                  "phase 47b ResNet-50")
+    return dict(losses=losses, step_ms=step_ms, mean_step_ms=ms,
+                images_per_s=RESNET_BATCH / ms * 1e3, peak_gib=peak,
+                first_update_rel=worst, card=smi)
+
+
+def phase_lamb_gloo(smi, timeout=600):
+    """Phase 47c: GPT-3 1.3B's widths at depth 2, mp 2 under Lamb (the
+    swap), two processes sharing the card over gloo, LOCKSTEP_STEPS steps
+    against a single-process ``TrainStep`` + the same Lamb on the same
+    weights and batch: phase 39's gates, and every trust ratio's sums of
+    squares in the first step equal on both ranks to the single-process
+    run's for the whole parameter (A3_SQ_RTOL)."""
+    res, secs = spawn_fleet_ranks(A3_GLOO_CONFIGS, timeout)
+    out = {"seconds": secs}
+    for name in A3_GLOO_CONFIGS:
+        a, b = res[0][name], res[1][name]
+        out[name] = check_gloo_config(name, a, b, smi, "47c")
+        want = a["ref_sq_sums"]
+        worst = 0.0
+        for r in (a, b):
+            if r["inner"] != "Lamb" or set(r["sq_sums"]) != set(want):
+                raise AssertionError(f"{name}: {r['inner']}, the trust "
+                                     "ratios of other parameters")
+            for n, w in want.items():
+                rel = float(np.max(np.abs(np.subtract(r["sq_sums"][n], w))
+                                   / np.maximum(np.abs(w), 1e-30)))
+                worst = max(worst, rel)
+        log(f"# phase 47c: {name}: {len(want)} trust ratios, their sums of "
+            f"squares on both ranks vs the single-process run's: max rel "
+            f"{worst:.2e} (rtol {A3_SQ_RTOL:.0e}); {secs:.1f} s  [{smi}]")
+        if not worst <= A3_SQ_RTOL:
+            raise AssertionError(f"{name}: a trust ratio read a part of its "
+                                 f"parameter: {worst}")
+        out[name]["sq_sums_rel"] = worst
+    return out
+
+
+def unpadded_pairs(segments):
+    """The (query, key) pairs the packed causal sequences need."""
+    return sum(s * (s + 1) // 2 for s in segments)
+
+
+def unpadded_run(q, k, v, do, cu):
+    """``flash_attn_unpadded`` causal on the packed batch, forward and
+    backward: out, dq, dk, dv."""
+    from paddle_tpu_torch.nn.functional.flash_attention import (
+        flash_attn_unpadded)
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    seq = max(UNPADDED_SEGMENTS)
+    out, _ = flash_attn_unpadded(*leaves, cu, cu, seq, seq,
+                                 UNPADDED_D ** -0.5, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    return (out.detach(),) + tuple(grads)
+
+
+def phase_unpadded(fa, smi, peaks):
+    """Phase 47d: ``flash_attn_unpadded`` on UNPADDED_SEGMENTS packed (plus
+    UNPADDED_TAIL padding tokens) at H=16, D=128, causal, f32 and bf16:
+    one K1, K2a and K2b launch a forward and backward, each output and
+    gradient against the plain versions' (FLASH_TOL), the tail's rows 0
+    and every gradient finite; then K1 and K2a + K2b on the folded
+    ``[1, 1, T, T]`` bias timed beside the plain versions, the same
+    sequences padded to B=5 x T=2048 (causal, no bias; the kernels as
+    ``F.flash_attention(causal=True)`` reaches them), SDPA with the bool
+    mask (the library), the bound of the work the square computes and of
+    the work the sequences need."""
+    from torch.nn.attention import sdpa_kernel
+
+    segs = UNPADDED_SEGMENTS
+    t, h, d = sum(segs) + UNPADDED_TAIL, UNPADDED_H, UNPADDED_D
+    n_real = sum(segs)
+    cu = torch.tensor(np.cumsum((0,) + segs), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 47)
+    needed = unpadded_pairs(segs) * h
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt)[6:]
+        q, k, v, do = (torch.randn((t, h, d), generator=gen, device=DEVICE)
+                       .to(dt) for _ in range(4))
+        reset_flash(fa)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = unpadded_run(q, k, v, do, cu)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = flash_counts(fa)
+        bf = int(dt == torch.bfloat16)
+        if launches != {"fwd": 1, "dq": 1, "dkv": 1, "fwd_bf16": bf,
+                        "dq_bf16": bf, "dkv_bf16": bf}:
+            raise AssertionError(f"unpadded {tag}: launches {launches}")
+        with plain_attention(fa):
+            plain = unpadded_run(q, k, v, do, cu)
+        errs = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, plain):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"unpadded {tag}: {name} not finite")
+            errs[name] = _rel(a, b)[1]
+            if not errs[name] <= FLASH_TOL[dt]:
+                raise AssertionError(f"unpadded {tag}: {name} differs from "
+                                     f"plain: {errs[name]}")
+        if got[0][n_real:].abs().max().item() != 0 or \
+                got[1][n_real:].abs().max().item() != 0:
+            raise AssertionError(f"unpadded {tag}: a tail row is not 0")
+        # the kernels alone on the folded bias, as the route calls them
+        from paddle_tpu_torch.nn.functional.flash_attention import _visible
+
+        vis = _visible(cu, cu, t, t, True)
+        bias = torch.where(vis, 0.0, fa.NEG_INF)[None, None]
+        q4, k4, v4, do4 = (x[None] for x in (q, k, v, do))
+        o, lse = fa.flash_attention_forward_cuda(q4, k4, v4, bias)
+        delta = fa._delta(o, do4).contiguous()
+
+        def k1():
+            return fa.flash_attention_forward_cuda(q4, k4, v4, bias)
+
+        def pair():
+            fa.flash_attention_bwd_dq_cuda(q4, k4, v4, bias, do4, lse, delta)
+            fa.flash_attention_bwd_dkv_cuda(q4, k4, v4, bias, do4, lse,
+                                            delta)
+
+        def plain_pair():
+            fa.flash_attention_bwd_dq_plain(q4, k4, v4, bias, do4, lse,
+                                            delta)
+            fa.flash_attention_bwd_dkv_plain(q4, k4, v4, bias, do4, lse,
+                                             delta)
+
+        def call():
+            from paddle_tpu_torch.nn.functional.flash_attention import (
+                flash_attn_unpadded)
+
+            with torch.no_grad():
+                flash_attn_unpadded(q, k, v, cu, cu, max(segs), max(segs),
+                                    d ** -0.5, causal=True)
+
+        packed = dict(
+            fwd_ms=cuda_ms(k1), pair_ms=cuda_ms(pair), call_fwd_ms=cuda_ms(
+                call),
+            plain_fwd_ms=cuda_ms(lambda: fa.flash_attention_forward_plain(
+                q4, k4, v4, bias), iters=3, warm=1),
+            plain_pair_ms=cuda_ms(plain_pair, iters=3, warm=1))
+        # the same sequences padded to B = 5 x T = 2048, causal, no bias
+        qp, kp, vp, dop = (torch.zeros((len(segs), max(segs), h, d),
+                                       dtype=dt, device=DEVICE)
+                           for _ in range(4))
+        for i, (a, b) in enumerate(zip(cu[:-1].tolist(), cu[1:].tolist())):
+            for dst, src in ((qp, q), (kp, k), (vp, v), (dop, do)):
+                dst[i, :b - a] = src[a:b]
+        op, lsep = fa.flash_attention_forward_cuda(qp, kp, vp, causal=True)
+        deltap = fa._delta(op, dop).contiguous()
+
+        def pad_pair():
+            fa.flash_attention_bwd_dq_cuda(qp, kp, vp, None, dop, lsep,
+                                           deltap, causal=True)
+            fa.flash_attention_bwd_dkv_cuda(qp, kp, vp, None, dop, lsep,
+                                            deltap, causal=True)
+
+        padded = dict(
+            fwd_ms=cuda_ms(lambda: fa.flash_attention_forward_cuda(
+                qp, kp, vp, causal=True)),
+            pair_ms=cuda_ms(pad_pair))
+        # the library: SDPA over [1, H, T, D] with the same bool mask
+        label, qh, kh, vh, kw = sdpa_yardsticks(q4, k4, v4)[0]
+        mask = vis[None, None]
+        be = sdpa_backend(qh, kh, vh, attn_mask=mask)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with sdpa_kernel([be]):
+            lib_fwd = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask))
+            lib_out = sdpa(qh, kh, vh, attn_mask=mask)
+            doh = do4.transpose(1, 2)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), doh, retain_graph=True))
+        library = dict(fwd_ms=lib_fwd, bwd_ms=lib_bwd, backend=be.name)
+        square = {kind: flash_bound(kind, q4, k4, False, peaks, bias)
+                  for kind in ("fwd", "dq", "dkv")}
+        need = {kind: flash_bound(kind, q4, k4, False, peaks,
+                                  needed_pairs=needed // h)
+                for kind in ("fwd", "dq", "dkv")}
+        bound = dict(
+            square_fwd_ms=square["fwd"]["bound_ms"],
+            square_pair_ms=square["dq"]["bound_ms"]
+            + square["dkv"]["bound_ms"],
+            needed_fwd_ms=need["fwd"]["bound_ms"],
+            needed_pair_ms=need["dq"]["bound_ms"] + need["dkv"]["bound_ms"])
+        gflop = dict(square_fwd=4 * d * t * t * h / 1e9,
+                     needed_fwd=4 * d * needed / 1e9)
+        rows[tag] = dict(launches=launches, rel_err=errs, packed=packed,
+                         padded=padded, library=library, bound=bound,
+                         gflop=gflop, call_peak_gib=peak)
+        log(f"# phase 47d: flash_attn_unpadded {tag}, segments {segs} + "
+            f"{UNPADDED_TAIL} tail = T {t}, H={h} D={d} causal: launches "
+            f"{launches}, the call's peak {peak:.2f} GiB, rel err vs plain "
+            f"{errs} (tol "
+            f"{FLASH_TOL[dt]:.2e}), tail rows 0, gradients finite; K1 on the "
+            f"[1, 1, T, T] bias {packed['fwd_ms']:.4f} ms (the call "
+            f"{packed['call_fwd_ms']:.4f} ms, plain "
+            f"{packed['plain_fwd_ms']:.4f} ms), K2a + K2b "
+            f"{packed['pair_ms']:.4f} ms (plain {packed['plain_pair_ms']:.4f}"
+            f" ms); padded B={len(segs)} T={max(segs)} causal: K1 "
+            f"{padded['fwd_ms']:.4f} ms, "
+            f"pair {padded['pair_ms']:.4f} ms; SDPA [{be.name}] bool mask: "
+            f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; bound of "
+            f"the square ({gflop['square_fwd']:.1f} GFLOP forward) "
+            f"{bound['square_fwd_ms']:.4f} / {bound['square_pair_ms']:.4f} "
+            f"ms, of the needed work ({gflop['needed_fwd']:.1f} GFLOP) "
+            f"{bound['needed_fwd_ms']:.4f} / {bound['needed_pair_ms']:.4f} ms"
+            f"  [{smi}]")
+        del q, k, v, do, got, plain, bias, vis, o, lse, delta, qp, kp, vp
+        del dop, op, lsep, deltap, qh, kh, vh, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phases_a3(fa, smi, peaks, adamw_f32):
+    """Phase 47 (47a-d); returns the ``a3`` JSON line's numbers."""
+    import gc
+
+    t0 = time.perf_counter()
+    out = {"bert_lamb": phase_bert_lamb(fa, smi, adamw_f32)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resnet_lars"] = phase_resnet_lars(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gpt_mp2_lamb"] = phase_lamb_gloo(smi)
+    out["unpadded"] = phase_unpadded(fa, smi, peaks)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = smi
+    log(f"phase 47: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5844,6 +6374,8 @@ def main() -> int:
     zero3 = phases_zero3_wires(fa, smi, trained)
     torch.cuda.empty_cache()
     compose = phase_pp_compose(smi)
+    torch.cuda.empty_cache()
+    a3 = phases_a3(fa, smi, peaks, encoders["bert_mlm"]["f32"])
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -5925,7 +6457,14 @@ def main() -> int:
                 f"{c}_rank{i}": compose[c]["ranks"][i]["launches"][
                     kind + ("_bf16" if COMPOSE_CONFIGS[c].get("bf16")
                             else "")]
-                for c in COMPOSE_CONFIGS for i in range(COMPOSE_RANKS)}))
+                for c in COMPOSE_CONFIGS for i in range(COMPOSE_RANKS)},
+            launches_a3=dict(
+                bert_lamb=a3["bert_lamb"]["launches"][kind],
+                **{f"gpt_mp2_lamb_rank{i}": a3["gpt_mp2_lamb"]["mp2_lamb"][
+                    "launches" if i == 0 else "rank1_launches"][kind]
+                   for i in (0, 1)},
+                **{f"unpadded_{dt}": a3["unpadded"][dt]["launches"][kind]
+                   for dt in ("float32", "bfloat16")})))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -5967,6 +6506,7 @@ def main() -> int:
     log(json.dumps({"sep_ep": sep_ep}))
     log(json.dumps({"zero3_wires": zero3}))
     log(json.dumps({"pp_compose": compose}))
+    log(json.dumps({"a3": a3}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -13,6 +13,7 @@ names that the port has: the subpackages, the dtype names (as
 ``torch.dtype``), the tensor functions (``paddle.slice``, ``einsum``,
 ``paddle.linalg`` among them), ``seed`` and the RNG state,
 ``to_tensor``, ``set_device`` / ``get_device``, the grad switches,
+``grad`` (``autograd.grad``),
 ``Model``, ``DataParallel``, ``save`` / ``load``.
 
 Entry points run on the default device: the CUDA card, unless
@@ -22,8 +23,8 @@ device and the ``places`` / ``device`` given.
 """
 import torch as _torch
 
-from . import (amp, device, distributed, incubate, inference, io, jit, metric,
-               nn, optimizer, tensor, text, vision)
+from . import (amp, autograd, device, distributed, incubate, inference, io,
+               jit, metric, nn, optimizer, tensor, text, vision)
 from .device import get_device, resolve_device, set_device
 from .distributed.parallel import DataParallel
 from .framework.io_state import load, save
@@ -31,6 +32,13 @@ from .framework.rng import get_rng_state, seed, set_rng_state
 from .hapi_model import Model
 from .tensor import *  # noqa: F401,F403  (the tensor functions)
 from .tensor import linalg  # noqa: F401  (paddle.linalg)
+
+def grad(outputs, inputs, grad_outputs=None, retain_graph=False,
+         create_graph=False, allow_unused=False):
+    """paddle.grad: :func:`autograd.grad`."""
+    return autograd.grad(outputs, inputs, grad_outputs, retain_graph,
+                         create_graph, allow_unused=allow_unused)
+
 
 no_grad = _torch.no_grad
 enable_grad = _torch.enable_grad
@@ -51,8 +59,8 @@ float64 = _torch.float64
 complex64 = _torch.complex64
 complex128 = _torch.complex128
 
-__all__ = (["DataParallel", "Model", "amp", "device", "distributed",
-            "enable_grad", "get_device", "get_rng_state", "incubate",
+__all__ = (["DataParallel", "Model", "amp", "autograd", "device",
+            "distributed", "enable_grad", "get_device", "grad", "get_rng_state", "incubate",
             "inference", "io", "is_grad_enabled", "jit", "linalg", "load",
             "metric", "nn", "no_grad", "optimizer", "resolve_device", "save",
             "seed", "set_device", "set_grad_enabled", "set_rng_state",

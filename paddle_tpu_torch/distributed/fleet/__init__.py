@@ -84,6 +84,7 @@ sequence split) spans the whole schedule, backward included.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import numpy as np
@@ -93,7 +94,7 @@ from ...incubate.moe import is_expert_slice
 from ...jit import TrainStep
 from ...nn.functional import loss as _loss
 from ...nn.functional import ring_attention as _ring
-from ...optimizer import ClipGradByGlobalNorm
+from ...optimizer import ClipGradByGlobalNorm, ClipGradByNorm
 from .. import collective as C
 from .. import grad_comm
 from ..env import get_rank, get_world_size, init_parallel_env
@@ -104,7 +105,8 @@ from .topology import (CommunicateTopology, HybridCommunicateGroup,
                        get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 from .utils import hybrid_parallel_util as _hpu
-from .utils import recompute, sequence_parallel_utils  # noqa: F401
+from .utils import (recompute, recompute_hybrid,  # noqa: F401
+                    recompute_sequential, sequence_parallel_utils)
 
 _strategy: Optional[DistributedStrategy] = None
 
@@ -224,12 +226,39 @@ def _partition(params, world):
     return owner
 
 
+def _split_groups(hcg, p):
+    """The groups over whose ranks the parts of ``p`` lie, in the order its
+    squares are summed: sharding (a ZeRO-3 slice), model (an mp shard),
+    expert (an expert slice). Empty for a whole parameter; the pipe group
+    is not among them (a stage holds its parameters whole)."""
+    out = []
+    if is_zero3_slice(p):
+        out.append(hcg.get_sharding_parallel_group())
+    if mpu.is_mp_shard(p) and hcg.get_model_parallel_world_size() > 1:
+        out.append(hcg.get_model_parallel_group())
+    if is_expert_slice(p):
+        out.append(hcg.get_expert_parallel_group())
+    return tuple(out)
+
+
+def _split_sum(hcg, p, squares):
+    """Sum ``squares`` (a tensor of sums of squares of ``p``'s local part)
+    in place over the ranks holding ``p``'s other parts."""
+    for group in _split_groups(hcg, p):
+        C.all_reduce(squares, group=group)
+    return squares
+
+
 class HybridParallelOptimizer:
     """``fleet.distributed_optimizer``'s product: the inner optimizer's
-    step over the hybrid groups. With mp > 1 a ``ClipGradByGlobalNorm``
-    takes the norm of the whole model (the mp shards' squares summed over
-    mp); with sharding > 1 the update is sharded by parameter (see the
-    module docstring). Anything else is the inner optimizer's."""
+    step over the hybrid groups. A parameter split over ranks (an mp
+    shard, a ZeRO-3 slice, an expert slice; :func:`_split_groups`) has its
+    norms taken whole: ``ClipGradByGlobalNorm`` sums the squares of the
+    split parameters' parts over their groups, ``ClipGradByNorm`` and the
+    trust ratios of ``Lamb`` / ``Lars`` each parameter's (the hook
+    ``_split_sum`` on the inner optimizer). With sharding > 1 the update
+    is sharded by parameter (see the module docstring). Anything else is
+    the inner optimizer's."""
 
     def __init__(self, optimizer, hcg=None, strategy=None):
         self._inner_opt = optimizer
@@ -246,6 +275,13 @@ class HybridParallelOptimizer:
                        if self._shard_states else None)
         self._me = (self._hcg.get_sharding_parallel_rank()
                     if self._hcg is not None else 0)
+        if self._hcg is not None:
+            rules = (optimizer._inner
+                     if isinstance(optimizer, GradientMergeOptimizer)
+                     else optimizer)
+            # bound to the group, not to this wrapper: the inner optimizer
+            # must not keep its wrapper (and the model) alive in a cycle
+            rules._split_sum = functools.partial(_split_sum, self._hcg)
 
     def __getattr__(self, name):
         return getattr(self._inner_opt, name)
@@ -255,51 +291,42 @@ class HybridParallelOptimizer:
         return self._owner is None or self._owner[i] in (None, self._me)
 
     def _clip(self, pg):
-        """A ``ClipGradByGlobalNorm`` over the whole model: the mp shards'
-        squares summed over mp, the ZeRO-3 slices' over the sharding
-        group, the expert slices' over the expert axis, the stage-local
-        ones over the pipe group, the parameters replicated over pp
-        counted once."""
+        """The inner optimizer's clip over the whole model: a
+        ``ClipGradByNorm`` with each split gradient's squares summed over
+        its groups; a ``ClipGradByGlobalNorm`` with the squares of the
+        gradients of each kind of split (``_split_groups``) summed over
+        those groups, those of the stage-local parameters over the pipe
+        group, the parameters replicated over pp counted once."""
         clip = self._inner_opt._grad_clip
         if self._hcg is None:
             return clip(pg)
-        mp = self._hcg.get_model_parallel_group()
+        if isinstance(clip, ClipGradByNorm):
+            return clip(pg, split_sum=functools.partial(_split_sum,
+                                                        self._hcg))
         pp = self._hcg.get_pipe_parallel_group()
-        experts = [g for p, g in pg if g is not None and is_expert_slice(p)]
-        sliced = any(g is not None and is_zero3_slice(p) for p, g in pg)
-        if not isinstance(clip, ClipGradByGlobalNorm) or (
-                mp.nranks == 1 and pp.nranks == 1 and not experts
-                and not sliced):
-            return clip(pg)
-        # [replicated, mp shard] x [replicated over pp, stage-local]
-        # x [whole, ZeRO-3 slice]
-        parts = [[] for _ in range(8)]
+        kinds = {}  # (split groups, stage-local) -> squares
         for p, g in pg:
-            if g is not None and not is_expert_slice(p):
-                parts[mpu.is_mp_shard(p) + 2 * is_pipeline_local(p)
-                      + 4 * is_zero3_slice(p)].append(
-                    torch.sum(torch.square(g.float())))
-        zero = torch.zeros((), device=pg[0][0].device)
-        sums = [torch.stack(v).sum() if v else zero for v in parts]
-        if sliced:
-            slices = torch.stack(sums[4:])
-            C.all_reduce(slices, group=self._sharding_group)
-            sums = [sums[i] + slices[i] for i in range(4)]
-        rep, shard, local_rep, local_shard = sums[:4]
-        if mp.nranks > 1:
-            shards = torch.stack([shard, local_shard])
-            C.all_reduce(shards, group=mp)
-            shard, local_shard = shards[0], shards[1]
-        gsq = rep + shard
-        if experts:
-            esq = torch.stack([torch.sum(torch.square(g.float()))
-                               for g in experts]).sum()
-            C.all_reduce(esq, group=self._hcg.get_expert_parallel_group())
-            gsq = gsq + esq
+            if g is not None:
+                kinds.setdefault(
+                    (_split_groups(self._hcg, p), is_pipeline_local(p)),
+                    []).append(torch.sum(torch.square(g.float())))
+        if not isinstance(clip, ClipGradByGlobalNorm) or (
+                pp.nranks == 1 and all(not k[0] for k in kinds)):
+            return clip(pg)
+        keys = list(kinds)
+        sums = (torch.stack([torch.stack(kinds[k]).sum() for k in keys])
+                if keys else torch.zeros(0, device=pg[0][0].device))
+        for group in dict.fromkeys(g for k in keys for g in k[0]):
+            idx = [i for i, k in enumerate(keys) if group in k[0]]
+            part = sums[idx]
+            C.all_reduce(part, group=group)
+            sums[idx] = part
+        local = [i for i, k in enumerate(keys) if k[1]]
+        gsq = sums[[i for i, k in enumerate(keys) if not k[1]]].sum()
         if pp.nranks > 1:
-            local = local_rep + local_shard
-            C.all_reduce(local, group=pp)
-            gsq = gsq + local
+            lsum = sums[local].sum()
+            C.all_reduce(lsum, group=pp)
+            gsq = gsq + lsum
         gnorm = torch.sqrt(gsq)
         scale = clip.clip_norm / torch.clamp(gnorm, min=clip.clip_norm)
         for _, g in pg:
@@ -401,9 +428,10 @@ class GradientMergeOptimizer:
     of the cycle (an exact zero included) is updated at the boundary, even
     if it has none at the boundary call; one that had none all cycle is
     left untouched; the boundary zeroes every accumulator.
-    ``state_dict`` holds the inner state as ``param_{i}.inner_{key}``
-    beside ``param_{i}.gm_acc`` / ``gm_ctr`` / ``gm_saw``, so a checkpoint
-    taken mid-cycle resumes the cycle."""
+    ``state_dict`` holds the inner state as ``{name}.inner_{key}`` beside
+    ``{name}.gm_acc`` / ``gm_ctr`` / ``gm_saw`` (``name`` the parameter's
+    ``ParamAttr`` name or ``param_{i}``, as the inner optimizer's keys), so
+    a checkpoint taken mid-cycle resumes the cycle."""
 
     def __init__(self, inner, k_steps=1, avg=True):
         self._inner = inner
@@ -460,22 +488,20 @@ class GradientMergeOptimizer:
     def state_dict(self):
         out = {}
         for k, v in self._inner.state_dict().items():
-            if k.startswith("param_") and "." in k:
-                i, key = k.split(".", 1)
-                out[f"{i}.inner_{key}"] = v
-            else:
-                out[k] = v
+            name, dot, key = k.rpartition(".")  # a state key has no dot
+            out[f"{name}.inner_{key}" if dot else k] = v
         for i, p in enumerate(self._parameter_list):
             if not p.requires_grad:
                 continue
+            name = self._inner._state_name(i)
             acc = self._acc[i]
-            out[f"param_{i}.gm_acc"] = (acc.clone() if acc is not None
-                                        else torch.zeros_like(
-                                            p, dtype=torch.float32))
-            out[f"param_{i}.gm_ctr"] = torch.tensor(self._ctr,
-                                                    dtype=torch.int32)
-            out[f"param_{i}.gm_saw"] = torch.tensor(int(self._saw[i]),
-                                                    dtype=torch.int32)
+            out[f"{name}.gm_acc"] = (acc.clone() if acc is not None
+                                     else torch.zeros_like(
+                                         p, dtype=torch.float32))
+            out[f"{name}.gm_ctr"] = torch.tensor(self._ctr,
+                                                 dtype=torch.int32)
+            out[f"{name}.gm_saw"] = torch.tensor(int(self._saw[i]),
+                                                 dtype=torch.int32)
         return out
 
     def set_state_dict(self, state):
@@ -487,29 +513,31 @@ class GradientMergeOptimizer:
             return self._inner.set_state_dict(state)
         inner = {}
         for k, v in state.items():
-            i, _, key = k.partition(".")
+            name, _, key = k.rpartition(".")
             if key.startswith("inner_"):
-                inner[f"{i}.{key[len('inner_'):]}"] = v
+                inner[f"{name}.{key[len('inner_'):]}"] = v
             elif not key.startswith("gm_"):
                 inner[k] = v
         for i, p in enumerate(self._parameter_list):
-            acc = state.get(f"param_{i}.gm_acc")
+            name = self._inner._state_name(i)
+            acc = state.get(f"{name}.gm_acc")
             if acc is None:
                 continue
-            saw = state.get(f"param_{i}.gm_saw")
+            saw = state.get(f"{name}.gm_saw")
             acc = torch.as_tensor(acc).to(p.device, torch.float32)
             # a checkpoint without the flag: infer it from the accumulator
             self._saw[i] = bool(int(saw)) if saw is not None \
                 else bool(acc.ne(0).any())
             self._acc[i] = acc.clone() if self._saw[i] else None
-            self._ctr = int(state[f"param_{i}.gm_ctr"])
+            self._ctr = int(state[f"{name}.gm_ctr"])
         return self._inner.set_state_dict(inner)
 
 
 def distributed_optimizer(optimizer, strategy=None):
     """``optimizer`` wrapped for the hybrid groups (the reference's
-    ``fleet/__init__.py:656-674``): in a ``GradientMergeOptimizer`` first
-    with ``strategy.gradient_merge``, then in a
+    ``fleet/__init__.py:656-674``): swapped by the meta-optimizers
+    (:func:`_apply_meta_optimizers`), then in a
+    ``GradientMergeOptimizer`` with ``strategy.gradient_merge``, then in a
     ``HybridParallelOptimizer`` (which, before ``fleet.init``, is the
     inner optimizer's step)."""
     strategy = strategy or _strategy or DistributedStrategy()
@@ -522,6 +550,7 @@ def distributed_optimizer(optimizer, strategy=None):
                 f"DistributedStrategy.{knob} is ignored: the gradient "
                 "all-reduce is exact and runs every step (as in the "
                 "reference, a deliberate non-goal)", stacklevel=2)
+    optimizer = _apply_meta_optimizers(optimizer, strategy)
     if getattr(strategy, "gradient_merge", False):
         cfg = dict(getattr(strategy, "gradient_merge_configs", {}) or {})
         optimizer = GradientMergeOptimizer(
@@ -529,6 +558,51 @@ def distributed_optimizer(optimizer, strategy=None):
             avg=bool(cfg.get("avg", True)))
     return HybridParallelOptimizer(optimizer, get_hybrid_communicate_group(),
                                    strategy)
+
+
+def _apply_meta_optimizers(optimizer, strategy):
+    """The strategy's optimizer swaps (the reference's
+    ``fleet/__init__.py:677-724``, upstream's ``lars_optimizer.py`` /
+    ``lamb_optimizer.py`` meta-optimizers): with ``strategy.lars`` a
+    ``Momentum`` becomes ``Lars``, with ``strategy.lamb`` an ``Adam`` /
+    ``AdamW`` becomes ``Lamb``, each from the ``*_configs`` and the
+    wrapped optimizer's rate, moments' betas, parameters, clip and
+    regularizer (as the reference: ``multi_precision`` and AdamW's decay
+    are not carried)."""
+    from ... import optimizer as opt_mod
+
+    if getattr(strategy, "lars", False) and isinstance(
+            optimizer, opt_mod.Momentum):
+        cfg = dict(getattr(strategy, "lars_configs", {}) or {})
+        new = opt_mod.Lars(
+            learning_rate=optimizer._learning_rate,
+            momentum=optimizer._momentum,
+            lars_coeff=float(cfg.get("lars_coeff", 0.001)),
+            lars_weight_decay=float(cfg.get("lars_weight_decay", 0.0005)),
+            exclude_from_weight_decay=cfg.get("exclude_from_weight_decay",
+                                              []),
+            epsilon=float(cfg.get("epsilon", 0.0)),
+            parameters=optimizer._parameter_list,
+            grad_clip=optimizer._grad_clip)
+        new._regularizer = optimizer._regularizer
+        return new
+    if getattr(strategy, "lamb", False) and isinstance(optimizer,
+                                                       opt_mod.Adam):
+        cfg = dict(getattr(strategy, "lamb_configs", {}) or {})
+        excl = list(cfg.get("exclude_from_weight_decay", []) or [])
+        new = opt_mod.Lamb(
+            learning_rate=optimizer._learning_rate,
+            lamb_weight_decay=float(cfg.get("lamb_weight_decay", 0.01)),
+            beta1=optimizer._beta1, beta2=optimizer._beta2,
+            epsilon=optimizer._epsilon,
+            parameters=optimizer._parameter_list,
+            grad_clip=optimizer._grad_clip,
+            exclude_from_weight_decay_fn=(
+                (lambda name: any(x in (name or "") for x in excl))
+                if excl else None))
+        new._regularizer = optimizer._regularizer
+        return new
+    return optimizer
 
 
 class DistTrainStep(TrainStep):

@@ -25,7 +25,10 @@ parameter (the Parameter object stays, its data cut along that dim), and:
 - autograd does not keep a gathered weight alive until the backward: a
   ``saved_tensors_hooks`` pair packs a tensor that shares a gathered
   weight's storage as a reference to the slice and its view, and unpacks
-  it by gathering again.
+  it by gathering again. Torch runs only the innermost pair, so this pair
+  and a user's (``autograd.saved_tensors_hooks``) compose, whichever is
+  inner (:func:`saved_hooks`): the user's pack sees every saved tensor
+  but a gathered weight's, whose slice reference passes by.
 
 In a pipeline each stage slices the blocks it holds (the reference's
 dim on the stacked ``[L, ...]`` leaf is this one + 1) and the schedule
@@ -151,12 +154,42 @@ def _unpack(x):
     return x
 
 
+def saved_hooks(user=None):
+    """The saved-tensor pack / unpack pair: :func:`_pack` / :func:`_unpack`
+    composed with a user's pair ``(pack, unpack)`` (the user's pack takes
+    what ``_pack`` returns unless that is a gathered weight's slice
+    reference, which ``_unpack`` alone turns back). Outside a ZeRO-3
+    forward ``_pack`` returns every tensor as it is."""
+    if user is None:
+        return _pack, _unpack
+    user_pack, user_unpack = user
+
+    def pack(t):
+        x = _pack(t)
+        return x if isinstance(x, _Saved) else user_pack(x)
+
+    def unpack(x):
+        return _unpack(x) if isinstance(x, _Saved) else user_unpack(x)
+
+    return pack, unpack
+
+
+def user_hooks():
+    """The user's ``saved_tensors_hooks`` pairs open on this thread,
+    innermost last (``autograd.saved_tensors_hooks`` keeps it)."""
+    if not hasattr(_tls, "user_hooks"):
+        _tls.user_hooks = []
+    return _tls.user_hooks
+
+
 @contextlib.contextmanager
 def forward_scope():
     """Within: a ZeRO-3 forward (see the module docstring)."""
     _tls.depth = getattr(_tls, "depth", 0) + 1
+    users = user_hooks()
     try:
-        with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+        with torch.autograd.graph.saved_tensors_hooks(
+                *saved_hooks(users[-1] if users else None)):
             yield
     finally:
         _tls.depth -= 1

@@ -136,7 +136,5 @@ def check_ported(strategy: DistributedStrategy):
 
     resolve_config(strategy)  # a bad wire raises here
     resolve_mp_config(strategy)
-    if strategy.lars or strategy.lamb:
-        _unported("the Lars / Lamb meta-optimizers", "§A.3")
     if strategy.auto_plan:
         _unported("auto_plan (the auto-parallel planner)", "§A.7")

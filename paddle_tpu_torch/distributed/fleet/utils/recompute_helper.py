@@ -18,6 +18,13 @@ weights again, as the first run did.
 The flash-attention kernel K1 is not a product of either policy, so it
 runs again in the backward under every granularity: a recomputed layer
 launches K1 twice a step.
+
+``recompute_sequential`` cuts a ``Sequential`` (or a list of callables)
+into ``ctx["segments"]`` runs and recomputes each; ``recompute_hybrid``
+is ``recompute`` after checking its ``ctx``: the reference's mp / pp RNG
+sync and offload have nothing to do here (the RNG state is restored per
+block, and nothing is stashed), and ``partition=True`` raises, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -74,4 +81,49 @@ def recompute(function, *args, use_reentrant=True, preserve_rng_state=True,
                       **kwargs)
 
 
-__all__ = ["policy_for_granularity", "recompute"]
+_KNOBS = ("use_reentrant", "preserve_rng_state", "policy", "granularity")
+
+
+def recompute_sequential(ctx, functions, *args, **kwargs):
+    """``functions`` (a ``Sequential`` or a list) chained, in
+    ``ctx["segments"]`` runs of ``len // segments`` each (the last may be
+    shorter), each under :func:`recompute`. The first function takes
+    ``*args`` and the keyword arguments other than recompute's own; each
+    later one the previous one's output."""
+    segments = int(ctx.get("segments", 1)) if isinstance(ctx, dict) else 1
+    if isinstance(functions, torch.nn.Module):
+        functions = list(functions.children())
+    functions = list(functions)
+    per = max(1, len(functions) // max(segments, 1))
+    knobs = {k: kwargs.pop(k) for k in _KNOBS if k in kwargs}
+
+    def run(chain, first_kwargs):
+        def segment(*xs):
+            y = chain[0](*xs, **first_kwargs)
+            for f in chain[1:]:
+                y = f(y)
+            return y
+
+        return segment
+
+    cur, first = tuple(args), kwargs
+    for i in range(0, len(functions), per):
+        cur = (recompute(run(functions[i:i + per], first), *cur, **knobs),)
+        first = {}
+    return cur[0]
+
+
+def recompute_hybrid(ctx, function, *args, **kwargs):
+    """``recompute(function, *args, **kwargs)`` in hybrid parallelism
+    (``ctx``: ``mp_group``, ``offload``, ``partition``); ``partition=True``
+    (activation partitioning to the host) raises, as the reference's."""
+    if isinstance(ctx, dict) and ctx.get("partition"):
+        raise NotImplementedError(
+            "recompute_hybrid(partition=True): activation-partition offload "
+            "is not supported, as in the reference; use sharding (ZeRO-3) "
+            "instead")
+    return recompute(function, *args, **kwargs)
+
+
+__all__ = ["policy_for_granularity", "recompute", "recompute_hybrid",
+           "recompute_sequential"]

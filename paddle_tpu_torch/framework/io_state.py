@@ -6,6 +6,8 @@ parameters handed over as numpy arrays by name.
 is stored as ``{"__tensor__": True, "value": ndarray, "stop_gradient":
 ..., "name": ...}`` inside the pickled dicts, lists and tuples, so a
 ``.pdparams`` / ``.pdopt`` written by either package loads into the other.
+A named tensor (a parameter made with ``ParamAttr(name=)``) loads as a
+``Parameter`` with its name that takes no gradient.
 A bf16 tensor is stored as the reference stores it, an ``ml_dtypes``
 bfloat16 array (saving one needs that package; loading reads its bits
 without it).
@@ -42,7 +44,8 @@ def _to_tensor(arr, device) -> torch.Tensor:
 def _to_saveable(obj):
     if isinstance(obj, torch.Tensor):
         return {"__tensor__": True, "value": _to_numpy(obj),
-                "stop_gradient": not obj.requires_grad, "name": None}
+                "stop_gradient": not obj.requires_grad,
+                "name": getattr(obj, "name", None)}
     if isinstance(obj, dict):
         return {k: _to_saveable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -55,7 +58,13 @@ def _from_saved(obj, return_numpy, device):
         if obj.get("__tensor__"):
             if return_numpy:
                 return obj["value"]
-            return _to_tensor(obj["value"], device)
+            t = _to_tensor(obj["value"], device)
+            if obj.get("name"):  # a named tensor keeps its name
+                from ..nn.layer import Parameter
+
+                t = Parameter(t, requires_grad=False)
+                t.name = obj["name"]
+            return t
         return {k: _from_saved(v, return_numpy, device)
                 for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -264,6 +273,19 @@ def _full_positions(params):
     return out
 
 
+def _full_name(p, position):
+    """The prefix of a parameter's entries in the full optimizer state:
+    its ``ParamAttr`` name, else ``param_{position}`` (the unpipelined
+    place). A pipelined stack's parameters are keyed by place: each stage
+    holds other objects for the same blocks."""
+    from ..distributed.fleet.meta_parallel.pipeline_parallel import (
+        pipeline_slot)
+
+    name = getattr(p, "name", None)
+    return name if name and pipeline_slot(p) is None \
+        else f"param_{position}"
+
+
 def _optimizer_parts(optimizer):
     """``(rule optimizer, owner of each position or None, sharding
     group)``: the inner optimizer of a ``HybridParallelOptimizer`` and its
@@ -276,7 +298,7 @@ def _optimizer_parts(optimizer):
 
 def gather_full_optimizer_state(optimizer) -> Dict[str, torch.Tensor]:
     """The optimizer's state with every parameter-shaped entry as the full
-    array (``param_{i}.{key}``, as ``Optimizer.state_dict``; the
+    array (``{name}.{key}``, ``name`` as :func:`_full_name` gives it; the
     scheduler's under ``"LR_Scheduler"``): ZeRO-1/2 state broadcast from
     its owner, ZeRO-3 slices and mp shards gathered, and a pipelined
     stack's entries from every stage, ``i`` the parameter's position in
@@ -298,11 +320,14 @@ def gather_full_optimizer_state(optimizer) -> Dict[str, torch.Tensor]:
         if owner is not None and owner[i] is not None:
             st = st or inner._init_state(p)
             for v in st.values():
-                C.broadcast(v, src=sgroup.ranks[owner[i]], group=sgroup)
+                if isinstance(v, torch.Tensor):
+                    C.broadcast(v, src=sgroup.ranks[owner[i]], group=sgroup)
         if st is None:
             continue
         axis, mgroup, spec = _param_layout(p)
         for k, v in st.items():
+            if not isinstance(v, torch.Tensor):  # Lamb's / Lars's marker
+                v = torch.tensor(v, dtype=torch.float32)
             v = v.detach()
             if tuple(v.shape) == tuple(p.shape):
                 if spec is not None:
@@ -311,7 +336,7 @@ def gather_full_optimizer_state(optimizer) -> Dict[str, torch.Tensor]:
                     v = full_of(v.contiguous(), axis, mgroup)
             slot = pipeline_slot(p)
             if slot is None:
-                out[f"param_{pos[i]}.{k}"] = v.clone()
+                out[f"{_full_name(p, pos[i])}.{k}"] = v.clone()
                 continue
             pipe, j, kk = slot
             base = pos[i] - pipe.slot_position(j, kk)
@@ -340,9 +365,10 @@ def load_full_optimizer_state(optimizer, state):
         if owner is not None and owner[i] not in (None, optimizer._me):
             continue
         axis, mgroup, spec = _param_layout(p)
+        name = _full_name(p, pos[i])
         for k, ref in inner._init_state(p).items():
-            v = state.get(f"param_{pos[i]}.{k}")
-            if v is None:
+            v = state.get(f"{name}.{k}")
+            if v is None or not isinstance(ref, torch.Tensor):
                 continue
             v = torch.as_tensor(v)
             if tuple(ref.shape) == tuple(p.shape):
@@ -351,7 +377,7 @@ def load_full_optimizer_state(optimizer, state):
                 if spec is not None:
                     v = shard_of(v, spec.dim, spec.group.rank,
                                  spec.group.nranks)
-            local[f"param_{i}.{k}"] = v.contiguous()
+            local[f"{inner._state_name(i)}.{k}"] = v.contiguous()
     return inner.set_state_dict(local)
 
 

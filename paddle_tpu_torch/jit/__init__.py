@@ -4,6 +4,11 @@
 ``loss_fn(model, *batch)``, its gradient with respect to the optimizer's
 parameters, then ``optimizer.step()``. The reference compiles this into
 one XLA program; here it runs eagerly on the device the model lives on.
+``repeat`` / ``run_steps`` run several steps (the reference scans them in
+one program; here they loop over ``__call__``), the learning rate held as
+it is through the window (nothing steps the scheduler inside it).
+``cost_analysis`` / ``memory_analysis`` read the reference's compiled XLA
+program and are not ported (ROADMAP.md §A.3).
 """
 from __future__ import annotations
 
@@ -36,6 +41,35 @@ class TrainStep:
         for p in trained:
             p.grad = None
         return loss.detach()
+
+    def repeat(self, n, *batch):
+        """``n`` steps on the same batch; the losses as one ``[n]``
+        tensor."""
+        return torch.stack([self(*batch) for _ in range(int(n))])
+
+    def run_steps(self, *stacked_batch):
+        """One step per slice of dim 0 of every batch argument (each must
+        have ``n`` of them); the ``[n]`` losses."""
+        n = int(stacked_batch[0].shape[0])
+        short = [i for i, v in enumerate(stacked_batch)
+                 if v.dim() == 0 or v.shape[0] != n]
+        if short:
+            raise ValueError(
+                f"run_steps: batch args {short} have leading axis "
+                f"{[tuple(stacked_batch[i].shape)[:1] for i in short]} != "
+                f"{n} (every arg must stack one slice per step)")
+        return torch.stack([self(*(v[i] for v in stacked_batch))
+                            for i in range(n)])
+
+    def cost_analysis(self, *batch):
+        raise NotImplementedError(
+            "TrainStep.cost_analysis reads a compiled XLA program; not "
+            "ported, see ROADMAP.md §A.3")
+
+    def memory_analysis(self, *batch):
+        raise NotImplementedError(
+            "TrainStep.memory_analysis reads a compiled XLA program; not "
+            "ported, see ROADMAP.md §A.3")
 
 
 __all__ = ["TrainStep"]

@@ -1,9 +1,13 @@
 """Functional ops of the port (``paddle.nn.functional`` counterparts)."""
 from .activation import gelu, log_softmax, relu, silu, softmax, tanh
+# the flash_attention submodule first: imported later, it would rebind the
+# package attribute ``flash_attention`` from the function to the module
+from . import flash_attention as _flash_attention_module  # noqa: F401
 from .attention import (decode_attention, flash_attention, mask_fill_value,
                         padded_attention, paged_attention,
                         scaled_dot_product_attention)
 from .common import dropout, embedding, linear
+from .flash_attention import flash_attn_unpadded
 from .conv import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                    adaptive_avg_pool3d, adaptive_max_pool1d,
                    adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -19,7 +23,7 @@ __all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
            "avg_pool1d", "avg_pool2d", "avg_pool3d", "batch_norm", "conv1d",
            "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
            "conv3d_transpose", "cross_entropy", "decode_attention", "dropout",
-           "embedding", "flash_attention", "gelu", "layer_norm", "linear",
+           "embedding", "flash_attention", "flash_attn_unpadded", "gelu", "layer_norm", "linear",
            "log_softmax", "mask_fill_value", "max_pool1d", "max_pool2d",
            "max_pool3d", "mse_loss", "nll_loss", "padded_attention",
            "paged_attention", "relu", "rms_norm",

@@ -19,9 +19,11 @@ A parameter made by :func:`create_parameter` is a :class:`Parameter`: a
 attributes: ``trainable`` (``requires_grad``), ``persistable``,
 ``optimize_attr["learning_rate"]`` (the factor the optimizer scales the
 learning rate by for it), ``regularizer`` (applied by the optimizer in
-place of its own) and ``need_clip``. ``ParamAttr``'s ``name`` is not
-carried (a tensor's ``name`` is torch's own): the optimizer's state keys
-stay by position, as the reference's are for unnamed parameters.
+place of its own), ``need_clip`` and ``name``: ``ParamAttr(name=)``'s, or
+None. The optimizer keys a named parameter's state by that name, as the
+reference does (``optimizer/__init__.py``), and Lamb / Lars match their
+weight-decay exclusions on it. A parameter without a ``ParamAttr`` name
+stays unnamed, as in the reference: torch's module path is not a name.
 """
 from __future__ import annotations
 
@@ -71,8 +73,12 @@ class Parameter(nn.Parameter):
         p.optimize_attr = {"learning_rate": 1.0}
         p.regularizer = None
         p.need_clip = True
+        p.name = None
         return p
 
+    # torch's ``Tensor.name`` is a read-only None; Paddle's is settable
+    name = property(lambda self: self.__dict__.get("_name"),
+                    lambda self, v: self.__dict__.__setitem__("_name", v))
     trainable = property(lambda self: self.requires_grad,
                          lambda self, v: self.requires_grad_(bool(v)))
     stop_gradient = property(lambda self: not self.requires_grad,
@@ -106,6 +112,7 @@ def create_parameter(shape, attr=None, *, is_bias=False,
                        device=resolve_device(device),
                        dtype=convert_dtype(dtype), generator=generator),
                   trainable=attr.trainable)
+    p.name = attr.name
     p.optimize_attr = {"learning_rate": attr.learning_rate}
     p.regularizer = attr.regularizer
     p.need_clip = attr.need_clip

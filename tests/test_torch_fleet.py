@@ -437,7 +437,8 @@ def test_unported_knobs_raise(knob, item):
     ported (tests/test_torch_sep.py), and with pp_degree > 1 since the
     ring runs inside a pipeline (tests/test_torch_pp_compose.py). ZeRO-3
     (with pp as well), the bf16 / int8 gradient wire, mp_comm and
-    gradient_merge pass since they were ported."""
+    gradient_merge pass since they were ported, and so do the Lars / Lamb
+    meta-optimizers (tests/test_torch_lamb_fleet.py)."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -446,10 +447,11 @@ def test_unported_knobs_raise(knob, item):
         check_ported(s)
         return
     if knob in ("stage3", "grad_comm_bf16", "grad_comm_int8", "mp_comm",
-                "gradient_merge"):
+                "gradient_merge", "lars", "lamb"):
         # ported: ZeRO-3 (tests/test_torch_zero3.py), the gradient wire
-        # (test_torch_grad_wire.py), the mp wire (test_torch_mp_comm.py)
-        # and gradient merge (test_torch_gradient_merge.py)
+        # (test_torch_grad_wire.py), the mp wire (test_torch_mp_comm.py),
+        # gradient merge (test_torch_gradient_merge.py) and the Lars /
+        # Lamb meta-optimizers (test_torch_lamb_fleet.py)
         if knob == "stage3":
             s.sharding_configs["stage"] = 3
             check_ported(s)

@@ -404,7 +404,8 @@ def test_pp_degree_trains_and_other_knobs_still_raise():
     """pp_degree > 1 passes the strategy check, and so do sep_degree > 1
     and ZeRO-3, alone and with pp (the ring and the slices inside a
     pipeline, ``tests/test_torch_pp_compose.py``); the knobs still
-    refused raise with pp as without, naming their ROADMAP item."""
+    refused raise with pp as without, naming their ROADMAP item; Lamb
+    passes with pp since the meta-optimizers were ported."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -422,7 +423,11 @@ def test_pp_degree_trains_and_other_knobs_still_raise():
             check_ported(s)
             s.hybrid_configs["pp_degree"] = 2
         check_ported(s)
-    for knob, item in (("lamb", "§A.3"), ("auto_plan", "§A.7")):
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["pp_degree"] = 2
+    s.lamb = True  # ported: tests/test_torch_lamb_fleet.py
+    check_ported(s)
+    for knob, item in (("auto_plan", "§A.7"),):
         s = fleet.DistributedStrategy()
         s.hybrid_configs["pp_degree"] = 2
         setattr(s, knob, True)

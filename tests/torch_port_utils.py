@@ -390,10 +390,11 @@ def fleet_job(job, state, batch):
     mpre = job.get("multi_precision", False)
     if mpre:
         model.to(torch.bfloat16)
-    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm,
-                      mpre)
+    opt = fleet_optimizer(job, model.parameters(), topt, topt)
     model = fleet.distributed_model(model)
     opt = fleet.distributed_optimizer(opt)
+    if job.get("local_norms"):  # a trust ratio of the rank's part alone
+        opt._inner_opt._split_sum = None
     if "mask" in batch:
         def loss_fn(m, i, lab, k):
             return m(i, labels=lab, loss_mask=k)
@@ -828,7 +829,41 @@ def _strategy(job):
                             sharding_degree=job.get("sharding", 1),
                             sep_degree=job.get("sep", 1))
     s.sharding_configs["stage"] = job.get("stage", 1)
+    meta_strategy(s, job)
     return s
+
+
+LARS_LR = 1.0
+LARS_CONFIGS = dict(lars_coeff=0.01, lars_weight_decay=5e-4)
+LAMB_CONFIGS = dict(lamb_weight_decay=0.01)
+
+
+def meta_strategy(s, job):
+    """Set ``job``'s meta-optimizer (``"lamb"`` / ``"lars"``) and gradient
+    wire on strategy ``s`` (either package's)."""
+    if job.get("meta") == "lamb":
+        s.lamb = True
+        s.lamb_configs.update(LAMB_CONFIGS)
+    elif job.get("meta") == "lars":
+        s.lars = True
+        s.lars_configs.update(LARS_CONFIGS)
+    if job.get("wire"):
+        s.grad_comm = True
+        s.grad_comm_configs.update(wire_dtype=job["wire"])
+    return s
+
+
+def fleet_optimizer(job, params, opt_mod, clip_mod):
+    """The optimizer a fleet job wraps (both packages): ``Momentum`` for a
+    Lars job, else the fleet AdamW; the clip ``ClipGradByNorm`` for
+    ``job["clip"] == "norm"``, else the global-norm clip."""
+    clip = (clip_mod.ClipGradByNorm if job.get("clip") == "norm"
+            else clip_mod.ClipGradByGlobalNorm)
+    if job.get("meta") == "lars":
+        return opt_mod.Momentum(learning_rate=LARS_LR, momentum=0.9,
+                                parameters=params, grad_clip=clip(1.0))
+    return fleet_adamw(params, opt_mod, clip,
+                       job.get("multi_precision", False))
 
 
 def sep_tiny_lm(paddle):
@@ -972,7 +1007,7 @@ def moe_job(job, state, batch):
     load_numpy_state(model, state)
     loaded = {n: p.detach().numpy().copy()
               for n, p in model.named_parameters()}
-    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    opt = fleet_optimizer(job, model.parameters(), topt, topt)
     model = fleet.distributed_model(model)
     opt = fleet.distributed_optimizer(opt)
     step = fleet.DistTrainStep(model, loss_fn, opt)
@@ -1630,6 +1665,81 @@ def mp_wire_gpt_job(job, state, ids):
     return out
 
 
+def wire_lamb_job(job, state, batch):
+    """``_Net`` under fleet's Lamb swap and the job's gradient wire, 3
+    ``DistTrainStep`` s: losses and full parameters."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io_state import (gather_full_state,
+                                                     load_numpy_state)
+
+    s = meta_strategy(wire_strategy(job, fleet), job)
+    fleet.init(is_collective=True, strategy=s)
+    model = wire_net(paddle)
+    load_numpy_state(model, state)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-2, parameters=list(
+        model.parameters()), weight_decay=0.1)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    step = fleet.DistTrainStep(model, wire_loss(paddle.nn.functional), opt)
+    ids = torch.from_numpy(batch.astype(np.int64))
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    out = dict(losses=losses, inner=type(opt._inner_opt).__name__,
+               full={k: v.float().numpy()
+                     for k, v in gather_full_state(model).items()})
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+def zero3_hooks_job(job, state, batch):
+    """The tiny GPT at ZeRO-3 (``job``'s degrees) for ``steps`` steps of
+    ``DistTrainStep``, its loss run inside a user's
+    ``autograd.saved_tensors_hooks`` (``job["hooks"]``) or not: the
+    losses, how many tensors the user's hooks packed and unpacked, the
+    gathered weights alive at the end of each forward (``_watch_gathered``,
+    which patches this process: run this job last) and the backward's
+    re-gathers."""
+    import torch
+
+    from paddle_tpu_torch import autograd
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+
+    fleet.init(is_collective=True, strategy=_strategy(job))
+    model = port_model(job["model"], state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    alive = _watch_gathered() if job.get("watch") else None
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    counts = dict(pack=0, unpack=0)
+
+    def pack(t):
+        counts["pack"] += 1
+        return t
+
+    def unpack(t):
+        counts["unpack"] += 1
+        return t
+
+    def loss_fn(m, i, lab):
+        if not job.get("hooks"):
+            return m(i, labels=lab)
+        with autograd.saved_tensors_hooks(pack, unpack):
+            return m(i, labels=lab)
+
+    step = fleet.DistTrainStep(model, loss_fn, opt)
+    args = [torch.from_numpy(batch[k]) for k in ("ids", "labels")]
+    collective.reset_counts()
+    losses = [float(step(*args)) for _ in range(job.get("steps", 2))]
+    out = dict(losses=losses, counts=counts,
+               alive=alive() if alive else None,
+               regather=collective.counts["zero3_regather"])
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
 JOB_KINDS = {"train": fleet_job, "batched": batched_job, "merge": merge_job,
              "mp_wire_fns": mp_wire_fns_job, "mp_wire_gpt": mp_wire_gpt_job,
              "wire": wire_job, "quantized": quantized_collective_job,
@@ -1639,7 +1749,8 @@ JOB_KINDS = {"train": fleet_job, "batched": batched_job, "merge": merge_job,
              "group_sharded": group_sharded_job, "api": api_job,
              "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job,
              "moe": moe_job, "moe_eager": moe_eager_job, "ring": ring_job,
-             "user_lm": user_lm_job, "exchange": exchange_job}
+             "user_lm": user_lm_job, "exchange": exchange_job,
+             "wire_lamb": wire_lamb_job, "zero3_hooks": zero3_hooks_job}
 
 
 def fleet_jobs(jobs, state_of, batch_of):
