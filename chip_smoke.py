@@ -276,16 +276,34 @@ Phases, each fatal on failure (non-zero exit, no final line):
    padded to 5 x 2048, SDPA with the bool mask and the bounds of the
    square and of the needed work; each with its step ms, peak and
    launches;
-48. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+48. the auto-parallel API and restore-anywhere checkpoints, after a
+   single-process ``TrainStep`` baseline of the same depth: (a) GPT-3
+   1.3B's widths at depth 4 built whole and ``parallelize`` d at mp 2
+   (ColWise ``qkv_proj`` / ``fc_in``, RowWise ``out_proj`` / ``fc_out``)
+   on two gloo processes sharing the card, 4 steps of a plain
+   ``TrainStep`` (phase 7's AdamW and clip) at 2 x 2048: losses within
+   ``TRAIN_LOSS_RTOL`` of the baseline, K1 / K2a / K2b 4 x 4 a rank at
+   H = 8, step ms, the parameter bytes a rank holds against the
+   arithmetic; (b) ``save_state_dict(canonical_state_dict(...))`` after
+   step 2, restored into one process unsplit for steps 3-4: losses within
+   ``TRAIN_LOSS_RTOL`` of the uninterrupted run, ``verify_checkpoint(deep=
+   True)``, the bytes each rank wrote against the arithmetic, save and
+   restore seconds, the restore's growth against the largest leaf and
+   one full copy; (c) ``reshard_array`` of the [50304, 2048] f32
+   embedding Shard(0) -> Shard(1) -> Replicate -> Shard(0) on the two
+   ranks: values equal, ``reshard_moved_bytes`` the plan's, each rank's
+   peak growth within 5 % of the plan's ``peak_bytes``;
+49. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
    (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a
    ``zero3_wires`` JSON line (phases 44-45), a ``pp_compose`` JSON line
-   (phase 46), an ``a3`` JSON line (phase 47), a ``kernels`` JSON line
-   (the GPT, encoder and MoE shapes, the K1 / K2 rows with their
-   launches in phases 38-47; no TPU kernel lies on the vision path or
-   the capacity MoE path), then the result line.
+   (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
+   line (phase 48), a ``kernels`` JSON line (the GPT, encoder and MoE
+   shapes, the K1 / K2 rows with their launches in phases 38-48; no TPU
+   kernel lies on the vision path or the capacity MoE path), then the
+   result line.
 """
 from __future__ import annotations
 
@@ -6292,6 +6310,319 @@ def phases_a3(fa, smi, peaks, adamw_f32):
     return out
 
 
+AP_LAYERS = 4
+AP_SAVE_AT = 2   # 48b's checkpoint: after this many of 48a's steps
+AP_PLAN = {"gpt.decoder.*.attn.qkv_proj": "col",
+           "gpt.decoder.*.attn.out_proj": "row",
+           "gpt.decoder.*.mlp.fc_in": "col",
+           "gpt.decoder.*.mlp.fc_out": "row"}
+AP_EMBEDDING = (50304, 2048)
+# a move's peak growth a rank against the plan's peak_bytes, and the
+# restoring process's growth against the largest leaf it reads
+AP_PEAK_SLACK = 1.05
+
+
+def build_ap(spec, layers=AP_LAYERS):
+    """Phase 48's GPT: GPT-3 1.3B's widths at ``layers`` (a rehearsal's
+    tiny ``spec["model"]`` config instead), built whole."""
+    if not spec.get("model"):
+        return build_model(layers)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    return GPTForCausalLM(GPTConfig(**spec["model"]), device=spec["device"],
+                          seed=SEED)
+
+
+def ap_plan(dist):
+    make = {"col": dist.ColWiseParallel, "row": dist.RowWiseParallel}
+    return {k: make[v]() for k, v in AP_PLAN.items()}
+
+
+def ap_held_bytes(model, mp):
+    """The parameter bytes a rank holds at mp ``mp`` by the arithmetic:
+    each weight the plan splits and each split bias (a ColWise bias) an
+    ``mp``-th, the rest whole."""
+    import fnmatch
+
+    split = 0
+    whole = 0
+    for name, p in model.named_parameters():
+        layer, _, leaf = name.rpartition(".")
+        kind = next((v for k, v in AP_PLAN.items()
+                     if fnmatch.fnmatchcase(layer, k)), None)
+        nbytes = p.numel() * p.element_size()
+        if kind is not None and (leaf == "weight" or kind == "col"):
+            split += nbytes
+        else:
+            whole += nbytes
+    return split // mp + whole, split, whole
+
+
+def _rank_auto_parallel(out_dir, spec):
+    """One rank of phase 48 (run by ``paddle.distributed.spawn``): 48a the
+    whole-built GPT ``parallelize`` d at mp 2 and trained by a plain
+    ``TrainStep`` (phase 7's AdamW and clip) for TRAIN_STEPS steps, 48b its
+    canonical checkpoint saved after AP_SAVE_AT of them, 48c the three
+    moves of ``reshard_array`` on the ``AP_EMBEDDING`` table; the results
+    pickled to ``out_dir``."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed import reshard as rs
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    device = spec["device"]
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if spec.get("prepare"):
+        spec["prepare"]()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {}
+    # 48a: built whole (no topology in force), then split by the plan
+    model = build_ap(spec)
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **ADAMW)
+    want_held, _, _ = ap_held_bytes(model, 2)
+    mesh = dist.ProcessMesh([0, 1], dim_names=["mp"])
+    model, opt = dist.parallelize(model, opt, mesh, {
+        "mp_config": {"parallelize_plan": ap_plan(dist)}})
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    step = TrainStep(model, lambda m, ids, lab: m(ids, labels=lab), opt)
+    ids, labels = train_batch(model.config.vocab_size)
+    reset_flash(fa)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if i + 1 == AP_SAVE_AT:  # 48b: the checkpoint of the split run
+            t0 = time.perf_counter()
+            ckpt.save_state_dict(ckpt.canonical_state_dict(model, opt),
+                                 spec["path"])
+            out["save_s"] = time.perf_counter() - t0
+            out["written"] = ckpt.saved_bytes(spec["path"], rank)
+    out.update(
+        losses=losses, step_ms=step_ms, held=held, want_held=want_held,
+        heads=model.gpt.decoder[0].attn.num_heads,
+        launches={k: getattr(fa, f"launches_{k}") for k in
+                  ("fwd", "dq", "dkv")},
+        peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                  if on_card else 0.0))
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["verified"] = ckpt.verify_checkpoint(spec["path"], deep=True)
+        out["verify_s"] = time.perf_counter() - t0
+    del step, opt, model
+    # 48c: the embedding table through slice / all-to-all / all-gather
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    emb = torch.randn(spec.get("embedding", AP_EMBEDDING), generator=gen,
+                      device=device)
+    x = rs.local_block(emb, mesh, ("mp",)).clone()
+    moves = []
+    for src, dst in ((("mp",), (None, "mp")), ((None, "mp"), ()),
+                     ((), ("mp",))):
+        sync()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        collective.reset_counts()
+        dist.barrier()  # both ranks start the move together
+        t0 = time.perf_counter()
+        new, plan = rs.reshard_array(x, mesh, dst, src_spec=src)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        growth = (torch.cuda.max_memory_allocated() - base) if on_card \
+            else 0
+        moves.append(dict(
+            src=list(src), dst=list(dst), kinds=[s.kind for s in plan.steps],
+            equal=bool(torch.equal(new, rs.local_block(emb, mesh, dst))),
+            moved=collective.counts["reshard_moved_bytes"],
+            plan_moved=plan.moved_bytes, plan_peak=plan.peak_bytes,
+            growth=growth, ms=ms))
+        x = new
+    out["moves"] = moves
+    del emb, x, new
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_auto_parallel(smi, timeout=900, spec=None):
+    """Phase 48: the auto-parallel API and restore-anywhere checkpoints.
+    First a single-process ``TrainStep`` of the same depth (the baseline,
+    its memory freed); then two processes sharing the card over gloo: (a)
+    GPT-3 1.3B's widths at depth AP_LAYERS built whole and ``parallelize``
+    d at mp 2 (ColWise ``qkv_proj`` / ``fc_in``, RowWise ``out_proj`` /
+    ``fc_out``), TRAIN_STEPS steps of a plain ``TrainStep``: losses equal on
+    the ranks and within TRAIN_LOSS_RTOL of the baseline, K1 / K2a / K2b
+    launches a rank = layers x steps at H = 8, the parameter bytes a rank
+    holds equal to the arithmetic; (b) after AP_SAVE_AT steps
+    ``save_state_dict(canonical_state_dict(...))``, restored here into one
+    process, unsplit, for the remaining steps: losses within
+    TRAIN_LOSS_RTOL of the uninterrupted run, ``verify_checkpoint(deep=
+    True)``, the bytes each rank wrote equal to the arithmetic (parameters
+    and two f32 moments, each piece once, the beta powers beside them),
+    save / restore seconds, the restoring process's growth within
+    AP_PEAK_SLACK of the largest leaf (never a second full copy); (c)
+    ``reshard_array`` of the AP_EMBEDDING f32 table Shard(0) -> Shard(1)
+    (all-to-all) -> Replicate (all-gather) -> Shard(0) (slice): values
+    equal, ``reshard_moved_bytes`` the plan's, each rank's growth within
+    AP_PEAK_SLACK of the plan's ``peak_bytes``. Returns the
+    ``auto_parallel`` JSON line's numbers."""
+    import gc
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    spec = dict(spec or {"device": DEVICE})
+    on_card = spec["device"] == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ap_")
+    spec["path"] = os.path.join(tmp, "ckpt")
+    try:
+        # the uninterrupted single-process run of the same depth
+        model = build_ap(spec)
+        step, opt = trainer(model)
+        ids, labels = train_batch(model.config.vocab_size)
+        base, base_ms = timed_steps(step, (ids, labels), TRAIN_STEPS, sync)
+        n_tensors = len(list(model.parameters()))
+        largest = max(p.numel() * p.element_size()
+                      for p in model.parameters())
+        _, split_bytes, whole_bytes = ap_held_bytes(model, 2)
+        whole_bytes += sum(b.numel() * b.element_size()
+                           for b in model.buffers())
+        del step, opt, model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = dist.spawn(_rank_auto_parallel, (tmp, spec), nprocs=2,
+                         join=False, backend="gloo",
+                         master=f"file://{tmp}/rendezvous")
+        join_spawned(ctx, timeout)
+        secs = time.perf_counter() - t0
+        a, b = (pickle.load(open(os.path.join(tmp, f"rank{r}.pkl"), "rb"))
+                for r in range(2))
+        out = {"seconds_ranks": secs, "card": smi}
+        # 48a
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], base))
+        want = AP_LAYERS * TRAIN_STEPS if not spec.get("model") else \
+            spec["model"]["num_hidden_layers"] * TRAIN_STEPS
+        log(f"# phase 48a: parallelize mp 2, {AP_LAYERS} layers: losses "
+            f"{a['losses']} vs TrainStep {base} (rel {rel:.2e}, rtol "
+            f"{TRAIN_LOSS_RTOL}); step ms rank 0 {a['step_ms']} rank 1 "
+            f"{b['step_ms']} (TrainStep {base_ms}); launches rank 0 "
+            f"{a['launches']} rank 1 {b['launches']} at H={a['heads']}; "
+            f"parameter bytes a rank {a['held']} / {b['held']} vs "
+            f"{a['want_held']}; peak {a['peak_gib']:.2f} / "
+            f"{b['peak_gib']:.2f} GiB  [{smi}]")
+        if a["losses"] != b["losses"]:
+            raise AssertionError("48a: the ranks' losses differ")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError("48a: losses differ from TrainStep")
+        for r in (a, b):
+            if any(n != want for n in r["launches"].values()):
+                raise AssertionError(f"48a: launches {r['launches']} != "
+                                     f"{want}")
+            if r["held"] != r["want_held"]:
+                raise AssertionError(f"48a: a rank holds {r['held']} "
+                                     f"parameter bytes, not "
+                                     f"{r['want_held']}")
+        out["mp2"] = {k: a[k] for k in ("losses", "step_ms", "launches",
+                                        "heads", "held", "peak_gib")}
+        out["mp2"].update(baseline=base, baseline_step_ms=base_ms,
+                          rel=rel, rank1_launches=b["launches"],
+                          rank1_step_ms=b["step_ms"])
+        # 48b: restore into one process, unsplit, and run on
+        model = build_ap(spec)
+        step, opt = trainer(model)
+        ckpt.canonical_state_dict(model, opt)  # the moments, made first
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        ckpt.restore_canonical(spec["path"], model, opt)
+        sync()
+        restore_s = time.perf_counter() - t0
+        growth = (torch.cuda.max_memory_allocated() - before) if on_card \
+            else 0
+        resumed, _ = timed_steps(step, (ids, labels),
+                                 TRAIN_STEPS - AP_SAVE_AT, sync)
+        del step, opt, model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        tail = a["losses"][AP_SAVE_AT:]
+        rel_b = max(abs(x - y) / abs(y) for x, y in zip(resumed, tail))
+        full_copy = 3 * (split_bytes + whole_bytes)
+        want_w = [3 * split_bytes // 2 + 3 * whole_bytes + 8 * n_tensors,
+                  3 * split_bytes // 2]
+        written = [a["written"], b["written"]]
+        log(f"# phase 48b: checkpoint after step {AP_SAVE_AT}: written "
+            f"{written} bytes a rank vs {want_w} (parameters + two f32 "
+            f"moments once, beta powers 8 bytes a parameter); verify "
+            f"{a['verified']} in {a['verify_s']:.2f} s; save "
+            f"{a['save_s']:.2f} s; restore into one process "
+            f"{restore_s:.2f} s, growth {growth / 2 ** 20:.1f} MiB vs the "
+            f"largest leaf {largest / 2 ** 20:.1f} MiB and one full copy "
+            f"{full_copy / 2 ** 20:.1f} MiB; resumed losses {resumed} vs "
+            f"the uninterrupted {tail} (rel {rel_b:.2e})  [{smi}]")
+        if a["verified"] != (True, "ok"):
+            raise AssertionError(f"48b: checkpoint {a['verified']}")
+        if written != want_w:
+            raise AssertionError(f"48b: bytes written {written} != {want_w}")
+        if not rel_b <= TRAIN_LOSS_RTOL:
+            raise AssertionError("48b: the resumed losses differ")
+        if on_card and not growth <= AP_PEAK_SLACK * largest:
+            raise AssertionError(f"48b: the restore grew {growth} bytes")
+        out["checkpoint"] = dict(
+            written=written, save_s=a["save_s"], verify_s=a["verify_s"],
+            restore_s=restore_s, restore_growth=growth, largest_leaf=largest,
+            full_copy=full_copy, resumed=resumed, rel=rel_b)
+        # 48c
+        worst = 0.0
+        for r, res in enumerate((a, b)):
+            for m in res["moves"]:
+                ratio = m["growth"] / m["plan_peak"]
+                worst = max(worst, ratio)
+                log(f"# phase 48c: rank {r} {m['src']} -> {m['dst']} "
+                    f"{m['kinds']}: equal {m['equal']}, moved {m['moved']} "
+                    f"(plan {m['plan_moved']}), growth {m['growth']} vs "
+                    f"plan peak {m['plan_peak']} ({ratio:.3f}), "
+                    f"{m['ms']:.1f} ms  [{smi}]")
+                if not m["equal"] or m["moved"] != m["plan_moved"]:
+                    raise AssertionError(f"48c: {m}")
+                if on_card and not ratio <= AP_PEAK_SLACK:
+                    raise AssertionError(f"48c: growth {m}")
+        out["reshard"] = [dict(m, rank=r) for r, res in enumerate((a, b))
+                          for m in res["moves"]]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 48: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6376,6 +6707,8 @@ def main() -> int:
     compose = phase_pp_compose(smi)
     torch.cuda.empty_cache()
     a3 = phases_a3(fa, smi, peaks, encoders["bert_mlm"]["f32"])
+    torch.cuda.empty_cache()
+    auto = phase_auto_parallel(smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -6464,7 +6797,11 @@ def main() -> int:
                     "launches" if i == 0 else "rank1_launches"][kind]
                    for i in (0, 1)},
                 **{f"unpadded_{dt}": a3["unpadded"][dt]["launches"][kind]
-                   for dt in ("float32", "bfloat16")})))
+                   for dt in ("float32", "bfloat16")}),
+            launches_auto_parallel={
+                f"parallelize_mp2_depth{AP_LAYERS}_rank{i}": auto["mp2"][
+                    "launches" if i == 0 else "rank1_launches"][kind]
+                for i in (0, 1)}))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -6507,6 +6844,7 @@ def main() -> int:
     log(json.dumps({"zero3_wires": zero3}))
     log(json.dumps({"pp_compose": compose}))
     log(json.dumps({"a3": a3}))
+    log(json.dumps({"auto_parallel": auto}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

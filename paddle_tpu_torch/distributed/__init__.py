@@ -13,13 +13,23 @@
 - ``grad_comm``: the gradient buckets and the quantized gradient wire
   (and the int8 helpers the serving engine uses);
 - ``mp_comm``: the quantized mp activation wire;
-- ``split``: a tensor-parallel embedding or linear, built and applied.
+- ``split``: a tensor-parallel embedding or linear, built and applied;
+- ``mesh``: ``ProcessMesh`` (ranks with named axes, over the fleet
+  topology's groups) and the global mesh;
+- ``auto_parallel``: placements, ``shard_tensor`` / ``reshard`` (DTensors
+  at the API edge), ``shard_dataloader`` and the ``Engine``;
+- ``parallelize``: ``parallelize`` / ``to_distributed`` and the plans;
+- ``reshard``: the slice / all-to-all / all-gather planner and its
+  executor;
+- ``checkpoint``: per-rank checkpoints that restore onto any layout, and
+  their canonical form.
 
-Not ported yet (ROADMAP.md §A.7): the mesh / auto-parallel / reshard /
-checkpoint modules, mpmd, the launch CLI, elastic, rpc and the parameter
-server.
+Not ported yet (ROADMAP.md §A.7): the auto-parallel planner, mpmd, the
+launch CLI, elastic, rpc and the parameter server.
 """
 from __future__ import annotations
+
+import importlib
 
 from . import collective, communication, env, grad_comm, mp_comm  # noqa: F401
 from .collective import (  # noqa: F401
@@ -60,8 +70,44 @@ from .env import (  # noqa: F401
 )
 from . import fleet  # noqa: F401
 from . import sharding  # noqa: F401
+from . import sharding as sharding_api  # noqa: F401
 from .fleet.utils.recompute_helper import recompute  # noqa: F401
 from .parallel import DataParallel, spawn  # noqa: F401
+from . import mesh  # noqa: F401
+from .mesh import (  # noqa: F401
+    build_mesh,
+    get_global_mesh,
+    global_mesh,
+    set_global_mesh,
+    sharding_constraint,
+)
+from . import auto_parallel  # noqa: F401
+from .auto_parallel import (  # noqa: F401
+    Partial,
+    Placement,
+    ProcessMesh,
+    Replicate,
+    Shard,
+    dtensor_from_fn,
+    get_mesh,
+    reshard,
+    set_mesh,
+    shard_dataloader,
+    shard_layer,
+    shard_tensor,
+)
+# the reshard module, callable as the placement API (as the reference's)
+reshard = importlib.import_module(".reshard", __name__)  # noqa: F811
+from . import checkpoint  # noqa: F401
+from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
+from .parallelize import (  # noqa: F401
+    ColWiseParallel,
+    RowWiseParallel,
+    SequenceParallelBegin,
+    SequenceParallelEnd,
+    parallelize,
+    to_distributed,
+)
 
 all_to_all = alltoall  # reference alias
 

@@ -272,8 +272,14 @@ _hcg: Optional[HybridCommunicateGroup] = None
 
 
 def set_hybrid_communicate_group(hcg: Optional[HybridCommunicateGroup]):
+    """Put ``hcg`` in force, and its mesh as the global mesh (None: no
+    topology and no global mesh), as the reference's
+    ``HybridCommunicateGroup`` sets its mesh."""
+    from ..mesh import hybrid_mesh, set_global_mesh
+
     global _hcg
     _hcg = hcg
+    set_global_mesh(hybrid_mesh(hcg) if hcg is not None else None)
 
 
 def get_hybrid_communicate_group() -> Optional[HybridCommunicateGroup]:

@@ -3,7 +3,12 @@
 ``TrainStep(model, loss_fn, optimizer)`` runs one optimizer step per call:
 ``loss_fn(model, *batch)``, its gradient with respect to the optimizer's
 parameters, then ``optimizer.step()``. The reference compiles this into
-one XLA program; here it runs eagerly on the device the model lives on.
+one XLA program; here it runs eagerly on the device the model lives on. A
+batch of placed tensors (``DTensor``s of ``paddle.distributed``, what
+``shard_dataloader`` yields) runs on this rank's local blocks: rows split
+over a data axis make the loss's batch-coupled reductions count over its
+group (``nn.functional.loss.split_batch``), and the optimizer
+``parallelize`` / ``to_distributed`` return averages the gradients there.
 ``repeat`` / ``run_steps`` run several steps (the reference scans them in
 one program; here they loop over ``__call__``), the learning rate held as
 it is through the window (nothing steps the scheduler inside it).
@@ -12,6 +17,7 @@ program and are not ported (ROADMAP.md §A.3).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -33,8 +39,16 @@ class TrainStep:
 
     def __call__(self, *batch):
         trained = [p for p in self._params if p.requires_grad]
-        loss = self._loss_fn(self._model, *batch)
-        grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        scope = contextlib.nullcontext()
+        if any(type(v).__name__ == "DTensor" for v in batch):
+            from ..distributed.auto_parallel import local_inputs
+            from ..nn.functional.loss import split_batch
+
+            batch, _, group = local_inputs(batch)
+            scope = split_batch(group)
+        with scope:
+            loss = self._loss_fn(self._model, *batch)
+            grads = torch.autograd.grad(loss, trained, allow_unused=True)
         for p, g in zip(trained, grads):
             p.grad = g
         self._opt.step()

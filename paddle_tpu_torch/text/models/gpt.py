@@ -64,7 +64,7 @@ from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.functional import ring_attention as _ring
 from ...nn.functional.attention import _sdpa_dense
-from ...nn.functional.loss import _masked_mean
+from ...nn.functional.loss import _masked_mean, _parallel_softmax_ce
 from ...nn.layer import Layer, LayerList
 from ...nn.layers.common import Dropout, Embedding, linear_direct
 from ...nn.layers.norm import LayerNorm, layer_norm_direct
@@ -303,9 +303,15 @@ class GPTPretrainingCriterion(Layer):
 
     def __init__(self, config: Optional[GPTConfig] = None):
         super().__init__()
+        # the logits are vocab-parallel when the model is built at mp > 1
+        # (a model built whole and split later by parallelize keeps them
+        # whole)
+        self._vocab_parallel = mpu._mp_group()[1] > 1
 
     def forward(self, logits, labels, loss_mask=None):
-        loss = mpu.parallel_cross_entropy(logits, labels, self.ignore_index)
+        loss = (mpu.parallel_cross_entropy(logits, labels, self.ignore_index)
+                if self._vocab_parallel else
+                _parallel_softmax_ce(logits, labels, self.ignore_index))
         if loss_mask is not None:
             return _masked_mean(loss, loss_mask)
         return T.mean(loss)

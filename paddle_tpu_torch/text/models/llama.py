@@ -58,7 +58,8 @@ from ...framework.op import amp_op
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.functional import ring_attention as _ring
-from ...nn.functional.loss import _denominator, _masked_mean
+from ...nn.functional.loss import (_denominator, _masked_mean,
+                                  _parallel_softmax_ce)
 from ...nn.layer import Layer, LayerList
 from ...nn.layers.common import linear_direct
 from ...nn.layers.norm import RMSNorm, rms_norm_direct
@@ -364,7 +365,11 @@ class LlamaForCausalLM(Layer):
         logits = self._logits(self.llama(input_ids))
         if labels is None:
             return logits
-        loss = mpu.parallel_cross_entropy(logits, labels, self.ignore_index)
+        if self.llama.embed_tokens.world_size > 1:  # vocab-parallel logits
+            loss = mpu.parallel_cross_entropy(logits, labels,
+                                              self.ignore_index)
+        else:
+            loss = _parallel_softmax_ce(logits, labels, self.ignore_index)
         if loss_mask is not None:
             return _masked_mean(loss, loss_mask)
         valid = (labels.reshape(loss.shape) != self.ignore_index).to(

@@ -39,11 +39,19 @@ def test_no_jax_or_reference_import(path):
 
 def test_distributed_modules_are_covered():
     """The guard's module list holds every distributed module, the ZeRO-3
-    layout and the mp wire among them."""
+    layout, the mp wire and the auto-parallel / reshard / checkpoint
+    modules among them."""
     for m in ("paddle_tpu_torch.distributed.mp_comm",
               "paddle_tpu_torch.distributed.grad_comm",
               "paddle_tpu_torch.distributed.fleet.meta_parallel."
-              "sharding_stage3"):
+              "sharding_stage3",
+              "paddle_tpu_torch.distributed.mesh",
+              "paddle_tpu_torch.distributed.auto_parallel",
+              "paddle_tpu_torch.distributed.parallelize",
+              "paddle_tpu_torch.distributed.reshard",
+              "paddle_tpu_torch.distributed.checkpoint",
+              "paddle_tpu_torch.distributed.checkpoint.converter",
+              "paddle_tpu_torch.distributed.checkpoint.manifest"):
         assert m in MODULES, m
 
 

@@ -1740,6 +1740,499 @@ def zero3_hooks_job(job, state, batch):
     return out
 
 
+# -- auto-parallel: placements, parallelize, to_distributed, Engine ----------
+AP_GPT_PLAN = {"gpt.decoder.*.attn.qkv_proj": "col",
+               "gpt.decoder.*.attn.out_proj": "row",
+               "gpt.decoder.*.mlp.fc_in": "col",
+               "gpt.decoder.*.mlp.fc_out": "row"}
+AP_LR = 0.1
+
+
+def ap_mlp(paddle):
+    """The MLP of ``tests/test_parallelize.py`` (either package)."""
+    nn = paddle.nn
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.up = nn.Linear(16, 32)
+            self.act = nn.ReLU()
+            self.down = nn.Linear(32, 16)
+
+        def forward(self, x):
+            return self.down(self.act(self.up(x)))
+
+    return MLP()
+
+
+def ap_embed_net(paddle):
+    """An embedding under a linear head (either package): the plans'
+    Embedding cases."""
+    nn = paddle.nn
+    return nn.Sequential(nn.Embedding(32, 16), nn.Linear(16, 8))
+
+
+AP_NETS = {"mlp": ap_mlp, "embed": ap_embed_net}
+
+
+def ap_engine_net(paddle):
+    """The net of ``tests/test_auto_parallel_engine.py`` (either
+    package)."""
+    nn = paddle.nn
+    return nn.Sequential(nn.Linear(8, 16), nn.ReLU(), nn.Linear(16, 1))
+
+
+def ap_plan(dist, spec):
+    """``{pattern: plan or [plans]}`` of ``dist``'s plan classes from
+    ``{pattern: "col" | "col_gather" | "row" | "sp_begin" | "sp_end" or a
+    list}``."""
+    make = {"col": dist.ColWiseParallel, "row": dist.RowWiseParallel,
+            "col_gather": lambda: dist.ColWiseParallel(gather_output=True),
+            "sp_begin": dist.SequenceParallelBegin,
+            "sp_end": dist.SequenceParallelEnd}
+    return {k: [make[x]() for x in (v if isinstance(v, list) else [v])]
+            for k, v in spec.items()}
+
+
+def _port_net(make, state):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework.io_state import set_state_dict
+
+    m = make(paddle)
+    set_state_dict(m, state)
+    return m
+
+
+def _mesh_2x2(dist, names):
+    return dist.ProcessMesh(np.arange(4).reshape(2, 2), dim_names=list(names))
+
+
+def _reset_topology():
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn.functional import loss
+
+    fleet.topology.set_hybrid_communicate_group(None)
+    loss._split_group = None
+
+
+def _raised(fn):
+    """The name of the exception ``fn()`` raises, or None."""
+    try:
+        fn()
+    except Exception as e:  # the test asserts the type
+        return type(e).__name__
+    return None
+
+
+def ap_placements_job(job, state, batch):
+    """``shard_tensor`` / ``reshard`` / ``dtensor_from_fn`` on a 2 x 2 mesh
+    (the global values, the local blocks), the reference rules (an
+    indivisible dim, ``Partial``), the refusals, ``sharding_constraint``,
+    ``shard_dataloader`` of a dict batch and the global mesh of
+    ``fleet.init``."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    mesh = dist.ProcessMesh(shape=[2, 2], dim_names=["x", "y"])
+    x = batch["x"]
+    t = dist.shard_tensor(x, mesh, [dist.Shard(0), dist.Replicate()])
+    t2 = dist.reshard(t, mesh, [dist.Replicate(), dist.Shard(1)])
+    t3 = dist.reshard(t2, mesh, [dist.Shard(1), dist.Shard(0)])
+    odd = dist.shard_tensor(batch["odd"], mesh,
+                            [dist.Shard(0), dist.Replicate()])
+    part = dist.shard_tensor(x, mesh, [dist.Partial(), dist.Replicate()])
+    back = dist.reshard(part, mesh, [dist.Shard(0), dist.Replicate()])
+    fn = dist.dtensor_from_fn(np.ones, mesh, [dist.Shard(0),
+                                              dist.Replicate()],
+                              (4, 2), np.float32)
+    con = dist.sharding_constraint(t, (None, "y"), mesh)
+    plain = torch.ones(3)
+    w = paddle.nn.Linear(4, 4).weight
+    loader = dist.shard_dataloader([{"a": x, "b": x}], mesh, "x",
+                                   input_keys=["a"])
+    (item,) = list(loader)
+    visited = []
+    lay = paddle.nn.Linear(4, 3)
+    dist.shard_layer(lay, mesh, lambda n, sub, m: visited.append(n))
+    rows = lay(dist.shard_tensor(x, mesh, [dist.Shard(0), dist.Replicate()]))
+
+    def split_weight(name, sub, m):
+        if isinstance(sub, paddle.nn.Linear):
+            sub.weight = dist.shard_tensor(sub.weight, m, [dist.Shard(0),
+                                                           dist.Replicate()])
+
+    out = dict(
+        shard_layer=(visited, tuple(rows.shape), type(rows).__name__,
+                     _raised(lambda: dist.shard_layer(
+                         paddle.nn.Linear(4, 4), mesh, split_weight))),
+        t=t.numpy(), t_local=t.to_local().numpy().copy(),
+        t2=t2.numpy(), t2_local=t2.to_local().numpy().copy(),
+        t3=t3.numpy(), t3_local=t3.to_local().numpy().copy(),
+        odd=odd.numpy(), odd_local=tuple(odd.to_local().shape),
+        odd_placements=repr(list(odd.placements)),
+        partial=part.numpy(), partial_back=back.numpy(),
+        partial_local=part.to_local().numpy().copy(),
+        fn=fn.numpy(), con=con.numpy(),
+        con_placements=repr(list(con.placements)),
+        plain_same=dist.sharding_constraint(plain, ("y",)) is plain,
+        eq=[t.placements[0] == dist.Shard(0),
+            t.placements[1] == dist.Replicate(),
+            dist.Shard(0) == dist.Shard(1), repr(dist.Shard(1)),
+            repr(dist.Partial())],
+        loader=(tuple(item["a"].to_local().shape),
+                tuple(item["b"].to_local().shape)),
+        to_partial=_raised(lambda: dist.reshard(
+            t, mesh, [dist.Partial(), dist.Replicate()])),
+        param_shard=_raised(lambda: dist.shard_tensor(
+            w, mesh, [dist.Shard(0), dist.Replicate()])),
+        param_replicate=tuple(dist.shard_tensor(
+            w, mesh, [dist.Replicate(), dist.Replicate()]).shape))
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=2, mp_degree=2)
+    fleet.init(is_collective=True, strategy=s)
+    gm = dist.get_mesh()
+    out["fleet_mesh"] = (list(gm.dim_names), list(gm.shape))
+    dp = gm.dim_names.index("dp")
+    pl = [dist.Replicate()] * gm.ndim
+    pl[dp] = dist.Shard(0)
+    xs = dist.shard_tensor(x, gm, pl)
+    out["fleet_shard"] = (xs.numpy(), tuple(xs.to_local().shape),
+                          dist.reshard(xs, gm, [dist.Replicate()] * gm.ndim
+                                       ).numpy())
+    _reset_topology()
+    return out
+
+
+def ap_mlp_job(job, state, batch):
+    """The MLP (or ``AP_NETS[job["net"]]``) through ``parallelize`` on a
+    2 x 2 mesh (``job["axes"]``) with ``job["plan"]`` and / or
+    ``job["level"]`` (sharding level), then a plain ``TrainStep`` (SGD,
+    ``job["steps"]`` steps): the losses, the full parameters and each
+    split parameter's ``split_axis``."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import is_mp_shard
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.jit import TrainStep
+
+    m = _port_net(AP_NETS[job.get("net", "mlp")], state)
+    opt = paddle.optimizer.SGD(learning_rate=AP_LR,
+                               parameters=m.parameters())
+    config = {}
+    if job.get("plan"):
+        config["mp_config"] = {"parallelize_plan": ap_plan(dist,
+                                                           job["plan"])}
+    if job.get("level"):
+        config["dp_config"] = {"sharding_level": job["level"]}
+    m, opt = dist.parallelize(m, opt, _mesh_2x2(dist, job["axes"]), config)
+    step = TrainStep(m, lambda mm, x, y: paddle.mean((mm(x) - y) ** 2), opt)
+    x, y = torch.from_numpy(batch["x"]), torch.from_numpy(batch["y"])
+    losses = [float(step(x, y)) for _ in range(job["steps"])]
+    out = dict(losses=losses,
+               full={k: v.numpy() for k, v in gather_full_state(m).items()},
+               split={n: p.split_axis for n, p in m.named_parameters()
+                      if is_mp_shard(p)},
+               local={n: tuple(p.shape) for n, p in m.named_parameters()})
+    _reset_topology()
+    return out
+
+
+def ap_gpt_job(job, state, batch):
+    """The tiny GPT through ``parallelize`` at dp 2 x mp 2 (ColWise
+    ``qkv_proj`` / ``fc_in``, RowWise ``out_proj`` / ``fc_out``), AdamW
+    with the global-norm clip under a plain ``TrainStep``: losses, full
+    parameters, each split parameter's ``split_axis``, the local head
+    count; then the refusals (a plan that cuts a head, an unmatched
+    pattern, ``pp_config``, a mesh without the axis a config needs)."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import is_mp_shard
+    from paddle_tpu_torch.framework.io_state import gather_full_state
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    mesh = _mesh_2x2(dist, ("dp", "mp"))
+    model = port_model("gpt", state)
+    opt = fleet_adamw(model.parameters(), topt, topt.ClipGradByGlobalNorm)
+    model, opt = dist.parallelize(model, opt, mesh, {"mp_config": {
+        "parallelize_plan": ap_plan(dist, AP_GPT_PLAN)}})
+    step = TrainStep(model, lambda m, i, lab: m(i, labels=lab), opt)
+    args = [torch.from_numpy(batch[k]) for k in ("ids", "labels")]
+    losses = [float(step(*args)) for _ in range(job.get("steps", 3))]
+    out = dict(
+        losses=losses,
+        full={k: v.numpy() for k, v in gather_full_state(model).items()},
+        split={n: p.split_axis for n, p in model.named_parameters()
+               if is_mp_shard(p)},
+        heads=model.gpt.decoder[0].attn.num_heads)
+    plan = {"mp_config": {"parallelize_plan": ap_plan(dist, AP_GPT_PLAN)}}
+
+    def fresh(config, mesh=mesh, **kw):
+        # built with no topology in force: whole, as the reference's
+        _reset_topology()
+        if kw:
+            m = GPTForCausalLM(GPTConfig(**tiny_gpt_kwargs(
+                vocab_size=64, **kw)), device="cpu")
+        else:
+            m = port_model("gpt", state)
+        return lambda: dist.parallelize(m, None, mesh, config)
+
+    out["errors"] = dict(
+        cut_head=_raised(fresh(plan, hidden_size=24,
+                               num_attention_heads=3)),
+        no_match=_raised(fresh({"mp_config": {"parallelize_plan": {
+            "nope": dist.ColWiseParallel()}}})),
+        pp=_raised(fresh({"pp_config": {"split_spec": "x"}})),
+        no_mp=_raised(fresh(plan, _mesh_2x2(dist, ("dp", "sharding")))),
+        no_sharding=_raised(fresh({"dp_config": {"sharding_level": 2}})),
+        split_output=_raised(lambda: _split_output_model(dist, mesh)))
+    _reset_topology()
+    return out
+
+
+def _split_output_model(dist, mesh):
+    """A model ending in a ColWise layer that keeps its output split."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    _reset_topology()
+    m = paddle.nn.Sequential(paddle.nn.Linear(4, 8))
+    dist.parallelize(m, None, mesh, {"mp_config": {"parallelize_plan": {
+        "0": dist.ColWiseParallel()}}})
+    return m(torch.ones(2, 4))
+
+
+def ap_to_dist_job(job, state, batch):
+    """The MLP through ``to_distributed`` at dp = the world with a loader of
+    ``job["steps"]`` global batches: each rank's losses, its rows, its
+    parameters after the steps; and a control whose optimizer skips the
+    data-axis mean (the inner optimizer, as a plain ``DataParallel``
+    under ``TrainStep`` would be)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.jit import TrainStep
+
+    def run(control):
+        m = _port_net(ap_mlp, state)
+        opt = paddle.optimizer.SGD(learning_rate=AP_LR,
+                                   parameters=m.parameters())
+        data = [(batch["x"][i], batch["y"][i]) for i in range(job["steps"])]
+        m, opt, dl = dist.to_distributed(m, opt, data)
+        step = TrainStep(m, lambda mm, x, y: paddle.mean((mm(x) - y) ** 2),
+                         opt._inner_opt if control else opt)
+        losses, rows = [], None
+        for xb, yb in dl:
+            rows = tuple(xb.to_local().shape)
+            losses.append(float(step(xb, yb)))
+        params = {n: p.detach().numpy().copy()
+                  for n, p in m.named_parameters()}
+        _reset_topology()
+        return losses, rows, params
+
+    losses, rows, params = run(False)
+    return dict(losses=losses, rows=rows, params=params,
+                control=run(True)[2])
+
+
+def ap_engine_job(job, state, batch):
+    """``Engine`` fit / evaluate / predict / save / load at dp 4
+    (``fleet.init``), Adam: the history, the evaluation, the predictions,
+    the parameters, and those another model loads from the files."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import auto_parallel as auto
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["dp_degree"] = 4
+    fleet.init(is_collective=True, strategy=s)
+    model = _port_net(ap_engine_net, state)
+    opt = paddle.optimizer.Adam(learning_rate=3e-2,
+                                parameters=model.parameters())
+    engine = auto.Engine(model, loss=paddle.nn.MSELoss(), optimizer=opt)
+    X, Y = batch["x"], batch["y"]
+    hist = engine.fit((X, Y), epochs=job["epochs"], batch_size=32, verbose=0)
+    ev = engine.evaluate((X, Y), batch_size=32)
+    preds = engine.predict((X,), batch_size=32)
+    engine.save(job["path"])
+    other = _port_net(ap_engine_net, state)
+    opt2 = paddle.optimizer.Adam(learning_rate=3e-2,
+                                 parameters=other.parameters())
+    auto.Engine(other, loss=paddle.nn.MSELoss(), optimizer=opt2).load(
+        job["path"])
+    out = dict(hist=hist["loss"], eval=ev["loss"],
+               preds=[p.detach().numpy() for p in preds],
+               params={n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()},
+               loaded={n: p.detach().numpy().copy()
+                       for n, p in other.named_parameters()},
+               moments=sum(st is not None for st in opt2._accumulators))
+    _reset_topology()
+    return out
+
+
+# -- reshard: the executor on local blocks ----------------------------------
+RESHARD_SPECS = [(), ("dp",), (None, "dp"), ("mp",), (None, "mp"),
+                 ("dp", "mp"), ("mp", "dp"), (("dp", "mp"),),
+                 (("mp", "dp"),), (None, ("dp", "mp"))]
+RESHARD_SHAPE = (8, 16)
+
+
+def reshard_job(job, state, batch):
+    """Every pair of ``RESHARD_SPECS`` on a dp 2 x mp 2 mesh through
+    ``reshard_array`` on this rank's block (f32 and bf16): whether the new
+    block is the target's, the moved bytes counted against the plan's;
+    DTensors through ``reshard_array`` / ``reshard_state``; a move to a
+    1-D mesh over the same ranks."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed import reshard as rs
+
+    mesh = _mesh_2x2(dist, ("dp", "mp"))
+    full = torch.arange(int(np.prod(RESHARD_SHAPE)),
+                        dtype=torch.float32).reshape(RESHARD_SHAPE)
+    pairs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = full.to(dtype)
+        for i, src in enumerate(RESHARD_SPECS):
+            for j, dst in enumerate(RESHARD_SPECS):
+                collective.reset_counts()
+                new, plan = rs.reshard_array(
+                    rs.local_block(x, mesh, src), mesh, dst, src_spec=src)
+                pairs[(str(dtype), i, j)] = (
+                    bool(torch.equal(new, rs.local_block(x, mesh, dst))),
+                    collective.counts["reshard_moved_bytes"],
+                    plan.moved_bytes,
+                    collective.counts["reshard_steps"], len(plan.steps))
+    t = dist.shard_tensor(full, mesh, [dist.Shard(0), dist.Shard(1)])
+    new, plan = rs.reshard_array(t, mesh, (None, ("dp", "mp")))
+    src = {"w": t, "b": dist.shard_tensor(full[0], mesh, [
+        dist.Replicate(), dist.Shard(0)])}
+    dst = {"w": dist.shard_tensor(full, mesh, [dist.Replicate(),
+                                               dist.Replicate()]),
+           "b": dist.shard_tensor(full[0], mesh, [dist.Shard(0),
+                                                  dist.Replicate()])}
+    collective.reset_counts()
+    moved = rs.reshard_state(src, dst)
+    line = dist.ProcessMesh(np.arange(4), dim_names=["dp"])
+    cross, cplan = rs.reshard_array(t, line, ("dp",))
+    out = dict(
+        pairs=pairs,
+        dtensor=(new.numpy(), repr(list(new.placements)),
+                 tuple(new.to_local().shape)),
+        state={k: (v.numpy(), repr(list(v.placements)))
+               for k, v in moved.items()},
+        state_kept=src["w"].numpy(),
+        cross=(cross.numpy(), tuple(cross.to_local().shape),
+               cplan.transfer),
+        missing=_raised(lambda: rs.reshard_state({}, dst)),
+        mismatch=_raised(lambda: rs.reshard_state(
+            {"w": src["b"], "b": src["b"]}, dst)))
+    _reset_topology()
+    return out
+
+
+# -- distributed checkpoints: save under one layout, resume under another --
+CKPT_LM = dict(TINY_LM, num_attention_heads=4)  # mp 4 keeps heads whole
+CKPT_SWITCH = 5
+
+
+def _ckpt_build(degrees, stage, state, named=False):
+    """The checkpoint test's GPT (``CKPT_LM``) carrying the full ``state``,
+    AdamW (lr 1e-3) and its step: ``DistTrainStep`` under ``degrees`` /
+    ``stage`` (``fleet.init``), or a plain ``TrainStep`` with no topology
+    (``degrees`` None)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import io_state
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    _reset_topology()
+    if degrees is not None:
+        fleet.init(is_collective=True, strategy=_strategy_of(degrees, stage))
+    model = GPTForCausalLM(GPTConfig(**CKPT_LM), device="cpu")
+    io_state.load_numpy_state(model, to_stacked(model, state))
+    if named:
+        for i, p in enumerate(model.parameters()):
+            p.name = f"named_{i}"
+    opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+
+    def loss_fn(m, ids, lbl):
+        return m(ids, labels=lbl)
+
+    if degrees is None:
+        return model, opt, TrainStep(model, loss_fn, opt)
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    return model, opt, fleet.DistTrainStep(model, loss_fn, opt)
+
+
+def _ckpt_steps(step, data, lo, hi):
+    import torch
+
+    return [float(step(torch.from_numpy(ids), torch.from_numpy(ids)))
+            for ids in data[lo:hi]]
+
+
+def ckpt_job(job, state, data):
+    """For each source layout of ``job["sources"]``: ``CKPT_SWITCH`` steps,
+    ``save_state_dict(canonical_state_dict(model, opt))`` (the bytes this
+    rank wrote, the checkpoint verified), then for each target layout a
+    model built anew that ``restore_canonical`` s it and runs the remaining
+    steps (a target of None: rank 0 alone, no topology). Returns the
+    losses by ``source->target``."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.env import get_rank
+
+    out = {}
+    for name, (degrees, stage, targets) in job["sources"].items():
+        _, opt, step = _ckpt_build(degrees, stage, state)
+        model = step._model
+        first = _ckpt_steps(step, data, 0, CKPT_SWITCH)
+        path = os.path.join(job["dir"], name)
+        ckpt.save_state_dict(ckpt.canonical_state_dict(model, opt), path)
+        out[name] = dict(
+            losses=first, bytes=ckpt.saved_bytes(path, get_rank()),
+            verified=ckpt.verify_checkpoint(path, deep=True))
+        for tname, (tdeg, tstage) in targets.items():
+            if tdeg is None and get_rank() != 0:
+                continue
+            _, opt, step = _ckpt_build(tdeg, tstage, state)
+            ckpt.restore_canonical(path, step._model, opt)
+            out[f"{name}->{tname}"] = first + _ckpt_steps(
+                step, data, CKPT_SWITCH, len(data))
+    _reset_topology()
+    return out
+
+
+def ckpt_named_pp_job(job, state, data):
+    """The checkpoint test's GPT at pp 2 x dp 2 with named parameters, 2
+    ``DistTrainStep`` s: this rank's ``canonical_state_dict`` (keys and
+    values) and the keys of ``gather_full_optimizer_state``."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.framework import io_state
+
+    _, opt, step = _ckpt_build({"pp_degree": 2, "dp_degree": 2}, 1, state,
+                               named=True)
+    _ckpt_steps(step, data, 0, 2)
+    canon = ckpt.canonical_state_dict(step._model, opt)
+    out = dict(canonical={k: (v.numpy() if hasattr(v, "numpy") else v)
+                          for k, v in canon.items()},
+               full_opt=sorted(io_state.gather_full_optimizer_state(opt)))
+    _reset_topology()
+    return out
+
+
 JOB_KINDS = {"train": fleet_job, "batched": batched_job, "merge": merge_job,
              "mp_wire_fns": mp_wire_fns_job, "mp_wire_gpt": mp_wire_gpt_job,
              "wire": wire_job, "quantized": quantized_collective_job,
@@ -1750,7 +2243,11 @@ JOB_KINDS = {"train": fleet_job, "batched": batched_job, "merge": merge_job,
              "pipeline": pipeline_job, "pipeline_layer": pipeline_layer_job,
              "moe": moe_job, "moe_eager": moe_eager_job, "ring": ring_job,
              "user_lm": user_lm_job, "exchange": exchange_job,
-             "wire_lamb": wire_lamb_job, "zero3_hooks": zero3_hooks_job}
+             "wire_lamb": wire_lamb_job, "zero3_hooks": zero3_hooks_job,
+             "ap_placements": ap_placements_job, "ap_mlp": ap_mlp_job,
+             "ap_gpt": ap_gpt_job, "ap_to_dist": ap_to_dist_job,
+             "ap_engine": ap_engine_job, "reshard": reshard_job,
+             "ckpt": ckpt_job, "ckpt_named_pp": ckpt_named_pp_job}
 
 
 def fleet_jobs(jobs, state_of, batch_of):
