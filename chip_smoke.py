@@ -293,17 +293,38 @@ Phases, each fatal on failure (non-zero exit, no final line):
    embedding Shard(0) -> Shard(1) -> Replicate -> Shard(0) on the two
    ranks: values equal, ``reshard_moved_bytes`` the plan's, each rank's
    peak growth within 5 % of the plan's ``peak_bytes``;
-49. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+49. the serving tier (``paddle_tpu_torch.serving``) over the paged-KV
+   engine: GPT-3 1.3B at full width and depth from the worker CLI's
+   arguments, bf16 KV, ``engine_config()``'s geometry at 4 slots a
+   worker, ``make_prompts``' 8 requests, every other one sampled (T 0.7,
+   top-k 8): (a) two unified ``EngineWorker`` s and a ``Router`` on the
+   streaming dataplane in this process: both get work, the prefix pair
+   lands on one, K3's launches by regime equal ``k3_expected`` over both
+   engines, every stream equal to one ``DecodeEngine`` fed the same
+   requests and the router's params (or parting at a near-tie, top-2
+   decision margin below 1e-3); tokens/s beside the single engine's;
+   (b) a prefill and a decode worker (threads), the 300-600-token prompts
+   disaggregated: on the ``raw`` KV wire the streams equal (a)'s, on the
+   ``int8`` wire the payload bytes equal the arithmetic (about half of
+   raw), the first token exact and >= 75 % of the tokens equal; export,
+   encode, wire, decode and import seconds, bytes a prompt token; (c) two
+   ``python -m paddle_tpu_torch.serving.worker --device cuda`` processes,
+   the one that acks the first done SIGKILLed: every request done once
+   (``dispatched`` = requests + ``failover_resubmits``), streams equal
+   (a)'s, both workers' status lines on the card with nonzero K3 launches
+   and this process's float32 matmul settings;
+50. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
    (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a
    ``zero3_wires`` JSON line (phases 44-45), a ``pp_compose`` JSON line
    (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
-   line (phase 48), a ``kernels`` JSON line (the GPT, encoder and MoE
-   shapes, the K1 / K2 rows with their launches in phases 38-48; no TPU
-   kernel lies on the vision path or the capacity MoE path), then the
-   result line.
+   line (phase 48), a ``serving`` JSON line (phase 49), a ``kernels``
+   JSON line (the GPT, encoder and MoE shapes, the K1 / K2 rows with their
+   launches in phases 38-48, the K3 rows with phase 49's as
+   ``launches_serving``; no TPU kernel lies on the vision path or the
+   capacity MoE path), then the result line.
 """
 from __future__ import annotations
 
@@ -6623,6 +6644,754 @@ def phase_auto_parallel(smi, timeout=900, spec=None):
     return out
 
 
+
+# -- phase 49: the serving tier ----------------------------------------------
+
+#: slots a serving worker holds (engine_config()'s geometry otherwise)
+SERVING_SLOTS = 4
+#: prompts at least this long go to the prefill worker in 49b: the 300,
+#: 350, 480 and 600-token prompts of make_prompts
+SERVING_PREFILL_THRESHOLD = 256
+#: a stream may part from its reference only at a near-tie: the decision's
+#: top-2 margin (logits, or logits / T + Gumbel noise for a sampled row)
+#: below this
+NEAR_TIE = 1e-3
+#: the int8 KV wire keeps at least this share of the tokens decoded over
+#: imported pages (the generated tokens of the disaggregated requests),
+#: the reference test's bar
+INT8_WIRE_AGREE = 0.75
+#: the router's liveness window once 49c's victim is killed
+SERVING_GRACE_S = 1.0
+#: the worker CLI's model: GPT-3 1.3B at full width and depth (the
+#: arguments equal build_model(24)'s config and seed)
+SERVING_MODEL = dict(vocab=50304, hidden=2048, layers=24, heads=16,
+                     max_positions=2048)
+
+
+def serving_argv(model):
+    """The worker CLI's model and engine arguments (also parsed here, so
+    the in-process model is the worker processes' model)."""
+    argv = ["--device", DEVICE, "--model-seed", str(SEED)]
+    for k, v in model.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    cfg = engine_config()
+    return argv + ["--slots", str(SERVING_SLOTS),
+                   "--max-length", str(cfg["max_length"]),
+                   "--page-size", str(cfg["page_size"]),
+                   "--speculate-k", str(cfg["speculate_k"]),
+                   "--kv-dtype", "bf16"]
+
+
+def serving_engine_config():
+    return dict(engine_config(), num_slots=SERVING_SLOTS, kv_dtype="bf16")
+
+
+def submit_serving(router, prompts):
+    """make_prompts' requests, every other one sampled."""
+    return [router.submit(p, slo="standard", max_new_tokens=NEW_TOKENS,
+                          do_sample=(i % 2 == 1), temperature=0.7, top_k=8)
+            for i, p in enumerate(prompts)]
+
+
+def drive_router(router, workers, timeout=600.0):
+    """Pump the router and poll every worker in this thread until every
+    request resolved; returns the wall seconds."""
+    t0 = time.perf_counter()
+    while router.pending():
+        router.pump()
+        for w in workers:
+            w.poll_once()
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"router undrained: {router.stats()}")
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def drive_router_threaded(router, workers, timeout=600.0):
+    """The router here, each worker polled by its own thread: a prefill
+    worker's KV frame (~60 MB a 600-token prompt's K at 1.3B) blocks its
+    send until the decode worker reads it, which one thread cannot do."""
+    import threading
+
+    stop, errors = threading.Event(), []
+
+    def loop(w):
+        try:
+            while not stop.is_set():
+                if not w.poll_once():
+                    time.sleep(0.001)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=loop, args=(w,), daemon=True)
+               for w in workers]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        while router.pending() and not errors:
+            router.pump()
+            # the router's thread holds the interpreter lock while it
+            # pumps: a slow cadence leaves it to the engines' threads
+            time.sleep(0.005)
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"router undrained: {router.stats()}")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    if errors:
+        raise errors[0]
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def decision_margin(model, stream, j, params):
+    """The top-2 margin of the decision that chose token ``j`` of
+    ``stream``, from a full forward over ``stream[:j]``: of the logits for
+    a greedy request; of the top-k-filtered logits / T plus the engine's
+    Gumbel noise for position ``j`` (``_mix_seed(seed, j)``) for a sampled
+    one."""
+    from paddle_tpu_torch.inference.engine import _mix_seed
+
+    ctx = torch.as_tensor(np.asarray(stream[:j])[None], device=DEVICE)
+    with torch.no_grad():
+        x = model(ctx)[0, -1].float()
+    temp, top_k, _, greedy = params.fields()
+    if not greedy:
+        x = x / temp
+        if top_k > 0:
+            kth = torch.topk(x, top_k).values[-1]
+            x = torch.where(x < kth, torch.tensor(float("-inf"),
+                                                  device=x.device), x)
+        gen = torch.Generator(device=x.device).manual_seed(
+            _mix_seed(int(params.seed), j))
+        u = torch.rand(x.shape[-1], generator=gen, device=x.device,
+                       dtype=torch.float32)
+        x = x - torch.log(-torch.log(u))
+    top = torch.topk(x, 2).values
+    return float(top[0] - top[1])
+
+
+def check_serving_streams(fa, model, prompts, params, got, want, what,
+                          names):
+    """Every stream of ``got`` equal to ``want``'s, or parting at a
+    near-tie (:func:`decision_margin` below NEAR_TIE); a parting is
+    reported by :func:`report_divergence`. Returns the partings."""
+    partings = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.flatnonzero(np.asarray(a) != np.asarray(b))[0])
+        margin = decision_margin(model, b, j, params[i])
+        partings.append(dict(request=i, token=j - len(prompts[i]),
+                             margin=margin,
+                             sampled=bool(params[i].do_sample)))
+        log(f"{what}: request {i} parts at generated token "
+            f"{j - len(prompts[i])}: decision margin {margin:.3e} "
+            f"({'sampled' if params[i].do_sample else 'greedy'})")
+    if partings:
+        report_divergence(fa, model, prompts, got, want, names=names)
+    far = [p for p in partings if not p["margin"] < NEAR_TIE]
+    if far:
+        raise AssertionError(f"{what}: streams part away from a near-tie: "
+                             f"{far}")
+    return partings
+
+
+def k3_expected_sum(pa, workers):
+    """:func:`k3_expected` summed over the workers' engines."""
+    total = np.zeros(4, np.int64)
+    for w in workers:
+        eng = w.engine
+        ad = eng.adapter
+        total += k3_expected(pa, ad.num_layers, eng.stats(), eng,
+                             ad.num_heads // ad.num_kv_heads)
+    return tuple(int(x) for x in total)
+
+
+def free_card():
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def reset_k3(pa):
+    for n in K3_COUNTERS:
+        setattr(pa, n, 0)
+
+
+def check_k3(pa, workers, what):
+    launches, tile, split, decode, verify = k3_counts(pa)
+    want = k3_expected_sum(pa, workers)
+    if (tile, split, decode, verify) != want or launches != tile + split:
+        raise AssertionError(
+            f"{what}: K3 launches (tile, split, decode, verify) = "
+            f"{(tile, split, decode, verify)} of {launches}, expected "
+            f"{want} from the engines' programs")
+    return dict(launches=launches, tile=tile, split=split, decode=decode,
+                verify=verify)
+
+
+@contextlib.contextmanager
+def disagg_probes(worker_mod, transport_mod, decode_worker):
+    """Timings of the disaggregated path by the KV frame's page count:
+    ``encode_kv``, the frame's bytes on the socket, its stamp (after the
+    encode) to the decode worker's poll that received it, that poll to
+    ``decode_kv`` (waiting for a slot), the decode."""
+    rec = {}
+    saved = (worker_mod.encode_kv, worker_mod.decode_kv,
+             transport_mod.encode_frame)
+    server = decode_worker._server
+    server_poll = server.poll
+
+    def poll():
+        got = server_poll()
+        now = time.time()
+        for _, frame in got:
+            if frame.get("t") == "kv":
+                n = int(np.asarray(frame["kv"]["k"]).shape[1])
+                rec.setdefault(n, {}).update(recv_wall=now)
+        return got
+
+    def encode_kv(k, v, wire, *a, **kw):
+        t0 = time.perf_counter()
+        out = saved[0](k, v, wire, *a, **kw)
+        n = int(out["k"].shape[1])
+        rec.setdefault(n, {}).update(
+            encode_s=time.perf_counter() - t0,
+            payload_bytes=sum(int(x.nbytes) for key, x in out.items()
+                              if key in ("k", "v", "k_scale", "v_scale")))
+        return out
+
+    def decode_kv(payload):
+        t0 = time.perf_counter()
+        out = saved[1](payload)
+        n = int(np.asarray(payload["k"]).shape[1])
+        rec.setdefault(n, {}).update(decode_s=time.perf_counter() - t0,
+                                     decode_wall=time.time())
+        return out
+
+    def encode_frame(frame):
+        data = saved[2](frame)
+        if frame.get("t") == "kv":
+            n = int(np.asarray(frame["kv"]["k"]).shape[1])
+            rec.setdefault(n, {}).update(frame_bytes=len(data),
+                                         sent_wall=frame["ts"])
+        return data
+
+    worker_mod.encode_kv, worker_mod.decode_kv = encode_kv, decode_kv
+    transport_mod.encode_frame = encode_frame
+    server.poll = poll
+    try:
+        yield rec
+    finally:
+        (worker_mod.encode_kv, worker_mod.decode_kv,
+         transport_mod.encode_frame) = saved
+        server.poll = server_poll
+
+
+def timed_method(obj, name, out, key_fn=lambda *a: None):
+    """Wrap ``obj.name`` so the seconds of each call that returned
+    something land in ``out[key_fn(*args)]`` (a list), with the result."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        if res is not None:
+            out.setdefault(key_fn(*a), []).append(
+                (time.perf_counter() - t0, res))
+        return res
+
+    setattr(obj, name, wrapped)
+
+
+def isolated_handoff(pw, dw, prompt, params, wire):
+    """One KV handoff alone, in this thread, timed piece by piece: the
+    prefill worker's ``prefill_export`` (its prefill, then the pages to the
+    host), ``encode_kv``, the frame's pickling, its crossing of a loopback
+    socket to a ``TransportServer`` poll (a sender thread), ``decode_kv``
+    and the decode engine's ``try_import_prefill``."""
+    import threading
+
+    from paddle_tpu_torch.framework.dtype import from_host
+    from paddle_tpu_torch.serving import transport as tr
+
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    out = {}
+    pw.engine.release_prefix_cache()  # a full prefill, not a prefix hit
+    t0 = time.perf_counter()
+    payload = pw.engine.prefill_export(prompt, params)
+    out["export_s"] = time.perf_counter() - t0
+    out["prefill_s"] = payload["prefill_s"]
+    t0 = time.perf_counter()
+    kv = tr.encode_kv(payload["k"], payload["v"], wire, payload.get("ks"),
+                      payload.get("vs"), dtype=payload["dtype"])
+    out["encode_s"] = time.perf_counter() - t0
+    frame = {"t": "kv", "first_token": payload["first_token"],
+             "true_len": payload["true_len"], "kv": kv}
+    t0 = time.perf_counter()
+    out["frame_bytes"] = len(tr.encode_frame(frame))
+    out["pickle_s"] = time.perf_counter() - t0
+    server = tr.TransportServer()
+    client = tr.TransportClient(server.addr)
+    try:
+        t0 = time.perf_counter()
+        sender = threading.Thread(target=client.send, args=(frame,))
+        sender.start()
+        got = []
+        while not got:
+            got = server.poll()
+        out["socket_s"] = time.perf_counter() - t0
+        sender.join(60)
+    finally:
+        client.close()
+        server.close()
+    t0 = time.perf_counter()
+    dec = tr.decode_kv(got[0][1]["kv"])
+    out["decode_s"] = time.perf_counter() - t0
+    kv_in = {"first_token": payload["first_token"],
+             "true_len": payload["true_len"], "k": dec["k"], "v": dec["v"],
+             "dtype": dec["dtype"]}
+    t0 = time.perf_counter()
+    rid = dw.engine.try_import_prefill(prompt, params, kv_in)
+    sync()
+    out["import_s"] = time.perf_counter() - t0
+    if rid is None:
+        raise AssertionError("the isolated import found no slot")
+    out["bytes_per_prompt_token"] = out["frame_bytes"] / len(prompt)
+    # the pool's pages after the import against the exported ones: the raw
+    # wire bit-equal, the int8 wire within its bound; a control (scales
+    # rolled across pages) must break the bound
+    pages = dw.engine._requests[rid].page_ids[:payload["k"].shape[1]]
+    for name, pool in (("k", dw.engine._kc), ("v", dw.engine._vc)):
+        exp = from_host(payload[name], payload["dtype"], pool.device)
+        got = pool[:, pages]
+        if wire == "raw":
+            if not torch.equal(got.view(torch.int16),
+                               exp.view(torch.int16)):
+                raise AssertionError(f"49b raw: imported {name} pages are "
+                                     "not the exported bits")
+            continue
+        out[f"wire_excess_{name}"] = wire_excess(exp, got)
+        if not out[f"wire_excess_{name}"] <= 1.0:
+            raise AssertionError(
+                f"49b int8: imported {name} pages off by "
+                f"{out[f'wire_excess_{name}']} of the wire's bound")
+        bad = dict(kv, **{f"{name}_scale": np.roll(kv[f"{name}_scale"], 1,
+                                                   axis=1)})
+        rolled = torch.from_numpy(tr.decode_kv(bad)[name]).to(pool.device)
+        out[f"control_excess_{name}"] = wire_excess(exp, rolled)
+        if not out[f"control_excess_{name}"] > 1.0:
+            raise AssertionError("49b int8: the control passed the bound")
+    return out
+
+
+def wire_excess(exported, imported):
+    """Largest ``|imported - exported|`` over the int8 KV wire's bound: half
+    a quantization level (absmax / 127 of the element's [layer, page, head]
+    row of the exported pages, + 1e-4 of it for f32 rounding) plus the
+    rounding of the dequantized value to the pool's bf16 (2**-8 of it).
+    At most 1 when every page came back in its place at its own scale."""
+    x = exported.float()
+    level = x.abs().amax(dim=(-2, -1), keepdim=True) / 127.0
+    bound = (0.5 * level * (1 + 1e-4)
+             + 2.0 ** -8 * (x.abs() + 0.5 * level)).clamp_min(
+                 torch.finfo(torch.float32).tiny)
+    return float(((imported.float() - x).abs() / bound).max())
+
+
+def kv_payload_bytes(model_cfg, n_pages, wire):
+    """The KV payload's bytes for ``n_pages`` content pages of a bf16
+    pool at ``model_cfg``'s widths: k and v, 2 bytes an element on the
+    raw wire; 1 byte an element plus one f32 scale per [layer, page,
+    head] on the int8 wire."""
+    cfg = engine_config()
+    heads, d = model_cfg["heads"], model_cfg["hidden"] // model_cfg["heads"]
+    elems = model_cfg["layers"] * n_pages * heads * cfg["page_size"] * d
+    if wire == "raw":
+        return 2 * 2 * elems
+    return 2 * (elems + 4 * model_cfg["layers"] * n_pages * heads)
+
+
+def phase_serving_tier(pa, fa, smi, spec=None):
+    """Phase 49: the serving tier over the paged-KV engine (K3 on every
+    worker). GPT-3 1.3B at full width and depth from the worker CLI's
+    arguments, bf16 KV, engine_config()'s geometry at SERVING_SLOTS slots
+    a worker, make_prompts' 8 requests (every other one sampled, T 0.7,
+    top-k 8, router-assigned seeds).
+    (a) two unified workers and a ``Router`` (streaming dataplane) in this
+    thread: both workers get work, the prefix pair lands on one worker, K3
+    launches by regime equal ``k3_expected`` over both engines, each
+    stream equal to one ``DecodeEngine`` of the same per-worker config fed
+    the same requests and the router's params, or parting at a near-tie;
+    tokens/s through the router beside the single engine's.
+    (b) one prefill and one decode worker (threads of this process), the
+    prompts from SERVING_PREFILL_THRESHOLD tokens disaggregated: on the
+    ``raw`` wire the streams equal (a)'s (near-ties as above); on the
+    ``int8`` wire the KV payload's bytes equal the arithmetic (about half
+    of raw's), the first token after each prompt equal (a)'s, at least
+    INT8_WIRE_AGREE of the tokens decoded over imported pages equal; the
+    isolated handoff's pool pages bit-equal to the export (raw) or within
+    half a quantization level (int8; a rolled-scale control must not be);
+    export, encode, wire, decode and import seconds per request, bytes per
+    prompt token.
+    (c) two ``python -m paddle_tpu_torch.serving.worker --device cuda``
+    processes against this phase's store; the worker that acks the first
+    done is SIGKILLed (grace SERVING_GRACE_S): every request completes once
+    (``dispatched`` = requests + ``failover_resubmits``), streams equal
+    (a)'s (near-ties as above), each worker's status line on the card
+    with nonzero K3 launches and this process's float32 matmul settings.
+    ``spec`` (a CPU rehearsal) may name a tiny ``model``."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+    from paddle_tpu_torch.runtime import TCPStore
+    from paddle_tpu_torch.serving import EngineWorker, Router
+    from paddle_tpu_torch.serving import transport as transport_mod
+    from paddle_tpu_torch.serving import worker as worker_mod
+
+    spec = dict(spec or {})
+    model_cfg = spec.get("model", SERVING_MODEL)
+    argv = serving_argv(model_cfg)
+    t_phase = time.perf_counter()
+    model = worker_mod.build_worker_model(
+        worker_mod.build_arg_parser().parse_args(argv))
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    sync()
+    prompts = make_prompts(model.config.vocab_size)
+    cfg = serving_engine_config()
+    store = TCPStore("127.0.0.1", 0, is_master=True, timeout=120.0)
+    out = {"card": smi, "model": dict(model_cfg), "slots": SERVING_SLOTS,
+           "kv_dtype": "bf16"}
+    names = ("router", "reference")
+
+    # -- 49a ----------------------------------------------------------------
+    workers = [EngineWorker(model, store, namespace="p49a", **cfg)
+               for _ in range(2)]
+    for w in workers:
+        w.engine.warmup()
+    router = Router(store, namespace="p49a", queue_limit=64, seed=SEED,
+                    page_size=cfg["page_size"])
+    steps = {}
+    for w in workers:
+        timed_method(w.engine, "step", steps)
+    reset_k3(pa)
+    rids = submit_serving(router, prompts)
+    wall = drive_router(router, workers)
+    step_s = sum(t for t, _ in steps[None])
+    k3a = check_k3(pa, workers, "49a")
+    st = router.stats()
+    placed = [router._requests[r].engine for r in rids]
+    if set(placed) != {w.name for w in workers}:
+        raise AssertionError(f"49a: one worker got no work: {placed}")
+    if placed[4] != placed[5]:
+        raise AssertionError("49a: the prefix pair landed on two workers")
+    if st["done"] != len(prompts) or st["affinity_hits"] < 1:
+        raise AssertionError(f"49a: {st}")
+    streams = [router.result(r) for r in rids]
+    params = [router._requests[r].params for r in rids]
+    tokens = sum(w.engine.stats()["total_tokens"] for w in workers)
+    hits = sum(w.engine.stats()["prefix_hit_tokens"] for w in workers)
+    single = DecodeEngine(model, **cfg)
+    single.warmup()
+    t0 = time.perf_counter()
+    srids = [single.submit(p, prm) for p, prm in zip(prompts, params)]
+    single.run()
+    sync()
+    single_wall = time.perf_counter() - t0
+    reference = [single.result(r) for r in srids]
+    single_tokens = single.stats()["total_tokens"]
+    parts_a = check_serving_streams(fa, model, prompts, params, streams,
+                                    reference, "49a", names)
+    out["router_2workers"] = dict(
+        wall_s=wall, engine_step_s=step_s, tokens=tokens,
+        tokens_per_s=tokens / wall,
+        single_engine_tokens_per_s=single_tokens / single_wall,
+        single_engine_wall_s=single_wall, placed=placed,
+        prefix_hit_tokens=hits, launches=k3a, partings=parts_a,
+        equal_streams=sum(np.array_equal(a, b)
+                          for a, b in zip(streams, reference)),
+        router=st)
+    log(f"# phase 49a: 2 workers x {SERVING_SLOTS} slots behind a router: "
+        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s "
+        f"(one engine, {SERVING_SLOTS} slots: "
+        f"{single_tokens / single_wall:.1f} tok/s); the engines' step() "
+        f"{step_s:.3f} s of it; placed {placed}, "
+        f"prefix hits {hits} tokens; K3 {k3a}; streams equal to the single "
+        f"engine {out['router_2workers']['equal_streams']}/{len(prompts)}, "
+        f"near-tie partings {len(parts_a)}  [{smi}]")
+    router.shutdown()
+    for w in workers:
+        w.close()
+    del workers, single, router
+    free_card()
+
+    # -- 49b ----------------------------------------------------------------
+    disagg = [i for i, p in enumerate(prompts)
+              if len(p) >= SERVING_PREFILL_THRESHOLD]
+    out["disagg"] = {}
+    for wire in ("raw", "int8"):
+        ns = f"p49b_{wire}"
+        clients = [TCPStore("127.0.0.1", store.port, timeout=120.0)
+                   for _ in range(2)]
+        pw = EngineWorker(model, clients[0], namespace=ns, role="prefill",
+                          kv_wire=wire, **cfg)
+        dw = EngineWorker(model, clients[1], namespace=ns, role="decode",
+                          **cfg)
+        for w in (pw, dw):
+            w.engine.warmup()
+        router = Router(store, namespace=ns, queue_limit=64, seed=SEED,
+                        page_size=cfg["page_size"],
+                        prefill_threshold_tokens=SERVING_PREFILL_THRESHOLD)
+        export_s, import_s = {}, {}
+        timed_method(pw.engine, "prefill_export", export_s,
+                     lambda p, *a, **kw: len(p))
+        timed_method(dw.engine, "try_import_prefill", import_s,
+                     lambda p, *a, **kw: len(p))
+        reset_k3(pa)
+        with disagg_probes(worker_mod, transport_mod, dw) as probes:
+            rids = submit_serving(router, prompts)
+            wall = drive_router_threaded(router, [pw, dw])
+        k3b = check_k3(pa, [pw, dw], f"49b {wire}")
+        iso = isolated_handoff(pw, dw, prompts[-1], params[-1], wire)
+        st = router.stats()
+        if st["done"] != len(prompts) or \
+                st["disagg_dispatches"] != len(disagg):
+            raise AssertionError(f"49b {wire}: {st}")
+        if pw.engine.stats()["decode_steps"] != 0:
+            raise AssertionError("49b: the prefill worker decoded")
+        got = [router.result(r) for r in rids]
+        per_request = []
+        for i in disagg:
+            t = len(prompts[i])
+            n = -(-t // cfg["page_size"])
+            pr = probes[n]
+            want_bytes = kv_payload_bytes(model_cfg, n, wire)
+            if pr["payload_bytes"] != want_bytes:
+                raise AssertionError(
+                    f"49b {wire}: prompt {t}: KV payload {pr['payload_bytes']}"
+                    f" bytes, the arithmetic {want_bytes}")
+            exp, payload = export_s[t][0]
+            per_request.append(dict(
+                prompt_tokens=t, pages=n, payload_bytes=pr["payload_bytes"],
+                frame_bytes=pr["frame_bytes"],
+                frame_bytes_per_prompt_token=pr["frame_bytes"] / t,
+                export_s=exp, prefill_s=payload["prefill_s"],
+                encode_s=pr["encode_s"],
+                wire_s=pr["recv_wall"] - pr["sent_wall"],
+                slot_wait_s=pr["decode_wall"] - pr["recv_wall"],
+                decode_s=pr["decode_s"], import_s=import_s[t][0][0]))
+        res = dict(wall_s=wall, launches=k3b, requests=per_request,
+                   router=st, isolated=iso)
+        if st["engines_lost"]:
+            raise AssertionError(f"49b {wire}: a worker was lost: {st}")
+        if wire == "raw":
+            res["partings"] = check_serving_streams(
+                fa, model, prompts, params, got, streams, "49b raw",
+                ("disaggregated", "49a"))
+        else:
+            agree = total = agree_gen = total_gen = agree_w = total_w = 0
+            for i in range(len(prompts)):
+                a, b, t = np.asarray(got[i]), np.asarray(streams[i]), \
+                    len(prompts[i])
+                if a.shape != b.shape:
+                    raise AssertionError("49b int8: a stream's length")
+                if i in disagg and a[t] != b[t]:
+                    raise AssertionError(
+                        f"49b int8: request {i}'s first token {a[t]} != "
+                        f"{b[t]} (computed before the wire)")
+                agree += int((a == b).sum())
+                total += a.size
+                agree_gen += int((a[t:] == b[t:]).sum())
+                total_gen += a.size - t
+                if i in disagg:
+                    agree_w += int((a[t:] == b[t:]).sum())
+                    total_w += a.size - t
+            res.update(agreement=agree / total,
+                       generated_agreement=agree_gen / total_gen,
+                       wire_generated_agreement=agree_w / total_w)
+            if not res["wire_generated_agreement"] >= INT8_WIRE_AGREE:
+                raise AssertionError(f"49b int8: agreement {res}")
+        out["disagg"][wire] = res
+        mean = {k: float(np.mean([r[k] for r in per_request]))
+                for k in ("export_s", "prefill_s", "encode_s", "wire_s",
+                          "slot_wait_s", "decode_s", "import_s",
+                          "frame_bytes_per_prompt_token")}
+        log(f"# phase 49b {wire}: prefill + decode worker, "
+            f"{len(disagg)} of {len(prompts)} disaggregated, {wall:.3f} s; "
+            f"per request mean: export {1e3 * mean['export_s']:.1f} ms "
+            f"(its prefill {1e3 * mean['prefill_s']:.1f} ms), "
+            f"encode {1e3 * mean['encode_s']:.1f} ms, stamp to receipt "
+            f"{1e3 * mean['wire_s']:.1f} ms, receipt to a decode slot "
+            f"{1e3 * mean['slot_wait_s']:.1f} ms, decode "
+            f"{1e3 * mean['decode_s']:.1f} ms, import "
+            f"{1e3 * mean['import_s']:.1f} ms; "
+            f"{mean['frame_bytes_per_prompt_token']:.0f} frame bytes a prompt "
+            f"token; K3 {k3b}; "
+            + (f"near-tie partings {len(res['partings'])}" if wire == "raw"
+               else f"agreement {res['agreement']:.4f} (generated "
+                    f"{res['generated_agreement']:.4f}, generated over "
+                    f"imported pages {res['wire_generated_agreement']:.4f}"
+                    f")") + f"  [{smi}]")
+        log(f"# phase 49b {wire}: the {len(prompts[-1])}-token prompt's "
+            f"handoff alone: export {1e3 * iso['export_s']:.1f} ms (prefill "
+            f"{1e3 * iso['prefill_s']:.1f}), encode "
+            f"{1e3 * iso['encode_s']:.1f} ms, pickle "
+            f"{1e3 * iso['pickle_s']:.1f} ms, socket "
+            f"{1e3 * iso['socket_s']:.1f} ms ({iso['frame_bytes']} bytes), "
+            f"decode {1e3 * iso['decode_s']:.1f} ms, import "
+            f"{1e3 * iso['import_s']:.1f} ms; "
+            f"{iso['bytes_per_prompt_token']:.0f} bytes a prompt token; "
+            + ("pool pages bit-equal to the export" if wire == "raw" else
+               f"pool pages within {iso['wire_excess_k']:.4f} / "
+               f"{iso['wire_excess_v']:.4f} of the bound (k / v; rolled-"
+               f"scale control {iso['control_excess_k']:.1f} / "
+               f"{iso['control_excess_v']:.1f})") + f"  [{smi}]")
+        router.shutdown()
+        for w in (pw, dw):
+            w.close()
+        for c in clients:
+            c.close()
+        del pw, dw, router, clients
+    raw_b = sum(r["frame_bytes"] for r in out["disagg"]["raw"]["requests"])
+    int8_b = sum(r["frame_bytes"] for r in out["disagg"]["int8"]["requests"])
+    out["disagg"]["int8_over_raw_bytes"] = int8_b / raw_b
+    log(f"# phase 49b: int8 frames {int8_b} bytes vs raw {raw_b} "
+        f"({int8_b / raw_b:.4f})")
+    if not int8_b / raw_b < 0.6:
+        raise AssertionError("49b: the int8 wire is not about half of raw")
+    free_card()
+
+    # -- 49c ----------------------------------------------------------------
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_"))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    env.pop("PADDLE_TPU_TELEMETRY_DIR", None)
+    prep = spec.get("worker_env")
+    if prep:
+        env.update(prep)
+    procs, logs = {}, {}
+    t_start = time.perf_counter()
+    for name in ("w0", "w1"):
+        logs[name] = open(tmp / f"{name}.log", "w")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.serving.worker",
+             "--master", f"127.0.0.1:{store.port}", "--namespace", "p49c",
+             "--name", name, *argv], cwd=root, env=env,
+            stdout=subprocess.DEVNULL, stderr=logs[name])
+
+    def alive():
+        for n, p in procs.items():
+            if p.poll() is not None and n != victim:
+                raise AssertionError(
+                    f"49c: worker {n} exited {p.returncode}: "
+                    + (tmp / f"{n}.log").read_text()[-3000:])
+
+    def lines(n):
+        # whole lines only: the worker may be writing one as we read
+        return [json.loads(x)["serving_worker"]
+                for x in (tmp / f"{n}.log").read_text().splitlines(True)
+                if x.startswith('{"serving_worker"') and x.endswith("\n")]
+
+    victim = None
+    try:
+        router = Router(store, namespace="p49c", queue_limit=64, seed=SEED,
+                        page_size=cfg["page_size"], engine_grace_s=120.0)
+        while router.stats()["engines_alive"] < 2 or any(
+                e.beat < 1 for e in router._engines.values()):
+            alive()
+            router.pump()
+            time.sleep(0.01)
+            if time.perf_counter() - t_start > 300:
+                raise AssertionError("49c: workers did not register")
+        ready_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        rids = submit_serving(router, prompts)
+        while router.pending():
+            alive()
+            router.pump()
+            if victim is None:
+                done = [router._requests[r].engine for r in rids
+                        if router.status(r) == "done"]
+                if done:
+                    victim = done[0]
+                    while not lines(victim):
+                        alive()
+                        time.sleep(0.01)
+                    procs[victim].send_signal(signal.SIGKILL)
+                    procs[victim].wait(30)
+                    kill_s = time.perf_counter() - t0
+                    router.config.engine_grace_s = SERVING_GRACE_S
+            time.sleep(0.001)
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"49c undrained: {router.stats()}")
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        router.shutdown()
+        survivor = next(n for n in procs if n != victim)
+        if procs[survivor].wait(120) != 0:
+            raise AssertionError("49c: the survivor exited "
+                                 f"{procs[survivor].returncode}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs.values():
+            f.close()
+    if not (st["done"] == len(prompts) and st["failed"] == 0
+            and st["engines_lost"] == 1 and st["failover_resubmits"] >= 1
+            and st["dispatched"] == len(prompts) + st["failover_resubmits"]):
+        raise AssertionError(f"49c: not every request exactly once: {st}")
+    got = [router.result(r) for r in rids]
+    parts_c = check_serving_streams(fa, model, prompts, params, got, streams,
+                                    "49c", ("worker processes", "49a"))
+    records = {}
+    for n in procs:
+        recs = lines(n)
+        want = ["first_done"] if n == victim else ["first_done", "stop"]
+        if [r["event"] for r in recs] != want:
+            raise AssertionError(f"49c: worker {n} printed {recs}")
+        rec = recs[-1]
+        if rec["device_type"] != DEVICE or (
+                DEVICE == "cuda" and rec["k3"]["launches"] <= 0):
+            raise AssertionError(f"49c: worker {n}: {rec}")
+        if (rec["allow_tf32"], rec["float32_matmul_precision"]) != (
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision()):
+            raise AssertionError(f"49c: worker {n}'s float32 matmul "
+                                 f"settings differ from this process's")
+        records[n] = rec
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["processes"] = dict(
+        ready_s=ready_s, wall_s=wall, kill_after_s=kill_s, victim=victim,
+        router=st, partings=parts_c, workers=records,
+        equal_streams=sum(np.array_equal(a, b)
+                          for a, b in zip(got, streams)))
+    log(f"# phase 49c: 2 worker processes ready in {ready_s:.1f} s; "
+        f"{victim} SIGKILLed {kill_s:.3f} s in after its first done; "
+        f"{st['done']} done, {st['failover_resubmits']} resubmitted, "
+        f"{st['dispatched']} dispatched in {wall:.3f} s; streams equal to "
+        f"49a {out['processes']['equal_streams']}/{len(prompts)}; workers: "
+        + "; ".join(f"{n} {r['device']} K3 {r['k3']['launches']} "
+                    f"({r['event']})" for n, r in records.items())
+        + f"  [{smi}]")
+    store.close()
+    del model
+    free_card()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 49: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6709,6 +7478,8 @@ def main() -> int:
     a3 = phases_a3(fa, smi, peaks, encoders["bert_mlm"]["f32"])
     torch.cuda.empty_cache()
     auto = phase_auto_parallel(smi)
+    torch.cuda.empty_cache()
+    serving = phase_serving_tier(pa, fa, smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -6741,14 +7512,28 @@ def main() -> int:
             out["pair_ms"] = r["pair_ms"]
         return out
 
+    def k3_serving(regime):
+        """Phase 49's K3 launches of one regime, by run."""
+        procs = serving["processes"]["workers"]
+        return dict(
+            router_2workers=serving["router_2workers"]["launches"][regime],
+            **{f"disagg_{w}": serving["disagg"][w]["launches"][regime]
+               for w in ("raw", "int8")},
+            **{f"process_{n}_{r['event']}": r["k3"][f"launches_{regime}"]
+               for n, r in procs.items()})
+
     kernels = [
-        row(f"paged_attention_{shape}",
-            "paddle_tpu_torch/ops/cuda/paged_attention.cu",
-            "paddle_tpu/ops/pallas/paged_attention.py:81",
-            served["launches"][{"decode": "decode", "verify": "verify",
-                                "prefill": "tile"}[shape]],
-            max(sweep_err[timed[shape]["regime"]],
-                timed[shape]["max_abs_err"]), timed[shape], "cuda graph")
+        dict(row(f"paged_attention_{shape}",
+                 "paddle_tpu_torch/ops/cuda/paged_attention.cu",
+                 "paddle_tpu/ops/pallas/paged_attention.py:81",
+                 served["launches"][{"decode": "decode", "verify": "verify",
+                                     "prefill": "tile"}[shape]],
+                 max(sweep_err[timed[shape]["regime"]],
+                     timed[shape]["max_abs_err"]), timed[shape],
+                 "cuda graph"),
+             launches_serving=k3_serving({"decode": "decode",
+                                          "verify": "verify",
+                                          "prefill": "tile"}[shape]))
         for shape in ("decode", "verify", "prefill")]
     for kind, kernel in (("fwd", "flash_attention_fwd"),
                          ("dq", "flash_attention_bwd_dq"),
@@ -6845,6 +7630,7 @@ def main() -> int:
     log(json.dumps({"pp_compose": compose}))
     log(json.dumps({"a3": a3}))
     log(json.dumps({"auto_parallel": auto}))
+    log(json.dumps({"serving": serving}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

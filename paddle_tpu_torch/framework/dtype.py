@@ -34,4 +34,30 @@ def convert_dtype(dtype):
         raise TypeError(f"unsupported dtype {dtype!r}") from None
 
 
-__all__ = ["DTYPES", "convert_dtype"]
+#: torch dtype -> its Paddle / numpy name
+NAMES = {v: k for k, v in DTYPES.items()}
+
+
+def to_host(t):
+    """``(array, dtype name)``: a tensor's values as a host numpy array.
+    numpy has no bfloat16, so a bf16 tensor travels as its raw 16-bit words
+    (an int16 array) and the name ``"bfloat16"`` tells them apart; a numpy
+    array passes through with its own dtype's name."""
+    if isinstance(t, np.ndarray):
+        return t, t.dtype.name
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), "bfloat16"
+    return t.numpy(), NAMES[t.dtype]
+
+
+def from_host(arr, name=None, device=None) -> torch.Tensor:
+    """Inverse of :func:`to_host`: int16 words named ``"bfloat16"`` become
+    a bf16 tensor again, bit for bit; other arrays keep their dtype."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if name == "bfloat16" and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t if device is None else t.to(device)
+
+
+__all__ = ["DTYPES", "NAMES", "convert_dtype", "from_host", "to_host"]

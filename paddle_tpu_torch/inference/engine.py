@@ -22,9 +22,18 @@ hand-written paged-attention kernel K3 (``ops/cuda/paged_attention.cu``).
   not depend on scheduling or on speculation being on. The bits differ
   from the reference's threefry stream; greedy decoding is exact.
 
+* **Disaggregated prefill.** ``prefill_export`` runs one prompt's prefill
+  here and hands its content pages to a decode engine, which
+  ``try_import_prefill`` seats straight in decode (``serving/worker.py``
+  streams the pages between them).
+* **Telemetry.** With ``PADDLE_TPU_TELEMETRY_DIR`` set, the reference's
+  counters, gauges and spans (``srv_prefill`` / ``srv_decode`` /
+  ``srv_verify``, joined to the router's trace) and the per-tenant ledger
+  (``observability/accounting.py``); one env lookup a call when off.
+
 Left for later slices: mesh / model-parallel sharding, the quantized logit
-wire, versioned weight epochs, disaggregated prefill export/import,
-per-tenant accounting, observability gauges and the compile cache.
+wire, versioned weight epochs and the compile cache (ROADMAP.md §A.4b,
+§A.8).
 """
 from __future__ import annotations
 
@@ -37,8 +46,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..device import resolve_device
 from ..distributed.grad_comm import dequantize_absmax, quantize_absmax
+from ..framework.dtype import from_host, to_host
 from ..nn import functional as F
 from ..ops.paged_attention import paged_attention_plain
 from ..text.generation import prompt_lookup_draft
@@ -174,6 +185,44 @@ class Request:
     #: every page id this request holds a reference on (shared prefix
     #: pages first, then private pages), in virtual-sequence order
     page_ids: List[int] = field(default_factory=list)
+    submit_time: float = 0.0
+    first_token_time: Optional[float] = None
+    #: tokens served from the prefix registry (multiple of page_size)
+    cached_len: int = 0
+    #: distributed-trace context from the router's dispatch record (spans
+    #: are emitted only when trace_id is set)
+    trace_id: Optional[str] = None
+    trace_parent: Optional[str] = None
+    resubmitted: bool = False
+    #: phase accounting (perf_counter stamps) behind the
+    #: serving_request_done event
+    prefill_t0: Optional[float] = None
+    prefill_s: float = 0.0
+    decode_t0: Optional[float] = None
+    decode_steps_n: int = 0
+    verify_steps_n: int = 0
+    spec_accepted_n: int = 0
+    #: cost-attribution key (observability/accounting.py): "-" = untagged
+    tenant: str = "-"
+    slo: str = "standard"
+    #: True when the prefill (and first token) ran on another engine
+    imported: bool = False
+    #: pro-rata KV page occupancy charged so far, page-microseconds
+    acct_page_us: int = 0
+
+
+def _trace_fields(req: Request, trace: Optional[dict], tenant, slo):
+    """Adopt the router's trace context and the tenant / slo labels."""
+    if trace:
+        req.trace_id = trace.get("trace_id")
+        req.trace_parent = trace.get("parent_id")
+        req.resubmitted = int(trace.get("resubmits", 0) or 0) > 0
+    if tenant is not None or slo is not None:
+        from ..observability import accounting as _acct
+
+        req.tenant = _acct.normalize_tenant(tenant)
+        if slo:
+            req.slo = str(slo)
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +503,18 @@ class DecodeEngine:
         self._int8 = cfg.kv_dtype == "int8"
         self._mp = cfg.max_pages
         self._num_pages = cfg.resolved_num_pages()
+        #: the attention route spans and gauges name: "cuda" (K3) or
+        #: "plain" (the plain version: attn_kernel "plain", or CPU tensors)
+        self._attn_kernel = ("cuda" if cfg.attn_kernel == "auto"
+                             and self.device.type == "cuda" else "plain")
+        _obs.set_gauge("attn_kernel_active",
+                       1.0 if self._attn_kernel == "cuda" else 0.0)
+        # the plain route dequantizes both int8 pools per layer per step;
+        # K3 dequantizes each page inside the kernel: the traffic avoided
+        self._fused_dequant_bytes_step = (
+            2 * ad.num_layers * self._num_pages * ad.num_kv_heads
+            * cfg.page_size * ad.head_dim * 4
+            if self._attn_kernel == "cuda" and self._int8 else 0)
         shape = (ad.num_layers, self._num_pages, ad.num_kv_heads,
                  cfg.page_size, ad.head_dim)
         dev = self.device
@@ -492,6 +553,13 @@ class DecodeEngine:
         self.prefix_hit_tokens = 0
         self.peak_pages_in_use = 0
         self.peak_running = 0
+        #: untagged prompt tokens prefilled on THIS engine (the integer
+        #: the per-tenant ledger reconciles against)
+        self.prompt_tokens_total = 0
+        #: per-tenant metering, created on the first submit with
+        #: accounting enabled (one None check a step when off)
+        self._acct = None
+        self._pg_meter = None
         #: (slots, logits) of the last decode/verify step: logits [S, V]
         #: or [S, k+1, V] over all slots; ``slots`` lists the active ones
         self.last_step: Optional[Tuple[List[int], torch.Tensor]] = None
@@ -503,18 +571,36 @@ class DecodeEngine:
 
     # -- scheduler ----------------------------------------------------------
 
-    def submit(self, prompt, params: Optional[SamplingParams] = None,
-               **kw) -> int:
-        """Queue one request; returns its id. `prompt` is a 1-D int
-        sequence; keyword args build a SamplingParams."""
-        if params is None:
-            params = SamplingParams(**kw)
+    def accounting_ledger(self, create: bool = False):
+        """This engine's per-tenant metering ledger, or None while
+        accounting is disabled. ``create=True`` instantiates it when
+        accounting is enabled (one env lookup)."""
+        if self._acct is None and create:
+            from ..observability import accounting as _acct
+
+            if _acct.enabled():
+                self._acct = _acct.TenantLedger()
+                self._pg_meter = _acct.PageSecondsMeter(self._acct)
+        return self._acct
+
+    def _acct_tick(self, now: float):
+        """Charge KV page occupancy since the last tick to the running
+        set, shared pages split pro rata."""
+        self._pg_meter.tick(now, self._running.values(),
+                            self.pool.refcount,
+                            self._num_pages - 1 - self.pool.available())
+
+    @staticmethod
+    def _prompt_ids(prompt) -> np.ndarray:
         if isinstance(prompt, torch.Tensor):
             prompt = prompt.detach().cpu().numpy()
         ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
-        t0 = int(ids.shape[0])
-        if t0 < 1:
+        if ids.shape[0] < 1:
             raise ValueError("empty prompt")
+        return ids
+
+    def _check_request(self, t0: int, params: SamplingParams):
+        """The bad-request conditions of ``submit`` (reference order)."""
         if t0 > self.buckets[-1]:
             raise ValueError(
                 f"prompt length {t0} exceeds the largest prompt bucket "
@@ -523,6 +609,25 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({t0}) + max_new_tokens ({params.max_new_tokens}) "
                 f"exceeds max_length={self.config.max_length}")
+
+    def _request_seed(self, params: SamplingParams, rid: int) -> int:
+        return (int(params.seed) if params.seed is not None
+                else _mix_seed(self.config.seed, rid))
+
+    def submit(self, prompt, params: Optional[SamplingParams] = None, *,
+               trace: Optional[dict] = None, tenant: Optional[str] = None,
+               slo: Optional[str] = None, **kw) -> int:
+        """Queue one request; returns its id. `prompt` is a 1-D int
+        sequence; keyword args build a SamplingParams. ``trace`` is the
+        router's propagated span context: when given, the engine's
+        prefill / decode / verify spans join that request tree.
+        ``tenant`` / ``slo`` label the request for the per-tenant ledger
+        (absent -> the "-" default)."""
+        if params is None:
+            params = SamplingParams(**kw)
+        ids = self._prompt_ids(prompt)
+        t0 = int(ids.shape[0])
+        self._check_request(t0, params)
         total_pages = -(-(t0 + params.max_new_tokens)
                         // self.config.page_size)
         if total_pages > self._num_pages - 1:
@@ -531,11 +636,15 @@ class DecodeEngine:
                 f"has {self._num_pages - 1}")
         rid = self._next_id
         self._next_id += 1
-        seed = (int(params.seed) if params.seed is not None
-                else _mix_seed(self.config.seed, rid))
-        req = Request(req_id=rid, prompt=ids, params=params, seed=seed)
+        req = Request(req_id=rid, prompt=ids, params=params,
+                      seed=self._request_seed(params, rid),
+                      submit_time=time.perf_counter())
+        _trace_fields(req, trace, tenant, slo)
+        self.accounting_ledger(create=True)
         self._requests[rid] = req
         self._waiting.append(req)
+        _obs.inc("serving_requests_total")
+        _obs.set_gauge("serving_queue_depth", float(len(self._waiting)))
         return rid
 
     def step(self) -> bool:
@@ -596,6 +705,8 @@ class DecodeEngine:
         return rep(temp), rep(top_k), rep(top_p), rep(greedy)
 
     def _step_decode(self):
+        if self._acct is not None:
+            self._acct_tick(time.perf_counter())
         s = self.config.num_slots
         active = list(self._running.items())
         tokens = np.zeros(s, np.int64)
@@ -610,6 +721,10 @@ class DecodeEngine:
         nxt = _sample_tokens(logits, seeds, *self._sampling_arrays(1))
         nxt_host = nxt.cpu().numpy()  # the per-step host transfer: [S]
         dt = time.perf_counter() - t0
+        _obs.observe("serving_decode_step_seconds", dt)
+        if self._fused_dequant_bytes_step:
+            _obs.inc("attn_kernel_fused_dequant_bytes_total",
+                     self._fused_dequant_bytes_step)
         if self.decode_steps:  # the first step pays one-time set-up
             self._t_decode_ema = self._ema(self._t_decode_ema, dt)
         self.step_seconds += dt
@@ -617,15 +732,21 @@ class DecodeEngine:
         self.decode_steps += 1
         self.last_step = ([slot for slot, _ in active], logits)
         for slot, req in active:
+            if req.decode_t0 is None:
+                req.decode_t0 = t0  # first batched step this request joined
+            req.decode_steps_n += 1
             self.total_tokens += 1
             self._append_token(req, int(nxt_host[slot]))
-        self._update_peaks()
+        _obs.inc("serving_tokens_total", len(active))
+        self._update_gauges()
 
     def _step_verify(self, drafts: Dict[int, np.ndarray], k: int):
         """One multi-token speculative step: score cur + k drafts in a
         single target pass; accept target tokens while the draft agrees
         (position-keyed streams, so acceptance never changes WHAT is
         sampled — only how many tokens one step emits)."""
+        if self._acct is not None:
+            self._acct_tick(time.perf_counter())
         s, k1 = self.config.num_slots, k + 1
         tokens = np.zeros((s, k1), np.int64)
         positions = np.zeros(s, np.int64)
@@ -643,6 +764,10 @@ class DecodeEngine:
             *self._sampling_arrays(k1)).reshape(s, k1)
         targets_host = targets.cpu().numpy()
         dt = time.perf_counter() - t0
+        _obs.observe("serving_decode_step_seconds", dt)
+        if self._fused_dequant_bytes_step:
+            _obs.inc("attn_kernel_fused_dequant_bytes_total",
+                     self._fused_dequant_bytes_step)
         if self.verify_steps:
             self._t_verify_ema = self._ema(self._t_verify_ema, dt)
         self.step_seconds += dt
@@ -659,6 +784,11 @@ class DecodeEngine:
                 m += 1
             self.spec_proposed += k
             self.spec_accepted += m
+            if req.decode_t0 is None:
+                req.decode_t0 = t0
+            req.decode_steps_n += 1
+            req.verify_steps_n += 1
+            req.spec_accepted_n += m
             for tok in tgt[:m + 1]:
                 if req.status != "running":
                     break  # budget/eos hit mid-emission
@@ -668,7 +798,10 @@ class DecodeEngine:
         if active_slots:
             self._tok_verify_ema = self._ema(
                 self._tok_verify_ema, emitted / active_slots)
-        self._update_peaks()
+        _obs.inc("serving_tokens_total", emitted)
+        _obs.set_gauge("serving_spec_accept_ratio",
+                       self.spec_accepted / max(self.spec_proposed, 1))
+        self._update_gauges()
 
     def _collect_drafts(self, k: int):
         """Prompt-lookup drafts per running slot; slots with no n-gram
@@ -698,10 +831,16 @@ class DecodeEngine:
         """Drive step() until every submitted request finished; returns
         {req_id: prompt + generated} for requests completed in this
         drain."""
+        t0 = time.perf_counter()
+        before = self.total_tokens
         seen_done = {rid for rid, r in self._requests.items()
                      if r.status == "done"}
         while self._waiting or self._running:
             self.step()
+        emitted = self.total_tokens - before
+        if emitted:
+            _obs.set_gauge("serving_tokens_per_second",
+                           emitted / max(time.perf_counter() - t0, 1e-9))
         return {rid: self.result(rid) for rid, r in self._requests.items()
                 if r.status == "done" and rid not in seen_done}
 
@@ -747,6 +886,7 @@ class DecodeEngine:
         afterwards a drained engine holds zero pages."""
         if self.registry is not None:
             self.registry.clear()
+        self._update_gauges()
 
     def warmup(self) -> dict:
         """Run every program once before traffic arrives — one prefill per
@@ -790,9 +930,267 @@ class DecodeEngine:
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
+            "prompt_tokens_total": self.prompt_tokens_total,
             "attn_kernel": self.config.attn_kernel,
             "device": str(self.device),
         }
+
+    def occupancy(self) -> dict:
+        """Scheduler-load snapshot for the serving router: the numbers
+        ``serving/worker.py`` publishes each poll (least-outstanding-tokens
+        dispatch reads ``outstanding_tokens``). ``compile_cache_hits`` and
+        ``weight_epoch`` keep the reference's keys: the port has no
+        compile cache and serves epoch 0 (ROADMAP.md §A.8)."""
+        outstanding = sum(r.params.max_new_tokens - len(r.tokens)
+                          for r in self._running.values())
+        outstanding += sum(len(r.prompt) + r.params.max_new_tokens
+                           for r in self._waiting)
+        return {
+            "outstanding_tokens": int(outstanding),
+            "running": len(self._running),
+            "waiting": len(self._waiting),
+            "slots_free": len(self._free),
+            "pages_free": self.pool.available(),
+            "prefix_hit_tokens": int(self.prefix_hit_tokens),
+            "decode_steps": int(self.decode_steps),
+            "total_tokens": int(self.total_tokens),
+            "compile_cache_hits": 0,
+            "weight_epoch": 0,
+        }
+
+    # -- disaggregated prefill: KV-page export / import ---------------------
+
+    def prefill_export(self, prompt, params: Optional[SamplingParams] = None,
+                       *, trace: Optional[dict] = None,
+                       tenant: Optional[str] = None,
+                       slo: Optional[str] = None, **kw):
+        """Run one prompt's prefill HERE and hand its KV pages to a decode
+        engine (disaggregated serving; ``serving/worker.py`` streams the
+        result over ``transport.encode_kv``).
+
+        Only the ``ceil(t0 / page_size)`` content pages are exported — the
+        decode side allocates its own generation pages — and the slabs are
+        bit-equal to what a local prefill leaves in this pool (padding
+        rows past ``true_len`` included), so a raw-wire import decodes
+        bit-equal to a unified engine. Sampled streams additionally need
+        an explicit ``params.seed`` (the router always sets one).
+
+        Returns ``None`` when no slot (or pages) are free right now — the
+        caller retries next poll; ``{"done": prompt+tokens}`` when the
+        request finished at prefill (1-token budget / instant EOS); else
+        ``{"first_token", "true_len", "prefill_s", "pool_dtype", "dtype",
+        "k", "v" [, "ks", "vs"]}`` with k / v ``[L, n_pages, Hkv, P, D]``
+        host numpy arrays (a bf16 pool's as int16 words, ``dtype``
+        ``"bfloat16"``: ``framework.dtype.to_host``) plus the int8 scale
+        slabs ``[L, n_pages, Hkv, P]`` when this pool is int8. Raises
+        ValueError on the same bad-request conditions as ``submit``.
+        """
+        if params is None:
+            params = SamplingParams(**kw)
+        ids = self._prompt_ids(prompt)
+        t0 = int(ids.shape[0])
+        self._check_request(t0, params)
+        p = self.config.page_size
+        content_pages = -(-t0 // p)
+        if content_pages > self._num_pages - 1:
+            raise ValueError(
+                f"prompt needs {content_pages} KV pages but the pool only "
+                f"has {self._num_pages - 1}")
+        if not self._free:
+            return None
+        slot = self._free[-1]
+        keys: List[bytes] = []
+        shared: List[int] = []
+        if self.registry is not None:
+            keys = PrefixRegistry.block_keys(ids, p)
+            shareable = min(len(keys), (t0 - 1) // p)
+            shared = self.registry.lookup_chain(keys[:shareable])
+        need = content_pages - len(shared)
+        if self.pool.available() < need and self.registry is not None:
+            self.registry.evict_unused(need - self.pool.available())
+        pages = self.pool.alloc(need)
+        if pages is None:
+            for pg in shared:
+                self.pool.decref(pg)
+            return None
+        rid = self._next_id
+        self._next_id += 1
+        cached_len = len(shared) * p
+        row = np.zeros(self._mp, np.int32)
+        row[:len(shared)] = shared
+        row[len(shared):content_pages] = pages
+        self._tables[slot] = row
+        req = Request(req_id=rid, prompt=ids, params=params,
+                      seed=self._request_seed(params, rid),
+                      submit_time=time.perf_counter())
+        _trace_fields(req, trace, tenant, slo)
+        self.accounting_ledger(create=True)
+        req.page_ids = shared + pages
+        req.cached_len = cached_len
+        self.prefix_hit_tokens += cached_len
+        if cached_len:
+            _obs.inc("serving_prefix_hit_tokens", cached_len)
+        if self.registry is not None:
+            for j in range(len(shared), t0 // p):
+                self.registry.register(keys[j], int(row[j]))
+        self._requests[rid] = req
+        self._prefill(req, slot, row, cached_len)
+        self._free.pop()  # _finish may have re-appended it; net correct
+        if req.status == "done":
+            return {"done": self.result(rid)}
+        idx = torch.as_tensor(row[:content_pages], dtype=torch.long,
+                              device=self.device)
+        k, dtype = to_host(self._kc[:, idx])
+        v, _ = to_host(self._vc[:, idx])
+        out = {
+            "first_token": int(req.tokens[0]),
+            "true_len": t0,
+            "prefill_s": float(req.prefill_s),
+            "pool_dtype": self.config.kv_dtype,
+            "dtype": dtype,
+            "k": k,
+            "v": v,
+        }
+        if self._int8:
+            out["ks"] = to_host(self._ksc[:, idx])[0]
+            out["vs"] = to_host(self._vsc[:, idx])[0]
+        if req.tenant != "-":
+            # label the handoff so the decode engine's ledger keys match
+            out["tenant"] = req.tenant
+            out["slo"] = req.slo
+        if self._acct is not None:
+            # the prefill engine's half of the request: prompt + first
+            # token here, KV-stream wire bytes to the decode engine
+            self._acct_tick(time.perf_counter())
+            self._acct.add(
+                req.tenant, req.slo, prefill_tokens=int(t0),
+                decode_tokens=1,
+                queue_seconds=max(req.prefill_t0 - req.submit_time, 0.0),
+                wire_bytes=sum(int(out[kk].nbytes)
+                               for kk in ("k", "v", "ks", "vs")
+                               if kk in out))
+        # detach: the decode engine owns the request from its first token
+        # on. The registry's refs keep this prompt's full blocks resident
+        # for future prefix hits; the request's own refs drop.
+        del self._running[slot]
+        self._tables[slot] = 0
+        self._free.append(slot)
+        req.slot = -1
+        for page in req.page_ids:
+            self.pool.decref(page)
+        req.page_ids = []
+        req.status = "done"
+        self._update_gauges()
+        return out
+
+    def _slab(self, x, dtype: Optional[str]) -> torch.Tensor:
+        """An imported slab (host array, or tensor) on this engine's
+        device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return from_host(x, dtype, self.device)
+
+    def try_import_prefill(self, prompt, params: SamplingParams, kv: dict,
+                           *, trace: Optional[dict] = None,
+                           tenant: Optional[str] = None,
+                           slo: Optional[str] = None) -> Optional[int]:
+        """Adopt a prefill computed on ANOTHER engine: write its exported
+        content pages into this pool and seat the request directly in
+        decode (no local prefill runs). ``kv`` is a ``prefill_export``
+        payload (after any wire codec round trip; its ``dtype`` tag names
+        int16 words of a bf16 pool).
+
+        With a raw wire and matching ``kv_dtype`` the imported pages are
+        bit-identical to a local prefill, so greedy decode matches a
+        unified engine exactly; an int8 wire over a float pool dequantizes
+        on import. Returns the new request id, or ``None`` when no slot or
+        pages are free right now (the caller retries next poll). Raises
+        ValueError on bad requests or a prompt/payload length mismatch.
+        """
+        ids = self._prompt_ids(prompt)
+        t0 = int(ids.shape[0])
+        if int(kv["true_len"]) != t0:
+            raise ValueError(
+                f"KV payload prefilled {int(kv['true_len'])} tokens but the "
+                f"prompt has {t0}")
+        if t0 + params.max_new_tokens > self.config.max_length:
+            raise ValueError(
+                f"prompt ({t0}) + max_new_tokens ({params.max_new_tokens}) "
+                f"exceeds max_length={self.config.max_length}")
+        p = self.config.page_size
+        total_pages = -(-(t0 + params.max_new_tokens) // p)
+        if total_pages > self._num_pages - 1:
+            raise ValueError(
+                f"request needs {total_pages} KV pages but the pool only "
+                f"has {self._num_pages - 1}")
+        if not self._free:
+            return None
+        if self.pool.available() < total_pages and self.registry is not None:
+            self.registry.evict_unused(total_pages - self.pool.available())
+        pages = self.pool.alloc(total_pages)
+        if pages is None:
+            return None
+        slot = self._free.pop()
+        content_pages = -(-t0 // p)
+        row = np.zeros(self._mp, np.int32)
+        row[:total_pages] = pages
+        self._tables[slot] = row
+        idx = torch.as_tensor(pages[:content_pages], dtype=torch.long,
+                              device=self.device)
+        dtype = kv.get("dtype")
+        k_in = self._slab(kv["k"], dtype)
+        v_in = self._slab(kv["v"], dtype)
+        if self._int8 and "ks" in kv:
+            # int8 source pool -> int8 pool: copy the quantized slabs and
+            # their scales verbatim (bit-equal)
+            self._kc[:, idx] = k_in.to(self._kc.dtype)
+            self._vc[:, idx] = v_in.to(self._vc.dtype)
+            self._ksc[:, idx] = self._slab(kv["ks"], None).float()
+            self._vsc[:, idx] = self._slab(kv["vs"], None).float()
+        elif self._int8:
+            # float payload into an int8 pool: requantize at the
+            # per-[page, head, token] granularity the prefill writes use
+            qk, sk = quantize_absmax(k_in.float(), axis=-1)
+            qv, sv = quantize_absmax(v_in.float(), axis=-1)
+            self._kc[:, idx] = qk
+            self._vc[:, idx] = qv
+            self._ksc[:, idx] = sk[..., 0]
+            self._vsc[:, idx] = sv[..., 0]
+        else:
+            if "ks" in kv:  # int8 source pool -> float pool
+                k_in = dequantize_absmax(
+                    k_in, self._slab(kv["ks"], None).float()[..., None])
+                v_in = dequantize_absmax(
+                    v_in, self._slab(kv["vs"], None).float()[..., None])
+            self._kc[:, idx] = k_in.to(self._kc.dtype)
+            self._vc[:, idx] = v_in.to(self._vc.dtype)
+        rid = self._next_id
+        self._next_id += 1
+        now = time.perf_counter()
+        req = Request(req_id=rid, prompt=ids, params=params,
+                      seed=self._request_seed(params, rid),
+                      status="running", slot=slot, submit_time=now)
+        req.page_ids = list(pages)
+        req.prefill_t0 = now
+        req.prefill_s = float(kv.get("prefill_s", 0.0))
+        req.first_token_time = now
+        req.imported = True
+        _trace_fields(req, trace,
+                      tenant if tenant is not None else kv.get("tenant"),
+                      slo if slo is not None else kv.get("slo"))
+        self.accounting_ledger(create=True)
+        if self.registry is not None:
+            keys = PrefixRegistry.block_keys(ids, p)
+            for j in range(t0 // p):
+                self.registry.register(keys[j], int(row[j]))
+        self._requests[rid] = req
+        self._running[slot] = req
+        _obs.inc("serving_requests_total")
+        # the first token was sampled (and counted) on the prefill engine;
+        # _append_token handles the instant-EOS / 1-token budget edge
+        self._append_token(req, int(kv["first_token"]))
+        self._update_gauges()
+        return rid
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -806,7 +1204,8 @@ class DecodeEngine:
                 break  # head request can't get pages yet; keep FIFO order
             self._waiting.popleft()
             self._free.pop()
-        self._update_peaks()
+        _obs.set_gauge("serving_queue_depth", float(len(self._waiting)))
+        self._update_gauges()
 
     def _try_prefill(self, req: Request, slot: int) -> bool:
         """Reserve pages (sharing registry hits), run the tail prefill,
@@ -838,7 +1237,10 @@ class DecodeEngine:
         row[len(shared):total_pages] = pages
         self._tables[slot] = row
         req.page_ids = shared + pages
+        req.cached_len = cached_len
         self.prefix_hit_tokens += cached_len
+        if cached_len:
+            _obs.inc("serving_prefix_hit_tokens", cached_len)
         # register BEFORE the prefill runs: the prefill can finish the
         # request outright (1-token budget / instant EOS), and _finish
         # drops the request's page refs — the registry's +1 must already
@@ -865,12 +1267,25 @@ class DecodeEngine:
         nxt = _sample_tokens(logits, [_mix_seed(req.seed, t0)], temp,
                              top_k, top_p, greedy)
         token = int(nxt[0])
-        self.prefill_seconds += time.perf_counter() - tp0
+        now = time.perf_counter()
+        self.prefill_seconds += now - tp0
         self.prefill_calls += 1
+        req.first_token_time = now
+        req.prefill_t0 = tp0
+        req.prefill_s = now - tp0
+        _obs.observe("serving_ttft_seconds", now - req.submit_time)
+        if req.trace_id is not None:
+            _obs.record_span(
+                "srv_prefill", trace_id=req.trace_id,
+                parent_id=req.trace_parent, dur_s=req.prefill_s,
+                rid=req.req_id, bucket=int(tb), cached_len=int(cached_len),
+                kernel=self._attn_kernel)
         req.slot = slot
         req.status = "running"
         self._running[slot] = req
         self.total_tokens += 1
+        self.prompt_tokens_total += t0
+        _obs.inc("serving_tokens_total")
         self._append_token(req, token)
 
     def _append_token(self, req: Request, token: int):
@@ -882,6 +1297,11 @@ class DecodeEngine:
 
     def _finish(self, req: Request):
         req.status = "done"
+        if self._acct is not None:
+            # charge the page-occupancy tail while the request still holds
+            # its pages, then attribute its totals to the ledger
+            self._acct_tick(time.perf_counter())
+            self._acct_request(req)
         if req.slot >= 0:
             del self._running[req.slot]
             self._tables[req.slot] = 0
@@ -890,11 +1310,71 @@ class DecodeEngine:
         for page in req.page_ids:
             self.pool.decref(page)
         req.page_ids = []
+        ttft = (None if req.first_token_time is None
+                else req.first_token_time - req.submit_time)
+        queue_s = (None if req.prefill_t0 is None
+                   else req.prefill_t0 - req.submit_time)
+        decode_s = (0.0 if req.decode_t0 is None
+                    else time.perf_counter() - req.decode_t0)
+        if req.trace_id is not None and req.decode_t0 is not None:
+            did = _obs.record_span(
+                "srv_decode", trace_id=req.trace_id,
+                parent_id=req.trace_parent, dur_s=decode_s,
+                rid=req.req_id, steps=req.decode_steps_n,
+                tokens=len(req.tokens), kernel=self._attn_kernel)
+            if req.verify_steps_n:
+                # the speculative share of the decode window, parented to
+                # the srv_decode span it partitions
+                _obs.record_span(
+                    "srv_verify", trace_id=req.trace_id, parent_id=did,
+                    dur_s=decode_s * req.verify_steps_n
+                    / max(req.decode_steps_n, 1),
+                    steps=req.verify_steps_n, accepted=req.spec_accepted_n)
+        _obs.event("serving_request_done", req_id=req.req_id,
+                   prompt_tokens=int(len(req.prompt)),
+                   generated_tokens=len(req.tokens), ttft_seconds=ttft,
+                   queue_s=queue_s, prefill_s=round(req.prefill_s, 6),
+                   decode_s=round(decode_s, 6),
+                   spec_accepted=req.spec_accepted_n,
+                   spec_wasted=max(
+                       self.config.speculate_k * req.verify_steps_n
+                       - req.spec_accepted_n, 0),
+                   tenant=req.tenant, slo_class=req.slo,
+                   imported=req.imported, kv_page_us=req.acct_page_us,
+                   resubmitted=req.resubmitted)
 
-    def _update_peaks(self):
+    def _acct_request(self, req: Request):
+        """Fold one finished request into the per-tenant ledger. An
+        imported request's prompt and first token were metered on the
+        prefill engine (``prefill_export``), so only its remaining
+        generated tokens count here."""
+        wasted = max(self.config.speculate_k * req.verify_steps_n
+                     - req.spec_accepted_n, 0)
+        queue_s = (0.0 if req.prefill_t0 is None
+                   else max(req.prefill_t0 - req.submit_time, 0.0))
+        self._acct.add(
+            req.tenant, req.slo, requests=1,
+            prefill_tokens=0 if req.imported else int(len(req.prompt)),
+            decode_tokens=len(req.tokens) - (1 if req.imported else 0),
+            spec_accepted_tokens=req.spec_accepted_n,
+            spec_wasted_tokens=wasted, queue_seconds=queue_s)
+
+    def _update_gauges(self):
         in_use = self._num_pages - 1 - self.pool.available()
         self.peak_pages_in_use = max(self.peak_pages_in_use, in_use)
         self.peak_running = max(self.peak_running, len(self._running))
+        if not _obs.enabled():
+            return
+        used = sum(len(r.prompt) + len(r.tokens)
+                   for r in self._running.values())
+        _obs.set_gauge("serving_batch_occupancy",
+                       len(self._running) / float(self.config.num_slots))
+        _obs.set_gauge("serving_kv_cache_utilization",
+                       used / float((self._num_pages - 1)
+                                    * self.config.page_size))
+        _obs.set_gauge("serving_kv_pages_free", float(self.pool.available()))
+        _obs.set_gauge("serving_kv_pages_shared",
+                       float(self.pool.shared_pages()))
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -1,0 +1,657 @@
+"""Engine worker: one DecodeEngine behind the streaming dataplane
+(counterpart of ``paddle_tpu/serving/worker.py``).
+
+Registers in the coordination store under the serving namespace (a
+race-free index from the atomic ``add`` counter) — the registration
+record carries the worker's transport listen address, its ``role``
+(``unified`` | ``prefill`` | ``decode``) and its KV wire codec — then
+loops: drain dispatched requests (direct ``dispatch`` frames from the
+router's persistent socket, with the legacy store keys as the A/B and
+socket-failure fallback), advance the scheduler one step (with a chaos
+``engine_fence`` so soaks can SIGKILL it mid-decode), publish finished
+token streams, and publish an occupancy beat. Occupancy rides the SAME
+socket as the data (the heartbeat) and is mirrored to the store at a
+slow cadence — the store stays the membership/failover ground truth,
+but per-request latency no longer pays store round trips.
+
+Roles (disaggregated prefill/decode):
+
+* ``unified`` — classic worker: local prefill + decode per request.
+* ``prefill`` — dispatch records arrive with a ``kv_to`` target; the
+  worker runs ``engine.prefill_export`` and streams the finished KV
+  pages (``transport.encode_kv``) straight to the target decode worker,
+  then tells the router via a ``relay`` frame. It never decodes.
+* ``decode`` — imports streamed KV pages (``engine.try_import_prefill``,
+  bit-equal to a local prefill on the raw wire) and decodes; it also
+  accepts direct dispatches (short prompts skip disaggregation).
+
+Crash-safety ordering is UNCHANGED from the store dataplane: a request's
+``done`` key is written to the STORE before the occupancy beat that acks
+it — wire ``done`` frames are a latency optimization on top, not the
+ground truth — so failover can harvest everything a dead engine
+finished; anything not harvested is re-run bit-equal (the router assigns
+every request an explicit sampling seed — the engine's implicit
+per-request default would differ across engines).
+
+Run standalone, one process per worker, against the router's store::
+
+    python -m paddle_tpu_torch.serving.worker --master 127.0.0.1:29510 \
+        --device cuda --model-seed 7 --hidden 2048 --layers 24 \
+        --heads 16 --vocab 50304 --max-positions 2048 --kv-dtype bf16
+
+``--device`` (default ``cuda``) is the only flag the reference lacks; a
+worker asked for CUDA where there is none exits non-zero. After its first
+result and at the router's stop broadcast the worker prints one JSON line
+on stderr (``{"serving_worker": {...}}``): its name, its device, its K3
+launches by regime so far and its float32 matmul settings.
+
+Not ported yet: ``--mp > 1`` (the engine's mesh sharding, ROADMAP.md
+§A.4b) and the ``wt`` weight-epoch frames of ``serving/online.py`` (§A.8)
+raise ``NotImplementedError``, as does live telemetry (§A.8).
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+from collections import deque
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from .. import observability as _obs
+from ..inference.engine import DecodeEngine, EngineConfig, SamplingParams
+from ..testing import chaos
+from .protocol import (DEFAULT_NAMESPACE, ROLES, deadline_guard, k_ctl,
+                       k_ctl_engine, k_done, k_engine, k_occ, k_req,
+                       k_count, pack, unpack)
+from .transport import (SeqChannels, TransportClient, TransportServer,
+                        decode_kv, encode_kv)
+
+__all__ = ["EngineWorker", "main"]
+
+_WT_UNPORTED = ("wt weight-epoch frames (serving/online.py: versioned "
+                "weight epochs) are not ported yet, see ROADMAP.md §A.8")
+
+#: store-mirror cadence for occupancy/fallback drains once a router
+#: socket is attached (the wire is the hot path; the store is failover
+#: ground truth and only needs a slow heartbeat)
+_STORE_MIRROR_S = 0.25
+
+
+class EngineWorker:
+    """Wrap a DecodeEngine as a transport-served, store-coordinated
+    serving worker."""
+
+    def __init__(self, model, store, config: Optional[EngineConfig] = None,
+                 *, name: Optional[str] = None,
+                 namespace: str = DEFAULT_NAMESPACE,
+                 role: str = "unified",
+                 kv_wire: str = "raw", device=None, **overrides):
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        if kv_wire not in ("raw", "int8"):
+            raise ValueError(f"kv_wire must be raw|int8, got {kv_wire!r}")
+        self.engine = DecodeEngine(model, config, device=device,
+                                   **overrides)
+        self._store = store
+        self._ns = namespace
+        self.role = role
+        self._kv_wire = kv_wire
+        self._server = TransportServer()
+        with deadline_guard("register engine"):
+            self.index = int(self._store.add(k_count(namespace), 1)) - 1
+        self.name = name or f"engine{self.index}"
+        cfg = self.engine.config
+        record = {
+            "name": self.name,
+            "index": self.index,
+            "num_slots": cfg.num_slots,
+            "max_length": cfg.max_length,
+            "page_size": cfg.page_size,
+            "buckets": list(self.engine.buckets),
+            "pid": os.getpid(),
+            "addr": self._server.addr,
+            "role": role,
+            "kv_wire": kv_wire,
+        }
+        with deadline_guard("register engine"):
+            self._store.set(k_engine(namespace, self.index), pack(record))
+        #: per-channel seq state: the dispatch stream is one channel of a
+        #: shared connection (tensor-queue frames number independently)
+        self._rx_seq = SeqChannels()
+        self._beat = 0
+        self._local_rid: Dict[int, int] = {}  # engine rid -> router rid
+        self._last_occ_pub = 0.0
+        self._last_occ_store = -float("inf")
+        self._last_drain = -float("inf")
+        self._last_store_drain = -float("inf")
+        self._done_count = 0  # lifetime results published (rides the beat)
+        #: connection ids that sent a router hello (done/occ frames go here)
+        self._router_cids: set = set()
+        #: prefill role: dispatch records awaiting export + KV handoff
+        self._prefill_jobs: deque = deque()
+        #: decode/unified role: kv frames awaiting a free slot
+        self._kv_imports: deque = deque()
+        #: prefill role: persistent links to decode workers, by address
+        self._kv_links: Dict[str, TransportClient] = {}
+        #: fleet-supervisor drain order (per-engine ctl key): while True
+        #: the worker admits NO new dispatches but keeps stepping the
+        #: engine so in-flight requests finish; once idle its beat
+        #: advertises ``drained`` and the supervisor can flip its role
+        self.draining = False
+        self._idle = True
+        self._last_drain_ctl = -float("inf")
+        self.publish_occupancy()
+
+    # -- transport I/O ------------------------------------------------------
+
+    def _pump_transport(self):
+        """Drain every transport connection: stash dispatch records by
+        seq (the consume loop enforces order and skips duplicates from
+        retransmits), queue KV-page streams, learn which connections are
+        routers."""
+        for cid, frame in self._server.poll():
+            t = frame.get("t")
+            if t == "hello":
+                if frame.get("peer") == "router":
+                    self._router_cids.add(cid)
+            elif t == "dispatch":
+                # only routers dispatch: treat the conn as one even if
+                # its hello frame was lost (chaos half_open)
+                self._router_cids.add(cid)
+                for rec in frame.get("reqs", ()):
+                    self._rx_seq.stash("dispatch", int(rec["seq"]), rec)
+            elif t == "kv":
+                self._kv_imports.append(frame)
+            elif t == "wt":
+                raise NotImplementedError(_WT_UNPORTED)
+        live = set(self._server.conn_ids())
+        self._router_cids &= live
+
+    def _send_routers(self, frame: dict):
+        for cid in list(self._router_cids):
+            self._server.send(cid, frame)
+
+    # -- request intake -----------------------------------------------------
+
+    def _drain_requests(self):
+        """Consume this engine's request stream in seq order. Wire-stashed
+        records are consumed first (no store round trip); the store key
+        for the same seq is only checked at the slow mirror cadence once
+        a router socket is attached — it is the fallback path for frames
+        lost to a socket failure, and the ONLY path on the legacy store
+        dataplane (no router connection)."""
+        while True:
+            rec = self._rx_seq.pop_next("dispatch")
+            src = "wire"
+            if rec is None:
+                now = time.monotonic()
+                if (self._router_cids
+                        and now - self._last_store_drain < _STORE_MIRROR_S):
+                    return
+                key = k_req(self._ns, self.name,
+                            self._rx_seq.cursor("dispatch"))
+                with deadline_guard("recv request"):
+                    if not self._store.check(key):
+                        self._last_store_drain = now
+                        return
+                    rec = unpack(self._store.get(key))
+                src = "store"
+                self._rx_seq.advance("dispatch")
+            self._consume(rec, src)
+
+    def _consume(self, rec: dict, src: str):
+        """One dispatch record into the engine (unified/decode) or the
+        prefill job queue (prefill role)."""
+        rid = rec["rid"]
+        tr = rec.get("trace")
+        dh = None
+        if tr:
+            # continue the router's trace: the transit span is wall-to-
+            # wall against the router's dispatch_ts (host clock skew
+            # shifts it; every other duration is monotonic)
+            retry = int(tr.get("resubmits", 0) or 0) > 0
+            if src == "wire":
+                _obs.record_span(
+                    "srv_net_transit", trace_id=tr["trace_id"],
+                    parent_id=tr["parent_id"],
+                    start_ts=tr.get("dispatch_ts"), rid=rid,
+                    engine=self.name, retry=retry)
+            else:
+                _obs.record_span(
+                    "srv_store_transit", trace_id=tr["trace_id"],
+                    parent_id=tr["parent_id"],
+                    start_ts=tr.get("dispatch_ts"), rid=rid,
+                    engine=self.name, retry=retry)
+            dh = _obs.start_span(
+                "srv_drain", trace_id=tr["trace_id"],
+                parent_id=tr["parent_id"], rid=rid, engine=self.name)
+        if self.role == "prefill":
+            self._prefill_jobs.append({"rec": rec, "frame": None})
+            if dh:
+                _obs.end_span(dh, queued="prefill")
+            return
+        try:
+            local = self.engine.submit(
+                np.asarray(rec["prompt"], np.int64),
+                SamplingParams(**rec["params"]), trace=tr,
+                tenant=rec.get("tenant"), slo=rec.get("slo"))
+        except ValueError as e:
+            # invalid geometry for THIS engine (bucket/page limits):
+            # report instead of dying — the router surfaces the error
+            if dh:
+                _obs.end_span(dh, error=str(e))
+            self._publish_one_done(
+                {"rid": rid, "engine": self.name, "error": str(e)})
+            return
+        if dh:
+            _obs.end_span(dh)
+        self._local_rid[local] = rid
+
+    # -- disaggregated prefill ----------------------------------------------
+
+    def _advance_prefill(self):
+        """Prefill role: run the head job's prefill and stream its KV
+        pages to the target decode worker. A job whose export cannot get
+        a slot/pages stays at the head and is retried next poll; a job
+        whose KV send failed rotates to the BACK so one unreachable
+        decode peer cannot head-of-line-block handoffs to the others
+        (the built frame is cached, so a resend never re-runs the
+        prefill)."""
+        for _ in range(len(self._prefill_jobs)):
+            job = self._prefill_jobs[0]
+            rec = job["rec"]
+            rid = rec["rid"]
+            if job["frame"] is None:
+                tr = rec.get("trace")
+                try:
+                    payload = self.engine.prefill_export(
+                        np.asarray(rec["prompt"], np.int64),
+                        SamplingParams(**rec["params"]), trace=tr,
+                        tenant=rec.get("tenant"), slo=rec.get("slo"))
+                except ValueError as e:
+                    self._publish_one_done(
+                        {"rid": rid, "engine": self.name, "error": str(e)})
+                    self._prefill_jobs.popleft()
+                    continue
+                if payload is None:
+                    return  # no slot/pages yet; retry next poll
+                if "done" in payload:
+                    # finished at prefill (1-token budget / instant EOS)
+                    self._publish_one_done(
+                        {"rid": rid, "engine": self.name,
+                         "tokens": np.asarray(payload["done"]).tolist()})
+                    self._prefill_jobs.popleft()
+                    continue
+                job["frame"] = {
+                    "t": "kv", "rid": rid, "rec": rec,
+                    "first_token": payload["first_token"],
+                    "true_len": payload["true_len"],
+                    "prefill_s": payload["prefill_s"],
+                    "kv": encode_kv(payload["k"], payload["v"],
+                                    self._kv_wire, payload.get("ks"),
+                                    payload.get("vs"),
+                                    dtype=payload["dtype"]),
+                    "ts": time.time(),
+                }
+            link = self._kv_link(rec["kv_to"]["addr"])
+            if not link.send(job["frame"]):
+                # decode peer unreachable; rotate and let backoff govern
+                # the redial while other targets make progress
+                self._prefill_jobs.rotate(-1)
+                continue
+            self._prefill_jobs.popleft()
+            # tell the router the handoff happened, so it can retire this
+            # rid from the prefill stream's load accounting
+            self._send_routers({"t": "relay", "rids": [rid]})
+
+    def _kv_link(self, addr: str) -> TransportClient:
+        link = self._kv_links.get(addr)
+        if link is None:
+            link = TransportClient(addr, seed=self.index)
+            self._kv_links[addr] = link
+        return link
+
+    def _advance_kv_imports(self):
+        """Decode/unified role: adopt streamed prefills as free slots
+        allow. Import order is arrival order; a head frame waiting for a
+        slot blocks the rest (they need slots too)."""
+        while self._kv_imports:
+            frame = self._kv_imports[0]
+            rec = frame["rec"]
+            rid = rec["rid"]
+            tr = rec.get("trace")
+            kv = frame.get("_decoded")
+            if kv is None:
+                got = decode_kv(frame["kv"])
+                kv = {"first_token": frame["first_token"],
+                      "true_len": frame["true_len"],
+                      "prefill_s": frame.get("prefill_s", 0.0),
+                      "k": got["k"], "v": got["v"], "dtype": got["dtype"]}
+                if "k_scale" in got:  # int8 POOL slabs travel raw
+                    kv["ks"] = got["k_scale"]
+                    kv["vs"] = got["v_scale"]
+                frame["_decoded"] = kv
+            try:
+                local = self.engine.try_import_prefill(
+                    np.asarray(rec["prompt"], np.int64),
+                    SamplingParams(**rec["params"]), kv, trace=tr,
+                    tenant=rec.get("tenant"), slo=rec.get("slo"))
+            except ValueError as e:
+                self._publish_one_done(
+                    {"rid": rid, "engine": self.name, "error": str(e)})
+                self._kv_imports.popleft()
+                continue
+            if local is None:
+                return  # no slot/pages yet; retry next poll
+            if tr:
+                # wall-to-wall KV stream span: export-side send stamp to
+                # import completion, the disaggregated analogue of the
+                # transit spans
+                _obs.record_span(
+                    "srv_kv_stream", trace_id=tr["trace_id"],
+                    parent_id=tr["parent_id"], start_ts=frame.get("ts"),
+                    rid=rid, engine=self.name,
+                    wire=frame["kv"].get("wire"),
+                    pages=int(np.asarray(frame["kv"]["k"]).shape[1]))
+            self._local_rid[local] = rid
+            self._kv_imports.popleft()
+
+    # -- results + occupancy ------------------------------------------------
+
+    def _publish_one_done(self, rec: dict):
+        """STORE first (harvest ground truth), wire echo second — the
+        done-before-ack invariant rides the store write order."""
+        with deadline_guard("publish result"):
+            self._store.set(k_done(self._ns, rec["rid"]), pack(rec))
+        self._done_count += 1
+        self._send_routers({"t": "done", "recs": [rec]})
+
+    def _publish_done(self) -> int:
+        """Write finished token streams; returns how many. Runs BEFORE
+        publish_occupancy in poll_once so a completed request is always
+        harvestable once its seq is acked — the failover no-loss/no-dup
+        invariant. The wire echo (one batched frame) happens after every
+        store write, so a router acting on the frame can already trust
+        the store."""
+        recs = []
+        for local, rid in list(self._local_rid.items()):
+            if self.engine._requests[local].status != "done":
+                continue
+            tokens = self.engine.result(local)
+            rec = {"rid": rid, "engine": self.name,
+                   "tokens": np.asarray(tokens).tolist()}
+            with deadline_guard("publish result"):
+                self._store.set(k_done(self._ns, rid), pack(rec))
+            del self._local_rid[local]
+            self._done_count += 1
+            recs.append(rec)
+        if recs:
+            self._send_routers({"t": "done", "recs": recs})
+        return len(recs)
+
+    def publish_occupancy(self, force_store: bool = False):
+        """Occupancy beat: engine load snapshot + monotone ``beat`` (the
+        router's liveness signal) + ``acked_seq`` (requests consumed, so
+        the router can estimate load it dispatched but the engine hasn't
+        reported yet). The beat rides the router socket as the heartbeat;
+        the store copy — the failover ground truth — is mirrored at a
+        slow cadence (every write follows the done keys it acks)."""
+        self._beat += 1
+        now = time.monotonic()
+        self._last_occ_pub = now
+        occ = self.engine.occupancy()
+        occ["beat"] = self._beat
+        occ["acked_seq"] = self._rx_seq.cursor("dispatch")
+        occ["done_count"] = self._done_count
+        occ["name"] = self.name
+        occ["role"] = self.role
+        occ["prefill_queue"] = len(self._prefill_jobs)
+        occ["draining"] = self.draining
+        occ["drained"] = self.draining and self._idle
+        self._send_routers({"t": "occ", "occ": occ, "ts": time.time()})
+        # the reference ships live telemetry on this beat; not ported
+        _obs.check_live_unported()
+        if (force_store or not self._router_cids
+                or now - self._last_occ_store >= _STORE_MIRROR_S):
+            self._last_occ_store = now
+            with deadline_guard("publish occupancy"):
+                self._store.set(k_occ(self._ns, self.name), pack(occ))
+
+    def stop_requested(self) -> bool:
+        ctl = k_ctl(self._ns)
+        with deadline_guard("poll ctl"):
+            if not self._store.check(ctl):
+                return False
+            rec = unpack(self._store.get(ctl))
+        return bool(rec.get("stop"))
+
+    def _check_drain_ctl(self):
+        """Adopt the fleet supervisor's drain/resume order for this
+        engine (per-engine ctl key), at the slow store-mirror cadence —
+        it is control plane, not request path. A beat is forced on every
+        EDGE so the router and the supervisor see the new ``draining``/
+        ``drained`` state within one mirror period."""
+        now = time.monotonic()
+        if now - self._last_drain_ctl < _STORE_MIRROR_S:
+            return
+        self._last_drain_ctl = now
+        key = k_ctl_engine(self._ns, self.name)
+        with deadline_guard("poll drain ctl"):
+            if not self._store.check(key):
+                return
+            rec = unpack(self._store.get(key))
+        want = bool(rec.get("drain"))
+        if want != self.draining:
+            self.draining = want
+            self.publish_occupancy(force_store=True)
+
+    # -- scheduler ----------------------------------------------------------
+
+    def poll_once(self) -> bool:
+        """One deterministic worker round: pump the transport, drain new
+        requests, advance the engine one step (chaos fence first —
+        PADDLE_CHAOS_ENGINE_* can SIGKILL here, mid-decode), publish
+        results + occupancy. The occupancy beat is throttled to ~40 Hz on
+        the wire (its store mirror far slower): the router samples it far
+        slower still, and unthrottled publishes just contend the fabric.
+        The request drain check is likewise throttled to ~50 Hz while the
+        engine is busy — its internal queue keeps the slots fed between
+        checks; an idle engine checks every poll so first dispatch lands
+        fast. Returns True while the engine still holds work."""
+        self._pump_transport()
+        self._check_drain_ctl()
+        now = time.monotonic()
+        if self.draining:
+            # drain order in effect: admit nothing new — undispatched
+            # seqs stay unconsumed for the router's evacuate/handoff;
+            # in-flight work below still runs to completion
+            pass
+        elif not self._local_rid or now - self._last_drain >= 0.02:
+            self._last_drain = now
+            self._drain_requests()
+        if self.role == "prefill":
+            self._advance_prefill()
+        if self._kv_imports:
+            self._advance_kv_imports()
+        chaos.engine_fence(self.engine.decode_steps)
+        busy = self.engine.step()
+        published = self._publish_done()
+        working = (busy or bool(self._local_rid)
+                   or bool(self._prefill_jobs) or bool(self._kv_imports))
+        self._idle = not working
+        if published or time.monotonic() - self._last_occ_pub >= 0.025:
+            self.publish_occupancy(force_store=bool(published))
+        return working
+
+    def serve(self, poll_interval: float = 0.005,
+              ctl_interval: float = 0.25,
+              report: Optional[Callable[[str], None]] = None):
+        """Poll until the router broadcasts stop. Idle rounds sleep
+        ``poll_interval``; the stop broadcast is only polled every
+        ``ctl_interval`` seconds — it is the cold path. ``report``, when
+        given, is called with ``"first_done"`` once the worker has
+        published its first result and with ``"stop"`` at the stop
+        broadcast (the CLI prints its status record there)."""
+        last_ctl = -float("inf")
+        first = report is not None
+        try:
+            while True:
+                now = time.monotonic()
+                if now - last_ctl >= ctl_interval:
+                    last_ctl = now
+                    if self.stop_requested():
+                        if report is not None:
+                            report("stop")
+                        return
+                if not self.poll_once():
+                    time.sleep(poll_interval)
+                if first and self._done_count:
+                    first = False
+                    report("first_done")
+        finally:
+            self.close()
+
+    def close(self):
+        """Close the listener and the KV links (``serve`` does on return;
+        callers that drive ``poll_once`` themselves call it)."""
+        self._server.close()
+        for link in self._kv_links.values():
+            link.close()
+
+
+def build_worker_model(args):
+    """Deterministic GPT build shared by every worker process AND the
+    in-process reference engines of the tests and ``chip_smoke.py``: same
+    seed => same weights => bit-equal token streams across processes."""
+    from ..text.models.gpt import GPTConfig, GPTForCausalLM
+
+    model = GPTForCausalLM(GPTConfig(
+        vocab_size=args.vocab, hidden_size=args.hidden,
+        num_hidden_layers=args.layers, num_attention_heads=args.heads,
+        max_position_embeddings=args.max_positions,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0),
+        device=args.device, seed=args.model_seed)
+    model.eval()
+    return model
+
+
+def build_arg_parser():
+    import argparse
+
+    p = argparse.ArgumentParser("paddle_tpu_torch.serving.worker")
+    p.add_argument("--master", default=os.environ.get(
+        "PADDLE_SERVING_MASTER", "127.0.0.1:29500"),
+        help="host:port of the coordination store (PADDLE_SERVING_MASTER)")
+    p.add_argument("--namespace", default=DEFAULT_NAMESPACE)
+    p.add_argument("--name", default=None)
+    p.add_argument("--role", default="unified", choices=list(ROLES),
+                   help="unified = prefill+decode per request; prefill = "
+                        "export KV pages and stream them to decode "
+                        "workers; decode = import streamed prefills")
+    p.add_argument("--kv-wire", default="raw", choices=["raw", "int8"],
+                   help="KV-page stream codec: raw is bit-equal, int8 "
+                        "absmax-quantizes per [layer, page, head] "
+                        "(~4x smaller frames for f32 pages, ~2x for bf16)")
+    p.add_argument("--poll-interval", type=float, default=0.005)
+    p.add_argument("--step-floor-ms", type=float, default=0.0,
+                   help="minimum wall time per scheduler step (not "
+                        "ported: > 0 raises)")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every engine program once before serving — "
+                        "each prefill bucket, the single-token decode, and "
+                        "the verify step when --speculate-k > 0")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises when no card is present) "
+                        "or cpu")
+    # model spec (must match the router / reference build)
+    p.add_argument("--model-seed", type=int, default=7)
+    p.add_argument("--vocab", type=int, default=128)
+    p.add_argument("--hidden", type=int, default=64)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--max-positions", type=int, default=512)
+    # engine geometry
+    p.add_argument("--slots", type=int, default=4)
+    p.add_argument("--max-length", type=int, default=256)
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--speculate-k", type=int, default=0)
+    p.add_argument("--no-prefix-cache", action="store_true")
+    p.add_argument("--kv-dtype", default="f32")
+    p.add_argument("--mp", type=int, default=1,
+                   help="shard decode over this many devices' mp axis "
+                        "(not ported yet: > 1 raises)")
+    return p
+
+
+def _status_record(worker: "EngineWorker", event: str) -> dict:
+    """What the CLI prints on stderr after its first result and at the
+    stop broadcast: its device, the K3 launches (by regime) its engine
+    made in this process so far, its float32 matmul settings."""
+    import torch
+
+    from ..ops import paged_attention as pa
+
+    dev = worker.engine.device
+    return {"event": event, "worker": worker.name, "role": worker.role,
+            "pid": os.getpid(),
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "device_type": dev.type,
+            "k3": {n: getattr(pa, n) for n in (
+                "launches", "launches_tile", "launches_split",
+                "launches_decode", "launches_verify")},
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision":
+                torch.get_float32_matmul_precision(),
+            "engine": {k: worker.engine.stats()[k] for k in (
+                "prefill_calls", "decode_steps", "verify_steps",
+                "total_tokens")}}
+
+
+def main(argv=None):
+    import json
+
+    args = build_arg_parser().parse_args(argv)
+    if args.mp > 1:
+        raise NotImplementedError(
+            "--mp > 1 (the engine's mesh / model-parallel sharding) is not "
+            "ported yet, see ROADMAP.md §A.4b")
+    if args.step_floor_ms > 0:
+        raise NotImplementedError(
+            "--step-floor-ms (pacing a host-only worker as if each step "
+            "were accelerator-bound, for a control-plane benchmark) is not "
+            "ported yet, see ROADMAP.md §A.8")
+    from ..runtime import TCPStore
+
+    model = build_worker_model(args)
+    host, port = args.master.rsplit(":", 1)
+    store = TCPStore(host=host, port=int(port), is_master=False, timeout=60.0)
+    worker = EngineWorker(
+        model, store, name=args.name, namespace=args.namespace,
+        role=args.role,
+        kv_wire=args.kv_wire, device=args.device,
+        num_slots=args.slots, max_length=args.max_length,
+        page_size=args.page_size, speculate_k=args.speculate_k,
+        prefix_cache=not args.no_prefix_cache, kv_dtype=args.kv_dtype)
+    if args.warmup:
+        w = worker.engine.warmup()
+        print(f"[serving] worker {worker.name} warm "
+              f"({w['buckets']} buckets + decode"
+              + (" + verify" if w["verify"] else "") + ")",
+              file=sys.stderr, flush=True)
+    print(f"[serving] worker {worker.name} (engine {worker.index}, "
+          f"{worker.role}, {worker.engine.device}) serving via "
+          f"{args.master} + {worker._server.addr}",
+          file=sys.stderr, flush=True)
+    def report(event):
+        print(json.dumps({"serving_worker": _status_record(worker, event)}),
+              file=sys.stderr, flush=True)
+
+    worker.serve(poll_interval=args.poll_interval, report=report)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

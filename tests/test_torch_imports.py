@@ -39,8 +39,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_distributed_modules_are_covered():
     """The guard's module list holds every distributed module, the ZeRO-3
-    layout, the mp wire and the auto-parallel / reshard / checkpoint
-    modules among them."""
+    layout, the mp wire, the auto-parallel / reshard / checkpoint modules
+    and the serving tier (store, chaos, telemetry, serving) among them."""
     for m in ("paddle_tpu_torch.distributed.mp_comm",
               "paddle_tpu_torch.distributed.grad_comm",
               "paddle_tpu_torch.distributed.fleet.meta_parallel."
@@ -51,7 +51,21 @@ def test_distributed_modules_are_covered():
               "paddle_tpu_torch.distributed.reshard",
               "paddle_tpu_torch.distributed.checkpoint",
               "paddle_tpu_torch.distributed.checkpoint.converter",
-              "paddle_tpu_torch.distributed.checkpoint.manifest"):
+              "paddle_tpu_torch.distributed.checkpoint.manifest",
+              "paddle_tpu_torch.runtime",
+              "paddle_tpu_torch.runtime.py_store",
+              "paddle_tpu_torch.testing",
+              "paddle_tpu_torch.testing.chaos",
+              "paddle_tpu_torch.observability",
+              "paddle_tpu_torch.observability.metrics",
+              "paddle_tpu_torch.observability.tracing",
+              "paddle_tpu_torch.observability.catalog",
+              "paddle_tpu_torch.observability.accounting",
+              "paddle_tpu_torch.serving",
+              "paddle_tpu_torch.serving.protocol",
+              "paddle_tpu_torch.serving.transport",
+              "paddle_tpu_torch.serving.worker",
+              "paddle_tpu_torch.serving.router"):
         assert m in MODULES, m
 
 
