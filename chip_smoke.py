@@ -313,18 +313,44 @@ Phases, each fatal on failure (non-zero exit, no final line):
    (``dispatched`` = requests + ``failover_resubmits``), streams equal
    (a)'s, both workers' status lines on the card with nonzero K3 launches
    and this process's float32 matmul settings;
-50. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+50. the MPMD pipeline (``distributed.mpmd``) at GPT-3 1.3B's widths: 4
+   decoder blocks of an ``SpmdPipeline`` under a final LayerNorm and an
+   untied ``Linear(2048, 50304)`` head with cross entropy, hidden states
+   [8, 1024, 2048] from the seed, 2 stages, M = 4, 3 AdamW steps from the
+   same weights: the unpipelined fold, 1F1B over a local boundary, 1F1B
+   over a TCP boundary on the ``raw`` wire, gpipe, widths (2, 1) on a
+   device list repeating the card, and 1F1B's stage shards of step 1
+   restored into fresh state for steps 2-3: losses within 1e-5 of the
+   fold's, TCP and the restore bit-equal to the local run,
+   ``resize_stage(1, 2)`` leaving stage 0's builds, K1 / K2a / K2b launches
+   equal to the stages' count (``bwd`` recomputes: K1 twice a layer on
+   stage 0); parameters' max |d| against the fold, step ms, boundary bytes;
+51. ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+   --max_restarts 1 --heartbeat_interval 1`` running this script's
+   ``--elastic-worker`` (GPT-3 1.3B's widths at depth 2, dp 2 over gloo on
+   the card, AdamW, ``ElasticManager(save_interval=2)``, 6 steps) twice:
+   clean, and with rank 1 SIGKILLed at step 3 (``chaos.step_fence``): the
+   launcher relaunches both ranks, they resume at step 2, and the final
+   losses and parameters equal the clean run's bit for bit; the watchdog
+   beat on every rank and declared no stall; saves, resumes and the
+   relaunch timed;
+52. a ``ShardedEmbeddingTable`` of 1,048,576 x 128 f32, whole on the card,
+   then split over two gloo ranks sharing it: 8 x 4096 ids, forward,
+   backward, one SGD step; the output and updated rows bit-equal;
+53. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
    (phases 40-41), a ``sep_ep`` JSON line (phases 42-43), a
    ``zero3_wires`` JSON line (phases 44-45), a ``pp_compose`` JSON line
    (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
-   line (phase 48), a ``serving`` JSON line (phase 49), a ``kernels``
-   JSON line (the GPT, encoder and MoE shapes, the K1 / K2 rows with their
-   launches in phases 38-48, the K3 rows with phase 49's as
-   ``launches_serving``; no TPU kernel lies on the vision path or the
-   capacity MoE path), then the result line.
+   line (phase 48), a ``serving`` JSON line (phase 49), an
+   ``mpmd_elastic_ps`` JSON line (phases 50-52), a ``kernels`` JSON line
+   (the GPT, encoder and MoE shapes, the K1 / K2 rows with their launches
+   in phases 38-48 and 50-51 (``launches_mpmd``, ``launches_elastic``),
+   the K3 rows with phase 49's as ``launches_serving``; no TPU kernel lies
+   on the vision path, the capacity MoE path or phase 52's table), then
+   the result line.
 """
 from __future__ import annotations
 
@@ -7392,6 +7418,647 @@ def phase_serving_tier(pa, fa, smi, spec=None):
     return out
 
 
+# -- phase 50: the MPMD pipeline -----------------------------------------------
+
+MPMD_LAYERS = 4
+MPMD_BATCH, MPMD_SEQ = 8, 1024
+MPMD_MICROBATCHES = 4
+MPMD_STEPS = 3
+# losses against the fold: the reference's own gate between its MPMD and
+# SPMD paths (tests/test_mpmd.py: the same sums, reassociated)
+MPMD_LOSS_RTOL = 1e-5
+
+
+def build_mpmd(spec):
+    """Phase 50's stack: MPMD_LAYERS GPT-3 1.3B decoder blocks (a
+    rehearsal's tiny ``spec["model"]`` instead) in a 2-stage
+    ``SpmdPipeline`` (unpipelined: every block here), and a final
+    LayerNorm + untied ``Linear(hidden, vocab)`` head, f32, from SEED."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import SpmdPipeline
+    from paddle_tpu_torch.text.models.gpt import (GPTConfig,
+                                                  GPTDecoderLayer, _init_kw)
+
+    device = torch.device(spec["device"])
+    cfg = (GPTConfig(**spec["model"]) if spec.get("model") else
+           GPTConfig.gpt3_1p3b(num_hidden_layers=MPMD_LAYERS,
+                               hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    kw = _init_kw(cfg, device, gen, torch.float32)
+    pipe = SpmdPipeline([GPTDecoderLayer(cfg, **kw)
+                         for _ in range(cfg.num_hidden_layers)],
+                        num_stages=2, num_microbatches=MPMD_MICROBATCHES,
+                        num_virtual_stages=1)
+    head = nn.Sequential(
+        nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, device=device),
+        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
+                  generator=gen, init_std=cfg.initializer_range))
+    return cfg, pipe, head
+
+
+def mpmd_expected(mp, rows, steps):
+    """K1 / K2a / K2b launches of ``steps`` MPMD steps: per micro-batch,
+    each layer of a stage launches once per row chunk (its width when the
+    width divides the ``rows`` of a micro-batch, else 1), K1 twice on a
+    stage that is not the last (``bwd`` recomputes its forward)."""
+    k1 = k2 = 0
+    for st in mp.stages:
+        chunks = st.dp if rows % st.dp == 0 else 1
+        last = st.stage_id == mp.num_stages - 1
+        k1 += chunks * len(st.blocks) * (1 if last else 2)
+        k2 += chunks * len(st.blocks)
+    n = steps * mp.num_microbatches
+    return {"fwd": n * k1, "dq": n * k2, "dkv": n * k2}
+
+
+def phase_mpmd(fa, smi, spec=None):
+    """Phase 50: the MPMD pipeline (``distributed.mpmd``) at GPT-3 1.3B's
+    widths: MPMD_LAYERS decoder blocks of an ``SpmdPipeline`` under a final
+    LayerNorm and an untied ``Linear(2048, 50304)`` head with cross entropy,
+    on hidden states [MPMD_BATCH, MPMD_SEQ, 2048] from the seed, 2 stages,
+    M = MPMD_MICROBATCHES, MPMD_STEPS steps of phase 7's AdamW and clip,
+    each run from the same initial weights: the unpipelined fold (the
+    reference gate's counterpart); 1F1B over a local boundary (shard
+    checkpoint after step 1); 1F1B over a TCP boundary on the ``raw`` wire;
+    gpipe; widths (2, 1) on a device list that repeats the card (stage 0
+    splits each micro-batch's rows), then ``resize_stage(1, 2)`` and one
+    more step; the shards restored into fresh state for steps 2-3. Gates:
+    losses within MPMD_LOSS_RTOL of the fold's at every step; local and TCP
+    bit-equal in losses and parameters; the restored steps bit-equal to the
+    uninterrupted ones; the resize leaves stage 0's build count; K1 / K2a /
+    K2b launches equal ``mpmd_expected``. Reports each run's parameters'
+    max |d| against the fold, step ms and boundary bytes a step."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed.mpmd import MpmdPipeline
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    spec = dict(spec or {"device": DEVICE})
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    cfg, pipe, head = build_mpmd(spec)
+    vocab, hidden = cfg.vocab_size, cfg.hidden_size
+    batch, seq = spec.get("batch", (MPMD_BATCH, MPMD_SEQ))
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    x = torch.randn((batch, seq, hidden), generator=gen, device=device)
+    labels = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device)
+    rows = batch // MPMD_MICROBATCHES
+    params = list(pipe.parameters()) + list(head.parameters())
+    init = [p.detach().clone() for p in params]
+
+    def loss_fn(h, y):
+        return F.cross_entropy(h.reshape(-1, vocab), y.reshape(-1))
+
+    def fresh():
+        with torch.no_grad():
+            for p, v in zip(params, init):
+                p.copy_(v)
+                p.grad = None
+        return AdamW(parameters=params, grad_clip=ClipGradByGlobalNorm(1.0),
+                     **ADAMW)
+
+    def fold_step():
+        loss = loss_fn(head(pipe(x)), labels)
+        loss.backward()
+        return float(loss.detach())
+
+    def run(name, opt, step, steps=MPMD_STEPS, after=None):
+        reset_flash(fa)
+        losses, step_ms = [], []
+        for i in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            losses.append(step())
+            opt.step()
+            opt.clear_grad()
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            if after is not None:
+                after(i)
+        launches = {k: getattr(fa, f"launches_{k}")
+                    for k in ("fwd", "dq", "dkv")}
+        return dict(name=name, losses=losses, step_ms=step_ms,
+                    launches=launches)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mpmd_")
+    out = {"card": smi, "layers": cfg.num_hidden_layers,
+           "batch": [batch, seq, hidden],
+           "microbatches": MPMD_MICROBATCHES, "steps": MPMD_STEPS}
+    try:
+        fold = run("fold", fresh(), fold_step)
+        fold["expected"] = {k: MPMD_STEPS * cfg.num_hidden_layers
+                            for k in ("fwd", "dq", "dkv")}
+        fold_params = [p.detach().clone() for p in params]
+        runs = [fold]
+        kept = {}
+        for name, kw in (
+                ("1f1b_local", dict(schedule="1f1b", transport="local")),
+                ("1f1b_tcp_raw", dict(schedule="1f1b", transport="tcp")),
+                ("gpipe_local", dict(schedule="gpipe", transport="local")),
+                ("widths_2_1", dict(schedule="1f1b", transport="local",
+                                    widths=[2, 1]))):
+            widths = kw.pop("widths", [1, 1])
+            opt = fresh()
+            mp = MpmdPipeline(pipe, widths, head=head, loss_fn=loss_fn,
+                              num_microbatches=MPMD_MICROBATCHES, wire="raw",
+                              devices=[device] * sum(widths), **kw)
+            save = None
+            if name == "1f1b_local":
+                def save(i, mp=mp, opt=opt):
+                    if i == 0:
+                        mp.save_shards(tmp, opt)
+            r = run(name, opt, lambda mp=mp: mp.train_batch(x, labels),
+                    after=save)
+            r["expected"] = mpmd_expected(mp, rows, MPMD_STEPS)
+            r["boundary_bytes_per_step"] = mp.boundary_bytes() / MPMD_STEPS
+            r["compile_counts"] = mp.compile_counts()
+            r["param_max"] = max((p.detach() - q).abs().max().item()
+                                 for p, q in zip(params, fold_params))
+            if name in ("1f1b_local", "1f1b_tcp_raw"):
+                kept[name] = [p.detach().clone() for p in params]
+            if name == "widths_2_1":
+                # a stage-local resize: stage 1 to width 2 on the card
+                before = mp.compile_counts()
+                mp.resize_stage(1, 2, devices=[device, device])
+                mp.train_batch(x, labels)
+                opt.clear_grad()
+                after = mp.compile_counts()
+                r["resize"] = dict(before=before, after=after)
+                if after[0] != before[0] or not after[1] > before[1]:
+                    raise AssertionError(f"50: resize_stage(1) moved the "
+                                         f"build counts {before} -> {after}")
+            mp.close()
+            runs.append(r)
+        # the shards of 1f1b_local's step 1, restored into fresh state
+        opt = fresh()
+        mp = MpmdPipeline(pipe, [1, 1], head=head, loss_fn=loss_fn,
+                          num_microbatches=MPMD_MICROBATCHES, wire="raw",
+                          devices=[device] * 2)
+        t0 = time.perf_counter()
+        restored_at = mp.restore_shards(tmp, opt)
+        restore_s = time.perf_counter() - t0
+        r = run("restored", opt, lambda: mp.train_batch(x, labels),
+                steps=MPMD_STEPS - 1)
+        r.update(restored_at=restored_at, restore_s=restore_s,
+                 expected=mpmd_expected(mp, rows, MPMD_STEPS - 1),
+                 param_max=max((p.detach() - q).abs().max().item()
+                               for p, q in zip(params, fold_params)))
+        restored_equal = all(torch.equal(p.detach(), q) for p, q in
+                             zip(params, kept["1f1b_local"]))
+        tcp_equal = all(torch.equal(a, b) for a, b in
+                        zip(kept["1f1b_local"], kept["1f1b_tcp_raw"]))
+        mp.close()
+        runs.append(r)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by = {r["name"]: r for r in runs}
+    for r in runs:
+        want = fold["losses"][-len(r["losses"]):]
+        r["rel"] = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want))
+        log(f"# phase 50 {r['name']}: losses {r['losses']} (fold "
+            f"{want}, rel {r['rel']:.2e}); params max |d| vs the fold "
+            f"{r.get('param_max', 0.0):.2e}; step ms "
+            f"{[round(t, 1) for t in r['step_ms']]}; boundary bytes a step "
+            f"{r.get('boundary_bytes_per_step', 0)}; launches "
+            f"{r['launches']} (expected {r['expected']})  [{smi}]")
+    log(f"# phase 50: 1F1B local vs TCP raw: losses equal "
+        f"{by['1f1b_local']['losses'] == by['1f1b_tcp_raw']['losses']}, "
+        f"parameters equal {tcp_equal}; restored at step "
+        f"{by['restored']['restored_at']} in "
+        f"{by['restored']['restore_s']:.2f} s: losses equal "
+        f"{by['restored']['losses'] == by['1f1b_local']['losses'][1:]}, "
+        f"parameters equal {restored_equal}; resize "
+        f"{by['widths_2_1']['resize']}  [{smi}]")
+    for r in runs:
+        if not r["rel"] <= MPMD_LOSS_RTOL:
+            raise AssertionError(f"50 {r['name']}: losses differ from the "
+                                 f"fold's (rel {r['rel']})")
+        if r["launches"] != r["expected"]:
+            raise AssertionError(f"50 {r['name']}: launches "
+                                 f"{r['launches']} != {r['expected']}")
+    if by["1f1b_local"]["losses"] != by["1f1b_tcp_raw"]["losses"] \
+            or not tcp_equal:
+        raise AssertionError("50: the TCP raw wire is not bit-equal to the "
+                             "local boundary")
+    if by["restored"]["restored_at"] != 1 or not restored_equal or \
+            by["restored"]["losses"] != by["1f1b_local"]["losses"][1:]:
+        raise AssertionError("50: the restored run is not bit-equal to the "
+                             "uninterrupted one")
+    out["runs"] = {r["name"]: {k: v for k, v in r.items() if k != "name"}
+                   for r in runs}
+    del pipe, head, params, init, fold_params, kept
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 50: {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 51: the launcher and elastic resume ---------------------------------
+
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 6
+ELASTIC_SAVE_INTERVAL = 2
+# rank 1 is SIGKILLed by chaos.step_fence at this step of launch attempt 0;
+# the newest committed checkpoint is then step 1's, so the ranks resume at
+# step 2 (the reference's rule: the step after the newest committed save)
+ELASTIC_KILL_STEP = 3
+ELASTIC_RESUME_AT = 2
+
+
+def elastic_worker(spec_path):
+    """One rank of phase 51, run by the launcher as ``chip_smoke.py
+    --elastic-worker <spec.json>``: GPT-3 1.3B's widths at ELASTIC_LAYERS
+    (a rehearsal's tiny ``model``), dp 2 over gloo through ``fleet``,
+    phase 7's AdamW and clip, ``ElasticManager(save_interval=
+    ELASTIC_SAVE_INTERVAL)`` resuming, ``chaos.step_fence`` on rank 1
+    before each step; every event appended to ``log<rank>.jsonl``, the end
+    in ``done<rank>.json`` (losses, each parameter's sha1, launches, the
+    watchdog's beats and stalls)."""
+    import hashlib
+    import importlib
+    import os
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.checkpoint import saved_bytes
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticManager
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.runtime import watchdog
+    from paddle_tpu_torch.testing import chaos
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec.get("prepare"):
+        mod, fn = spec["prepare"].split(":")
+        getattr(importlib.import_module(mod), fn)()
+    work = spec["work"]
+    attempt = int(os.environ.get("PADDLE_RESTART_COUNT", "0"))
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    on_card = spec["device"] == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def note(**kw):
+        with open(os.path.join(work, f"log{rank}.jsonl"), "a") as f:
+            f.write(json.dumps(dict(kw, t=time.time(), attempt=attempt))
+                    + "\n")
+
+    note(event="start")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    fleet_init(dp_degree=2)
+    if spec.get("model"):
+        from paddle_tpu_torch.text.models.gpt import (GPTConfig,
+                                                      GPTForCausalLM)
+
+        model = GPTForCausalLM(GPTConfig(**spec["model"]),
+                               device=spec["device"], seed=SEED)
+    else:
+        model = build_model(ELASTIC_LAYERS)
+    step, opt = dist_trainer(model)
+    ids, labels = train_batch(model.config.vocab_size)
+    mgr = ElasticManager(os.path.join(work, "ckpt"),
+                         save_interval=ELASTIC_SAVE_INTERVAL, max_to_keep=1)
+    t0 = time.perf_counter()
+    start = mgr.resume(model, opt)
+    sync()
+    resume_s = time.perf_counter() - t0
+    note(event="resumed", start=start, seconds=resume_s,
+         bytes=(saved_bytes(os.path.join(mgr.ckpt_dir, f"step_{start - 1}"))
+                if start else 0))
+    reset_flash(fa)
+    losses = []
+    for s in range(start, spec["steps"]):
+        if rank == 1:
+            chaos.step_fence(s)
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        sync()
+        note(event="step", step=s, loss=losses[-1],
+             seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if mgr.maybe_save(s, model, opt):
+            path = os.path.join(mgr.ckpt_dir, f"step_{s}")
+            note(event="save", step=s, seconds=time.perf_counter() - t0,
+                 bytes=saved_bytes(path, 0))
+    launches = {k: getattr(fa, f"launches_{k}") for k in ("fwd", "dq", "dkv")}
+    sha = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+           for n, p in model.named_parameters()}
+    wd = watchdog.active()
+    with open(os.path.join(work, f"done{rank}.json"), "w") as f:
+        json.dump(dict(attempt=attempt, start=start, losses=losses,
+                       sha=sha, launches=launches,
+                       heads=model.gpt.decoder[0].attn.num_heads,
+                       watchdog_beats=wd.beats if wd else 0,
+                       stalled=wd.stalled if wd else None,
+                       peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                                 if on_card else 0.0)), f)
+    dist.destroy_process_group()
+
+
+def phase_launch_elastic(smi, spec=None, timeout=900):
+    """Phase 51: ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 2 --max_restarts 1 --heartbeat_interval 1`` runs
+    ``elastic_worker`` (this script) twice on two gloo ranks that share the
+    card, ELASTIC_STEPS steps: once clean, once with
+    ``PADDLE_CHAOS_KILL_STEP=ELASTIC_KILL_STEP`` killing rank 1 on launch
+    attempt 0. Gates: both launches exit 0; the faulty one relaunches once,
+    its ranks (attempt 1) resume at ELASTIC_RESUME_AT; its final losses and
+    every parameter (sha1) equal the clean run's; the watchdog beat on both
+    ranks of both runs and declared no stall; K1 / K2a / K2b launches a
+    rank equal layers x the steps it ran. Reports each save's and resume's
+    seconds and bytes and the time from the kill to the relaunched ranks'
+    resume."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    spec = dict(spec or {"device": DEVICE})
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    layers = (spec["model"]["num_hidden_layers"] if spec.get("model")
+              else ELASTIC_LAYERS)
+    out = {"card": smi, "layers": layers, "steps": ELASTIC_STEPS}
+    try:
+        results = {}
+        for name, chaos_env in (("clean", {}),
+                                ("killed", {"PADDLE_CHAOS": "1",
+                                            "PADDLE_CHAOS_KILL_STEP":
+                                            str(ELASTIC_KILL_STEP)})):
+            work = os.path.join(tmp, name)
+            os.makedirs(work)
+            spec_path = os.path.join(work, "spec.json")
+            with open(spec_path, "w") as f:
+                json.dump(dict(spec, work=work, steps=ELASTIC_STEPS), f)
+            env = dict(os.environ, **chaos_env)
+            env["PYTHONPATH"] = os.pathsep.join(
+                [here] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+            for k in ("PADDLE_MASTER", "PADDLE_TRAINER_ID",
+                      "PADDLE_TRAINERS_NUM"):
+                env.pop(k, None)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+                 "--nproc_per_node", "2", "--max_restarts", "1",
+                 "--restart_backoff", "1", "--heartbeat_interval", "1",
+                 os.path.join(here, "chip_smoke.py"), "--elastic-worker",
+                 spec_path], env=env, cwd=here, capture_output=True,
+                text=True, timeout=timeout)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                log(proc.stdout[-4000:])
+                log(proc.stderr[-4000:])
+                raise AssertionError(f"51 {name}: the launcher exited "
+                                     f"{proc.returncode}")
+            done = []
+            for r in range(2):
+                with open(os.path.join(work, f"done{r}.json")) as f:
+                    done.append(json.load(f))
+            events = []
+            for r in range(2):
+                with open(os.path.join(work, f"log{r}.jsonl")) as f:
+                    events += [dict(json.loads(line), rank=r) for line in f]
+            results[name] = dict(done=done, events=events, wall=wall,
+                                 relaunched="relaunching (1/1)" in
+                                 proc.stderr)
+        clean, killed = results["clean"], results["killed"]
+        for name, res in results.items():
+            saves = [e for e in res["events"] if e["event"] == "save"
+                     and e["rank"] == 0]
+            resumes = [e for e in res["events"] if e["event"] == "resumed"]
+            res["saves"] = [dict(step=e["step"], seconds=e["seconds"],
+                                 bytes=e["bytes"]) for e in saves]
+            res["resumes"] = [dict(rank=e["rank"], attempt=e["attempt"],
+                                   start=e["start"], seconds=e["seconds"],
+                                   bytes=e["bytes"]) for e in resumes]
+            res["step_s"] = [e["seconds"] for e in res["events"]
+                             if e["event"] == "step" and e["rank"] == 0]
+        # the kill: rank 1's last event of attempt 0, then the resume of the
+        # relaunched rank 1
+        last0 = max(e["t"] for e in killed["events"]
+                    if e["rank"] == 1 and e["attempt"] == 0)
+        resumed1 = min(e["t"] for e in killed["events"]
+                       if e["event"] == "resumed" and e["attempt"] == 1)
+        relaunch_s = resumed1 - last0
+        for name, res in results.items():
+            d0, d1 = res["done"]
+            log(f"# phase 51 {name}: launcher {res['wall']:.1f} s, relaunched "
+                f"{res['relaunched']}; attempt {d0['attempt']} resumed at "
+                f"step {d0['start']} / {d1['start']}; losses rank 0 "
+                f"{d0['losses']}; step s rank 0 "
+                f"{[round(t, 3) for t in res['step_s']]}; saves "
+                f"{res['saves']}; resumes "
+                f"{res['resumes']}; launches {d0['launches']} / "
+                f"{d1['launches']} at H={d0['heads']}; watchdog beats "
+                f"{d0['watchdog_beats']} / {d1['watchdog_beats']}, stalled "
+                f"{d0['stalled']} / {d1['stalled']}; peak "
+                f"{d0['peak_gib']:.2f} GiB  [{smi}]")
+        log(f"# phase 51: the kill of rank 1 at step {ELASTIC_KILL_STEP} "
+            f"to the relaunched rank's resume: {relaunch_s:.2f} s; final "
+            f"loss {killed['done'][0]['losses'][-1]} vs clean "
+            f"{clean['done'][0]['losses'][-1]}  [{smi}]")
+        if not killed["relaunched"] or clean["relaunched"]:
+            raise AssertionError("51: the killed launch did not relaunch "
+                                 "once, or the clean one did")
+        for res, start, attempt in ((clean, 0, 0),
+                                    (killed, ELASTIC_RESUME_AT, 1)):
+            for d in res["done"]:
+                if (d["attempt"], d["start"]) != (attempt, start):
+                    raise AssertionError(f"51: a rank ended on attempt "
+                                         f"{d['attempt']} from step "
+                                         f"{d['start']}")
+                if d["watchdog_beats"] <= 0 or d["stalled"]:
+                    raise AssertionError(f"51: watchdog {d}")
+                want = (ELASTIC_STEPS - start) * layers
+                if any(n != want for n in d["launches"].values()):
+                    raise AssertionError(f"51: launches {d['launches']} != "
+                                         f"{want}")
+        for r in range(2):
+            k, c = killed["done"][r], clean["done"][r]
+            if k["losses"] != c["losses"][ELASTIC_RESUME_AT:]:
+                raise AssertionError("51: the resumed losses differ from the "
+                                     "clean run's")
+            if k["sha"] != c["sha"]:
+                raise AssertionError("51: the resumed parameters differ from "
+                                     "the clean run's")
+        out.update(
+            relaunch_s=relaunch_s,
+            **{name: dict(wall=res["wall"], saves=res["saves"],
+                          resumes=res["resumes"], step_s=res["step_s"],
+                          losses=res["done"][0]["losses"],
+                          launches=[d["launches"] for d in res["done"]],
+                          watchdog_beats=[d["watchdog_beats"]
+                                          for d in res["done"]],
+                          peak_gib=[d["peak_gib"] for d in res["done"]])
+               for name, res in results.items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 51: {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 52: the parameter server's split table ------------------------------
+
+PS_ROWS, PS_DIM = 1 << 20, 128
+PS_IDS = (8, 4096)
+PS_LR = 0.1
+
+
+def _rank_table(out_dir, spec):
+    """One rank of phase 52 (run by ``paddle.distributed.spawn``): the
+    table split over the ``dp`` axis of a global mesh of the two ranks,
+    drawn from the parent's seed, the parent's ids and output weights
+    (``ref.pt``); forward, backward and one SGD step timed; the output and
+    this rank's updated rows held against the parent's unsplit run."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.optimizer import SGD
+
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if spec.get("prepare"):
+        spec["prepare"]()
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    dist.set_global_mesh(dist.ProcessMesh([0, 1], dim_names=["dp"]))
+    rows, dim = spec.get("table", (PS_ROWS, PS_DIM))
+    gen = torch.Generator(device=device).manual_seed(SEED + 52)
+    table = ps.ShardedEmbeddingTable(rows, dim, device=device,
+                                     generator=gen)
+    ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True)
+    ids, w_out = ref["ids"].to(device), ref["w_out"].to(device)
+    opt = SGD(learning_rate=PS_LR, parameters=table.parameters())
+    dist.barrier()
+    ms = {}
+    sync()
+    t0 = time.perf_counter()
+    out = table(ids)
+    sync()
+    ms["forward"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    (out * w_out).sum().backward()
+    sync()
+    ms["backward"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    opt.step()
+    sync()
+    ms["step"] = 1e3 * (time.perf_counter() - t0)
+    lo, n = table.vocab_start, table.weight.shape[0]
+    res = dict(
+        rank=rank, lo=lo, rows=n, ms=ms, info=table.shard_info(),
+        out_equal=bool(torch.equal(out.detach().cpu(), ref["out"])),
+        rows_equal=bool(torch.equal(table.weight.detach().cpu(),
+                                    ref["rows"][lo:lo + n])),
+        touched=int((table.weight.grad.abs().sum(1) > 0).sum()),
+        peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                  if on_card else 0.0))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.set_global_mesh(None)
+    dist.destroy_process_group()
+
+
+def phase_sharded_table(smi, spec=None, timeout=600):
+    """Phase 52: a ``ShardedEmbeddingTable`` of PS_ROWS x PS_DIM f32 (512
+    MB), first whole on the card in this process, then split over two gloo
+    ranks sharing the card (256 MB a rank): PS_IDS ids from numpy, the
+    loss ``sum(out * w)``, its backward and one SGD step at PS_LR. Gates:
+    each rank's output and updated rows bit-equal to the whole table's.
+    Reports forward / backward / step ms whole and a rank."""
+    import gc
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+    from paddle_tpu_torch.optimizer import SGD
+
+    spec = dict(spec or {"device": DEVICE})
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    rows, dim = spec.get("table", (PS_ROWS, PS_DIM))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    try:
+        gen = torch.Generator(device=device).manual_seed(SEED + 52)
+        table = ps.ShardedEmbeddingTable(rows, dim, device=device,
+                                         generator=gen)
+        ids = torch.as_tensor(np.random.default_rng(SEED + 52).integers(
+            0, rows, spec.get("ids", PS_IDS)), device=device)
+        w_out = torch.randn(tuple(ids.shape) + (dim,), generator=gen,
+                            device=device)
+        opt = SGD(learning_rate=PS_LR, parameters=table.parameters())
+        ms = {}
+        sync()
+        t0 = time.perf_counter()
+        out = table(ids)
+        sync()
+        ms["forward"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        (out * w_out).sum().backward()
+        sync()
+        ms["backward"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        opt.step()
+        sync()
+        ms["step"] = 1e3 * (time.perf_counter() - t0)
+        unique = int(torch.unique(ids).numel())
+        torch.save({"ids": ids.cpu(), "w_out": w_out.cpu(),
+                    "out": out.detach().cpu(),
+                    "rows": table.weight.detach().cpu()},
+                   os.path.join(tmp, "ref.pt"))
+        del table, opt, out, w_out, ids
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = dist.spawn(_rank_table, (tmp, spec), nprocs=2, join=False,
+                         backend="gloo", master=f"file://{tmp}/rendezvous")
+        join_spawned(ctx, timeout)
+        secs = time.perf_counter() - t0
+        ranks = [pickle.load(open(os.path.join(tmp, f"rank{r}.pkl"), "rb"))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in ranks:
+        log(f"# phase 52 rank {r['rank']}: rows [{r['lo']}, "
+            f"{r['lo'] + r['rows']}) of {rows} x {dim}; output equal "
+            f"{r['out_equal']}, updated rows equal {r['rows_equal']} "
+            f"({r['touched']} rows touched); ms {r['ms']} (whole {ms}); "
+            f"peak {r['peak_gib']:.2f} GiB; {r['info']}  [{smi}]")
+    if sum(r["touched"] for r in ranks) != unique:
+        raise AssertionError(f"52: {unique} distinct ids, but the ranks' "
+                             "gradients touch "
+                             f"{[r['touched'] for r in ranks]} rows")
+    if not all(r["out_equal"] and r["rows_equal"] for r in ranks):
+        raise AssertionError("52: the split table differs from the whole "
+                             "one")
+    out = {"card": smi, "table": [rows, dim], "ids": list(spec.get(
+        "ids", PS_IDS)), "unique_ids": unique, "whole_ms": ms,
+        "rank_ms": [r["ms"] for r in ranks], "seconds_ranks": secs,
+        "peak_gib": [r["peak_gib"] for r in ranks]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 52: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7480,6 +8147,10 @@ def main() -> int:
     auto = phase_auto_parallel(smi)
     torch.cuda.empty_cache()
     serving = phase_serving_tier(pa, fa, smi)
+    torch.cuda.empty_cache()
+    mpmd = phase_mpmd(fa, smi)
+    elastic = phase_launch_elastic(smi)
+    table = phase_sharded_table(smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -7586,7 +8257,12 @@ def main() -> int:
             launches_auto_parallel={
                 f"parallelize_mp2_depth{AP_LAYERS}_rank{i}": auto["mp2"][
                     "launches" if i == 0 else "rank1_launches"][kind]
-                for i in (0, 1)}))
+                for i in (0, 1)},
+            launches_mpmd={name: r["launches"][kind]
+                           for name, r in mpmd["runs"].items()},
+            launches_elastic={
+                f"{run}_rank{i}": elastic[run]["launches"][i][kind]
+                for run in ("clean", "killed") for i in (0, 1)}))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -7631,6 +8307,8 @@ def main() -> int:
     log(json.dumps({"a3": a3}))
     log(json.dumps({"auto_parallel": auto}))
     log(json.dumps({"serving": serving}, default=str))
+    log(json.dumps({"mpmd_elastic_ps": {"mpmd": mpmd, "elastic": elastic,
+                                        "sharded_table": table}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -7641,4 +8319,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:  # a rank of phase 51
+        elastic_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -22,10 +22,17 @@
 - ``reshard``: the slice / all-to-all / all-gather planner and its
   executor;
 - ``checkpoint``: per-rank checkpoints that restore onto any layout, and
-  their canonical form.
+  their canonical form;
+- ``launch``: ``python -m paddle_tpu_torch.distributed.launch``, the
+  launcher that starts a host's ranks and relaunches them as a group;
+  ``fleet.elastic``: checkpoint-resume (``ElasticManager``), the MPMD
+  stage shards and the resize signals;
+- ``mpmd``: the MPMD pipeline (a stage per device subset, boundary queues
+  between them);
+- ``rpc``: worker-to-worker RPC; ``ps``: the split embedding table and the
+  async tiers (geo-SGD, the host-offloaded table).
 
-Not ported yet (ROADMAP.md §A.7): the auto-parallel planner, mpmd, the
-launch CLI, elastic, rpc and the parameter server.
+Not ported yet (ROADMAP.md §A.7): the auto-parallel planner.
 """
 from __future__ import annotations
 
@@ -99,6 +106,9 @@ from .auto_parallel import (  # noqa: F401
 # the reshard module, callable as the placement API (as the reference's)
 reshard = importlib.import_module(".reshard", __name__)  # noqa: F811
 from . import checkpoint  # noqa: F401
+from . import launch  # noqa: F401
+from . import mpmd  # noqa: F401
+from . import rpc  # noqa: F401
 from .checkpoint import load_state_dict, save_state_dict  # noqa: F401
 from .parallelize import (  # noqa: F401
     ColWiseParallel,

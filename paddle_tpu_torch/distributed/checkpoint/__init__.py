@@ -196,8 +196,9 @@ class _Plan:
 
 class _AtomicCommit:
     """The first rank turns the finished write under the tmp name into a
-    committed checkpoint: checksum manifest -> atomic rename -> parent-dir
-    fsync. A kill at ANY point leaves either the previous committed dir or
+    committed checkpoint: chaos fault point (``chaos.on_commit``) ->
+    checksum manifest -> atomic rename -> parent-dir fsync -> chaos fault
+    point (``chaos.after_commit``). A kill at ANY point leaves either the previous committed dir or
     a ``.ptsave-tmp`` leftover, never a torn final dir."""
 
     def __init__(self, tmp: str, final: str, meta: Optional[dict] = None):
@@ -206,14 +207,18 @@ class _AtomicCommit:
         self.meta = meta
 
     def run(self):
+        from ...testing import chaos
+
         _barrier()  # every rank's pieces are on disk
         if _rank() == 0:
+            chaos.on_commit(self.tmp, self.final)
             _manifest.write_manifest(self.tmp, meta=self.meta)
             if self.tmp != self.final:
                 if os.path.exists(self.final):
                     shutil.rmtree(self.final)
                 os.replace(self.tmp, self.final)
                 _manifest.fsync_dir(os.path.dirname(self.final))
+            chaos.after_commit(self.final)
         _barrier()
 
 

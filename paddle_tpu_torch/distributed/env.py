@@ -16,7 +16,10 @@ CUDA card; gloo only when the caller asks for the CPU
 (``paddle.set_device("cpu")``) or passes ``backend="gloo"``. Nothing
 switches between them on its own: without CUDA the default device raises.
 Each rank sets its CUDA device from its local rank (``PADDLE_LOCAL_RANK``
-or ``LOCAL_RANK``, else the rank), modulo the visible devices.
+or ``LOCAL_RANK``, else the rank), modulo the visible devices. When the
+launcher exported ``PADDLE_HEARTBEAT_INTERVAL``, the rank joins the
+heartbeat watchdog (``runtime/watchdog.py``) once the process group is up;
+``destroy_process_group`` stops it.
 """
 from __future__ import annotations
 
@@ -160,6 +163,12 @@ def init_parallel_env(backend: Optional[str] = None) -> Group:
         else:
             dist.init_process_group(backend, init_method=url, rank=rank,
                                     world_size=world)
+        # hung-rank detection: when the launcher exported a heartbeat
+        # interval, join the store-backed watchdog, so a wedged peer ends
+        # the job with a diagnosis instead of stalling every collective
+        from ..runtime.watchdog import maybe_start_from_env
+
+        maybe_start_from_env()
     _default_group = Group(range(dist.get_world_size()), dist.group.WORLD,
                            name="world")
     _groups.append(_default_group)
@@ -214,8 +223,10 @@ def destroy_process_group(group: Optional[Group] = None):
     group and the default process group."""
     global _default_group
     if group is None or group is _default_group:
+        from ..runtime.watchdog import stop_active
         from .fleet import topology
 
+        stop_active()  # leaving the world ends this rank's heartbeat
         topology.set_hybrid_communicate_group(None)
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -175,6 +175,32 @@ def barrier_worker():
     C.barrier()
 
 
+def init_server(*model_paths, **kwargs):
+    """PS-mode parity: there are no server processes; tables are split over
+    the mesh (``distributed.ps``). A no-op, so PS-mode scripts run under
+    the collective runtime."""
+
+
+def run_server():
+    """PS-mode parity no-op (no server loop to run; see distributed.ps)."""
+
+
+def init_worker(scopes=None):
+    """PS-mode parity: a worker needs no table-RPC set-up."""
+
+
+def stop_worker():
+    """PS-mode parity no-op."""
+
+
+def is_server() -> bool:
+    return False
+
+
+def is_worker() -> bool:
+    return True
+
+
 def _require_hcg():
     hcg = get_hybrid_communicate_group()
     if hcg is None:
@@ -702,11 +728,15 @@ from .meta_parallel import pipeline_parallel as _pp  # noqa: E402
 from .meta_parallel.pipeline_parallel import is_pipeline_local  # noqa: E402
 from .meta_parallel import sharding_stage3 as _z3  # noqa: E402
 from .meta_parallel.sharding_stage3 import is_zero3_slice  # noqa: E402
+from . import elastic  # noqa: E402,F401
+from .. import ps  # noqa: E402,F401  (paddle.distributed.ps)
 
 __all__ = ["CommunicateTopology", "DistTrainStep", "DistributedStrategy",
            "GradientMergeOptimizer", "HybridCommunicateGroup",
            "HybridParallelOptimizer",
            "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "barrier_worker",
            "distributed_model", "distributed_optimizer", "fleet_strategy",
-           "get_hybrid_communicate_group", "init", "is_first_worker",
-           "is_initialized", "worker_index", "worker_num"]
+           "get_hybrid_communicate_group", "init", "init_server",
+           "init_worker", "is_first_worker", "is_initialized", "is_server",
+           "is_worker", "run_server", "stop_worker", "worker_index",
+           "worker_num"]

@@ -47,9 +47,11 @@ exists before the caller rebinds anything, so a fault in the middle leaves
 the source state whole. Every collective runs inside ``deadline_guard``:
 a stall past ``PADDLE_TPU_RESHARD_TIMEOUT`` seconds (default 300) prints a
 diagnosis, counts ``reshard_stalls`` and raises ``TimeoutError`` (with
-``PADDLE_TPU_RESHARD_KILL_ON_STALL=1``, SIGABRTs the process first). The
-reference's chaos fences (``testing/chaos.py``) are not ported (ROADMAP.md
-§A.8).
+``PADDLE_TPU_RESHARD_KILL_ON_STALL=1``, SIGABRTs the process first). A
+chaos fence (``testing/chaos.py::reshard_fence``) stands before each leaf
+of ``reshard_state`` and before each planned step, as in the reference, so
+a soak can kill a rank mid-reshard. ``record_fallback`` counts a reshard
+that degraded to a slower path (``fleet.elastic``'s disk restore).
 
 The module is also callable as ``reshard(tensor, mesh, placements)``, the
 placement API of ``auto_parallel``, as the reference's is.
@@ -550,12 +552,14 @@ def _step(x, cur, step, mesh, what):
 def apply_steps(x, plan: LeafPlan, mesh, src_spec, *, fence_base: int = 0):
     """Walk one leaf's planned steps on ``mesh`` from ``src_spec``, on this
     rank's local block ``x``; returns the new local block."""
+    from ..testing import chaos
     from . import collective
 
     cur = _norm_spec(src_spec, len(plan.shape))
-    for step in plan.steps:
+    for i, step in enumerate(plan.steps):
         if step.kind == "transfer":
             continue  # a cross-mesh hop: the caller's
+        chaos.reshard_fence(fence_base + i, f"{plan.key}:{step.kind}")
         x = _step(x, cur, step, mesh, f"{step.kind}[{step.axis}] "
                                       f"{plan.key}")
         collective.counts["reshard_moved_bytes"] += step.out_bytes
@@ -615,7 +619,7 @@ def _layout_of(x):
 
 
 def reshard_array(x, mesh, spec, *, key: str = "?", src_mesh=None,
-                  src_spec=None):
+                  src_spec=None, fence_base: int = 0):
     """Re-lay-out ONE tensor onto ``spec`` on ``mesh`` by the planned
     decomposition: ``x`` a DTensor placed by the port, or this rank's
     local block under ``src_spec`` on ``src_mesh`` (default ``mesh``).
@@ -632,7 +636,8 @@ def reshard_array(x, mesh, spec, *, key: str = "?", src_mesh=None,
     if src_mesh == mesh and list(src_mesh.dim_names) == list(mesh.dim_names):
         plan = plan_same_mesh(shape, local.dtype, src_spec, spec, dst_sizes,
                               key=key)
-        out = apply_steps(local, plan, mesh, src_spec)
+        out = apply_steps(local, plan, mesh, src_spec,
+                          fence_base=fence_base)
     else:
         plan = plan_cross_mesh(shape, local.dtype, src_spec,
                                _sizes(src_mesh), spec, dst_sizes, key=key)
@@ -666,8 +671,11 @@ def reshard_state(src_state: Dict[str, Any], dst_state: Dict[str, Any],
             f"live reshard source is missing {len(missing)} leaves "
             f"(cannot host the state): {sorted(missing)[:5]}"
             f"{' ...' if len(missing) > 5 else ''}")
+    from ..testing import chaos
+
     out: Dict[str, Any] = {}
     plans: List[LeafPlan] = []
+    fence = 0
     for key, tgt in dst_state.items():
         src_v = src_state[key]
         layout = _layout_of(tgt)
@@ -678,7 +686,10 @@ def reshard_state(src_state: Dict[str, Any], dst_state: Dict[str, Any],
             raise ValueError(
                 f"live reshard leaf {key!r}: source shape "
                 f"{tuple(src_v.shape)} != target {tuple(tgt.shape)}")
-        new, plan = reshard_array(src_v, layout[0], layout[1], key=key)
+        chaos.reshard_fence(fence, f"{key}:begin")
+        new, plan = reshard_array(src_v, layout[0], layout[1], key=key,
+                                  fence_base=fence)
+        fence += max(1, len(plan.steps))
         plans.append(plan)
         out[key] = new
     record_plan_metrics(plans, what=what)
@@ -697,6 +708,18 @@ def record_plan_metrics(plans: Sequence[LeafPlan], *, what: str,
     peak = max(p.peak_bytes for p in plans)
     collective.counts["reshard_peak_bytes"] = max(
         collective.counts["reshard_peak_bytes"], peak)
+
+
+def record_fallback(why: str, **fields) -> None:
+    """A reshard degraded to a slower, safer path (``fleet.elastic``'s
+    disk restore after a failed live resize): counted in
+    ``reshard_fallback_total`` and ``collective.counts``, with an event."""
+    from .. import observability as _obs
+    from . import collective
+
+    collective.counts[f"reshard_fallback_{why}"] += 1
+    _obs.inc("reshard_fallback_total", why=why)
+    _obs.event("reshard", what="fallback", why=why, **fields)
 
 
 class _ReshardModule(types.ModuleType):

@@ -27,19 +27,23 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
 NEG_INF = -1e30
 
 #: kernel launches of K1, K2a and K2b (plain counts; callers reset them to
-#: 0 around a run they want to attribute), and those in bf16
+#: 0 around a run they want to attribute), and those in bf16. Bumped under
+#: ``_count_lock``: the MPMD pipeline's stage threads launch side by side
 launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
 launches_fwd_bf16 = 0
 launches_dq_bf16 = 0
 launches_dkv_bf16 = 0
+
+_count_lock = threading.Lock()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -303,8 +307,9 @@ def flash_attention_forward_cuda(q, k, v, bias=None, *, causal=False,
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     lc.call("paddle_flash_attention_fwd", o.data_ptr(), lse.data_ptr())
-    launches_fwd += 1
-    launches_fwd_bf16 += q.dtype == torch.bfloat16
+    with _count_lock:
+        launches_fwd += 1
+        launches_fwd_bf16 += q.dtype == torch.bfloat16
     return o, lse
 
 
@@ -324,8 +329,9 @@ def flash_attention_bwd_dq_cuda(q, k, v, bias, do, lse, delta, *,
     lc.call("paddle_flash_attention_bwd_dq", do.data_ptr(),
             lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
             dq.data_ptr(), None if ds is None else ds.data_ptr(), do=do)
-    launches_dq += 1
-    launches_dq_bf16 += q.dtype == torch.bfloat16
+    with _count_lock:
+        launches_dq += 1
+        launches_dq_bf16 += q.dtype == torch.bfloat16
     return dq, ds
 
 
@@ -343,8 +349,9 @@ def flash_attention_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, *,
     lc.call("paddle_flash_attention_bwd_dkv", do.data_ptr(),
             lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
             dk.data_ptr(), dv.data_ptr(), do=do)
-    launches_dkv += 1
-    launches_dkv_bf16 += q.dtype == torch.bfloat16
+    with _count_lock:
+        launches_dkv += 1
+        launches_dkv_bf16 += q.dtype == torch.bfloat16
     return dk, dv
 
 

@@ -10,10 +10,14 @@ seed knobs — a failing soak run reproduces byte-for-byte.
 
 Wired in the port: ``engine_fence`` (``serving/worker.py``, before each
 scheduler step), ``net_fence`` (``serving/transport.py``, before each
-frame send) and the store faults (``runtime/py_store.py``). The other
-fences (``step_fence``, ``reshard_fence``, ``mpmd_fence``,
-``flip_fence``, ``weight_fence``, ``on_commit`` / ``after_commit``) have
-no caller in the port yet; ROADMAP.md §A.8 names where each belongs.
+frame send), the store faults (``runtime/py_store.py``),
+``reshard_fence`` (``distributed/reshard.py``, before each leaf and each
+planned step), ``on_commit`` / ``after_commit`` (the checkpoint writer's
+commit, ``distributed/checkpoint/__init__.py``) and ``mpmd_fence``
+(``distributed/mpmd.py``, before each stage op). ``step_fence`` is the
+training loop's to call, once a step. ``flip_fence`` and ``weight_fence``
+have no caller in the port yet (the supervisor and online weights,
+ROADMAP.md §A.8).
 
 Env knobs (all read lazily so tests can flip them per-case):
 

@@ -39,8 +39,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_distributed_modules_are_covered():
     """The guard's module list holds every distributed module, the ZeRO-3
-    layout, the mp wire, the auto-parallel / reshard / checkpoint modules
-    and the serving tier (store, chaos, telemetry, serving) among them."""
+    layout, the mp wire, the auto-parallel / reshard / checkpoint modules,
+    the serving tier (store, chaos, telemetry, serving), and the launcher,
+    watchdog, elastic, MPMD, rpc and ps modules among them."""
     for m in ("paddle_tpu_torch.distributed.mp_comm",
               "paddle_tpu_torch.distributed.grad_comm",
               "paddle_tpu_torch.distributed.fleet.meta_parallel."
@@ -65,7 +66,15 @@ def test_distributed_modules_are_covered():
               "paddle_tpu_torch.serving.protocol",
               "paddle_tpu_torch.serving.transport",
               "paddle_tpu_torch.serving.worker",
-              "paddle_tpu_torch.serving.router"):
+              "paddle_tpu_torch.serving.router",
+              "paddle_tpu_torch.runtime.watchdog",
+              "paddle_tpu_torch.distributed.launch",
+              "paddle_tpu_torch.distributed.launch.__main__",
+              "paddle_tpu_torch.distributed.fleet.elastic",
+              "paddle_tpu_torch.distributed.mpmd",
+              "paddle_tpu_torch.distributed.rpc",
+              "paddle_tpu_torch.distributed.ps",
+              "paddle_tpu_torch.distributed.ps.geo"):
         assert m in MODULES, m
 
 

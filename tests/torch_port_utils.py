@@ -2491,3 +2491,40 @@ def mpu_job(inp, gpt_state):
     out["rng"] = draws
     fleet.topology.set_hybrid_communicate_group(None)
     return out
+
+
+# -- the parameter server's split table (tests/test_torch_rpc_ps.py) ---------
+def ps_table_job(weight, ids, w_out, lr, padding_idx):
+    """One rank of a ``ShardedEmbeddingTable`` split over the ``dp`` axis
+    of a global ProcessMesh of the world: this rank's rows of ``weight``,
+    the lookup of ``ids`` (the same on every rank), the loss
+    ``sum(out * w_out)``, its backward and one SGD step. Returns the
+    output, this rank's gradient rows and updated rows, and the table's
+    placement report."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.optimizer import SGD
+
+    world = dist.get_world_size()
+    dist.set_global_mesh(dist.ProcessMesh(list(range(world)),
+                                          dim_names=["dp"]))
+    try:
+        table = ps.ShardedEmbeddingTable(weight.shape[0], weight.shape[1],
+                                         padding_idx=padding_idx,
+                                         device="cpu")
+        lo = table.vocab_start
+        with torch.no_grad():
+            table.weight.copy_(torch.from_numpy(
+                weight[lo:lo + table.weight.shape[0]]))
+        opt = SGD(learning_rate=lr, parameters=table.parameters())
+        out = table(torch.from_numpy(ids))
+        (out * torch.from_numpy(w_out)).sum().backward()
+        grad = table.weight.grad.clone()
+        opt.step()
+        return dict(out=out.detach().numpy(), grad=grad.numpy(),
+                    rows=table.weight.detach().numpy(), lo=lo,
+                    info=table.shard_info())
+    finally:
+        dist.set_global_mesh(None)
