@@ -4684,6 +4684,39 @@ def ring_run(fn, blocks, group):
     return [o.detach(), q.grad, k.grad, v.grad]
 
 
+def f64_oracle_probe(fa, full, got, want, n, rank):
+    """ROADMAP §C's probe of the ring's f32 error: causal attention on
+    the whole sequence in float64 torch (the oracle), sliced to this
+    rank's block, against the kernel ring (``got``), the plain ring
+    (``want``) and K1 / K2 on the whole sequence (``fa.flash_attention``,
+    sliced the same way): (max|err|, max|err| / max|oracle|) per tensor
+    and route. A probe: it prints, it gates nothing."""
+    q, k, v, do = (x.detach().double() for x in full)
+    q.requires_grad_()
+    k.requires_grad_()
+    v.requires_grad_()
+    d = q.shape[-1]
+    t = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~keep, float("-inf"))
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    o.backward(do)
+    oracle = [o.detach(), q.grad, k.grad, v.grad]
+    del s, o
+    whole = ring_run(lambda q_, k_, v_, _g, causal: fa.flash_attention(
+        q_, k_, v_, causal=causal), full, None)
+    tl = t // n
+    blk = slice(rank * tl, (rank + 1) * tl)
+    out = {}
+    for route, vals in (("kernel_ring", got), ("plain_ring", want),
+                        ("k1_whole", [x[:, blk] for x in whole])):
+        out[route] = {name: _rel(g.double(), w[:, blk])
+                      for name, g, w in zip(("o", "dq", "dk", "dv"), vals,
+                                            oracle)}
+    return out
+
+
 def staged_per_step(layers, n, b, tl, h, d):
     """Bytes a rank stages through pinned host memory in one f32 training
     step of ``layers`` ring attentions at sep ``n``: every rotation stages
@@ -4724,8 +4757,10 @@ def _rank_sep_ep(out_dir, trained_losses, spec):
     """One rank of phases 42-43 (run by ``paddle.distributed.spawn``), its
     results pickled to ``out_dir``. 42a: the kernel ring against the plain
     ring at SEP_RING, f32 and bf16, and (rank 0) the gathered output
-    against K1 on the whole sequence; 42b: GPT-3 1.3B at SEP_LAYERS layers
-    through ``DistTrainStep`` at sep 2, then (rank 0) a single-process
+    against K1 on the whole sequence; in f32 both rings and K1 / K2 on the
+    whole sequence against an f64 oracle (:func:`f64_oracle_probe`); 42b:
+    GPT-3 1.3B at SEP_LAYERS layers through ``DistTrainStep`` at sep 2,
+    then (rank 0) a single-process
     ``TrainStep`` on the same weights and batch; 43: the capacity MoE block
     at EP 2 through ``DistTrainStep``, then (each rank) a single-process
     ``TrainStep`` on the same weights and batch. ``spec``: the device, and
@@ -4776,6 +4811,9 @@ def _rank_sep_ep(out_dir, trained_losses, spec):
         sync()
         errs = {name: _rel(g, w) for name, g, w in
                 zip(("o", "dq", "dk", "dv"), got, want)}
+        probe = (f64_oracle_probe(fa, full, got, want, SEP_DEGREE,
+                                  group.rank)
+                 if dtype == torch.float32 else None)
         gathered = dist.all_gather(None, got[0].contiguous(), group=group)
         whole = None
         if rank == 0:
@@ -4794,7 +4832,7 @@ def _rank_sep_ep(out_dir, trained_losses, spec):
             sync()
             times[route] = 1e3 * (time.perf_counter() - t0)
         ring[str(dtype)[6:]] = dict(errs=errs, whole=whole, ms=times,
-                                    shape=shape)
+                                    shape=shape, f64_probe=probe)
         del full, blocks, got, want, gathered
     out["ring"] = ring
     fleet.topology.set_hybrid_communicate_group(None)
@@ -4965,6 +5003,11 @@ def phases_sep_ep(fa, smi, trained, timeout=900, spec=None):
                 + f" (tol {tol:.1e}); ms kernels {rr['ms']['kernels']:.1f} "
                 f"plain {rr['ms']['plain']:.1f} (forward + backward, host "
                 f"staged rotations)  [{smi}]")
+            for route, errs in (rr.get("f64_probe") or {}).items():
+                log(f"# phase 42a probe: {dt} rank {r} {route} vs the f64 "
+                    "oracle on the whole sequence: rel "
+                    + ", ".join(f"{k} {v[1]:.2e}" for k, v in errs.items())
+                    + f"  [{smi}]")
             for k, (err, rel) in rr["errs"].items():
                 if not rel <= tol:
                     raise AssertionError(f"phase 42a: {dt} rank {r} {k} "
@@ -5073,10 +5116,12 @@ def phases_sep_ep(fa, smi, trained, timeout=900, spec=None):
 
 # -- phases 44-45: ZeRO-3, the quantized wires and gradient merge ------------
 
-# phase 44: GPT-3 1.3B at 24 layers, phase 7's batch and AdamW, sharding 2
-# at stage 3; phase 45: its widths at depth 2 under the gradient wire (dp
-# 2) and the mp wire (mp 2), and gradient merge over k micro-batches
+# phase 44: GPT-3 1.3B's widths at ZERO3_LAYERS layers, phase 7's batch
+# and AdamW, sharding 2 at stage 3 (phase 46a holds ZeRO-3 at larger
+# widths); phase 45: its widths at depth 2 under the gradient wire (dp 2)
+# and the mp wire (mp 2), and gradient merge over k micro-batches
 ZERO3_DEGREE = 2
+ZERO3_LAYERS = 8
 WIRE_LAYERS = 2
 # the trajectories against the exact exchange, as the reference's tests
 # bound them: the bf16 gradient wire within 5e-3 of the f32 exchange
@@ -5137,9 +5182,10 @@ def mp_wire_want(cfg, b, t, n, steps):
 
 def _rank_zero3_wires(out_dir, trained_losses, spec):
     """One rank of phases 44-45 (run by ``paddle.distributed.spawn``), its
-    results pickled to ``out_dir``. 44: GPT-3 1.3B at 24 layers through
-    ``DistTrainStep`` at sharding 2, stage 3, then (rank 0) a
-    single-process ``TrainStep`` on the same weights and batch. 45: the
+    results pickled to ``out_dir``. 44: GPT-3 1.3B's widths at
+    ZERO3_LAYERS layers through ``DistTrainStep`` at sharding 2, stage 3,
+    then (rank 0) a single-process ``TrainStep`` on the same weights and
+    batch. 45: the
     depth-2 model at dp 2 under each gradient wire of GRAD_WIRES, then at
     mp 2 with the mp wire off and int8. ``spec``: the device, and for a
     rehearsal a tiny ``GPTConfig`` dict, a sequence length and a
@@ -5185,7 +5231,7 @@ def _rank_zero3_wires(out_dir, trained_losses, spec):
     out = {"backend": dist.get_backend()}
 
     # -- 44: GPT-3 1.3B at ZeRO-3 over sharding 2
-    layers = spec.get("layers", 24)
+    layers = spec.get("layers", ZERO3_LAYERS)
     s = wire_strategy(sharding_degree=ZERO3_DEGREE)
     s.sharding_configs["stage"] = 3
     fleet.init(is_collective=True, strategy=s)
@@ -5205,7 +5251,6 @@ def _rank_zero3_wires(out_dir, trained_losses, spec):
     out["zero3"] = dict(
         losses=losses, step_ms=step_ms, peak_gib=peak_gib(),
         launches=launches(), layers=layers,
-        ref_losses=list(trained_losses[:LOCKSTEP_STEPS]),
         model_bytes=total_bytes, held_bytes=held,
         gather_bytes=c.get("zero3_gather_bytes", 0) // LOCKSTEP_STEPS,
         regather_bytes=c.get("zero3_regather_bytes", 0) // LOCKSTEP_STEPS,
@@ -5221,8 +5266,12 @@ def _rank_zero3_wires(out_dir, trained_losses, spec):
     if rank == 0:
         ref = build(layers)
         ref_step, ref_opt = trainer(ref)
-        out["zero3"]["ref_step_ms"] = timed_steps(
-            ref_step, (ids, labels), LOCKSTEP_STEPS, sync)[1]
+        # at 24 layers the single-process losses are phase 7's
+        out["zero3"]["ref_losses"], out["zero3"]["ref_step_ms"] = \
+            timed_steps(ref_step, (ids, labels), LOCKSTEP_STEPS, sync)
+        if layers == 24:
+            out["zero3"]["ref_losses"] = list(
+                trained_losses[:LOCKSTEP_STEPS])
         out["zero3"]["param_gap"] = param_gap(
             full, {n: p.detach() for n, p in ref.named_parameters()})
         del ref_step, ref_opt, ref
@@ -5353,11 +5402,12 @@ def phase_gradient_merge(fa, smi, build=None):
 
 
 def phases_zero3_wires(fa, smi, trained, timeout=900, spec=None):
-    """Phases 44-45. Phase 44: GPT-3 1.3B at 24 layers at ZeRO-3 over
-    sharding 2, two processes on the one card over gloo, against phase
-    7's ``TrainStep`` losses (within TRAIN_LOSS_RTOL) and a single-process
-    ``TrainStep``'s parameters (phase 8's rule); each rank's K1 / K2a /
-    K2b launches (24 x LOCKSTEP_STEPS), the bytes its forward gathers
+    """Phases 44-45. Phase 44: GPT-3 1.3B's widths at ZERO3_LAYERS layers
+    at ZeRO-3 over sharding 2, two processes on the one card over gloo,
+    against a single-process ``TrainStep`` on the same weights and batch
+    (rank 0): losses within TRAIN_LOSS_RTOL, parameters by phase 8's rule;
+    each rank's K1 / K2a / K2b launches (layers x LOCKSTEP_STEPS), the
+    bytes its forward gathers
     (the other rank's half of every sliced parameter, the tied embedding
     twice) and reduce-scatters a step, the parameter bytes it holds.
     Phase 45: the depth-2 model at dp 2 with the bf16 and the int8 +
@@ -5397,7 +5447,7 @@ def phases_zero3_wires(fa, smi, trained, timeout=900, spec=None):
     n_steps, layers = LOCKSTEP_STEPS, za["layers"]
     log(f"# phase 44: GPT-3 1.3B ({layers} layers) at ZeRO-3 over sharding "
         f"{ZERO3_DEGREE}, {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
-        f"{za['losses']} vs phase 7's TrainStep {za['ref_losses']} (rel "
+        f"{za['losses']} vs TrainStep {za['ref_losses']} (rel "
         f"{rel:.2e}); params vs TrainStep max |d| {za['param_gap'][0]:.2e}, "
         f"{za['param_gap'][1]}/{za['param_gap'][2]} beyond "
         f"{LOCKSTEP_PARAM_ATOL}; step ms rank 0 "
@@ -5414,7 +5464,7 @@ def phases_zero3_wires(fa, smi, trained, timeout=900, spec=None):
     if za["losses"] != zb["losses"]:
         raise AssertionError("phase 44: the ranks' losses differ")
     if not rel <= TRAIN_LOSS_RTOL:
-        raise AssertionError("phase 44: losses differ from phase 7's")
+        raise AssertionError("phase 44: losses differ from TrainStep's")
     check_param_gap(za["param_gap"], n_steps, "phase 44")
     for z in (za, zb):
         if any(v != layers * n_steps for v in z["launches"].values()):
@@ -7663,7 +7713,9 @@ def phase_mpmd(fa, smi, spec=None):
 # -- phase 51: the launcher and elastic resume ---------------------------------
 
 ELASTIC_LAYERS = 2
-ELASTIC_STEPS = 6
+ELASTIC_STEPS = 4
+# the killed run saves every ELASTIC_SAVE_INTERVAL steps (steps 1 and 3:
+# 2.5 GB each); the clean run, the bit-equal yardstick, saves nothing
 ELASTIC_SAVE_INTERVAL = 2
 # rank 1 is SIGKILLed by chaos.step_fence at this step of launch attempt 0;
 # the newest committed checkpoint is then step 1's, so the ranks resume at
@@ -7677,7 +7729,7 @@ def elastic_worker(spec_path):
     --elastic-worker <spec.json>``: GPT-3 1.3B's widths at ELASTIC_LAYERS
     (a rehearsal's tiny ``model``), dp 2 over gloo through ``fleet``,
     phase 7's AdamW and clip, ``ElasticManager(save_interval=
-    ELASTIC_SAVE_INTERVAL)`` resuming, ``chaos.step_fence`` on rank 1
+    spec["save_interval"])`` resuming, ``chaos.step_fence`` on rank 1
     before each step; every event appended to ``log<rank>.jsonl``, the end
     in ``done<rank>.json`` (losses, each parameter's sha1, launches, the
     watchdog's beats and stalls)."""
@@ -7723,7 +7775,7 @@ def elastic_worker(spec_path):
     step, opt = dist_trainer(model)
     ids, labels = train_batch(model.config.vocab_size)
     mgr = ElasticManager(os.path.join(work, "ckpt"),
-                         save_interval=ELASTIC_SAVE_INTERVAL, max_to_keep=1)
+                         save_interval=spec["save_interval"], max_to_keep=1)
     t0 = time.perf_counter()
     start = mgr.resume(model, opt)
     sync()
@@ -7765,7 +7817,8 @@ def phase_launch_elastic(smi, spec=None, timeout=900):
     """Phase 51: ``python -m paddle_tpu_torch.distributed.launch
     --nproc_per_node 2 --max_restarts 1 --heartbeat_interval 1`` runs
     ``elastic_worker`` (this script) twice on two gloo ranks that share the
-    card, ELASTIC_STEPS steps: once clean, once with
+    card, ELASTIC_STEPS steps: once clean (no checkpoint), once saving
+    every ELASTIC_SAVE_INTERVAL steps with
     ``PADDLE_CHAOS_KILL_STEP=ELASTIC_KILL_STEP`` killing rank 1 on launch
     attempt 0. Gates: both launches exit 0; the faulty one relaunches once,
     its ranks (attempt 1) resume at ELASTIC_RESUME_AT; its final losses and
@@ -7788,15 +7841,17 @@ def phase_launch_elastic(smi, spec=None, timeout=900):
     out = {"card": smi, "layers": layers, "steps": ELASTIC_STEPS}
     try:
         results = {}
-        for name, chaos_env in (("clean", {}),
-                                ("killed", {"PADDLE_CHAOS": "1",
-                                            "PADDLE_CHAOS_KILL_STEP":
-                                            str(ELASTIC_KILL_STEP)})):
+        for name, interval, chaos_env in (
+                ("clean", ELASTIC_STEPS + 1, {}),
+                ("killed", ELASTIC_SAVE_INTERVAL,
+                 {"PADDLE_CHAOS": "1",
+                  "PADDLE_CHAOS_KILL_STEP": str(ELASTIC_KILL_STEP)})):
             work = os.path.join(tmp, name)
             os.makedirs(work)
             spec_path = os.path.join(work, "spec.json")
             with open(spec_path, "w") as f:
-                json.dump(dict(spec, work=work, steps=ELASTIC_STEPS), f)
+                json.dump(dict(spec, work=work, steps=ELASTIC_STEPS,
+                               save_interval=interval), f)
             env = dict(os.environ, **chaos_env)
             env["PYTHONPATH"] = os.pathsep.join(
                 [here] + [p for p in [os.environ.get("PYTHONPATH")] if p])
@@ -8059,6 +8114,805 @@ def phase_sharded_table(smi, spec=None, timeout=600):
     return out
 
 
+# -- phase 53: the live plane, the fleet supervisor, the planner on the card --
+
+#: the live aggregator's health-file cadence in phase 53 (the router's
+#: default is 2 s; the phase runs for seconds)
+LIVE_HEALTH_INTERVAL_S = 0.25
+#: 53b's supervisor: short hysteresis and cooldown; a backlog of
+#: SUPERVISOR_QUEUE_HIGH undispatched requests is pressure (53b's burst
+#: leaves BURST - 2 x SERVING_SLOTS of them queued behind one engine);
+#: min_speedup -1 approves every growth the planner prices (on one
+#: shared card the host-aggregate model predicts a slower step at a
+#: wider training side, which 53b prints)
+SUPERVISOR = dict(hysteresis_s=0.2, cooldown_s=0.5, min_serving=1,
+                  queue_high=2, high_burn=1.0, low_burn=0.5,
+                  drain_timeout_s=120.0, min_speedup=-1.0, plan_stages=2)
+SUPERVISOR_BURST = 12
+SUPERVISOR_TRAIN_STEPS = 2
+#: 53c's weak-scaling sweep at the planner's proxy geometry
+#: (``planner.ModelConfig()``, 2 sequences a rank): layouts a spawn
+CALIB_LAYOUTS = {2: {"dp2": dict(dp=2), "mp2": dict(mp=2),
+                     "pp2": dict(pp=2), "sharding2": dict(sharding=2)},
+                 4: {"mp2_pp2": dict(mp=2, pp=2),
+                     "dp2_sharding2": dict(dp=2, sharding=2)}}
+CALIB_WARMUP, CALIB_STEPS = 2, 5
+
+
+@contextlib.contextmanager
+def live_telemetry(tdir):
+    """Telemetry into ``tdir`` with the live plane on (rank 0's files),
+    the registry empty before and after."""
+    import os
+
+    from paddle_tpu_torch import observability as obs
+
+    keys = ("PADDLE_TPU_TELEMETRY_DIR", "PADDLE_TPU_LIVE_TELEMETRY",
+            "PADDLE_TRAINER_ID")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(PADDLE_TPU_TELEMETRY_DIR=tdir,
+                      PADDLE_TPU_LIVE_TELEMETRY="1")
+    os.environ.pop("PADDLE_TRAINER_ID", None)
+    obs.reset()
+    try:
+        yield obs
+    finally:
+        obs.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def counter_total(obs, name):
+    m = obs.registry().get(name)
+    return 0.0 if m is None else float(sum(m.snapshot()["values"].values()))
+
+
+def pump_all(router, workers):
+    router.pump()
+    for w in workers:
+        w.poll_once()
+
+
+def read_json(path):
+    import os
+
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_live_plane(pa, fa, smi, model, served_tps, tdir):
+    """Phase 53a: phase 49a's configuration (two in-process
+    ``EngineWorker`` s, SERVING_SLOTS slots and bf16 KV each, behind one
+    ``Router``; make_prompts' 8 requests) with the live plane on: each
+    worker ships ``tele`` frames of its span tail on the occupancy beat,
+    the router's ``LiveAggregator`` ingests them, keeps the SLO windows
+    and writes ``fleet_health.json``. Gates: streams equal one engine
+    (near-ties only), K3 launches by regime equal ``k3_expected``, every
+    shipped payload ingested exactly once (``live_ingest_total`` = the
+    shippers' last seq numbers), the health doc's per-class requests =
+    the requests done, its burn rates = ``tracing.summarize_dir`` of the
+    same span files (p95 within 5 %, the reference test's bound);
+    ``fleet_sync`` writes ``fleet_metrics.json``. Reports tokens/s beside
+    a run of the same requests with tracing alone and beside 49a's with
+    telemetry off."""
+    import os
+
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+    from paddle_tpu_torch.observability import live, tracing
+    from paddle_tpu_torch.runtime import TCPStore
+    from paddle_tpu_torch.serving import EngineWorker, Router
+    from paddle_tpu_torch.serving.protocol import SLO_OBJECTIVES
+
+    import shutil
+    import tempfile
+
+    cfg = serving_engine_config()
+    prompts = make_prompts(model.config.vocab_size)
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    store = TCPStore("127.0.0.1", 0, is_master=True, timeout=120.0)
+    # the same requests with tracing alone (the plane off): which share of
+    # the overhead is the spans', which the plane's
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with live_telemetry(trace_dir):
+            os.environ["PADDLE_TPU_LIVE_TELEMETRY"] = "0"
+            workers = [EngineWorker(model, store, namespace="p53a0", **cfg)
+                       for _ in range(2)]
+            for w in workers:
+                w.engine.warmup()
+            router = Router(store, namespace="p53a0", queue_limit=64,
+                            seed=SEED, page_size=cfg["page_size"])
+            rids0 = submit_serving(router, prompts)
+            wall0 = drive_router(router, workers)
+            tokens0 = sum(w.engine.stats()["total_tokens"] for w in workers)
+            streams0 = [router.result(r) for r in rids0]
+            if router._live_agg is not None or router.stats()["done"] != \
+                    len(prompts):
+                raise AssertionError(f"53a (tracing only): {router.stats()}")
+            router.shutdown()
+            for w in workers:
+                w.close()
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    with live_telemetry(tdir) as obs:
+        workers = [EngineWorker(model, store, namespace="p53a", **cfg)
+                   for _ in range(2)]
+        for w in workers:
+            w.engine.warmup()
+        router = Router(store, namespace="p53a", queue_limit=64, seed=SEED,
+                        page_size=cfg["page_size"])
+        # a window longer than the phase, the health file at a short
+        # cadence (the router would build the default one lazily)
+        router._live_agg = live.LiveAggregator(
+            window_s=600.0, health_interval_s=LIVE_HEALTH_INTERVAL_S)
+        reset_k3(pa)
+        rids = submit_serving(router, prompts)
+        wall = drive_router(router, workers)
+        # the last beats: every shipped payload and every request in the
+        # health file
+        health_path = os.path.join(tdir, "fleet_health.json")
+        deadline = time.perf_counter() + 60.0
+        while True:
+            pump_all(router, workers)
+            doc = read_json(health_path)
+            shipped = {w.name: (w._live_shipper._seq if w._live_shipper
+                                else 0) for w in workers}
+            seen = dict(router._live_agg._seen_seq)
+            done = sum(c["requests"] for c in (doc or {}).get(
+                "classes", {}).values())
+            if done >= len(rids) and all(seen.get(n) == s
+                                         for n, s in shipped.items()):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"53a: the health file never covered "
+                                     f"the run: {done} requests, shipped "
+                                     f"{shipped}, seen {seen}")
+            time.sleep(0.02)
+        sync()
+        ingested = counter_total(obs, "live_ingest_total")
+        dups = counter_total(obs, "live_ingest_dup_total")
+        writes = counter_total(obs, "live_health_writes_total")
+        k3 = check_k3(pa, workers, "53a")
+        st = router.stats()
+        streams = [router.result(r) for r in rids]
+        params = [router._requests[r].params for r in rids]
+        tokens = sum(w.engine.stats()["total_tokens"] for w in workers)
+        router.shutdown()
+        for w in workers:
+            w.close()
+        fleet_path = obs.fleet_sync()
+    store.close()
+    single = DecodeEngine(model, **cfg)
+    srids = [single.submit(p, prm) for p, prm in zip(prompts, params)]
+    single.run()
+    reference = [single.result(r) for r in srids]
+    del single
+    parts = check_serving_streams(fa, model, prompts, params, streams,
+                                  reference, "53a", ("router", "reference"))
+    parts += check_serving_streams(fa, model, prompts, params, streams0,
+                                   reference, "53a (tracing only)",
+                                   ("router", "reference"))
+    summary = tracing.summarize_dir(tdir, objectives=SLO_OBJECTIVES)
+    burn_keys = ("frac_over_target", "burn_rate_latency",
+                 "frac_unavailable", "burn_rate_availability")
+    reconcile = {}
+    for slo, s_ent in summary["classes"].items():
+        h_ent = doc["classes"][slo]
+        reconcile[slo] = dict(
+            requests=(h_ent["requests"], s_ent["requests"]),
+            burn={k: (h_ent["objectives"][k], s_ent["objectives"][k])
+                  for k in burn_keys},
+            p95=(h_ent["latency_seconds"]["p95"],
+                 s_ent["latency_seconds"]["p95"]))
+    tps, tps0 = tokens / wall, tokens0 / wall0
+    log(f"# phase 53a: the live plane over 2 workers x {SERVING_SLOTS} "
+        f"slots: {tokens} tokens in {wall:.3f} s = {tps:.1f} tok/s; "
+        f"tracing alone {tokens0} in {wall0:.3f} s = {tps0:.1f} tok/s; "
+        f"49a, telemetry off: {served_tps:.1f} tok/s (plane "
+        f"{tps / served_tps:.3f}x, tracing alone {tps0 / served_tps:.3f}x); "
+        f"payloads shipped {shipped}, ingested {ingested:.0f} (duplicates "
+        f"dropped {dups:.0f}), health writes {writes:.0f}; health vs "
+        f"post-hoc summary {reconcile}; K3 {k3}; streams equal "
+        f"{sum(np.array_equal(a, b) for a, b in zip(streams, reference))}"
+        f"/{len(prompts)}, near-tie partings {len(parts)}  [{smi}]")
+    if st["done"] != len(prompts):
+        raise AssertionError(f"53a: {st}")
+    if ingested != sum(shipped.values()) or not ingested > 0:
+        raise AssertionError(f"53a: ingested {ingested} payloads, shipped "
+                             f"{shipped}")
+    if set(summary["classes"]) != set(doc["classes"]) or \
+            summary["requests"] != len(rids):
+        raise AssertionError(f"53a: classes {sorted(doc['classes'])} vs "
+                             f"{sorted(summary['classes'])}")
+    for slo, r in reconcile.items():
+        if r["requests"][0] != r["requests"][1] or \
+                doc["classes"][slo]["admitted"] != r["requests"][0]:
+            raise AssertionError(f"53a: {slo} request counts {r}")
+        for k, (h, p) in r["burn"].items():
+            if not abs(h - p) <= 1e-9 * max(abs(p), 1.0):
+                raise AssertionError(f"53a: {slo} {k} live {h} vs "
+                                     f"post-hoc {p}")
+        if not abs(r["p95"][0] - r["p95"][1]) <= 0.05 * r["p95"][1]:
+            raise AssertionError(f"53a: {slo} p95 {r['p95']}")
+    if not (fleet_path and os.path.exists(fleet_path)
+            and os.path.exists(os.path.join(tdir,
+                                            "fleet_trace_summary.json"))):
+        raise AssertionError("53a: fleet_sync wrote no fleet_metrics.json")
+    return dict(tokens=tokens, wall_s=wall, tokens_per_s=tps,
+                tracing_only_tokens_per_s=tps0, tracing_only_wall_s=wall0,
+                telemetry_off_tokens_per_s=served_tps, shipped=shipped,
+                ingested=ingested, duplicates=dups, health_writes=writes,
+                reconcile=reconcile, launches=k3, partings=parts,
+                router=st)
+
+
+def mpmd_loss_fn(vocab):
+    from paddle_tpu_torch.nn import functional as F
+
+    def loss_fn(h, y):
+        return F.cross_entropy(h.reshape(-1, vocab), y.reshape(-1))
+    return loss_fn
+
+
+def stage_widths(width, stages):
+    """The planner's stage widths for a training side of ``width`` cards,
+    as the supervisor prices it (``FleetSupervisor.price``)."""
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+
+    return list(planner.plan_mpmd_stages(
+        topology=planner.Topology(n_devices=width),
+        num_stages=max(1, min(stages, width))).best.widths)
+
+
+def mpmd_model_config(batch, seq):
+    """The planner's ``ModelConfig`` of phase 50's model."""
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+
+    return planner.ModelConfig(hidden=2048, layers=MPMD_LAYERS, heads=16,
+                               vocab=50304, seq_len=seq, global_batch=batch)
+
+
+def phase_supervisor(pa, fa, smi, model, tdir, spec):
+    """Phase 53b: the fleet supervisor flips workers between serving and
+    MPMD training on the live plane's own ``fleet_health.json``.
+    Four ``EngineWorker`` s of the serving model: p53b-0 and p53b-1 serve,
+    p53b-2 and p53b-3 start in the training role (drain orders held), so
+    the training side's width is 2: phase 50's stack (MPMD_LAYERS GPT-3
+    1.3B blocks and the 50304-way head, MPMD_BATCH x MPMD_SEQ, 2 stages,
+    M = MPMD_MICROBATCHES, AdamW) as an ``MpmdPipeline`` whose stage widths
+    follow the planner's ``best.widths`` for the journaled width
+    (``resize_stage``). A ``StoreFleetExecutor`` drains, evacuates and
+    resizes; SUPERVISOR sets the loop. The run: the training side takes
+    SUPERVISOR_TRAIN_STEPS steps; the 8 requests of make_prompts served
+    by two engines leave headroom in the health file and the supervisor
+    flips p53b-1 to training (width 3, the training side's steps again);
+    ``min_serving`` 1 then holds the next flip; a burst of
+    SUPERVISOR_BURST requests behind one engine is a backlog and the
+    supervisor flips p53b-1 back (width 2, the steps again). Gates: every
+    request done exactly once, streams equal one engine (near-ties
+    only); the MPMD losses within MPMD_LOSS_RTOL of the unflipped fold of
+    the same steps; the journal ends with no pending flip and 2 committed,
+    each with its price; K1 / K2a / K2b launches = ``mpmd_expected`` at
+    each width; K3 launches = ``k3_expected`` summed over the workers.
+    Reports each flip's fence seconds and the planner's predicted step
+    at both widths beside the MPMD step measured at them."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+    from paddle_tpu_torch.distributed.fleet.supervisor import (
+        FleetSupervisor, StoreFleetExecutor, SupervisorConfig)
+    from paddle_tpu_torch.distributed.mpmd import MpmdPipeline
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+    from paddle_tpu_torch.observability import live
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.runtime import TCPStore
+    from paddle_tpu_torch.serving import EngineWorker, Router
+
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = serving_engine_config()
+    prompts = make_prompts(model.config.vocab_size)
+    burst = (prompts + prompts)[:SUPERVISOR_BURST]
+    mcfg, pipe, head = build_mpmd(spec)
+    vocab = mcfg.vocab_size
+    batch, seq = spec.get("batch", (MPMD_BATCH, MPMD_SEQ))
+    gen = torch.Generator(device=device).manual_seed(SEED + 53)
+    x = torch.randn((batch, seq, mcfg.hidden_size), generator=gen,
+                    device=device)
+    labels = torch.randint(0, vocab, (batch, seq), generator=gen,
+                           device=device)
+    rows = batch // MPMD_MICROBATCHES
+    params = list(pipe.parameters()) + list(head.parameters())
+    init = [p.detach().clone() for p in params]
+    loss_fn = mpmd_loss_fn(vocab)
+
+    def fresh():
+        with torch.no_grad():
+            for p, v in zip(params, init):
+                p.copy_(v)
+                p.grad = None
+        return AdamW(parameters=params, grad_clip=ClipGradByGlobalNorm(1.0),
+                     **ADAMW)
+
+    jdir = tempfile.mkdtemp(prefix="chip_smoke_supervisor_")
+    store = TCPStore("127.0.0.1", 0, is_master=True, timeout=120.0)
+    ns = "p53b"
+    roles = {f"{ns}-0": "serving", f"{ns}-1": "serving",
+             f"{ns}-2": "training", f"{ns}-3": "training"}
+    out = {"card": smi, "supervisor": dict(SUPERVISOR)}
+    with live_telemetry(tdir):
+        workers = [EngineWorker(model, store, namespace=ns, name=n, **cfg)
+                   for n in roles]
+        for w in workers:
+            w.engine.warmup()
+        router = Router(store, namespace=ns, queue_limit=64, seed=SEED,
+                        page_size=cfg["page_size"])
+        router._live_agg = live.LiveAggregator(
+            window_s=600.0, health_interval_s=LIVE_HEALTH_INTERVAL_S)
+        resolved = {}
+        router.on_resolve = lambda req: resolved.__setitem__(
+            req.rid, resolved.get(req.rid, 0) + 1)
+
+        opt = fresh()
+        widths0 = stage_widths(2, SUPERVISOR["plan_stages"])
+        mp = MpmdPipeline(pipe, widths0, head=head, loss_fn=loss_fn,
+                          num_microbatches=MPMD_MICROBATCHES, wire="raw",
+                          devices=[device] * sum(widths0))
+        resizes = []
+
+        def resize(source_width, target_width):
+            widths = stage_widths(target_width, SUPERVISOR["plan_stages"])
+            for s, dp in enumerate(widths):
+                if mp.stages[s].dp != dp:
+                    mp.resize_stage(s, dp, devices=[device] * dp)
+            resizes.append(dict(source=source_width, target=target_width,
+                                widths=widths))
+
+        executor = StoreFleetExecutor(
+            store, namespace=ns, router=router, resize_fn=resize,
+            pump=lambda: pump_all(router, workers), poll_s=0.005)
+        sup = FleetSupervisor(
+            jdir, executor=executor,
+            config=SupervisorConfig(namespace=ns, **SUPERVISOR),
+            health_path=os.path.join(tdir, "fleet_health.json"),
+            roles=roles, training_width=2)
+        for n, r in roles.items():
+            if r == "training":
+                executor.activate(n, "training")
+        # the training-role workers' drain orders reach the router
+        deadline = time.perf_counter() + 60.0
+        while not all(router._engines.get(n) is not None
+                      and router._engines[n].draining
+                      for n, r in roles.items() if r == "training"):
+            pump_all(router, workers)
+            if time.perf_counter() > deadline:
+                raise AssertionError("53b: the drain orders never reached "
+                                     "the router")
+            time.sleep(0.01)
+
+        train = []
+
+        def train_steps():
+            reset_flash(fa)
+            losses, step_ms = [], []
+            for _ in range(SUPERVISOR_TRAIN_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                losses.append(mp.train_batch(x, labels))
+                opt.step()
+                opt.clear_grad()
+                sync()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            width = int(sup.roles_doc["training_width"])
+            train.append(dict(
+                width=width, widths=[st.dp for st in mp.stages],
+                losses=losses, step_ms=step_ms,
+                launches={k: getattr(fa, f"launches_{k}")
+                          for k in ("fwd", "dq", "dkv")},
+                expected=mpmd_expected(mp, rows, SUPERVISOR_TRAIN_STEPS),
+                predicted_s=planner.plan_mpmd_stages(
+                    mpmd_model_config(batch, seq),
+                    planner.Topology(n_devices=width), num_stages=2,
+                    microbatches=MPMD_MICROBATCHES).best.predicted_step_s))
+
+        def tick_until(what, cond, timeout=120.0):
+            t0 = time.perf_counter()
+            outcomes = []
+            last = 0.0
+            while True:
+                pump_all(router, workers)
+                now = time.perf_counter()
+                if now - last >= 0.02:
+                    last = now
+                    res = sup.tick()
+                    if res is not None:
+                        outcomes.append(res)
+                if cond(outcomes):
+                    return outcomes
+                if now - t0 > timeout:
+                    raise AssertionError(f"53b {what}: timed out; outcomes "
+                                         f"{outcomes}, roles "
+                                         f"{sup.roles_doc}, router "
+                                         f"{router.stats()}")
+
+        reset_k3(pa)
+        train_steps()
+        # (1) headroom: two engines serve the 8 requests, the live plane
+        # shows it, the supervisor flips p53b-1 to training
+        rids = submit_serving(router, prompts)
+        drive_router(router, workers)
+        health_path = os.path.join(tdir, "fleet_health.json")
+        deadline = time.perf_counter() + 30.0
+        while True:
+            pump_all(router, workers)
+            doc = read_json(health_path)
+            if doc and sum(c["requests"] for c in doc["classes"].values()) \
+                    >= len(rids):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("53b: no health file covering the "
+                                     "first requests")
+        signals = sup._signals(doc)
+        if not (signals["max_burn"] <= SUPERVISOR["low_burn"]
+                and signals["admission_backlog"] == 0):
+            raise AssertionError(f"53b: no headroom in {signals}")
+        out["headroom_signals"] = signals
+        tick_until("to_training", lambda o: "committed" in o)
+        train_steps()
+        # (2) min_serving holds the next flip while the plane stays idle
+        held = []
+        t_hold = time.perf_counter()
+        while time.perf_counter() - t_hold < 3 * (
+                SUPERVISOR["hysteresis_s"] + SUPERVISOR["cooldown_s"]):
+            pump_all(router, workers)
+            res = sup.tick()
+            if res is not None:
+                held.append(res)
+            time.sleep(0.02)
+        if held or sup.roles_doc["training_width"] != 3:
+            raise AssertionError(f"53b: min_serving did not hold: {held}, "
+                                 f"{sup.roles_doc}")
+        # (3) a burst behind one engine: backlog, the flip back
+        rids += submit_serving(router, burst)
+        tick_until("to_serving", lambda o: "committed" in o)
+        drive_router(router, workers)
+        train_steps()
+        sync()
+        k3 = check_k3(pa, workers, "53b")
+        st = router.stats()
+        streams = [router.result(r) for r in rids]
+        sparams = [router._requests[r].params for r in rids]
+        history = sup.journal.history()
+        pending = sup.journal.pending()
+        roles_end = sup.roles_doc
+        router.shutdown()
+        for w in workers:
+            w.close()
+        mp.close()
+    store.close()
+    shutil.rmtree(jdir, ignore_errors=True)
+
+    # the unflipped fold of the same steps, from the same weights
+    opt = fresh()
+    fold_losses = []
+    for _ in range(len(train) * SUPERVISOR_TRAIN_STEPS):
+        loss = loss_fn(head(pipe(x)), labels)
+        loss.backward()
+        fold_losses.append(float(loss.detach()))
+        opt.step()
+        opt.clear_grad()
+    got = [v for t in train for v in t["losses"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, fold_losses))
+    del opt, pipe, head, params, init
+    free_card()
+    single = DecodeEngine(model, **cfg)
+    srids = [single.submit(p, prm)
+             for p, prm in zip(prompts + burst, sparams)]
+    single.run()
+    reference = [single.result(r) for r in srids]
+    del single
+    parts = check_serving_streams(fa, model, prompts + burst, sparams,
+                                  streams, reference, "53b",
+                                  ("router", "reference"))
+    flips = []
+    for h in history:
+        fences = sorted(h["fences"].items(), key=lambda kv: kv[1])
+        secs = {a: b[1] - a_t for (a, a_t), b in zip(fences, fences[1:])}
+        secs[fences[-1][0]] = h["closed_ts"] - fences[-1][1]
+        flips.append(dict(direction=h["direction"], engine=h["engine"],
+                          outcome=h["outcome"], reason=h["reason"],
+                          fence_s=secs, price=h["price"],
+                          widths=(h["source_width"], h["target_width"])))
+    for f in flips:
+        pr = f["price"]
+        log(f"# phase 53b: flip {f['direction']} of {f['engine']} "
+            f"({f['reason']}): {f['outcome']}; fence seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in f["fence_s"].items())
+            + f"; priced at widths {f['widths']}: predicted step "
+            f"{(pr.get('source') or {}).get('predicted_step_s')} -> "
+            f"{(pr.get('target') or {}).get('predicted_step_s')} s "
+            f"(proxy geometry, speedup {pr.get('speedup')})  [{smi}]")
+    for t in train:
+        log(f"# phase 53b: training width {t['width']} (stage widths "
+            f"{t['widths']}): losses {t['losses']}, step ms "
+            f"{[round(v, 1) for v in t['step_ms']]}; planner's predicted "
+            f"step at phase 50's geometry {1e3 * t['predicted_s']:.3f} ms; "
+            f"launches {t['launches']} (expected {t['expected']})  [{smi}]")
+    log(f"# phase 53b: MPMD losses across the resizes vs the unflipped "
+        f"fold {fold_losses}: rel {rel:.2e} (tol {MPMD_LOSS_RTOL}); "
+        f"resizes {resizes}; requests done {st['done']}/{len(rids)} "
+        f"(each once: {sorted(set(resolved.values()))}), resubmits "
+        f"{st['failover_resubmits']}; streams equal "
+        f"{sum(np.array_equal(a, b) for a, b in zip(streams, reference))}"
+        f"/{len(rids)}, near-tie partings {len(parts)}; K3 {k3}; journal "
+        f"pending {pending}, committed {roles_end['flips_committed']}  "
+        f"[{smi}]")
+    if st["done"] != len(rids) or set(resolved) != set(rids) or \
+            set(resolved.values()) != {1}:
+        raise AssertionError(f"53b: requests not done exactly once: {st}")
+    if not rel <= MPMD_LOSS_RTOL:
+        raise AssertionError(f"53b: MPMD losses differ from the fold's "
+                             f"(rel {rel})")
+    if pending is not None or roles_end["flips_committed"] != 2 or \
+            [f["direction"] for f in flips] != ["to_training",
+                                                "to_serving"] or \
+            any(f["outcome"] != "committed" or not f["price"].get("target")
+                for f in flips):
+        raise AssertionError(f"53b: journal {flips}, pending {pending}")
+    if [t["width"] for t in train] != [2, 3, 2]:
+        raise AssertionError(f"53b: training widths "
+                             f"{[t['width'] for t in train]}")
+    for t in train:
+        if t["launches"] != t["expected"]:
+            raise AssertionError(f"53b: width {t['width']} launches "
+                                 f"{t['launches']} != {t['expected']}")
+    out.update(flips=flips, train=train, fold_losses=fold_losses, rel=rel,
+               resizes=resizes, launches=k3, partings=parts, router=st)
+    return out
+
+
+def _rank_calibrate(out_dir, layouts):
+    """One rank of phase 53c (run by ``paddle.distributed.spawn``): each
+    layout of ``layouts`` at the planner's proxy geometry
+    (``planner.ModelConfig()``: a GPT of hidden 64, 4 layers, 4 heads,
+    vocab 256, 32 tokens; its head_dim 16 is below K1's, so the dense
+    attention route) through ``fleet.init`` -> ``DistTrainStep``, 2
+    sequences a rank, CALIB_WARMUP + CALIB_STEPS AdamW steps; rank 0
+    pickles each layout's calibration entry to ``out_dir``."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    mc = planner.ModelConfig()
+    batch = 2 * n
+    rng = np.random.default_rng(SEED + 53)
+    tok = torch.as_tensor(rng.integers(0, mc.vocab, (batch, mc.seq_len + 1)),
+                          device=DEVICE)
+    ids, labels = tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+    out = {}
+    for name, mesh in layouts.items():
+        mesh = {k: int(mesh.get(k, 1)) for k in ("dp", "mp", "pp",
+                                                  "sharding")}
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update(dp_degree=mesh["dp"], mp_degree=mesh["mp"],
+                                pp_degree=mesh["pp"],
+                                sharding_degree=mesh["sharding"])
+        pipe = None
+        if mesh["pp"] > 1:
+            m = planner._choose_microbatches(
+                batch // (mesh["dp"] * mesh["sharding"]), mesh["pp"])
+            s.pipeline_configs.update(schedule="1f1b", virtual_pp_degree=1,
+                                      accumulate_steps=m)
+            pipe = {"schedule": "1f1b", "virtual_pp_degree": 1,
+                    "microbatches": m}
+        fleet.init(is_collective=True, strategy=s)
+        model = GPTForCausalLM(GPTConfig(
+            vocab_size=mc.vocab, hidden_size=mc.hidden,
+            num_hidden_layers=mc.layers, num_attention_heads=mc.heads,
+            max_position_embeddings=mc.seq_len, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0, use_flash_attention=False),
+            device=DEVICE, seed=SEED)
+        step, _ = dist_trainer(model)
+        dist.barrier()
+        _, ms = timed_steps(step, (ids, labels), CALIB_WARMUP + CALIB_STEPS,
+                            sync)
+        out[name] = dict(n=n, mesh=mesh, pipeline=pipe, ok=True,
+                         step_s=float(np.median(ms[CALIB_WARMUP:])) / 1e3,
+                         steps_ms=ms)
+        del step, model
+        fleet.topology.set_hybrid_communicate_group(None)
+        dist.barrier()
+    if rank == 0:
+        with open(os.path.join(out_dir, "rank0.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_calibration(smi, mpmd, timed, timeout=600):
+    """Phase 53c: the planner's calibration on the card. A weak-scaling
+    sweep at the planner's proxy geometry (:func:`_rank_calibrate`) on
+    gloo ranks that share the card, two spawns (CALIB_LAYOUTS: 2 ranks,
+    then 4), each entry the median of CALIB_STEPS steps after
+    CALIB_WARMUP. Prints the fitted ``CostConstants`` and their
+    ``max_rel_error``, the committed ``calibration_h100.json``'s
+    prediction error on this run's entries, the plan for phase 50's model
+    at its layout beside phase 50's fold and 1F1B steps, and
+    ``plan_attn_kernel`` at phase 4's serving geometry beside K3's decode
+    device time times the layers. Gates: the fitted constants finite and
+    non-negative, one above 0; ``apply_auto_plan`` fills a strategy. The
+    ranks serialize through the host on one card: a host-aggregate
+    calibration, the regime of the reference's one-host proxy."""
+    import os
+    import pickle
+    import subprocess
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+    from paddle_tpu_torch.inference.engine import EngineConfig
+
+    t0 = time.perf_counter()
+    entries = []
+    for n, layouts in CALIB_LAYOUTS.items():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+        ctx = dist.spawn(_rank_calibrate, (tmp, layouts), nprocs=n,
+                         join=False, backend="gloo",
+                         master=f"file://{tmp}/rendezvous")
+        join_spawned(ctx, timeout)
+        with open(os.path.join(tmp, "rank0.pkl"), "rb") as f:
+            res = pickle.load(f)
+        for name in layouts:
+            entries.append(dict(res[name], layout=name))
+    secs = time.perf_counter() - t0
+    fitted = planner.calibrate(entries)
+    v = fitted.as_vector()
+
+    def max_err(consts):
+        worst = 0.0
+        for e in entries:
+            pred = planner.score(
+                planner._entry_candidate(e),
+                planner._entry_model(e, planner.ModelConfig()),
+                planner.Topology(n_devices=int(e["n"])), consts)
+            worst = max(worst, abs(pred.predicted_step_s - e["step_s"])
+                        / e["step_s"])
+        return worst
+
+    try:
+        committed_doc = planner.read_calibration_doc()
+        committed = planner.calibrate(committed_doc["entries"])
+        committed_err = max_err(committed)
+        committed_card = committed_doc.get("card")
+    except (OSError, ValueError, KeyError):
+        committed, committed_err, committed_card = None, None, None
+    consts = committed or fitted
+    try:
+        commit = subprocess.run(["git", "rev-parse", "HEAD"],
+                                capture_output=True, text=True,
+                                timeout=10).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        commit = None
+    mc50 = mpmd_model_config(MPMD_BATCH, MPMD_SEQ)
+    plan50 = planner.plan_mpmd_stages(mc50, planner.Topology(n_devices=2),
+                                      num_stages=2,
+                                      microbatches=MPMD_MICROBATCHES,
+                                      constants=consts)
+    runs = mpmd["runs"]
+    fold_ms = float(np.mean(runs["fold"]["step_ms"][1:]))
+    f1b_ms = float(np.mean(runs["1f1b_local"]["step_ms"][1:]))
+    ecfg = EngineConfig(**{k: v_ for k, v_ in engine_config().items()
+                           if k != "device"})
+    attn = planner.plan_attn_kernel(
+        num_slots=ecfg.num_slots, max_pages=ecfg.max_pages, kv_heads=16,
+        query_heads=16, page_size=ecfg.page_size, head_dim=128, layers=24,
+        kv_dtype="bf16", selected="pallas")
+    k3_decode_ms = timed["decode"]["ms"] * 24
+    strategy = DistributedStrategy.auto()
+    applied = planner.apply_auto_plan(strategy, 4)
+    hc = strategy.hybrid_configs
+    for e in entries:
+        log(f"# phase 53c: {e['layout']} at n={e['n']} (mesh {e['mesh']}, "
+            f"pipeline {e['pipeline']}): step {1e3 * e['step_s']:.3f} ms "
+            f"(median of {CALIB_STEPS} after {CALIB_WARMUP}; "
+            f"{[round(t, 3) for t in e['steps_ms']]})  [{smi}]")
+    log(f"# phase 53c: fitted {fitted} (max_rel_error "
+        f"{fitted.max_rel_error:.4f}); the committed calibration "
+        f"({committed_card}) on this run's entries: max rel error "
+        f"{committed_err}; phase 50's model at 2 stages, M="
+        f"{MPMD_MICROBATCHES}: planned widths {plan50.best.widths}, "
+        f"predicted {1e3 * plan50.best.predicted_step_s:.3f} ms vs the "
+        f"fold {fold_ms:.1f} ms and 1F1B {f1b_ms:.1f} ms measured in phase "
+        f"50; plan_attn_kernel at phase 4's geometry: K3 (pallas) "
+        f"{1e3 * attn.pallas_step_s:.4f} ms, plain (einsum) "
+        f"{1e3 * attn.einsum_step_s:.4f} ms a decode step at 3.35 TB/s vs "
+        f"K3's decode {k3_decode_ms:.4f} ms (24 layers x "
+        f"{timed['decode']['ms']:.4f} ms, CUDA graph); apply_auto_plan at "
+        f"4 ranks: dp {hc['dp_degree']} mp {hc['mp_degree']} pp "
+        f"{hc['pp_degree']} sharding {hc['sharding_degree']}; {secs:.1f} s "
+        "(ranks sharing the card over gloo: a host-serialized calibration)"
+        f"  [{smi}]")
+    if not (np.isfinite(v).all() and (v >= 0).all() and (v > 0).any()):
+        raise AssertionError(f"53c: fitted constants {fitted}")
+    if applied is None or hc["dp_degree"] * hc["mp_degree"] * \
+            hc["pp_degree"] * hc["sharding_degree"] != 4:
+        raise AssertionError(f"53c: apply_auto_plan left {dict(hc)}")
+    doc = {"card": smi, "commit": commit, "seconds": secs,
+           "entries": [{k: e[k] for k in ("n", "mesh", "pipeline",
+                                           "step_s", "steps_ms", "ok",
+                                           "layout")} for e in entries]}
+    return dict(
+        calibration=doc, fitted=dict(
+            zip(("fixed_s", "sec_per_flop", "sec_per_byte",
+                 "sec_per_collective", "sec_per_dp_over_byte"),
+                v.tolist()), max_rel_error=fitted.max_rel_error),
+        committed_card=committed_card, committed_max_rel_error=committed_err,
+        plan_phase50=dict(widths=plan50.best.widths,
+                          predicted_ms=1e3 * plan50.best.predicted_step_s,
+                          fold_ms=fold_ms, f1b_ms=f1b_ms),
+        attn_kernel=dict(attn.to_dict(), k3_decode_ms=k3_decode_ms),
+        auto_plan={k: hc[k] for k in ("dp_degree", "mp_degree",
+                                      "pp_degree", "sharding_degree")},
+        seconds=secs)
+
+
+def phases_live_supervisor(pa, fa, smi, serving, mpmd, timed, spec=None):
+    """Phase 53 (a-c); returns the ``live_supervisor`` JSON line's
+    numbers. ``spec`` (a CPU rehearsal) may name a tiny serving ``model``
+    and MPMD ``mpmd`` config / ``batch``."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.serving import worker as worker_mod
+
+    spec = dict(spec or {"device": DEVICE})
+    t0 = time.perf_counter()
+    model = worker_mod.build_worker_model(
+        worker_mod.build_arg_parser().parse_args(
+            serving_argv(spec.get("model", SERVING_MODEL))))
+    out = {"card": smi}
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    try:
+        out["live"] = phase_live_plane(
+            pa, fa, smi, model, serving["router_2workers"]["tokens_per_s"],
+            tdir)
+        tdir_b = tempfile.mkdtemp(prefix="chip_smoke_live_b_")
+        try:
+            mspec = {"device": spec["device"]}
+            if spec.get("mpmd"):
+                mspec.update(model=spec["mpmd"], batch=spec["batch"])
+            out["supervisor"] = phase_supervisor(pa, fa, smi, model, tdir_b,
+                                                 mspec)
+        finally:
+            shutil.rmtree(tdir_b, ignore_errors=True)
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    del model
+    free_card()
+    out["calibration"] = phase_calibration(smi, mpmd, timed)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 53: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8151,6 +9005,8 @@ def main() -> int:
     mpmd = phase_mpmd(fa, smi)
     elastic = phase_launch_elastic(smi)
     table = phase_sharded_table(smi)
+    torch.cuda.empty_cache()
+    live_sup = phases_live_supervisor(pa, fa, smi, serving, mpmd, timed)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -8183,6 +9039,12 @@ def main() -> int:
             out["pair_ms"] = r["pair_ms"]
         return out
 
+    def k3_live(regime):
+        """Phase 53's K3 launches of one regime: 53a, 53b."""
+        return ({"live_2workers": live_sup["live"]["launches"][regime]},
+                {"supervisor_4workers":
+                 live_sup["supervisor"]["launches"][regime]})
+
     def k3_serving(regime):
         """Phase 49's K3 launches of one regime, by run."""
         procs = serving["processes"]["workers"]
@@ -8204,7 +9066,10 @@ def main() -> int:
                  "cuda graph"),
              launches_serving=k3_serving({"decode": "decode",
                                           "verify": "verify",
-                                          "prefill": "tile"}[shape]))
+                                          "prefill": "tile"}[shape]),
+             **dict(zip(("launches_live", "launches_supervisor"),
+                        k3_live({"decode": "decode", "verify": "verify",
+                                 "prefill": "tile"}[shape]))))
         for shape in ("decode", "verify", "prefill")]
     for kind, kernel in (("fwd", "flash_attention_fwd"),
                          ("dq", "flash_attention_bwd_dq"),
@@ -8262,7 +9127,10 @@ def main() -> int:
                            for name, r in mpmd["runs"].items()},
             launches_elastic={
                 f"{run}_rank{i}": elastic[run]["launches"][i][kind]
-                for run in ("clean", "killed") for i in (0, 1)}))
+                for run in ("clean", "killed") for i in (0, 1)},
+            launches_supervisor={
+                f"mpmd_width{t['width']}_{j}": t["launches"][kind]
+                for j, t in enumerate(live_sup["supervisor"]["train"])}))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -8309,6 +9177,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}, default=str))
     log(json.dumps({"mpmd_elastic_ps": {"mpmd": mpmd, "elastic": elastic,
                                         "sharded_table": table}}))
+    log(json.dumps({"live_supervisor": live_sup}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -50,8 +50,10 @@ full arrays (``io_state.gather_full_state`` /
 ``gather_full_optimizer_state`` on a split model), as the reference's
 global arrays are.
 
-The reference's layout planner (``auto_parallel/planner.py``) is not
-ported: its costs are calibrated on TPU scaling records (ROADMAP.md §A.7).
+The layout planner is ``auto_parallel/planner.py`` (``plan``,
+``apply_auto_plan`` behind ``DistributedStrategy.auto()``,
+``plan_mpmd_stages``, ``plan_attn_kernel``), its costs fitted to
+``calibration_h100.json``, weak-scaling entries measured on the card.
 """
 from __future__ import annotations
 

@@ -169,6 +169,18 @@ def init_parallel_env(backend: Optional[str] = None) -> Group:
         from ..runtime.watchdog import maybe_start_from_env
 
         maybe_start_from_env()
+        from .. import observability as _obs
+
+        if url is not None and world > 1 and _obs.enabled():
+            _obs.event("init_parallel_env", coordinator=url,
+                       world_size=world, process_id=rank, backend=backend)
+            # ranks that never call fleet_sync themselves still
+            # contribute to fleet_metrics.json on a clean exit
+            import atexit
+
+            from ..observability.fleet import fleet_sync_atexit
+
+            atexit.register(fleet_sync_atexit)
     _default_group = Group(range(dist.get_world_size()), dist.group.WORLD,
                            name="world")
     _groups.append(_default_group)

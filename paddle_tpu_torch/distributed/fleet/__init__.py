@@ -85,6 +85,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -124,13 +125,20 @@ class PaddleCloudRoleMaker(UserDefinedRoleMaker):
 
 def init(role_maker=None, is_collective: bool = False,
          strategy: Optional[DistributedStrategy] = None):
-    """fleet.init: check the strategy, join the default group, build the
-    hybrid topology and its groups."""
+    """fleet.init: check the strategy, join the default group, fill the
+    unset layout knobs from the auto-parallel planner when
+    ``strategy.auto_plan`` or ``PADDLE_TPU_AUTO_PLAN=1`` (manual settings
+    win), build the hybrid topology and its groups."""
     global _strategy
     strategy = strategy or DistributedStrategy()
     check_ported(strategy)
     init_parallel_env()
     world = get_world_size()
+    if getattr(strategy, "auto_plan", False) or \
+            os.environ.get("PADDLE_TPU_AUTO_PLAN", "") == "1":
+        from ..auto_parallel import planner as _planner
+
+        _planner.apply_auto_plan(strategy, world)
     hc = strategy.hybrid_configs
     mp = int(hc.get("mp_degree", 1))
     pp = int(hc.get("pp_degree", 1))

@@ -2,12 +2,13 @@
 ``paddle_tpu/distributed/fleet/strategy.py``, copied: it is plain Python).
 
 One typed object holds every distributed knob, with the reference's names
-and defaults, so a training script's strategy blocks run unchanged. A knob
-this port does not implement is never accepted and then ignored:
+and defaults, so a training script's strategy blocks run unchanged.
 :func:`check_ported`, which ``fleet.init`` and
-``fleet.distributed_optimizer`` call, raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it. ``dgc`` / ``localsgd`` warn
-and are ignored, as in the reference (a deliberate non-goal there too).
+``fleet.distributed_optimizer`` call, validates the wires before any
+process group is set up. ``auto_plan`` (``DistributedStrategy.auto()``)
+has ``fleet.init`` fill the unset layout knobs from the auto-parallel
+planner. ``dgc`` / ``localsgd`` warn and are ignored, as in the reference
+(a deliberate non-goal there too).
 """
 from __future__ import annotations
 
@@ -102,8 +103,13 @@ class DistributedStrategy:
 
     @classmethod
     def auto(cls, model_config: Any = None) -> "DistributedStrategy":
-        """A strategy whose layout the reference's auto-parallel planner
-        chooses; the planner is not ported (``fleet.init`` raises)."""
+        """A strategy whose layout is chosen by the auto-parallel planner.
+
+        ``fleet.init`` runs ``auto_parallel.planner.apply_auto_plan``: the
+        hybrid degrees, the schedule and the micro-batch count the user
+        did not set are filled from the cost model (manual settings win).
+        ``model_config`` is a ``planner.ModelConfig`` or a dict of its
+        fields (hidden, layers, heads, vocab, seq_len, global_batch ...)."""
         s = cls()
         s.auto_plan = True
         s.auto_plan_configs.model_config = model_config
@@ -122,19 +128,12 @@ class DistributedStrategy:
         return "\n".join(lines) + ")"
 
 
-def _unported(what, item):
-    raise NotImplementedError(
-        f"DistributedStrategy: {what} is not ported yet, see ROADMAP.md "
-        f"{item}")
-
-
 def check_ported(strategy: DistributedStrategy):
-    """Raise ``NotImplementedError`` for the first knob set that this port
-    does not implement, naming its ROADMAP.md item."""
+    """Validate the strategy before any process group is set up: a wire
+    dtype that neither exchange knows raises ``ValueError`` here. Every
+    knob of the strategy is ported, ``auto_plan`` (the planner) last."""
     from ..grad_comm import resolve_config
     from ..mp_comm import resolve_config as resolve_mp_config
 
     resolve_config(strategy)  # a bad wire raises here
     resolve_mp_config(strategy)
-    if strategy.auto_plan:
-        _unported("auto_plan (the auto-parallel planner)", "§A.7")

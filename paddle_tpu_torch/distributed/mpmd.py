@@ -40,11 +40,11 @@ over:
   at ``latest_common_step``.
 
 ``cache_dir`` (the reference's per-stage compile cache,
-``runtime/compile_cache.py``) is not ported and raises, as does the live
-telemetry plane's stage stream under ``PADDLE_TPU_LIVE_TELEMETRY=1``
-(ROADMAP.md §A.8); ``last_step_stats`` and the ``mpmd_*`` gauges keep the
-same numbers. On a CUDA stage the blocks launch their kernels or raise: no
-stage moves to the CPU unless its devices are the CPU.
+``runtime/compile_cache.py``) is not ported and raises (ROADMAP.md §A.8).
+Each step's ``last_step_stats`` go to the ``mpmd_*`` gauges and, under
+``PADDLE_TPU_LIVE_TELEMETRY=1``, to the live plane's stage stream
+(``export_stage_stats``). On a CUDA stage the blocks launch their kernels
+or raise: no stage moves to the CPU unless its devices are the CPU.
 
 This module is the single writer of the ``mpmd_*`` metric and span
 families.
@@ -931,12 +931,17 @@ class MpmdPipeline:
             errors.append(exc)
 
     def export_stage_stats(self) -> Dict[str, Dict[str, float]]:
-        """The last step's per-stage busy / idle stats (stage id -> stats),
-        also exported as the ``mpmd_stage_idle_fraction`` gauges. The
-        reference streams them to its live telemetry plane, which is not
-        ported: under ``PADDLE_TPU_LIVE_TELEMETRY=1`` this raises."""
-        _obs.check_live_unported()
-        return {str(s): rec for s, rec in self.last_step_stats.items()}
+        """Publish the last step's per-stage busy / idle stats to the live
+        telemetry plane (``observability/live.py``) so the fleet
+        aggregator can watch stage imbalance while the job runs. The
+        ``mpmd_stage_idle_fraction`` gauges export the same numbers
+        post-hoc; this is the streaming hook. One env lookup when the live
+        plane is off. Returns the exported mapping (stage id -> stats)."""
+        stats = {str(s): rec for s, rec in self.last_step_stats.items()}
+        from ..observability import live as _live
+
+        _live.note_stage_stats(stats)
+        return stats
 
     # -- per-stage checkpoint shards ----------------------------------------
     def _opt_index(self, optimizer) -> Dict[int, int]:

@@ -515,6 +515,20 @@ class DecodeEngine:
             2 * ad.num_layers * self._num_pages * ad.num_kv_heads
             * cfg.page_size * ad.head_dim * 4
             if self._attn_kernel == "cuda" and self._int8 else 0)
+        try:  # price the choice in the auto-planner's cost model
+            from ..distributed.auto_parallel.planner import plan_attn_kernel
+
+            # the planner's names, as the reference records them: "pallas"
+            # is the fused kernel (K3 here), "einsum" the plain version
+            plan_attn_kernel(
+                num_slots=cfg.num_slots, max_pages=self._mp,
+                kv_heads=ad.num_kv_heads, query_heads=ad.num_heads,
+                page_size=cfg.page_size, head_dim=ad.head_dim,
+                layers=ad.num_layers, kv_dtype=cfg.kv_dtype,
+                selected=("pallas" if self._attn_kernel == "cuda"
+                          else "einsum"))
+        except Exception:  # noqa: BLE001 — pricing never gates serving
+            pass
         shape = (ad.num_layers, self._num_pages, ad.num_kv_heads,
                  cfg.page_size, ad.head_dim)
         dev = self.device

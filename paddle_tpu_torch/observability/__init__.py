@@ -13,19 +13,18 @@ Layers, as in the reference:
    ``spans_rank{R}.jsonl`` sinks — ``span`` / ``start_span`` /
    ``end_span`` / ``record_span`` re-exported here;
 4. **tenant accounting** (``accounting.py``): the per-tenant ledger the
-   serving engine and router meter into while telemetry is on.
+   serving engine and router meter into while telemetry is on;
+5. **fleet aggregation** (``fleet.py``): ranks publish registry snapshots
+   through a store, rank 0 merges them into ``fleet_metrics.json`` with
+   per-rank min / max / mean and straggler flags;
+6. **the live plane** (``live.py``): shippers tail the span sinks into
+   seq-numbered ``tele`` payloads, an aggregator keeps sliding SLO windows
+   and writes ``fleet_health.json`` (``PADDLE_TPU_LIVE_TELEMETRY=1``).
 
 Everything is env-gated on ``PADDLE_TPU_TELEMETRY_DIR``: with it unset,
 the module-level helpers below return before touching the registry or the
 filesystem, so instrumented hot paths pay one dict lookup in
 ``os.environ`` and nothing else.
-
-The reference's fleet aggregation (``observability/fleet.py``: the store
-snapshot merge and the live-telemetry plane of ``live.py``) is not ported
-yet (ROADMAP.md §A.8): ``fleet_sync`` / ``merge_snapshots`` /
-``start_live_monitor`` raise ``NotImplementedError``, and so does any
-serving component asked for live telemetry
-(``PADDLE_TPU_LIVE_TELEMETRY=1``, see :func:`check_live_unported`).
 
 Event records are one JSON object per line, flushed (and the file closed)
 per write, so a SIGKILL never loses an already-emitted event and never
@@ -66,7 +65,6 @@ __all__ = [
     "flush", "snapshot", "reset",
     "fleet_sync", "merge_snapshots",
     "start_live_monitor", "stop_live_monitor",
-    "live_requested", "check_live_unported",
 ]
 
 _registry = MetricsRegistry(catalog=catalog.METRICS)
@@ -257,40 +255,11 @@ def reset() -> None:
 # best-effort final export; a no-op when telemetry was never enabled
 atexit.register(flush)
 
-_LIVE_UNPORTED = (
-    "live telemetry (PADDLE_TPU_LIVE_TELEMETRY) and the fleet aggregation "
-    "of observability/fleet.py and live.py are not ported yet, see "
-    "ROADMAP.md §A.8")
-
-
-def live_requested() -> bool:
-    """True when the environment asks for the live-telemetry plane (the
-    reference's ``live.live_enabled``: the flag set and telemetry on)."""
-    flag = os.environ.get("PADDLE_TPU_LIVE_TELEMETRY")
-    if not flag or flag.lower() in ("0", "false", "no", "off"):
-        return False
-    return telemetry_dir() is not None
-
-
-def check_live_unported() -> None:
-    """Raise ``NotImplementedError`` when live telemetry is asked for: the
-    serving router and worker call this where the reference drives its
-    live aggregator / shipper."""
-    if live_requested():
-        raise NotImplementedError(_LIVE_UNPORTED)
-
-
-def fleet_sync(*args, **kwargs):
-    raise NotImplementedError(_LIVE_UNPORTED)
-
-
-def merge_snapshots(*args, **kwargs):
-    raise NotImplementedError(_LIVE_UNPORTED)
-
-
-def start_live_monitor(*args, **kwargs):
-    raise NotImplementedError(_LIVE_UNPORTED)
-
-
-def stop_live_monitor() -> None:
-    """No live monitor can run in the port: nothing to stop."""
+# fleet aggregation (store snapshot merge) and the rank-0 live monitor;
+# imported last: fleet.py reads this package's helpers at call time
+from .fleet import (  # noqa: E402,F401
+    fleet_sync,
+    merge_snapshots,
+    start_live_monitor,
+    stop_live_monitor,
+)

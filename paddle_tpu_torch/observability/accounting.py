@@ -164,11 +164,15 @@ class Prices:
 
 
 def default_prices() -> Prices:
-    """The analytic default prices. The reference derives them from its
-    auto-parallel planner's calibrated cost constants; the planner is not
-    ported (ROADMAP.md §A.7), so the port prices with the defaults its
-    fallback uses."""
-    return Prices()
+    """Prices from the planner's (calibrated on the card, else analytic)
+    cost constants; the hardcoded fallback keeps this module
+    stdlib-standalone."""
+    try:
+        from ..distributed.auto_parallel.planner import load_calibration
+
+        return Prices.from_cost_constants(load_calibration())
+    except Exception:  # noqa: BLE001 — pricing never gates metering
+        return Prices()
 
 
 # -- the ledger --------------------------------------------------------------

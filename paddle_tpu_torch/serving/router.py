@@ -65,10 +65,12 @@ context rides the dispatch record (protocol.py) so the worker and engine
 continue the same tree; failover reruns attach under the same root,
 never minting a second one.
 
-Not ported yet (ROADMAP.md §A.8): the live-telemetry aggregator the
-reference drives from ``pump`` (``PADDLE_TPU_LIVE_TELEMETRY=1`` raises
-``NotImplementedError`` here) and ``share_live_aggregator``, the front
-tier's hook (``serving/frontier.py``).
+Live telemetry: under ``PADDLE_TPU_LIVE_TELEMETRY=1`` each ``pump``
+ingests the workers' ``tele`` frames into a ``live.LiveAggregator`` and
+ticks it (admission-queue and outstanding-token gauges included), which
+writes ``fleet_health.json`` at its cadence. ``share_live_aggregator``
+hands that role to an aggregator someone else owns (the reference's front
+tier, ``serving/frontier.py``, is not ported yet: ROADMAP.md §A.8).
 """
 from __future__ import annotations
 
@@ -81,6 +83,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import observability as _obs
+from ..observability import live as _live
 from ..observability import accounting as _acct
 from ..inference.engine import PrefixRegistry, SamplingParams
 from .protocol import (DEFAULT_DEADLINES, DEFAULT_NAMESPACE, SLO_CLASSES,
@@ -268,6 +271,10 @@ class Router:
                          "dispatched": 0, "failover_resubmits": 0,
                          "affinity_hits": 0, "engines_lost": 0,
                          "retransmits": 0, "disagg_dispatches": 0}
+        #: live-telemetry aggregator (observability/live.py), created
+        #: lazily on the first pump with the plane enabled; stays None —
+        #: one env dict lookup per pump — when it is off
+        self._live_agg: Optional[_live.LiveAggregator] = None
         #: router-side tenant ledger (shed attribution), created lazily
         #: on the first submit with accounting enabled
         self._acct: Optional[_acct.TenantLedger] = None
@@ -279,6 +286,10 @@ class Router:
         #: harvest rotation: which engine the budgeted done-key scan
         #: resumes from next pump
         self._harvest_cursor = 0
+        #: False when another owner (share_live_aggregator) drives the
+        #: shared live aggregator: this router feeds tenant deltas but
+        #: leaves queue gauges + the health-file tick to the owner
+        self._live_driver = True
 
     @property
     def _streaming(self) -> bool:
@@ -480,6 +491,13 @@ class Router:
                     # their decode engine; the decode side owns them now
                     for rid in frame.get("rids", ()):
                         est.inflight.pop(rid, None)
+                elif t == "tele":
+                    # live-telemetry batch riding the heartbeat; ingest
+                    # dedups (src, seq) so the redundant re-sends and any
+                    # locally tailed copies of the same spans collapse
+                    if self._live_agg is not None:
+                        for pay in frame.get("pays", ()):
+                            self._live_agg.ingest(pay)
 
     def _read_occupancy(self):
         now = self._mono()
@@ -1003,13 +1021,36 @@ class Router:
                            len(queue), slo=cls)
 
     def _live_tick(self):
-        """The reference drives its live-telemetry aggregator here; the
-        port has none yet, so asking for it raises (one env lookup a pump
-        when it is off). With accounting on, the per-engine per-tenant
-        outstanding-token gauges are still published."""
-        _obs.check_live_unported()
+        """Drive the live aggregator (lazily created so tests can flip
+        the env per-case): hand it the queue depths, then let it poll
+        local tails and write ``fleet_health.json`` at its own cadence.
+        One env dict lookup per pump when the plane is off; with
+        accounting on, the per-engine per-tenant outstanding-token gauges
+        are published either way."""
+        if self._live_agg is None:
+            if not self._live_driver or not _live.live_enabled():
+                if self._acct is not None:
+                    _acct.publish_outstanding(self.tenant_outstanding())
+                return
+            self._live_agg = _live.LiveAggregator()
+        if self._live_driver:
+            self._live_agg.note_queues({
+                "admission": {c: len(q) for c, q in self._queues.items()},
+                "engine_outstanding_tokens": {
+                    e.name: self._load_tokens(e)
+                    for e in self._engines.values() if e.alive},
+            })
         if self._acct is not None:
-            _acct.publish_outstanding(self.tenant_outstanding())
+            per_engine = self.tenant_outstanding()
+            _acct.publish_outstanding(per_engine)
+            # a non-driver router feeds only its ledger delta: the owner
+            # merges every router's outstanding map itself, and a
+            # per-router overwrite here would clobber its siblings'
+            self._live_agg.note_tenants(
+                self._acct.collect_delta(),
+                per_engine if self._live_driver else None)
+        if self._live_driver:
+            self._live_agg.tick()
 
     def tenant_outstanding(self) -> Dict[str, Dict[str, int]]:
         """Per-engine per-tenant outstanding tokens: the raw signal the
@@ -1027,12 +1068,15 @@ class Router:
                     req.prompt) + req.params.max_new_tokens
         return per_engine
 
-    def share_live_aggregator(self, agg):
-        """The front tier's hook (``serving/frontier.py``): not ported
-        yet."""
-        raise NotImplementedError(
-            "share_live_aggregator (the front tier's live aggregator) is "
-            "not ported yet, see ROADMAP.md §A.8")
+    def share_live_aggregator(self, agg: "_live.LiveAggregator"):
+        """Adopt a live aggregator OWNED BY SOMEONE ELSE (the reference's
+        front tier, ``serving/frontier.py``). This router keeps feeding
+        tenant deltas and ingesting wire telemetry into it, but stops
+        writing queue gauges or driving the health-file tick — with
+        several routers in one process, two drivers would clobber each
+        other's ``fleet_health.json`` view; the owner merges and writes."""
+        self._live_agg = agg
+        self._live_driver = False
 
     def pump(self):
         """One scheduling round: discover new engines, drain the wire,

@@ -47,7 +47,9 @@ launches by regime so far and its float32 matmul settings.
 
 Not ported yet: ``--mp > 1`` (the engine's mesh sharding, ROADMAP.md
 §A.4b) and the ``wt`` weight-epoch frames of ``serving/online.py`` (§A.8)
-raise ``NotImplementedError``, as does live telemetry (§A.8).
+raise ``NotImplementedError``. Under ``PADDLE_TPU_LIVE_TELEMETRY=1`` a
+worker with router links ships ``tele`` frames of its span tail on the
+occupancy beat (``observability/live.py``).
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .. import observability as _obs
+from ..observability import live as _live
 from ..inference.engine import DecodeEngine, EngineConfig, SamplingParams
 from ..testing import chaos
 from .protocol import (DEFAULT_NAMESPACE, ROLES, deadline_guard, k_ctl,
@@ -121,6 +124,9 @@ class EngineWorker:
         #: shared connection (tensor-queue frames number independently)
         self._rx_seq = SeqChannels()
         self._beat = 0
+        #: live-telemetry shipper, created lazily on the first beat with
+        #: the plane enabled and a router attached
+        self._live_shipper: Optional[_live.LiveShipper] = None
         self._local_rid: Dict[int, int] = {}  # engine rid -> router rid
         self._last_occ_pub = 0.0
         self._last_occ_store = -float("inf")
@@ -411,8 +417,18 @@ class EngineWorker:
         occ["draining"] = self.draining
         occ["drained"] = self.draining and self._idle
         self._send_routers({"t": "occ", "occ": occ, "ts": time.time()})
-        # the reference ships live telemetry on this beat; not ported
-        _obs.check_live_unported()
+        # live-telemetry piggyback: the tele batch rides the SAME links at
+        # the SAME cadence — no extra socket, no extra thread. Only collect
+        # once a router is attached, so the span tail is not consumed
+        # before anyone can receive it (the ring only re-sends ~3 beats).
+        if self._router_cids and _live.live_enabled():
+            if self._live_shipper is None:
+                self._live_shipper = _live.LiveShipper(
+                    self.name,
+                    ledger_fn=self.engine.accounting_ledger)
+            pays = self._live_shipper.collect()
+            if pays:
+                self._send_routers({"t": "tele", "pays": pays})
         if (force_store or not self._router_cids
                 or now - self._last_occ_store >= _STORE_MIRROR_S):
             self._last_occ_store = now

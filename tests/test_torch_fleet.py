@@ -429,19 +429,50 @@ def test_distributed_batch_sampler_defaults_to_the_data_axes(runs):
     ("grad_comm_bf16", "§A.7"), ("grad_comm_int8", "§A.7"),
     ("mp_comm", "§A.7"), ("gradient_merge", "§A.7"), ("lars", "§A.3"),
     ("lamb", "§A.3"), ("auto_plan", "§A.7")])
-def test_unported_knobs_raise(knob, item):
-    """Each raises in fleet.init, before any process group is set up, and
-    in distributed_optimizer. pp_degree > 1 raised until pipeline
-    parallelism was ported (tests/test_torch_pipeline.py): the strategy
-    check passes it now. sep_degree > 1 passes too since the sep axis was
-    ported (tests/test_torch_sep.py), and with pp_degree > 1 since the
-    ring runs inside a pipeline (tests/test_torch_pp_compose.py). ZeRO-3
-    (with pp as well), the bf16 / int8 gradient wire, mp_comm and
-    gradient_merge pass since they were ported, and so do the Lars / Lamb
-    meta-optimizers (tests/test_torch_lamb_fleet.py)."""
+def test_unported_knobs_raise(knob, item, monkeypatch):
+    """Each raised in fleet.init, before any process group is set up, and
+    in distributed_optimizer, until it was ported. pp_degree > 1 passes
+    the strategy check since pipeline parallelism was ported
+    (tests/test_torch_pipeline.py), sep_degree > 1 since the sep axis was
+    (tests/test_torch_sep.py), and with pp_degree > 1 since the ring runs
+    inside a pipeline (tests/test_torch_pp_compose.py). ZeRO-3 (with pp as
+    well), the bf16 / int8 gradient wire, mp_comm and gradient_merge pass
+    since they were ported, and so do the Lars / Lamb meta-optimizers
+    (tests/test_torch_lamb_fleet.py). ``auto_plan`` passes since the
+    planner was ported (tests/test_torch_planner.py): ``fleet.init``
+    fills the unpinned degrees as the reference's does."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
+    if knob == "auto_plan":
+        from paddle_tpu.distributed.fleet import DistributedStrategy as RefS
+        from paddle_tpu.distributed.auto_parallel import planner as ref_pl
+
+        from torch_port_utils import same_planner_constants
+
+        same_planner_constants(monkeypatch)
+        s = fleet.DistributedStrategy.auto()
+        s.hybrid_configs["mp_degree"] = 2          # a manual pin wins
+        check_ported(s)
+        # fleet.init at a world of 8 without a process group: the hybrid
+        # group holds rank lists only
+        monkeypatch.setattr(fleet, "init_parallel_env", lambda: None)
+        monkeypatch.setattr(fleet, "get_world_size", lambda: 8)
+        fleet.init(is_collective=True, strategy=s)
+        try:
+            want = RefS.auto()
+            want.hybrid_configs["mp_degree"] = 2
+            ref_pl.apply_auto_plan(want, 8)
+            for k in ("dp_degree", "mp_degree", "pp_degree",
+                      "sharding_degree"):
+                assert s.hybrid_configs[k] == want.hybrid_configs[k], k
+            assert dict(s.pipeline_configs) == dict(want.pipeline_configs)
+            hcg = fleet.get_hybrid_communicate_group()
+            assert hcg.get_model_parallel_world_size() == 2
+            assert hcg.nranks == 8
+        finally:
+            fleet.topology.set_hybrid_communicate_group(None)
+        return
     if knob == "pp":
         s.hybrid_configs["pp_degree"] = 2
         check_ported(s)

@@ -40,8 +40,9 @@ def test_no_jax_or_reference_import(path):
 def test_distributed_modules_are_covered():
     """The guard's module list holds every distributed module, the ZeRO-3
     layout, the mp wire, the auto-parallel / reshard / checkpoint modules,
-    the serving tier (store, chaos, telemetry, serving), and the launcher,
-    watchdog, elastic, MPMD, rpc and ps modules among them."""
+    the serving tier (store, chaos, telemetry, serving), the launcher,
+    watchdog, elastic, MPMD, rpc and ps modules, and the live plane, the
+    planner and the supervisor among them."""
     for m in ("paddle_tpu_torch.distributed.mp_comm",
               "paddle_tpu_torch.distributed.grad_comm",
               "paddle_tpu_torch.distributed.fleet.meta_parallel."
@@ -74,7 +75,11 @@ def test_distributed_modules_are_covered():
               "paddle_tpu_torch.distributed.mpmd",
               "paddle_tpu_torch.distributed.rpc",
               "paddle_tpu_torch.distributed.ps",
-              "paddle_tpu_torch.distributed.ps.geo"):
+              "paddle_tpu_torch.distributed.ps.geo",
+              "paddle_tpu_torch.observability.live",
+              "paddle_tpu_torch.observability.fleet",
+              "paddle_tpu_torch.distributed.auto_parallel.planner",
+              "paddle_tpu_torch.distributed.fleet.supervisor"):
         assert m in MODULES, m
 
 

@@ -379,9 +379,16 @@ def test_unported_flags_raise(flag, item):
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs.update(sep_degree=2, pp_degree=2)
         check_ported(strategy)
+        # auto_plan raised here until the planner was ported
+        # (tests/test_torch_planner.py): it passes the check with sep and
+        # pp pinned, and the planner keeps the pinned pp
+        from paddle_tpu_torch.distributed.auto_parallel import planner
+
         strategy.auto_plan = True
-        with pytest.raises(NotImplementedError, match=rf"auto_plan.*{item}"):
-            fleet.init(is_collective=True, strategy=strategy)
+        check_ported(strategy)
+        assert planner.apply_auto_plan(strategy, 8) is not None
+        assert strategy.hybrid_configs["pp_degree"] == 2
+        assert strategy.hybrid_configs["sep_degree"] == 2
         assert fleet.get_hybrid_communicate_group() is None
         return
     # fold_layers raised until the fold was ported (ROADMAP §A.3, now

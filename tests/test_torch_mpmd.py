@@ -360,10 +360,28 @@ def test_live_stage_stats_raise_only_when_asked(monkeypatch, tmp_path,
     stats = mp.export_stage_stats()
     assert sorted(stats) == ["0", "1"]
     assert all(0.0 <= s["idle_fraction"] <= 1.0 for s in stats.values())
+    from paddle_tpu_torch.observability import live
+
+    live.note_stage_stats({})  # a no-op while the plane is off
     monkeypatch.setenv("PADDLE_TPU_TELEMETRY_DIR", str(tmp_path))
     monkeypatch.setenv("PADDLE_TPU_LIVE_TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        mp.export_stage_stats()
+    try:
+        # the plane on: the stats stream into the live plane, and the
+        # aggregator's health doc shows the stages' imbalance
+        exported = mp.export_stage_stats()
+        assert live.stage_stats() == {
+            s: {k: round(float(v), 6) for k, v in rec.items()}
+            for s, rec in exported.items()}
+        agg = live.LiveAggregator(tail_local=True)
+        agg._poll_local(0.0)
+        imb = agg.health(now=0.0)["stages"]
+        assert sorted(imb["idle_fraction"]) == ["0", "1"]
+        fr = [live.stage_stats()[s]["idle_fraction"] for s in ("0", "1")]
+        assert imb["imbalance"] == pytest.approx(max(fr) - min(fr), abs=2e-6)
+    finally:
+        monkeypatch.delenv("PADDLE_TPU_LIVE_TELEMETRY")
+        with live._stage_lock:
+            live._stage_stats.clear()
 
 
 def test_launch_cli_exports_stage_widths(tmp_path):

@@ -403,9 +403,9 @@ def test_pipeline_layer_train_batch_matches_reference(runs):
 def test_pp_degree_trains_and_other_knobs_still_raise():
     """pp_degree > 1 passes the strategy check, and so do sep_degree > 1
     and ZeRO-3, alone and with pp (the ring and the slices inside a
-    pipeline, ``tests/test_torch_pp_compose.py``); the knobs still
-    refused raise with pp as without, naming their ROADMAP item; Lamb
-    passes with pp since the meta-optimizers were ported."""
+    pipeline, ``tests/test_torch_pp_compose.py``); Lamb passes with pp
+    since the meta-optimizers were ported, and ``auto_plan`` since the
+    planner was."""
     from paddle_tpu_torch.distributed.fleet.strategy import check_ported
 
     s = fleet.DistributedStrategy()
@@ -427,12 +427,17 @@ def test_pp_degree_trains_and_other_knobs_still_raise():
     s.hybrid_configs["pp_degree"] = 2
     s.lamb = True  # ported: tests/test_torch_lamb_fleet.py
     check_ported(s)
+    # auto_plan passes since the planner was ported (ROADMAP §A.7 item 4;
+    # tests/test_torch_planner.py), and the pinned pp survives its plan
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+
     for knob, item in (("auto_plan", "§A.7"),):
         s = fleet.DistributedStrategy()
         s.hybrid_configs["pp_degree"] = 2
         setattr(s, knob, True)
-        with pytest.raises(NotImplementedError, match=item):
-            check_ported(s)
+        check_ported(s)
+        assert planner.apply_auto_plan(s, 4) is not None, item
+        assert s.hybrid_configs["pp_degree"] == 2 and s.pipeline
 
 
 def test_pipelined_stack_outside_its_schedule_raises():

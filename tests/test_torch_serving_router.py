@@ -401,8 +401,6 @@ def test_unported_serving_knobs_raise(models, store, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="§A.8"):
         worker_mod.main(["--step-floor-ms", "5", "--device", "cpu"])
     router = Router(store)
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        router.share_live_aggregator(None)
     w = EngineWorker(tm, store, **ENG)
     link = TransportClient(w._server.addr)
     assert link.send({"t": "wt", "ch": "wt:0", "seq": 0, "kind": "begin",
@@ -411,10 +409,30 @@ def test_unported_serving_knobs_raise(models, store, monkeypatch, tmp_path):
         for _ in range(200):
             w.poll_once()
     link.close()
+    # the live plane is ported (tests/test_torch_live_telemetry.py): under
+    # the flag a pump builds the router's aggregator and ticks it; an
+    # aggregator shared by another owner takes the wire's tele payloads
+    # while this router neither drives its tick nor writes its queues
+    from paddle_tpu_torch.observability import live
+
     monkeypatch.setenv("PADDLE_TPU_TELEMETRY_DIR", str(tmp_path))
     monkeypatch.setenv("PADDLE_TPU_LIVE_TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="§A.8"):
+    router.pump()
+    assert isinstance(router._live_agg, live.LiveAggregator)
+    assert (tmp_path / "fleet_health.json").exists()
+    shared = live.LiveAggregator(tail_local=False)
+    router.share_live_aggregator(shared)
+    assert router._live_agg is shared and not router._live_driver
+    from paddle_tpu_torch import observability as obs
+
+    obs.record_span("compile", dur_s=0.01)  # something for w to ship
+    for _ in range(200):
         router.pump()
+        w.poll_once()
+        if w.name in shared._seen_seq:
+            break
+    assert shared._seen_seq.get(w.name, 0) >= 1
+    assert shared.health()["queues"] == {}
 
 
 def test_request_trace_tree_and_done_event(models, reference, store,

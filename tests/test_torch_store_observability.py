@@ -232,14 +232,29 @@ def test_env_gated_helpers_and_event_log(tmp_path, monkeypatch):
 
 
 def test_live_telemetry_raises_naming_roadmap(monkeypatch, tmp_path):
+    """The live plane and the fleet merge are ported (ROADMAP.md §A.8's
+    items; tests/test_torch_live_telemetry.py holds them against the
+    reference): under the flag rank 0's monitor runs and writes
+    ``fleet_health.json``; with the flag off it stays down; the package
+    exports the reference's fleet names."""
     monkeypatch.setenv("PADDLE_TPU_TELEMETRY_DIR", str(tmp_path))
-    monkeypatch.setenv("PADDLE_TPU_LIVE_TELEMETRY", "1")
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        obs.check_live_unported()
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        obs.start_live_monitor()
+    monkeypatch.delenv("PADDLE_TRAINER_ID", raising=False)
     monkeypatch.setenv("PADDLE_TPU_LIVE_TELEMETRY", "0")
-    obs.check_live_unported()
+    assert obs.start_live_monitor() is None
+    monkeypatch.setenv("PADDLE_TPU_LIVE_TELEMETRY", "1")
+    agg = obs.start_live_monitor(interval_s=0.02, health_interval_s=0.0)
+    try:
+        assert agg is not None
+        deadline = time.monotonic() + 10
+        while not (tmp_path / "fleet_health.json").exists():
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+    finally:
+        obs.stop_live_monitor()
+        obs.reset()
+    assert not hasattr(obs, "check_live_unported")
+    doc = obs.merge_snapshots({0: obs.snapshot()}, world_size=2)
+    assert doc["missing_ranks"] == [1]
 
 
 class _Req:

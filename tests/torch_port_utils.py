@@ -2528,3 +2528,32 @@ def ps_table_job(weight, ids, w_out, lr, padding_idx):
                     info=table.shard_info())
     finally:
         dist.set_global_mesh(None)
+
+
+def same_planner_constants(monkeypatch):
+    """Give both packages' auto-parallel planners the same cached cost
+    constants (the reference's fit of its ``MULTICHIP_SCALING.json``), so
+    ``apply_auto_plan`` / ``plan_mpmd_stages`` without explicit constants
+    compare: by default each package loads its own calibration (the
+    port's is measured on the card). That fit zeroes ``sec_per_flop``,
+    where each MPMD planner falls back to its own package's analytic flop
+    rate; both get the reference's 2e-10 instead."""
+    import dataclasses
+
+    from paddle_tpu.distributed.auto_parallel import planner as ref
+
+    from paddle_tpu_torch.distributed.auto_parallel import planner as port
+
+    rc = ref.load_calibration(path=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "MULTICHIP_SCALING.json"))
+    if not rc.sec_per_flop:
+        rc = dataclasses.replace(rc, sec_per_flop=2.0e-10)
+    pc = port.CostConstants(
+        fixed_s=rc.fixed_s, sec_per_flop=rc.sec_per_flop,
+        sec_per_byte=rc.sec_per_byte, sec_per_collective=rc.sec_per_collective,
+        sec_per_dp_over_byte=rc.sec_per_dp_over_byte, source=rc.source,
+        max_rel_error=rc.max_rel_error)
+    monkeypatch.setattr(ref, "_CALIBRATION", rc)
+    monkeypatch.setattr(port, "_CALIBRATION", pc)
+    return pc, rc
