@@ -337,7 +337,23 @@ Phases, each fatal on failure (non-zero exit, no final line):
 52. a ``ShardedEmbeddingTable`` of 1,048,576 x 128 f32, whole on the card,
    then split over two gloo ranks sharing it: 8 x 4096 ids, forward,
    backward, one SGD step; the output and updated rows bit-equal;
-53. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+54. the rest of §A.7, part 1, on two gloo ranks sharing the card after
+   single-process baselines: (a) GPT-3 1.3B's widths at depth 4 and
+   Llama-3-8B's at depth 2, built whole, served through
+   ``EngineConfig(mesh=...)`` at mp 2 (each rank's pool at ``Hkv / 2``
+   heads, K3 over them): make_prompts' 8 greedy requests with prefix
+   sharing and speculation equal to the mp-1 engine's (or parting at a
+   near-tie) and on both ranks, K3's launches a rank by regime equal to
+   ``k3_expected``, the f32 and int8 logit wires' bytes equal to
+   ``logit_wire_bytes``, tokens/s beside mp 1; (b) the masked ring at sep
+   2 (B 2, T 2048, H 16, D 128) under a key padding mask and a causal
+   [B, 1, T, T] bias: K1 / K2a / K2b against the plain ring and both
+   against a float64 oracle within 1e-4; BERT-base with its padding mask
+   for 3 steps through ``DistTrainStep`` at sep 2 against ``TrainStep``;
+   (c) ERNIE-3.0's widths at depth 4 through ``paddle.Model`` at dp 2
+   against one process, ``comm_traffic``'s gradient bytes against the
+   parameters' and its bf16-wire quantized fraction;
+55. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
@@ -345,12 +361,14 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ``zero3_wires`` JSON line (phases 44-45), a ``pp_compose`` JSON line
    (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
    line (phase 48), a ``serving`` JSON line (phase 49), an
-   ``mpmd_elastic_ps`` JSON line (phases 50-52), a ``kernels`` JSON line
+   ``mpmd_elastic_ps`` JSON line (phases 50-52), an ``mp_sep_hapi`` JSON
+   line (phase 54), a ``kernels`` JSON line
    (the GPT, encoder and MoE shapes, the K1 / K2 rows with their launches
-   in phases 38-48 and 50-51 (``launches_mpmd``, ``launches_elastic``),
-   the K3 rows with phase 49's as ``launches_serving``; no TPU kernel lies
-   on the vision path, the capacity MoE path or phase 52's table), then
-   the result line.
+   in phases 38-48, 50-51 and 54 (``launches_mpmd``, ``launches_elastic``,
+   ``launches_mp_sep_hapi``), the K3 rows with phase 49's as
+   ``launches_serving`` and 54a's as ``launches_mp_serving``; no TPU
+   kernel lies on the vision path, the capacity MoE path or phase 52's
+   table), then the result line.
 """
 from __future__ import annotations
 
@@ -8913,6 +8931,544 @@ def phases_live_supervisor(pa, fa, smi, serving, mpmd, timed, spec=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 54: serving at mp 2, the masked ring, the distributed paddle.Model
+# ---------------------------------------------------------------------------
+#: 54a: GPT at phase 49's widths, cut to this depth (two whole copies and
+#: the mp-1 baseline share the card); Llama-3-8B's widths at this depth
+MP_SERVING_LAYERS = 4
+MP_LLAMA_LAYERS = 2
+MP_WIRES = ("f32", "int8")
+#: 54b: the masked ring's shape (phase 42's) and the share of each row's
+#: keys its padding mask keeps (about 40 % masked)
+SEP_MASK_RING = dict(b=2, t=2048, h=16, d=128)
+SEP_MASK_KEEP = (0.62, 0.58)
+SEP_BERT_STEPS = 3
+#: 54c: ERNIE-3.0-base's widths at this depth, fine-tuned through
+#: paddle.Model at dp 2 for this many batches of ERNIE_BATCH x ERNIE_SEQ
+HAPI_DP_LAYERS = 4
+HAPI_DP_STEPS = 4
+
+
+def mp_gpt(spec):
+    """54a's GPT: GPT-3 1.3B (phase 49's widths) at MP_SERVING_LAYERS, a
+    rehearsal's tiny ``spec["gpt"]`` config instead; built whole."""
+    if not spec.get("gpt"):
+        return build_model(MP_SERVING_LAYERS)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    return GPTForCausalLM(GPTConfig(**spec["gpt"]), device=DEVICE, seed=SEED)
+
+
+def mp_llama(spec):
+    if not spec.get("llama"):
+        return build_llama(MP_LLAMA_LAYERS)
+    from paddle_tpu_torch.text.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM)
+
+    return LlamaForCausalLM(LlamaConfig(**spec["llama"]), device=DEVICE,
+                            seed=SEED)
+
+
+def mp_sep_bert(spec):
+    """54b's BERT-base masked LM (phase 25's widths and seed) with every
+    dropout 0, so the split run and the baseline take the same steps; or
+    a rehearsal's tiny ``spec["bert"]`` config."""
+    from paddle_tpu_torch.text.models.bert import BertConfig, BertForMaskedLM
+
+    cfg = BertConfig(**dict(spec.get("bert") or {},
+                            attention_probs_dropout_prob=0.0,
+                            hidden_dropout_prob=0.0))
+    return BertForMaskedLM(cfg, device=DEVICE, seed=SEED)
+
+
+def hapi_ernie(spec):
+    """54c's ERNIE-3.0 classifier at HAPI_DP_LAYERS, dropouts 0 (the
+    ranks' and the baseline's steps compare), or a rehearsal's."""
+    if not spec.get("ernie"):
+        return build_ernie(HAPI_DP_LAYERS, dropout=0.0)
+    from paddle_tpu_torch.text.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification)
+
+    return ErnieForSequenceClassification(ErnieConfig(**spec["ernie"]),
+                                          num_classes=2, device=DEVICE,
+                                          seed=SEED)
+
+
+def hapi_data(vocab, spec):
+    n, seq = spec.get("ernie_data", (HAPI_DP_STEPS * ERNIE_BATCH, ERNIE_SEQ))
+    return PairData(n, vocab, seq, SEED + 54), n // HAPI_DP_STEPS
+
+
+def bert_sep_trainer(model, dist_step):
+    """Phase 25's AdamW and clip on ``model``, its loss, through a
+    ``DistTrainStep`` (``dist_step``) or a ``TrainStep``."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    opt = AdamW(parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), **BERT_ADAMW)
+
+    def loss_fn(m, ids, types, mask, labels):
+        return m(ids, types, attention_mask=mask, labels=labels)
+
+    cls = fleet.DistTrainStep if dist_step else TrainStep
+    return cls(model, loss_fn, opt)
+
+
+def sep_mask_batch(model, spec):
+    if spec.get("bert_batch"):
+        b, t = spec["bert_batch"]
+        rng = np.random.default_rng(SEED + 23)
+        v = model.config.vocab_size
+        ids = rng.integers(3, v, (b, t))
+        mask = np.ones((b, t), np.int64)
+        mask[1:, t // 3:] = 0
+        labels = np.where(rng.random((b, t)) < 0.3, ids, -100)
+        return [torch.as_tensor(x, device=DEVICE) for x in
+                (ids * mask, np.zeros_like(ids), mask, labels * mask
+                 - 100 * (1 - mask))]
+    return mlm_batch(model.config.vocab_size)[0]
+
+
+def fit_losses(model, data, batch):
+    """``Model.fit`` over ``data`` (one epoch, in order), the per-step
+    losses."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    rec = Losses()
+    model.fit(data, batch_size=batch, epochs=1, shuffle=False, verbose=0,
+              num_workers=0, callbacks=[rec])
+    return rec.losses
+
+
+def masked_oracle(full, mask, causal):
+    """The whole sequence's attention in float64 torch under ``mask`` (a
+    [B, T] keep mask or an additive [B, 1, T, T] bias) and its q / k / v
+    gradients under dO."""
+    q, k, v, do = (x.detach().double() for x in full)
+    for x in (q, k, v):
+        x.requires_grad_()
+    d, t = q.shape[-1], q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    if mask.dtype == torch.bool:
+        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    else:
+        s = s + mask.double()
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    o.backward(do)
+    return [o.detach(), q.grad, k.grad, v.grad]
+
+
+def _rank_mp_sep_hapi(out_dir, spec):
+    """One rank of phase 54 (run by ``paddle.distributed.spawn``, two
+    gloo ranks sharing the card): 54a the mp-2 engines, 54b the masked
+    ring and BERT at sep 2, 54c ERNIE's ``Model.fit`` at dp 2; the results
+    pickled to ``out_dir``."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+    from paddle_tpu_torch.nn.functional import ring_attention as ra
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    if spec.get("prepare"):
+        spec["prepare"]()
+    on_card = DEVICE == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    out = {}
+    # 54a: whole models served through an mp 2 mesh
+    mesh = dist.ProcessMesh([[0, 1]], dim_names=["dp", "mp"])
+    for name, build, wires in (("gpt", mp_gpt, MP_WIRES),
+                               ("llama", mp_llama, ("f32",))):
+        model = build(spec)
+        prompts = make_prompts(model.config.vocab_size)
+        for wire in wires:
+            eng = DecodeEngine(model, **engine_config(
+                kv_dtype="f32", logit_wire=wire, mesh=mesh))
+            ad = eng.adapter
+            reset_k3(pa)
+            C.counts["logit_wire_bytes"] = 0
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            streams = serve(eng, prompts)
+            sync()
+            secs = time.perf_counter() - t0
+            st = eng.stats()
+            launches, tile, split, decode, verify = k3_counts(pa)
+            out[f"{name}_{wire}"] = dict(
+                streams=streams, seconds=secs, tokens=st["total_tokens"],
+                pool=list(eng._kc.shape), kv_heads=st["kv_heads"],
+                wire_bytes=C.counts["logit_wire_bytes"],
+                prefills=st["prefill_calls"], steps=st["decode_steps"],
+                verify_steps=st["verify_steps"],
+                prefix_hit_tokens=st["prefix_hit_tokens"],
+                vocab=model.config.vocab_size,
+                k3=dict(launches=launches, tile=tile, split=split,
+                        decode=decode, verify=verify),
+                k3_want=k3_expected(pa, ad.num_layers, st, eng,
+                                    ad.num_heads // ad.num_kv_heads))
+            del eng
+        del model
+        free_card()
+    # 54b: the masked ring at sep 2, then BERT with its padding mask
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=1, sep_degree=2)
+    fleet.init(is_collective=True, strategy=s)
+    group = fleet.get_hybrid_communicate_group().get_sep_parallel_group()
+    shape = spec.get("ring", SEP_MASK_RING)
+    full, blocks = ring_blocks(shape, torch.float32, DEVICE, 2, group.rank)
+    b, t = shape["b"], shape["t"]
+    tl = t // 2
+    keep = torch.zeros(b, t, dtype=torch.bool, device=DEVICE)
+    for i, share in enumerate(SEP_MASK_KEEP[:b]):
+        keep[i, :int(share * t)] = True
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 54)
+    bias = torch.randn((b, 1, t, t), generator=gen, device=DEVICE)
+    blk = slice(group.rank * tl, (group.rank + 1) * tl)
+    ring = {}
+    for name, mask, local, causal in (
+            ("key_padding", keep, keep[:, blk].contiguous(), False),
+            ("bias_rows", bias, bias[:, :, blk].contiguous(), True)):
+        res = {}
+        for route, fn in (("plain", ra.ring_flash_attention_plain),
+                          ("kernels", ra.ring_flash_attention)):
+            q, k, v = (x.detach().clone().requires_grad_()
+                       for x in blocks[:3])
+            reset_flash(fa)
+            o = fn(q, k, v, group, causal=causal, mask=local)
+            o.backward(blocks[3])
+            sync()
+            res[route] = [o.detach(), q.grad, k.grad, v.grad]
+            res[f"{route}_launches"] = flash_counts(fa)
+        oracle = masked_oracle(full, mask, causal)
+        pairs = (("kernels_vs_oracle", res["kernels"],
+                  [x[:, blk] for x in oracle]),
+                 ("plain_vs_oracle", res["plain"],
+                  [x[:, blk] for x in oracle]),
+                 ("kernels_vs_plain", res["kernels"], res["plain"]))
+        ring[name] = dict(
+            launches=res["kernels_launches"],
+            plain_launches=res["plain_launches"],
+            masked_share=1.0 - keep.float().mean().item()
+            if mask is keep else 0.0,
+            **{key: {n: _rel(x.double(), y.double()) for n, x, y in
+                     zip(("o", "dq", "dk", "dv"), got, want)}
+               for key, got, want in pairs})
+        del res, oracle
+    out["ring"] = ring
+    del full, blocks, bias
+    model = mp_sep_bert(spec)
+    step = bert_sep_trainer(model, True)
+    batch = sep_mask_batch(model, spec)
+    reset_flash(fa)
+    C.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    losses = [float(step(*batch)) for _ in range(SEP_BERT_STEPS)]
+    sync()
+    out["bert"] = dict(losses=losses, launches=flash_counts(fa),
+                       p2p=C.counts["batch_isend_irecv"],
+                       seconds=time.perf_counter() - t0,
+                       layers=model.config.num_hidden_layers)
+    del step, model
+    fleet.topology.set_hybrid_communicate_group(None)
+    free_card()
+    # 54c: paddle.Model at dp 2, then its comm_traffic report
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["dp_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    net = hapi_ernie(spec)
+    model = ernie_model(net)
+    data, batch_size = hapi_data(net.config.vocab_size, spec)
+    reset_flash(fa)
+    sync()
+    t0 = time.perf_counter()
+    losses = fit_losses(model, data, batch_size)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches = flash_counts(fa)
+    first = [torch.as_tensor(np.stack([data[i][j] for i in range(
+        batch_size)]), device=DEVICE) for j in range(4)]
+    traffic = {}
+    for wire in ("f32", "bf16"):
+        os.environ["PADDLE_TPU_GRAD_COMM"] = wire
+        try:
+            rep = model.comm_traffic(*first)
+        finally:
+            del os.environ["PADDLE_TPU_GRAD_COMM"]
+        ex = rep["grad_exchange"]
+        traffic[wire] = dict(
+            n_buckets=ex["n_buckets"], payload=ex["payload_bytes"],
+            payload_f32=ex["payload_bytes_f32"],
+            quantized_fraction=ex["quantized_fraction"],
+            grad_payload=sum(c["payload_bytes"] for c in ex["buckets"]
+                             if c["bucket"] is not None),
+            per_axis=rep["per_axis"], collectives=len(rep["collectives"]))
+    out["hapi"] = dict(
+        losses=losses, fit_s=fit_s, launches=launches, traffic=traffic,
+        step=type(model._train_step).__name__,
+        grad_bytes=sum(4 * p.numel() for p in net.parameters()
+                       if p.requires_grad))
+    fleet.topology.set_hybrid_communicate_group(None)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mp_baselines(spec):
+    """Phase 54's single-process baselines, each from the ranks' seeds:
+    the mp-1 engines' streams and tokens/s (f32 KV), three BERT steps at
+    sep 1, ERNIE's ``Model.fit``. The serving models are returned for the
+    near-tie check."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    out, models = {}, {}
+    for name, build in (("gpt", mp_gpt), ("llama", mp_llama)):
+        model = build(spec)
+        prompts = make_prompts(model.config.vocab_size)
+        eng = DecodeEngine(model, **engine_config(kv_dtype="f32"))
+        sync()
+        t0 = time.perf_counter()
+        streams = serve(eng, prompts)
+        sync()
+        out[name] = dict(streams=streams, prompts=prompts,
+                         seconds=time.perf_counter() - t0,
+                         tokens=eng.stats()["total_tokens"])
+        models[name] = model
+        del eng
+    model = mp_sep_bert(spec)
+    step = bert_sep_trainer(model, False)
+    batch = sep_mask_batch(model, spec)
+    out["bert"] = [float(step(*batch)) for _ in range(SEP_BERT_STEPS)]
+    del step, model
+    net = hapi_ernie(spec)
+    data, batch_size = hapi_data(net.config.vocab_size, spec)
+    out["hapi"] = fit_losses(ernie_model(net), data, batch_size)
+    del net
+    free_card()
+    return out, models
+
+
+def phase_mp_sep_hapi(pa, fa, smi, timeout=900, spec=None):
+    """Phase 54: the rest of §A.7, part 1, on two gloo ranks sharing the
+    card after single-process baselines (:func:`mp_baselines`).
+
+    (a) GPT-3 1.3B's widths at MP_SERVING_LAYERS and Llama-3-8B's at
+    MP_LLAMA_LAYERS, built whole, served through ``EngineConfig(mesh=)``
+    at mp 2 (f32 KV; GPT on the f32 and the int8 logit wire): make_prompts'
+    8 requests with prefix sharing and speculation, greedy streams equal
+    to the mp-1 engine's (or parting at a near-tie), equal on both ranks,
+    the pool at ``Hkv / 2`` heads, K3's launches a rank by regime equal to
+    ``k3_expected``, the logit wire's bytes equal to ``logit_wire_bytes``
+    over the programs run, the int8 tokens' share equal to f32's, tokens/s
+    beside mp 1 (gloo through the host: not a speed claim).
+    (b) The ring at sep 2 on SEP_MASK_RING under a key padding mask (about
+    40 % masked, non-causal) and a causal [B, 1, T, T] bias: the kernel
+    ring against the plain ring and both against a float64 oracle on the
+    whole sequence, rel o / dq / dk / dv a rank within FLASH_TOL (f32),
+    K1 / K2a / K2b launched; BERT-base with its padding mask for
+    SEP_BERT_STEPS steps through ``DistTrainStep`` at sep 2: losses
+    within TRAIN_LOSS_RTOL of the ``TrainStep``, K1 / K2 a rank =
+    layers x 2 blocks x steps.
+    (c) ERNIE at HAPI_DP_LAYERS through ``paddle.Model`` at dp 2
+    (``prepare`` routes to ``DistTrainStep``): ``fit``'s losses within
+    TRAIN_LOSS_RTOL of one process's, K1 / K2 launched; ``comm_traffic``:
+    the gradient buckets' payload equal to the parameters' f32 bytes,
+    their ``quantized_fraction`` under the bf16 wire about 0.5.
+    Returns the ``mp_sep_hapi`` JSON line's numbers."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import mp_comm
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+    from paddle_tpu_torch.inference.engine import SamplingParams
+
+    spec = dict(spec or {})
+    t_phase = time.perf_counter()
+    base, models = mp_baselines(spec)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        t0 = time.perf_counter()
+        ctx = dist.spawn(_rank_mp_sep_hapi, (tmp, spec), nprocs=2,
+                         join=False, backend="gloo",
+                         master=f"file://{tmp}/rendezvous")
+        join_spawned(ctx, timeout)
+        secs = time.perf_counter() - t0
+        ranks = [pickle.load(open(os.path.join(tmp, f"rank{r}.pkl"), "rb"))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": smi, "seconds_ranks": secs}
+    # 54a
+    k = engine_config()["speculate_k"]
+    slots = engine_config()["num_slots"]
+    serving = {}
+    for name in ("gpt", "llama"):
+        b = base[name]
+        params = [SamplingParams(max_new_tokens=NEW_TOKENS)] * len(
+            b["prompts"])
+        for wire in (MP_WIRES if name == "gpt" else ("f32",)):
+            a0, a1 = (r[f"{name}_{wire}"] for r in ranks)
+            for x, y in zip(a0["streams"], a1["streams"]):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"54a {name} {wire}: the ranks' "
+                                         "streams differ")
+            partings = check_serving_streams(
+                fa, models[name], b["prompts"], params, a0["streams"],
+                b["streams"], f"54a {name} mp 2 {wire} wire",
+                (f"mp 2 {wire} wire", "mp 1"))
+            v = a0["vocab"]
+            want_bytes = sum(
+                n * mp_comm.logit_wire_bytes(rows, v, 2, wire)[1]
+                for n, rows in ((a0["prefills"], 1),
+                                (a0["steps"] - a0["verify_steps"], slots),
+                                (a0["verify_steps"], slots * (k + 1))))
+            steps = a0["prefills"] + a0["steps"]
+            for r, a in enumerate((a0, a1)):
+                got = tuple(a["k3"][x] for x in
+                            ("tile", "split", "decode", "verify"))
+                if got != tuple(a["k3_want"]) or a["k3"]["launches"] != \
+                        a["k3"]["tile"] + a["k3"]["split"] or \
+                        a["k3"]["launches"] == 0:
+                    raise AssertionError(
+                        f"54a {name} {wire} rank {r}: K3 launches {a['k3']}"
+                        f", expected {a['k3_want']}")
+                if a["wire_bytes"] != want_bytes:
+                    raise AssertionError(
+                        f"54a {name} {wire} rank {r}: logit wire bytes "
+                        f"{a['wire_bytes']}, logit_wire_bytes "
+                        f"{want_bytes}")
+            heads = models[name].decode_adapter().num_kv_heads
+            if a0["kv_heads"] != heads // 2 or a0["pool"][2] != heads // 2:
+                raise AssertionError(f"54a {name}: the pool holds "
+                                     f"{a0['pool']}, not {heads // 2} heads")
+            if a0["prefix_hit_tokens"] < SHARED_PREFIX - 16 or \
+                    not a0["verify_steps"]:
+                raise AssertionError(f"54a {name}: no prefix hit or no "
+                                     "verify step")
+            tps = a0["tokens"] / a0["seconds"]
+            serving[f"{name}_{wire}"] = dict(
+                tokens_per_s=tps, tokens_per_s_mp1=b["tokens"] / b["seconds"],
+                partings=partings, wire_bytes=a0["wire_bytes"],
+                wire_bytes_per_step=a0["wire_bytes"] / steps,
+                want_bytes=want_bytes, pool=a0["pool"],
+                launches_rank0=a0["k3"], launches_rank1=a1["k3"])
+            log(f"# phase 54a: {name} at mp 2, {wire} logit wire: {tps:.1f} "
+                f"tokens/s (mp 1: {b['tokens'] / b['seconds']:.1f}, gloo "
+                f"through the host), pool {a0['pool']}, K3 rank 0 "
+                f"{a0['k3']} rank 1 {a1['k3']}, logit wire "
+                f"{a0['wire_bytes']} B ({a0['wire_bytes'] / steps:.0f} B a "
+                f"step) = logit_wire_bytes, partings {len(partings)}  "
+                f"[{smi}]")
+        if name == "gpt":
+            f32s, int8s = (ranks[0][f"gpt_{w}"]["streams"] for w in MP_WIRES)
+            gen = [(np.asarray(a[len(p):]), np.asarray(c[len(p):]))
+                   for a, c, p in zip(f32s, int8s, b["prompts"])]
+            same = sum(int((x == y).sum()) for x, y in gen)
+            total = sum(x.size for x, _ in gen)
+            serving["int8_equal_share"] = same / total
+            log(f"# phase 54a: int8 logit wire tokens equal to the f32 "
+                f"wire's: {same} / {total}")
+    out["serving"] = serving
+    del models
+    free_card()
+    # 54b
+    tol = FLASH_TOL[torch.float32]
+    for r, rk in enumerate(ranks):
+        for name, res in rk["ring"].items():
+            worst = max(e[1] for key in ("kernels_vs_oracle",
+                                         "plain_vs_oracle",
+                                         "kernels_vs_plain")
+                        for e in res[key].values())
+            log(f"# phase 54b: ring {name} rank {r}: rel kernels vs oracle "
+                f"{ {n: e[1] for n, e in res['kernels_vs_oracle'].items()} }"
+                f", plain vs oracle "
+                f"{ {n: e[1] for n, e in res['plain_vs_oracle'].items()} }"
+                f", kernels vs plain "
+                f"{ {n: e[1] for n, e in res['kernels_vs_plain'].items()} }"
+                f"; launches {res['launches']}")
+            if not worst <= tol:
+                raise AssertionError(f"54b ring {name} rank {r}: rel "
+                                     f"{worst:.2e} > {tol}")
+            if min(res["launches"][x] for x in ("fwd", "dq", "dkv")) == 0:
+                raise AssertionError(f"54b ring {name} rank {r}: a kernel "
+                                     "never launched")
+    a0, a1 = (rk["bert"] for rk in ranks)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a0["losses"],
+                                                  base["bert"]))
+    want = a0["layers"] * 2 * SEP_BERT_STEPS
+    log(f"# phase 54b: BERT-base with its padding mask at sep 2: losses "
+        f"{a0['losses']} vs TrainStep {base['bert']} (rel {rel:.2e}); "
+        f"launches rank 0 {a0['launches']} rank 1 {a1['launches']} "
+        f"(want {want} each); {a0['seconds']:.1f} s  [{smi}]")
+    if a0["losses"] != a1["losses"] or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("54b: BERT's losses at sep 2 differ")
+    for r in (a0, a1):
+        if any(r["launches"][x] != want for x in ("fwd", "dq", "dkv")):
+            raise AssertionError(f"54b: BERT's launches {r['launches']}, "
+                                 f"want {want}")
+    out["ring"] = {f"rank{r}": rk["ring"] for r, rk in enumerate(ranks)}
+    out["bert"] = dict(loss_rel=rel, losses=a0["losses"],
+                       baseline=base["bert"], seconds=a0["seconds"],
+                       launches_rank0=a0["launches"],
+                       launches_rank1=a1["launches"])
+    # 54c
+    h0, h1 = (rk["hapi"] for rk in ranks)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(h0["losses"],
+                                                  base["hapi"]))
+    f32, bf16 = h0["traffic"]["f32"], h0["traffic"]["bf16"]
+    log(f"# phase 54c: paddle.Model at dp 2 ({h0['step']}): losses "
+        f"{h0['losses']} vs one process {base['hapi']} (rel {rel:.2e}); "
+        f"launches {h0['launches']}; comm_traffic f32: {f32['n_buckets']} "
+        f"dp reductions, gradient payload {f32['grad_payload']} B vs "
+        f"parameters {h0['grad_bytes']} B; bf16 wire: quantized fraction "
+        f"{bf16['quantized_fraction']:.4f}  [{smi}]")
+    if h0["step"] != "DistTrainStep" or h0["losses"] != h1["losses"] or \
+            not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("54c: Model.fit at dp 2 differs")
+    if f32["grad_payload"] != h0["grad_bytes"] or \
+            bf16["grad_payload"] * 2 != h0["grad_bytes"] or \
+            not 0.45 < bf16["quantized_fraction"] <= 0.5 or \
+            f32["quantized_fraction"] != 0.0:
+        raise AssertionError(f"54c: comm_traffic {h0['traffic']}")
+    if min(h0["launches"][x] for x in ("fwd", "dq", "dkv")) == 0:
+        raise AssertionError("54c: a flash kernel never launched in fit")
+    out["hapi"] = dict(loss_rel=rel, losses=h0["losses"],
+                       baseline=base["hapi"], fit_s=h0["fit_s"],
+                       launches_rank0=h0["launches"],
+                       launches_rank1=h1["launches"], traffic=h0["traffic"],
+                       grad_bytes=h0["grad_bytes"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 54: {out['seconds']:.1f} s ({secs:.1f} s of ranks)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9007,6 +9563,8 @@ def main() -> int:
     table = phase_sharded_table(smi)
     torch.cuda.empty_cache()
     live_sup = phases_live_supervisor(pa, fa, smi, serving, mpmd, timed)
+    torch.cuda.empty_cache()
+    mp_sep = phase_mp_sep_hapi(pa, fa, smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -9055,6 +9613,26 @@ def main() -> int:
             **{f"process_{n}_{r['event']}": r["k3"][f"launches_{regime}"]
                for n, r in procs.items()})
 
+    def k3_mp(regime):
+        """Phase 54a's K3 launches of one regime, by engine and rank."""
+        return {f"{run}_rank{r}": res[f"launches_rank{r}"][regime]
+                for run, res in mp_sep["serving"].items()
+                if isinstance(res, dict) for r in (0, 1)}
+
+    def flash_mp(kind):
+        """Phase 54's K1 / K2 launches of one kind a rank: the masked ring
+        probes and BERT at sep 2 (54b), ERNIE's fit at dp 2 (54c)."""
+        out = {f"ring_{name}_rank{r}": res[name]["launches"][kind]
+               for r, res in ((int(k[-1]), v)
+                              for k, v in mp_sep["ring"].items())
+               for name in res}
+        for r in (0, 1):
+            out[f"bert_sep2_rank{r}"] = mp_sep["bert"][
+                f"launches_rank{r}"][kind]
+            out[f"ernie_model_dp2_rank{r}"] = mp_sep["hapi"][
+                f"launches_rank{r}"][kind]
+        return out
+
     kernels = [
         dict(row(f"paged_attention_{shape}",
                  "paddle_tpu_torch/ops/cuda/paged_attention.cu",
@@ -9069,7 +9647,10 @@ def main() -> int:
                                           "prefill": "tile"}[shape]),
              **dict(zip(("launches_live", "launches_supervisor"),
                         k3_live({"decode": "decode", "verify": "verify",
-                                 "prefill": "tile"}[shape]))))
+                                 "prefill": "tile"}[shape]))),
+             launches_mp_serving=k3_mp({"decode": "decode",
+                                        "verify": "verify",
+                                        "prefill": "tile"}[shape]))
         for shape in ("decode", "verify", "prefill")]
     for kind, kernel in (("fwd", "flash_attention_fwd"),
                          ("dq", "flash_attention_bwd_dq"),
@@ -9130,7 +9711,8 @@ def main() -> int:
                 for run in ("clean", "killed") for i in (0, 1)},
             launches_supervisor={
                 f"mpmd_width{t['width']}_{j}": t["launches"][kind]
-                for j, t in enumerate(live_sup["supervisor"]["train"])}))
+                for j, t in enumerate(live_sup["supervisor"]["train"])},
+            launches_mp_sep_hapi=flash_mp(kind)))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -9178,6 +9760,7 @@ def main() -> int:
     log(json.dumps({"mpmd_elastic_ps": {"mpmd": mpmd, "elastic": elastic,
                                         "sharded_table": table}}))
     log(json.dumps({"live_supervisor": live_sup}, default=str))
+    log(json.dumps({"mp_sep_hapi": mp_sep}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

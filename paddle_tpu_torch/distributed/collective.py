@@ -34,10 +34,17 @@ gathers a flat f32 vector in the wire dtype (int8 with one scale a
 segment); its backward reduce-scatters the round-tripped cotangent.
 Both are autograd functions over a group (the reference's take a mesh
 axis).
+
+:func:`record_collectives` records, while it is on, every collective
+this rank issues (``comm_analysis.py`` reads the records: kind, payload,
+wire dtype, the group's ranks and mesh axes, the gradient-exchange
+bucket). ``grad_bucket`` marks the collectives of one bucket, and names
+the reduction a quantized wire implements by gathers.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Optional
 
 import torch
@@ -50,6 +57,76 @@ counts: collections.Counter = collections.Counter()
 
 def reset_counts():
     counts.clear()
+
+
+# ----------------------------------------------------------- the recorder --
+#: the records while :func:`record_collectives` is on (None: off)
+_records = None
+#: (bucket index, kind it implements) in force (:func:`grad_bucket`)
+_bucket = (None, None)
+#: the payload's dtype while a collective moves it as bytes
+_dtype_hint = None
+
+_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16", torch.float64: "f64", torch.int8: "s8",
+               torch.uint8: "u8", torch.int16: "s16", torch.int32: "s32",
+               torch.int64: "s64", torch.bool: "pred"}
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Within: every collective this rank issues over more than one rank
+    is appended to the list this yields (``comm_analysis.py``'s
+    records)."""
+    global _records
+    prev, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = prev
+
+
+@contextlib.contextmanager
+def grad_bucket(index: int, as_kind: Optional[str] = None):
+    """Within: the collectives belong to gradient-exchange bucket
+    ``index``; with ``as_kind`` they are recorded as that reduction (the
+    quantized wire's gathers and local sum are an all-reduce), their
+    payload the rank's share."""
+    global _bucket
+    prev, _bucket = _bucket, (index, as_kind)
+    try:
+        yield
+    finally:
+        _bucket = prev
+
+
+def _record(kind, g, in_bytes, out_bytes, dtype):
+    """One record (see :func:`record_collectives`): the payload counts the
+    gathered output of an all-gather, the shard out of a reduce-scatter,
+    the rank's input otherwise, as the reference reads HLO."""
+    if _records is None or g.nranks <= 1:
+        return
+    from .comm_analysis import axes_of_ranks, wire_model_bytes
+    from .mesh import get_global_mesh
+
+    bucket, as_kind = _bucket
+    issued = kind
+    kind = as_kind or kind
+    payload = {"all-gather": out_bytes,
+               "reduce-scatter": out_bytes}.get(kind, in_bytes)
+    n = g.nranks
+    mesh = get_global_mesh()
+    _records.append({
+        "kind": kind, "payload_bytes": int(payload), "group_size": n,
+        "axes": (axes_of_ranks(g.ranks, mesh) if mesh is not None
+                 else ("unknown",)),
+        "wire_bytes_per_device": wire_model_bytes(kind, payload, n),
+        "wire_dtype": _HLO_DTYPES.get(_dtype_hint or dtype, str(dtype)),
+        "bucket": bucket, "issued": issued, "ranks": list(g.ranks)})
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
 
 
 class ReduceOp:
@@ -88,13 +165,16 @@ class _Task:
         return self._work is None or self._work.is_completed()
 
 
-def _issue(name, fn, group, sync_op, then=None):
+def _issue(name, fn, group, sync_op, then=None, rec=None):
     """Run ``fn(pg, async_op)`` on ``group``; a process outside the group
-    does nothing, as in Paddle."""
+    does nothing, as in Paddle. ``rec`` = (kind, input bytes, output
+    bytes, dtype) for the recorder."""
     g = _resolve_group(group)
     if not g.is_member():
         return _Task()
     counts[name] += 1
+    if rec is not None:
+        _record(rec[0], g, *rec[1:])
     work = fn(g.process_group, not sync_op)
     # a synchronous torch call returns None (recv: the sender's rank)
     task = _Task(work if hasattr(work, "wait") else None, then)
@@ -116,10 +196,12 @@ def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
                sync_op=True):
     """Reduce ``tensor`` over the group, in place on every rank."""
     g = _resolve_group(group)
+    nb = _nbytes(tensor)
     return _issue("all_reduce",
                   lambda pg, a: dist.all_reduce(tensor, _TORCH_OPS[op], pg,
                                                 async_op=a),
-                  g, sync_op, _avg_then(tensor, op, g))
+                  g, sync_op, _avg_then(tensor, op, g),
+                  ("all-reduce", nb, nb, tensor.dtype))
 
 
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
@@ -155,7 +237,9 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
         fn = lambda pg, a: _reduce_scatter_tensor(  # noqa: E731
             tensor, inp.contiguous(), _TORCH_OPS[op], pg, async_op=a)
     task = _issue("reduce_scatter", fn, g, sync_op,
-                  _avg_then(tensor, op, g))
+                  _avg_then(tensor, op, g),
+                  ("reduce-scatter", _nbytes(tensor) * g.nranks,
+                   _nbytes(tensor), tensor.dtype))
     return tensor if functional else task
 
 
@@ -167,18 +251,21 @@ def all_gather(tensor_list, tensor=None, group=None, sync_op=True, axis=0):
     tensor: it receives them concatenated along ``axis``. None: the list
     is returned instead of a task."""
     g = _resolve_group(group)
+    rec = ("all-gather", _nbytes(tensor), _nbytes(tensor) * g.nranks,
+           tensor.dtype)
     if isinstance(tensor_list, torch.Tensor):
         out = tensor_list
         if axis == 0:
             return _issue("all_gather", lambda pg, a: _all_gather_tensor(
-                out, tensor.contiguous(), pg, async_op=a), g, sync_op)
+                out, tensor.contiguous(), pg, async_op=a), g, sync_op,
+                rec=rec)
         parts = [torch.empty_like(tensor) for _ in range(g.nranks)]
         return _issue("all_gather", lambda pg, a: dist.all_gather(
             parts, tensor.contiguous(), pg, async_op=a), g, sync_op,
-            lambda: out.copy_(torch.cat(parts, dim=axis)))
+            lambda: out.copy_(torch.cat(parts, dim=axis)), rec)
     parts = [torch.empty_like(tensor) for _ in range(g.nranks)]
     task = _issue("all_gather", lambda pg, a: dist.all_gather(
-        parts, tensor.contiguous(), pg, async_op=a), g, sync_op)
+        parts, tensor.contiguous(), pg, async_op=a), g, sync_op, rec=rec)
     if tensor_list is None:
         task.wait()
         return parts
@@ -214,8 +301,10 @@ def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
 # ----------------------------------------------------------------- broadcast
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """Global rank ``src``'s ``tensor`` written into every rank's."""
+    nb = _nbytes(tensor)
     return _issue("broadcast", lambda pg, a: dist.broadcast(
-        tensor, src, pg, async_op=a), group, sync_op)
+        tensor, src, pg, async_op=a), group, sync_op,
+        rec=("broadcast", nb, nb, tensor.dtype))
 
 
 def broadcast_object_list(object_list, src=0, group=None):
@@ -257,17 +346,21 @@ def alltoall(out_tensor_list, in_tensor_list=None, group=None, sync_op=True):
     ins = [t.contiguous() for t in in_tensor_list]
     if not out_tensor_list:
         out_tensor_list.extend(torch.empty_like(t) for t in ins)
+    nb = sum(_nbytes(t) for t in ins)
     return _issue("alltoall", lambda pg, a: dist.all_to_all(
-        out_tensor_list, ins, pg, async_op=a), g, sync_op)
+        out_tensor_list, ins, pg, async_op=a), g, sync_op,
+        rec=("all-to-all", nb, nb, ins[0].dtype if ins else None))
 
 
 def alltoall_single(out_tensor, in_tensor=None, in_split_sizes=None,
                     out_split_sizes=None, group=None, sync_op=True):
     """All-to-all of one tensor cut along dim 0 (equal parts, or the split
     sizes given), written into ``out_tensor``."""
+    nb = _nbytes(in_tensor)
     return _issue("alltoall_single", lambda pg, a: dist.all_to_all_single(
         out_tensor, in_tensor.contiguous(), out_split_sizes, in_split_sizes,
-        pg, async_op=a), group, sync_op)
+        pg, async_op=a), group, sync_op,
+        rec=("all-to-all", nb, nb, in_tensor.dtype))
 
 
 # --------------------------------------------------------------- point to point
@@ -349,6 +442,9 @@ def batch_isend_irecv(p2p_op_list):
     for p in p2p_op_list:
         g = _resolve_group(p.group)
         sending = p.op in (send, isend)
+        if sending:  # a send of the batch is one hop of a permute
+            _record("collective-permute", g, _nbytes(p.tensor),
+                    _nbytes(p.tensor), p.tensor.dtype)
         buf, then = _p2p_buffer(p.tensor, g.process_group, sending)
         ops.append(dist.P2POp(dist.isend if sending else dist.irecv, buf,
                               p.peer, g.process_group, p.tag))
@@ -401,12 +497,17 @@ def _reduce_scatter_tensor(out, inp, op, pg, async_op):
 def stacked_all_gather(x, group=None):
     """Every rank's ``x`` stacked on a new dim 0, in group order; moved as
     bytes, so a payload in any dtype (int8, bf16) crosses as it is."""
+    global _dtype_hint
     g = _resolve_group(group)
     x = x.contiguous()
     out = torch.empty((g.nranks,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    all_gather(out.view(torch.uint8).reshape(-1),
-               x.view(torch.uint8).reshape(-1), group=g)
+    prev, _dtype_hint = _dtype_hint, x.dtype
+    try:
+        all_gather(out.view(torch.uint8).reshape(-1),
+                   x.view(torch.uint8).reshape(-1), group=g)
+    finally:
+        _dtype_hint = prev
     return out
 
 
@@ -532,8 +633,9 @@ __all__ = ["P2POp", "ReduceOp", "all_gather", "all_gather_object",
            "all_gather_quantized",
            "all_reduce", "alltoall", "alltoall_single", "barrier",
            "batch_isend_irecv", "broadcast", "broadcast_object_list",
-           "counts", "gather", "get_backend", "irecv", "isend",
-           "psum_quantized", "rank_order_sum", "recv",
+           "counts", "gather", "get_backend", "grad_bucket", "irecv",
+           "isend", "psum_quantized", "rank_order_sum",
+           "record_collectives", "recv",
            "reduce", "reduce_scatter", "reset_counts", "scatter",
            "stacked_all_gather",
            "scatter_object_list", "send", "stream", "wait"]

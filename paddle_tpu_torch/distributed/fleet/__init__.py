@@ -183,6 +183,38 @@ def barrier_worker():
     C.barrier()
 
 
+def save_persistables(executor=None, dirname=None, main_program=None, mode=0,
+                      model=None):
+    """PS-mode checkpoint parity (reference ``fleet/__init__.py:168-199``):
+    write every parameter of ``model`` through ``distributed.checkpoint``
+    under ``dirname/persistables`` (every rank calls it; an mp shard or a
+    ZeRO-3 slice is written as its part of the whole, by canonical name)
+    and return the names. Raises ``ValueError`` without ``dirname`` or
+    with nothing to save. The reference's other source, a static
+    Program's parameters, waits for ``paddle.static`` (ROADMAP.md
+    §A.9b)."""
+    import os
+
+    if dirname is None:
+        raise ValueError("save_persistables requires dirname")
+    if model is None:
+        raise NotImplementedError(
+            "save_persistables from a static Program's parameters waits "
+            "for paddle.static, see ROADMAP.md §A.9b: pass model=<Layer>")
+    from ..checkpoint import save_state_dict
+    from ..checkpoint.converter import _entries, _layout_spec, _value
+
+    params = {id(p) for p in model.parameters()}
+    state = {k: _value(v, _layout_spec(v))
+             for k, v in _entries(model).items() if id(v) in params}
+    if not state:
+        raise ValueError(
+            "save_persistables found no parameters: pass model=<Layer> "
+            "with parameters")
+    save_state_dict(state, os.path.join(dirname, "persistables"))
+    return list(state)
+
+
 def init_server(*model_paths, **kwargs):
     """PS-mode parity: there are no server processes; tables are split over
     the mesh (``distributed.ps``). A no-op, so PS-mode scripts run under
@@ -746,5 +778,5 @@ __all__ = ["CommunicateTopology", "DistTrainStep", "DistributedStrategy",
            "distributed_model", "distributed_optimizer", "fleet_strategy",
            "get_hybrid_communicate_group", "init", "init_server",
            "init_worker", "is_first_worker", "is_initialized", "is_server",
-           "is_worker", "run_server", "stop_worker", "worker_index",
-           "worker_num"]
+           "is_worker", "run_server", "save_persistables", "stop_worker",
+           "worker_index", "worker_num"]

@@ -288,9 +288,10 @@ def _allreduce_buckets(tensors, group, bucket_mb, average):
         layouts = make_layouts([tuple(t.shape) for t in same],
                                [t.element_size() for t in same],
                                max(int(bucket_mb * (1 << 20)), 1))
-        for lay in layouts:
+        for i, lay in enumerate(layouts):
             flat = pack_bucket(same, lay)
-            C.all_reduce(flat, group=group)
+            with C.grad_bucket(n + i):
+                C.all_reduce(flat, group=group)
             if average:
                 flat.div_(group.nranks)
             for i, v in unpack_bucket(flat, lay):
@@ -494,8 +495,11 @@ class WireExchange:
                     else pack_bucket(leaves, lay)).float()
             if self.residuals is not None:
                 flat = flat + self.residuals[b].to(flat.device)
-            mean, deq = _wire_mean(flat, self.group, self.wire_dtype,
-                                   lay.block if zero else None)
+            # the wire's gathers and local sums implement the bucket's
+            # all-reduce (the reference's program emits it as one)
+            with C.grad_bucket(b, as_kind="all-reduce"):
+                mean, deq = _wire_mean(flat, self.group, self.wire_dtype,
+                                       lay.block if zero else None)
             if self.residuals is not None:
                 self.residuals[b] = flat - deq
             parts = unpack_gathered(mean, lay) if zero \

@@ -32,8 +32,8 @@ reference's ``_record_site`` prices them.
 
 :func:`quantized_logit_gather` replicates vocab-parallel logits through
 the wire with an exact (max, argmax) side channel, and
-:func:`logit_wire_bytes` prices it; the engine's logit wire stays in
-ROADMAP.md §A.4b.
+:func:`logit_wire_bytes` prices it; ``inference/engine.py`` recombines
+its mp-sharded logits through it (``EngineConfig.logit_wire``).
 
 Config: ``DistributedStrategy.mp_comm`` / ``mp_comm_configs``, overridden
 by ``PADDLE_TPU_MP_COMM`` (``grad_comm.parse_wire_env``'s grammar with the
@@ -234,7 +234,9 @@ def quantized_logit_gather(logits, wire_dtype: str, group=None):
     ``(wire_logits [..., V] f32, exact_argmax [...] int32)``, the
     argmax that of the exact logits (each block's max and first argmax
     gathered exactly, the first maximal block wins), or None without an
-    mp group of more than one rank or with an f32 wire."""
+    mp group of more than one rank or with an f32 wire. The bytes this
+    rank sends add to ``collective.counts["logit_wire_bytes"]`` (what
+    :func:`logit_wire_bytes` prices)."""
     if group is None:
         from .fleet.layers.mpu import _mp_group
 
@@ -244,17 +246,23 @@ def quantized_logit_gather(logits, wire_dtype: str, group=None):
         return None
     lf = logits.float()
     vg = lf.shape[-1]
-    bmax = C.stacked_all_gather(lf.amax(-1), group)            # [g, ...]
-    barg = C.stacked_all_gather(lf.argmax(-1).to(torch.int32), group)
+    sent = []
+
+    def gather(x):
+        sent.append(x.numel() * x.element_size())
+        return C.stacked_all_gather(x, group)
+
+    bmax = gather(lf.amax(-1))                                 # [g, ...]
+    barg = gather(lf.argmax(-1).to(torch.int32))
     win = torch.argmax(bmax, dim=0)                       # first max block
     exact = (win * vg + torch.gather(barg, 0, win.unsqueeze(0))[0]).to(
         torch.int32)
     if wire_dtype == "int8":
         q, scale = quantize_absmax(lf, axis=-1)
-        parts = C.stacked_all_gather(q, group).float() \
-            * C.stacked_all_gather(scale, group)
+        parts = gather(q).float() * gather(scale)
     else:
-        parts = C.stacked_all_gather(lf.to(torch.bfloat16), group).float()
+        parts = gather(lf.to(torch.bfloat16)).float()
+    C.counts["logit_wire_bytes"] += (group.nranks - 1) * sum(sent)
     wire = torch.cat(list(parts), dim=-1)
     return wire, exact
 

@@ -9,11 +9,19 @@ in place); evaluation and prediction run the network in eval mode under
 network's inputs. Data given as a dataset is loaded by ``io.DataLoader``
 onto the network's device.
 
-Not ported: the distributed branch of ``prepare`` and ``comm_traffic``
-(ROADMAP.md §A.7), the step-FLOPs probe that feeds the reference's
-telemetry (§A.8). The reference accepts ``amp_configs`` and ignores it
-(ROADMAP.md §C); here a value other than None raises: run the network
-under ``amp.auto_cast`` inside the loss instead.
+With ``fleet.init`` over more than one rank, ``prepare`` routes the
+network through ``fleet.distributed_model``, the optimizer through
+``fleet.distributed_optimizer`` and the step through
+``fleet.DistTrainStep`` (each rank is given the global batch; the step
+takes its rows and its part of the sequence); a ``PipelineLayer``
+network raises, as the reference's does. Without fleet the plain
+``TrainStep`` stays. ``comm_traffic`` runs one recorded step on a batch
+and reports its collectives (``distributed/comm_analysis.py``).
+
+Not ported: the step-FLOPs probe that feeds the reference's telemetry
+(§A.8). The reference accepts ``amp_configs`` and ignores it (ROADMAP.md
+§C); here a value other than None raises: run the network under
+``amp.auto_cast`` inside the loss instead.
 """
 from __future__ import annotations
 
@@ -47,6 +55,18 @@ def _host(out):
     if out.dtype in (torch.bfloat16, torch.float16):
         out = out.float()
     return out.cpu().numpy()
+
+
+def _fleet_world() -> int:
+    """The ranks of the fleet topology in force (``fleet.init``); 1
+    without one, as the reference keeps its plain step on a bare mesh."""
+    from .distributed.fleet import get_hybrid_communicate_group
+    from .distributed.mesh import get_global_mesh
+
+    mesh = get_global_mesh()
+    if get_hybrid_communicate_group() is None or mesh is None:
+        return 1
+    return len(mesh.process_ids)
 
 
 def _metric_names(m):
@@ -86,12 +106,6 @@ class Model:
                 "Model.prepare(amp_configs=...) is not ported (the "
                 "reference accepts it and ignores it, ROADMAP.md §C): run "
                 "the network under amp.auto_cast in the loss instead")
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "distributed paddle.Model is not ported yet, see ROADMAP.md "
-                "§A.7")
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = ([metrics] if isinstance(metrics, Metric)
@@ -101,8 +115,28 @@ class Model:
                 *xs, y = batch
                 return self._loss(model(*xs), y)
 
-            self._train_step = TrainStep(self.network, loss_fn, optimizer)
+            if _fleet_world() > 1:
+                self._train_step = self._distributed_step(loss_fn, optimizer)
+            else:
+                self._train_step = TrainStep(self.network, loss_fn,
+                                             optimizer)
         return self
+
+    def _distributed_step(self, loss_fn, optimizer):
+        """The reference's distributed branch: the network placed by
+        ``fleet.distributed_model``, the optimizer wrapped, the step a
+        ``DistTrainStep``."""
+        from .distributed import fleet
+
+        placed = fleet.distributed_model(self.network)
+        if placed is not self.network:
+            # a PipelineParallel wrapper: hapi's step loop cannot drive a
+            # pipeline schedule (the reference's restriction)
+            raise NotImplementedError(
+                "paddle.Model with a PipelineLayer network: use "
+                "fleet.distributed_model(...).train_batch directly")
+        self._optimizer = fleet.distributed_optimizer(optimizer)
+        return fleet.DistTrainStep(self.network, loss_fn, self._optimizer)
 
     # ---------------------------------------------------------------- steps --
     def train_batch(self, inputs, labels=None, update=True):
@@ -129,10 +163,33 @@ class Model:
         return [_host(self.network(*_as_list(inputs)))]
 
     def comm_traffic(self, *batch):
-        raise NotImplementedError(
-            "Model.comm_traffic (the collective-traffic report of a "
-            "multi-device train step) is not ported yet, see ROADMAP.md "
-            "§A.7")
+        """Collective-traffic report of one train step on ``batch``
+        (``distributed/comm_analysis.py``): every collective the step
+        issued with its payload and mesh axes, the per-axis wire summary,
+        and the gradient exchange by bucket (``grad_exchange``: how many
+        buckets it used, what fraction of the f32 bytes the wire dtype
+        removed). The port compiles no program to read, so the step RUNS,
+        recorded: the parameters and the optimizer take that step.
+        Multi-rank only."""
+        from .distributed import collective as C
+        from .distributed import comm_analysis as _ca
+
+        if self._train_step is None or _fleet_world() <= 1:
+            raise RuntimeError(
+                "comm_traffic needs prepare(optimizer, loss) and a "
+                "multi-device mesh")
+        self.network.train()
+        with C.record_collectives() as records:
+            self._train_step(*batch)
+        colls = _ca.collective_traffic(records)
+        return {
+            "collectives": colls,
+            "per_axis": _ca.axis_traffic_summary(colls),
+            # wire-dtype split per axis: activation collectives quantized
+            # by mp_comm show payload_bytes < payload_bytes_f32 here
+            "per_axis_wire": _ca.axis_wire_summary(colls),
+            "grad_exchange": _ca.bucket_traffic(colls),
+        }
 
     # ------------------------------------------------------------------ fit --
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,

@@ -31,9 +31,24 @@ hand-written paged-attention kernel K3 (``ops/cuda/paged_attention.cu``).
   ``srv_verify``, joined to the router's trace) and the per-tenant ledger
   (``observability/accounting.py``); one env lookup a call when off.
 
-Left for later slices: mesh / model-parallel sharding, the quantized logit
-wire, versioned weight epochs and the compile cache (ROADMAP.md §A.4b,
-§A.8).
+* **Model parallelism.** ``EngineConfig(mesh=...)`` (a ``ProcessMesh``
+  with an ``mp`` axis, or a hybrid group) or a model built at mp > 1
+  serves on every rank of the mp group: each rank's pool and int8 scales
+  hold ``Hkv / mp`` whole kv heads and K3 runs over them with the
+  engine's one page table; the attention output's projection is summed
+  over the group (``text/models/_mp_decode.py``) and each rank's vocab
+  block of the logits is recombined, exactly (an f32 all-gather) or
+  through the quantized logit wire (``mp_comm.quantized_logit_gather``:
+  bf16 / int8 payload, greedy rows on its exact argmax while
+  ``logit_verify`` is on). Every rank then holds the same logits and
+  draws from generators seeded alike, so the ranks emit the same tokens
+  and schedule alike; the adaptive speculation choice, which reads each
+  rank's own clock, is the group's first rank's, broadcast each step.
+  Disaggregated prefill (``prefill_export`` / ``try_import_prefill``)
+  stays single-rank.
+
+Left for later slices: versioned weight epochs and the compile cache
+(ROADMAP.md §A.8).
 """
 from __future__ import annotations
 
@@ -48,6 +63,8 @@ import torch
 
 from .. import observability as _obs
 from ..device import resolve_device
+from ..distributed import collective as _C
+from ..distributed import mp_comm as _mp_comm
 from ..distributed.grad_comm import dequantize_absmax, quantize_absmax
 from ..framework.dtype import from_host, to_host
 from ..nn import functional as F
@@ -70,6 +87,9 @@ KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
 #: plain version for CPU tensors; "plain" = the plain version everywhere
 #: (the on-card comparison baseline)
 ATTN_KERNELS = ("auto", "plain")
+
+#: ``EngineConfig.logit_wire`` values (None inherits the mp_comm wire)
+LOGIT_WIRES = (None, "off", "f32", "bf16", "int8")
 
 #: the reserved all-garbage page every unallocated page-table entry (and
 #: every masked write) points at; never handed out by the allocator
@@ -131,6 +151,16 @@ class EngineConfig:
     seed: int = 0
     #: "auto" | "plain" (see ATTN_KERNELS)
     attn_kernel: str = "auto"
+    #: wire of the mp-sharded logit recombination: "off" / "f32" the exact
+    #: all-gather, "bf16" / "int8" the quantized wire; None inherits
+    #: ``mp_comm.resolve_config()`` (and its ``logit_verify``). Always
+    #: "f32" at mp 1.
+    logit_wire: Optional[str] = None
+    #: the engine's mesh: a ``ProcessMesh`` whose ``mp`` axis (or a hybrid
+    #: group whose model-parallel group) the engine shards its kv heads
+    #: and vocab over; None: the model's own mp group (a model built at
+    #: mp > 1), else one rank
+    mesh: Optional[object] = None
 
     def resolved_buckets(self) -> List[int]:
         if self.prompt_buckets:
@@ -421,13 +451,16 @@ def _layer_kv(cache, scales, layer, int8):
     return lay
 
 
-def _sample_tokens(logits, seeds, temperature, top_k, top_p, greedy):
+def _sample_tokens(logits, seeds, temperature, top_k, top_p, greedy,
+                   exact_argmax=None):
     """Sampling for N rows: logits [N, V] f32 on the device; seeds [N]
     host ints (one generator seed per row); temperature / top_k / top_p /
-    greedy host numpy arrays [N]. Greedy rows take the argmax; the others
-    draw by Gumbel-max from the temperature / top-k / top-p filtered
-    logits. Returns [N] int64 on the device."""
-    out = logits.argmax(dim=-1)
+    greedy host numpy arrays [N]. Greedy rows take the argmax, or
+    ``exact_argmax`` [N] when given (the quantized logit wire's exact
+    winner); the others draw by Gumbel-max from the temperature / top-k /
+    top-p filtered logits. Returns [N] int64 on the device."""
+    out = (logits.argmax(dim=-1) if exact_argmax is None
+           else exact_argmax.long().clone())
     rows = np.flatnonzero(~np.asarray(greedy, bool))
     if rows.size == 0:
         return out
@@ -489,8 +522,15 @@ class DecodeEngine:
                                  f"engine runs on {self.device}")
         self.model = model
         model.eval()
-        self.adapter = model.decode_adapter()
-        ad = self.adapter
+        self.adapter = ad = model.decode_adapter()
+        mesh_group = self._resolve_mp(ad)
+        if mesh_group is not None:
+            self.adapter = ad = model.decode_adapter(mp_group=mesh_group)
+        #: the mp group the engine serves over (the mesh's, or the model's
+        #: own when built at mp > 1); None at mp 1
+        self._mp_group = ad.mp_group
+        self._mp_degree = 1 if ad.mp_group is None else ad.mp_group.nranks
+        self._logit_wire, self._logit_verify = self._resolve_logit_wire()
         if cfg.max_length > ad.max_positions:
             raise ValueError(
                 f"max_length={cfg.max_length} exceeds the model's "
@@ -509,10 +549,12 @@ class DecodeEngine:
                              and self.device.type == "cuda" else "plain")
         _obs.set_gauge("attn_kernel_active",
                        1.0 if self._attn_kernel == "cuda" else 0.0)
+        #: this rank's kv heads (whole GQA groups)
+        self._kv_heads = ad.num_kv_heads // self._mp_degree
         # the plain route dequantizes both int8 pools per layer per step;
         # K3 dequantizes each page inside the kernel: the traffic avoided
         self._fused_dequant_bytes_step = (
-            2 * ad.num_layers * self._num_pages * ad.num_kv_heads
+            2 * ad.num_layers * self._num_pages * self._kv_heads
             * cfg.page_size * ad.head_dim * 4
             if self._attn_kernel == "cuda" and self._int8 else 0)
         try:  # price the choice in the auto-planner's cost model
@@ -522,14 +564,15 @@ class DecodeEngine:
             # is the fused kernel (K3 here), "einsum" the plain version
             plan_attn_kernel(
                 num_slots=cfg.num_slots, max_pages=self._mp,
-                kv_heads=ad.num_kv_heads, query_heads=ad.num_heads,
+                kv_heads=self._kv_heads,
+                query_heads=ad.num_heads // self._mp_degree,
                 page_size=cfg.page_size, head_dim=ad.head_dim,
                 layers=ad.num_layers, kv_dtype=cfg.kv_dtype,
                 selected=("pallas" if self._attn_kernel == "cuda"
                           else "einsum"))
         except Exception:  # noqa: BLE001 — pricing never gates serving
             pass
-        shape = (ad.num_layers, self._num_pages, ad.num_kv_heads,
+        shape = (ad.num_layers, self._num_pages, self._kv_heads,
                  cfg.page_size, ad.head_dim)
         dev = self.device
         self._kc = torch.zeros(shape, dtype=KV_DTYPES[cfg.kv_dtype],
@@ -582,6 +625,81 @@ class DecodeEngine:
         self._free = list(range(cfg.num_slots))[::-1]  # pop() -> slot 0
         self._requests: Dict[int, Request] = {}
         self._next_id = 0
+
+    # -- model parallelism --------------------------------------------------
+
+    def _resolve_mp(self, ad):
+        """The mp group ``config.mesh`` names (None at mp 1), after the
+        reference's check that mp divides the kv heads, made on the mesh's
+        shape before any group is built."""
+        mesh = self.config.mesh
+        if mesh is None:
+            return None
+        if hasattr(mesh, "get_model_parallel_group"):  # a hybrid group
+            degree = mesh.get_model_parallel_world_size()
+        else:
+            from ..distributed.mesh import mesh_axis_size
+
+            degree = mesh_axis_size("mp", mesh)
+        if degree > 1 and ad.num_kv_heads % degree:
+            raise ValueError(
+                f"mp={degree} must divide num_kv_heads={ad.num_kv_heads}: "
+                "the KV pool shards by whole kv heads (GQA groups stay "
+                "intact per shard)")
+        if degree <= 1:
+            return None
+        if hasattr(mesh, "get_model_parallel_group"):
+            return mesh.get_model_parallel_group()
+        return mesh.get_group("mp")
+
+    def _resolve_logit_wire(self):
+        """``(wire, logit_verify)`` by the reference's rules: an explicit
+        wire wins, None inherits the mp_comm activation wire, "off" is
+        "f32", and mp 1 is always "f32"."""
+        lw, verify = self.config.logit_wire, True
+        if lw is None:
+            wcfg = _mp_comm.resolve_config()
+            lw = wcfg.wire_dtype if wcfg.quantized else "f32"
+            verify = wcfg.logit_verify
+        elif lw == "off":
+            lw = "f32"
+        elif lw not in LOGIT_WIRES:
+            raise ValueError(
+                f"logit_wire must be one of {LOGIT_WIRES}, got "
+                f"{self.config.logit_wire!r}")
+        if self._mp_degree <= 1:
+            lw = "f32"
+        return lw, verify
+
+    def _recombine(self, logits):
+        """This rank's vocab block ``[..., width]`` -> ``(logits [..., V]
+        f32, the same on every rank; exact argmax or None)``: the exact
+        all-gather, or the quantized wire (a vocab the mp degree divides,
+        as the reference requires; else the exact gather). The bytes this
+        rank sends add to ``collective.counts["logit_wire_bytes"]``."""
+        if self._mp_group is None:
+            return logits.float(), None
+        g, v = self._mp_group, self.adapter.vocab_size
+        wire = self._logit_wire
+        if wire != "f32" and v % g.nranks == 0:
+            wl, exact = _mp_comm.quantized_logit_gather(logits, wire, g)
+            rows = int(np.prod(logits.shape[:-1]))
+            _, wire_b = _mp_comm.logit_wire_bytes(rows, v, g.nranks, wire)
+            _obs.set_gauge("serving_logit_wire_bytes", wire_b)
+            return wl, (exact if self._logit_verify else None)
+        lf = logits.float().contiguous()
+        parts = _C.stacked_all_gather(lf, g)
+        _C.counts["logit_wire_bytes"] += (g.nranks - 1) * lf.numel() * 4
+        return torch.cat(list(parts), dim=-1)[..., :v], None
+
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` as the mp group's first rank decided it (one rank, or
+        a choice that reads no clock: ``flag`` itself)."""
+        if self._mp_group is None or not self.config.spec_adaptive:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        _C.broadcast(t, src=self._mp_group.ranks[0], group=self._mp_group)
+        return bool(t.item())
 
     # -- scheduler ----------------------------------------------------------
 
@@ -675,7 +793,7 @@ class DecodeEngine:
                     "decoding; raise num_pages")
             return False
         k = self.config.speculate_k
-        if k > 0 and self._spec_worthwhile(k):
+        if k > 0 and self._agree(self._spec_worthwhile(k)):
             drafts, any_real = self._collect_drafts(k)
             if any_real and self._verify_headroom(k):
                 self._step_verify(drafts, k)
@@ -731,8 +849,9 @@ class DecodeEngine:
             positions[slot] = len(req.prompt) + len(req.tokens) - 1
             seeds[slot] = _mix_seed(req.seed, int(positions[slot]) + 1)
         t0 = time.perf_counter()
-        logits = self._decode_body(tokens, positions)
-        nxt = _sample_tokens(logits, seeds, *self._sampling_arrays(1))
+        logits, exact = self._decode_body(tokens, positions)
+        nxt = _sample_tokens(logits, seeds, *self._sampling_arrays(1),
+                             exact_argmax=exact)
         nxt_host = nxt.cpu().numpy()  # the per-step host transfer: [S]
         dt = time.perf_counter() - t0
         _obs.observe("serving_decode_step_seconds", dt)
@@ -772,10 +891,12 @@ class DecodeEngine:
             seeds[slot] = [_mix_seed(req.seed, int(positions[slot]) + 1 + i)
                            for i in range(k1)]
         t0 = time.perf_counter()
-        logits = self._verify_body(tokens, positions)  # [S, k1, V]
+        logits, exact = self._verify_body(tokens, positions)  # [S, k1, V]
         targets = _sample_tokens(
             logits.reshape(s * k1, -1), seeds.reshape(-1),
-            *self._sampling_arrays(k1)).reshape(s, k1)
+            *self._sampling_arrays(k1),
+            exact_argmax=None if exact is None else exact.reshape(-1)
+        ).reshape(s, k1)
         targets_host = targets.cpu().numpy()
         dt = time.perf_counter() - t0
         _obs.observe("serving_decode_step_seconds", dt)
@@ -947,6 +1068,10 @@ class DecodeEngine:
             "prompt_tokens_total": self.prompt_tokens_total,
             "attn_kernel": self.config.attn_kernel,
             "device": str(self.device),
+            "mp": self._mp_degree,
+            "kv_heads": self._kv_heads,
+            "logit_wire": self._logit_wire,
+            "logit_verify": self._logit_verify,
         }
 
     def occupancy(self) -> dict:
@@ -1275,11 +1400,11 @@ class DecodeEngine:
         temp, top_k, top_p, greedy = (np.asarray([x]) for x in
                                       req.params.fields())
         tp0 = time.perf_counter()
-        logits = self._prefill_body(ids, cached_len, t0, row)
+        logits, exact = self._prefill_body(ids, cached_len, t0, row)
         # sample stream keyed by DESTINATION position: the token landing at
         # position t0 uses seed (request, t0), as the decode step would
         nxt = _sample_tokens(logits, [_mix_seed(req.seed, t0)], temp,
-                             top_k, top_p, greedy)
+                             top_k, top_p, greedy, exact_argmax=exact)
         token = int(nxt[0])
         now = time.perf_counter()
         self.prefill_seconds += now - tp0
@@ -1424,18 +1549,26 @@ class DecodeEngine:
             x = x + ad.mlp(l, x)
         return ad.final_norm(x)
 
+    def _embed(self, ids, positions):
+        """The embeddings (a model built at mp > 1 sums its vocab-parallel
+        lookups over the group, exactly: the activation wire stays off
+        inside the engine, as the reference's programs keep it)."""
+        with _mp_comm.activation_wire_disabled():
+            return self.adapter.embed(ids, positions)
+
     @torch.no_grad()
     def _prefill_body(self, ids, cached_len: int, true_len: int,
                       row: np.ndarray):
         """Tail prefill of one request (S=1, T=bucket): returns the last
-        real token's logits [1, V] f32."""
+        real token's logits [1, V] f32 and the exact argmax or None
+        (:meth:`_recombine`)."""
         ad, dev = self.adapter, self.device
         tb = ids.shape[1]
         psz, int8 = self.config.page_size, self._int8
         positions = cached_len + torch.arange(tb, device=dev)
         start = torch.tensor([cached_len], dtype=torch.int32, device=dev)
         table = torch.as_tensor(row[None], device=dev)  # [1, MP] int32
-        x = ad.embed(torch.as_tensor(ids, device=dev), positions)
+        x = self._embed(torch.as_tensor(ids, device=dev), positions)
 
         def write(l, k, v):
             _block_page_write(self._kc, self._ksc, l, k, row, cached_len,
@@ -1448,19 +1581,19 @@ class DecodeEngine:
         # mask; the real last-token logits sit at tail offset
         # true_len - 1 - cached_len
         off = true_len - 1 - cached_len
-        return ad.logits(x[:, off:off + 1])[:, 0].float()
+        return self._recombine(ad.logits(x[:, off:off + 1])[:, 0])
 
     def _token_body(self, tokens, positions):
         """Decode (T=1) and verify (T=k+1) share one body: tokens [S, T],
         positions [S] (position of each slot's first token). Returns
-        logits [S, T, V] f32."""
+        logits [S, T, V] f32 and the exact argmax or None."""
         ad, dev = self.adapter, self.device
         psz, int8 = self.config.page_size, self._int8
         t = tokens.shape[1]
         start = torch.as_tensor(positions, device=dev)
         pos2 = start[:, None] + torch.arange(t, device=dev)[None, :]
         tables = torch.as_tensor(self._tables, device=dev)
-        x = ad.embed(torch.as_tensor(tokens, device=dev), pos2)
+        x = self._embed(torch.as_tensor(tokens, device=dev), pos2)
 
         def write(l, k, v):
             _token_page_write(self._kc, self._ksc, l, k, tables, pos2, int8,
@@ -1469,14 +1602,17 @@ class DecodeEngine:
                               psz)
 
         x = self._layers(x, pos2, tables, start.to(torch.int32), write)
-        return ad.logits(x).float()
+        return self._recombine(ad.logits(x))
 
     @torch.no_grad()
     def _decode_body(self, tokens, positions):
-        """Single-token decode over all slots: logits [S, V] f32."""
-        return self._token_body(tokens[:, None], positions)[:, 0]
+        """Single-token decode over all slots: logits [S, V] f32 (and the
+        exact argmax [S] or None)."""
+        logits, exact = self._token_body(tokens[:, None], positions)
+        return logits[:, 0], (None if exact is None else exact[:, 0])
 
     @torch.no_grad()
     def _verify_body(self, tokens, positions):
-        """Speculative verify, k+1 tokens per slot: logits [S, k+1, V]."""
+        """Speculative verify, k+1 tokens per slot: logits [S, k+1, V]
+        (and the exact argmax [S, k+1] or None)."""
         return self._token_body(tokens, positions)

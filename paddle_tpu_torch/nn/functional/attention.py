@@ -14,8 +14,9 @@ float mask) arrive in bf16, and K1 / K2 run in bf16.
 Under a sequence split (``ring_attention.sequence_split``: ``fleet.
 DistTrainStep`` at ``sep_degree > 1``) both routes run as the ring over the
 sep group: the flash route on the kernels, the dense route on the ring's
-plain version. A mask, a bias or attention dropout there raises
-``NotImplementedError``.
+plain version, each under a mask or bias in the layouts
+``ring_attention.split_bias`` names; attention dropout there runs on the
+plain ring, as the unsplit route runs it on the dense version.
 """
 from __future__ import annotations
 
@@ -72,12 +73,13 @@ def _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training):
 
 def _ring_route(q, k, v, mask, dropout_p, causal, scale, training, flash):
     """Attention over the split sequence: the ring (the kernels' route when
-    ``flash``, else its plain version)."""
-    if mask is not None:
-        _ring.unported_under_split("attention with a mask or bias")
-    if dropout_p and training:
-        _ring.unported_under_split("attention dropout")
-    return _ring.ring_attention(q, k, v, causal, scale, flash)
+    ``flash`` and no dropout, else its plain version), the mask never
+    differentiated."""
+    if mask is not None and mask.dtype != torch.bool:
+        mask = mask.detach()
+    p = float(dropout_p) if training else 0.0
+    return _ring.ring_attention(q, k, v, causal, scale, flash, mask=mask,
+                                dropout_p=p)
 
 
 @amp_op("sdpa_op", "white", uncast=("raw_mask",))

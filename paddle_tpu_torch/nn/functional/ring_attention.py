@@ -29,12 +29,43 @@ Two routes, chosen by the tensors' device as the flash route is:
   tensors (the test hook ``attention._FLASH_ON_CPU``) it runs their
   plain versions.
 
-Under ``fleet.DistTrainStep`` at ``sep_degree > 1`` every batch tensor is
-split along the sequence and :func:`sequence_split` names the sep group:
-``scaled_dot_product_attention`` (and so the models' attention) runs as
-the ring, and :func:`sequence_offset` gives the first global position of
-the rank's block (the models' default positions). Contiguous blocks leave
-the causal work unbalanced: rank ``r`` runs ``r + 1`` blocks.
+A mask or an additive bias rides the ring in one of two layouts, told
+apart by its last dim (``T_local`` the rank's block, ``T = sep * T_local``):
+
+- **key-only**, ``[B|1, H|1, 1, T_local]`` (or a ``[B|1, T_local]`` padding
+  block): this rank's keys. It **rotates with K and V**, so the block a
+  rank holds after ``s`` rotations comes with its own bias;
+- **with query rows**, ``[B|1, H|1, T_local|1, T]`` (a 2-D mask
+  ``[T_local|1, T]``): this rank's queries against every key. It stays,
+  and each step **slices the source block's columns**.
+
+Anything else raises ``ValueError``. A bool mask folds into the bias with
+``NEG_INF`` (as the unsplit flash route folds it); a float mask is never
+differentiated. K1, K2a and K2b take each visible block's bias slice (K2a
+with no dS pass); the plain ring adds the same slice. A query row that
+sees no key anywhere emits zeros, as K1 does.
+
+Attention dropout runs on the plain ring (the unsplit route takes its
+dense version for dropout too). The keep mask of the block (query block
+``i``, key block ``j``) is drawn from a ``torch.Generator`` seeded from
+(one seed drawn from torch's default generator a call, ``i``, ``j``):
+:func:`dropout_keep_mask`, so the split result equals the unsplit plain
+attention under the keep mask those blocks tile (the reference's threefry
+stream is not reproduced).
+
+Under ``fleet.DistTrainStep`` at ``sep_degree > 1`` every batch tensor of
+rank >= 2 is cut along dim 1 and :func:`sequence_split` names the sep
+group: ``scaled_dot_product_attention`` (and so the models' attention)
+runs as the ring, and :func:`sequence_offset` gives the first global
+position of the rank's block (the models' default positions). So a
+padding mask enters as ``[B, T]`` and reaches the attention as the rank's
+``[B, T_local]`` key block (the encoders build their ``[B, 1, 1,
+T_local]`` bias from it); a ``[B, 1, 1, T]`` or ``[B, 1, T, T]`` batch
+tensor would be cut along its dim 1 and is refused there, so a mask with
+query rows is built inside the model from the rank's block, or passed to
+the attention as the rank's ``[B|1, H|1, T_local, T]`` rows. Contiguous
+blocks leave the causal work unbalanced: rank ``r`` runs ``r + 1``
+blocks.
 """
 from __future__ import annotations
 
@@ -79,11 +110,76 @@ def sequence_offset(t_local: int) -> int:
     return 0 if g is None else g.rank * t_local
 
 
-def unported_under_split(what):
-    """Raise for an attention feature the ring does not carry."""
-    raise NotImplementedError(
-        f"{what} under the sequence split (sep_degree > 1) is not ported "
-        "yet, see ROADMAP.md §A.7")
+# ---------------------------------------------------------- mask layouts
+def split_bias(mask, b, h, tl, n):
+    """``(bias, rotates)`` of a mask under the split of ``n`` blocks of
+    ``tl`` queries (see the module docstring): ``bias`` f32 rank 4 with
+    the bool mask folded in, ``rotates`` True for the key-only layout;
+    ``(None, False)`` without a mask."""
+    if mask is None:
+        return None, False
+    t = n * tl
+    shape = tuple(mask.shape)
+    if mask.dim() == 2 and shape[-1] == tl:       # a [B, T_local] padding
+        mask = mask.reshape(shape[0], 1, 1, tl)
+    elif mask.dim() < 4:
+        mask = mask.reshape((1,) * (4 - mask.dim()) + shape)
+    if mask.dim() != 4:
+        raise ValueError(f"an attention mask under the split must have rank "
+                         f"<= 4, got {shape}")
+    mb, mh, mq, mk = mask.shape
+    rotates = mk == tl and mq == 1
+    if not (rotates or (mk == t and mq in (1, tl))) \
+            or mb not in (1, b) or mh not in (1, h):
+        raise ValueError(
+            f"attention mask {shape} under a sequence split of {n} blocks of "
+            f"{tl}: give this rank's keys [B|1, H|1, 1, {tl}] (or a [B, {tl}] "
+            f"padding block), or its queries' rows [B|1, H|1, {tl}|1, {t}]")
+    if mask.dtype == torch.bool:
+        bias = torch.where(mask, torch.tensor(0.0, device=mask.device),
+                           torch.tensor(NEG_INF, device=mask.device))
+    else:
+        bias = mask.detach().float()
+    return bias.contiguous(), rotates
+
+
+def _source_bias(bias, rotates, src, tl):
+    """The bias of key block ``src`` (the rank's held one when it
+    rotates)."""
+    if bias is None or rotates:
+        return bias
+    return bias[..., src * tl:(src + 1) * tl].contiguous()
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix(*xs) -> int:
+    """splitmix64 over ``xs``: a 63-bit generator seed."""
+    z = 0x9E3779B97F4A7C15
+    for x in xs:
+        z = (z + int(x) * 0xBF58476D1CE4E5B9 + 0x632BE59BD9B4E5B) & _MASK64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        z ^= z >> 31
+    return z >> 1
+
+
+def draw_dropout_seed() -> int:
+    """The seed of one call's keep masks, drawn from torch's default
+    generator (ranks seeded alike draw alike)."""
+    return int(torch.randint(0, 2 ** 62, (1,)).item())
+
+
+def dropout_keep_mask(seed: int, q_block: int, k_block: int, shape, p: float,
+                      device):
+    """The keep mask (bool, ``shape``) of the attention probabilities of
+    query block ``q_block`` against key block ``k_block`` at dropout rate
+    ``p``: uniform draws from a generator seeded from ``(seed, q_block,
+    k_block)``, kept where ``>= p``."""
+    gen = torch.Generator(device=device).manual_seed(
+        _mix(seed, q_block, k_block))
+    return torch.rand(shape, generator=gen, device=device) >= p
 
 
 # -------------------------------------------------------------- the rotation
@@ -125,14 +221,20 @@ def _kv_heads(q, k, v):
 
 
 # ------------------------------------------------------------ plain version
-def ring_flash_attention_plain(q, k, v, group, causal=False, scale=None):
+def ring_flash_attention_plain(q, k, v, group, causal=False, scale=None,
+                               mask=None, dropout_p=0.0):
     """The reference's ring on this rank's ``[B, T/sep, H, D]`` blocks
-    (k / v may carry fewer heads), differentiable by autograd. Returns the
-    rank's ``[B, T/sep, H, D]`` output block in q's dtype."""
+    (k / v may carry fewer heads), differentiable by autograd, under an
+    optional ``mask`` (the layouts of :func:`split_bias`) and attention
+    dropout at rate ``dropout_p`` (keep masks :func:`dropout_keep_mask`
+    from one :func:`draw_dropout_seed`). Returns the rank's
+    ``[B, T/sep, H, D]`` output block in q's dtype."""
     k, v = _kv_heads(q, k, v)
     n, rank = group.nranks, group.rank
     b, tl, h, d = q.shape
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    bias, rotates = split_bias(mask, b, h, tl, n)
+    dropout_seed = draw_dropout_seed() if dropout_p else None
 
     qf = q.transpose(1, 2).reshape(b * h, tl, d)
     kv = torch.stack([k.transpose(1, 2).reshape(b * h, tl, d),
@@ -151,18 +253,29 @@ def ring_flash_attention_plain(q, k, v, group, causal=False, scale=None):
         src = (rank - step) % n
         k_cur, v_cur = kv[0], kv[1]
         s = torch.einsum("bqd,bkd->bqk", qf, k_cur).float() * sc
+        blk = _source_bias(bias, rotates, src, tl)
+        if blk is not None:
+            s = s + blk.expand(b, h, tl, tl).reshape(b * h, tl, tl)
         if causal:
             k_pos = src * tl + iq[None, :]
             s = torch.where((k_pos <= q_pos)[None], s, fill)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        # a masked logit weighs 0 even while the row has seen no key (K1's
+        # rule: a row that sees none emits zeros)
+        p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m_new), 0.0)
         l = alpha * l + p.sum(-1, keepdim=True)
+        if dropout_p:
+            keep = dropout_keep_mask(dropout_seed, rank, src, p.shape,
+                                     dropout_p, q.device)
+            p = torch.where(keep, p / (1.0 - dropout_p), 0.0)
         acc = acc * alpha + torch.einsum(
             "bqk,bkd->bqd", p.to(v_cur.dtype), v_cur).float()
         m = m_new
         if step != n - 1:
             kv = _Rotate.apply(kv, group)
+            if rotates:
+                bias = _rotate(bias, group)
 
     out = (acc / l.clamp(min=1e-30)).to(q.dtype)
     return out.reshape(b, h, tl, d).transpose(1, 2)
@@ -203,28 +316,37 @@ class RingFlashAttentionFunction(torch.autograd.Function):
     """The ring on the flash kernels (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, group, causal, scale):
+    def forward(ctx, q, k, v, group, causal, scale, bias, rotates):
         fwd, _, _ = _kernels(q)
         n, rank = group.nranks, group.rank
+        tl = q.shape[1]
         kv = torch.stack([k, v])
+        held = bias  # the key block's bias, when it rotates with K / V
         o = lse = None
-        visible, received = [], []
+        visible, received, biases = [], [], []
         for step in range(n):
             src = (rank - step) % n
             vis = _visible(src, rank, causal)
             if vis is not None:
-                o_i, lse_i = fwd(q, kv[0], kv[1], causal=vis, scale=scale)
+                blk = _source_bias(held, rotates, src, tl)
+                o_i, lse_i = fwd(q, kv[0], kv[1], blk, causal=vis,
+                                 scale=scale)
                 o, lse = _merge(o, lse, o_i, lse_i)
                 visible.append((step, vis))
                 if step:
                     received.append(kv)
+                    if rotates:
+                        biases.append(held)
             if step != n - 1:
                 kv = _rotate(kv, group)
+                if rotates:
+                    held = _rotate(held, group)
         o = o.to(q.dtype)
-        # the received blocks stay for the backward, which then sends only
-        # their dK / dV home
+        # the received blocks (and their biases) stay for the backward,
+        # which then sends only their dK / dV home
         ctx.save_for_backward(q, k, v, o, lse, *received)
         ctx.group, ctx.scale, ctx.visible = group, scale, visible
+        ctx.bias, ctx.rotates, ctx.biases = bias, rotates, biases
         return o
 
     @staticmethod
@@ -238,6 +360,13 @@ class RingFlashAttentionFunction(torch.autograd.Function):
         causal_of = dict(ctx.visible)
         blocks = dict(zip([s for s in causal_of if s], received))
         blocks[0] = (k, v)
+        rank, tl = group.rank, q.shape[1]
+        if ctx.rotates:
+            bias_of = dict(zip([s for s in causal_of if s], ctx.biases))
+            bias_of[0] = ctx.bias
+        else:
+            bias_of = {s: _source_bias(ctx.bias, False, (rank - s) % n, tl)
+                       for s in causal_of}
         do = do.contiguous()
         delta = _fa._delta(o, do).contiguous()
         dkv = torch.zeros((2, b, tl, hkv, d), dtype=torch.float32,
@@ -250,10 +379,11 @@ class RingFlashAttentionFunction(torch.autograd.Function):
             step = (i + 1) % n
             if step in causal_of:
                 kb, vb = blocks[step]
-                vis = causal_of[step]
-                dq_i, _ = dq_fn(q, kb, vb, None, do, lse, delta,
+                vis, blk = causal_of[step], bias_of[step]
+                # a mask takes no gradient: K2a runs without its dS pass
+                dq_i, _ = dq_fn(q, kb, vb, blk, do, lse, delta,
                                 causal=vis, scale=scale)
-                dk_i, dv_i = dkv_fn(q, kb, vb, None, do, lse, delta,
+                dk_i, dv_i = dkv_fn(q, kb, vb, blk, do, lse, delta,
                                     causal=vis, scale=scale)
                 dq += dq_i.float()
                 if h != hkv:
@@ -264,22 +394,26 @@ class RingFlashAttentionFunction(torch.autograd.Function):
             if i != n - 1:
                 dkv = _rotate(dkv, group)
         return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype), None,
-                None, None)
+                None, None, None, None)
 
 
-def ring_flash_attention(q, k, v, group, causal=False, scale=None):
+def ring_flash_attention(q, k, v, group, causal=False, scale=None,
+                         mask=None):
     """Exact attention over the ring of ``group`` on this rank's
     ``[B, T/sep, H, D]`` blocks (k / v may carry fewer heads, dividing H),
-    through the flash kernels (:class:`RingFlashAttentionFunction`).
-    Returns the rank's output block in q's dtype."""
+    through the flash kernels (:class:`RingFlashAttentionFunction`), under
+    an optional ``mask`` (the layouts of :func:`split_bias`). Returns the
+    rank's output block in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _fa._check(q, k, v, None)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"ring blocks of q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in length")
+    b, tl, h, _ = q.shape
+    bias, rotates = split_bias(mask, b, h, tl, group.nranks)
     return RingFlashAttentionFunction.apply(q, k, v, group, bool(causal),
-                                            float(scale))
+                                            float(scale), bias, rotates)
 
 
 def _sep_group_of(axis_name):
@@ -295,14 +429,17 @@ def _sep_group_of(axis_name):
 
 
 def ring_attention(q, k, v, causal, scale, flash: bool,
-                   group: Optional[object] = None):
+                   group: Optional[object] = None, mask=None,
+                   dropout_p: float = 0.0):
     """The ring over ``group`` (default: the sequence split's): the flash
-    kernels' route when ``flash``, else the plain version."""
+    kernels' route when ``flash`` and no dropout, else the plain version
+    (which carries dropout)."""
     if group is None:
         group = _sep_group
-    if flash:
-        return ring_flash_attention(q, k, v, group, causal, scale)
-    return ring_flash_attention_plain(q, k, v, group, causal, scale)
+    if flash and not dropout_p:
+        return ring_flash_attention(q, k, v, group, causal, scale, mask)
+    return ring_flash_attention_plain(q, k, v, group, causal, scale, mask,
+                                      dropout_p)
 
 
 def context_parallel_attention(q, k, v, causal: bool = False, scale=None,
@@ -325,5 +462,6 @@ def context_parallel_attention(q, k, v, causal: bool = False, scale=None,
 
 
 __all__ = ["RingFlashAttentionFunction", "context_parallel_attention",
-           "ring_flash_attention", "ring_flash_attention_plain",
-           "sequence_offset", "sequence_split"]
+           "dropout_keep_mask", "draw_dropout_seed", "ring_flash_attention",
+           "ring_flash_attention_plain", "sequence_offset", "sequence_split",
+           "split_bias"]

@@ -153,10 +153,16 @@ def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _last_logits(logits, index: int) -> np.ndarray:
+def _last_logits(logits, index: int, model=None) -> np.ndarray:
     """Row ``index`` of ``[B, T, V]`` logits on the host, f32 (a bf16 row
-    is exact in f32)."""
-    return logits[:, index].float().cpu().numpy()
+    is exact in f32). A model built at mp > 1 gives its rank's vocab block,
+    which its ``whole_vocab`` all-gathers (every rank of the group calls
+    this together)."""
+    row = logits[:, index]
+    whole = getattr(model, "whole_vocab", None)
+    if whole is not None:
+        row = whole(row)
+    return row.float().cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -229,7 +235,7 @@ def generate(
                 pad = np.full((b, tb - cur), bucket_fill, ids.dtype)
                 feed = np.concatenate([ids, pad], axis=1)
             logits = model(torch.as_tensor(feed, device=dev))
-            last = _last_logits(logits, cur - 1)
+            last = _last_logits(logits, cur - 1, model)
             nxt = _next_tokens(last, do_sample, top_k, top_p, temperature,
                                rng)
             if eos_token_id is not None:
@@ -275,7 +281,8 @@ def generate_padded(
         dev = _model_device(model)
         while cur < max_length:
             logits = model(torch.as_tensor(buf, device=dev))
-            nxt = _last_logits(logits, cur - 1).argmax(-1).astype(ids.dtype)
+            nxt = _last_logits(logits, cur - 1, model).argmax(-1).astype(
+                ids.dtype)
             if eos_token_id is not None:
                 nxt = np.where(done, pad_token_id, nxt)
                 done |= nxt == eos_token_id
@@ -311,7 +318,7 @@ def beam_search(
             for _ in range(max_new_tokens):
                 batch = np.stack([t for _, t in beams])
                 logits = model(torch.as_tensor(batch, device=dev))
-                last = _last_logits(logits, -1).astype(np.float64)
+                last = _last_logits(logits, -1, model).astype(np.float64)
                 top = last.max(-1, keepdims=True)
                 logp = last - (np.log(np.exp(last - top).sum(
                     -1, keepdims=True)) + top)
@@ -384,7 +391,7 @@ def run_cached_generation(model, cached_forward, init_cache, logits_fn,
         filler = pad_token_id if pad_token_id is not None else eos_token_id
         for step in range(max_new_tokens):
             # project only the final position to the vocabulary
-            last = _last_logits(logits_fn(hidden[:, -1:]), -1)
+            last = _last_logits(logits_fn(hidden[:, -1:]), -1, model)
             nxt = _next_tokens(last, do_sample, top_k, top_p, temperature,
                                rng)
             if eos_token_id is not None:

@@ -37,6 +37,7 @@ from ...distributed.fleet.meta_parallel.pipeline_parallel import (
 from ...framework.io_state import load_numpy_state
 from ...nn import functional as F
 from ...nn import initializer as I
+from ...nn.functional import ring_attention as _ring
 from ...nn.functional.attention import padded_attention
 from ...nn.layer import Layer, ParamAttr, create_parameter
 from ...nn.layers.common import Dropout, Embedding, Linear
@@ -119,7 +120,9 @@ class BertEmbeddings(Layer):
 
     def _sum(self, input_ids, token_type_ids, position_ids):
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
+            t = input_ids.shape[1]
+            off = _ring.sequence_offset(t)  # the rank's block when split
+            position_ids = torch.arange(off, off + t,
                                         device=input_ids.device)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)

@@ -69,6 +69,7 @@ from ...nn.layer import Layer, LayerList
 from ...nn.layers.common import Dropout, Embedding, linear_direct
 from ...nn.layers.norm import LayerNorm, layer_norm_direct
 from ..generation import alloc_kv_caches, run_cached_generation
+from . import _mp_decode as _mpd
 from .llama import _cache_write, _decode_attention
 
 
@@ -348,11 +349,13 @@ class GPTForCausalLM(Layer):
             return F.linear(hidden, T.t(emb.weight))
         return self.lm_head(hidden)
 
-    def _single_rank(self, what):
-        if self.gpt.embeddings.word_embeddings.world_size > 1:
-            raise NotImplementedError(
-                f"GPTForCausalLM.{what} at mp > 1 is not ported yet, see "
-                "ROADMAP.md §A.7")
+    def whole_vocab(self, logits):
+        """``logits`` over the whole vocabulary: at mp > 1 the ranks'
+        vocab blocks all-gathered along the last dim (a collective)."""
+        emb = self.gpt.embeddings.word_embeddings
+        if emb.world_size == 1:
+            return logits
+        return mpu.full_of(logits, logits.dim() - 1, emb._group)
 
     def forward(self, input_ids, position_ids=None, labels=None,
                 loss_mask=None):
@@ -369,16 +372,16 @@ class GPTForCausalLM(Layer):
         shard keeps its part of the full array."""
         return load_numpy_state(self, np_state)
 
-    def decode_adapter(self):
-        self._single_rank("decode_adapter")
-        return _GPTDecodeAdapter(self)
+    def decode_adapter(self, mp_group=None):
+        """The engine's hooks (``_GPTDecodeAdapter``); ``mp_group`` serves
+        this rank's heads and vocab block of a whole model."""
+        return _GPTDecodeAdapter(self, mp_group)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, top_k: int = 0, top_p: float = 1.0,
                  temperature: float = 1.0, eos_token_id=None,
                  pad_token_id=None, seed=None):
         """KV-cached generation (see ``LlamaForCausalLM.generate``)."""
-        self._single_rank("generate")
         return run_cached_generation(
             self,
             lambda ids, caches, pos: _gpt_cached_forward(
@@ -413,7 +416,7 @@ def _gpt_attn_cached(attn: GPTAttention, x, cache, pos: Optional[int]):
                                            training=False)
     else:
         o = _decode_attention(q, cache["k"], cache["v"], pos)
-    return attn.out_proj(T.reshape(o, (b, t, h)))
+    return attn.out_proj(T.reshape(o, (b, t, -1)))  # this rank's heads
 
 
 def _gpt_cached_forward(model: GPTModel, input_ids, caches,
@@ -437,8 +440,9 @@ def _gpt_cached_forward(model: GPTModel, input_ids, caches,
 
 def _gpt_init_cache(model: GPTModel, batch_size: int, max_length: int):
     c = model.config
+    heads = model.decoder[0].attn.num_heads  # this rank's at mp > 1
     return alloc_kv_caches(
-        c.num_hidden_layers, batch_size, max_length, c.num_attention_heads,
+        c.num_hidden_layers, batch_size, max_length, heads,
         c.hidden_size // c.num_attention_heads,
         device=model.embeddings.word_embeddings.weight.device)
 
@@ -447,12 +451,17 @@ class _GPTDecodeAdapter:
     """Per-layer hooks the serving engine drives (the engine owns the
     residual stream and the paged KV pool).
 
+    At mp > 1 (``mp_group``, or a model built split) the hooks serve this
+    rank's heads and vocab block (``_mp_decode.py``): :meth:`qkv` gives the
+    rank's ``H / mp`` heads, :meth:`attn_out` sums the output projection
+    over the group, :meth:`logits` gives the rank's vocab block.
+
     The hooks call the layers' ops directly, past the module calls and
     the AMP gateway: serving runs outside ``auto_cast`` (a decorated model
     is not served yet, ROADMAP.md A.2c), and its steps are host-bound, so
     each Python frame shows in the decode step (PERF.md section 6)."""
 
-    def __init__(self, lm: GPTForCausalLM):
+    def __init__(self, lm: GPTForCausalLM, mp_group=None):
         if not isinstance(lm.gpt.decoder, LayerList):
             raise NotImplementedError(
                 "the decode engine requires the non-pipelined, unfolded "
@@ -465,9 +474,27 @@ class _GPTDecodeAdapter:
         self.num_kv_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.max_positions = cfg.max_position_embeddings
+        self.vocab_size = cfg.vocab_size
         # positions may arrive [B, T] with a different offset per row (the
         # speculative verify step); the position table gathers per element
         self.multi_token_positions = True
+        emb = lm.gpt.embeddings.word_embeddings
+        split = emb.world_size > 1
+        self.mp_group = _mpd.resolve_group(emb._group if split else None,
+                                           mp_group)
+        self.mp = sh = _mpd.MpShard(self.mp_group, split)
+        if self.num_heads % sh.world:
+            raise ValueError(
+                f"mp={sh.world} must divide num_kv_heads={self.num_kv_heads}"
+                ": the KV pool shards by whole kv heads")
+        self._heads = self.num_heads // sh.world
+        d, h = self.head_dim, self.num_heads
+        # (qkv weight, qkv bias, out weight, out bias) of the rank's heads
+        self._attn = [
+            (sh.cols(b.attn.qkv_proj.weight, h, 3 * d),
+             sh.cols(b.attn.qkv_proj.bias, h, 3 * d),
+             sh.rows(b.attn.out_proj.weight, h, d), b.attn.out_proj.bias)
+            for b in self.blocks]
 
     def embed(self, input_ids, positions):
         """input_ids ``[B, T]``; positions ``[T]`` or ``[B, T]``. Positions
@@ -479,28 +506,35 @@ class _GPTDecodeAdapter:
         return layer_norm_direct(self.blocks[layer].ln_1, x)
 
     def qkv(self, layer, h, positions):
-        attn = self.blocks[layer].attn
+        w, b_, _, _ = self._attn[layer]
         b, t, _ = h.shape
-        qkv = linear_direct(attn.qkv_proj, h).reshape(
-            b, t, attn.num_heads, 3, attn.head_dim)
+        qkv = F.linear.raw(h, w, b_).reshape(b, t, self._heads, 3,
+                                             self.head_dim)
         return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
 
     def attn_out(self, layer, o):
-        attn = self.blocks[layer].attn
+        _, _, w, bias = self._attn[layer]
         b, t = o.shape[0], o.shape[1]
-        return linear_direct(
-            attn.out_proj, o.reshape(b, t, attn.num_heads * attn.head_dim))
+        return self.mp.row_linear(
+            o.reshape(b, t, self._heads * self.head_dim), w, bias)
 
     def mlp(self, layer, x):
         blk = self.blocks[layer]
         h = linear_direct(blk.mlp.fc_in, layer_norm_direct(blk.ln_2, x))
-        return linear_direct(blk.mlp.fc_out, F.gelu.raw(h))
+        fc_out = blk.mlp.fc_out
+        if not self.mp.model_split:
+            return linear_direct(fc_out, F.gelu.raw(h))
+        return self.mp.row_linear(F.gelu.raw(h), fc_out.weight, fc_out.bias)
 
     def final_norm(self, x):
         return layer_norm_direct(self.lm.gpt.final_layernorm, x)
 
     def logits(self, hidden):
+        """The logits, at mp > 1 this rank's vocab block (``_mp_decode.
+        head_logits``)."""
         if self.lm.config.tie_word_embeddings:
-            w = self.lm.gpt.embeddings.word_embeddings.weight
-            return F.linear.raw(hidden, w.t())
-        return linear_direct(self.lm.lm_head, hidden)
+            return _mpd.head_logits(
+                hidden, self.lm.gpt.embeddings.word_embeddings.weight, True,
+                self.mp, self.vocab_size)
+        return _mpd.head_logits(hidden, self.lm.lm_head.weight, False,
+                                self.mp, self.vocab_size)

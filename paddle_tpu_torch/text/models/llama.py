@@ -65,6 +65,7 @@ from ...nn.layers.common import linear_direct
 from ...nn.layers.norm import RMSNorm, rms_norm_direct
 from ...ops.flash_attention import flash_attention
 from ..generation import alloc_kv_caches, run_cached_generation
+from . import _mp_decode as _mpd
 
 
 class LlamaConfig:
@@ -351,11 +352,13 @@ class LlamaForCausalLM(Layer):
             return F.linear(hidden, T.t(emb.weight))
         return self.lm_head(hidden)
 
-    def _single_rank(self, what):
-        if self.llama.embed_tokens.world_size > 1:
-            raise NotImplementedError(
-                f"LlamaForCausalLM.{what} at mp > 1 is not ported yet, see "
-                "ROADMAP.md §A.7")
+    def whole_vocab(self, logits):
+        """``logits`` over the whole vocabulary: at mp > 1 the ranks'
+        vocab blocks all-gathered along the last dim (a collective)."""
+        emb = self.llama.embed_tokens
+        if emb.world_size == 1:
+            return logits
+        return mpu.full_of(logits, logits.dim() - 1, emb._group)
 
     def forward(self, input_ids, labels=None, loss_mask=None):
         """Logits ``[B, T, V]``, or the scalar loss when ``labels`` (already
@@ -381,9 +384,10 @@ class LlamaForCausalLM(Layer):
         as ``{name: ndarray}``; names and shapes must match exactly."""
         return load_numpy_state(self, np_state)
 
-    def decode_adapter(self):
-        self._single_rank("decode_adapter")
-        return _LlamaDecodeAdapter(self)
+    def decode_adapter(self, mp_group=None):
+        """The engine's hooks (``_LlamaDecodeAdapter``); ``mp_group`` serves
+        this rank's heads and vocab block of a whole model."""
+        return _LlamaDecodeAdapter(self, mp_group)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, top_k: int = 0, top_p: float = 1.0,
@@ -393,7 +397,6 @@ class LlamaForCausalLM(Layer):
         one-token decode steps against preallocated caches (the shared
         loop ``text.generation.run_cached_generation``). Returns numpy
         ids ``[B, T0 + n]``."""
-        self._single_rank("generate")
         return run_cached_generation(
             self,
             lambda ids, caches, pos: _llama_cached_forward(
@@ -456,7 +459,7 @@ def _attn_prefill(attn: LlamaAttention, x, cache):
             q, T.repeat_interleave(k, group, axis=2),
             T.repeat_interleave(v, group, axis=2), is_causal=True,
             training=False)
-    return attn.o_proj(T.reshape(o, (b, t, h)))
+    return attn.o_proj(T.reshape(o, (b, t, -1)))  # this rank's heads
 
 
 def _attn_decode(attn: LlamaAttention, x, cache, pos: int):
@@ -467,7 +470,7 @@ def _attn_decode(attn: LlamaAttention, x, cache, pos: int):
     _cache_write(cache["k"], k, pos)
     _cache_write(cache["v"], v, pos)
     o = _decode_attention(q, cache["k"], cache["v"], pos)
-    return attn.o_proj(T.reshape(o, (b, t, h)))
+    return attn.o_proj(T.reshape(o, (b, t, -1)))  # this rank's heads
 
 
 def _layer_step(layer: LlamaDecoderLayer, x, cache, pos: Optional[int]):
@@ -496,19 +499,22 @@ def _llama_cached_forward(model: LlamaModel, input_ids, caches,
 
 def _llama_init_cache(model: LlamaModel, batch_size: int, max_length: int):
     c = model.config
+    kv_heads = model.layers[0].self_attn.num_kv_heads  # this rank's
     return alloc_kv_caches(
-        c.num_hidden_layers, batch_size, max_length, c.num_key_value_heads,
+        c.num_hidden_layers, batch_size, max_length, kv_heads,
         c.hidden_size // c.num_attention_heads,
         device=model.embed_tokens.weight.device)
 
 
 class _LlamaDecodeAdapter:
     """Per-layer hooks the serving engine drives (see ``_GPTDecodeAdapter``
-    for the contract, and for why the hooks call the ops directly). RoPE
-    is applied inside :meth:`qkv` at the engine's explicit positions, so
-    prefill buckets and per-slot decode share one code path."""
+    for the contract, the mp layout, and why the hooks call the ops
+    directly). RoPE is applied inside :meth:`qkv` at the engine's explicit
+    positions, so prefill buckets and per-slot decode share one code path.
+    At mp > 1 the rank's ``H / mp`` query heads read its ``Hkv / mp`` kv
+    heads: contiguous blocks of both, so every GQA group stays whole."""
 
-    def __init__(self, lm: LlamaForCausalLM):
+    def __init__(self, lm: LlamaForCausalLM, mp_group=None):
         if not isinstance(lm.llama.layers, LayerList):
             raise NotImplementedError(
                 "the decode engine requires the non-pipelined, unfolded "
@@ -521,9 +527,32 @@ class _LlamaDecodeAdapter:
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.max_positions = cfg.max_position_embeddings
+        self.vocab_size = cfg.vocab_size
         # positions may arrive [B, T] with a different offset per row (the
         # speculative verify step); RoPE gathers per element
         self.multi_token_positions = True
+        emb = lm.llama.embed_tokens
+        split = emb.world_size > 1
+        self.mp_group = _mpd.resolve_group(emb._group if split else None,
+                                           mp_group)
+        self.mp = sh = _mpd.MpShard(self.mp_group, split)
+        if self.num_kv_heads % sh.world:
+            raise ValueError(
+                f"mp={sh.world} must divide num_kv_heads={self.num_kv_heads}"
+                ": the KV pool shards by whole kv heads (a GQA group stays "
+                "on one rank)")
+        self._hq = self.num_heads // sh.world
+        self._hkv = self.num_kv_heads // sh.world
+        d, hq, hkv = self.head_dim, self.num_heads, self.num_kv_heads
+
+        def proj(lin, n):
+            return sh.cols(lin.weight, n, d), sh.cols(lin.bias, n, d)
+
+        # (q, k, v projections as (weight, bias), out weight, out bias)
+        self._attn = [
+            (proj(a.q_proj, hq), proj(a.k_proj, hkv), proj(a.v_proj, hkv),
+             sh.rows(a.o_proj.weight, hq, d), a.o_proj.bias)
+            for a in (b.self_attn for b in self.blocks)]
 
     def embed(self, input_ids, positions):
         return self.lm.llama.embed_tokens(input_ids)
@@ -537,11 +566,12 @@ class _LlamaDecodeAdapter:
         clamped: the reference fills them with NaN, and an out-of-range
         gather on a CUDA tensor is a device-side assert."""
         attn = self.blocks[layer].self_attn
+        (wq, bq), (wk, bk), (wv, bv), _, _ = self._attn[layer]
         b, t, _ = h.shape
-        hq, hkv, d = attn.num_heads, attn.num_kv_heads, attn.head_dim
-        q = linear_direct(attn.q_proj, h).reshape(b, t, hq, d)
-        k = linear_direct(attn.k_proj, h).reshape(b, t, hkv, d)
-        v = linear_direct(attn.v_proj, h).reshape(b, t, hkv, d)
+        d = self.head_dim
+        q = F.linear.raw(h, wq, bq).reshape(b, t, self._hq, d)
+        k = F.linear.raw(h, wk, bk).reshape(b, t, self._hkv, d)
+        v = F.linear.raw(h, wv, bv).reshape(b, t, self._hkv, d)
         pos = positions.clamp(max=self.max_positions - 1)
         rope = _apply_rope_positions.raw
         q = rope(q, attn.rope_cos, attn.rope_sin, pos)
@@ -549,24 +579,29 @@ class _LlamaDecodeAdapter:
         return q, k, v
 
     def attn_out(self, layer, o):
-        attn = self.blocks[layer].self_attn
+        *_, w, bias = self._attn[layer]
         b, t = o.shape[0], o.shape[1]
-        return linear_direct(
-            attn.o_proj, o.reshape(b, t, attn.num_heads * attn.head_dim))
+        return self.mp.row_linear(o.reshape(b, t, self._hq * self.head_dim),
+                                  w, bias)
 
     def mlp(self, layer, x):
         blk = self.blocks[layer]
         mlp = blk.mlp
         h = rms_norm_direct(blk.post_attention_layernorm, x)
-        return linear_direct(mlp.down_proj,
-                             F.silu.raw(linear_direct(mlp.gate_proj, h))
-                             * linear_direct(mlp.up_proj, h))
+        g = F.silu.raw(linear_direct(mlp.gate_proj, h)) \
+            * linear_direct(mlp.up_proj, h)
+        if not self.mp.model_split:
+            return linear_direct(mlp.down_proj, g)
+        return self.mp.row_linear(g, mlp.down_proj.weight, mlp.down_proj.bias)
 
     def final_norm(self, x):
         return rms_norm_direct(self.lm.llama.norm, x)
 
     def logits(self, hidden):
+        """The logits, at mp > 1 this rank's vocab block (``_mp_decode.
+        head_logits``)."""
         if self.lm.config.tie_word_embeddings:
-            w = self.lm.llama.embed_tokens.weight
-            return F.linear.raw(hidden, w.t())
-        return linear_direct(self.lm.lm_head, hidden)
+            return _mpd.head_logits(hidden, self.lm.llama.embed_tokens.weight,
+                                    True, self.mp, self.vocab_size)
+        return _mpd.head_logits(hidden, self.lm.lm_head.weight, False,
+                                self.mp, self.vocab_size)

@@ -324,8 +324,12 @@ def test_refusals():
     m = Model(_small_model())
     with pytest.raises(NotImplementedError, match="amp_configs"):
         m.prepare(amp_configs={"level": "O1"})
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    # comm_traffic is ported (test_torch_hapi_dist.py): unprepared, or on
+    # a single rank, it raises the reference's RuntimeError
+    with pytest.raises(RuntimeError, match="prepare"):
         m.comm_traffic()
+    with pytest.raises(RuntimeError, match="multi-device"):
+        _prepared().comm_traffic()
 
 
 def test_fit_loader_follows_the_network_device(monkeypatch):

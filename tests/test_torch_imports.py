@@ -41,8 +41,9 @@ def test_distributed_modules_are_covered():
     """The guard's module list holds every distributed module, the ZeRO-3
     layout, the mp wire, the auto-parallel / reshard / checkpoint modules,
     the serving tier (store, chaos, telemetry, serving), the launcher,
-    watchdog, elastic, MPMD, rpc and ps modules, and the live plane, the
-    planner and the supervisor among them."""
+    watchdog, elastic, MPMD, rpc and ps modules, the live plane, the
+    planner and the supervisor, and the collective-traffic analysis and
+    the decode engine's mp slicing among them."""
     for m in ("paddle_tpu_torch.distributed.mp_comm",
               "paddle_tpu_torch.distributed.grad_comm",
               "paddle_tpu_torch.distributed.fleet.meta_parallel."
@@ -79,7 +80,9 @@ def test_distributed_modules_are_covered():
               "paddle_tpu_torch.observability.live",
               "paddle_tpu_torch.observability.fleet",
               "paddle_tpu_torch.distributed.auto_parallel.planner",
-              "paddle_tpu_torch.distributed.fleet.supervisor"):
+              "paddle_tpu_torch.distributed.fleet.supervisor",
+              "paddle_tpu_torch.distributed.comm_analysis",
+              "paddle_tpu_torch.text.models._mp_decode"):
         assert m in MODULES, m
 
 

@@ -240,11 +240,28 @@ def test_long_context_example_matches_reference(runs):
 
 
 @pytest.mark.parametrize("what", ["bool mask", "float mask", "dropout"])
-def test_masked_attention_under_the_split_raises(what):
+def test_masked_attention_under_the_split_raises(what, monkeypatch):
+    """Masks and dropout ride the split now (``test_torch_sep_mask.py``
+    holds them against the reference): a mask in neither split layout (a
+    ``[T_local, T_local]`` one) raises ``ValueError`` naming the layouts,
+    and dropout takes the plain ring even with the flash route asked
+    for."""
+    from paddle_tpu_torch.nn.functional import attention
+
     q = torch.zeros((1, 4, 2, 8))
-    kw = {"bool mask": dict(attn_mask=torch.ones((4, 4), dtype=torch.bool)),
-          "float mask": dict(attn_mask=torch.zeros((4, 4))),
-          "dropout": dict(dropout_p=0.1, training=True)}[what]
+    if what == "dropout":
+        seen = []
+        monkeypatch.setattr(ra, "ring_flash_attention_plain",
+                            lambda *a: seen.append(a[4:]) or q)
+        monkeypatch.setattr(attention, "_FLASH_ON_CPU", True)
+        with ra.sequence_split(Group([0, 1])):
+            F.scaled_dot_product_attention(q, q, q, is_causal=True,
+                                           dropout_p=0.1, training=True)
+        assert seen == [(True, None, None, 0.1)]
+        return
+    mask = {"bool mask": torch.ones((4, 4), dtype=torch.bool),
+            "float mask": torch.zeros((4, 4))}[what]
     with ra.sequence_split(Group([0, 1])):
-        with pytest.raises(NotImplementedError, match="§A.7"):
-            F.scaled_dot_product_attention(q, q, q, is_causal=True, **kw)
+        with pytest.raises(ValueError, match="sequence split of 2 blocks"):
+            F.scaled_dot_product_attention(q, q, q, is_causal=True,
+                                           attn_mask=mask)

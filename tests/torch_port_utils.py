@@ -2557,3 +2557,328 @@ def same_planner_constants(monkeypatch):
     monkeypatch.setattr(ref, "_CALIBRATION", rc)
     monkeypatch.setattr(port, "_CALIBRATION", pc)
     return pc, rc
+
+
+# -- the decode engine at mp > 1 --------------------------------------------
+ENGINE_MP_CFG = dict(num_slots=2, max_length=64, page_size=16,
+                     prefix_cache=True, speculate_k=2, spec_adaptive=False)
+
+
+def engine_mp_workload(vocab):
+    """tests/test_serving_mp_shard.py's workload: three prompts sharing a
+    32-token prefix (two full pages), the middle one sampled."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, vocab, size=32, dtype=np.int64)
+    out = []
+    for i, tail in enumerate((9, 17, 5)):
+        prompt = np.concatenate(
+            [prefix, rng.integers(1, vocab, size=tail, dtype=np.int64)])
+        out.append((prompt, dict(max_new_tokens=10, do_sample=(i % 2 == 1),
+                                 temperature=0.8, top_k=8, seed=100 + i)))
+    return out
+
+
+def engine_drain(eng, reqs):
+    from paddle_tpu_torch.inference.engine import SamplingParams
+
+    rids = [eng.submit(p, SamplingParams(**kw)) for p, kw in reqs]
+    eng.run()
+    return [eng.result(r) for r in rids]
+
+
+def _engine_model(case, state, split=False):
+    """The port's model of ``case`` on the CPU with ``state``: whole, or
+    built at mp 2 after ``fleet.init`` (``split``)."""
+    from paddle_tpu_torch.distributed import fleet
+
+    if split:
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["mp_degree"] = 2
+        fleet.init(is_collective=True, strategy=s)
+    kw = case.get("model_kw", {})
+    if case["kind"] == "gpt":
+        m = torch_tiny_gpt(state, **kw)
+    else:
+        m = torch_tiny_llama(state, **kw)
+    m.eval()
+    return m
+
+
+def engine_mp_job(cases, states, ids):
+    """Each case at mp 2 on this rank: the whole model served through
+    ``EngineConfig(mesh=...)`` and the same weights built at mp 2 (its own
+    group), the streams, the pool's heads, the logit-wire bytes per step;
+    then ``generate`` at mp 2 (the model's cached route and the engine
+    route)."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from paddle_tpu_torch.text import generation
+
+    mesh = ProcessMesh(np.arange(2).reshape(1, 2), dim_names=["dp", "mp"])
+    out = {}
+    for case in cases:
+        state = states[case["model"]]
+        reqs = engine_mp_workload(case["vocab"])
+        res = {}
+        # a model built at mp 2 needs a vocab that 2 divides
+        for split in (False, True) if case["vocab"] % 2 == 0 else (False,):
+            m = _engine_model(case, state, split)
+            cfg = EngineConfig(**ENGINE_MP_CFG, kv_dtype=case.get("kv", "f32"),
+                               logit_wire=case.get("wire"),
+                               mesh=None if split else mesh)
+            eng = DecodeEngine(m, cfg, device="cpu")
+            C.counts["logit_wire_bytes"] = 0
+            streams = engine_drain(eng, reqs)
+            st = eng.stats()
+            res["split" if split else "mesh"] = dict(
+                streams=streams, pool=tuple(eng._kc.shape),
+                scales=None if eng._ksc is None else tuple(eng._ksc.shape),
+                wire=eng._logit_wire, verify=eng._logit_verify,
+                wire_bytes=C.counts["logit_wire_bytes"],
+                steps=st["decode_steps"], verify_steps=st["verify_steps"],
+                prefills=st["prefill_calls"],
+                prefix_hit_tokens=st["prefix_hit_tokens"])
+            if case.get("generate"):
+                t = torch.as_tensor(ids[case["vocab"]])
+                if split:
+                    res["generate_split"] = m.generate(t, max_new_tokens=8)
+                    res["loop_split"] = generation.generate(
+                        m, t, max_new_tokens=8, use_engine=False)
+                else:
+                    inference.enable_decode_engine(
+                        m, device="cpu", num_slots=2, max_length=64,
+                        mesh=mesh)
+                    res["generate_engine"] = generation.generate(
+                        m, t, max_new_tokens=8)
+                    inference.disable_decode_engine(m)
+            _reset_topology()
+        out[case["name"]] = res
+    return out
+
+
+# -- masks, biases and dropout under the sequence split ---------------------
+def _seq_block(a, axis, n, r):
+    k = a.shape[axis] // n
+    return np.ascontiguousarray(np.take(a, range(r * k, (r + 1) * k),
+                                        axis=axis))
+
+
+def _local_mask(case, n, r):
+    """This rank's part of a global mask: a key layout cut along its key
+    dim, a row layout along its query dim."""
+    import torch
+
+    m = case["mask"]
+    axis = m.ndim - 1 if case["layout"] in ("pad", "keys") else m.ndim - 2
+    return torch.from_numpy(_seq_block(m, axis, n, r))
+
+
+def _tiny_ernie_mlm(state):
+    return torch_tiny_encoder(state, "ernie", "ErnieForMaskedLM")
+
+
+def ernie_mlm_loss(model, ids, types, mask, labels):
+    return model(ids, types, attention_mask=mask, labels=labels)
+
+
+def sep_mask_job(cases, batch, drop, ernie):
+    """At sep 2 (``fleet.init``, the world of 2): each mask ``case`` on
+    this rank's block of ``batch`` q / k / v / do through the plain ring
+    and the kernels' route (their plain versions here): the output, the
+    q / k / v gradients and the ring's ``batch_isend_irecv`` count;
+    dropout through the plain ring (its seed drawn after
+    ``torch.manual_seed(drop["seed"])``) and through
+    ``scaled_dot_product_attention`` under the split with the flash route
+    asked for; then the tiny ERNIE masked LM with its padding mask through
+    ``DistTrainStep`` + AdamW on both routes, the per-step losses."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.nn.functional import ring_attention as ra
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=1, sep_degree=2)
+    fleet.init(is_collective=True, strategy=s)
+    group = fleet.get_hybrid_communicate_group().get_sep_parallel_group()
+    n, r = group.nranks, group.rank
+    q, k, v, do = (torch.from_numpy(_seq_block(batch[x], 1, n, r))
+                   for x in ("q", "k", "v", "do"))
+    out = dict(sep_rank=r)
+    for case in cases:
+        mask = _local_mask(case, n, r)
+        res = {}
+        for route, fn in (("plain", ra.ring_flash_attention_plain),
+                          ("kernels", ra.ring_flash_attention)):
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            C.counts["batch_isend_irecv"] = 0
+            o = fn(qq, kk, vv, group, causal=case["causal"], mask=mask)
+            o.backward(do)
+            res[route] = dict(o=o.detach().numpy(), dq=qq.grad.numpy(),
+                              dk=kk.grad.numpy(), dv=vv.grad.numpy(),
+                              p2p=C.counts["batch_isend_irecv"])
+        out[case["name"]] = res
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    torch.manual_seed(drop["seed"])
+    o = ra.ring_flash_attention_plain(qq, kk, vv, group, causal=True,
+                                      dropout_p=drop["p"])
+    o.backward(do)
+    res = dict(o=o.detach().numpy(), dq=qq.grad.numpy(), dk=kk.grad.numpy(),
+               dv=vv.grad.numpy())
+    torch.manual_seed(drop["seed"])
+    attention._FLASH_ON_CPU = True
+    try:
+        with ra.sequence_split(group):
+            res["sdpa"] = F.scaled_dot_product_attention(
+                q, k, v, dropout_p=drop["p"], is_causal=True,
+                training=True).numpy()
+    finally:
+        attention._FLASH_ON_CPU = False
+    out["dropout"] = res
+    ids, types, mask, labels = (torch.from_numpy(x) for x in ernie["batch"])
+    for route in ("plain", "kernels"):
+        attention._FLASH_ON_CPU = route == "kernels"
+        try:
+            model = _tiny_ernie_mlm(ernie["state"])
+            opt = paddle.optimizer.AdamW(learning_rate=ernie["lr"],
+                                         parameters=model.parameters(),
+                                         weight_decay=0.01)
+            step = fleet.DistTrainStep(model, ernie_mlm_loss, opt)
+            C.counts["batch_isend_irecv"] = 0
+            out[f"ernie_{route}"] = dict(
+                losses=[float(step(ids, types, mask, labels))
+                        for _ in range(ernie["steps"])],
+                p2p=C.counts["batch_isend_irecv"])
+        finally:
+            attention._FLASH_ON_CPU = False
+    fleet.topology.set_hybrid_communicate_group(None)
+    return out
+
+
+# -- the distributed paddle.Model, comm_traffic, save_persistables ----------
+HAPI_VOCAB = 32
+
+
+def hapi_net(pkg):
+    """tests/test_grad_comm.py's ``_Net`` built in ``pkg``."""
+    nn, F = pkg.nn, pkg.nn.functional
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(HAPI_VOCAB, 16)
+            self.l1 = nn.Linear(16, 24)
+            self.l2 = nn.Linear(24, 16)
+            self.norm = nn.LayerNorm(16)
+            self.head = nn.Linear(16, HAPI_VOCAB)
+
+        def forward(self, ids):
+            h = self.emb(ids)
+            h = F.gelu(self.l1(h))
+            return self.head(self.norm(self.l2(h)))
+
+    return Net()
+
+
+def hapi_rows(pkg, ids, labels):
+    """A dataset of ``(ids[i], labels[i])`` in ``pkg``'s ``io``."""
+
+    class Rows(pkg.io.Dataset):
+        def __getitem__(self, i):
+            return ids[i], labels[i]
+
+        def __len__(self):
+            return len(ids)
+
+    return Rows()
+
+
+def _hapi_model(paddle, state, lr):
+    from paddle_tpu_torch.framework.io_state import load_numpy_state
+
+    net = hapi_net(paddle)
+    load_numpy_state(net, state)
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.AdamW(learning_rate=lr,
+                                         parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss())
+    return net, model
+
+
+def hapi_dist_job(state, data, lr, out_dir):
+    """At dp 2 (``fleet.init``): ``Model.fit`` over the rows (the global
+    batch on each rank), the per-step losses; ``comm_traffic`` on one
+    batch under the f32 and the bf16 gradient wire (a fresh model each);
+    ``save_persistables`` and a restore into another model; its refusals;
+    then at pp 2 a ``PipelineLayer`` network's ``prepare``."""
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import checkpoint, fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpar
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs["dp_degree"] = 2
+    fleet.init(is_collective=True, strategy=s)
+    ids, labels = (torch.from_numpy(data[k]) for k in ("ids", "labels"))
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    net, model = _hapi_model(paddle, state, lr)
+    rec = Losses()
+    model.fit(hapi_rows(paddle, ids, labels), batch_size=data["batch"],
+              epochs=1, shuffle=False, verbose=0, callbacks=[rec])
+    out = dict(losses=rec.losses, step=type(model._train_step).__name__,
+               n_params=sum(p.numel() for p in net.parameters()),
+               sizes=[p.numel() * 4 for p in net.parameters()])
+    batch = (ids[:data["batch"]], labels[:data["batch"]])
+    for wire in ("f32", "bf16"):
+        os.environ["PADDLE_TPU_GRAD_COMM"] = wire
+        try:
+            _, m = _hapi_model(paddle, state, lr)
+            out[f"traffic_{wire}"] = m.comm_traffic(*batch)
+        finally:
+            del os.environ["PADDLE_TPU_GRAD_COMM"]
+    path = os.path.join(out_dir, "persist")
+    out["saved"] = fleet.save_persistables(dirname=path, model=net)
+    other = hapi_net(paddle)
+    checkpoint.load_state_dict(os.path.join(path, "persistables"),
+                               dict(other.named_parameters()))
+    out["restored"] = all(torch.equal(a, b) for a, b in
+                          zip(net.parameters(), other.parameters()))
+    out["refusals"] = {
+        "no_dirname": _raised(lambda: fleet.save_persistables(model=net)),
+        "program": _raised(lambda: fleet.save_persistables(dirname=path)),
+        "empty": _raised(lambda: fleet.save_persistables(
+            dirname=path, model=paddle.nn.ReLU()))}
+    _reset_topology()
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=1, pp_degree=2)
+    fleet.init(is_collective=True, strategy=s)
+    descs, loss_fn = pipe_layer_lm(paddle)
+    pipe = mpar.PipelineLayer(descs, loss_fn=loss_fn)
+    try:
+        paddle.Model(pipe).prepare(
+            paddle.optimizer.AdamW(learning_rate=lr,
+                                   parameters=pipe.parameters()),
+            loss_fn)
+        out["pipeline"] = None
+    except NotImplementedError as e:
+        out["pipeline"] = str(e)
+    _reset_topology()
+    return out
