@@ -9469,6 +9469,747 @@ def phase_mp_sep_hapi(pa, fa, smi, timeout=900, spec=None):
     return out
 
 
+# -- phase 55: the mp worker, EP over replicated rows, the vision zoo and
+# -- nn.Transformer's caches ---------------------------------------------------
+#: 55a: the worker CLI's model, GPT-3 1.3B's widths at phase 54a's depth
+MP_WORKER_MODEL = dict(SERVING_MODEL, layers=MP_SERVING_LAYERS)
+#: 55b: rows of each batch, which the data degree 2 does not divide
+EP_ROWS = 3
+EP_STEPS = 3
+EP_VOCAB = 64
+EP_SEQ = 16
+EP_LOSS_RTOL = 1e-5
+#: 55c: ViT-B/16 at its published input, FakeData of 10 classes
+VIT_BATCH = 32
+VIT_HW = 224
+VIT_CLASSES = 10
+VIT_STEPS = 3
+VIT_EVAL_BATCHES = 2
+VIT_LR = 1e-4
+#: the flash route's f32 losses against the dense route's: K1 / K2's
+#: 3xTF32 products part from the dense einsums by ~1e-6 a logit
+VIT_LOSS_RTOL = 1e-4
+#: 55d: one builder a family at its published input (in_channels, side)
+ZOO_FAMILIES = (("LeNet", 1, 28), ("alexnet", 3, 224), ("vgg16", 3, 224),
+                ("squeezenet1_1", 3, 224), ("mobilenet_v1", 3, 224),
+                ("mobilenet_v2", 3, 224), ("mobilenet_v3_large", 3, 224),
+                ("mobilenet_v3_small", 3, 224),
+                ("shufflenet_v2_x1_0", 3, 224), ("densenet121", 3, 224),
+                ("googlenet", 3, 224), ("inception_v3", 3, 299))
+ZOO_BATCH = 8
+ZOO_CPU_ROWS = 2
+#: card against CPU with TF32 off (the allow_tf32 line): f32 convolutions
+#: on both, cuDNN's algorithms summing in other orders
+ZOO_RTOL = CARD_CPU_RTOL
+ZOO_FIT_STEPS = 3
+ZOO_FIT_HW = 224
+#: 55e: Transformer-base (Vaswani et al. 2017, Table 3)
+TRANSFORMER_BASE = dict(d_model=512, nhead=8, num_encoder_layers=6,
+                        num_decoder_layers=6, dim_feedforward=2048,
+                        dropout=0.0)
+T_SOURCES = 4
+T_SRC_LEN = 64
+T_PREFIX = 4
+T_NEW = 32
+T_VOCAB = 32000
+T_PAGE = 16
+
+
+def _worker_records(text, key):
+    return [json.loads(x)[key] for x in text.splitlines(True)
+            if x.startswith("{" + json.dumps(key)) and x.endswith("\n")]
+
+
+def phase_mp_worker(pa, fa, smi, spec=None):
+    """Phase 55a: ``python -m paddle_tpu_torch.serving.worker --mp 2``
+    behind the port's ``Router`` (its two ranks share the card over gloo)
+    beside an ``--mp 1`` worker, each in its own namespace, on make_prompts'
+    8 greedy requests (f32 KV); then an ``--mp 2`` prefill worker handing
+    off to an ``--mp 1`` decode worker. Gates: the streams equal (or part
+    at a near-tie), each rank's K3 launches equal ``k3_expected`` of its
+    engine's programs, every process exits 0. Returns the numbers."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.inference.engine import EngineConfig, SamplingParams
+    from paddle_tpu_torch.runtime import TCPStore
+    from paddle_tpu_torch.serving import Router
+    from paddle_tpu_torch.serving.worker import (build_arg_parser,
+                                                 build_worker_model)
+
+    spec = dict(spec or {})
+    t_phase = time.perf_counter()
+    model_cfg = spec.get("model", MP_WORKER_MODEL)
+    argv = serving_argv(model_cfg) + ["--kv-dtype", "f32"]
+    args = build_arg_parser().parse_args(argv)
+    model = build_worker_model(args)
+    prompts = make_prompts(model_cfg["vocab"])
+    params = [SamplingParams(max_new_tokens=NEW_TOKENS)] * len(prompts)
+    cfg = engine_config()
+    shim = SimpleNamespace(
+        buckets=EngineConfig(max_length=cfg["max_length"]).resolved_buckets(),
+        config=SimpleNamespace(speculate_k=cfg["speculate_k"]))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = TCPStore("127.0.0.1", port, is_master=True, timeout=120.0)
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mp_worker_"))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    env.pop("PADDLE_TPU_TELEMETRY_DIR", None)
+    env.update(spec.get("worker_env", {}))
+    workers = {"mp2": ("p55_mp2", "--mp", "2"),
+               "mp1": ("p55_mp1", "--mp", "1"),
+               "pd_prefill": ("p55_pd", "--mp", "2", "--role", "prefill"),
+               "pd_decode": ("p55_pd", "--mp", "1", "--role", "decode")}
+    procs, logs = {}, {}
+    for name, (ns, *extra) in workers.items():
+        logs[name] = open(tmp / f"{name}.log", "w")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.serving.worker",
+             "--master", f"127.0.0.1:{port}", "--namespace", ns,
+             "--name", name, *argv, *extra], cwd=root, env=env,
+            stdout=subprocess.DEVNULL, stderr=logs[name])
+
+    def alive():
+        for n, p in procs.items():
+            if p.poll() is not None:
+                raise AssertionError(
+                    f"55a: worker {n} exited {p.returncode}: "
+                    + (tmp / f"{n}.log").read_text()[-3000:])
+
+    routers = {
+        ns: Router(store, namespace=ns, queue_limit=64, seed=SEED,
+                   page_size=cfg["page_size"], engine_grace_s=300.0,
+                   **({"prefill_threshold_tokens": SERVING_PREFILL_THRESHOLD}
+                      if ns == "p55_pd" else {}))
+        for ns in ("p55_mp2", "p55_mp1", "p55_pd")}
+    out = {"card": smi}
+    try:
+        t0 = time.perf_counter()
+        want_alive = {"p55_mp2": 1, "p55_mp1": 1, "p55_pd": 2}
+        while any(r.stats()["engines_alive"] < want_alive[ns] or any(
+                e.beat < 1 for e in r._engines.values())
+                for ns, r in routers.items()):
+            alive()
+            for r in routers.values():
+                r.pump()
+            time.sleep(0.01)
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("55a: workers did not register")
+        out["ready_s"] = time.perf_counter() - t0
+        streams = {}
+        for ns, r in routers.items():
+            t1 = time.perf_counter()
+            rids = [r.submit(p, slo="standard", max_new_tokens=NEW_TOKENS)
+                    for p in prompts]
+            while r.pending():
+                alive()
+                r.pump()
+                time.sleep(0.001)
+                if time.perf_counter() - t1 > 600:
+                    raise AssertionError(f"55a {ns} undrained: {r.stats()}")
+            wall = time.perf_counter() - t1
+            got = [r.result(i) for i in rids]
+            streams[ns] = got
+            new = sum(len(g) - len(p) for g, p in zip(got, prompts))
+            out[ns] = dict(seconds=wall, tokens=new,
+                           tokens_per_s=new / wall, stats=r.stats())
+        for r in routers.values():
+            r.shutdown()
+        codes = {n: p.wait(120) for n, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs.values():
+            f.close()
+        store.close()
+    if any(codes.values()):
+        raise AssertionError(f"55a: worker exit codes {codes}")
+    out["partings_mp2"] = check_serving_streams(
+        fa, model, prompts, params, streams["p55_mp2"], streams["p55_mp1"],
+        "55a mp 2 worker", ("--mp 2 worker", "--mp 1 worker"))
+    out["partings_pd"] = check_serving_streams(
+        fa, model, prompts, params, streams["p55_pd"], streams["p55_mp1"],
+        "55a mp 2 prefill -> mp 1 decode", ("disaggregated", "unified"))
+    if out["p55_pd"]["stats"]["disagg_dispatches"] != sum(
+            len(p) >= SERVING_PREFILL_THRESHOLD for p in prompts):
+        raise AssertionError(f"55a: disaggregated {out['p55_pd']['stats']}")
+    layers = model_cfg["layers"]
+    launches = {}
+    for name in workers:
+        text = (tmp / f"{name}.log").read_text()
+        (rank0,) = [r for r in _worker_records(text, "serving_worker")
+                    if r["event"] == "stop"]
+        ranks = [rank0] + _worker_records(text, "serving_worker_follower")
+        if len(ranks) != int(workers[name][2]):
+            raise AssertionError(f"55a {name}: records {ranks}")
+        want = k3_expected(pa, layers, rank0["engine"], shim, 1)
+        for i, rec in enumerate(ranks):
+            k3 = rec["k3"]
+            got = tuple(k3[f"launches_{x}"]
+                        for x in ("tile", "split", "decode", "verify"))
+            if rec["engine"] != rank0["engine"] or (
+                    DEVICE == "cuda" and (got != want or k3["launches"] !=
+                                          got[0] + got[1]
+                                          or k3["launches"] == 0)):
+                raise AssertionError(
+                    f"55a {name} rank {i}: K3 {k3}, engine {rec['engine']}"
+                    f", expected {want} of rank 0's {rank0['engine']}")
+            launches[f"{name}_rank{i}"] = dict(
+                tile=got[0], split=got[1], decode=got[2], verify=got[3],
+                launches=k3["launches"])
+    out["launches"] = launches
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 55a: GPT-3 1.3B widths at depth {layers}: --mp 2 worker "
+        f"{out['p55_mp2']['tokens_per_s']:.1f} tokens/s, --mp 1 worker "
+        f"{out['p55_mp1']['tokens_per_s']:.1f} tokens/s (8 greedy requests, "
+        f"f32 KV, the mp ranks over gloo through the host: not a speed "
+        f"claim); mp 2 prefill -> mp 1 decode "
+        f"{out['p55_pd']['tokens_per_s']:.1f} tokens/s; partings "
+        f"{len(out['partings_mp2'])} / {len(out['partings_pd'])}; K3 "
+        f"{launches}; workers ready in {out['ready_s']:.1f} s; phase "
+        f"{out['seconds']:.1f} s  [{smi}]")
+    del model
+    free_card()
+    return out
+
+
+def ep_moe_net(paddle):
+    """``tests/torch_port_utils.moe_net``'s network (the reference's
+    ``_run_moe`` net: an embedding, a capacity MoELayer of 8 experts,
+    top-2, a linear head; cross entropy plus the aux loss)."""
+    nn, F = paddle.nn, paddle.nn.functional
+    moe = paddle.incubate.MoELayer(d_model=32, d_hidden=64, num_experts=8,
+                                   top_k=2)
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(EP_VOCAB, 32)
+            self.moe = moe
+            self.head = nn.Linear(32, EP_VOCAB)
+
+        def forward(self, ids, labels=None):
+            logits = self.head(self.moe(self.emb(ids)))
+            ce = F.cross_entropy(paddle.reshape(logits, [-1, EP_VOCAB]),
+                                 paddle.reshape(labels, [-1]))
+            return ce + self.moe.last_aux_loss
+
+    return Net()
+
+
+def ep_rows_run(dist_step):
+    """EP_STEPS AdamW steps of :func:`ep_moe_net` (eval mode: the gate
+    draws no noise) on EP_ROWS-row batches, through ``TrainStep`` or, at
+    data degree 2, ``DistTrainStep``; returns the losses and, distributed,
+    the exchange's bytes and the experts this rank holds."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.jit import TrainStep
+
+    torch.manual_seed(SEED)
+    model = ep_moe_net(paddle)
+    model.eval()
+    opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+
+    def loss_fn(m, ids, labels):
+        return m(ids, labels=labels)
+
+    if dist_step:
+        model = fleet.distributed_model(model)
+        step = fleet.DistTrainStep(model, loss_fn,
+                                   fleet.distributed_optimizer(opt))
+    else:
+        step = TrainStep(model, loss_fn, opt)
+    rng = np.random.default_rng(SEED)
+    collective.reset_counts()
+    losses = []
+    for _ in range(EP_STEPS):
+        ids = torch.as_tensor(rng.integers(0, EP_VOCAB, (EP_ROWS, EP_SEQ)),
+                              device=DEVICE)
+        losses.append(float(step(ids, ids)))
+    return dict(losses=losses,
+                exchange_bytes=collective.counts.get(
+                    "global_scatter_bytes", 0),
+                experts=int(dict(model.named_parameters())[
+                    "moe.w_in"].shape[0]))
+
+
+def _rank_ep_rows(out_dir, spec):
+    """One rank of phase 55b: ``fleet.init`` at dp 2 (the expert axis the
+    data axis), then :func:`ep_rows_run` through ``DistTrainStep``."""
+    import os
+    import pickle
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+
+    if spec.get("prepare"):
+        spec["prepare"]()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(dp_degree=2)
+    fleet.init(is_collective=True, strategy=s)
+    out = ep_rows_run(True)
+    out["expert_axis"] = \
+        fleet.get_hybrid_communicate_group().get_expert_parallel_axis()
+    with open(os.path.join(out_dir, f"rank{dist.get_rank()}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_ep_rows(smi, timeout=600, spec=None):
+    """Phase 55b: the MoE net of ``tests/test_torch_moe_ep.py`` at data
+    degree 2 on two gloo ranks sharing the card, at EP_ROWS rows a batch,
+    which 2 does not divide: ``DistTrainStep`` leaves the rows whole, the
+    expert axis (data) holds the same tokens on both ranks, each computes
+    its 4 experts and no exchange runs. Gate: every rank's losses within
+    EP_LOSS_RTOL of one process's ``TrainStep``."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.parallel import join_spawned
+
+    spec = dict(spec or {})
+    t0 = time.perf_counter()
+    base = ep_rows_run(False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_rows_")
+    try:
+        ctx = dist.spawn(_rank_ep_rows, (tmp, spec), nprocs=2, join=False,
+                         backend="gloo", master=f"file://{tmp}/rendezvous")
+        join_spawned(ctx, timeout)
+        ranks = [pickle.load(open(os.path.join(tmp, f"rank{r}.pkl"), "rb"))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        np.testing.assert_allclose(res["losses"], base["losses"],
+                                   rtol=EP_LOSS_RTOL,
+                                   err_msg=f"55b rank {r}")
+        if res["exchange_bytes"] or res["experts"] != 4 or \
+                res["expert_axis"] != "data":
+            raise AssertionError(f"55b rank {r}: {res}")
+    out = dict(losses=base["losses"], ranks=[r["losses"] for r in ranks],
+               seconds=time.perf_counter() - t0, card=smi)
+    log(f"# phase 55b: MoE at dp 2 on {EP_ROWS}-row batches (the expert "
+        f"axis over ranks holding the same tokens, 4 experts a rank, no "
+        f"exchange): losses {ranks[0]['losses']} / {ranks[1]['losses']} "
+        f"against one process's {base['losses']} (rel {EP_LOSS_RTOL}); "
+        f"{out['seconds']:.1f} s  [{smi}]")
+    return out
+
+
+def vit_loader(n_batches):
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    data = FakeData(n_batches * VIT_BATCH, (3, VIT_HW, VIT_HW), VIT_CLASSES)
+    return DataLoader(data, batch_size=VIT_BATCH, shuffle=False,
+                      device=DEVICE)
+
+
+def vit_fit(net, loader, level=None):
+    """``Model.fit`` over ``loader`` (AdamW, cross entropy), under
+    ``auto_cast(level)`` when given; returns the model, the losses and
+    each step's end time (the loss is read each step: a sync)."""
+    from paddle_tpu_torch import Model, amp
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.t = [], [time.perf_counter()]
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.t.append(time.perf_counter())
+
+    model = Model(net).prepare(
+        topt.AdamW(learning_rate=VIT_LR, parameters=net.parameters()),
+        tnn.CrossEntropyLoss())
+    steps = Steps()
+    with amp.auto_cast(enable=level is not None, level=level or "O1"):
+        model.fit(loader, epochs=1, verbose=0, callbacks=[steps])
+    return model, steps.losses, np.diff(steps.t)
+
+
+def vit_flash_timing(fa, peaks):
+    """K1, K2a and K2b at ViT-B/16's attention (B=VIT_BATCH, T=197, H=12,
+    D=64, non-causal, unmasked), f32: each against its plain version,
+    timed beside the plain versions, SDPA's forward and backward and the
+    bound."""
+    b, t, h, d = VIT_BATCH, (VIT_HW // 16) ** 2 + 1, 12, 64
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 55)
+    q, k, v, do = flash_inputs(gen, b, t, t, h, h, d, torch.float32, True)
+    worst = {}
+    compare_flash(fa, q, k, v, do, None, False, False, worst,
+                  f"ViT-B/16 B={b} T={t} H={h} D={d}")
+    o, lse = fa.flash_attention_forward_cuda(q, k, v, None)
+    delta = fa._delta(o, do).contiguous()
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    oh = sdpa(qh, kh, vh)
+    doh = do.transpose(1, 2).contiguous()
+    lib = {"fwd": cuda_ms(lambda: sdpa(qh, kh, vh)),
+           "bwd": cuda_ms(lambda: torch.autograd.grad(
+               oh, (qh, kh, vh), doh, retain_graph=True))}
+    calls = {
+        "fwd": (lambda: fa.flash_attention_forward_cuda(q, k, v, None),
+                lambda: fa.flash_attention_forward_plain(q, k, v, None)),
+        "dq": (lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, None, do,
+                                                      lse, delta),
+               lambda: fa.flash_attention_bwd_dq_plain(q, k, v, None, do,
+                                                       lse, delta)),
+        "dkv": (lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, None, do,
+                                                        lse, delta),
+                lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, None, do,
+                                                         lse, delta))}
+    rows = {}
+    for kind, (kern, plain) in calls.items():
+        r = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=5, warm=1),
+                 library_ms=lib["fwd" if kind == "fwd" else "bwd"],
+                 max_abs_err=worst[kind],
+                 **flash_bound(kind, q, k, False, peaks))
+        rows[kind] = r
+        log(f"{kind:3s} ViT-B/16 B={b} T={t} H={h} D={d} f32: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{'forward' if kind == 'fwd' else 'backward (dq+dk+dv)'} "
+            f"{r['library_ms']:.4f} ms, {bound_text(r, r['ms'])}")
+    del q, k, v, do, o, lse, delta, qh, kh, vh, oh
+    free_card()
+    return rows
+
+
+def phase_vit(fa, smi, peaks):
+    """Phase 55c: ViT-B/16 at full width (224 x 224, patch 16, 12 layers,
+    hidden 768, 12 heads: T = 197, D = 64) through ``Model.fit`` over the
+    port's ``FakeData``: VIT_STEPS steps in f32 on the dense route
+    (``_sdpa_reference``) and on the kernels' route from the same weights,
+    the losses within VIT_LOSS_RTOL; VIT_STEPS at O1; ``evaluate`` and
+    ``predict``. K1 / K2a / K2b launched 12 a step (bf16 at O1), K1 12 an
+    eval or predict batch; every parameter on the card."""
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.vision.models import vit_b_16
+
+    t0 = time.perf_counter()
+    layers = 12
+    loader = vit_loader(VIT_STEPS)
+    runs = {}
+    for route in ("dense", "flash"):
+        net = vit_b_16(num_classes=VIT_CLASSES, device=DEVICE, seed=SEED)
+        bad = [n for n, p in net.named_parameters() if p.device.type !=
+               torch.device(DEVICE).type]
+        if bad:
+            raise AssertionError(f"55c: parameters off the card: {bad}")
+        reset_flash(fa)
+        saved = attn._sdpa
+        if route == "dense":
+            attn._sdpa = attn._sdpa_dense
+        try:
+            model, losses, dt = vit_fit(net, loader)
+        finally:
+            attn._sdpa = saved
+        runs[route] = dict(losses=losses, step_ms=1e3 * float(np.mean(
+            dt[1:])), launches=flash_counts(fa))
+    want = {k: layers * VIT_STEPS for k in ("fwd", "dq", "dkv")}
+    got = {k: runs["flash"]["launches"][k] for k in want}
+    if got != want or any(runs["dense"]["launches"].values()):
+        raise AssertionError(f"55c: launches {runs['flash']['launches']} "
+                             f"(dense {runs['dense']['launches']}), "
+                             f"expected {want}")
+    np.testing.assert_allclose(runs["flash"]["losses"],
+                               runs["dense"]["losses"], rtol=VIT_LOSS_RTOL,
+                               err_msg="55c f32 losses, flash vs dense")
+    reset_flash(fa)
+    net16 = vit_b_16(num_classes=VIT_CLASSES, device=DEVICE, seed=SEED)
+    _, o1_losses, o1_dt = vit_fit(net16, loader, "O1")
+    o1_launches = flash_counts(fa)
+    del net16
+    want16 = {f"{k}_bf16": layers * VIT_STEPS for k in ("fwd", "dq", "dkv")}
+    if {k: o1_launches[k] for k in want16} != want16 or \
+            not np.isfinite(o1_losses).all():
+        raise AssertionError(f"55c O1: launches {o1_launches}, losses "
+                             f"{o1_losses}")
+    reset_flash(fa)
+    ev_loader = vit_loader(VIT_EVAL_BATCHES)
+    result = model.evaluate(ev_loader, verbose=0)
+    eval_fwd = fa.launches_fwd
+    predicted = model.predict(vit_loader(1))[0]
+    predict_fwd = fa.launches_fwd - eval_fwd
+    if eval_fwd != layers * VIT_EVAL_BATCHES or predict_fwd != layers or \
+            fa.launches_dq or len(predicted) != 1 or \
+            predicted[0].shape != (VIT_BATCH, VIT_CLASSES) or \
+            not np.isfinite(predicted[0]).all():
+        raise AssertionError(f"55c: evaluate {result} K1 {eval_fwd}, "
+                             f"predict K1 {predict_fwd}")
+    del model, net
+    free_card()
+    timing = vit_flash_timing(fa, peaks)
+    out = dict(card=smi, f32_losses=runs["flash"]["losses"],
+               dense_losses=runs["dense"]["losses"], o1_losses=o1_losses,
+               step_ms=dict(f32=runs["flash"]["step_ms"],
+                            f32_dense=runs["dense"]["step_ms"],
+                            o1=1e3 * float(np.mean(o1_dt[1:]))),
+               launches=dict(f32=got, o1=want16, eval_fwd=eval_fwd,
+                             predict_fwd=predict_fwd),
+               eval=result, timing={k: {x: r[x] for x in (
+                   "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "bound_fma_ms", "max_abs_err")}
+                   for k, r in timing.items()},
+               seconds=time.perf_counter() - t0)
+    log(f"# phase 55c: ViT-B/16 (224^2, batch {VIT_BATCH}, T=197, D=64) "
+        f"through Model.fit: f32 losses {runs['flash']['losses']} vs dense "
+        f"{runs['dense']['losses']} (rel {VIT_LOSS_RTOL}); step "
+        f"{out['step_ms']['f32']:.1f} ms f32 (dense "
+        f"{out['step_ms']['f32_dense']:.1f} ms), {out['step_ms']['o1']:.1f} "
+        f"ms O1 (losses {o1_losses}); K1/K2a/K2b {got} f32, {want16} O1, "
+        f"K1 {eval_fwd} evaluate + {predict_fwd} predict; evaluate "
+        f"{result}; {out['seconds']:.1f} s  [{smi}]")
+    return out
+
+
+def phase_zoo(smi):
+    """Phase 55d: one builder of each other family at its published input
+    (224, 299 for Inception-v3, 28 x 28 x 1 for LeNet), 10 classes: an
+    eval forward of ZOO_BATCH images on the card, its first ZOO_CPU_ROWS
+    rows against the same weights on the CPU (ZOO_RTOL of the largest
+    CPU logit); then MobileNetV3-Large trains ZOO_FIT_STEPS steps through
+    ``Model.fit``."""
+    import copy
+
+    from paddle_tpu_torch.vision import models as zoo
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, ch, hw in ZOO_FAMILIES:
+        cpu_net = getattr(zoo, name)(num_classes=10, device="cpu", seed=SEED)
+        cpu_net.eval()
+        net = copy.deepcopy(cpu_net).to(DEVICE)
+        x = torch.randn((ZOO_BATCH, ch, hw, hw),
+                        generator=torch.Generator().manual_seed(SEED))
+        xd = x.to(DEVICE)
+        with torch.no_grad():
+            got = net(xd).float()
+            ms = cuda_ms(lambda: net(xd), iters=5, warm=1)
+            want = cpu_net(x[:ZOO_CPU_ROWS]).float()
+        err = float((got[:ZOO_CPU_ROWS].cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        if tuple(got.shape) != (ZOO_BATCH, 10) or \
+                not torch.isfinite(got).all() or not err <= ZOO_RTOL * scale:
+            raise AssertionError(f"55d {name}: {tuple(got.shape)}, card vs "
+                                 f"CPU {err:.3e} of {scale:.3e}")
+        out[name] = dict(input=[ch, hw, hw], ms=ms, err=err, scale=scale,
+                         params=sum(p.numel() for p in net.parameters()))
+        log(f"55d {name} {ch}x{hw}x{hw}: eval batch {ZOO_BATCH} {ms:.2f} ms,"
+            f" card vs CPU {err:.2e} of {scale:.3e}")
+        del net, cpu_net
+    free_card()
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    net = zoo.mobilenet_v3_large(num_classes=10, device=DEVICE, seed=SEED)
+    model = Model(net).prepare(
+        topt.Momentum(0.05, 0.9, parameters=net.parameters()),
+        tnn.CrossEntropyLoss())
+    data = FakeData(ZOO_FIT_STEPS * ZOO_BATCH, (3, ZOO_FIT_HW, ZOO_FIT_HW),
+                    10)
+    losses = []
+
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Losses(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    model.fit(DataLoader(data, batch_size=ZOO_BATCH, shuffle=False,
+                         device=DEVICE), epochs=1, verbose=0,
+              callbacks=[Losses()])
+    if len(losses) != ZOO_FIT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"55d: MobileNetV3-Large fit losses {losses}")
+    out["mobilenet_v3_large_fit"] = losses
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 55d: {len(ZOO_FAMILIES)} families on the card against "
+        f"the CPU (rel {ZOO_RTOL}, TF32 off); MobileNetV3-Large fit losses "
+        f"{losses}; {out['seconds']:.1f} s  [{smi}]")
+    del model, net
+    free_card()
+    return out
+
+
+def transformer_decode(tm, route, memory, src_keep, emb, head, prefix):
+    """Greedy T_NEW tokens of ``tm``'s decoder after ``prefix`` through
+    ``route``'s cache (``concat``: a ``Cache`` growing by concatenation;
+    ``static``: one of ``max_length`` positions; ``paged``: a
+    ``PagedCache``); returns the tokens and each step's top-2 margin."""
+    dec = tm.decoder
+    max_len = T_PREFIX + T_NEW
+    if route == "concat":
+        cache = dec.gen_cache(memory)
+    elif route == "static":
+        cache = dec.gen_cache(memory, max_length=max_len)
+    else:
+        cache = dec.gen_cache(memory, max_length=max_len, page_size=T_PAGE)
+    toks, margins = [], []
+    feed, pos = prefix, 0
+    with torch.no_grad():
+        for _ in range(T_NEW):
+            t = feed.shape[1]
+            x = emb[feed]
+            if route == "concat":
+                causal = torch.ones((t, t), dtype=torch.bool,
+                                    device=x.device).tril()
+                out, cache = dec(x, memory, causal if t > 1 else None,
+                                 src_keep, cache)
+            else:
+                out, cache = dec(x, memory, None, src_keep, cache,
+                                 cache_position=pos)
+            pos += t
+            logits = out[:, -1] @ head
+            top = torch.topk(logits, 2).values
+            margins.append((top[:, 0] - top[:, 1]).cpu())
+            feed = logits.argmax(-1, keepdim=True)
+            toks.append(feed.cpu())
+    return torch.cat(toks, 1), torch.stack(margins, 1)
+
+
+def phase_transformer_caches(pa, fa, smi):
+    """Phase 55e: ``nn.Transformer`` at Transformer-base's widths (d_model
+    512, 8 heads, FFN 2048, 6 + 6 layers) with a seeded embedding and
+    head: T_SOURCES sources of T_SRC_LEN tokens under a padding mask
+    (K1 with its bias in the encoder and the cross-attention), greedy
+    T_NEW tokens after a T_PREFIX-token prefix through the three caches.
+    Gates: the streams equal (or part where the decision's top-2 margin
+    is below NEAR_TIE); K1 and K3 launched exactly as the routes call
+    them: the concat route's self-attention K1 at every step, the static
+    route's K1 (bool mask) for the prefix and ``decode_attention`` after,
+    the paged route's K3 at every step; an MHA of head dim 32 raises on
+    the card."""
+    from paddle_tpu_torch import nn as tnn
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tm = tnn.Transformer(**TRANSFORMER_BASE, device=DEVICE, generator=gen)
+    tm.eval()
+    d = TRANSFORMER_BASE["d_model"]
+    layers = TRANSFORMER_BASE["num_decoder_layers"]
+    emb = torch.randn((T_VOCAB, d), generator=gen, device=DEVICE)
+    head = torch.randn((d, T_VOCAB), generator=gen, device=DEVICE) / d ** .5
+    src = torch.randint(0, T_VOCAB, (T_SOURCES, T_SRC_LEN), generator=gen,
+                        device=DEVICE)
+    lengths = torch.tensor([T_SRC_LEN - 8 * i for i in range(T_SOURCES)],
+                           device=DEVICE)
+    src_keep = (torch.arange(T_SRC_LEN, device=DEVICE)[None, :]
+                < lengths[:, None])[:, None, None, :]
+    prefix = torch.randint(0, T_VOCAB, (T_SOURCES, T_PREFIX), generator=gen,
+                           device=DEVICE)
+    reset_flash(fa)
+    with torch.no_grad():
+        memory = tm.encoder(emb[src], src_keep)
+    enc_k1 = fa.launches_fwd
+    if enc_k1 != TRANSFORMER_BASE["num_encoder_layers"]:
+        raise AssertionError(f"55e: encoder K1 {enc_k1}")
+    routes = {}
+    for route in ("concat", "static", "paged"):
+        reset_flash(fa)
+        reset_k3(pa)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, margins = transformer_decode(tm, route, memory, src_keep, emb,
+                                           head, prefix)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches, tile, split, decode, verify = k3_counts(pa)
+        routes[route] = dict(tokens=toks, margins=margins, seconds=secs,
+                             k1=fa.launches_fwd, k3=dict(
+                                 launches=launches, tile=tile, split=split,
+                                 decode=decode, verify=verify))
+    # each route's K1 / K3 launches from its calls: T_NEW decoder calls
+    want_k1 = {"concat": 2 * layers * T_NEW,
+               "static": layers * (T_NEW + 1), "paged": layers * T_NEW}
+    for route, r in routes.items():
+        k3 = r["k3"]["launches"]
+        if r["k1"] != want_k1[route] or k3 != (
+                layers * T_NEW if route == "paged" else 0):
+            raise AssertionError(f"55e {route}: K1 {r['k1']} (expected "
+                                 f"{want_k1[route]}), K3 {r['k3']}")
+    ref = routes["concat"]
+    partings = []
+    for route in ("static", "paged"):
+        a, b = routes[route]["tokens"], ref["tokens"]
+        for row in range(T_SOURCES):
+            diff = torch.nonzero(a[row] != b[row])
+            if len(diff):
+                j = int(diff[0])
+                m = float(ref["margins"][row, j])
+                partings.append(dict(route=route, row=row, token=j,
+                                     margin=m))
+                if not m < NEAR_TIE:
+                    raise AssertionError(
+                        f"55e {route}: row {row} parts from the concat "
+                        f"route at token {j}, margin {m:.3e}")
+    # a head dim the kernels do not take raises on the card (no silent
+    # plain route)
+    mha = tnn.MultiHeadAttention(64, 2, device=DEVICE)
+    try:
+        with torch.no_grad():
+            mha(torch.zeros((1, 4, 64), device=DEVICE))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        if DEVICE == "cuda":
+            raise AssertionError("55e: MHA at head dim 32 ran on the card")
+        refused = None
+    out = {"card": smi, "partings": partings, "encoder_k1": enc_k1,
+           "head_dim_32_refused": refused,
+           "routes": {k: dict(seconds=r["seconds"], k1=r["k1"], k3=r["k3"],
+                              tokens_per_s=T_SOURCES * T_NEW / r["seconds"])
+                      for k, r in routes.items()},
+           "seconds": time.perf_counter() - t0}
+    log(f"# phase 55e: Transformer-base, {T_SOURCES} x {T_SRC_LEN} sources, "
+        f"greedy {T_NEW} tokens: streams equal across the caches "
+        f"(partings {partings}); "
+        + "; ".join(f"{k} {v['tokens_per_s']:.1f} tokens/s K1 {v['k1']} K3 "
+                    f"{v['k3']['launches']}"
+                    for k, v in out["routes"].items())
+        + f"; {out['seconds']:.1f} s  [{smi}]")
+    del tm, memory, emb, head
+    free_card()
+    return out
+
+
+def phase_55(pa, fa, smi, peaks):
+    """Phase 55 (a-e); returns the ``phase55`` JSON line's numbers."""
+    t0 = time.perf_counter()
+    out = dict(mp_worker=phase_mp_worker(pa, fa, smi))
+    out["ep_rows"] = phase_ep_rows(smi)
+    free_card()
+    out["vit"] = phase_vit(fa, smi, peaks)
+    out["zoo"] = phase_zoo(smi)
+    out["transformer"] = phase_transformer_caches(pa, fa, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 55: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9565,6 +10306,8 @@ def main() -> int:
     live_sup = phases_live_supervisor(pa, fa, smi, serving, mpmd, timed)
     torch.cuda.empty_cache()
     mp_sep = phase_mp_sep_hapi(pa, fa, smi)
+    torch.cuda.empty_cache()
+    p55 = phase_55(pa, fa, smi, peaks)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -9619,6 +10362,29 @@ def main() -> int:
                 for run, res in mp_sep["serving"].items()
                 if isinstance(res, dict) for r in (0, 1)}
 
+    def k3_p55(regime):
+        """Phase 55's K3 launches of one regime: each rank of 55a's
+        workers, 55e's paged route."""
+        return dict(**{f"worker_{n}": r[regime] for n, r in
+                       p55["mp_worker"]["launches"].items()},
+                    transformer_paged=p55["transformer"]["routes"]["paged"][
+                        "k3"][regime])
+
+    def flash_p55(kind):
+        """Phase 55's K1 / K2 launches of one kind at the 1.3B rows' kernel:
+        ViT-B/16 (55c) in f32 and O1, Transformer-base (55e) by route."""
+        vit = p55["vit"]["launches"]
+        tr = p55["transformer"]
+        out = {"vit_f32": vit["f32"][kind], "vit_o1_bf16": vit["o1"][
+            f"{kind}_bf16"]}
+        if kind == "fwd":
+            out.update(vit_evaluate=vit["eval_fwd"],
+                       vit_predict=vit["predict_fwd"],
+                       transformer_encoder=tr["encoder_k1"],
+                       **{f"transformer_{k}": r["k1"]
+                          for k, r in tr["routes"].items()})
+        return out
+
     def flash_mp(kind):
         """Phase 54's K1 / K2 launches of one kind a rank: the masked ring
         probes and BERT at sep 2 (54b), ERNIE's fit at dp 2 (54c)."""
@@ -9650,7 +10416,10 @@ def main() -> int:
                                  "prefill": "tile"}[shape]))),
              launches_mp_serving=k3_mp({"decode": "decode",
                                         "verify": "verify",
-                                        "prefill": "tile"}[shape]))
+                                        "prefill": "tile"}[shape]),
+             launches_phase55=k3_p55({"decode": "decode",
+                                      "verify": "verify",
+                                      "prefill": "tile"}[shape]))
         for shape in ("decode", "verify", "prefill")]
     for kind, kernel in (("fwd", "flash_attention_fwd"),
                          ("dq", "flash_attention_bwd_dq"),
@@ -9712,7 +10481,24 @@ def main() -> int:
             launches_supervisor={
                 f"mpmd_width{t['width']}_{j}": t["launches"][kind]
                 for j, t in enumerate(live_sup["supervisor"]["train"])},
-            launches_mp_sep_hapi=flash_mp(kind)))
+            launches_mp_sep_hapi=flash_mp(kind),
+            launches_phase55=flash_p55(kind)))
+    # the same three kernels at ViT-B/16's shape (phase 55c): the main
+    # path's f32 launches (fit, and K1 in evaluate and predict)
+    vit = p55["vit"]
+    for kind, kernel in (("fwd", "flash_attention_fwd"),
+                         ("dq", "flash_attention_bwd_dq"),
+                         ("dkv", "flash_attention_bwd_dkv")):
+        r = vit["timing"][kind]
+        n = vit["launches"]["f32"][kind] + (
+            vit["launches"]["eval_fwd"] + vit["launches"]["predict_fwd"]
+            if kind == "fwd" else 0)
+        kernels.append(dict(
+            row(kernel, "paddle_tpu_torch/ops/cuda/flash_attention.cu",
+                FLASH_REPLACES[kind], n, max(flash_err[kind],
+                                             r["max_abs_err"]), r),
+            shape=f"ViT-B/16 B={VIT_BATCH} T=197 H=12 D=64 unmasked",
+            launches_o1_bf16=vit["launches"]["o1"][f"{kind}_bf16"]))
     # the same three kernels at the encoders' shapes (phase 26), with the
     # launches of the phases that ran them there: K1 in phase 23's evaluate
     # and predict, K2a / K2b in phase 24 (fit's attention is dense at
@@ -9761,6 +10547,7 @@ def main() -> int:
                                         "sharded_table": table}}))
     log(json.dumps({"live_supervisor": live_sup}, default=str))
     log(json.dumps({"mp_sep_hapi": mp_sep}, default=str))
+    log(json.dumps({"phase55": p55}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

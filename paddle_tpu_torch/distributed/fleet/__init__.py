@@ -732,11 +732,15 @@ class DistTrainStep(TrainStep):
         seqs = [self._sequence(v) for v, _ in rows]
         args = [v for v, _ in seqs]
         split_seq = any(s for _, s in seqs)
-        group = self._token_group(any(s for _, s in rows), split_seq)
+        split_rows = any(s for _, s in rows)
+        group = self._token_group(split_rows, split_seq)
+        # rows left whole: every data rank holds the same tokens
+        replica = (self._data_group if not split_rows
+                   and self._data_group.nranks > 1 else None)
         trained = [p for p in self._params if p.requires_grad]
         # the split spans the backward too: a ring's rotations back and a
         # recomputed block run there
-        with _loss.split_batch(group), _ring.sequence_split(
+        with _loss.split_batch(group, replica), _ring.sequence_split(
                 self._sep_group if split_seq else None):
             if self._pipe is None:
                 with (_z3.forward_scope() if self._zero3

@@ -33,7 +33,11 @@ axis's degree): the expert axis is the first of ``sharding``, ``data``,
 ranks holds ``E / n`` experts (its slice of ``w_in``, ``b_in``, ``w_out``,
 ``b_out``, marked ``expert_axis``); tokens reach their experts' owners and
 come back through :func:`global_scatter` / :func:`global_gather`, all-to-
-alls over the expert group. Outside ``DistTrainStep`` (an eager loop, or
+alls over the expert group. When the batch's rows do not divide by the
+data degree, ``DistTrainStep`` leaves them whole and every rank of the
+expert group holds the same tokens: then no exchange runs, each rank
+computes its experts on its slots and the outputs are summed over the
+group (:func:`_moe_apply_replicated`). Outside ``DistTrainStep`` (an eager loop, or
 an evaluation, on each rank's own data) each rank gates its own tokens
 and the owners run their experts on each rank's block apart, upstream
 Paddle's per-rank semantics; under its split the gate's slots are
@@ -84,10 +88,13 @@ class _TokenLayout:
     """Where this rank's ``[b, t]`` tokens sit in the global batch: the
     token group ``group`` (None: the tokens are the whole batch) of ``D``
     x ``S`` blocks (rows over the data axes, the sequence over the ``sep``
-    group; group rank ``d * S + s``) and this rank's block ``(d, s)``."""
+    group; group rank ``d * S + s``) and this rank's block ``(d, s)``;
+    ``replica`` a group whose ranks all hold these same tokens (None:
+    none known)."""
 
-    def __init__(self, group=None, sep=None):
+    def __init__(self, group=None, sep=None, replica=None):
         self.group = group
+        self.replica = replica
         self.S = 1 if sep is None else sep.nranks
         r, n = (0, 1) if group is None else (group.rank, group.nranks)
         self.n, self.D = n, n // self.S
@@ -96,7 +103,8 @@ class _TokenLayout:
     @classmethod
     def current(cls):
         """The split that ``fleet.DistTrainStep`` has in force."""
-        return cls(_loss._split_group, _ring.split_group())
+        return cls(_loss._split_group, _ring.split_group(),
+                   _loss._replica_group)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -263,6 +271,62 @@ def _moe_apply_ep(flat, combine, dispatch, w_in, b_in, w_out, b_out, act,
     return torch.einsum("gec,ech->gh", combine.to(flat.dtype), expert_out)
 
 
+class _ToExperts(torch.autograd.Function):
+    """The identity forward; the backward averages the cotangents over the
+    group (see :func:`_moe_apply_replicated`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        C.all_reduce(g, group=ctx.group)
+        return g / ctx.group.nranks, None
+
+
+class _FromExperts(torch.autograd.Function):
+    """The sum over the group forward; the backward scales the cotangent
+    by the group's size (see :func:`_moe_apply_replicated`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = group.nranks
+        out = x.clone(memory_format=torch.contiguous_format)
+        C.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None
+
+
+def _moe_apply_replicated(flat, combine, dispatch, w_in, b_in, w_out, b_out,
+                          act, group):
+    """Capacity routing with this rank's ``E / n`` experts when every rank
+    of the expert group holds the same tokens (and so the same gate): no
+    exchange. Each rank runs its experts on its slots of the dispatch and
+    combines their outputs; the partial outputs are summed over the group.
+
+    The backward gives every rank the same input and gate gradients (the
+    cotangents reaching ``flat`` and ``combine`` through each rank's
+    experts, summed over the group) and each expert slice ``n`` times its
+    gradient, the sum over the ``n`` identical source blocks that the
+    exchange's backward would bring it, as ``allreduce_gradients``
+    expects of an expert slice."""
+    n, r = group.nranks, group.rank
+    el = w_in.shape[0]
+    mine = slice(r * el, (r + 1) * el)
+    x = _ToExperts.apply(flat, group)
+    comb = _ToExperts.apply(combine, group)
+    expert_in = torch.einsum("gec,gh->ech", dispatch[:, mine].to(x.dtype), x)
+    expert_out = _ffn(expert_in, w_in, b_in, w_out, b_out, act)
+    part = torch.einsum("gec,ech->gh", comb[:, mine].to(x.dtype), expert_out)
+    return _FromExperts.apply(part, group) if n > 1 else part
+
+
 def _moe_apply_dropless(flat, logits, w_in, b_in, w_out, b_out, act, top_k,
                         layout=None):
     """Dropless routing over the grouped matmul. Returns (out ``[G, H]``,
@@ -410,14 +474,22 @@ class MoELayer(Layer):
             out = _moe_apply(flat, combine, dispatch, *weights)
         else:
             group = self._ep[1]
-            split = layout.group is not None
-            if split and not set(group.ranks) <= set(layout.group.ranks):
+            ranks = set(group.ranks)
+            if layout.group is not None and ranks <= set(layout.group.ranks):
+                out = _moe_apply_ep(flat, combine, dispatch, *weights, group,
+                                    disjoint=True)
+            elif layout.replica is not None and \
+                    ranks <= set(layout.replica.ranks):
+                out = _moe_apply_replicated(flat, combine, dispatch,
+                                            *weights, group)
+            elif layout.group is None:
+                out = _moe_apply_ep(flat, combine, dispatch, *weights, group,
+                                    disjoint=False)
+            else:
                 raise NotImplementedError(
-                    "expert parallelism over an axis the batch is not "
-                    "split over (its rows do not divide by the data "
-                    "degree), see ROADMAP.md §A.7")
-            out = _moe_apply_ep(flat, combine, dispatch, *weights, group,
-                                disjoint=split)
+                    "expert parallelism over an axis that splits some of "
+                    "the tokens and not the others, see ROADMAP.md §A.7 "
+                    "item 9")
         return out.reshape(b, t, h)
 
 

@@ -1179,8 +1179,8 @@ class DecodeEngine:
             return {"done": self.result(rid)}
         idx = torch.as_tensor(row[:content_pages], dtype=torch.long,
                               device=self.device)
-        k, dtype = to_host(self._kc[:, idx])
-        v, _ = to_host(self._vc[:, idx])
+        k, dtype = to_host(self._all_heads(self._kc[:, idx]))
+        v, _ = to_host(self._all_heads(self._vc[:, idx]))
         out = {
             "first_token": int(req.tokens[0]),
             "true_len": t0,
@@ -1191,8 +1191,8 @@ class DecodeEngine:
             "v": v,
         }
         if self._int8:
-            out["ks"] = to_host(self._ksc[:, idx])[0]
-            out["vs"] = to_host(self._vsc[:, idx])[0]
+            out["ks"] = to_host(self._all_heads(self._ksc[:, idx]))[0]
+            out["vs"] = to_host(self._all_heads(self._vsc[:, idx]))[0]
         if req.tenant != "-":
             # label the handoff so the decode engine's ledger keys match
             out["tenant"] = req.tenant
@@ -1222,12 +1222,26 @@ class DecodeEngine:
         self._update_gauges()
         return out
 
+    def _all_heads(self, slab: torch.Tensor) -> torch.Tensor:
+        """This rank's pages ``[L, n, Hkv / mp, ...]`` with every rank's kv
+        heads (dim 2, in rank order): an exported frame carries every kv
+        head at any mp degree, as at mp 1. Every rank of the group calls
+        it."""
+        if self._mp_group is None:
+            return slab
+        parts = _C.stacked_all_gather(slab, self._mp_group)
+        return torch.cat(list(parts), dim=2)
+
     def _slab(self, x, dtype: Optional[str]) -> torch.Tensor:
         """An imported slab (host array, or tensor) on this engine's
-        device."""
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return from_host(x, dtype, self.device)
+        device: at mp > 1 this rank's kv heads of the frame's (dim 2)."""
+        if not isinstance(x, torch.Tensor):
+            x = from_host(x, dtype, "cpu")
+        if self._mp_group is not None:
+            h = self._kv_heads
+            r = max(self._mp_group.rank, 0)
+            x = x[:, :, r * h:(r + 1) * h]
+        return x.to(self.device)
 
     def try_import_prefill(self, prompt, params: SamplingParams, kv: dict,
                            *, trace: Optional[dict] = None,

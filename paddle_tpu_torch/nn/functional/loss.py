@@ -52,21 +52,27 @@ def _parallel_softmax_ce(logits, label, ignore_index=-100):
 #: axes, sequence blocks over sep) while ``fleet.DistTrainStep`` runs the
 #: loss (None otherwise); MoE gating reads it too
 _split_group = None
+#: the group whose ranks all hold this rank's tokens (the data axes when
+#: ``fleet.DistTrainStep`` leaves the rows whole: they do not divide by
+#: the data degree), or None; MoE expert parallelism reads it
+_replica_group = None
 #: the counts that :func:`_denominator` met in the pipeline schedule's
 #: current micro-batch (None outside one)
 _micro_counts = None
 
 
 @contextlib.contextmanager
-def split_batch(group):
+def split_batch(group, replica=None):
     """Within: the batch is split over ``group``'s ranks (None: not split),
-    and :func:`_denominator` counts over all of them."""
-    global _split_group
-    prev, _split_group = _split_group, group
+    and :func:`_denominator` counts over all of them; ``replica`` (None:
+    none) is a group whose ranks hold the same tokens."""
+    global _split_group, _replica_group
+    prev = _split_group, _replica_group
+    _split_group, _replica_group = group, replica
     try:
         yield
     finally:
-        _split_group = prev
+        _split_group, _replica_group = prev
 
 
 @contextlib.contextmanager

@@ -45,15 +45,34 @@ result and at the router's stop broadcast the worker prints one JSON line
 on stderr (``{"serving_worker": {...}}``): its name, its device, its K3
 launches by regime so far and its float32 matmul settings.
 
-Not ported yet: ``--mp > 1`` (the engine's mesh sharding, ROADMAP.md
-§A.4b) and the ``wt`` weight-epoch frames of ``serving/online.py`` (§A.8)
-raise ``NotImplementedError``. Under ``PADDLE_TPU_LIVE_TELEMETRY=1`` a
-worker with router links ships ``tele`` frames of its span tail on the
+``--mp N`` (N > 1) serves one engine sharded over N ranks (the engine's
+``dp 1 x mp N`` mesh: each rank holds ``Hkv / N`` kv heads and a block of
+the vocab). The process started is rank 0: it holds the transport,
+registers ONE engine in the store and runs the scheduler; it starts the
+``N - 1`` follower ranks itself (``python -m paddle_tpu_torch.serving.
+worker`` again, on the same device, with ``PADDLE_SERVING_MP_RANK`` set),
+and the ranks form a gloo group over a ``file://`` rendezvous. Rank 0
+hands every engine call that changes state (submit, prefill export, KV
+import, step, warmup) to the followers, pickled on their stdin, before it
+makes the call itself, so every rank runs the same programs; at the stop
+broadcast it tells them to stop. A follower that dies ends rank 0 with a
+non-zero exit (checked at every step and every hand-off); a follower
+whose stdin closes (rank 0 died) exits. Each follower prints its own
+``{"serving_worker_follower": {...}}`` line (its rank and K3 launches) on
+the shared stderr when it stops. An exported KV frame carries every kv
+head (gathered over the ranks) and an imported one is split over them,
+so an mp-N prefill worker feeds an mp-1 decode worker unchanged.
+
+Not ported yet: the ``wt`` weight-epoch frames of ``serving/online.py``
+(§A.8) raise ``NotImplementedError``. Under ``PADDLE_TPU_LIVE_TELEMETRY=1``
+a worker with router links ships ``tele`` frames of its span tail on the
 occupancy beat (``observability/live.py``).
 """
 from __future__ import annotations
 
 import os
+import pickle
+import subprocess
 import sys
 import time
 from collections import deque
@@ -84,7 +103,10 @@ _STORE_MIRROR_S = 0.25
 
 class EngineWorker:
     """Wrap a DecodeEngine as a transport-served, store-coordinated
-    serving worker."""
+    serving worker. ``overrides`` build its ``EngineConfig``; ``mesh=``
+    among them shards the engine over an mp group, as the reference's
+    (every rank of the group must make the same engine calls: the CLI's
+    :class:`LockstepEngine`)."""
 
     def __init__(self, model, store, config: Optional[EngineConfig] = None,
                  *, name: Optional[str] = None,
@@ -596,8 +618,9 @@ def build_arg_parser():
     p.add_argument("--no-prefix-cache", action="store_true")
     p.add_argument("--kv-dtype", default="f32")
     p.add_argument("--mp", type=int, default=1,
-                   help="shard decode over this many devices' mp axis "
-                        "(not ported yet: > 1 raises)")
+                   help="shard decode over this many ranks' mp axis (dp1 x "
+                        "mp mesh; the follower ranks run on the same "
+                        "device, over gloo)")
     return p
 
 
@@ -626,19 +649,183 @@ def _status_record(worker: "EngineWorker", event: str) -> dict:
                 "total_tokens")}}
 
 
-def main(argv=None):
+#: the engine calls that change its state: rank 0 of an mp worker hands
+#: each to the followers before it makes it
+_LOCKSTEP_CALLS = ("submit", "prefill_export", "try_import_prefill", "step",
+                   "warmup")
+#: the environment variable that makes a worker process a follower rank
+_MP_RANK_ENV = "PADDLE_SERVING_MP_RANK"
+
+
+class FollowerLost(RuntimeError):
+    """A follower rank of an mp worker exited or stopped reading."""
+
+
+class LockstepEngine:
+    """Rank 0's view of an mp engine: the ``DecodeEngine`` itself for every
+    read, and for each call of ``_LOCKSTEP_CALLS`` the call pickled to
+    every follower first (they make the same call on their engines, whose
+    collectives meet rank 0's). Raises :class:`FollowerLost` when a
+    follower has exited or its pipe is closed."""
+
+    def __init__(self, engine, followers):
+        self._engine = engine
+        self._followers = list(followers)
+
+    def __getattr__(self, name):
+        attr = getattr(self._engine, name)
+        if name not in _LOCKSTEP_CALLS:
+            return attr
+
+        def call(*args, **kwargs):
+            self.check_followers()
+            if name == "step" and not (self._engine._running
+                                       or self._engine._waiting):
+                return attr()   # idle: no program runs on any rank
+            self.send((name, args, kwargs))
+            return attr(*args, **kwargs)
+
+        return call
+
+    def check_followers(self):
+        for p in self._followers:
+            if p.poll() is not None:
+                raise FollowerLost(f"mp follower pid {p.pid} exited with "
+                                   f"code {p.returncode}")
+
+    def send(self, msg):
+        data = pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL)
+        for p in self._followers:
+            try:
+                p.stdin.write(data)
+                p.stdin.flush()
+            except (BrokenPipeError, OSError) as e:
+                raise FollowerLost(f"mp follower pid {p.pid}: {e}") from e
+
+    def stop(self, timeout: float = 60.0):
+        """Tell the followers to stop and wait for them; kill any left."""
+        try:
+            self.send(("stop", (), {}))
+        except FollowerLost:
+            pass
+        _reap(self._followers, timeout)
+
+
+def _reap(procs, timeout):
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            p.wait(max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def _engine_overrides(args) -> dict:
+    return dict(num_slots=args.slots, max_length=args.max_length,
+                page_size=args.page_size, speculate_k=args.speculate_k,
+                prefix_cache=not args.no_prefix_cache,
+                kv_dtype=args.kv_dtype)
+
+
+def _mp_setup(args, rank: int, rendezvous: str):
+    """Join the gloo group of the worker's ``args.mp`` ranks and return
+    the ``dp 1 x mp`` mesh the engine shards over."""
+    import numpy as _np
+
+    from ..device import set_device
+    from ..distributed import ProcessMesh
+    from ..distributed.env import init_parallel_env
+
+    set_device(args.device)
+    os.environ.update({"PADDLE_TRAINER_ID": str(rank),
+                       "PADDLE_TRAINERS_NUM": str(args.mp),
+                       "PADDLE_MASTER": rendezvous,
+                       "PADDLE_DISTRI_BACKEND": "gloo"})
+    init_parallel_env("gloo")
+    return ProcessMesh(_np.arange(args.mp).reshape(1, args.mp),
+                       dim_names=["dp", "mp"])
+
+
+def _follower_main(args, rank: int) -> int:
+    """A follower rank: build the same model and engine, then make every
+    call rank 0 pickles on stdin until ``stop`` (exit 0) or the end of
+    stdin (rank 0 is gone: exit 1)."""
     import json
 
+    from ..ops import paged_attention as pa
+
+    mesh = _mp_setup(args, rank, os.environ["PADDLE_MASTER"])
+    model = build_worker_model(args)
+    engine = DecodeEngine(model, device=args.device, mesh=mesh,
+                          **_engine_overrides(args))
+    stdin = sys.stdin.buffer
+    while True:
+        try:
+            name, a, kw = pickle.load(stdin)
+        except EOFError:
+            return 1
+        if name == "stop":
+            break
+        try:
+            getattr(engine, name)(*a, **kw)
+        except ValueError:
+            pass   # a bad request: rank 0 meets the same error and reports
+    print(json.dumps({"serving_worker_follower": {
+        "rank": rank, "pid": os.getpid(),
+        "k3": {n: getattr(pa, n) for n in (
+            "launches", "launches_tile", "launches_split",
+            "launches_decode", "launches_verify")},
+        "engine": {k: engine.stats()[k] for k in (
+            "prefill_calls", "decode_steps", "verify_steps",
+            "total_tokens")}}}), file=sys.stderr, flush=True)
+    return 0
+
+
+def _start_followers(args, argv, rendezvous):
+    procs = []
+    for r in range(1, args.mp):
+        env = dict(os.environ, **{_MP_RANK_ENV: str(r),
+                                  "PADDLE_MASTER": rendezvous})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.serving.worker",
+             *argv], env=env, stdin=subprocess.PIPE))
+    return procs
+
+
+def main(argv=None):
+    import shutil
+    import tempfile
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_arg_parser().parse_args(argv)
-    if args.mp > 1:
-        raise NotImplementedError(
-            "--mp > 1 (the engine's mesh / model-parallel sharding) is not "
-            "ported yet, see ROADMAP.md §A.4b")
     if args.step_floor_ms > 0:
         raise NotImplementedError(
             "--step-floor-ms (pacing a host-only worker as if each step "
             "were accelerator-bound, for a control-plane benchmark) is not "
             "ported yet, see ROADMAP.md §A.8")
+    if os.environ.get(_MP_RANK_ENV):
+        return _follower_main(args, int(os.environ[_MP_RANK_ENV]))
+    if args.mp <= 1:
+        return _serve(args, None, None)
+    tmp = tempfile.mkdtemp(prefix="paddle_serving_mp_")
+    rendezvous = "file://" + os.path.join(tmp, "rendezvous")
+    followers = _start_followers(args, argv, rendezvous)
+    try:
+        mesh = _mp_setup(args, 0, rendezvous)
+        return _serve(args, mesh, followers)
+    finally:
+        for p in followers:
+            if p.poll() is None:
+                p.kill()
+        _reap(followers, 10.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _serve(args, mesh, followers):
+    """Rank 0 (or the only rank): register one engine and serve."""
+    import json
+
     from ..runtime import TCPStore
 
     model = build_worker_model(args)
@@ -646,11 +833,11 @@ def main(argv=None):
     store = TCPStore(host=host, port=int(port), is_master=False, timeout=60.0)
     worker = EngineWorker(
         model, store, name=args.name, namespace=args.namespace,
-        role=args.role,
-        kv_wire=args.kv_wire, device=args.device,
-        num_slots=args.slots, max_length=args.max_length,
-        page_size=args.page_size, speculate_k=args.speculate_k,
-        prefix_cache=not args.no_prefix_cache, kv_dtype=args.kv_dtype)
+        role=args.role, kv_wire=args.kv_wire, device=args.device,
+        mesh=mesh, **_engine_overrides(args))
+    lockstep = None
+    if followers:
+        lockstep = worker.engine = LockstepEngine(worker.engine, followers)
     if args.warmup:
         w = worker.engine.warmup()
         print(f"[serving] worker {worker.name} warm "
@@ -658,14 +845,21 @@ def main(argv=None):
               + (" + verify" if w["verify"] else "") + ")",
               file=sys.stderr, flush=True)
     print(f"[serving] worker {worker.name} (engine {worker.index}, "
-          f"{worker.role}, {worker.engine.device}) serving via "
+          f"{worker.role}, {worker.engine.device}, mp {args.mp}, "
+          f"followers {[p.pid for p in followers or ()]}) serving via "
           f"{args.master} + {worker._server.addr}",
           file=sys.stderr, flush=True)
+
     def report(event):
-        print(json.dumps({"serving_worker": _status_record(worker, event)}),
-              file=sys.stderr, flush=True)
+        rec = _status_record(worker, event)
+        rec["mp"] = args.mp
+        rec["followers"] = [p.pid for p in followers or ()]
+        print(json.dumps({"serving_worker": rec}), file=sys.stderr,
+              flush=True)
 
     worker.serve(poll_interval=args.poll_interval, report=report)
+    if lockstep is not None:
+        lockstep.stop()
     return 0
 
 

@@ -282,3 +282,37 @@ def test_distributed_entry_points_default_to_the_card(no_cuda):
         fleet.init(is_collective=True)
     assert not dist.is_initialized()
     assert not torch.distributed.is_initialized()
+
+
+ZOO_MODULES = ["alexnet", "densenet", "googlenet", "inceptionv3", "lenet",
+               "mobilenet", "mobilenetv3", "shufflenetv2", "squeezenet",
+               "vgg", "vit", "_common"]
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.nn.layers.transformer",
+    "paddle_tpu_torch.nn.functional.activation"]
+    + [f"paddle_tpu_torch.vision.models.{m}" for m in ZOO_MODULES])
+def test_zoo_and_transformer_modules_are_guarded(module):
+    """The vision zoo's modules, ``nn.Transformer``'s and the activations'
+    are among those the guards above walk."""
+    assert module in MODULES
+
+
+@pytest.mark.parametrize("builder", ["LeNet", "alexnet", "vgg11",
+                                     "squeezenet1_1", "mobilenet_v3_small",
+                                     "densenet121", "vit_b_16"])
+def test_zoo_without_device_raises_on_cpu_only_machine(no_cuda, builder):
+    from paddle_tpu_torch.vision import models
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(models, builder)()
+
+
+def test_transformer_without_device_raises_on_cpu_only_machine(no_cuda):
+    from paddle_tpu_torch import nn
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nn.MultiHeadAttention(16, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nn.Transformer(16, 2, 1, 1, 32)

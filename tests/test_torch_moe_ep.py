@@ -19,6 +19,13 @@ same degrees (its dp filling 8 devices):
   holds its ``E / n`` experts, the state interchanges with the
   reference's full arrays both ways;
 - ``MoENet`` of ``examples/train_moe.py`` at dp 2 x sharding 2;
+- with the experts split over an axis the batch is not split over: at
+  3 rows, which neither dp 4 nor dp 2 divides, ``DistTrainStep`` leaves
+  the rows whole on every data rank (dp 4; dp 2 x sep 2, the sequence
+  still split), so every rank of the expert group holds the same tokens
+  and no exchange runs: losses, trajectories and the first step's
+  gradients against the reference's ``TrainStep`` and eager gradients on
+  the whole batch;
 - outside ``DistTrainStep`` (an eager step on each rank's own rows), with
   the experts split over sharding 4 and dp 2 x sharding 2: each rank's
   loss is the reference's on its rows alone (upstream Paddle's per-rank
@@ -70,6 +77,16 @@ CONFIGS = {
     "dp2_sep2": dict(port=dict(dp=2, sep=2),
                      ref=dict(dp_degree=2, sep_degree=2), ep=2),
 }
+
+# the expert axis over ranks that hold the same tokens (3 rows: no data
+# degree here divides them)
+ROWS_CONFIGS = {"dp4_rows3": dict(dp=4), "dp2_sep2_rows3": dict(dp=2, sep=2)}
+ROWS = 3
+
+
+def _rows_batches():
+    rng = np.random.default_rng(43)
+    return [rng.integers(0, MOE_VOCAB, (ROWS, 16)) for _ in range(STEPS)]
 
 
 def _batches():
@@ -187,8 +204,11 @@ def runs(tmp_path_factory):
              dict(name="exchange_sh4", kind="exchange", batch="exchange",
                   dp=1, sharding=4),
              dict(name="exchange_dp2_sh2", kind="exchange",
-                  batch="exchange2", dp=2, sharding=2)]
-    batches = dict(moe=moe_batch, example=example,
+                  batch="exchange2", dp=2, sharding=2),
+             *(dict(name=c, kind="moe", model="moe", batch="rows",
+                    grads=True, **deg) for c, deg in ROWS_CONFIGS.items())]
+    rows_ids = _rows_batches()
+    batches = dict(moe=moe_batch, example=example, rows=dict(x=rows_ids),
                    exchange=_exchange_batches(),
                    exchange2=_exchange_batches(n=2))
     out = tmp_path_factory.mktemp("moe_ep")
@@ -200,6 +220,9 @@ def runs(tmp_path_factory):
                                        _moe_loss, moe_batch),
                "example": _trajectory(_ref_example, None, example)}
         ref["eager"] = _eager(ids[0], WORLD)
+        ref["rows"] = _trajectory(lambda: (_ref_net(), None), _moe_loss,
+                                  dict(x=rows_ids))
+        ref["rows_grads"] = _eager(rows_ids[0], 1)[0][1]
         for c, cfg in CONFIGS.items():
             ref[c] = _trajectory(lambda: (_ref_net(), None), _moe_loss,
                                  moe_batch, cfg["ref"])
@@ -354,3 +377,30 @@ def test_global_scatter_and_gather(runs, name, batch):
                                       np.concatenate(want))
         np.testing.assert_array_equal(res["counted"]["back"], rows[e])
         np.testing.assert_array_equal(res["counted"]["grad"], rows[e])
+
+
+@pytest.mark.parametrize("config", list(ROWS_CONFIGS))
+def test_ep_over_axis_the_batch_is_not_split_over(runs, config):
+    """Every rank of the expert group holds the same 3 rows: each computes
+    its experts on its slots and the outputs are summed over the group,
+    with no exchange. Losses (rel 1e-5) and parameters after 3 steps
+    against the reference's ``TrainStep`` on the whole batch; the first
+    step's gradients (every rank's the same, the expert slices gathered)
+    within ``GRAD_TOL`` of each parameter's largest reference gradient."""
+    losses = _losses(runs, config)
+    want, final = runs["ref"]["rows"]
+    np.testing.assert_allclose(losses, want, rtol=LOSS_RTOL)
+    _assert_params_close(runs["port"][0][config]["full"], final)
+    ref_grads = runs["ref"]["rows_grads"]
+    for r in range(WORLD):
+        res = runs["port"][r][config]
+        assert res["expert_axis"] == "data"
+        assert res["local"]["moe.w_in"].shape[0] == \
+            E // ROWS_CONFIGS[config]["dp"]
+        assert res["counts"].get("global_scatter_bytes", 0) == 0
+        assert sorted(res["grads"]) == sorted(ref_grads)
+        for k, g in ref_grads.items():
+            scale = np.abs(g).max()
+            assert scale > 0, (r, k)
+            err = np.abs(res["grads"][k] - g).max()
+            assert err <= GRAD_TOL * scale, (r, k, err, scale)

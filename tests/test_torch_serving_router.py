@@ -396,8 +396,6 @@ def test_unported_serving_knobs_raise(models, store, monkeypatch, tmp_path):
 
     with pytest.raises(NotImplementedError, match="§A.8"):
         serving.OnlineCoordinator
-    with pytest.raises(NotImplementedError, match="§A.4b"):
-        worker_mod.main(["--mp", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="§A.8"):
         worker_mod.main(["--step-floor-ms", "5", "--device", "cpu"])
     router = Router(store)

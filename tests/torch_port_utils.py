@@ -12,6 +12,7 @@ import pickle
 import time
 
 import numpy as np
+import pytest
 
 VOCAB = 61
 
@@ -1011,13 +1012,32 @@ def moe_job(job, state, batch):
     model = fleet.distributed_model(model)
     opt = fleet.distributed_optimizer(opt)
     step = fleet.DistTrainStep(model, loss_fn, opt)
+    hcg = fleet.get_hybrid_communicate_group()
+    grads = {}
+    if job.get("grads"):
+        # the first step's gradients as the optimizer gets them (after the
+        # reduction; the expert slices gathered whole)
+        from paddle_tpu_torch.distributed.fleet.layers.mpu import full_of
+        from paddle_tpu_torch.incubate.moe import is_expert_slice
+
+        inner = step._opt.step
+
+        def capture():
+            if not grads:
+                for n, p in model.named_parameters():
+                    g = p.grad.detach()
+                    if is_expert_slice(p):
+                        g = full_of(g, 0, hcg.get_expert_parallel_group())
+                    grads[n] = g.numpy().copy()
+            inner()
+
+        step._opt.step = capture
     collective.reset_counts()
     xs = batch["x"]
     ys = batch.get("y", xs)
     losses = [float(step(torch.from_numpy(x), torch.from_numpy(y)))
               for x, y in zip(xs, ys)]
     counts = dict(collective.counts)
-    hcg = fleet.get_hybrid_communicate_group()
     local = {n: p.detach().numpy().copy()
              for n, p in model.named_parameters()}
     full = model.state_dict()
@@ -1035,7 +1055,7 @@ def moe_job(job, state, batch):
         expert_axis=hcg.get_expert_parallel_axis(),
         owned=sum(opt.owns(i) for i in range(
             len(opt._inner_opt._parameter_list))),
-        counts=counts)
+        counts=counts, grads=grads)
     fleet.topology.set_hybrid_communicate_group(None)
     return out
 
@@ -2881,4 +2901,319 @@ def hapi_dist_job(state, data, lr, out_dir):
     except NotImplementedError as e:
         out["pipeline"] = str(e)
     _reset_topology()
+    return out
+
+
+# -- the vision zoo -----------------------------------------------------------
+#: f32 logits and gradients of the zoo against the reference: XLA's and
+#: oneDNN's convolutions sum in other orders (test_torch_resnet.py's RTOL)
+ZOO_RTOL = 1e-4
+ZOO_CLASSES = 10
+#: the calibrated batch norms' variance floor (ZooPair._calibrate): an
+#: activation std of 0.1, a gain of at most 10
+CALIBRATION_FLOOR = 1e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU convolutions in a zoo file
+    (import it there): the suite runs 6 test processes at once."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def zoo_close(got, want, rtol=ZOO_RTOL, what=""):
+    """``got`` within ``rtol`` of the largest magnitude of ``want``."""
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rtol * scale, f"{what}: {err:.3e} > {rtol} x {scale:.3e}"
+
+
+@contextlib.contextmanager
+def numpy_draws(seed):
+    """Within: ``jax.random.normal`` / ``uniform`` drawn from numpy's
+    generator seeded with ``seed``. The reference's initializers call them
+    once a parameter, and each new shape costs an XLA compile (~0.4 s on
+    an 8-core x86 CPU: 20-60 s a zoo model's build); the weights only need
+    to be seeded and shared with the port, which loads them."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    saved = jax.random.normal, jax.random.uniform
+
+    # numpy arrays, so the initializers' scaling runs in numpy too
+    def normal(key, shape=(), dtype=jnp.float32):
+        return rng.standard_normal(shape).astype(np.dtype(dtype))
+
+    def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        return rng.uniform(minval, maxval, shape).astype(np.dtype(dtype))
+
+    jax.random.normal, jax.random.uniform = normal, uniform
+    try:
+        yield
+    finally:
+        jax.random.normal, jax.random.uniform = saved
+
+
+def _no_dropout(model, cls):
+    for m in model.sublayers(include_self=True):
+        if isinstance(m, cls):
+            m.p = 0.0
+
+
+class ZooPair:
+    """A reference model (``ref_ctor()``, built after ``paddle.seed``) and
+    the port's (``port_ctor()``, on the CPU) carrying its weights, with a
+    seeded input of ``shape``.
+
+    - :meth:`eval_outputs`: both in eval mode (the reference's forward
+      jitted whole);
+    - :meth:`train_forward`: both in training mode with every dropout at
+      0 (the two packages' dropout streams differ): the outputs
+      (GoogLeNet's aux heads too) and the batch norms' running statistics
+      after;
+    - :meth:`backward`: both in eval mode (the batch norms' statistics
+      frozen, as a fine-tuning run freezes them, at this batch's: see
+      :meth:`_calibrate`), a seeded cotangent on the output: the input's
+      and every parameter's gradient. With batch
+      statistics a ReLU input within rounding of 0 flips a whole
+      channel's gradient (``test_torch_resnet.py``'s docstring): MobileNet
+      V1's training-mode gradients part by 1e-4-6e-3 at batch 2-4
+      (measured)."""
+
+    def __init__(self, ref_ctor, port_ctor, shape, seed=0):
+        import paddle_tpu as paddle
+        from paddle_tpu_torch.framework import load_numpy_state
+
+        paddle.seed(seed)
+        with numpy_draws(seed):
+            self.ref = ref_ctor()
+        self.state = numpy_state(self.ref)
+        self.port = load_numpy_state(port_ctor(), self.state)
+        self.x = np.random.default_rng(seed).standard_normal(shape).astype(
+            np.float32)
+
+    @staticmethod
+    def _tuple(out):
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    def eval_outputs(self):
+        import jax.numpy as jnp
+        import torch
+        from paddle_tpu.framework.core import Tensor
+        from paddle_tpu.framework.op import raw
+
+        self.ref.eval()
+        self.port.eval()
+        want = np.asarray(self._jit_ref(lambda a: raw(self.ref(Tensor(a))))(
+            jnp.asarray(self.x)))
+        with torch.no_grad():
+            got = self.port(torch.from_numpy(self.x)).numpy()
+        return got, want
+
+    def _jit_ref(self, fn):
+        """``fn`` jitted over the reference model, its parameter and buffer
+        values swapped for traced ones inside and restored after (the
+        reference's own ``TrainStep`` does the same): its eager per-op
+        compiles of a zoo model's forward took 20-120 s on an 8-core x86
+        CPU."""
+        import jax
+
+        import paddle_tpu as paddle
+
+        tensors = [t for _, t in self.ref.named_parameters()] + \
+            [t for _, t in self.ref.named_buffers()]
+
+        # the values are arguments, not constants folded into the program
+        def run(values, *args):
+            saved = [t._value for t in tensors]
+            for t, v in zip(tensors, values):
+                t._value = v
+            try:
+                with paddle.no_grad():
+                    return fn(*args)
+            finally:
+                for t, v in zip(tensors, saved):
+                    t._value = v
+
+        jitted = jax.jit(run)
+        return lambda *args: jitted([t._value for t in tensors], *args)
+
+    def _ref_train_forward(self, momentum=None):
+        """The reference in training mode (dropout 0) on the input, jitted:
+        its outputs and its buffers' new values by name; ``momentum`` set
+        on every batch norm for the call."""
+        import jax.numpy as jnp
+        from paddle_tpu import nn as rnn
+        from paddle_tpu.framework.core import Tensor
+        from paddle_tpu.framework.op import raw
+
+        self.ref.set_state_dict(self.state)
+        self.ref.train()
+        _no_dropout(self.ref, rnn.Dropout)
+        names = [n for n, _ in self.ref.named_buffers()]
+        bufs = [t for _, t in self.ref.named_buffers()]
+        bns = [m for m in self.ref.sublayers(include_self=True)
+               if hasattr(m, "_momentum") and hasattr(m, "_variance")]
+        momenta = [m._momentum for m in bns]
+        if momentum is not None:
+            for m in bns:
+                m._momentum = momentum
+        try:
+            outs, new = self._jit_ref(lambda a: (
+                [raw(o) for o in self._tuple(self.ref(Tensor(a)))],
+                [t._value for t in bufs]))(jnp.asarray(self.x))
+        finally:
+            for m, mom in zip(bns, momenta):
+                m._momentum = mom
+        return ([np.asarray(o) for o in outs],
+                {n: np.asarray(v) for n, v in zip(names, new)})
+
+    def train_forward(self):
+        import torch
+        from paddle_tpu_torch import nn as tnn
+        from paddle_tpu_torch.framework import load_numpy_state
+
+        routs, rbufs = self._ref_train_forward()
+        load_numpy_state(self.port, self.state)
+        self.port.train()
+        _no_dropout(self.port, tnn.Dropout)
+        with torch.no_grad():
+            pouts = self._tuple(self.port(torch.from_numpy(self.x)))
+        pstate = self.port.state_dict()
+        stats = [k for k in self.state if k.endswith(("_mean", "_variance"))]
+        return dict(
+            outputs=[(p.numpy(), r) for p, r in zip(pouts, routs)],
+            stats={k: (pstate[k].numpy(), rbufs[k]) for k in stats})
+
+    def _calibrate(self):
+        """The batch norms' running statistics set, on both sides, to the
+        reference's batch statistics of this input (a training-mode
+        forward at momentum 0, dropout 0; each variance floored at
+        CALIBRATION_FLOOR): frozen statistics that keep the activations at
+        scale (the initial ones, 0 and 1, let a MobileNet's logits shrink
+        to ~1e-20 and its gradients to noise) and a near-constant channel's
+        gain at most 10 (unfloored, a variance of 2.4e-5 scaled the
+        rounding behind it 200-fold a layer: MobileNet V1's and
+        ShuffleNetV2's input gradients parted by 7e-3 and 0.16,
+        measured)."""
+        from paddle_tpu_torch.framework import load_numpy_state
+
+        _, rbufs = self._ref_train_forward(momentum=0.0)
+        for k, v in rbufs.items():
+            if k.endswith("_variance"):
+                # a channel of near-constant values would scale the
+                # rounding behind it by up to 1 / sqrt(eps) at each layer
+                rbufs[k] = np.maximum(v, CALIBRATION_FLOOR)
+        state = dict(self.state, **rbufs)
+        self.ref.set_state_dict(state)
+        load_numpy_state(self.port, state)
+
+    def backward(self):
+        import jax
+        import jax.numpy as jnp
+        import torch
+        from paddle_tpu.framework.core import Tensor
+        from paddle_tpu.framework.op import raw
+
+        self._calibrate()
+        self.ref.eval()
+        self.port.eval()
+        params = [p for _, p in self.ref.named_parameters()]
+        px = torch.tensor(self.x, requires_grad=True)
+        po = self.port(px)
+        w = np.random.default_rng(1).standard_normal(
+            tuple(po.shape)).astype(np.float32)
+
+        def loss(values, a):
+            for p, v in zip(params, values):
+                p._value = v
+            return jnp.sum(raw(self.ref(Tensor(a))) * w)
+
+        grads, dx = self._jit_ref(jax.grad(loss, argnums=(0, 1)))(
+            [p._value for p in params], jnp.asarray(self.x))
+        (po * torch.from_numpy(w)).sum().backward()
+        names = [n for n, _ in self.ref.named_parameters()]
+        rgrads = dict(zip(names, grads))
+        return dict(dx=(px.grad.numpy(), np.asarray(dx)),
+                    grads={n: (p.grad.numpy(), np.asarray(rgrads[n]))
+                           for n, p in self.port.named_parameters()})
+
+
+def check_zoo_names(pair):
+    """The port's state holds the reference's names, and its parameters
+    come in the reference's order (the optimizer's state order)."""
+    assert set(pair.port.state_dict()) == set(pair.state)
+    assert [n for n, _ in pair.port.named_parameters()] == \
+        [n for n, _ in pair.ref.named_parameters()]
+
+
+def check_zoo_stats(stats, rtol=ZOO_RTOL):
+    """The running statistics after a training-mode forward: each
+    ``_variance`` within ``rtol`` of its largest value; each ``_mean``
+    (0.1 of a batch mean, which cancels to ~0: its own magnitude is no
+    scale) within ``rtol`` of the square root of its layer's largest
+    running variance, the activations' scale."""
+    for k, (got, want) in stats.items():
+        if k.endswith("_mean"):
+            var = stats[k[:-len("_mean")] + "_variance"][1]
+            err = float(np.abs(got - want).max())
+            assert err <= rtol * float(np.sqrt(np.max(var))), (k, err)
+        else:
+            zoo_close(got, want, rtol, k)
+
+
+def check_zoo_train(pair, rtol=ZOO_RTOL):
+    """:meth:`ZooPair.train_forward`'s outputs and running statistics and
+    :meth:`ZooPair.backward`'s gradients, each within ``rtol`` (an
+    attention's key bias, whose gradient is 0, within ``rtol`` of the
+    largest gradient)."""
+    res = pair.train_forward()
+    for i, (got, want) in enumerate(res["outputs"]):
+        zoo_close(got, want, rtol, f"training-mode output {i}")
+    check_zoo_stats(res["stats"], rtol)
+    res = pair.backward()
+    zoo_close(*res["dx"], rtol, "input gradient")
+    top = max(float(np.abs(w).max()) for _, w in res["grads"].values())
+    for n, (got, want) in res["grads"].items():
+        if n.endswith("k_proj.bias"):
+            # a key bias shifts every logit of a query row alike: its
+            # gradient is 0, float noise on both sides
+            assert float(np.abs(got).max()) <= rtol * top, n
+            continue
+        zoo_close(got, want, rtol, f"{n} gradient")
+
+
+def zoo_block(module, name, *args, **kw):
+    """``(reference ctor, port ctor)`` of the building block ``name`` of
+    the zoo module ``module`` (``"densenet"``, ...) with ``args``; the
+    port's on the CPU."""
+    import importlib
+
+    ref = importlib.import_module(f"paddle_tpu.vision.models.{module}")
+    port = importlib.import_module(f"paddle_tpu_torch.vision.models.{module}")
+    return (lambda: getattr(ref, name)(*args, **kw),
+            lambda: getattr(port, name)(*args, device="cpu", **kw))
+
+
+def port_zoo_shapes(builders, shape, classes=ZOO_CLASSES, **kw):
+    """Each named builder of the port's zoo built on the CPU; its eval
+    output's shape on a zero input of ``shape``."""
+    import torch
+    from paddle_tpu_torch.vision import models as tm
+
+    out = {}
+    for name in builders:
+        m = getattr(tm, name)(num_classes=classes, device="cpu", **kw)
+        m.eval()
+        with torch.no_grad():
+            out[name] = tuple(m(torch.zeros(shape)).shape)
     return out
