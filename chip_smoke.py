@@ -208,7 +208,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
    parameters against an unfolded ``TrainStep``'s by phase 8's rule, K1 /
    K2a / K2b 24 x 3 launches, step ms beside phase 7's;
 41. pipeline parallelism at pp 2, two processes on the one card over gloo
-   (point to point staged through pinned host buffers): GPT-3 1.3B at 24
+   (point to point staged through pinned host buffers): GPT-3 1.3B at 12
    layers under 1F1B with 4 micro-batches of 1 x 1024, then gpipe,
    zero-bubble and interleaved 1F1B (V = 2) at depth 4, 3 steps each
    through ``fleet.init`` -> ``distributed_model`` ->
@@ -216,7 +216,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
    single-process ``TrainStep`` on the same weights and batch (losses
    within ``TRAIN_LOSS_RTOL``, gathered parameters by phase 8's rule, the
    replicated parameters bit-equal on both ranks); each rank's K1 / K2a /
-   K2b launches (144 at 24 layers), the staged bytes equal to the chunk
+   K2b launches (72 at 12 layers), the staged bytes equal to the chunk
    boundaries' activations and cotangents, the replicated gradients summed
    once a step, ``schedule_info``'s bubble fractions beside the step ms;
 42. the sep axis, two processes on the one card over gloo: (a) the ring
@@ -247,7 +247,7 @@ Phases, each fatal on failure (non-zero exit, no final line):
    wire bytes against the arithmetic; gradient merge over 4 micro-batches
    against ``TrainStep`` on the whole batch;
 46. ZeRO-3 and the sep axis inside the pipeline: GPT-3 6.7B's widths
-   (hidden 4096, 32 heads, ffn 16384, vocab 50304) at depth 4 on four
+   (hidden 4096, 32 heads, ffn 16384, vocab 50304) at depth 2 on four
    gloo processes sharing the card, a 4 x 2048 batch in 2 micro-batches
    a rank under 1F1B, after a single-process ``TrainStep`` baseline: (a)
    pp 2 x
@@ -255,10 +255,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
    against the baseline, the ZeRO-3 bytes gathered, gathered again and
    reduce-scattered and the staged bytes against the arithmetic; (b) the
    same at the reference's knobs (bf16 parameters, block recompute), 2
-   steps, the loss finite and falling; (c) pp 2 x sep 2 in f32, 3 steps,
+   steps, the loss finite and falling; (c) pp 2 x sep 2 in f32, 2 steps,
    losses against the baseline, each sep rank's ring launches, the staged
-   bytes equal to the boundaries and the ring's rotations; each rank's
-   step ms and peak;
+   bytes equal to the boundaries and the ring's rotations; (c) again on
+   the ring's plain version (the probe of ROADMAP §C, "Suspects"), its
+   distance to the baseline beside the kernels'; each rank's step ms and
+   peak;
 47. the training features of ROADMAP §A.3 through fleet: (a) BERT-base
    MLM (phase 25's model, batch and AdamW) made Lamb by
    ``strategy.lamb``, 4 ``DistTrainStep`` s at NCCL world size 1: the
@@ -328,8 +330,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
 51. ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
    --max_restarts 1 --heartbeat_interval 1`` running this script's
    ``--elastic-worker`` (GPT-3 1.3B's widths at depth 2, dp 2 over gloo on
-   the card, AdamW, ``ElasticManager(save_interval=2)``, 6 steps) twice:
-   clean, and with rank 1 SIGKILLed at step 3 (``chaos.step_fence``): the
+   the card, AdamW, ``ElasticManager(save_interval=2)``, 3 steps) twice:
+   clean, and with rank 1 SIGKILLed at step 2 (``chaos.step_fence``): the
    launcher relaunches both ranks, they resume at step 2, and the final
    losses and parameters equal the clean run's bit for bit; the watchdog
    beat on every rank and declared no stall; saves, resumes and the
@@ -353,7 +355,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
    (c) ERNIE-3.0's widths at depth 4 through ``paddle.Model`` at dp 2
    against one process, ``comm_traffic``'s gradient bytes against the
    parameters' and its bf16-wire quantized fraction;
-55. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+56. a ``decorate``d O2 bf16 model, MoE under O2 and online weights: (a)
+   K3 on a bf16 query against its plain version at GPT-3 1.3B's and
+   Llama-3-8B's serving shapes, each pool dtype, and timed beside the
+   f32 query; (b) phase 4's GPT-3 1.3B decorated, served with bf16 and
+   int8 KV and speculation (K3 launches by regime, every K3 call held
+   against the plain version on the engine's inputs, streams against the
+   plain engine with each parting's margin, the logit gap at identical
+   contexts, tokens/s and pool bytes beside phase 4's), and Llama-3-8B
+   decorated at depth 2; (c) phase 11's Mixtral block decorated O2 for 3
+   steps, K4a / K4b in bf16 on the model path, losses against the plain
+   grouped matmul; (d) an ``OnlineCoordinator`` flip of two decoder
+   layers of the decorated 1.3B to an in-process engine and a worker
+   process while requests decode: in-flight streams on epoch 0, new ones
+   on epoch 1, the bytes streamed; (e) ``amp.debugging``'s operator
+   stats over one O2 step and its checker on an injected ``inf``;
+57. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
@@ -362,11 +379,14 @@ Phases, each fatal on failure (non-zero exit, no final line):
    (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
    line (phase 48), a ``serving`` JSON line (phase 49), an
    ``mpmd_elastic_ps`` JSON line (phases 50-52), an ``mp_sep_hapi`` JSON
-   line (phase 54), a ``kernels`` JSON line
+   line (phase 54), a ``phase55`` and a ``phase56`` JSON line, a
+   ``kernels`` JSON line
    (the GPT, encoder and MoE shapes, the K1 / K2 rows with their launches
    in phases 38-48, 50-51 and 54 (``launches_mpmd``, ``launches_elastic``,
    ``launches_mp_sep_hapi``), the K3 rows with phase 49's as
-   ``launches_serving`` and 54a's as ``launches_mp_serving``; no TPU
+   ``launches_serving`` and 54a's as ``launches_mp_serving``, 56a's
+   bf16-query times and 56b's launches, the K4 rows with 56c's bf16
+   launches as ``launches_o2_bf16``; no TPU
    kernel lies on the vision path, the capacity MoE path or phase 52's
    table), then the result line.
 """
@@ -629,8 +649,9 @@ def case_args(c, layer=0):
 
 
 def gathered_for_library(c):
-    """Dense K/V per query head [S, H, K, D] f32 and a bool mask
-    [S, 1, T, K] for scaled_dot_product_attention (the yardstick)."""
+    """Dense K/V per query head [S, H, K, D] in the query's dtype and a
+    bool mask [S, 1, T, K] for scaled_dot_product_attention (the
+    yardstick)."""
     q, kp, vp, ks, vs, table, start = (c["q"], c["kp"][0], c["vp"][0],
                                        c["ks"], c["vs"], c["table"],
                                        c["start"])
@@ -644,7 +665,7 @@ def gathered_for_library(c):
     def gather(pool):
         g = pool[table.long()].transpose(1, 2).reshape(
             s, hkv, -1, d)[:, :, :k_len]
-        return g.repeat_interleave(h // hkv, dim=1).contiguous()
+        return g.repeat_interleave(h // hkv, dim=1).to(q.dtype).contiguous()
 
     qpos = start.long()[:, None] + torch.arange(t, device=DEVICE)[None]
     mask = (torch.arange(k_len, device=DEVICE)[None, None]
@@ -666,7 +687,7 @@ def bound(c, peaks):
     per_key = 2 * hkv * d * kp.element_size()
     if c["ks"] is not None:
         per_key += 2 * hkv * 4
-    nbytes = (int(keys.sum()) * per_key + 2 * q.numel() * 4
+    nbytes = (int(keys.sum()) * per_key + 2 * q.numel() * q.element_size()
               + int((-(-keys // p)).sum()) * 4 + s * 4)
     # row t of slot i sees start + t + 1 keys; QK and PV: 2 FLOPs each
     seen = (start[:, None] + np.arange(t)[None] + 1).sum()
@@ -733,7 +754,15 @@ def phase_kernel_sweep(pa, atol=KERNEL_ATOL):
     return worst
 
 
-def time_main_shapes(pa, peaks, contexts, hkv=16, group=1):
+def k3_bf16_tol(ref):
+    """K3 with a bf16 query against its plain version: both accumulate in
+    f32 (KERNEL_ATOL apart, as phase 3) and round the output to bf16 once,
+    so two results may sit one bf16 spacing apart: 2^-7 of the value."""
+    return KERNEL_ATOL + 2.0 ** -7 * ref.float().abs().max().item()
+
+
+def time_main_shapes(pa, peaks, contexts, hkv=16, group=1,
+                     q_dtype=torch.float32):
     """The kernel at a serving path's shapes (GPT-3 1.3B: H=Hkv=16;
     Llama-3-8B: Hkv=8, G=4; D=128, bf16 pool, P=16, MP=64): decode (S=8,
     T=1), verify (S=8, T=5) and the 600-token prompt's tail prefill (S=1,
@@ -744,7 +773,9 @@ def time_main_shapes(pa, peaks, contexts, hkv=16, group=1):
     device time (:func:`graph_ms`: ``ms``, ``library_ms``, ``plain_ms``)
     and as a host loop of calls (:func:`cuda_ms`: ``loop_ms``,
     ``library_loop_ms``, ``plain_loop_ms``; what the engine, which runs
-    without graphs, pays)."""
+    without graphs, pays). ``q_dtype`` bf16 times the kernel on a bf16
+    query (phase 56a), held to :func:`k3_bf16_tol`; SDPA then runs in
+    bf16."""
     from torch.nn.attention import sdpa_kernel
 
     rng = np.random.default_rng(SEED + 1)
@@ -757,6 +788,7 @@ def time_main_shapes(pa, peaks, contexts, hkv=16, group=1):
     for name, sh in shapes.items():
         c = make_case(rng, hkv=hkv, group=group, d=128, kv="bf16",
                       layers=4, **sh)
+        c["q"] = c["q"].to(q_dtype)
         calls = [case_args(c, layer) for layer in range(4)]
         state = {"i": 0}
 
@@ -770,9 +802,11 @@ def time_main_shapes(pa, peaks, contexts, hkv=16, group=1):
         expect = pa._k3_regime(sh["t"], group)
         got = checked_call(pa, *calls[0], expect, name)
         ref = pa.paged_attention_plain(*calls[0][0], **calls[0][1])
-        err = (got - ref).abs().max().item()
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"{name}: kernel disagrees, {err}")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = KERNEL_ATOL if q_dtype == torch.float32 else k3_bf16_tol(ref)
+        if got.dtype != q_dtype or not err <= tol:
+            raise AssertionError(f"{name}: kernel disagrees, {err} "
+                                 f"({got.dtype})")
         qh, kh, vh, mask = gathered_for_library(c)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         be = sdpa_backend(qh, kh, vh, attn_mask=mask)
@@ -793,7 +827,7 @@ def time_main_shapes(pa, peaks, contexts, hkv=16, group=1):
                           library_loop_ms=(loops[1] + loops[2]) / 2,
                           plain_loop_ms=plain_loop_ms, **bound(c, peaks))
         log(f"{name:8s} S={sh['s']} T={sh['t']:4d} Hkv={hkv} G={group} "
-            f"[{expect}]: kernel "
+            f"q {str(q_dtype)[6:]} [{expect}]: kernel "
             f"{ms:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}), sdpa "
             f"[{be.name}] {library_ms:.4f} ms ({turns[1]:.4f}, "
             f"{turns[2]:.4f}), plain {plain_ms:.4f} ms; host loop: kernel "
@@ -983,29 +1017,67 @@ def phase_serving(pa, fa, smi, build, label, phase, gate_kv="bf16"):
         report_divergence(fa, model, prompts, outs, ref)
         raise AssertionError("full-width streams differ from plain")
     contexts = [len(p) + NEW_TOKENS // 2 for p in prompts]
+    pool_bytes = 2 * eng._kc.numel() * eng._kc.element_size()
     del eng, plain, model
     torch.cuda.empty_cache()
     return dict(contexts=contexts, tokens_per_s=tokens / wall,
+                streams=[np.asarray(o).tolist() for o in outs],
+                pool_bytes=pool_bytes,
                 decode_ms=1e3 * st["step_seconds"] / st["decode_steps"],
                 prefill_ms=1e3 * st["prefill_seconds"] / st["prefill_calls"],
                 launches=dict(tile=tile, split=split, decode=decode,
                               verify=verify))
 
 
-def lockstep(kernel_eng, plain_eng, prompts):
-    """Step both engines together on the same requests. Each step's logits
-    of the active slots are compared; the kernel engine's tokens are then
-    overwritten with the plain engine's (teacher forcing along the plain
-    run), counting every disagreement. Verify rows past a request's token
-    budget are not compared: their positions lie beyond the request's
-    pages, so their K/V land on the shared trash page (as in the
-    reference) and they are never emitted."""
+def lockstep(kernel_eng, plain_eng, prompts, gaps=None):
+    """Step both engines together on the same requests. Admission runs
+    first on both: each tail prefill's last-token logits are compared,
+    and the kernel engine's prefill tokens are forced to the plain
+    engine's before the step's decode feeds them back (and writes their
+    K/V), so every compared step runs on identical contexts. Each step's
+    logits of the active slots are compared; the kernel engine's tokens
+    are then overwritten with the plain engine's (teacher forcing along
+    the plain run), counting every disagreement. Verify rows past a
+    request's token budget are not compared: their positions lie beyond
+    the request's pages, so their K/V land on the shared trash page (as
+    in the reference) and they are never emitted. ``gaps``, a list,
+    receives each step's (largest logit difference, largest |logit| of
+    the plain engine), its prefills included."""
+    prefills = ([], [])
+    for eng, seen in zip((kernel_eng, plain_eng), prefills):
+        def record(*a, _body=eng._prefill_body, _seen=seen, **kw):
+            logits, exact = _body(*a, **kw)
+            _seen.append(logits)
+            return logits, exact
+
+        eng._prefill_body = record
     ra = [kernel_eng._requests[kernel_eng.submit(p, max_new_tokens=NEW_TOKENS)]
           for p in prompts]
     rb = [plain_eng._requests[plain_eng.submit(p, max_new_tokens=NEW_TOKENS)]
           for p in prompts]
     worst, mismatches, steps = 0.0, 0, 0
+
+    def force():
+        nonlocal mismatches
+        for a, b in zip(ra, rb):
+            if a.tokens != b.tokens:
+                mismatches += 1
+                if len(a.tokens) != len(b.tokens):
+                    raise AssertionError("token counts diverged")
+                a.tokens[:] = b.tokens
+
     while True:
+        plain_eng._admit()
+        kernel_eng._admit()
+        if len(prefills[0]) != len(prefills[1]):
+            raise AssertionError("engines admitted different requests")
+        step_worst = step_scale = 0.0
+        for la, lb in zip(*prefills):
+            step_worst = max(step_worst, (la - lb).abs().max().item())
+            step_scale = max(step_scale, lb.abs().max().item())
+        for seen in prefills:
+            seen.clear()
+        force()
         before = {r.slot: len(r.tokens) for r in rb if r.status == "running"}
         if not plain_eng.step():
             break
@@ -1016,16 +1088,16 @@ def lockstep(kernel_eng, plain_eng, prompts):
         if sa != sb or la.shape != lb.shape:
             raise AssertionError("engines took different steps")
         for slot in sb:
-            # a request admitted in this step holds its prefill token
-            rows = NEW_TOKENS - before.get(slot, 1)
-            d = (la[slot] - lb[slot]).abs()
-            worst = max(worst, (d if d.dim() == 1 else d[:rows]).max().item())
-        for a, b in zip(ra, rb):
-            if a.tokens != b.tokens:
-                mismatches += 1
-                if len(a.tokens) != len(b.tokens):
-                    raise AssertionError("token counts diverged")
-                a.tokens[:] = b.tokens
+            rows = NEW_TOKENS - before[slot]
+            d, ref = (la[slot] - lb[slot]).abs(), lb[slot].abs()
+            if d.dim() > 1:
+                d, ref = d[:rows], ref[:rows]
+            step_worst = max(step_worst, d.max().item())
+            step_scale = max(step_scale, ref.max().item())
+        worst = max(worst, step_worst)
+        if gaps is not None:
+            gaps.append((step_worst, step_scale))
+        force()
     if kernel_eng.step():
         raise AssertionError("kernel engine outlived the plain one")
     return worst, mismatches, steps
@@ -4318,8 +4390,9 @@ def phases_distributed(fa, smi, trained):
 # phase 41's batch: PP_MICROBATCHES micro-batches of one PP_SEQ-token row
 PP_BATCH, PP_SEQ, PP_MICROBATCHES = 4, 1024, 4
 # phase 41's configurations (pp 2, two ranks on the one card over gloo):
-# GPT-3 1.3B at full depth under 1F1B, then the other schedules at depth 4
-PP_CONFIGS = {"1f1b_24": dict(layers=24, schedule="1f1b", vpp=1),
+# GPT-3 1.3B at half its depth under 1F1B (24 layers until phase 56
+# needed the room), then the other schedules at depth 4
+PP_CONFIGS = {"1f1b_12": dict(layers=12, schedule="1f1b", vpp=1),
               "gpipe_4": dict(layers=4, schedule="gpipe", vpp=1),
               "zero_bubble_4": dict(layers=4, schedule="zero_bubble", vpp=1),
               "1f1b_v2_4": dict(layers=4, schedule="1f1b", vpp=2)}
@@ -4569,7 +4642,7 @@ def phase_pipeline_gloo(smi, timeout=600, spec=None):
     """Phase 41: pipeline parallelism at pp 2, two processes on the one
     card over gloo (``backend="gloo"`` given explicitly: NCCL runs one
     rank per device), point to point staged through pinned host buffers.
-    Each configuration of PP_CONFIGS (GPT-3 1.3B at 24 layers under 1F1B,
+    Each configuration of PP_CONFIGS (GPT-3 1.3B at 12 layers under 1F1B,
     then gpipe, zero_bubble and interleaved 1F1B at depth 4) against a
     single-process ``TrainStep`` on the same full weights and batch:
     losses within TRAIN_LOSS_RTOL, gathered parameters by phase 8's rule,
@@ -5588,14 +5661,18 @@ def phases_zero3_wires(fa, smi, trained, timeout=900, spec=None):
 # -- phase 46: ZeRO-3 and the sep axis inside the pipeline -------------------
 
 # GPT-3 6.7B's widths (BASELINE.json's fifth configuration, the reference's
-# bench_configs.py::run_gpt_6p7b_ppsharding) at depth 4, two layers a
-# stage, phase 7's AdamW, on four gloo ranks sharing the one card: 46a pp
-# 2 x sharding 2 at stage 3 in f32, 46b the same with the reference's knobs
-# (bf16 parameters, block recompute), 46c pp 2 x sep 2 in f32. The batch,
+# bench_configs.py::run_gpt_6p7b_ppsharding) at depth 2 (4 until phase 56
+# needed the room), one layer a stage, phase 7's AdamW, on four gloo ranks
+# sharing the one card: 46a pp 2 x sharding 2 at stage 3 in f32, 46b the
+# same with the reference's knobs (bf16 parameters, block recompute), 46c
+# pp 2 x sep 2 in f32, and 46c again with the ring's plain version
+# (``ring_flash_attention_plain``: f32 einsums, no kernel) on the same
+# weights, which tells the kernels' 3xTF32 products from the rest in 46c's
+# distance to the baseline (ROADMAP.md §C, "Suspects"). The batch,
 # COMPOSE_BATCH x TRAIN_SEQ, gives every rank 2 micro-batches under 1F1B:
 # the sharding axis splits the rows (1 a micro-batch), sep the sequence (2
 # rows of TRAIN_SEQ / 2 a micro-batch)
-COMPOSE_LAYERS = 4
+COMPOSE_LAYERS = 2
 COMPOSE_BATCH = 4
 COMPOSE_MICROBATCHES = 2
 COMPOSE_RANKS = 4
@@ -5603,8 +5680,29 @@ COMPOSE_CONFIGS = {
     "pp2_zero3": dict(sharding_degree=2, stage=3, steps=LOCKSTEP_STEPS),
     "pp2_zero3_bf16_recompute": dict(sharding_degree=2, stage=3, steps=2,
                                      bf16=True, recompute=True),
-    "pp2_sep2": dict(sep_degree=2, steps=LOCKSTEP_STEPS),
+    "pp2_sep2": dict(sep_degree=2, steps=2),
+    "pp2_sep2_plain_ring": dict(sep_degree=2, steps=2, plain_ring=True),
 }
+#: the phase tag of each configuration
+COMPOSE_TAGS = {"pp2_zero3": "46a", "pp2_zero3_bf16_recompute": "46b",
+                "pp2_sep2": "46c", "pp2_sep2_plain_ring": "46c plain ring"}
+
+
+@contextlib.contextmanager
+def plain_ring():
+    """The sequence split's ring through its plain version
+    (``ring_flash_attention_plain``) in place of the kernels' route: the
+    probe of phase 46c."""
+    from paddle_tpu_torch.nn.functional import ring_attention as ra
+
+    saved = ra.ring_flash_attention
+    ra.ring_flash_attention = (
+        lambda q, k, v, group, causal=False, scale=None, mask=None:
+        ra.ring_flash_attention_plain(q, k, v, group, causal, scale, mask))
+    try:
+        yield
+    finally:
+        ra.ring_flash_attention = saved
 
 
 def build_6p7b(spec, **kw):
@@ -5739,7 +5837,9 @@ def _rank_pp_compose(out_dir, base_path, spec):
         collective.reset_counts()
         pp.reset_counts()
         steps = c["steps"]
-        losses, step_ms = timed_steps(step, (ids, labels), steps, sync)
+        with (plain_ring() if c.get("plain_ring")
+              else contextlib.nullcontext()):
+            losses, step_ms = timed_steps(step, (ids, labels), steps, sync)
         cfg = model.config
         sep = hcg.get_sep_parallel_world_size()
         res = dict(
@@ -5817,7 +5917,8 @@ def compose_baseline(spec, path):
 
 def phase_pp_compose(smi, timeout=900, spec=None):
     """Phase 46: ZeRO-3 and the sep axis inside the pipeline, GPT-3 6.7B's
-    widths at depth 4, four processes on the one card over gloo. First a
+    widths at depth COMPOSE_LAYERS, four processes on the one card over
+    gloo. First a
     single-process ``TrainStep`` (the baseline, its memory freed); then
     46a pp 2 x sharding 2 at stage 3 in f32 (losses equal on the ranks and
     within TRAIN_LOSS_RTOL of the baseline, the gathered parameters by
@@ -5829,7 +5930,10 @@ def phase_pp_compose(smi, timeout=900, spec=None):
     gather of every block parameter), 46c pp 2 x sep 2 in f32 (losses
     within TRAIN_LOSS_RTOL of the baseline, sep rank r launching r + 1
     ring blocks a layer, the staged bytes equal to the boundaries and the
-    ring's rotations). Returns the ``pp_compose`` JSON line's numbers."""
+    ring's rotations), and 46c with the plain ring (losses within
+    TRAIN_LOSS_RTOL of the baseline, no kernel launch; both distances
+    printed side by side). Returns the ``pp_compose`` JSON line's
+    numbers."""
     import gc
     import os
     import pickle
@@ -5877,8 +5981,7 @@ def phase_pp_compose(smi, timeout=900, spec=None):
     for name, c in COMPOSE_CONFIGS.items():
         rs = [r[name] for r in res]
         a, steps = rs[0], c["steps"]
-        tag = {"pp2_zero3": "46a", "pp2_zero3_bf16_recompute": "46b",
-               "pp2_sep2": "46c"}[name]
+        tag = COMPOSE_TAGS[name]
         if any(r["losses"] != a["losses"] for r in rs):
             raise AssertionError(f"phase {tag}: the ranks' losses differ")
         rel = None
@@ -5917,6 +6020,8 @@ def phase_pp_compose(smi, timeout=900, spec=None):
         for r in rs:
             n = r["layers_local"] * r["microbatches"] * steps
             blocks = r["sep_rank"] + 1 if r["sep"] > 1 else 1
+            if c.get("plain_ring"):
+                blocks = 0  # no kernel runs; the ring's staging differs
             bf = "_bf16" if c.get("bf16") else ""
             want = {f"fwd{bf}": n * blocks * (2 if c.get("recompute")
                                               else 1),
@@ -5928,6 +6033,7 @@ def phase_pp_compose(smi, timeout=900, spec=None):
             staged = pp_staged_want(r, steps)
             # CPU tensors are not staged (a rehearsal may count them)
             if (spec["device"] == "cuda" or spec.get("staged")) and \
+                    not c.get("plain_ring") and \
                     r["counts"]["p2p_staged_bytes"] != staged:
                 raise AssertionError(
                     f"phase {tag}: staged {r['counts']['p2p_staged_bytes']}"
@@ -5957,6 +6063,9 @@ def phase_pp_compose(smi, timeout=900, spec=None):
                                       "held_params")} for r in rs])
     peaks = [max(r[n]["peak_gib"] for n in COMPOSE_CONFIGS) for r in res]
     out["peak_gib_sum"] = sum(peaks)
+    log(f"# phase 46c probe: loss rel to the single-process baseline, "
+        f"kernel ring {out['pp2_sep2']['rel']:.2e}, plain ring "
+        f"{out['pp2_sep2_plain_ring']['rel']:.2e} (same weights and batch)")
     log(f"# phase 46: {secs:.1f} s (baseline {t_base:.1f} s; four "
         f"processes, spawn, build and run); the ranks' peaks "
         f"{[round(p, 2) for p in peaks]} GiB, {sum(peaks):.2f} GiB together "
@@ -6842,12 +6951,12 @@ def drive_router_threaded(router, workers, timeout=600.0):
     return time.perf_counter() - t0
 
 
-def decision_margin(model, stream, j, params):
+def decision_margin(model, stream, j, params, top=False):
     """The top-2 margin of the decision that chose token ``j`` of
     ``stream``, from a full forward over ``stream[:j]``: of the logits for
     a greedy request; of the top-k-filtered logits / T plus the engine's
     Gumbel noise for position ``j`` (``_mix_seed(seed, j)``) for a sampled
-    one."""
+    one. ``top``: also the largest of those values, as (margin, largest)."""
     from paddle_tpu_torch.inference.engine import _mix_seed
 
     ctx = torch.as_tensor(np.asarray(stream[:j])[None], device=DEVICE)
@@ -6865,8 +6974,9 @@ def decision_margin(model, stream, j, params):
         u = torch.rand(x.shape[-1], generator=gen, device=x.device,
                        dtype=torch.float32)
         x = x - torch.log(-torch.log(u))
-    top = torch.topk(x, 2).values
-    return float(top[0] - top[1])
+    best = torch.topk(x, 2).values
+    margin = float(best[0] - best[1])
+    return (margin, float(best[0])) if top else margin
 
 
 def check_serving_streams(fa, model, prompts, params, got, want, what,
@@ -7520,8 +7630,9 @@ def build_mpmd(spec):
                         num_virtual_stages=1)
     head = nn.Sequential(
         nn.LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, device=device),
-        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
-                  generator=gen, init_std=cfg.initializer_range))
+        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias_attr=False,
+                  device=device, generator=gen,
+                  init_std=cfg.initializer_range))
     return cfg, pipe, head
 
 
@@ -7731,14 +7842,15 @@ def phase_mpmd(fa, smi, spec=None):
 # -- phase 51: the launcher and elastic resume ---------------------------------
 
 ELASTIC_LAYERS = 2
-ELASTIC_STEPS = 4
-# the killed run saves every ELASTIC_SAVE_INTERVAL steps (steps 1 and 3:
-# 2.5 GB each); the clean run, the bit-equal yardstick, saves nothing
+# 3 steps (4 until phase 56 needed the room)
+ELASTIC_STEPS = 3
+# the killed run saves every ELASTIC_SAVE_INTERVAL steps (step 1: 2.5 GB);
+# the clean run, the bit-equal yardstick, saves nothing
 ELASTIC_SAVE_INTERVAL = 2
 # rank 1 is SIGKILLed by chaos.step_fence at this step of launch attempt 0;
 # the newest committed checkpoint is then step 1's, so the ranks resume at
 # step 2 (the reference's rule: the step after the newest committed save)
-ELASTIC_KILL_STEP = 3
+ELASTIC_KILL_STEP = 2
 ELASTIC_RESUME_AT = 2
 
 
@@ -10210,7 +10322,657 @@ def phase_55(pa, fa, smi, peaks):
     return out
 
 
-def main() -> int:
+# -- phase 56: a decorated bf16 model served, MoE under O2, online flips ------
+
+#: 56b: Llama-3-8B decorated O2 (bf16 parameters and activations) at
+#: this depth (GPT-3 1.3B at its 24 layers)
+P56_LLAMA_LAYERS = 2
+#: 56b: a step's logits of the kernel and plain engines at identical
+#: contexts within this many bf16 unit roundoffs (2^-8) of the step's
+#: largest logit, as the CPU tests hold the two packages' first steps; a
+#: stream may part from the plain engine's only at a near tie, a decision
+#: whose top-2 margin is at most twice that of its largest logit (both
+#: routes within the bound of the same logits)
+P56_LOGIT_GAP_U = 8
+BF16_U = 2.0 ** -8
+#: 56c: per-step losses of the O2 MoE block, K4a / K4b against the plain
+#: grouped matmul: both round each bf16 product to bf16 from f32 sums of
+#: the same terms in another order, and the loss is a mean over 4096
+#: tokens of squared errors of such outputs (4.65e-7 apart on the card);
+#: a step moves the loss by 0.6-1.9 %, so this bound also has to fail a
+#: K4b that drops one expert's gradient, which the phase shows on a
+#: faulty control (:func:`faulty_drhs`)
+P56_MOE_LOSS_RTOL = 1e-5
+#: 56d: the two decoder layers the online flip changes, and by how much
+P56_FLIP_LAYERS = (0, 1)
+P56_FLIP_SCALE = 1.0 + 2.0 ** -4
+
+
+def amp_decorate(model):
+    """``model`` decorated O2 bf16 (bf16 parameters and activations)."""
+    from paddle_tpu_torch import amp
+
+    return amp.decorate(model, level="O2", dtype="bfloat16")
+
+
+def phase_k3_bf16_query(pa, peaks, contexts, llama_contexts):
+    """Phase 56a: K3 on a bf16 query against ``paged_attention_plain`` on
+    the card, the bf16 output held to :func:`k3_bf16_tol`: GPT-3 1.3B's
+    serving shapes (H = Hkv = 16: decode S=8 T=1, verify T=5, prefill
+    T=1024) and Llama-3-8B's (Hkv = 8, G = 4: verify and prefill in the
+    tile regime), D = 128, each pool dtype; then both timed as phase 4
+    times the f32 query (bf16 pool, CUDA graph and host loop, SDPA in
+    bf16, the bound with 2-byte q and out)."""
+    rng = np.random.default_rng(SEED + 56)
+    worst = {"tile": 0.0, "split": 0.0}
+    for label, hkv, group, ctx in (("GPT-3 1.3B", 16, 1, contexts),
+                                   ("Llama-3-8B", 8, 4, llama_contexts)):
+        shapes = (("decode", dict(s=8, t=1, ctx=ctx)),
+                  ("verify", dict(s=8, t=5, ctx=np.asarray(ctx) + 4)),
+                  ("prefill", dict(s=1, t=1024, ctx=[1024])))
+        for kv in ("f32", "bf16", "int8"):
+            for name, sh in shapes:
+                c = make_case(rng, hkv=hkv, group=group, d=128, kv=kv, **sh)
+                c["q"] = c["q"].bfloat16()
+                args, kw = case_args(c)
+                expect = pa._k3_regime(sh["t"], group)
+                tag = (f"56a {label} {name} kv={kv} q=bf16 [{expect}]")
+                got = checked_call(pa, args, kw, expect, tag)
+                ref = pa.paged_attention_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = k3_bf16_tol(ref)
+                worst[expect] = max(worst[expect], err)
+                log(f"{tag} max_abs_err={err:.3e} (tol {tol:.3e})")
+                if got.dtype != torch.bfloat16 or not err <= tol:
+                    raise AssertionError(f"{tag}: kernel disagrees with "
+                                         f"plain: {err} ({got.dtype})")
+    timed = dict(
+        gpt=time_main_shapes(pa, peaks, contexts, q_dtype=torch.bfloat16),
+        llama=time_main_shapes(pa, peaks, llama_contexts, hkv=8, group=4,
+                               q_dtype=torch.bfloat16))
+    return dict(worst=worst, timed=timed)
+
+
+def stream_agreement(got, want, prompts):
+    """(tokens of ``got`` before its first parting from ``want``, the
+    tokens equal position by position), each as a share of the new
+    tokens."""
+    prefix = same = total = 0
+    for g, w, p in zip(got, want, prompts):
+        g, w = np.asarray(g)[len(p):], np.asarray(w)[len(p):]
+        eq = g == w
+        prefix += int(np.argmin(eq)) if not eq.all() else len(eq)
+        same += int(eq.sum())
+        total += len(eq)
+    return prefix / total, same / total
+
+
+def checked_attend(pa, eng):
+    """Wrap ``eng._attend`` so that each K3 call of the engine is held
+    against ``paged_attention_plain`` on the same inputs (the layer's
+    stored pool, its scales, the page tables, the start positions) within
+    :func:`k3_bf16_tol`; returns the running numbers (calls, worst error
+    and its share of the tolerance)."""
+    seen = dict(calls=0, worst_err=0.0, worst_share=0.0)
+    kernel_attend = eng._attend
+
+    def attend(q, layer, tables, start):
+        out = kernel_attend(q, layer, tables, start)
+        ref = pa.paged_attention_plain(
+            q.contiguous(), eng._kc[layer], eng._vc[layer], tables, start,
+            k_scales=None if eng._ksc is None else eng._ksc[layer],
+            v_scales=None if eng._vsc is None else eng._vsc[layer])
+        err = (out.float() - ref.float()).abs().max().item()
+        share = err / k3_bf16_tol(ref)
+        seen["calls"] += 1
+        seen["worst_err"] = max(seen["worst_err"], err)
+        seen["worst_share"] = max(seen["worst_share"], share)
+        if out.dtype != q.dtype or not share <= 1.0:
+            raise AssertionError(f"K3 on the engine's inputs (layer "
+                                 f"{layer}, q {tuple(q.shape)} {q.dtype}): "
+                                 f"{err} against the plain version")
+        return out
+
+    eng._attend = attend
+    return seen
+
+
+def serve_decorated(pa, fa, model, prompts, kv, label, group, f32=None):
+    """Phase 56b on one model and KV dtype: the timed kernel run (K3
+    launches by regime against ``k3_expected``, tokens, a verify step,
+    finite f32 logits); a run with every K3 call held against the plain
+    version on its inputs (:func:`checked_attend`); the plain engine's
+    free-running streams, each parting reported with the decision's top-2
+    margin and largest logit (a full forward over the common context);
+    the two in :func:`lockstep` (speculation off: teacher forcing needs
+    one token a slot a step), every K3 call of the kernel engine held
+    against the plain version there too, for each step's logit gap at
+    identical contexts (prefills included) against P56_LOGIT_GAP_U."""
+    from paddle_tpu_torch.inference.engine import DecodeEngine, SamplingParams
+
+    eng = DecodeEngine(model, kv_dtype=kv, **engine_config())
+    eng.warmup()
+    for n in K3_COUNTERS:
+        setattr(pa, n, 0)
+    t0 = time.perf_counter()
+    outs = serve(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tile, split, decode, verify = k3_counts(pa)
+    st = eng.stats()
+    ad = eng.adapter
+    want = k3_expected(pa, ad.num_layers, st, eng, group)
+    if (tile, split, decode, verify) != want or launches != tile + split:
+        raise AssertionError(f"56b {label} kv {kv}: K3 (tile, split, "
+                             f"decode, verify) {(tile, split, decode, verify)}"
+                             f", expected {want}")
+    if st["verify_steps"] <= 0:
+        raise AssertionError(f"56b {label}: no verify step")
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + NEW_TOKENS:
+            raise AssertionError(f"56b {label}: a request's length")
+    _, last = eng.last_step
+    if last.dtype != torch.float32 or not torch.isfinite(last).all():
+        raise AssertionError(f"56b {label}: logits {last.dtype}, finite "
+                             f"{bool(torch.isfinite(last).all())}")
+    pool_bytes = 2 * eng._kc.numel() * eng._kc.element_size() + (
+        0 if eng._ksc is None else 2 * eng._ksc.numel() * 4)
+    del eng
+    t1 = time.perf_counter()
+    eng = DecodeEngine(model, kv_dtype=kv, **engine_config())
+    checked = checked_attend(pa, eng)
+    serve(eng, prompts)
+    del eng
+    checked["seconds"] = time.perf_counter() - t1
+    ref = serve(DecodeEngine(model, kv_dtype=kv, attn_kernel="plain",
+                             **engine_config()), prompts)
+    greedy = SamplingParams(max_new_tokens=NEW_TOKENS)
+    partings = []
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        if not np.array_equal(a, b):
+            j = int(np.flatnonzero(np.asarray(a) != np.asarray(b))[0])
+            margin, top = decision_margin(model, b, j, greedy, top=True)
+            partings.append(dict(request=i, token=j - len(prompts[i]),
+                                 margin=margin, top=top))
+    if partings:
+        report_divergence(fa, model, prompts, outs, ref)
+    out = dict(kv=kv, tokens_per_s=st["total_tokens"] / wall, seconds=wall,
+               pool_bytes=pool_bytes, partings=partings, checked=checked,
+               streams_equal_plain=len(prompts) - len(partings),
+               launches=dict(tile=tile, split=split, decode=decode,
+                             verify=verify, launches=launches))
+    one = dict(engine_config(), speculate_k=0)
+    step_gaps = []
+    t1 = time.perf_counter()
+    kernel_eng = DecodeEngine(model, kv_dtype=kv, **one)
+    lock_checked = checked_attend(pa, kernel_eng)
+    _, mismatches, steps = lockstep(
+        kernel_eng,
+        DecodeEngine(model, kv_dtype=kv, attn_kernel="plain", **one),
+        prompts, step_gaps)
+    del kernel_eng
+    gap = [g for g, _ in step_gaps]
+    share = [g / (P56_LOGIT_GAP_U * BF16_U * top) for g, top in step_gaps]
+    out.update(gap_first=gap[0], gap_median=float(np.median(gap)),
+               gap_max=max(gap), gap_share_max=max(share),
+               gap_share_step=int(np.argmax(share)),
+               largest_logit=max(top for _, top in step_gaps),
+               lockstep_checked=lock_checked,
+               lockstep_mismatches=mismatches, lockstep_steps=steps,
+               lockstep_seconds=time.perf_counter() - t1)
+    if f32 is not None:
+        out["agree_f32_prefix"], out["agree_f32_tokens"] = \
+            stream_agreement(outs, f32["streams"], prompts)
+    tokens = st["total_tokens"]
+    parted = [(p["request"], p["token"], round(p["margin"], 5), p["top"])
+              for p in partings]
+    log(f"# phase 56b {label}, bf16 model, kv {kv}: {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tok/s"
+        + (f" (phase 4's f32 model, bf16 KV: {f32['tokens_per_s']:.1f}; "
+           f"tokens agreeing with it: {out['agree_f32_prefix']:.3f} before "
+           f"the first parting, {out['agree_f32_tokens']:.3f} position by "
+           f"position)" if f32 is not None else "")
+        + f"; pool {pool_bytes / 2 ** 30:.3f} GiB"
+        + (f" (f32 model's {f32['pool_bytes'] / 2 ** 30:.3f})"
+           if f32 is not None else "")
+        + f"; K3 {out['launches']} = k3_expected; {checked['calls']} K3 "
+        f"calls on the engine's inputs within {checked['worst_share']:.2f} "
+        f"of k3_bf16_tol (worst {checked['worst_err']:.3e}, "
+        f"{checked['seconds']:.1f} s); streams equal to the plain engine "
+        f"{out['streams_equal_plain']}/{len(prompts)}, partings "
+        f"{parted}"
+        + f"; lockstep {out['lockstep_steps']} steps: logit gap at "
+        f"identical contexts first {out['gap_first']:.3e}, median "
+        f"{out['gap_median']:.3e}, max {out['gap_max']:.3e} (largest "
+        f"logit {out['largest_logit']:.3e}; worst step "
+        f"{out['gap_share_step']} at {out['gap_share_max']:.3f} of "
+        f"{P56_LOGIT_GAP_U} bf16 unit roundoffs of its largest logit), "
+        f"{lock_checked['calls']} K3 calls within "
+        f"{lock_checked['worst_share']:.2f} of k3_bf16_tol, token "
+        f"mismatches {out['lockstep_mismatches']} "
+        f"({out['lockstep_seconds']:.1f} s)")
+    return out, outs
+
+
+def phase_decorated_serving(pa, fa, smi, served_f32):
+    """Phase 56b: GPT-3 1.3B (24 layers, phase 4's weights) decorated O2
+    bf16 served through ``DecodeEngine`` (phase 4's geometry, speculation
+    on) with bf16 and int8 KV; Llama-3-8B decorated at depth
+    P56_LLAMA_LAYERS (GQA: K3's verify in the tile regime), bf16 KV. Gates:
+    K3 launches = ``k3_expected``, every K3 call within
+    :func:`k3_bf16_tol` of the plain version on the engine's own inputs,
+    each step's logit gap at identical contexts (:func:`lockstep`)
+    within P56_LOGIT_GAP_U bf16 unit roundoffs of its largest logit, each
+    parting from the plain engine's stream at a near tie (a top-2 margin
+    within twice that of the decision's largest logit). Reported:
+    tokens/s and pool bytes beside phase 4's f32 model, the share of
+    tokens agreeing with it."""
+    t0 = time.perf_counter()
+    model = amp_decorate(build_model(24))  # phase 4's weights
+    if {p.dtype for p in model.parameters()} != {torch.bfloat16}:
+        raise AssertionError("56b: the decorated model is not bf16")
+    prompts = make_prompts(model.config.vocab_size)
+    out = {"card": smi}
+    for kv in ("bf16", "int8"):
+        out[f"gpt_{kv}"], _ = serve_decorated(
+            pa, fa, model, prompts, kv, "GPT-3 1.3B", 1, served_f32)
+    del model
+    free_card()
+    llama = amp_decorate(build_llama(P56_LLAMA_LAYERS))
+    lp = make_prompts(llama.config.vocab_size)
+    g = LLAMA3_8B["num_attention_heads"] // LLAMA3_8B["num_key_value_heads"]
+    out["llama_bf16"], _ = serve_decorated(
+        pa, fa, llama, lp, "bf16", f"Llama-3-8B depth {P56_LLAMA_LAYERS}", g)
+    del llama
+    free_card()
+    for k in ("gpt_bf16", "gpt_int8", "llama_bf16"):
+        if not out[k]["gap_share_max"] <= 1.0:
+            raise AssertionError(
+                f"56b {k}: per-step logits K3 vs plain {out[k]['gap_max']} "
+                f"(step {out[k]['gap_share_step']}) above {P56_LOGIT_GAP_U} "
+                f"bf16 unit roundoffs of the step's largest logit")
+        far = [p for p in out[k]["partings"] if not p["margin"]
+               <= 2 * P56_LOGIT_GAP_U * BF16_U * abs(p["top"])]
+        if far:
+            raise AssertionError(f"56b {k}: streams part away from a near "
+                                 f"tie: {far}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 56b: {out['seconds']:.1f} s  [{smi}]")
+    return out
+
+
+@contextlib.contextmanager
+def faulty_drhs(gm):
+    """A control for 56c's bound: K4b with its largest expert group's
+    weight gradient zeroed."""
+    saved = gm.grouped_matmul_drhs_cuda
+
+    def drhs(lhs, dout, group_sizes):
+        out = saved(lhs, dout, group_sizes)
+        out[int(torch.argmax(group_sizes))] = 0
+        return out
+
+    try:
+        gm.grouped_matmul_drhs_cuda = drhs
+        yield
+    finally:
+        gm.grouped_matmul_drhs_cuda = saved
+
+
+def phase_moe_o2(gm, smi, moe_f32):
+    """Phase 56c: phase 11's Mixtral 8x7B block (dim MOE_DIM, hidden
+    MOE_HIDDEN, 8 experts, top-2, dropless) decorated O2 with its AdamW
+    (f32 masters and moments), three steps under ``auto_cast("O2")``: K4a
+    / K4b launched in bf16 on the model path, (3, 2) a step, all bf16;
+    the losses against the same steps with the plain grouped matmul on a
+    twin (P56_MOE_LOSS_RTOL), which a twin on a faulty K4b
+    (:func:`faulty_drhs`) must exceed; step ms beside phase 11's f32."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    t0 = time.perf_counter()
+
+    def build():
+        model = build_moe(MOE_DIM, MOE_HIDDEN)
+        opt = AdamW(parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0), **MOE_ADAMW)
+        amp.decorate(model, opt, level="O2")
+
+        def loss_fn(m, x, y):
+            with amp.auto_cast(level="O2"):
+                return moe_loss(m, x, y)
+
+        return model, TrainStep(model, loss_fn, opt)
+
+    steps = 3
+    x, y = moe_batch(MOE_DIM)
+    model, step = build()
+    for n in ("launches_fwd", "launches_drhs", "launches_fwd_bf16",
+              "launches_drhs_bf16"):
+        setattr(gm, n, 0)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    launches = {"fwd": gm.launches_fwd, "drhs": gm.launches_drhs,
+                "fwd_bf16": gm.launches_fwd_bf16,
+                "drhs_bf16": gm.launches_drhs_bf16}
+    dtypes = {str(p.dtype) for p in model.parameters()}
+    del model, step
+    free_card()
+    model, step = build()
+    with plain_grouped_matmul(gm):
+        plain = [float(step(x, y)) for _ in range(steps)]
+    del model, step
+    model, step = build()
+    with faulty_drhs(gm):
+        faulty = [float(step(x, y)) for _ in range(steps)]
+    del model, step, x, y
+    free_card()
+    want = {"fwd": 3 * steps, "drhs": 2 * steps, "fwd_bf16": 3 * steps,
+            "drhs_bf16": 2 * steps}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    control = max(abs(a - b) / abs(b) for a, b in zip(faulty, plain))
+    f32_ms = float(np.mean(moe_f32["step_ms"][1:])) if moe_f32 else None
+    ms = float(np.mean(step_ms[1:]))
+    out = dict(losses=losses, plain_losses=plain, rel=rel,
+               faulty_losses=faulty, faulty_rel=control, step_ms=step_ms,
+               mean_ms=ms, f32_mean_ms=f32_ms, launches=launches,
+               param_dtypes=sorted(dtypes),
+               seconds=time.perf_counter() - t0)
+    log(f"# phase 56c: Mixtral 8x7B MoE block decorated O2: losses {losses} "
+        f"vs the plain grouped matmul {plain} (max rel {rel:.2e}, rtol "
+        f"{P56_MOE_LOSS_RTOL:.2e}; a K4b dropping one expert's gradient: "
+        f"{faulty}, max rel {control:.2e}); step ms "
+        f"{[round(v, 1) for v in step_ms]}"
+        f", steps 1-2 mean {ms:.1f}"
+        + (f" (phase 11 f32: {f32_ms:.1f})" if f32_ms else "")
+        + f"; K4 launches {launches} (want {want}); parameters {dtypes}; "
+        f"{out['seconds']:.1f} s  [{smi}]")
+    if launches != want:
+        raise AssertionError(f"56c: K4 launches {launches} != {want}")
+    if dtypes != {"torch.bfloat16"} or not all(np.isfinite(losses)):
+        raise AssertionError(f"56c: parameters {dtypes}, losses {losses}")
+    if not rel <= P56_MOE_LOSS_RTOL:
+        raise AssertionError(f"56c: losses differ from the plain grouped "
+                             f"matmul: rel {rel}")
+    if not control > P56_MOE_LOSS_RTOL:
+        raise AssertionError(f"56c: the bound passes a faulty K4b: rel "
+                             f"{control}")
+    return out
+
+
+def phase_online_flip(smi, model_cfg):
+    """Phase 56d: an ``OnlineCoordinator`` publishes epoch 1 (decoder
+    layers P56_FLIP_LAYERS scaled by P56_FLIP_SCALE, in bf16) of the
+    decorated GPT-3 1.3B (``--amp-dtype bfloat16``, speculation off so
+    every step runs the one decode program) to an in-process
+    ``EngineSink`` and over a ``WireEngineSink`` to an ``EngineWorker``
+    subprocess, while requests decode on both. Gates: the requests in
+    flight at the flip finish equal to a no-flip run (epoch 0), the ones
+    admitted after it equal to a fresh engine on the epoch-1 weights, on
+    both engines, one of them (prompt 5) sharing a 256-token prefix with
+    one in flight (prompt 4) and attaching none of its epoch-0 blocks (no
+    prefix hit on either engine); the subprocess serves epoch 1 at its
+    stop; the bytes streamed are the two layers' bf16 bytes, once for
+    each engine."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed.fleet.supervisor import FlipJournal
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+    from paddle_tpu_torch.runtime import TCPStore
+    from paddle_tpu_torch.serving import Router
+    from paddle_tpu_torch.serving.online import (EngineSink,
+                                                 OnlineCoordinator,
+                                                 WireEngineSink)
+    from paddle_tpu_torch.serving.protocol import k_engine, unpack
+    from paddle_tpu_torch.serving.worker import (build_arg_parser,
+                                                 build_worker_model)
+
+    t_phase = time.perf_counter()
+    argv = serving_argv(model_cfg) + ["--speculate-k", "0", "--amp-dtype",
+                                      "bfloat16"]
+    args = build_arg_parser().parse_args(argv)
+    model = build_worker_model(args)
+    if {p.dtype for p in model.parameters()} != {torch.bfloat16}:
+        raise AssertionError("56d: the worker model is not bf16")
+    cfg = dict(serving_engine_config(), speculate_k=0)
+    prompts = make_prompts(model_cfg["vocab"])
+    # prompts 4 and 5 share a 256-token prefix: 4 is admitted before the
+    # flip, 5 after it, so the epoch-0 blocks of 4 must not serve 5
+    old = prompts[:3] + prompts[4:5]
+    new = prompts[3:4] + prompts[5:]
+    names = [f"gpt.decoder.{i}." for i in P56_FLIP_LAYERS]
+    epoch1 = {n: (p.detach() * P56_FLIP_SCALE).to(p.dtype)
+              for n, p in model.named_parameters()
+              if any(n.startswith(k) for k in names)}
+    layer_bytes = sum(v.numel() * v.element_size() for v in epoch1.values())
+
+    def run(eng, ps):
+        return [list(map(int, o)) for o in serve(eng, ps)]
+
+    ref0 = run(DecodeEngine(model, **cfg), old)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = TCPStore("127.0.0.1", port, is_master=True, timeout=120.0)
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_online_"))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    env.pop("PADDLE_TPU_TELEMETRY_DIR", None)
+    log_f = open(tmp / "worker.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.worker",
+         "--master", f"127.0.0.1:{port}", "--namespace", "p56",
+         "--name", "p56w", *argv], cwd=root, env=env,
+        stdout=subprocess.DEVNULL, stderr=log_f)
+    out = {"card": smi}
+    try:
+        router = Router(store, namespace="p56", queue_limit=64, seed=SEED,
+                        page_size=cfg["page_size"], engine_grace_s=300.0)
+        t0 = time.perf_counter()
+        while router.stats()["engines_alive"] < 1 or any(
+                e.beat < 1 for e in router._engines.values()):
+            if proc.poll() is not None:
+                raise AssertionError("56d: worker exited: " + (
+                    tmp / "worker.log").read_text()[-3000:])
+            router.pump()
+            time.sleep(0.01)
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("56d: the worker did not register")
+        out["worker_ready_s"] = time.perf_counter() - t0
+        addr = unpack(store.get(k_engine("p56", 0)))["addr"]
+        eng = DecodeEngine(model, **cfg)
+        coord = OnlineCoordinator(
+            FlipJournal(str(tmp / "journal")),
+            {"inproc": EngineSink(eng), "p56w": WireEngineSink(addr, "p56w")},
+            ack_timeout_s=120.0)
+        # epoch 0 in flight on both: the in-process slots mid-decode, the
+        # worker's requests admitted (its beat reports them running)
+        rid_old = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in old]
+        for _ in range(3):
+            eng.step()
+        wid_old = [router.submit(p, slo="standard", max_new_tokens=NEW_TOKENS)
+                   for p in old]
+        t0 = time.perf_counter()
+        while not any(e.occ.get("running", 0) >= len(old)
+                      for e in router._engines.values()):
+            router.pump()
+            time.sleep(0.002)
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("56d: the worker did not admit")
+        t0 = time.perf_counter()
+        entry = coord.publish_epoch(1, epoch1)
+        flip_s = time.perf_counter() - t0
+        if eng.weight_epoch != 1:
+            raise AssertionError("56d: the in-process engine did not flip")
+        rid_new = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in new]
+        wid_new = [router.submit(p, slo="standard", max_new_tokens=NEW_TOKENS)
+                   for p in new]
+        eng.run()
+        t0 = time.perf_counter()
+        while router.pending():
+            router.pump()
+            time.sleep(0.001)
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"56d undrained: {router.stats()}")
+        got = dict(inproc_old=[list(map(int, eng.result(r)))
+                               for r in rid_old],
+                   inproc_new=[list(map(int, eng.result(r)))
+                               for r in rid_new],
+                   worker_old=[list(map(int, router.result(r)))
+                               for r in wid_old],
+                   worker_new=[list(map(int, router.result(r)))
+                               for r in wid_new])
+        pinned = eng.stats()["pinned_epochs"]
+        hits = eng.stats()["prefix_hit_tokens"]
+        router.shutdown()
+        code = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        log_f.close()
+        store.close()
+    text = (tmp / "worker.log").read_text()
+    stop = [r for r in _worker_records(text, "serving_worker")
+            if r["event"] == "stop"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    # the epoch-1 yardstick: a fresh engine on the model, which holds the
+    # epoch-1 values since the flip
+    ref1 = run(DecodeEngine(model, **cfg), new)
+    worker_hits = stop[0]["engine"].get("prefix_hit_tokens") if stop else None
+    checks = dict(inproc_old=ref0, worker_old=ref0, inproc_new=ref1,
+                  worker_new=ref1)
+    equal = {k: sum(a == b for a, b in zip(got[k], checks[k]))
+             for k in checks}
+    out.update(flip_s=flip_s, entry_seconds=entry["seconds"],
+               leaves=entry["leaves"], bytes=entry["bytes"],
+               layer_bytes=layer_bytes, equal=equal, pinned_after=pinned,
+               prefix_hits=dict(inproc=hits, worker=worker_hits),
+               worker_exit=code,
+               worker_epoch=stop[0]["engine"].get("weight_epoch")
+               if stop else None)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 56d: online flip of decoder layers {P56_FLIP_LAYERS} "
+        f"({len(epoch1)} leaves, {layer_bytes} bf16 bytes an engine) to an "
+        f"in-process engine and a worker process (ready in "
+        f"{out['worker_ready_s']:.1f} s) while {len(old)} requests decode "
+        f"on each: flip {flip_s:.3f} s; journal {entry['leaves']} leaves, "
+        f"{entry['bytes']} bytes; streams equal (in flight -> epoch 0, "
+        f"admitted after -> epoch 1): {equal}; worker exit {code}, epoch "
+        f"{out['worker_epoch']}; pinned epochs after {pinned}; prefix "
+        f"hit tokens across the flip {out['prefix_hits']}; "
+        f"{out['seconds']:.1f} s  [{smi}]")
+    if code != 0 or out["worker_epoch"] != 1:
+        raise AssertionError(f"56d: worker exit {code}, epoch "
+                             f"{out['worker_epoch']}")
+    if hits != 0 or worker_hits != 0:
+        raise AssertionError(f"56d: a request admitted after the flip "
+                             f"attached epoch-0 prefix blocks: "
+                             f"{out['prefix_hits']}")
+    if entry["bytes"] != 2 * layer_bytes or entry["leaves"] != 2 * len(
+            epoch1):
+        raise AssertionError(f"56d: streamed {entry['bytes']} bytes in "
+                             f"{entry['leaves']} leaves, expected "
+                             f"{2 * layer_bytes} in {2 * len(epoch1)}")
+    if any(equal[k] != len(checks[k]) for k in checks) or pinned:
+        for k in checks:
+            for i, (a, b) in enumerate(zip(got[k], checks[k])):
+                if a != b:
+                    j = next(x for x in range(len(a)) if a[x] != b[x])
+                    log(f"56d {k} request {i} parts at token {j}: {a[j]} "
+                        f"vs {b[j]}")
+        raise AssertionError(f"56d: streams {equal}, pinned {pinned}")
+    del model
+    free_card()
+    return out
+
+
+def phase_amp_debugging(smi):
+    """Phase 56e: ``amp.debugging`` on the card: the operator stats of one
+    O2 step of GPT-3 1.3B's widths at depth 2 (decorated, AdamW), then the
+    tensor checker in ``CHECK_NAN_INF_AND_ABORT`` catching an ``inf``
+    written into a layer norm's gain (restored after)."""
+    from paddle_tpu_torch.amp import debugging as dbg
+
+    t0 = time.perf_counter()
+    model = build_model(2)
+    step, _, _ = amp_trainer(model, ADAMW, "O2", False, decorate=True)
+    ids, labels = train_batch(model.config.vocab_size)
+    dbg.enable_operator_stats_collection()
+    try:
+        loss = float(step(ids, labels))
+        torch.cuda.synchronize()
+    finally:
+        stats = dbg.disable_operator_stats_collection()
+    by_dtype = {}
+    for (_, dt), n in stats.items():
+        by_dtype[dt] = by_dtype.get(dt, 0) + n
+    if not (stats.get(("linear", "bfloat16"), 0) > 0
+            and stats.get(("layer_norm_op", "float32"), 0) > 0
+            and np.isfinite(loss)):
+        raise AssertionError(f"56e: stats {stats}, loss {loss}")
+    gain = model.gpt.decoder[1].ln_1.weight
+    saved = gain.detach().clone()
+    with torch.no_grad():
+        gain[0] = float("inf")
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+        debug_mode=dbg.DebugMode.CHECK_NAN_INF_AND_ABORT))
+    caught = None
+    try:
+        from paddle_tpu_torch.amp import auto_cast
+
+        with auto_cast(level="O2"), torch.no_grad():
+            model(ids[:1, :64])
+    except FloatingPointError as e:
+        caught = str(e)
+    finally:
+        dbg.disable_tensor_checker()
+        with torch.no_grad():
+            gain.copy_(saved)
+    out = dict(ops=len(stats), calls_by_dtype=by_dtype, loss=loss,
+               caught=caught, seconds=time.perf_counter() - t0)
+    log(f"# phase 56e: one O2 step of GPT-3 1.3B widths at depth 2 (loss "
+        f"{loss:.5f}): {len(stats)} (op, dtype) entries, calls by dtype "
+        f"{by_dtype}; checker on an inf in decoder.1.ln_1.weight: "
+        f"{caught!r}; {out['seconds']:.1f} s  [{smi}]")
+    if caught is None or "layer_norm_op" not in caught:
+        raise AssertionError(f"56e: the checker did not abort at the norm: "
+                             f"{caught}")
+    del model, step
+    free_card()
+    return out
+
+
+def phase_56(pa, fa, gm, smi, peaks, served, llama_served, moe_trained):
+    """Phase 56 (a-e); returns the ``phase56`` JSON line's numbers. The
+    f32 runs of phases 4, 13 and 11 (None in a run of phase 56 alone) give
+    the contexts and the numbers beside."""
+    t0 = time.perf_counter()
+    ctx = served["contexts"] if served else [
+        n + NEW_TOKENS // 2 for n in PROMPT_LENGTHS]
+    lctx = llama_served["contexts"] if llama_served else ctx
+    out = dict(k3_bf16=phase_k3_bf16_query(pa, peaks, ctx, lctx))
+    free_card()
+    out["serving"] = phase_decorated_serving(pa, fa, smi, served)
+    out["moe_o2"] = phase_moe_o2(gm, smi, moe_trained)
+    out["online"] = phase_online_flip(smi, SERVING_MODEL)
+    out["debugging"] = phase_amp_debugging(smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 56: {out['seconds']:.1f} s")
+    return out
+
+
+def main(only56=False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -10242,6 +11004,12 @@ def main() -> int:
     build.library()
     log(f"# phase 2: kernels built in {time.perf_counter() - t0:.2f} s "
         "(set-up)")
+    if only56:  # phase 56 alone (and phase 5's lockstep), for development
+        phase_engine_parity(lambda: build_model(2), "GPT-3 1.3B depth 2", 5)
+        p56 = phase_56(pa, fa, gm, smi, peaks, None, None, None)
+        log(json.dumps({"phase56": p56}, default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     sweep_err = phase_kernel_sweep(pa)
     flash_err = phase_flash_sweep(fa)
@@ -10308,6 +11076,8 @@ def main() -> int:
     mp_sep = phase_mp_sep_hapi(pa, fa, smi)
     torch.cuda.empty_cache()
     p55 = phase_55(pa, fa, smi, peaks)
+    torch.cuda.empty_cache()
+    p56 = phase_56(pa, fa, gm, smi, peaks, served, llama_served, moe_trained)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -10370,6 +11140,23 @@ def main() -> int:
                     transformer_paged=p55["transformer"]["routes"]["paged"][
                         "k3"][regime])
 
+    def k3_p56(shape):
+        """Phase 56's K3 at this shape: the bf16-query times (56a) and the
+        launches of the decorated models' serving runs (56b)."""
+        regime = {"decode": "decode", "verify": "verify",
+                  "prefill": "tile"}[shape]
+        r = p56["k3_bf16"]["timed"]["gpt"][shape]
+        return dict(
+            bf16_query={k: r[k] for k in (
+                "ms", "loop_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")},
+            bf16_query_llama={k: p56["k3_bf16"]["timed"]["llama"][shape][k]
+                              for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "regime")},
+            launches_phase56={k: p56["serving"][k]["launches"][regime]
+                              for k in ("gpt_bf16", "gpt_int8",
+                                        "llama_bf16")})
+
     def flash_p55(kind):
         """Phase 55's K1 / K2 launches of one kind at the 1.3B rows' kernel:
         ViT-B/16 (55c) in f32 and O1, Transformer-base (55e) by route."""
@@ -10419,7 +11206,8 @@ def main() -> int:
                                         "prefill": "tile"}[shape]),
              launches_phase55=k3_p55({"decode": "decode",
                                       "verify": "verify",
-                                      "prefill": "tile"}[shape]))
+                                      "prefill": "tile"}[shape]),
+             **k3_p56(shape))
         for shape in ("decode", "verify", "prefill")]
     for kind, kernel in (("fwd", "flash_attention_fwd"),
                          ("dq", "flash_attention_bwd_dq"),
@@ -10461,7 +11249,8 @@ def main() -> int:
                 f"{c}_rank{i}": compose[c]["ranks"][i]["launches"][
                     kind + ("_bf16" if COMPOSE_CONFIGS[c].get("bf16")
                             else "")]
-                for c in COMPOSE_CONFIGS for i in range(COMPOSE_RANKS)},
+                for c in COMPOSE_CONFIGS for i in range(COMPOSE_RANKS)
+                if not COMPOSE_CONFIGS[c].get("plain_ring")},
             launches_a3=dict(
                 bert_lamb=a3["bert_lamb"]["launches"][kind],
                 **{f"gpt_mp2_lamb_rank{i}": a3["gpt_mp2_lamb"]["mp2_lamb"][
@@ -10526,10 +11315,11 @@ def main() -> int:
             ("fwd", "grouped_matmul_fwd", "up fwd", ("out", "dlhs")),
             ("drhs", "grouped_matmul_drhs", "up drhs", ("drhs",))):
         r = gmm_timed[call]
-        kernels.append(row(
+        kernels.append(dict(row(
             kernel, "paddle_tpu_torch/ops/cuda/grouped_matmul.cu",
             GMM_REPLACES[kind], moe_trained["launches"][kind],
-            max(r["max_abs_err"], *(gmm_err[o][0] for o in outs)), r))
+            max(r["max_abs_err"], *(gmm_err[o][0] for o in outs)), r),
+            launches_o2_bf16=p56["moe_o2"]["launches"][f"{kind}_bf16"]))
     log(json.dumps({"amp": amp_runs}))
     log(json.dumps({"encoders": encoders}))
     log(json.dumps({"vision": vision}))
@@ -10548,6 +11338,7 @@ def main() -> int:
     log(json.dumps({"live_supervisor": live_sup}, default=str))
     log(json.dumps({"mp_sep_hapi": mp_sep}, default=str))
     log(json.dumps({"phase55": p55}, default=str))
+    log(json.dumps({"phase56": p56}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -10561,4 +11352,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:  # a rank of phase 51
         elastic_worker(sys.argv[2])
         sys.exit(0)
-    sys.exit(main())
+    sys.exit(main(only56=sys.argv[1:2] == ["--phase56"]))

@@ -231,3 +231,6 @@ def black_list():
     """The ops kept in float32, keyed as :func:`white_list`."""
     return {dt: {lv: set(AMP_BLACK) for lv in ("O1", "O2")}
             for dt in ("float16", "bfloat16")}
+
+
+from . import debugging  # noqa: E402,F401  (paddle.amp.debugging)

@@ -414,12 +414,15 @@ def recv(tensor, src=0, group=None, sync_op=True):
     return _p2p("recv", tensor, src, group, sync_op, False)
 
 
-def isend(tensor, dst, group=None):
-    return send(tensor, dst, group, sync_op=False)
+def isend(tensor, dst=0, group=None, sync_op=False):
+    """``send`` that returns its task unwaited unless ``sync_op`` (the
+    reference's ``isend`` is its ``send``, which takes ``sync_op``)."""
+    return send(tensor, dst, group, sync_op=sync_op)
 
 
-def irecv(tensor, src=None, group=None):
-    return recv(tensor, src, group, sync_op=False)
+def irecv(tensor, src=0, group=None, sync_op=False):
+    """``recv``, likewise."""
+    return recv(tensor, src, group, sync_op=sync_op)
 
 
 class P2POp:

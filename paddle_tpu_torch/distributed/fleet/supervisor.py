@@ -46,8 +46,8 @@ router-assigned seeds), training resize through a caller-supplied hook
 (e.g. ``MpmdPipeline.resize_stage``).
 
 The journal's weight-transaction methods (``begin_weights`` ...) are the
-online weight-epoch transaction's; its coordinator (the reference's
-``serving/online.py``) is not ported yet (ROADMAP.md §A.4b).
+online weight-epoch transaction's; ``serving/online.py``'s
+``OnlineCoordinator`` calls them.
 
 This module is the single writer of the ``supervisor_*`` metric family
 and the ``flip`` span, every store op sits under ``deadline_guard`` and

@@ -43,6 +43,28 @@ class _AmpState:
 
 amp_state = _AmpState()
 
+#: post-op observer (``amp.debugging``'s operator stats and tensor
+#: checker): called as ``observer(op_name, outputs)`` after every call of
+#: an :func:`amp_op`, ``outputs`` the op's result tensors in a list; None
+#: on the hot path (one test a call)
+_op_observer = None
+
+
+def set_op_observer(observer):
+    """Install ``observer`` (see ``_op_observer``); None uninstalls. The
+    counterpart of the reference's ``set_op_observer`` on its gateway."""
+    global _op_observer
+    _op_observer = observer
+
+
+def _leaves(out):
+    """The tensors of an op's result (a tensor, or a tuple / list)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [t for t in out if isinstance(t, torch.Tensor)]
+    return []
+
 
 def _amp_cast(opname, *tensors):
     """``tensors`` as the op ``opname`` receives them under the active
@@ -88,7 +110,10 @@ def amp_op(opname, amp=None, uncast=()):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             if not amp_state.enable:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
+                if _op_observer is not None:
+                    _op_observer(opname, _leaves(out))
+                return out
             keys = [k for k in kwargs if k not in uncast]
             kept = {k: kwargs[k] for k in kwargs if k in uncast}
             vals = list(args) + [kwargs[k] for k in keys]
@@ -115,7 +140,10 @@ def amp_op(opname, amp=None, uncast=()):
                 for i, kind in seqs.items():
                     vals[i] = kind(vals[i])
             n = len(args)
-            return fn(*vals[:n], **dict(zip(keys, vals[n:])), **kept)
+            out = fn(*vals[:n], **dict(zip(keys, vals[n:])), **kept)
+            if _op_observer is not None:
+                _op_observer(opname, _leaves(out))
+            return out
 
         wrapper.op_name = opname
         wrapper.raw = fn
@@ -151,4 +179,4 @@ def policy(state):
 
 
 __all__ = ["AMP_BLACK", "AMP_OPS", "AMP_WHITE", "amp_op", "amp_state",
-           "policy", "snapshot"]
+           "policy", "set_op_observer", "snapshot"]

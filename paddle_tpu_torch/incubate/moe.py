@@ -16,6 +16,13 @@ expert weights stacked ``[E, ...]``):
 Gumbel noise of the capacity gate in training mode comes from the layer's
 explicit ``torch.Generator``.
 
+Under ``auto_cast`` the routing runs in its inputs' dtype at the
+reference's cast points, its ops ``moe_gate_dispatch``, ``moe_apply`` and
+``moe_apply_dropless`` (on neither list: bf16 at O2): a ``decorate``d O2
+layer gates, dispatches and runs its experts in bf16 (K4a / K4b in bf16
+on the card on the dropless path); the gate's softmax and the aux loss
+stay in f32.
+
 Under ``fleet.DistTrainStep`` each rank holds its share of the batch (its
 rows over the data axes, its block of the sequence over sep), while the
 reference gates the global batch. The gate here is global too: it reads
@@ -58,6 +65,7 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed import collective as C
 from ..distributed.fleet.topology import get_hybrid_communicate_group
+from ..framework.op import amp_op
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.functional import loss as _loss
@@ -183,6 +191,7 @@ def _queue_offsets(rows, layout):
     return before_d[:, None, :] + before_rows + before_s, fill
 
 
+@amp_op("moe_gate_dispatch")
 def _gshard_gating(logits, generator, k, capacity, use_aux_noise,
                    layout=None):
     """Top-k gating with static capacity (GShard / Switch).
@@ -238,6 +247,7 @@ def _ffn(x, w_in, b_in, w_out, b_out, act):
     return torch.einsum("ecf,efh->ech", hidden, w_out) + b_out
 
 
+@amp_op("moe_apply")
 def _moe_apply(flat, combine, dispatch, w_in, b_in, w_out, b_out, act):
     """Capacity routing: dispatch into ``[E, C, h]`` expert buffers, the
     expert FFN as batched einsums, combine back to tokens."""
@@ -246,6 +256,7 @@ def _moe_apply(flat, combine, dispatch, w_in, b_in, w_out, b_out, act):
     return torch.einsum("gec,ech->gh", combine.to(flat.dtype), expert_out)
 
 
+@amp_op("moe_apply")
 def _moe_apply_ep(flat, combine, dispatch, w_in, b_in, w_out, b_out, act,
                   group, disjoint):
     """Capacity routing with this rank's ``E / n`` experts, upstream
@@ -303,6 +314,7 @@ class _FromExperts(torch.autograd.Function):
         return g * ctx.n, None
 
 
+@amp_op("moe_apply")
 def _moe_apply_replicated(flat, combine, dispatch, w_in, b_in, w_out, b_out,
                           act, group):
     """Capacity routing with this rank's ``E / n`` experts when every rank
@@ -327,6 +339,7 @@ def _moe_apply_replicated(flat, combine, dispatch, w_in, b_in, w_out, b_out,
     return _FromExperts.apply(part, group) if n > 1 else part
 
 
+@amp_op("moe_apply_dropless")
 def _moe_apply_dropless(flat, logits, w_in, b_in, w_out, b_out, act, top_k,
                         layout=None):
     """Dropless routing over the grouped matmul. Returns (out ``[G, H]``,

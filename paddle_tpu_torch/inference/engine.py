@@ -47,11 +47,23 @@ hand-written paged-attention kernel K3 (``ops/cuda/paged_attention.cu``).
   Disaggregated prefill (``prefill_export`` / ``try_import_prefill``)
   stays single-rank.
 
-Left for later slices: versioned weight epochs and the compile cache
-(ROADMAP.md §A.8).
+* **Versioned weight epochs.** ``begin_weight_epoch`` / ``stage_weight``
+  fill a shadow set while decoding goes on; ``promote_epoch`` swaps it in
+  at a request boundary: in-flight requests finish on the epoch they were
+  admitted under (its values stay pinned for them), new admissions take
+  the new one, and while both run each step decodes one epoch group at a
+  time (``serving/online.py`` drives it over ``wt`` frames).
+* **Low precision.** The residual stream runs in the model's parameter
+  dtype: a ``decorate``d O2 bf16 model is served in bf16 (the adapters'
+  hooks run its ops in their inputs' dtype, K3 reads the bf16 query and
+  returns bf16), the pool stays as ``kv_dtype`` says and the logits are
+  cast to f32 before sampling, as the reference's engine does.
+
+Left for later slices: the compile cache (ROADMAP.md §A.8).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 from collections import OrderedDict, deque
@@ -239,6 +251,10 @@ class Request:
     imported: bool = False
     #: pro-rata KV page occupancy charged so far, page-microseconds
     acct_page_us: int = 0
+    #: weight epoch this request was admitted under (per-slot epoch pin):
+    #: it decodes on that epoch's weights to its end, even if the engine
+    #: promotes a newer epoch mid-flight
+    epoch: int = 0
 
 
 def _trace_fields(req: Request, trace: Optional[dict], tenant, slo):
@@ -526,6 +542,22 @@ class DecodeEngine:
         mesh_group = self._resolve_mp(ad)
         if mesh_group is not None:
             self.adapter = ad = model.decode_adapter(mp_group=mesh_group)
+        self._mesh_group = mesh_group
+        #: the wt-stream address space: parameters then buffers, each
+        #: tensor once under its first name, as the reference orders them
+        self._state, self._state_names, seen = [], [], set()
+        for name, t in [*model.named_parameters(), *model.named_buffers()]:
+            if id(t) not in seen:
+                seen.add(id(t))
+                self._state.append(t)
+                self._state_names.append(name)
+        self._state_index = {n: i for i, n in enumerate(self._state_names)}
+        #: versioned weight epochs (serving/online.py): the live epoch, the
+        #: values (and adapter) pinned for in-flight requests of an older
+        #: one, and the shadow set an open wt stream stages into
+        self._epoch = 0
+        self._epoch_vals: Dict[int, tuple] = {}
+        self._shadow: Optional[dict] = None
         #: the mp group the engine serves over (the mesh's, or the model's
         #: own when built at mp > 1); None at mp 1
         self._mp_group = ad.mp_group
@@ -792,13 +824,25 @@ class DecodeEngine:
                     "waiting requests cannot get KV pages and no slot is "
                     "decoding; raise num_pages")
             return False
-        k = self.config.speculate_k
-        if k > 0 and self._agree(self._spec_worthwhile(k)):
-            drafts, any_real = self._collect_drafts(k)
-            if any_real and self._verify_headroom(k):
-                self._step_verify(drafts, k)
-                return True
-        self._step_decode()
+        epochs = sorted({r.epoch for r in self._running.values()})
+        if len(epochs) > 1:
+            # mixed-epoch flip window: one masked decode per epoch group
+            # (the other groups' table rows are zeroed, so their KV writes
+            # land on the trash page and their tokens are not applied);
+            # no speculation in the window: verify and decode sample the
+            # same position-keyed streams, so it costs throughput, not bits
+            for e in epochs:
+                with self._weights_of(e):
+                    self._step_decode(epoch=e)
+            return True
+        with self._weights_of(epochs[0]):
+            k = self.config.speculate_k
+            if k > 0 and self._agree(self._spec_worthwhile(k)):
+                drafts, any_real = self._collect_drafts(k)
+                if any_real and self._verify_headroom(k):
+                    self._step_verify(drafts, k)
+                    return True
+            self._step_decode()
         return True
 
     def _spec_worthwhile(self, k: int) -> bool:
@@ -836,11 +880,20 @@ class DecodeEngine:
         rep = lambda a: np.repeat(a, rows_per_slot)  # noqa: E731
         return rep(temp), rep(top_k), rep(top_p), rep(greedy)
 
-    def _step_decode(self):
+    def _step_decode(self, epoch: Optional[int] = None):
+        """One decode step of the running slots of ``epoch`` (None: every
+        slot) on the weights bound now; slots of other epochs ride along
+        masked."""
         if self._acct is not None:
             self._acct_tick(time.perf_counter())
         s = self.config.num_slots
-        active = list(self._running.items())
+        active = [(slot, req) for slot, req in self._running.items()
+                  if epoch is None or req.epoch == epoch]
+        tables = self._tables
+        if len(active) < len(self._running):
+            tables = self._tables.copy()
+            tables[[slot for slot, req in self._running.items()
+                    if req.epoch != epoch]] = 0
         tokens = np.zeros(s, np.int64)
         positions = np.zeros(s, np.int64)
         seeds = np.zeros(s, np.int64)
@@ -849,7 +902,7 @@ class DecodeEngine:
             positions[slot] = len(req.prompt) + len(req.tokens) - 1
             seeds[slot] = _mix_seed(req.seed, int(positions[slot]) + 1)
         t0 = time.perf_counter()
-        logits, exact = self._decode_body(tokens, positions)
+        logits, exact = self._decode_body(tokens, positions, tables)
         nxt = _sample_tokens(logits, seeds, *self._sampling_arrays(1),
                              exact_argmax=exact)
         nxt_host = nxt.cpu().numpy()  # the per-step host transfer: [S]
@@ -1072,14 +1125,16 @@ class DecodeEngine:
             "kv_heads": self._kv_heads,
             "logit_wire": self._logit_wire,
             "logit_verify": self._logit_verify,
+            "weight_epoch": int(self._epoch),
+            "pinned_epochs": sorted(self._epoch_vals),
         }
 
     def occupancy(self) -> dict:
         """Scheduler-load snapshot for the serving router: the numbers
         ``serving/worker.py`` publishes each poll (least-outstanding-tokens
-        dispatch reads ``outstanding_tokens``). ``compile_cache_hits`` and
-        ``weight_epoch`` keep the reference's keys: the port has no
-        compile cache and serves epoch 0 (ROADMAP.md §A.8)."""
+        dispatch reads ``outstanding_tokens``). ``compile_cache_hits``
+        keeps the reference's key: the port has no compile cache
+        (ROADMAP.md §A.8)."""
         outstanding = sum(r.params.max_new_tokens - len(r.tokens)
                           for r in self._running.values())
         outstanding += sum(len(r.prompt) + r.params.max_new_tokens
@@ -1094,7 +1149,7 @@ class DecodeEngine:
             "decode_steps": int(self.decode_steps),
             "total_tokens": int(self.total_tokens),
             "compile_cache_hits": 0,
-            "weight_epoch": 0,
+            "weight_epoch": int(self._epoch),
         }
 
     # -- disaggregated prefill: KV-page export / import ---------------------
@@ -1336,6 +1391,7 @@ class DecodeEngine:
             keys = PrefixRegistry.block_keys(ids, p)
             for j in range(t0 // p):
                 self.registry.register(keys[j], int(row[j]))
+        req.epoch = self._epoch
         self._requests[rid] = req
         self._running[slot] = req
         _obs.inc("serving_requests_total")
@@ -1435,6 +1491,7 @@ class DecodeEngine:
                 kernel=self._attn_kernel)
         req.slot = slot
         req.status = "running"
+        req.epoch = self._epoch  # admission pins the epoch it prefilled on
         self._running[slot] = req
         self.total_tokens += 1
         self.prompt_tokens_total += t0
@@ -1460,6 +1517,11 @@ class DecodeEngine:
             self._tables[req.slot] = 0
             self._free.append(req.slot)
             req.slot = -1
+            if req.epoch in self._epoch_vals and not any(
+                    r.epoch == req.epoch for r in self._running.values()):
+                # the last in-flight request of a retired epoch: release
+                # its pinned weights
+                del self._epoch_vals[req.epoch]
         for page in req.page_ids:
             self.pool.decref(page)
         req.page_ids = []
@@ -1533,6 +1595,119 @@ class DecodeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- versioned weight epochs (serving/online.py) ------------------------
+
+    @property
+    def weight_epoch(self) -> int:
+        """The epoch new admissions are pinned to."""
+        return self._epoch
+
+    def state_keys(self) -> List[str]:
+        """Leaf names in state order (parameters then buffers, each tensor
+        under its first name): the wt stream's address space."""
+        return list(self._state_names)
+
+    def _make_adapter(self):
+        g = self._mesh_group
+        return (self.model.decode_adapter() if g is None
+                else self.model.decode_adapter(mp_group=g))
+
+    @contextlib.contextmanager
+    def _weights_of(self, epoch: int):
+        """Run the block on ``epoch``'s weights: the live ones, or the
+        values (and the adapter built on them) pinned for an older epoch's
+        in-flight requests, bound into the model's tensors for the block
+        and the live ones bound back after it."""
+        if epoch == self._epoch:
+            yield
+            return
+        vals, adapter = self._epoch_vals[epoch]
+        live, live_adapter = [t.data for t in self._state], self.adapter
+        for t, v in zip(self._state, vals):
+            t.data = v
+        self.adapter = adapter
+        try:
+            yield
+        finally:
+            for t, v in zip(self._state, live):
+                t.data = v
+            self.adapter = live_adapter
+
+    def begin_weight_epoch(self, epoch: int) -> bool:
+        """Open the shadow set for ``epoch``: the live values, which
+        :meth:`stage_weight` replaces leaf by leaf while decoding goes on
+        on the live set. False (a no-op) when ``epoch`` is not newer than
+        the live one: a replayed wt stream after a crash must not reopen a
+        committed epoch."""
+        epoch = int(epoch)
+        if epoch <= self._epoch:
+            return False
+        self._shadow = {"epoch": epoch,
+                        "vals": [t.data for t in self._state],
+                        "staged": set()}
+        return True
+
+    def stage_weight(self, name: str, value) -> None:
+        """Stage one leaf's new-epoch value (a host array or a tensor)
+        into the shadow set, cast to the live leaf's dtype and placed on
+        its device. The live set, and every in-flight request, is
+        untouched until :meth:`promote_epoch`."""
+        if self._shadow is None:
+            raise RuntimeError("stage_weight with no open shadow epoch "
+                               "(begin_weight_epoch first)")
+        i = self._state_index[name]
+        cur = self._state[i].data
+        val = torch.as_tensor(np.asarray(value) if not isinstance(
+            value, torch.Tensor) else value)
+        if tuple(val.shape) != tuple(cur.shape):
+            raise ValueError(
+                f"staged weight {name!r} shape {tuple(val.shape)} != "
+                f"live {tuple(cur.shape)}")
+        self._shadow["vals"][i] = val.to(device=cur.device, dtype=cur.dtype,
+                                         copy=True)
+        self._shadow["staged"].add(name)
+
+    def discard_shadow(self, epoch: Optional[int] = None) -> bool:
+        """Drop an unpromoted shadow set (a weight transaction's
+        rollback); ``epoch`` narrows it to that epoch's shadow. False when
+        there is nothing to drop."""
+        if self._shadow is None:
+            return False
+        if epoch is not None and self._shadow["epoch"] != int(epoch):
+            return False
+        self._shadow = None
+        return True
+
+    def promote_epoch(self, epoch: int) -> bool:
+        """Make the staged shadow set live, at a request boundary: the
+        tensors' values are swapped, no slot is drained. In-flight
+        requests keep decoding on their pinned epoch (its values are kept
+        for them), new admissions read the promoted set. The prefix
+        registry is dropped: its pages hold the old weights' KV. An
+        ``epoch`` at or below the live one, or with no matching shadow,
+        is a False no-op, so a replayed swap order flips at most once. Only
+        ``serving/online.py::apply_wt_frame`` calls it."""
+        epoch = int(epoch)
+        if epoch <= self._epoch:
+            return False
+        if self._shadow is None or self._shadow["epoch"] != epoch:
+            return False
+        if any(r.epoch == self._epoch for r in self._running.values()):
+            self._epoch_vals[self._epoch] = (
+                [t.data for t in self._state], self.adapter)
+        for t, v in zip(self._state, self._shadow["vals"]):
+            t.data = v
+        self.adapter = self._make_adapter()
+        self._epoch = epoch
+        self._shadow = None
+        # the registry's pages hold the old weights' KV and its keys hash
+        # the prompt alone: a new admission must not attach them
+        self.release_prefix_cache()
+        live = {r.epoch for r in self._running.values()}
+        for e in [e for e in self._epoch_vals if e not in live]:
+            del self._epoch_vals[e]
+        return True
+
     # -- the three programs, as eager bodies --------------------------------
 
     def _attend(self, q, layer, tables, start):
@@ -1597,16 +1772,18 @@ class DecodeEngine:
         off = true_len - 1 - cached_len
         return self._recombine(ad.logits(x[:, off:off + 1])[:, 0])
 
-    def _token_body(self, tokens, positions):
+    def _token_body(self, tokens, positions, tables=None):
         """Decode (T=1) and verify (T=k+1) share one body: tokens [S, T],
-        positions [S] (position of each slot's first token). Returns
-        logits [S, T, V] f32 and the exact argmax or None."""
+        positions [S] (position of each slot's first token), the page
+        tables (default: the engine's). Returns logits [S, T, V] f32 and
+        the exact argmax or None."""
         ad, dev = self.adapter, self.device
         psz, int8 = self.config.page_size, self._int8
         t = tokens.shape[1]
         start = torch.as_tensor(positions, device=dev)
         pos2 = start[:, None] + torch.arange(t, device=dev)[None, :]
-        tables = torch.as_tensor(self._tables, device=dev)
+        tables = torch.as_tensor(self._tables if tables is None else tables,
+                                 device=dev)
         x = self._embed(torch.as_tensor(tokens, device=dev), pos2)
 
         def write(l, k, v):
@@ -1619,10 +1796,10 @@ class DecodeEngine:
         return self._recombine(ad.logits(x))
 
     @torch.no_grad()
-    def _decode_body(self, tokens, positions):
+    def _decode_body(self, tokens, positions, tables=None):
         """Single-token decode over all slots: logits [S, V] f32 (and the
         exact argmax [S] or None)."""
-        logits, exact = self._token_body(tokens[:, None], positions)
+        logits, exact = self._token_body(tokens[:, None], positions, tables)
         return logits[:, 0], (None if exact is None else exact[:, 0])
 
     @torch.no_grad()

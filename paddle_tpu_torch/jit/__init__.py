@@ -29,9 +29,13 @@ class TrainStep:
     Only the optimizer's parameter list is trained, in its order; other
     parameters of the model are held fixed and get no gradient (the
     reference treats them as buffers). ``__call__`` returns the loss as a
-    detached device tensor, with no host sync."""
+    detached device tensor, with no host sync. ``donate`` (the reference's
+    XLA buffer donation) is accepted and recorded: an eager step has no
+    buffers to donate."""
 
-    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer):
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
+                 donate=True):
+        self._donate = donate
         self._model = model
         self._loss_fn = loss_fn
         self._opt = optimizer

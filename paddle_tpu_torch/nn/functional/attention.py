@@ -135,7 +135,7 @@ def padded_attention(query, key, value, mask, dropout_p=0.0, training=True,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, scale=None):
+                                 training=True, scale=None, name=None):
     """paddle.nn.functional.scaled_dot_product_attention parity, layout
     ``[B, T, H, D]``. ``attn_mask`` (bool keep-mask or additive float mask,
     broadcastable to ``[B, H, Tq, Tk]``) is never differentiated.
@@ -195,14 +195,34 @@ def decode_attention(query, cache_k, cache_v, cache_position, scale=None,
                                 scale)
 
 
+#: the reference's names of the paged-attention implementations: "pallas"
+#: is its fused kernel (K3 here), "einsum" its oracle (the plain version)
+PAGED_KERNELS = ("auto", "pallas", "einsum")
+
+
 def paged_attention(query, pool_k, pool_v, page_table, start_position,
-                    scale=None, k_scales=None, v_scales=None):
+                    scale=None, k_scales=None, v_scales=None, kernel=None,
+                    name=None):
     """Multi-token KV-cached attention against a paged cache: ``query``
-    ``[S, T, H, D]``; ``pool_k/v`` ``[N, Hkv, page_size, D]`` at their
-    stored dtype; ``page_table`` ``[S, max_pages]`` int32;
+    ``[S, T, H, D]`` f32 or bf16; ``pool_k/v`` ``[N, Hkv, page_size, D]``
+    at their stored dtype; ``page_table`` ``[S, max_pages]`` int32;
     ``start_position`` ``[S]`` int32. ``k_scales``/``v_scales``
     (``[N, Hkv, page_size]`` f32, both or neither) mark int8 pools.
-    Returns ``[S, T, H, D]`` f32."""
+    Returns ``[S, T, H, D]`` in ``query``'s dtype.
+
+    ``kernel`` picks the implementation by the reference's names (None is
+    ``"auto"``): ``"auto"`` and ``"pallas"`` run K3 on a CUDA tensor and
+    its plain version on a CPU tensor; ``"einsum"`` runs the plain
+    version, on a CPU tensor only: on a CUDA tensor the port launches K3
+    or raises, it never takes the plain version there."""
+    choice = "auto" if kernel is None else str(kernel).lower()
+    if choice not in PAGED_KERNELS:
+        raise ValueError(f"unknown attention kernel {kernel!r}; expected one "
+                         f"of {PAGED_KERNELS}")
+    if choice == "einsum" and query.device.type != "cpu":
+        raise ValueError(
+            f"kernel='einsum' (the plain version) on a {query.device.type} "
+            "tensor: the port runs K3 there")
     return _pa.paged_attention(query, pool_k, pool_v, page_table,
                                start_position, scale=scale,
                                k_scales=k_scales, v_scales=v_scales)

@@ -8,10 +8,16 @@ names and shapes unchanged. At model-parallel degree 1 the fleet layers
 ``ColumnParallelLinear`` / ``RowParallelLinear`` / ``VocabParallelEmbedding``
 reduce to these.
 
-Parameters are created on the device given and initialised from the
-explicit ``torch.Generator`` given: by ``weight_attr``'s / ``bias_attr``'s
-initializer where a ``ParamAttr`` names one, else ``Linear``'s
-``weight_init`` where given, else normal with std ``init_std``; biases 0.
+Both take the reference's positional arguments (``Linear(in_features,
+out_features, weight_attr, bias_attr, name)``, ``Embedding(num_embeddings,
+embedding_dim, padding_idx, sparse, weight_attr, name)``); the port's own
+arguments (``device``, ``dtype``, ``generator``, ``init_std`` and
+``Linear``'s ``weight_init``) are keyword-only. Parameters are created on
+the device given and initialised from the explicit ``torch.Generator``
+given: by ``weight_attr``'s / ``bias_attr``'s initializer where a
+``ParamAttr`` names one, else ``Linear``'s ``weight_init`` where given,
+else normal with std ``init_std`` where given, else ``XavierNormal`` (the
+reference's default); biases 0.
 A ``ParamAttr`` also sets ``trainable`` and the ``learning_rate`` and
 ``regularizer`` the optimizer reads (``nn/layer.py``); ``bias_attr=False``
 drops the bias.
@@ -28,22 +34,28 @@ from ..functional import common as F
 from ..layer import Layer, create_parameter
 
 
+def _default_init(init_std):
+    """``Normal(0, init_std)`` where a std is given, else the reference's
+    ``XavierNormal``."""
+    return I.XavierNormal() if init_std is None else I.Normal(0.0, init_std)
+
+
 class Linear(Layer):
-    def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, device=None, dtype=torch.float32,
+    def __init__(self, in_features: int, out_features: int, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 init_std: float = 0.02, weight_init=None, weight_attr=None,
-                 bias_attr=None):
+                 init_std: Optional[float] = None, weight_init=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.weight = create_parameter(
             (in_features, out_features), weight_attr,
-            default_initializer=weight_init or I.Normal(0.0, init_std), **kw)
+            default_initializer=weight_init or _default_init(init_std), **kw)
         self.bias = (create_parameter((out_features,), bias_attr,
                                       is_bias=True, **kw)
-                     if bias and bias_attr is not False else None)
+                     if bias_attr is not False else None)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -69,14 +81,14 @@ class Embedding(Layer):
                  padding_idx=None, sparse=False, weight_attr=None, name=None,
                  *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 init_std: float = 0.02):
+                 init_std: Optional[float] = None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self._padding_idx = padding_idx
         self.weight = create_parameter(
             (num_embeddings, embedding_dim), weight_attr,
-            default_initializer=I.Normal(0.0, init_std), device=device,
+            default_initializer=_default_init(init_std), device=device,
             dtype=dtype, generator=generator)
         if padding_idx is not None:
             with torch.no_grad():

@@ -36,8 +36,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: c_void_p so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
     # q, k_pool, v_pool, k_scales, v_scales, page_table, start, out,
-    # scratch, S, T, H, Hkv, P, D, MP, kv_dtype, nsplit, scale, fill, stream
-    "paddle_paged_attention": ([_P] * 9 + [_I] * 9 + [_F, _F, _P], _I),
+    # scratch, S, T, H, Hkv, P, D, MP, kv_dtype, q_dtype, nsplit, scale,
+    # fill, stream
+    "paddle_paged_attention": ([_P] * 9 + [_I] * 10 + [_F, _F, _P], _I),
     # q, k, v, bias, o, lse, strides, 12 ints, scale, stream
     "paddle_flash_attention_fwd": ([_P] * 6 + [_STRIDES] + [_I] * 12
                                    + [_F, _P], _I),

@@ -9,7 +9,10 @@
 // over the sequence's pages, causal at start_position[s] + t per row,
 // masked-logit fill = finfo(f32).min / 2, p = 0 where the logit is
 // <= fill / 2 (an all-masked row emits zeros), final divide by
-// max(l, 1e-30). Output is written straight into [S, T, H, D] f32. Page 0
+// max(l, 1e-30). The query is read at its stored dtype, f32 or bf16, and
+// converted to f32 on load (the TPU kernel's upcast, :208); the output is
+// written straight into [S, T, H, D] in the query's dtype, from the f32
+// accumulator in the epilogue (the einsum oracle returns q.dtype). Page 0
 // is the trash page: it is gathered like any page and masked by position.
 //
 // The TPU walked page slots as a sequential grid axis with m / l / acc in
@@ -20,7 +23,8 @@
 // "tile" (rows = T * G >= 16: the tail prefill, verify with wide GQA):
 // bound by operations (S=1, T=1024: ~4.3e9 FLOPs on ~25 MB). One block
 // owns 64 folded rows of one (slot, kv head), 4 warps of 16 rows on tensor
-// cores (attention_tile.cuh): q is f32 and split hi / lo, a bf16 or int8
+// cores (attention_tile.cuh): q is f32 (a bf16 q converted on load) and
+// split hi / lo (a bf16 q's lo part is 0), a bf16 or int8
 // pool value is exact in TF32, so q.k and p.v take two TF32 products (three
 // with an f32 pool); int8 scales multiply the logit (k scale) and p (v
 // scale) per key, outside the products. Keys are gathered through the page
@@ -81,6 +85,41 @@ __device__ __forceinline__ void gather_chunk(KV* dst, const KV* pool,
   at::cp_async16(dst, pool + (row < 0 ? 0 : row) * D + c, row >= 0);
 }
 
+// four query elements into f32 shared memory, zeros where !ok: an f32
+// query by one 16-byte asynchronous copy, a bf16 query by one 8-byte read
+// converted on load
+__device__ __forceinline__ void load_q4(float* dst, const float* src,
+                                        bool ok) {
+  at::cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void load_q4(float* dst, const __nv_bfloat16* src,
+                                        bool ok) {
+  float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ok) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    f = make_float4(a.x, a.y, b.x, b.y);
+  }
+  *reinterpret_cast<float4*>(dst) = f;
+}
+
+// output elements from the f32 accumulator, in the query's dtype (bf16
+// rounded to nearest even, as torch's cast)
+__device__ __forceinline__ void store_out2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_out2(__nv_bfloat16* o, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_out(float* o, float a) { *o = a; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float a) {
+  *o = __float2bfloat16_rn(a);
+}
+
 // ------------------------------------------------------------ tile regime
 
 // Shared-memory row strides (elements) of the tile regime: with an f32
@@ -95,15 +134,15 @@ struct TileStrides {
   static constexpr int k = kF32 ? D + 16 : v;
 };
 
-template <int D, int BK, typename KV>
+template <int D, int BK, typename KV, typename QT>
 __global__ void __launch_bounds__(at::kThreads, 2)
-paged_tile_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
+paged_tile_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pool,
                   const KV* __restrict__ v_pool,
                   const float* __restrict__ k_scales,
                   const float* __restrict__ v_scales,
                   const int* __restrict__ page_table,
                   const int* __restrict__ start_position,
-                  float* __restrict__ out, int T, int H, int Hkv, int P,
+                  QT* __restrict__ out, int T, int H, int Hkv, int P,
                   int MP, float scale, float fill) {
   constexpr int BQ = at::kRows;
   constexpr int V = 16 / sizeof(KV);  // elements per 16-byte copy
@@ -134,7 +173,7 @@ paged_tile_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
         ok ? ((static_cast<long long>(s) * T + fr / G) * H + h * G + fr % G) *
                      D + c
            : 0;
-    at::cp_async16(q_s + r * QS + c, q + off, ok);
+    load_q4(q_s + r * QS + c, q + off, ok);
   }
   // keys beyond the tile's largest query position are masked for all rows
   const int last_row = min(rows, (tile + 1) * BQ) - 1;
@@ -215,14 +254,13 @@ paged_tile_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
     const int fr = fr0 + 8 * rr;
     if (fr >= rows) continue;
     const float safe = fmaxf(lt, 1e-30f);
-    float* o = out +
-               ((static_cast<long long>(s) * T + fr / G) * H + h * G + fr % G) *
-                   D +
-               2 * tq;
+    QT* o = out +
+            ((static_cast<long long>(s) * T + fr / G) * H + h * G + fr % G) *
+                D +
+            2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<float2*>(o + n * 8) =
-          make_float2(acc[n][2 * rr] / safe, acc[n][2 * rr + 1] / safe);
+      store_out2(o + n * 8, acc[n][2 * rr] / safe, acc[n][2 * rr + 1] / safe);
   }
 }
 
@@ -252,9 +290,9 @@ __device__ __forceinline__ float transpose_sum16(float (&v)[16], int lane) {
   return v[0] + __shfl_xor_sync(at::kFull, v[0], 1);
 }
 
-template <int D, typename KV>
+template <int D, typename KV, typename QT>
 __global__ void __launch_bounds__(at::kThreads)
-paged_split_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
+paged_split_kernel(const QT* __restrict__ q, const KV* __restrict__ k_pool,
                    const KV* __restrict__ v_pool,
                    const float* __restrict__ k_scales,
                    const float* __restrict__ v_scales,
@@ -295,11 +333,10 @@ paged_split_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
 
   for (int i = threadIdx.x; i < rows * (D / 4); i += at::kThreads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    at::cp_async16(
-        q_s + r * D + c,
-        q + ((static_cast<long long>(s) * T + r / G) * H + h * G + r % G) *
-                    D + c,
-        true);
+    load_q4(q_s + r * D + c,
+            q + ((static_cast<long long>(s) * T + r / G) * H + h * G + r % G) *
+                        D + c,
+            true);
   }
   for (int i = threadIdx.x; i < kSplitKeys * (D / V); i += at::kThreads) {
     const int r = i / (D / V), c = (i % (D / V)) * V;
@@ -382,11 +419,11 @@ paged_split_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
 
 // Merge the partials of one (slot, kv head, row) in split order; splits
 // with l = 0 are skipped, so a row no key reaches emits zeros.
-template <int D>
+template <int D, typename QT>
 __global__ void __launch_bounds__(D)
 paged_merge_kernel(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml,
-                   float* __restrict__ out, int T, int H, int Hkv, int nsplit,
+                   QT* __restrict__ out, int T, int H, int Hkv, int nsplit,
                    float fill) {
   const int r = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int d = threadIdx.x;
@@ -408,8 +445,10 @@ paged_merge_kernel(const float* __restrict__ part_acc,
       acc += w * part_acc[p * D + d];
     }
   }
-  out[((static_cast<long long>(s) * T + r / G) * H + h * G + r % G) * D + d] =
-      acc / fmaxf(l, 1e-30f);
+  store_out(
+      out + ((static_cast<long long>(s) * T + r / G) * H + h * G + r % G) * D +
+          d,
+      acc / fmaxf(l, 1e-30f));
 }
 
 // ------------------------------------------------------------ launch
@@ -428,17 +467,17 @@ struct Call {
   float scale, fill;
 };
 
-template <int D, typename KV>
+template <int D, typename KV, typename QT>
 int launch(const Call& c, cudaStream_t stream) {
   const int rows = c.T * (c.H / c.Hkv);
-  const float* q = static_cast<const float*>(c.q);
+  const QT* q = static_cast<const QT*>(c.q);
   const KV* kp = static_cast<const KV*>(c.k_pool);
   const KV* vp = static_cast<const KV*>(c.v_pool);
   const float* ks = static_cast<const float*>(c.k_scales);
   const float* vs = static_cast<const float*>(c.v_scales);
   const int* table = static_cast<const int*>(c.page_table);
   const int* start = static_cast<const int*>(c.start_position);
-  float* out = static_cast<float*>(c.out);
+  QT* out = static_cast<QT*>(c.out);
   constexpr int SD = D + 16 / static_cast<int>(sizeof(KV));
   cudaError_t e;
   if (c.nsplit == 0) {
@@ -448,7 +487,7 @@ int launch(const Call& c, cudaStream_t stream) {
     const int smem = at::kRows * TS::q * 4 +
                      2 * BK * (TS::k + TS::v) * static_cast<int>(sizeof(KV)) +
                      4 * BK * 4;
-    auto* kernel = paged_tile_kernel<D, BK, KV>;
+    auto* kernel = paged_tile_kernel<D, BK, KV, QT>;
     if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
     const dim3 grid((rows + at::kRows - 1) / at::kRows, c.Hkv, c.S);
     kernel<<<grid, at::kThreads, smem, stream>>>(
@@ -464,36 +503,46 @@ int launch(const Call& c, cudaStream_t stream) {
   const int smem = (kSplitRows * D + kSplitRows * (kSplitKeys + 1) +
                     2 * kSplitKeys) * 4 +
                    2 * kSplitKeys * SD * static_cast<int>(sizeof(KV));
-  auto* kernel = paged_split_kernel<D, KV>;
+  auto* kernel = paged_split_kernel<D, KV, QT>;
   if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
   kernel<<<dim3(c.nsplit, c.Hkv, c.S), at::kThreads, smem, stream>>>(
       q, kp, vp, ks, vs, table, start, part_acc, part_ml, c.T, c.H, c.Hkv,
       c.P, c.MP, c.nsplit, c.scale, c.fill);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  paged_merge_kernel<D><<<dim3(rows, c.Hkv, c.S), D, 0, stream>>>(
+  paged_merge_kernel<D, QT><<<dim3(rows, c.Hkv, c.S), D, 0, stream>>>(
       part_acc, part_ml, out, c.T, c.H, c.Hkv, c.nsplit, c.fill);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, typename QT>
 int dispatch_dtype(int kv_dtype, const Call& c, cudaStream_t stream) {
   switch (kv_dtype) {
     case 0:
-      return launch<D, float>(c, stream);
+      return launch<D, float, QT>(c, stream);
     case 1:
-      return launch<D, __nv_bfloat16>(c, stream);
+      return launch<D, __nv_bfloat16, QT>(c, stream);
     case 2:
-      return launch<D, int8_t>(c, stream);
+      return launch<D, int8_t, QT>(c, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int D>
+int dispatch_query(int q_dtype, int kv_dtype, const Call& c,
+                   cudaStream_t stream) {
+  if (q_dtype == 0) return dispatch_dtype<D, float>(kv_dtype, c, stream);
+  if (q_dtype == 1)
+    return dispatch_dtype<D, __nv_bfloat16>(kv_dtype, c, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes (paddle_tpu_torch/ops/cuda/build.py).
 // kv_dtype: 0 = f32, 1 = bf16, 2 = int8 (then k_scales / v_scales are
-// [N, Hkv, P] f32, else both null). nsplit = 0 runs the tile regime;
+// [N, Hkv, P] f32, else both null). q_dtype: 0 = f32, 1 = bf16; `out` is
+// [S, T, H, D] in the query's dtype. nsplit = 0 runs the tile regime;
 // nsplit > 0 runs the split regime over the nsplit = ceil(MP * P / 64)
 // splits of 64 keys (any other count is refused, so the wrapper's
 // SPLIT_KEYS cannot drift from kSplitKeys) and its merge, with `scratch`
@@ -505,8 +554,8 @@ extern "C" int paddle_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scales, const void* v_scales, const void* page_table,
     const void* start_position, void* out, void* scratch, int S, int T,
-    int H, int Hkv, int P, int D, int MP, int kv_dtype, int nsplit,
-    float scale, float fill, void* stream) {
+    int H, int Hkv, int P, int D, int MP, int kv_dtype, int q_dtype,
+    int nsplit, float scale, float fill, void* stream) {
   if (S <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0 || P <= 0 || MP <= 0 ||
       S > 65535 || Hkv > 65535 || nsplit < 0 ||
       (nsplit > 0 && nsplit != (MP * P + kSplitKeys - 1) / kSplitKeys))
@@ -518,7 +567,7 @@ extern "C" int paddle_paged_attention(
                start_position, out, scratch, S, T, H, Hkv, P, MP, nsplit,
                scale, fill};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return dispatch_dtype<64>(kv_dtype, c, st);
-  if (D == 128) return dispatch_dtype<128>(kv_dtype, c, st);
+  if (D == 64) return dispatch_query<64>(q_dtype, kv_dtype, c, st);
+  if (D == 128) return dispatch_query<128>(q_dtype, kv_dtype, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,9 +30,11 @@ import ctypes
 import torch
 
 #: kernel launches of K4a and K4b (plain counts; callers reset them to 0
-#: around a run they want to attribute)
+#: around a run they want to attribute), and of them the bf16 ones
 launches_fwd = 0
 launches_drhs = 0
+launches_fwd_bf16 = 0
+launches_drhs_bf16 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535          # grid y / z limit: K4b's k tiles and groups
@@ -154,7 +156,7 @@ def _call(name, device, *args):
 def grouped_matmul_cuda(lhs, rhs, group_sizes):
     """Launch K4a; same contract as :func:`grouped_matmul_plain`. ``rhs``
     may be a strided view (``w.transpose(1, 2)`` for dlhs)."""
-    global launches_fwd
+    global launches_fwd, launches_fwd_bf16
     _check(lhs, rhs, group_sizes)
     _check_cuda(lhs, rhs, group_sizes)
     m, k = lhs.shape
@@ -171,12 +173,13 @@ def grouped_matmul_cuda(lhs, rhs, group_sizes):
           rhs.data_ptr(), _offsets(group_sizes).data_ptr(), out.data_ptr(),
           strides, m, k, n, g, _DTYPES[lhs.dtype], int(k_contig), int(vec))
     launches_fwd += 1
+    launches_fwd_bf16 += lhs.dtype == torch.bfloat16
     return out
 
 
 def grouped_matmul_drhs_cuda(lhs, dout, group_sizes):
     """Launch K4b; same contract as :func:`grouped_matmul_drhs_plain`."""
-    global launches_drhs
+    global launches_drhs, launches_drhs_bf16
     if dout.dim() != 2 or dout.shape[0] != lhs.shape[0]:
         raise ValueError(f"dout must be [M, N] with M={lhs.shape[0]}, got "
                          f"{tuple(dout.shape)}")
@@ -193,6 +196,7 @@ def grouped_matmul_drhs_cuda(lhs, dout, group_sizes):
           dout.data_ptr(), _offsets(group_sizes).data_ptr(), drhs.data_ptr(),
           strides, m, k, n, g, _DTYPES[lhs.dtype], int(vec))
     launches_drhs += 1
+    launches_drhs_bf16 += lhs.dtype == torch.bfloat16
     return drhs
 
 

@@ -15,6 +15,10 @@ launches or raises. The kernel has two regimes, picked from the shapes by
 prefill) and ``split`` (flash-decoding over key splits and an in-order
 merge, for decode and verify); :func:`paged_attention_split_plain` is the
 plain version of the split decomposition, kept as the tests' oracle for it.
+The query is f32 or bf16 (the kernel converts a bf16 query to f32 on load,
+as the TPU kernel upcasts it), and the output comes back in the query's
+dtype, as the reference's einsum oracle returns it; fp16 is refused on the
+card (ROADMAP.md §B.2 item 7).
 ``launches`` counts calls that launched, ``launches_tile`` /
 ``launches_split`` the calls of each regime, and ``launches_decode`` /
 ``launches_verify`` the split-regime calls with one query row per slot
@@ -43,6 +47,7 @@ SPLIT_KEYS = 64
 TILE_MIN_ROWS = 16
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 
@@ -59,7 +64,8 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, start_position, *,
     """Plain PyTorch version: the einsum oracle of the reference
     (``nn/functional/attention.py::_paged_attention_op``) line by line.
     Gathers every page slot densely, dequantizes int8 pools up front and
-    runs a dense masked softmax. Returns ``[S, T, H, D]`` f32."""
+    runs a dense masked softmax in f32. Returns ``[S, T, H, D]`` in
+    ``q``'s dtype."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be passed together")
     s_, t, h, d = q.shape
@@ -90,7 +96,7 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, start_position, *,
                          mask_fill_value())
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("shgtk,shkd->sthgd", probs, v)
-    return out.reshape(s_, t, h, d)
+    return out.reshape(s_, t, h, d).to(q.dtype)
 
 
 def _k3_regime(t: int, group: int) -> str:
@@ -117,7 +123,8 @@ def paged_attention_split_plain(q, k_pool, v_pool, page_table,
     the partials merged in piece order, skipping ``l = 0``, divided by
     ``max(l, 1e-30)``. A row that sees no key emits zeros (as the kernels
     do; :func:`paged_attention_plain`'s dense softmax averages instead).
-    Returns ``[S, T, H, D]`` f32. No runtime path calls it: it is the
+    Returns ``[S, T, H, D]`` in ``q``'s dtype. No runtime path calls it:
+    it is the
     tests' oracle for the split regime's arithmetic."""
     s_, t, h, d = q.shape
     hkv, p = k_pool.shape[1], k_pool.shape[2]
@@ -161,7 +168,7 @@ def paged_attention_split_plain(q, k_pool, v_pool, page_table,
         acc = w_old[..., None] * acc + w_new[..., None] * a_i
         m_all = m_new
     out = acc / l_all.clamp(min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(s_, t, h, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(s_, t, h, d).to(q.dtype)
 
 
 def _check(q, k_pool, v_pool, page_table, start_position, k_scales,
@@ -198,8 +205,9 @@ def _check_cuda(q, k_pool, v_pool, page_table, start_position, k_scales,
     d = q.shape[-1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"kernel supports head_dim in {_HEAD_DIMS}, got {d}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"q must be float32, got {q.dtype}")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype} "
+                        "(float16 waits for ROADMAP.md §B.2 item 7)")
     if k_pool.dtype not in _KV_DTYPES or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"pools must share one dtype of "
                         f"{tuple(_KV_DTYPES)}, got {k_pool.dtype} / "
@@ -230,7 +238,7 @@ def paged_attention(q, k_pool, v_pool, page_table, start_position, *,
     """Fused paged attention over a page-table-indirected KV pool.
 
     Args:
-        q: ``[S, T, H, D]`` f32 queries.
+        q: ``[S, T, H, D]`` f32 or bf16 queries.
         k_pool, v_pool: ``[N, Hkv, P, D]`` pools in their STORED dtype
             (f32, bf16, or int8 together with the scales).
         page_table: ``[S, MP]`` int32; entry j of slot s is the physical
@@ -241,7 +249,8 @@ def paged_attention(q, k_pool, v_pool, page_table, start_position, *,
         k_scales, v_scales: ``[N, Hkv, P]`` f32 absmax scales of int8
             pools (both or neither).
 
-    Returns ``[S, T, H, D]`` f32. CPU tensors take the plain version; CUDA
+    Returns ``[S, T, H, D]`` in ``q``'s dtype. CPU tensors take the plain
+    version; CUDA
     tensors launch the kernel (D in {64, 128}) in the regime
     :func:`_k3_regime` picks.
     """
@@ -267,7 +276,7 @@ def paged_attention(q, k_pool, v_pool, page_table, start_position, *,
     if q.data_ptr() % 16:  # the kernel reads q rows with 16-byte copies
         q = q.clone()
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    out = torch.empty((s, t, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((s, t, h, d), dtype=q.dtype, device=q.device)
     nsplit, scratch = 0, None
     if regime == "split":
         nsplit = _k3_splits(mp, p)
@@ -282,8 +291,8 @@ def paged_attention(q, k_pool, v_pool, page_table, start_position, *,
             None if v_scales is None else v_scales.data_ptr(),
             page_table.data_ptr(), start_position.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            s, t, h, hkv, p, d, mp, _KV_DTYPES[k_pool.dtype], nsplit, sc,
-            mask_fill_value(), stream)
+            s, t, h, hkv, p, d, mp, _KV_DTYPES[k_pool.dtype],
+            _Q_DTYPES[q.dtype], nsplit, sc, mask_fill_value(), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel ({regime} regime) launch "
                            f"failed with CUDA error {err}")

@@ -17,15 +17,19 @@ request router, on a streaming dataplane (counterpart of
   long prompts go to a prefill worker and stream KV to their decode
   worker — and fails over dead engines by resubmitting their unfinished
   work, bit-equal because every request carries a router-assigned seed.
+- ``online`` publishes versioned weight epochs into live engines as
+  journaled, seq-acked ``wt`` streams that flip at a request boundary,
+  with no drain (``OnlineCoordinator``, ``EngineSink``,
+  ``WireEngineSink``, ``rollout_round``).
 
 Not ported yet (ROADMAP.md §A.4b, §A.8): the ``FrontierRouter`` front
-tier (``frontier.py``), the online weight epochs (``online.py``:
-``OnlineCoordinator``, ``EngineSink``, ``WireEngineSink``,
-``rollout_round``) and the replay generator (``replay.py``); the names
-below raise ``NotImplementedError``.
+tier (``frontier.py``) and the replay generator (``replay.py``); the
+front tier's names below raise ``NotImplementedError``.
 """
 from .protocol import (DEFAULT_DEADLINES, DEFAULT_NAMESPACE, ROLES,
                        SLO_CLASSES, SLO_OBJECTIVES, deadline_guard)
+from .online import (EngineSink, OnlineCoordinator, WireEngineSink,
+                     rollout_round)
 from .router import Router, RouterConfig, RouterRequest
 from .transport import SeqChannels, TransportClient, TransportServer
 from .worker import EngineWorker
@@ -33,15 +37,14 @@ from .worker import EngineWorker
 __all__ = [
     "Router", "RouterConfig", "RouterRequest", "EngineWorker",
     "TransportClient", "TransportServer", "SeqChannels",
+    "OnlineCoordinator", "EngineSink", "WireEngineSink", "rollout_round",
     "SLO_CLASSES", "SLO_OBJECTIVES", "DEFAULT_DEADLINES",
     "DEFAULT_NAMESPACE", "ROLES", "deadline_guard",
 ]
 
 _UNPORTED = {
     "FrontierRouter": "frontier.py", "FrontierConfig": "frontier.py",
-    "rendezvous_rank": "frontier.py", "OnlineCoordinator": "online.py",
-    "EngineSink": "online.py", "WireEngineSink": "online.py",
-    "rollout_round": "online.py",
+    "rendezvous_rank": "frontier.py",
 }
 
 

@@ -656,7 +656,8 @@ def encode_wt_frame(channel: str, seq: int, kind: str, epoch: int,
                     name: Optional[str] = None, arr=None,
                     wire: str = "bf16",
                     meta: Optional[dict] = None) -> dict:
-    """One weight-stream frame. ``leaf`` frames carry the named tensor
+    """One weight-stream frame. ``leaf`` frames carry the named tensor (a
+    torch tensor or a host array; a bf16 one goes raw, as its words)
     through ``encode_tensor`` (bf16 wire by default — the absmax
     machinery handles int8); control kinds (begin/swap/discard) carry
     only the epoch. ``meta`` rides small facts the receiver wants
@@ -669,7 +670,8 @@ def encode_wt_frame(channel: str, seq: int, kind: str, epoch: int,
         if name is None or arr is None:
             raise ValueError("wt leaf frames need name and arr")
         frame["name"] = str(name)
-        frame["x"] = encode_tensor(np.asarray(arr), wire)
+        frame["x"] = encode_tensor(
+            arr if isinstance(arr, torch.Tensor) else np.asarray(arr), wire)
     if meta:
         frame["meta"] = meta
     return frame

@@ -39,8 +39,10 @@ Run standalone, one process per worker, against the router's store::
         --device cuda --model-seed 7 --hidden 2048 --layers 24 \
         --heads 16 --vocab 50304 --max-positions 2048 --kv-dtype bf16
 
-``--device`` (default ``cuda``) is the only flag the reference lacks; a
-worker asked for CUDA where there is none exits non-zero. After its first
+``--device`` (default ``cuda``) and ``--amp-dtype`` are the flags the
+reference lacks; a worker asked for CUDA where there is none exits
+non-zero. ``--amp-dtype bfloat16`` serves the model ``amp.decorate``d O2
+(bf16 parameters and activations), the port's own extension. After its first
 result and at the router's stop broadcast the worker prints one JSON line
 on stderr (``{"serving_worker": {...}}``): its name, its device, its K3
 launches by regime so far and its float32 matmul settings.
@@ -63,8 +65,11 @@ the shared stderr when it stops. An exported KV frame carries every kv
 head (gathered over the ranks) and an imported one is split over them,
 so an mp-N prefill worker feeds an mp-1 decode worker unchanged.
 
-Not ported yet: the ``wt`` weight-epoch frames of ``serving/online.py``
-(§A.8) raise ``NotImplementedError``. Under ``PADDLE_TPU_LIVE_TELEMETRY=1``
+``wt`` frames (``serving/online.py``'s weight epochs) are stashed by
+publisher connection and applied in seq order between engine steps, a
+few a poll (``_WT_FRAMES_PER_POLL``), each acked to its publisher; at
+``--mp > 1`` the engine calls they make reach the followers as every
+other state-changing call does. Under ``PADDLE_TPU_LIVE_TELEMETRY=1``
 a worker with router links ships ``tele`` frames of its span tail on the
 occupancy beat (``observability/live.py``).
 """
@@ -91,9 +96,6 @@ from .transport import (SeqChannels, TransportClient, TransportServer,
                         decode_kv, encode_kv)
 
 __all__ = ["EngineWorker", "main"]
-
-_WT_UNPORTED = ("wt weight-epoch frames (serving/online.py: versioned "
-                "weight epochs) are not ported yet, see ROADMAP.md §A.8")
 
 #: store-mirror cadence for occupancy/fallback drains once a router
 #: socket is attached (the wire is the hot path; the store is failover
@@ -170,6 +172,8 @@ class EngineWorker:
         self.draining = False
         self._idle = True
         self._last_drain_ctl = -float("inf")
+        #: connection ids with a live wt (weight-epoch) stream attached
+        self._wt_cids: set = set()
         self.publish_occupancy()
 
     # -- transport I/O ------------------------------------------------------
@@ -193,9 +197,51 @@ class EngineWorker:
             elif t == "kv":
                 self._kv_imports.append(frame)
             elif t == "wt":
-                raise NotImplementedError(_WT_UNPORTED)
+                # weight-epoch stream (serving/online.py). Seqs are per
+                # publisher connection: a restarted coordinator redials
+                # and restarts at 0, so the channel is keyed by cid
+                self._rx_seq.stash(f"wt:{cid}", int(frame["seq"]),
+                                   (cid, frame))
+                self._wt_cids.add(cid)
         live = set(self._server.conn_ids())
         self._router_cids &= live
+
+    #: wt frames applied per poll round: a whole epoch's leaves can land
+    #: in one socket batch, and applying them all before the next engine
+    #: step would stall in-flight decode, the drain the flip exists to
+    #: avoid
+    _WT_FRAMES_PER_POLL = 2
+
+    def _drain_weights(self):
+        """Apply stashed wt frames in seq order between engine steps
+        (``online.apply_wt_frame`` is the only promote / discard call
+        site) and ack each to its publisher. Runs while draining too: a
+        weight flip is not an admission. The budget goes round-robin, one
+        frame a publisher connection a pass."""
+        from .online import apply_wt_frame
+
+        budget = self._WT_FRAMES_PER_POLL
+        cids = sorted(self._wt_cids)
+        while budget > 0:
+            progressed = False
+            for cid in cids:
+                if budget <= 0:
+                    break
+                item = self._rx_seq.pop_next(f"wt:{cid}")
+                if item is None:
+                    continue
+                _cid, frame = item
+                self._server.send(cid, apply_wt_frame(self.engine, frame))
+                budget -= 1
+                progressed = True
+            if not progressed:
+                break
+        # a dead publisher's channel is dropped whole: its stashed frames
+        # can never be consumed, and a reconnect comes under a new cid
+        live = set(self._server.conn_ids())
+        for cid in self._wt_cids - live:
+            self._rx_seq.drop(f"wt:{cid}")
+        self._wt_cids &= live
 
     def _send_routers(self, frame: dict):
         for cid in list(self._router_cids):
@@ -499,6 +545,8 @@ class EngineWorker:
         checks; an idle engine checks every poll so first dispatch lands
         fast. Returns True while the engine still holds work."""
         self._pump_transport()
+        if self._wt_cids:
+            self._drain_weights()
         self._check_drain_ctl()
         now = time.monotonic()
         if self.draining:
@@ -572,6 +620,10 @@ def build_worker_model(args):
         hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0),
         device=args.device, seed=args.model_seed)
     model.eval()
+    if getattr(args, "amp_dtype", "float32") != "float32":
+        from .. import amp
+
+        amp.decorate(model, level="O2", dtype=args.amp_dtype)
     return model
 
 
@@ -610,6 +662,10 @@ def build_arg_parser():
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--heads", type=int, default=4)
     p.add_argument("--max-positions", type=int, default=512)
+    p.add_argument("--amp-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="bfloat16 serves the model decorated O2 "
+                        "(amp.decorate): bf16 parameters and activations")
     # engine geometry
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-length", type=int, default=256)
@@ -622,6 +678,11 @@ def build_arg_parser():
                         "mp mesh; the follower ranks run on the same "
                         "device, over gloo)")
     return p
+
+
+#: the engine's counts a worker's (and a follower's) status record carries
+_ENGINE_FIELDS = ("prefill_calls", "decode_steps", "verify_steps",
+                  "total_tokens", "prefix_hit_tokens", "weight_epoch")
 
 
 def _status_record(worker: "EngineWorker", event: str) -> dict:
@@ -644,15 +705,14 @@ def _status_record(worker: "EngineWorker", event: str) -> dict:
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "float32_matmul_precision":
                 torch.get_float32_matmul_precision(),
-            "engine": {k: worker.engine.stats()[k] for k in (
-                "prefill_calls", "decode_steps", "verify_steps",
-                "total_tokens")}}
+            "engine": {k: worker.engine.stats()[k] for k in _ENGINE_FIELDS}}
 
 
 #: the engine calls that change its state: rank 0 of an mp worker hands
 #: each to the followers before it makes it
 _LOCKSTEP_CALLS = ("submit", "prefill_export", "try_import_prefill", "step",
-                   "warmup")
+                   "warmup", "begin_weight_epoch", "stage_weight",
+                   "promote_epoch", "discard_shadow")
 #: the environment variable that makes a worker process a follower rank
 _MP_RANK_ENV = "PADDLE_SERVING_MP_RANK"
 
@@ -776,9 +836,8 @@ def _follower_main(args, rank: int) -> int:
         "k3": {n: getattr(pa, n) for n in (
             "launches", "launches_tile", "launches_split",
             "launches_decode", "launches_verify")},
-        "engine": {k: engine.stats()[k] for k in (
-            "prefill_calls", "decode_steps", "verify_steps",
-            "total_tokens")}}}), file=sys.stderr, flush=True)
+        "engine": {k: engine.stats()[k] for k in _ENGINE_FIELDS}}}),
+        file=sys.stderr, flush=True)
     return 0
 
 

@@ -15,9 +15,11 @@ frame send), the store faults (``runtime/py_store.py``),
 planned step), ``on_commit`` / ``after_commit`` (the checkpoint writer's
 commit, ``distributed/checkpoint/__init__.py``) and ``mpmd_fence``
 (``distributed/mpmd.py``, before each stage op). ``step_fence`` is the
-training loop's to call, once a step. ``flip_fence`` and ``weight_fence``
-have no caller in the port yet (the supervisor and online weights,
-ROADMAP.md §A.8).
+training loop's to call, once a step. ``flip_fence`` is the fleet
+supervisor's (``distributed/fleet/supervisor.py``), at each flip fence,
+and ``weight_fence`` the online weight coordinator's
+(``serving/online.py``), at each weight-transaction fence and before each
+``wt`` frame it sends.
 
 Env knobs (all read lazily so tests can flip them per-case):
 

@@ -457,9 +457,15 @@ class _GPTDecodeAdapter:
     over the group, :meth:`logits` gives the rank's vocab block.
 
     The hooks call the layers' ops directly, past the module calls and
-    the AMP gateway: serving runs outside ``auto_cast`` (a decorated model
-    is not served yet, ROADMAP.md A.2c), and its steps are host-bound, so
-    each Python frame shows in the decode step (PERF.md section 6)."""
+    the AMP gateway: serving runs outside ``auto_cast``, as the
+    reference's engine does, and its steps are host-bound, so each Python
+    frame shows in the decode step (PERF.md section 6). Each hook computes
+    in its input's dtype, which is the parameters': a ``decorate``d O2
+    model is served in bf16 at every hook (embed, the norms, qkv, K3's
+    query and output, the out projection, the MLP, the logits), the dtypes
+    the reference's adapter runs such a model in (measured on its
+    ``DecodeEngine``); the engine casts the logits to f32 before
+    sampling."""
 
     def __init__(self, lm: GPTForCausalLM, mp_group=None):
         if not isinstance(lm.gpt.decoder, LayerList):

@@ -512,7 +512,10 @@ class _LlamaDecodeAdapter:
     directly). RoPE is applied inside :meth:`qkv` at the engine's explicit
     positions, so prefill buckets and per-slot decode share one code path.
     At mp > 1 the rank's ``H / mp`` query heads read its ``Hkv / mp`` kv
-    heads: contiguous blocks of both, so every GQA group stays whole."""
+    heads: contiguous blocks of both, so every GQA group stays whole. A
+    ``decorate``d model is served in bf16 at every hook, as GPT's (RMSNorm
+    normalises in f32 and returns its input's dtype; K3's verify at G = 4
+    runs the tile regime on the bf16 query)."""
 
     def __init__(self, lm: LlamaForCausalLM, mp_group=None):
         if not isinstance(lm.llama.layers, LayerList):

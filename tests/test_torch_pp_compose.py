@@ -440,6 +440,9 @@ def test_sep_pipeline_matches_reference(runs, name):
     job = JOBS[name]
     want_losses, want = _want_of(name, runs)
     res = [runs["port"][r][name] for r in range(WORLD)]
+    rel = np.max(np.abs(np.asarray(res[0]["losses"]) - want_losses)
+                 / np.abs(want_losses))
+    print(f"pp 2 x sep 2 {name}: loss rel to the reference {rel:.2e}")
     np.testing.assert_allclose(res[0]["losses"], want_losses, rtol=LOSS_RTOL)
     _assert_params_close(res[0]["full"], want)
     for r in res[1:]:

@@ -395,17 +395,23 @@ def test_unported_serving_knobs_raise(models, store, monkeypatch, tmp_path):
     from paddle_tpu_torch.serving.transport import TransportClient
 
     with pytest.raises(NotImplementedError, match="§A.8"):
-        serving.OnlineCoordinator
+        serving.FrontierRouter
     with pytest.raises(NotImplementedError, match="§A.8"):
         worker_mod.main(["--step-floor-ms", "5", "--device", "cpu"])
     router = Router(store)
     w = EngineWorker(tm, store, **ENG)
+    # a wt frame (serving/online.py) is applied between steps and acked
     link = TransportClient(w._server.addr)
-    assert link.send({"t": "wt", "ch": "wt:0", "seq": 0, "kind": "begin",
+    assert link.send({"t": "wt", "ch": "wt", "seq": 0, "kind": "begin",
                       "epoch": 1})
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        for _ in range(200):
-            w.poll_once()
+    acks = []
+    for _ in range(200):
+        w.poll_once()
+        acks += [f for f in link.poll() if f.get("t") == "wt_ack"]
+        if acks:
+            break
+    assert acks[0]["kind"] == "begin" and acks[0]["applied"]
+    assert acks[0]["live"] == 0 and w.engine._shadow["epoch"] == 1
     link.close()
     # the live plane is ported (tests/test_torch_live_telemetry.py): under
     # the flag a pump builds the router's aggregator and ticks it; an

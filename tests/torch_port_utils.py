@@ -59,10 +59,16 @@ def jax_tiny_gpt(seed=7, **kw):
 
 def numpy_state(model):
     """The reference model's state (parameters and buffers) as
-    {name: ndarray}."""
+    {name: ndarray}. A bf16 leaf (a ``decorate``d model's) comes as f32,
+    which holds every bf16 value exactly: loaded into a bf16 parameter of
+    the port it is the reference's value bit for bit."""
     from paddle_tpu.framework.op import raw
 
-    return {k: np.asarray(raw(v)) for k, v in model.state_dict().items()}
+    out = {}
+    for k, v in model.state_dict().items():
+        a = np.asarray(raw(v))
+        out[k] = a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+    return out
 
 
 def torch_tiny_gpt(np_state, **kw):
