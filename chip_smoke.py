@@ -370,7 +370,25 @@ Phases, each fatal on failure (non-zero exit, no final line):
    process while requests decode: in-flight streams on epoch 0, new ones
    on epoch 1, the bytes streamed; (e) ``amp.debugging``'s operator
    stats over one O2 step and its checker on an injected ``inf``;
-57. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+57. the front tier, the replay, the profiler and the host runtime: (a)
+   GPT-3 1.3B (phase 49's worker model and engine config) behind a
+   ``FrontierRouter(seed=9)`` over one leaf of two workers, then two
+   leaves of one: each request on its tenant's first rendezvous leaf,
+   streams equal across the tiers (near-ties as phase 49), K3 launches
+   by regime, a capped tenant's request shed at the front and charged to
+   its ledger row, tokens/s beside 49a's; (b) ``serving.replay``'s stub
+   tier on the card's host: 20,000 requests of the ``mixed`` stream with
+   an abuser under quotas, twice with one digest, every request
+   resolved, the stores reaped, two shard processes serving exactly
+   their rendezvous shares, ``dispatch_rps``; (c) ``paddle.profiler``
+   over 8 steps of phase 4's engine: K3's kernels on the device timeline
+   as many as the wrapper counted, the ``RecordEvent`` spans in the
+   device and host traces, the device's idle share of the window; (d)
+   the native host runtime loaded, ``stack_samples`` against ``np.stack``
+   on phase 23's batch, ERNIE's ``fit`` for 2 steps with telemetry (one
+   ``train_step`` event and one ``VisualDL`` row a batch and key);
+   ``--phase57`` runs it alone (after phase 2);
+58. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
@@ -379,13 +397,14 @@ Phases, each fatal on failure (non-zero exit, no final line):
    (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
    line (phase 48), a ``serving`` JSON line (phase 49), an
    ``mpmd_elastic_ps`` JSON line (phases 50-52), an ``mp_sep_hapi`` JSON
-   line (phase 54), a ``phase55`` and a ``phase56`` JSON line, a
-   ``kernels`` JSON line
+   line (phase 54), a ``phase55``, a ``phase56`` and a ``phase57`` JSON
+   line, a ``kernels`` JSON line
    (the GPT, encoder and MoE shapes, the K1 / K2 rows with their launches
    in phases 38-48, 50-51 and 54 (``launches_mpmd``, ``launches_elastic``,
    ``launches_mp_sep_hapi``), the K3 rows with phase 49's as
    ``launches_serving`` and 54a's as ``launches_mp_serving``, 56a's
-   bf16-query times and 56b's launches, the K4 rows with 56c's bf16
+   bf16-query times and 56b's launches, 57a's and 57c's as
+   ``launches_phase57``, the K4 rows with 56c's bf16
    launches as ``launches_o2_bf16``; no TPU
    kernel lies on the vision path, the capacity MoE path or phase 52's
    table), then the result line.
@@ -8270,9 +8289,10 @@ CALIB_WARMUP, CALIB_STEPS = 2, 5
 
 
 @contextlib.contextmanager
-def live_telemetry(tdir):
-    """Telemetry into ``tdir`` with the live plane on (rank 0's files),
-    the registry empty before and after."""
+def live_telemetry(tdir, live=True):
+    """Telemetry into ``tdir`` (rank 0's files; tenant accounting with
+    it) with the live plane on or off, the registry empty before and
+    after."""
     import os
 
     from paddle_tpu_torch import observability as obs
@@ -8280,8 +8300,11 @@ def live_telemetry(tdir):
     keys = ("PADDLE_TPU_TELEMETRY_DIR", "PADDLE_TPU_LIVE_TELEMETRY",
             "PADDLE_TRAINER_ID")
     saved = {k: os.environ.get(k) for k in keys}
-    os.environ.update(PADDLE_TPU_TELEMETRY_DIR=tdir,
-                      PADDLE_TPU_LIVE_TELEMETRY="1")
+    os.environ["PADDLE_TPU_TELEMETRY_DIR"] = tdir
+    if live:
+        os.environ["PADDLE_TPU_LIVE_TELEMETRY"] = "1"
+    else:
+        os.environ.pop("PADDLE_TPU_LIVE_TELEMETRY", None)
     os.environ.pop("PADDLE_TRAINER_ID", None)
     obs.reset()
     try:
@@ -10972,7 +10995,479 @@ def phase_56(pa, fa, gm, smi, peaks, served, llama_served, moe_trained):
     return out
 
 
-def main(only56=False) -> int:
+# -- phase 57 -----------------------------------------------------------------
+
+#: 57a's capped tenant: a bucket of 1 token a second (burst 1), which no
+#: request (prompt + 32 new tokens) can pass
+P57_CAPPED = "tenant_capped"
+#: 57b: make_spec's "mixed" stream (20,000 requests/s) with an abusive
+#: tenant at 20,000 requests/s from 0.25 s of virtual time; every tenant
+#: under a bucket of 400,000 tokens/s (burst 100,000), above the Zipf
+#: head's demand (~240,000 tokens/s) and below the abuser's (1.28 M)
+P57_REQUESTS = 20_000
+P57_ABUSE_RPS, P57_ABUSE_START_S = 20_000.0, 0.25
+P57_QUOTA = dict(quota_rate_tokens_per_s=400_000.0,
+                 quota_burst_tokens=100_000.0)
+#: 57b: the stub tier's store keys left after a replay: the registrations
+#: and beats, and at most one unreaped batch (4096) of done keys
+P57_STORE_KEYS = 4096 + 64
+#: 57c: profiled engine steps, after one closed and one ready step; each
+#: request asks for enough tokens that no slot drains inside the window
+#: (speculation emits up to k + 1 = 5 tokens a step)
+P57_RECORD, P57_NEW_TOKENS = 8, 128
+#: K3's kernels on the device timeline, by their names in
+#: ops/cuda/paged_attention.cu: tile, or split then merge
+K3_KERNELS = ("paged_tile_kernel", "paged_split_kernel",
+              "paged_merge_kernel")
+#: 57d: stack_samples against np.stack, repeats of phase 23's batch
+P57_STACK_REPEATS = 200
+
+
+def submit_frontier(frontier, prompts):
+    """make_prompts' requests under tenants ``tenant{i % 3}``, every other
+    one sampled (T 0.7, top-k 8), as :func:`submit_serving`."""
+    return [frontier.submit(p, slo="standard", tenant=f"tenant{i % 3}",
+                            max_new_tokens=NEW_TOKENS, do_sample=(i % 2 == 1),
+                            temperature=0.7, top_k=8)
+            for i, p in enumerate(prompts)]
+
+
+def phase_frontier(pa, fa, smi, model, store, tdir, served_tps=None):
+    """Phase 57a: the front tier at full width. GPT-3 1.3B (phase 49's
+    model), phase 49's engine config a worker (SERVING_SLOTS slots, bf16
+    KV). Two tiers, each ``FrontierRouter(seed=9)`` over store-dataplane
+    leaves: one leaf over two ``EngineWorker`` s, then two leaves over one
+    each. Gates: each request on ``rendezvous_rank(tenant, leaves, 9)[0]``;
+    the two tiers' streams equal or parting at a near-tie (phase 49's
+    rule); each tier's K3 launches by regime equal ``k3_expected_sum``; a
+    ninth request, from a tenant whose bucket cannot cover it, shed at the
+    front: in the frontier's counter and the tenant's ``shed_requests``
+    (accounting on for that request only, so the timed run is phase 49a's
+    untraced one), in no leaf's ``submitted`` or ``dispatched``. Reports
+    tokens/s through each tier beside phase 49a's router."""
+    from paddle_tpu_torch.serving import (EngineWorker, FrontierRouter,
+                                          Router, rendezvous_rank)
+
+    cfg = serving_engine_config()
+    prompts = make_prompts(model.config.vocab_size)
+    tiers = {"one_leaf": ["p57_one"], "two_leaves": ["p57_a", "p57_b"]}
+    out, streams, params = {"card": smi}, {}, {}
+    for tier, names in tiers.items():
+        leaves = [Router(store, namespace=ns, queue_limit=64,
+                         dataplane="store", page_size=cfg["page_size"])
+                  for ns in names]
+        workers = [EngineWorker(model, store, namespace=ns,
+                                name=f"{ns}-e{j}", **cfg)
+                   for ns in names for j in range(2 // len(names))]
+        for w in workers:
+            w.engine.warmup()
+        frontier = FrontierRouter(leaves, seed=9,
+                                  tenant_quotas={P57_CAPPED: (1.0, 1.0)})
+        reset_k3(pa)
+        gids = submit_frontier(frontier, prompts)
+        wall = drive_router(frontier, workers)
+        k3 = check_k3(pa, workers, f"57a {tier}")
+        placed = [frontier.leaf_of(g) for g in gids]
+        want = [rendezvous_rank(f"tenant{i % 3}", names, 9)[0]
+                for i in range(len(prompts))]
+        if placed != want:
+            raise AssertionError(f"57a {tier}: placed {placed}, rendezvous "
+                                 f"ranks first {want}")
+        streams[tier] = [frontier.result(g) for g in gids]
+        params[tier] = [frontier._leaves[n]._requests[r].params
+                        for n, r in (frontier._placed[g] for g in gids)]
+        tokens = sum(w.engine.stats()["total_tokens"] for w in workers)
+        with live_telemetry(tdir, live=False):
+            shed = frontier.submit(prompts[0], slo="standard",
+                                   tenant=P57_CAPPED,
+                                   max_new_tokens=NEW_TOKENS)
+            charged = frontier._acct.per_tenant().get(P57_CAPPED, {})
+        view = frontier.fleet_view()
+        dispatched = sum(v["dispatched"] for v in view["leaves"].values())
+        submitted = sum(leaf.counters["submitted"] for leaf in leaves)
+        if (frontier.status(shed) != "shed"
+                or frontier.counters["quota_shed"] != 1
+                or charged.get("shed_requests") != 1
+                or dispatched != len(prompts) or submitted != len(prompts)):
+            raise AssertionError(
+                f"57a {tier}: the capped tenant's request: status "
+                f"{frontier.status(shed)}, frontier {frontier.counters}, "
+                f"ledger {charged}, leaves dispatched {dispatched} / "
+                f"submitted {submitted} of {len(prompts)}")
+        out[tier] = dict(
+            leaves=names, workers=[w.name for w in workers], wall_s=wall,
+            tokens=tokens, tokens_per_s=tokens / wall, placed=placed,
+            launches=k3, frontier=dict(frontier.counters),
+            quota=view["quota"], leaf_dispatched={
+                n: v["dispatched"] for n, v in view["leaves"].items()},
+            shed_charged=charged.get("shed_requests"))
+        log(f"# phase 57a {tier}: FrontierRouter(seed=9) over {names}, "
+            f"{len(workers)} workers x {SERVING_SLOTS} slots: {tokens} "
+            f"tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s (phase "
+            f"49a's router: {served_tps if served_tps is None else round(served_tps, 1)} "
+            f"tok/s); placed {placed}; K3 {k3}; the capped tenant's request "
+            f"shed at the front (quota {view['quota']}, ledger "
+            f"shed_requests {charged.get('shed_requests')}, leaves "
+            f"dispatched {out[tier]['leaf_dispatched']})  [{smi}]")
+        for leaf in leaves:
+            leaf.shutdown()
+        for w in workers:
+            w.close()
+        del workers, leaves, frontier
+        free_card()
+    if [p.seed for p in params["one_leaf"]] != [
+            p.seed for p in params["two_leaves"]]:
+        raise AssertionError("57a: the tiers stamped other seeds")
+    out["partings"] = check_serving_streams(
+        fa, model, prompts, params["one_leaf"], streams["two_leaves"],
+        streams["one_leaf"], "57a", ("two leaves", "one leaf"))
+    out["equal_streams"] = sum(
+        np.array_equal(a, b)
+        for a, b in zip(streams["one_leaf"], streams["two_leaves"]))
+    out["router_49a_tokens_per_s"] = served_tps
+    log(f"# phase 57a: streams equal across the tiers "
+        f"{out['equal_streams']}/{len(prompts)}, near-tie partings "
+        f"{len(out['partings'])}")
+    return out
+
+
+def phase_replay(smi):
+    """Phase 57b: the control plane that 57a drives, on the card's host
+    (no kernel runs). ``run_stub_replay`` of P57_REQUESTS requests of the
+    ``mixed`` stream with an abusive tenant under quotas, through two
+    leaves of four stub workers; then the same tier built and replayed by
+    hand. Gates: the two digests equal, every request resolved, the
+    MemStores reaped; two ``python -m paddle_tpu_torch.serving.replay``
+    shard processes, started together, serve exactly the requests
+    rendezvous hashing gives their leaves, and together the stream one
+    leaf serves (every request resolved). Reports ``dispatch_rps``."""
+    import itertools
+    import os
+    from collections import Counter
+    from pathlib import Path
+
+    from paddle_tpu_torch.serving import replay
+    from paddle_tpu_torch.serving.frontier import rendezvous_rank
+
+    t0 = time.perf_counter()
+    spec = replay.make_spec("mixed", seed=0, abuse_rps=P57_ABUSE_RPS)
+    spec["abuse"]["start_s"] = P57_ABUSE_START_S
+    first = replay.run_stub_replay(spec, P57_REQUESTS, n_leaves=2,
+                                   engines_per_leaf=4, **P57_QUOTA)
+    clock = replay.VirtualClock()
+    frontier, stubs, stores = replay.build_stub_tier(2, 4, clock,
+                                                     **P57_QUOTA)
+    second = replay.replay(frontier, stubs, clock, spec, P57_REQUESTS)
+    kept = [len(s) for s in stores]
+    abuser = first["tenants"].get("abuser", {})
+    if (first["digest"] != second["digest"]
+            or first["resolved"] != P57_REQUESTS
+            or second["resolved"] != P57_REQUESTS
+            or sum(kept) > P57_STORE_KEYS
+            or not abuser.get("shed_quota")):
+        raise AssertionError(
+            f"57b: digests {first['digest']} / {second['digest']}, resolved "
+            f"{first['resolved']} / {second['resolved']} of {P57_REQUESTS}, "
+            f"store keys {kept}, the abuser {abuser}")
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    names = ["leaf0", "leaf1"]
+    shard_spec = replay.make_spec("mixed", seed=0)  # the shard CLI's spec
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.replay", "--shard",
+         me, "--leaves", ",".join(names), "--requests", str(P57_REQUESTS),
+         "--seed", "0"], cwd=str(root), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for me in names]
+    shards = {}
+    try:
+        whole = replay.run_leaf_shard(shard_spec, P57_REQUESTS, ["leaf0"],
+                                      "leaf0")
+        share = Counter(
+            rendezvous_rank(replay._shard_key(ev["tenant"], ev["prompt"]),
+                            names, 0)[0]
+            for ev in itertools.islice(replay.arrivals(shard_spec),
+                                       P57_REQUESTS))
+        for me, p in zip(names, procs):
+            so, se = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"57b: shard {me} exited "
+                                     f"{p.returncode}: {se[-2000:]}")
+            shards[me] = json.loads(so.strip().splitlines()[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    served = sum(s["done"] + s["shed"] for s in shards.values())
+    if (any(shards[me]["requests"] != share[me] for me in names)
+            or sum(s["requests"] for s in shards.values()) != P57_REQUESTS
+            or whole["requests"] != P57_REQUESTS or served != P57_REQUESTS
+            or whole["done"] + whole["shed"] != P57_REQUESTS):
+        raise AssertionError(f"57b: shards {shards}, rendezvous shares "
+                             f"{dict(share)}, one leaf {whole}")
+    out = dict(
+        card=smi, requests=P57_REQUESTS, spec=spec, quota=P57_QUOTA,
+        digest=first["digest"], store_keys=kept,
+        runs=[{k: r[k] for k in ("wall_s", "virtual_s", "ticks",
+                                 "dispatched", "dispatch_rps",
+                                 "throughput_rps", "frontier")}
+              for r in (first, second)],
+        abuser=abuser, classes=first["classes"],
+        shards={me: {k: s[k] for k in ("requests", "wall_s", "gen_s",
+                                       "dispatched", "done", "shed")}
+                for me, s in shards.items()},
+        shard_dispatch_rps=sum(s["dispatched"] / s["wall_s"]
+                               for s in shards.values()),
+        one_leaf=dict(wall_s=whole["wall_s"], dispatched=whole["dispatched"],
+                      dispatch_rps=whole["dispatched"] / whole["wall_s"]),
+        seconds=time.perf_counter() - t0)
+    log(f"# phase 57b: {P57_REQUESTS} replayed requests (mixed, abuser at "
+        f"{P57_ABUSE_RPS:.0f} rps, quotas {P57_QUOTA}) through 2 leaves x 4 "
+        f"stubs, twice: digest {first['digest'][:16]} both, dispatch_rps "
+        f"{first['dispatch_rps']} / {second['dispatch_rps']} (virtual "
+        f"{first['virtual_s']} s, {first['frontier']['quota_shed']} quota "
+        f"sheds, the abuser's {abuser.get('shed_quota')}), store keys left "
+        f"{kept}; shard processes {[shards[n]['requests'] for n in names]} "
+        f"requests = rendezvous shares, {out['shard_dispatch_rps']:.1f} "
+        f"dispatched/s summed vs one leaf "
+        f"{out['one_leaf']['dispatch_rps']:.1f}; {out['seconds']:.1f} s  "
+        f"[{smi}]")
+    return out
+
+
+def trace_k3(events):
+    """K3's kernels on a torch.profiler chrome trace, by name."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {k: sum(1 for e in kernels if k in e.get("name", ""))
+            for k in K3_KERNELS}, kernels
+
+
+def busy_share(kernels, lo, hi):
+    """The share of [lo, hi] (us) covered by the union of the kernels'
+    intervals."""
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e.get("dur", 0), hi))
+                   for e in kernels)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b <= a or b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / (hi - lo)
+
+
+def phase_profiled_engine(pa, smi, model, tdir):
+    """Phase 57c: ``paddle.profiler`` over phase 4's engine (GPT-3 1.3B,
+    bf16 KV, engine_config()) serving make_prompts' 8 requests
+    (P57_NEW_TOKENS new tokens each):
+    ``Profiler(targets=[CPU, GPU], scheduler=make_scheduler(closed=1,
+    ready=1, record=P57_RECORD))`` with a ``RecordEvent`` around each
+    ``step()``. Gates: the device timeline holds K3's kernels, tile and
+    split each as many as the wrapper's counters moved over the RECORD
+    window (a merge after each split); P57_RECORD spans in the device
+    trace, in the host export and through ``load_profiler_result``;
+    ``summary()`` lists them with every call. Reports the device's busy
+    and idle share of the window (the union of all kernels' intervals
+    between the first span's start and the last span's end)."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference.engine import DecodeEngine
+
+    eng = DecodeEngine(model, kv_dtype="bf16", **engine_config())
+    eng.warmup()
+    for p in make_prompts(model.config.vocab_size):
+        eng.submit(p, max_new_tokens=P57_NEW_TOKENS)
+    profiler.reset_host_events()
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(closed=1, ready=1,
+                                          record=P57_RECORD),
+        on_trace_ready=profiler.export_chrome_tracing(tdir))
+    marks = {}
+    prof.start()
+    for s in range(P57_RECORD + 2):
+        if s == 2:
+            marks["begin"] = k3_counts(pa)
+        with profiler.RecordEvent("engine_step"):
+            if not eng.step():
+                raise AssertionError("57c: the engine ran out of work")
+        prof.step()
+    marks["end"] = k3_counts(pa)  # the window closed in the last step()
+    prof.stop()
+    moved = dict(zip(K3_COUNTERS, (b - a for a, b in zip(marks["begin"],
+                                                         marks["end"]))))
+    with open(prof.device_trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    on_trace, kernels = trace_k3(events)
+    spans = [e for e in events if e.get("name") == "engine_step"
+             and e.get("cat") == "user_annotation"]
+    host = profiler.load_profiler_result(tdir)
+    with open(host.path) as f:
+        host_raw = json.load(f)["traceEvents"]
+    summary = prof.summary(sorted_by="calls")
+    row = next((line for line in summary.splitlines()
+                if line.startswith("engine_step")), "")
+    log(f"57c: device trace {prof.device_trace_path}: {len(events)} events, "
+        f"{len(kernels)} kernels, K3 on the trace {on_trace}, the wrapper's "
+        f"counters moved {moved}; spans: device {len(spans)}, host "
+        f"{host.count('engine_step')}")
+    if not kernels:
+        raise AssertionError("57c: the device trace holds no kernel")
+    if (moved["launches"] <= 0
+            or on_trace[K3_KERNELS[0]] != moved["launches_tile"]
+            or on_trace[K3_KERNELS[1]] != moved["launches_split"]
+            or on_trace[K3_KERNELS[2]] != moved["launches_split"]):
+        raise AssertionError(f"57c: K3's kernels on the trace {on_trace}, "
+                             f"the wrapper counted {moved}")
+    if (len(spans) != P57_RECORD or host.count("engine_step") != P57_RECORD
+            or sum(e["name"] == "engine_step" for e in host_raw)
+            != P57_RECORD or row.split()[1:2] != [str(P57_RECORD + 2)]):
+        raise AssertionError(
+            f"57c: RecordEvent spans: device {len(spans)}, host "
+            f"{host.count('engine_step')} of {P57_RECORD}; summary row "
+            f"{row!r}")
+    lo = min(e["ts"] for e in spans)
+    hi = max(e["ts"] + e["dur"] for e in spans)
+    busy = busy_share(kernels, lo, hi)
+    k3_us = sum(e.get("dur", 0) for e in kernels
+                if any(k in e.get("name", "") for k in K3_KERNELS))
+    out = dict(card=smi, record_steps=P57_RECORD, window_ms=(hi - lo) / 1e3,
+               kernels=len(kernels), k3_on_trace=on_trace, launches=moved,
+               busy_share=busy, idle_share=1.0 - busy,
+               k3_kernel_ms=k3_us / 1e3, summary_row=row.strip(),
+               device_trace=prof.device_trace_path)
+    log(f"# phase 57c: paddle.profiler over {P57_RECORD} engine steps of "
+        f"GPT-3 1.3B (phase 4's engine): window {out['window_ms']:.1f} ms, "
+        f"{len(kernels)} kernels on the device timeline, K3 {on_trace} = the "
+        f"wrapper's {moved}; device busy {100 * busy:.1f} %, idle "
+        f"{100 * (1 - busy):.1f} % of the window; K3 kernels "
+        f"{out['k3_kernel_ms']:.2f} ms of it; summary row "
+        f"{row.split()[:2]}  [{smi}]")
+    del eng
+    free_card()
+    return out
+
+
+def phase_host_runtime(smi, tdir):
+    """Phase 57d: the host runtime and the callbacks. The native library
+    (runtime/csrc/host_rt.cc, built by g++ on this host) must load: no
+    silent fall-back here. ``stack_samples`` bit-equal to ``np.stack`` on
+    phase 23's batch (32 samples of ids / types / mask [128] int64), ms a
+    batch beside ``np.stack``. Then phase 23's ERNIE-3.0-base through
+    ``Model.fit`` for 2 steps (an in-process loader, so its collate's
+    ``stack_samples`` calls count here) with telemetry on and a
+    ``VisualDL`` callback: one ``train_step`` event a batch with
+    ``tokens_per_second``, one TSV row a batch and numeric log."""
+    import os
+
+    from paddle_tpu_torch import runtime
+    from paddle_tpu_torch.hapi.callbacks import VisualDL
+    from paddle_tpu_torch.io import DataLoader
+
+    t0 = time.perf_counter()
+    if not runtime.native_available():
+        raise AssertionError("57d: the native host runtime did not load "
+                             "(g++ build of runtime/csrc/host_rt.cc)")
+    steps = 2
+    net = build_ernie()
+    data = PairData(steps * ERNIE_BATCH, net.config.vocab_size, ERNIE_SEQ,
+                    SEED + 57)
+    fields = [[data[i][f] for i in range(ERNIE_BATCH)] for f in range(3)]
+    for f in fields:
+        if not np.array_equal(runtime.stack_samples(f), np.stack(f)):
+            raise AssertionError("57d: stack_samples differs from np.stack")
+    timed = {}
+    for name, fn in (("stack_samples", runtime.stack_samples),
+                     ("np_stack", np.stack)):
+        t1 = time.perf_counter()
+        for _ in range(P57_STACK_REPEATS):
+            for f in fields:
+                fn(f)
+        timed[name] = 1e3 * (time.perf_counter() - t1) / P57_STACK_REPEATS
+    calls = []
+    real = runtime.stack_samples
+    runtime.stack_samples = lambda s, out=None: (calls.append(len(s))
+                                                 or real(s, out))
+    vdl = os.path.join(tdir, "visualdl")
+    try:
+        with live_telemetry(tdir, live=False):
+            model = ernie_model(net)
+            loader = DataLoader(data, batch_size=ERNIE_BATCH, shuffle=False,
+                                device=DEVICE)
+            model.fit(loader, epochs=1, verbose=0,
+                      callbacks=[VisualDL(vdl)])
+    finally:
+        runtime.stack_samples = real
+    with open(os.path.join(tdir, "events_rank0.jsonl")) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    step_events = [e for e in events if e["kind"] == "train_step"]
+    with open(os.path.join(vdl, "scalars.tsv")) as f:
+        rows = [tuple(line.split("\t")[:2]) for line in f if line.strip()]
+    want_rows = [(str(s), k) for s in range(steps)
+                 for k in ("loss", "batch_size")]
+    if (len(step_events) != steps
+            or not all(e.get("tokens_per_second", 0) > 0
+                       for e in step_events)
+            or rows != want_rows or calls != [ERNIE_BATCH] * 3 * steps):
+        raise AssertionError(
+            f"57d: train_step events {step_events}, TSV rows {rows}, "
+            f"stack_samples calls {calls}")
+    out = dict(card=smi, native=True, stack_ms=timed,
+               batch=f"3 x {ERNIE_BATCH} x [{ERNIE_SEQ}] int64",
+               host_memory=runtime.host_memory_stats(),
+               train_steps=[{k: e[k] for k in ("step", "seconds", "loss",
+                                               "tokens_per_second")}
+                            for e in step_events],
+               collate_stack_calls=len(calls),
+               seconds=time.perf_counter() - t0)
+    log(f"# phase 57d: native host runtime loaded; stack_samples "
+        f"{timed['stack_samples']:.4f} ms a batch vs np.stack "
+        f"{timed['np_stack']:.4f} ms ({out['batch']}, bit-equal); ERNIE "
+        f"fit {steps} steps with telemetry: train_step tokens/s "
+        f"{[round(e['tokens_per_second'], 1) for e in step_events]} "
+        f"(samples/s, as the reference counts batch_size), VisualDL rows "
+        f"{len(rows)}, collate stack_samples calls {len(calls)}; "
+        f"{out['seconds']:.1f} s  [{smi}]")
+    del model, net, loader
+    free_card()
+    return out
+
+
+def phase_57(pa, fa, smi, serving=None):
+    """Phase 57 (a-d); returns the ``phase57`` JSON line's numbers.
+    ``serving`` (phase 49's, None in a run of phase 57 alone) gives 49a's
+    tokens/s beside 57a's."""
+    import tempfile
+
+    from paddle_tpu_torch.runtime import TCPStore
+    from paddle_tpu_torch.serving import worker as worker_mod
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p57_")
+    model = worker_mod.build_worker_model(
+        worker_mod.build_arg_parser().parse_args(
+            serving_argv(SERVING_MODEL)))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    log(f"# phase 57: GPT-3 1.3B (phase 49's worker model) built in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    store = TCPStore("127.0.0.1", 0, is_master=True, timeout=120.0)
+    served = (serving["router_2workers"]["tokens_per_s"] if serving
+              else None)
+    out = dict(frontier=phase_frontier(pa, fa, smi, model, store,
+                                       f"{tmp}/57a", served))
+    store.close()
+    out["replay"] = phase_replay(smi)
+    out["profiler"] = phase_profiled_engine(pa, smi, model, f"{tmp}/57c")
+    del model
+    free_card()
+    out["host_runtime"] = phase_host_runtime(smi, f"{tmp}/57d")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 57: {out['seconds']:.1f} s")
+    return out
+
+
+def main(only=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -11004,10 +11499,15 @@ def main(only56=False) -> int:
     build.library()
     log(f"# phase 2: kernels built in {time.perf_counter() - t0:.2f} s "
         "(set-up)")
-    if only56:  # phase 56 alone (and phase 5's lockstep), for development
+    if only == "--phase56":  # phase 56 alone (and phase 5's lockstep)
         phase_engine_parity(lambda: build_model(2), "GPT-3 1.3B depth 2", 5)
         p56 = phase_56(pa, fa, gm, smi, peaks, None, None, None)
         log(json.dumps({"phase56": p56}, default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if only == "--phase57":  # phase 57 alone, for development
+        p57 = phase_57(pa, fa, smi)
+        log(json.dumps({"phase57": p57}, default=str))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -11078,6 +11578,8 @@ def main(only56=False) -> int:
     p55 = phase_55(pa, fa, smi, peaks)
     torch.cuda.empty_cache()
     p56 = phase_56(pa, fa, gm, smi, peaks, served, llama_served, moe_trained)
+    torch.cuda.empty_cache()
+    p57 = phase_57(pa, fa, smi, serving)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -11157,6 +11659,16 @@ def main(only56=False) -> int:
                               for k in ("gpt_bf16", "gpt_int8",
                                         "llama_bf16")})
 
+    def k3_p57(regime):
+        """Phase 57's K3 launches of one regime: each front tier (57a) and
+        the profiled window (57c)."""
+        moved = p57["profiler"]["launches"]
+        return {"frontier_one_leaf": p57["frontier"]["one_leaf"][
+                    "launches"][regime],
+                "frontier_two_leaves": p57["frontier"]["two_leaves"][
+                    "launches"][regime],
+                "profiled_window": moved[f"launches_{regime}"]}
+
     def flash_p55(kind):
         """Phase 55's K1 / K2 launches of one kind at the 1.3B rows' kernel:
         ViT-B/16 (55c) in f32 and O1, Transformer-base (55e) by route."""
@@ -11205,6 +11717,9 @@ def main(only56=False) -> int:
                                         "verify": "verify",
                                         "prefill": "tile"}[shape]),
              launches_phase55=k3_p55({"decode": "decode",
+                                      "verify": "verify",
+                                      "prefill": "tile"}[shape]),
+             launches_phase57=k3_p57({"decode": "decode",
                                       "verify": "verify",
                                       "prefill": "tile"}[shape]),
              **k3_p56(shape))
@@ -11339,6 +11854,7 @@ def main(only56=False) -> int:
     log(json.dumps({"mp_sep_hapi": mp_sep}, default=str))
     log(json.dumps({"phase55": p55}, default=str))
     log(json.dumps({"phase56": p56}, default=str))
+    log(json.dumps({"phase57": p57}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -11352,4 +11868,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:  # a rank of phase 51
         elastic_worker(sys.argv[2])
         sys.exit(0)
-    sys.exit(main(only56=sys.argv[1:2] == ["--phase56"]))
+    sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
+        ["--phase56"], ["--phase57"]) else None))

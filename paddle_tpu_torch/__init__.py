@@ -14,7 +14,8 @@ names that the port has: the subpackages, the dtype names (as
 ``paddle.linalg`` among them), ``seed`` and the RNG state,
 ``to_tensor``, ``set_device`` / ``get_device``, the grad switches,
 ``grad`` (``autograd.grad``),
-``Model``, ``DataParallel``, ``save`` / ``load``.
+``Model``, ``DataParallel``, ``save`` / ``load``, ``profiler`` and
+``callbacks`` (``hapi/callbacks.py``).
 
 Entry points run on the default device: the CUDA card, unless
 ``set_device("cpu")`` was called or the caller passes ``device="cpu"``;
@@ -24,11 +25,12 @@ device and the ``places`` / ``device`` given.
 import torch as _torch
 
 from . import (amp, autograd, device, distributed, incubate, inference, io,
-               jit, metric, nn, optimizer, tensor, text, vision)
+               jit, metric, nn, optimizer, profiler, tensor, text, vision)
 from .device import get_device, resolve_device, set_device
 from .distributed.parallel import DataParallel
 from .framework.io_state import load, save
 from .framework.rng import get_rng_state, seed, set_rng_state
+from .hapi import callbacks
 from .hapi_model import Model
 from .tensor import *  # noqa: F401,F403  (the tensor functions)
 from .tensor import linalg  # noqa: F401  (paddle.linalg)
@@ -59,10 +61,11 @@ float64 = _torch.float64
 complex64 = _torch.complex64
 complex128 = _torch.complex128
 
-__all__ = (["DataParallel", "Model", "amp", "autograd", "device",
-            "distributed", "enable_grad", "get_device", "grad", "get_rng_state", "incubate",
-            "inference", "io", "is_grad_enabled", "jit", "linalg", "load",
-            "metric", "nn", "no_grad", "optimizer", "resolve_device", "save",
+__all__ = (["DataParallel", "Model", "amp", "autograd", "callbacks",
+            "device", "distributed", "enable_grad", "get_device", "grad",
+            "get_rng_state", "incubate", "inference", "io",
+            "is_grad_enabled", "jit", "linalg", "load", "metric", "nn",
+            "no_grad", "optimizer", "profiler", "resolve_device", "save",
             "seed", "set_device", "set_grad_enabled", "set_rng_state",
             "tensor", "text", "vision", "bool", "uint8", "int8", "int16",
             "int32", "int64", "float16", "bfloat16", "float32", "float64",

@@ -79,4 +79,14 @@ def get_device() -> str:
     return "cpu" if dev.type == "cpu" else f"gpu:{dev.index}"
 
 
-__all__ = ["get_device", "resolve_device", "set_device"]
+def host_memory_stats() -> dict:
+    """Host staging-arena stats from the native runtime
+    (``runtime.host_memory_stats``): the host-side analogue of
+    ``paddle.device.cuda.memory_stats``."""
+    from . import runtime
+
+    return runtime.host_memory_stats()
+
+
+__all__ = ["get_device", "host_memory_stats", "resolve_device",
+           "set_device"]

@@ -3,14 +3,19 @@
 ``Callback``, ``CallbackList``, ``config_callbacks``, ``ProgBarLogger``,
 ``ModelCheckpoint``, ``EarlyStopping``, ``LRScheduler`` (steps the
 optimizer's ``optimizer/lr.py`` scheduler) and ``ReduceLROnPlateau``, as
-in the reference. Its observability callbacks (``VisualDL``,
-``TelemetryLogger``, ``WandbCallback``) wait for the port's observability
-(ROADMAP.md §A.8).
+in the reference, and its observability callbacks: ``VisualDL`` (a TSV of
+scalars), ``TelemetryLogger`` (per-step telemetry into the port's
+``observability``; ``config_callbacks`` appends one) and
+``WandbCallback`` (needs the ``wandb`` package).
 """
 from __future__ import annotations
 
 import os
 import time
+
+import numpy as np
+
+from .. import observability as _obs
 
 
 class Callback:
@@ -226,12 +231,121 @@ class LRScheduler(Callback):
                 s.step()
 
 
+class VisualDL(Callback):
+    """Scalar logger: one ``step<TAB>key<TAB>value`` row of
+    ``log_dir/scalars.tsv`` per numeric log a batch (VisualDL itself is
+    outside the repo)."""
+
+    def __init__(self, log_dir):
+        super().__init__()
+        self.log_dir = log_dir
+        self._step = 0
+
+    def on_train_batch_end(self, step, logs=None):
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "scalars.tsv"), "a") as f:
+            for k, v in (logs or {}).items():
+                if isinstance(v, (int, float)):
+                    f.write(f"{self._step}\t{k}\t{v}\n")
+        self._step += 1
+
+
+class TelemetryLogger(Callback):
+    """Per-step training telemetry into the port's ``observability``: the
+    tokens/s gauge (``batch_size`` a second, as the reference counts it),
+    the FLOP/s and MFU gauges when ``logs["step_flops"]`` is given (MFU
+    against ``PADDLE_TPU_PEAK_FLOPS``, the card's peak FLOP/s), and one
+    ``train_step`` event a batch. ``config_callbacks`` appends one; it
+    costs one env lookup a batch unless ``PADDLE_TPU_TELEMETRY_DIR`` is
+    set."""
+
+    def __init__(self):
+        super().__init__()
+        self._t0 = None
+
+    def on_train_begin(self, logs=None):
+        _obs.event("train_run", phase="begin",
+                   epochs=self.params.get("epochs"),
+                   steps=self.params.get("steps"))
+
+    def on_train_end(self, logs=None):
+        _obs.event("train_run", phase="end")
+        _obs.flush()
+
+    def on_train_batch_begin(self, step, logs=None):
+        self._t0 = time.perf_counter() if _obs.enabled() else None
+
+    def on_train_batch_end(self, step, logs=None):
+        if self._t0 is None:
+            return
+        dt = max(time.perf_counter() - self._t0, 1e-9)
+        self._t0 = None
+        logs = logs or {}
+        fields = {"step": int(step), "seconds": round(dt, 6)}
+        loss = logs.get("loss")
+        if isinstance(loss, (list, tuple, np.ndarray)):
+            loss = loss[0] if len(loss) else None
+        try:
+            fields["loss"] = float(loss)
+        except (TypeError, ValueError):
+            pass
+        bs = logs.get("batch_size")
+        if bs:
+            tps = float(bs) / dt
+            _obs.set_gauge("train_tokens_per_second", tps)
+            fields["tokens_per_second"] = round(tps, 3)
+        flops = logs.get("step_flops")
+        if flops:
+            fps = float(flops) / dt
+            _obs.set_gauge("train_flops_per_second", fps)
+            try:
+                peak = float(os.environ.get("PADDLE_TPU_PEAK_FLOPS", "0")
+                             or 0)
+            except ValueError:
+                peak = 0.0
+            if peak > 0:
+                mfu = fps / peak
+                _obs.set_gauge("train_mfu", mfu)
+                fields["mfu"] = round(mfu, 6)
+        _obs.event("train_step", **fields)
+
+
+class WandbCallback(Callback):
+    """paddle.callbacks.WandbCallback: train / eval metrics to a Weights &
+    Biases run. ``wandb`` is an optional dependency, as in the reference:
+    without it the constructor raises ``ImportError``."""
+
+    def __init__(self, project=None, entity=None, name=None, dir=None,
+                 mode=None, job_type=None, **kwargs):
+        super().__init__()
+        try:
+            import wandb
+        except ImportError as e:
+            raise ImportError(
+                "WandbCallback requires the `wandb` package, which is not "
+                "installed in this environment (`pip install wandb`)") from e
+        self.wandb = wandb
+        self._run = wandb.init(
+            project=project, entity=entity, name=name, dir=dir, mode=mode,
+            job_type=job_type, **kwargs)
+
+    def on_train_batch_end(self, step, logs=None):
+        self._run.log({f"train/{k}": v for k, v in (logs or {}).items()})
+
+    def on_eval_end(self, logs=None):
+        self._run.log({f"eval/{k}": v for k, v in (logs or {}).items()})
+
+    def on_train_end(self, logs=None):
+        self._run.finish()
+
+
 def config_callbacks(callbacks=None, model=None, batch_size=None,
                      epochs=None, steps=None, log_freq=2, verbose=2,
                      save_freq=1, save_dir=None, metrics=None, mode="train"):
     """The callbacks of a ``fit``: those given, a ``ProgBarLogger`` first
-    (when ``verbose``), an ``LRScheduler`` and, with ``save_dir``, a
-    ``ModelCheckpoint`` where none was given; bound to ``model``."""
+    (when ``verbose``), an ``LRScheduler``, with ``save_dir`` a
+    ``ModelCheckpoint``, and a ``TelemetryLogger`` where none was given;
+    bound to ``model``."""
     if isinstance(callbacks, (list, tuple)):
         cbks = list(callbacks)
     else:
@@ -242,6 +356,8 @@ def config_callbacks(callbacks=None, model=None, batch_size=None,
         cbks = cbks + [LRScheduler()]
     if save_dir and not any(isinstance(c, ModelCheckpoint) for c in cbks):
         cbks = cbks + [ModelCheckpoint(save_freq, save_dir)]
+    if not any(isinstance(c, TelemetryLogger) for c in cbks):
+        cbks = cbks + [TelemetryLogger()]
     lst = CallbackList(cbks)
     lst.set_model(model)
     lst.set_params({

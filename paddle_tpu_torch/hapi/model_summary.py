@@ -1,8 +1,8 @@
 """``paddle.summary`` (counterpart of ``paddle_tpu/hapi/model_summary.py``):
 a per-layer table (name, type, output shape, own parameters) taken with
 forward hooks over one eval-mode forward, and the parameter counts. The
-reference's ``flops`` (its compiler's cost analysis of the forward) waits
-for the port's observability (ROADMAP.md §A.8)."""
+reference's ``flops`` (its compiler's cost analysis of the forward) stays
+with ``TrainStep.cost_analysis`` (ROADMAP.md §A.3)."""
 from __future__ import annotations
 
 import torch

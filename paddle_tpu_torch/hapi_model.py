@@ -18,10 +18,14 @@ network raises, as the reference's does. Without fleet the plain
 ``TrainStep`` stays. ``comm_traffic`` runs one recorded step on a batch
 and reports its collectives (``distributed/comm_analysis.py``).
 
-Not ported: the step-FLOPs probe that feeds the reference's telemetry
-(§A.8). The reference accepts ``amp_configs`` and ignores it (ROADMAP.md
-§C); here a value other than None raises: run the network under
-``amp.auto_cast`` inside the loss instead.
+With telemetry on (``PADDLE_TPU_TELEMETRY_DIR``), ``fit`` probes the
+step's FLOPs once through ``TrainStep.cost_analysis`` for the MFU gauge of
+``callbacks.TelemetryLogger``, as the reference does; the port's
+``cost_analysis`` raises (ROADMAP.md §A.3), so the probe gives None and
+the logger exports tokens/s without MFU. The reference accepts
+``amp_configs`` and ignores it (ROADMAP.md §C); here a value other than
+None raises: run the network under ``amp.auto_cast`` inside the loss
+instead.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import List
 import numpy as np
 import torch
 
+from . import observability as _obs
 from .framework.io_state import load as _load
 from .framework.io_state import save as _save
 from .framework.io_state import set_state_dict
@@ -85,6 +90,7 @@ class Model:
         self._loss = None
         self._metrics: List[Metric] = []
         self._train_step = None
+        self._step_flops = None  # None = not probed, False = unavailable
         self.stop_training = False
 
     @property
@@ -221,6 +227,9 @@ class Model:
                 xs, ys = self._split_batch(batch)
                 logs["loss"] = self.train_batch(xs, ys)[0]
                 logs["batch_size"] = xs[0].shape[0] if xs else batch_size
+                flops = self._probe_step_flops(xs, ys)
+                if flops:
+                    logs["step_flops"] = flops
                 cbks.on_batch_end("train", step, logs)
                 step_count += 1
                 if num_iters is not None and step_count >= num_iters:
@@ -231,6 +240,19 @@ class Model:
             cbks.on_epoch_end(epoch, logs)
         cbks.on_end("train", logs)
         return self
+
+    def _probe_step_flops(self, xs, ys):
+        """FLOPs of one train step (``TrainStep.cost_analysis``), probed
+        once after the first batch and only with telemetry on: the MFU
+        gauge of ``callbacks.TelemetryLogger``. None when unavailable."""
+        if self._step_flops is None and _obs.enabled() \
+                and self._train_step is not None:
+            try:
+                cost = self._train_step.cost_analysis(*xs, *ys)
+                self._step_flops = float(cost.get("flops", 0.0)) or False
+            except Exception:
+                self._step_flops = False
+        return self._step_flops or None
 
     def _split_batch(self, batch):
         if isinstance(batch, (list, tuple)) and len(batch) >= 2:

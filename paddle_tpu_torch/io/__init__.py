@@ -3,13 +3,14 @@
 Datasets, samplers, ``BatchSampler`` and ``DataLoader`` as in the
 reference. The samplers draw from numpy's global RNG as the reference's
 do, so under one ``np.random.seed`` both packages visit the same indices
-in the same order. ``default_collate_fn`` stacks numpy leaves with
-``np.stack`` into host tensors; ``DataLoader`` then puts every tensor of
-a batch on its device (``places`` / ``device``, default the CUDA card):
-a pinned host copy and a ``non_blocking`` copy, issued when the batch is
-pulled, stand in for the reference's asynchronous ``jnp.asarray``, and the
-buffered reader keeps ``prefetch_factor`` batches pulled ahead so that
-the next batch's copy overlaps the current step.
+in the same order. ``default_collate_fn`` stacks numpy leaves through
+the native batch stacker (``runtime.stack_samples``) into host tensors;
+``DataLoader`` then puts every tensor of a batch on its device
+(``places`` / ``device``, default the CUDA card): a pinned host copy and
+a ``non_blocking`` copy, issued when the batch is pulled, stand in for
+the reference's asynchronous ``jnp.asarray``, and the buffered reader
+keeps ``prefetch_factor`` batches pulled ahead so that the next batch's
+copy overlaps the current step.
 
 ``num_workers > 0`` with the default collate runs worker processes
 (``io/multiprocess.py``: numpy only, shared-memory transport; the main
@@ -312,12 +313,15 @@ def _np_leaf(x):
 
 def default_collate_fn(batch):
     """Stack a list of samples into one batch, by structure: arrays and
-    tensors with ``np.stack`` into a host tensor, numbers into a 1-D
-    tensor, tuples / lists / dicts field by field; strings and other
+    tensors into a host tensor through the native batch stacker
+    (``runtime.stack_samples``; ``np.stack`` without it), numbers into a
+    1-D tensor, tuples / lists / dicts field by field; strings and other
     objects stay a list."""
+    from ..runtime import stack_samples
+
     sample = batch[0]
     if isinstance(sample, (torch.Tensor, np.ndarray)):
-        return torch.from_numpy(np.stack([_np_leaf(b) for b in batch]))
+        return torch.from_numpy(stack_samples([_np_leaf(b) for b in batch]))
     if isinstance(sample, (int, float, np.integer, np.floating)):
         return torch.from_numpy(np.asarray(batch))
     if isinstance(sample, (list, tuple)):

@@ -629,8 +629,8 @@ class LiveAggregator:
                     str(e): dict(by) for e, by in per_engine.items()}
 
     def note_frontier(self, view: Optional[dict]) -> None:
-        """Front-tier feed (the reference's serving/frontier.py, not
-        ported yet): the merged per-leaf fleet view — leaf queue depths, quota/throttle totals, hot
+        """Front-tier feed (serving/frontier.py): the merged per-leaf
+        fleet view — leaf queue depths, quota/throttle totals, hot
         tenants. Lands verbatim as the health doc's ``frontier`` block;
         absent when no front tier runs, so every existing consumer
         (supervisor included) is untouched."""

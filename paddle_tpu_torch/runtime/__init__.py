@@ -1,12 +1,29 @@
-"""paddle_tpu_torch.runtime — the coordination store (counterpart of the
-``TCPStore`` of ``paddle_tpu/runtime/__init__.py``).
+"""paddle_tpu_torch.runtime — the host runtime and the coordination store
+(counterpart of ``paddle_tpu/runtime/__init__.py``).
+
+The host side the framework owns, in C++ (``csrc/host_rt.cc``, built at
+first use by ``native.py``; ``native_available()`` says whether it
+loaded):
+
+- ``HostArena``: an auto-growth best-fit caching allocator for host
+  staging buffers, with ``stats()``; ``default_arena`` /
+  ``host_memory_stats`` (also ``device.host_memory_stats``).
+- ``stack_samples``: ``np.stack`` of equally-shaped samples through the
+  native thread pool (``io.default_collate_fn`` assembles batches with
+  it); ``np.stack`` itself when the library is missing or the samples
+  are not contiguous same-shape arrays.
+- the host tracer behind ``paddle.profiler``: ``trace_start`` /
+  ``trace_stop`` / ``trace_enabled`` / ``trace_record`` /
+  ``trace_export`` (chrome-trace events), ``now_ns`` and the scoped
+  ``RecordEvent`` primitive.
 
 ``TCPStore`` keeps the reference's API and semantics — ``set`` takes str
 or bytes, ``get(key, timeout)`` returns bytes and raises ``TimeoutError``
 when the key never arrives, ``add`` returns the new value, ``wait``,
 ``check``, ``delete_key``, ``barrier``, ``asymmetric_handshake``,
 ``close`` and ``port`` — on ``torch.distributed.TCPStore``, the port's
-store. The torch store blocks a ``get`` for the STORE's timeout; here every
+store, where the reference has its own in C++ (ROADMAP.md §C, Standing).
+The torch store blocks a ``get`` for the STORE's timeout; here every
 blocking call carries its own deadline (a ``wait`` with that timeout
 first), and torch's ``DistStoreError`` / ``DistNetworkError`` become the
 reference's ``TimeoutError`` / ``ConnectionError``.
@@ -15,20 +32,128 @@ reference's ``TimeoutError`` / ``ConnectionError``.
 (``testing.chaos.store_faults_enabled``), selects the pure-Python store of
 ``py_store.py`` instead, as the reference does: its fault hooks live
 there.
-
-Left for later: the reference's host runtime in C++
-(``csrc/paddle_tpu_rt.cc``: ``HostArena``, ``stack_samples``, the host
-tracer, the native store and its ``wait``), ROADMAP.md §A.8.
 """
 from __future__ import annotations
 
+import ctypes
 import datetime
 import os
+import threading
 from typing import Optional
 
-from . import py_store
+import numpy as np
 
-__all__ = ["TCPStore", "store_torch_enabled"]
+from . import native, py_store
+
+__all__ = ["TCPStore", "store_torch_enabled", "native_available",
+           "HostArena", "default_arena", "host_memory_stats",
+           "stack_samples", "trace_start", "trace_stop", "trace_enabled",
+           "trace_record", "trace_export", "now_ns", "RecordEvent"]
+
+
+def native_available() -> bool:
+    return native.available()
+
+
+# -- host arena allocator ----------------------------------------------------
+
+class HostArena:
+    """Auto-growth best-fit caching allocator for host staging buffers
+    (the reference's ``AutoGrowthBestFitAllocator`` capability, on the
+    host side: batch buffers before their copy to the card)."""
+
+    def __init__(self, chunk_bytes: int = 64 << 20):
+        lib = native.get_lib()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable")
+        self._lib = lib
+        self._h = lib.pt_arena_create(chunk_bytes)
+
+    def alloc_array(self, shape, dtype):
+        """Arena-backed storage as ``(ndarray, ptr)``. The array views
+        arena memory: keep it only while the arena lives, and release it
+        with ``free(ptr)``."""
+        dtype = np.dtype(dtype)
+        count = int(np.prod(shape))
+        nbytes = count * dtype.itemsize
+        ptr = self.alloc(nbytes)
+        buf = (ctypes.c_char * max(nbytes, 1)).from_address(ptr)
+        arr = np.frombuffer(buf, dtype=dtype, count=count).reshape(shape)
+        arr.flags.writeable = True
+        return arr, ptr
+
+    def alloc(self, nbytes: int) -> int:
+        ptr = self._lib.pt_arena_alloc(self._h, max(int(nbytes), 1))
+        if not ptr:
+            raise MemoryError(f"arena alloc of {nbytes} bytes failed")
+        return ptr
+
+    def free(self, ptr: int):
+        self._lib.pt_arena_free(self._h, ptr)
+
+    def stats(self) -> dict:
+        out = (ctypes.c_uint64 * 4)()
+        self._lib.pt_arena_stats(self._h, ctypes.byref(out))
+        return {"allocated_bytes": int(out[0]),
+                "reserved_bytes": int(out[1]),
+                "peak_allocated_bytes": int(out[2]),
+                "alloc_count": int(out[3])}
+
+    def __del__(self):
+        try:
+            self._lib.pt_arena_destroy(self._h)
+        except Exception:
+            pass
+
+
+_default_arena: Optional[HostArena] = None
+_arena_lock = threading.Lock()
+
+
+def default_arena() -> Optional[HostArena]:
+    """The process's arena, made at first call (None without the
+    library)."""
+    global _default_arena
+    if not native.available():
+        return None
+    with _arena_lock:
+        if _default_arena is None:
+            _default_arena = HostArena()
+    return _default_arena
+
+
+def host_memory_stats() -> dict:
+    """``paddle.device.cuda.memory_stats``'s analogue for host staging
+    memory: the default arena's stats (zeros without the library)."""
+    a = default_arena()
+    if a is None:
+        return {"allocated_bytes": 0, "reserved_bytes": 0,
+                "peak_allocated_bytes": 0, "alloc_count": 0}
+    return a.stats()
+
+
+# -- parallel batch assembly -------------------------------------------------
+
+def stack_samples(samples, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """``np.stack`` over equally-shaped sample arrays through the native
+    thread pool; ``np.stack`` itself when the library is missing or the
+    samples are not contiguous arrays of one shape and dtype."""
+    lib = native.get_lib()
+    n = len(samples)
+    if n == 0:
+        raise ValueError("empty batch")
+    first = samples[0]
+    if lib is None or not all(
+            isinstance(s, np.ndarray) and s.shape == first.shape
+            and s.dtype == first.dtype and s.flags.c_contiguous
+            for s in samples):
+        return np.stack([np.asarray(s) for s in samples])
+    if out is None:
+        out = np.empty((n,) + first.shape, dtype=first.dtype)
+    ptrs = (ctypes.c_void_p * n)(*[s.ctypes.data for s in samples])
+    lib.pt_stack(out.ctypes.data_as(ctypes.c_void_p), ptrs, n,
+                 first.nbytes, 0)
+    return out
 
 
 def store_torch_enabled() -> bool:
@@ -186,3 +311,78 @@ class TCPStore:
             self.close()
         except Exception:
             pass
+
+
+# -- host tracer -------------------------------------------------------------
+
+def trace_start():
+    lib = native.get_lib()
+    if lib is not None:
+        lib.pt_trace_start()
+
+
+def trace_stop():
+    lib = native.get_lib()
+    if lib is not None:
+        lib.pt_trace_stop()
+
+
+def trace_enabled() -> bool:
+    lib = native.get_lib()
+    return lib is not None and bool(lib.pt_trace_enabled())
+
+
+def trace_record(name: str, ts_ns: int, dur_ns: int, cat: str = "op",
+                 tid: int = 0):
+    lib = native.get_lib()
+    if lib is not None:
+        lib.pt_trace_record(name.encode(), cat.encode(), ts_ns, dur_ns, tid)
+
+
+def trace_export() -> list:
+    """Drain the native trace buffer as a list of chrome-trace event
+    dicts (``ph`` "X", ``ts`` / ``dur`` in microseconds)."""
+    import json
+
+    lib = native.get_lib()
+    if lib is None:
+        return []
+    # events may land between the sizing call and the export: loop until
+    # the buffer was large enough for what was written
+    cap = int(lib.pt_trace_export(None, 0))
+    while True:
+        buf = ctypes.create_string_buffer(max(cap, 2))
+        n = int(lib.pt_trace_export(buf, max(cap, 2)))
+        if n <= max(cap, 2):
+            return json.loads(buf.raw[:n].decode())
+        cap = n
+
+
+def now_ns() -> int:
+    lib = native.get_lib()
+    if lib is not None:
+        return lib.pt_now_ns()
+    import time
+
+    return time.perf_counter_ns()
+
+
+class RecordEvent:
+    """Scoped host trace event into the native buffer: the primitive under
+    ``paddle_tpu_torch.profiler.RecordEvent`` (which also marks the torch
+    profiler's timeline and feeds ``summary()``)."""
+
+    def __init__(self, name: str, cat: str = "op"):
+        self.name = name
+        self.cat = cat
+
+    def __enter__(self):
+        self._t0 = now_ns()
+        return self
+
+    def __exit__(self, *exc):
+        lib = native.get_lib()
+        if lib is not None and lib.pt_trace_enabled():
+            trace_record(self.name, self._t0, now_ns() - self._t0, self.cat,
+                         threading.get_ident() % (1 << 31))
+        return False

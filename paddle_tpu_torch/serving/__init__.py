@@ -17,17 +17,21 @@ request router, on a streaming dataplane (counterpart of
   long prompts go to a prefill worker and stream KV to their decode
   worker — and fails over dead engines by resubmitting their unfinished
   work, bit-equal because every request carries a router-assigned seed.
+- Above the routers, the ``FrontierRouter`` (``frontier``) federates
+  several leaf routers: tenants shard onto leaves by sticky rendezvous
+  hashing, per-tenant token-bucket quotas shed abusive traffic before it
+  can burn a class error budget, and hot tenants spread across their
+  top-ranked leaves. ``replay`` is the matching workload generator:
+  deterministic arrival streams against real leaves or in-process stub
+  fleets on a virtual clock.
 - ``online`` publishes versioned weight epochs into live engines as
   journaled, seq-acked ``wt`` streams that flip at a request boundary,
   with no drain (``OnlineCoordinator``, ``EngineSink``,
   ``WireEngineSink``, ``rollout_round``).
-
-Not ported yet (ROADMAP.md §A.4b, §A.8): the ``FrontierRouter`` front
-tier (``frontier.py``) and the replay generator (``replay.py``); the
-front tier's names below raise ``NotImplementedError``.
 """
 from .protocol import (DEFAULT_DEADLINES, DEFAULT_NAMESPACE, ROLES,
                        SLO_CLASSES, SLO_OBJECTIVES, deadline_guard)
+from .frontier import FrontierConfig, FrontierRouter, rendezvous_rank
 from .online import (EngineSink, OnlineCoordinator, WireEngineSink,
                      rollout_round)
 from .router import Router, RouterConfig, RouterRequest
@@ -36,21 +40,9 @@ from .worker import EngineWorker
 
 __all__ = [
     "Router", "RouterConfig", "RouterRequest", "EngineWorker",
+    "FrontierRouter", "FrontierConfig", "rendezvous_rank",
     "TransportClient", "TransportServer", "SeqChannels",
     "OnlineCoordinator", "EngineSink", "WireEngineSink", "rollout_round",
     "SLO_CLASSES", "SLO_OBJECTIVES", "DEFAULT_DEADLINES",
     "DEFAULT_NAMESPACE", "ROLES", "deadline_guard",
 ]
-
-_UNPORTED = {
-    "FrontierRouter": "frontier.py", "FrontierConfig": "frontier.py",
-    "rendezvous_rank": "frontier.py",
-}
-
-
-def __getattr__(name):
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.serving.{name} ({_UNPORTED[name]}) is not "
-            "ported yet, see ROADMAP.md §A.8")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

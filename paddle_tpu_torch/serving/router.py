@@ -69,8 +69,8 @@ Live telemetry: under ``PADDLE_TPU_LIVE_TELEMETRY=1`` each ``pump``
 ingests the workers' ``tele`` frames into a ``live.LiveAggregator`` and
 ticks it (admission-queue and outstanding-token gauges included), which
 writes ``fleet_health.json`` at its cadence. ``share_live_aggregator``
-hands that role to an aggregator someone else owns (the reference's front
-tier, ``serving/frontier.py``, is not ported yet: ROADMAP.md §A.8).
+hands that role to an aggregator someone else owns (the front tier,
+``serving/frontier.py``).
 """
 from __future__ import annotations
 
@@ -1069,8 +1069,8 @@ class Router:
         return per_engine
 
     def share_live_aggregator(self, agg: "_live.LiveAggregator"):
-        """Adopt a live aggregator OWNED BY SOMEONE ELSE (the reference's
-        front tier, ``serving/frontier.py``). This router keeps feeding
+        """Adopt a live aggregator OWNED BY SOMEONE ELSE (the front tier,
+        ``serving/frontier.py``). This router keeps feeding
         tenant deltas and ingesting wire telemetry into it, but stops
         writing queue gauges or driving the health-file tick — with
         several routers in one process, two drivers would clobber each

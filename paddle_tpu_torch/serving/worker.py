@@ -113,7 +113,7 @@ class EngineWorker:
     def __init__(self, model, store, config: Optional[EngineConfig] = None,
                  *, name: Optional[str] = None,
                  namespace: str = DEFAULT_NAMESPACE,
-                 role: str = "unified",
+                 step_floor_s: float = 0.0, role: str = "unified",
                  kv_wire: str = "raw", device=None, **overrides):
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
@@ -123,6 +123,7 @@ class EngineWorker:
                                    **overrides)
         self._store = store
         self._ns = namespace
+        self._step_floor_s = float(step_floor_s)
         self.role = role
         self._kv_wire = kv_wire
         self._server = TransportServer()
@@ -562,7 +563,16 @@ class EngineWorker:
         if self._kv_imports:
             self._advance_kv_imports()
         chaos.engine_fence(self.engine.decode_steps)
+        t_step = time.monotonic()
         busy = self.engine.step()
+        if busy and self._step_floor_s > 0.0:
+            # step floor: pace the scheduler as if each step took at least
+            # this long on the device (host idle meanwhile), so a host-only
+            # worker can stand in for a card in a control-plane benchmark;
+            # also a crude per-engine rate limit
+            rem = self._step_floor_s - (time.monotonic() - t_step)
+            if rem > 0.0:
+                time.sleep(rem)
         published = self._publish_done()
         working = (busy or bool(self._local_rid)
                    or bool(self._prefill_jobs) or bool(self._kv_imports))
@@ -646,8 +656,9 @@ def build_arg_parser():
                         "(~4x smaller frames for f32 pages, ~2x for bf16)")
     p.add_argument("--poll-interval", type=float, default=0.005)
     p.add_argument("--step-floor-ms", type=float, default=0.0,
-                   help="minimum wall time per scheduler step (not "
-                        "ported: > 0 raises)")
+                   help="minimum wall time per scheduler step; emulates "
+                        "device-bound steps on host-only workers and "
+                        "doubles as a crude rate limiter")
     p.add_argument("--warmup", action="store_true",
                    help="run every engine program once before serving — "
                         "each prefill bucket, the single-token decode, and "
@@ -858,11 +869,6 @@ def main(argv=None):
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_arg_parser().parse_args(argv)
-    if args.step_floor_ms > 0:
-        raise NotImplementedError(
-            "--step-floor-ms (pacing a host-only worker as if each step "
-            "were accelerator-bound, for a control-plane benchmark) is not "
-            "ported yet, see ROADMAP.md §A.8")
     if os.environ.get(_MP_RANK_ENV):
         return _follower_main(args, int(os.environ[_MP_RANK_ENV]))
     if args.mp <= 1:
@@ -892,7 +898,8 @@ def _serve(args, mesh, followers):
     store = TCPStore(host=host, port=int(port), is_master=False, timeout=60.0)
     worker = EngineWorker(
         model, store, name=args.name, namespace=args.namespace,
-        role=args.role, kv_wire=args.kv_wire, device=args.device,
+        step_floor_s=args.step_floor_ms / 1000.0, role=args.role,
+        kv_wire=args.kv_wire, device=args.device,
         mesh=mesh, **_engine_overrides(args))
     lockstep = None
     if followers:

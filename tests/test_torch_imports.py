@@ -316,3 +316,25 @@ def test_transformer_without_device_raises_on_cpu_only_machine(no_cuda):
         nn.MultiHeadAttention(16, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         nn.Transformer(16, 2, 1, 1, 32)
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.serving.frontier", "paddle_tpu_torch.serving.replay",
+    "paddle_tpu_torch.runtime.native", "paddle_tpu_torch.profiler",
+    "paddle_tpu_torch.hapi.callbacks"])
+def test_front_tier_and_host_runtime_modules_are_guarded(module):
+    """The front tier, the replay, the host runtime's loader and the
+    profiler are among the modules the guards above walk."""
+    assert module in MODULES
+
+
+def test_host_runtime_builds_from_the_port_s_own_source():
+    """The port's native library is built from its own copy of the C++
+    (``runtime/csrc/``), never from the repo's ``csrc/``."""
+    from paddle_tpu_torch.runtime import native
+
+    assert Path(native._SRC).is_relative_to(PORT / "runtime" / "csrc")
+    for path in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        text = path.read_text()
+        assert "paddle_tpu_rt" not in text, path
+        assert '"csrc"' not in text or path == PORT / "runtime" / "native.py", path

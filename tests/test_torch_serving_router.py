@@ -389,15 +389,43 @@ def test_shutdown_broadcast_reaches_workers(models, store):
 
 
 def test_unported_serving_knobs_raise(models, store, monkeypatch, tmp_path):
+    """The knobs that once raised are ported: the front tier imports from
+    ``serving`` (``tests/test_torch_frontier.py`` holds it), and the
+    worker CLI takes ``--step-floor-ms``, a worker paced to that floor."""
+    import time
+
     _, tm = models
     import paddle_tpu_torch.serving as serving
-    from paddle_tpu_torch.serving import worker as worker_mod
+    from paddle_tpu_torch.serving import frontier, worker as worker_mod
+    from paddle_tpu_torch.serving.protocol import k_count
     from paddle_tpu_torch.serving.transport import TransportClient
 
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        serving.FrontierRouter
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        worker_mod.main(["--step-floor-ms", "5", "--device", "cpu"])
+    assert serving.FrontierRouter is frontier.FrontierRouter
+    assert serving.rendezvous_rank is frontier.rendezvous_rank
+    assert worker_mod.build_arg_parser().parse_args(
+        ["--step-floor-ms", "5"]).step_floor_ms == 5.0
+    # the CLI with the floor registers a worker and serves until the stop
+    # (already broadcast here, so it returns at once)
+    Router(store, namespace="floor_cli").shutdown()
+    assert worker_mod.main(
+        ["--step-floor-ms", "5", "--device", "cpu", "--namespace",
+         "floor_cli", "--master", f"127.0.0.1:{store.port}"]) == 0
+    assert store.add(k_count("floor_cli"), 0) == 1  # one registered
+    paced = EngineWorker(tm, store, namespace="floor", step_floor_s=0.005,
+                         **ENG)
+    floor_router = Router(store, namespace="floor")
+    floor_router.submit([1, 2, 3, 4], max_new_tokens=6)
+    busy = []
+    for _ in range(200):
+        floor_router.pump()
+        t0 = time.monotonic()
+        if paced.poll_once():
+            busy.append(time.monotonic() - t0)
+        if not floor_router.pending():
+            break
+    assert not floor_router.pending() and len(busy) >= 3
+    assert min(busy) >= 0.005, busy
+    paced.close()
     router = Router(store)
     w = EngineWorker(tm, store, **ENG)
     # a wt frame (serving/online.py) is applied between steps and acked
