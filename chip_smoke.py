@@ -388,7 +388,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
    on phase 23's batch, ERNIE's ``fit`` for 2 steps with telemetry (one
    ``train_step`` event and one ``VisualDL`` row a batch and key);
    ``--phase57`` runs it alone (after phase 2);
-58. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
+58. the deployment path, on random weights from the seed: (a) phase 23's
+   ERNIE-3.0-base classifier through ``jit.save`` (``None`` dims for the
+   ids, token types and mask) and ``inference.create_predictor`` on the
+   card, one artifact at B=32 T=128 and B=8 T=64: logits within rel 1e-5
+   of the eager model, 12 K1 launches a run, the same artifact under
+   ``Config.disable_gpu()`` on a B=2 T=32 batch within 1e-4 of the card
+   (on the CPU's dense route and on K1's plain version), the export /
+   save / load seconds, the bytes, the predictor's and eager's ms a batch
+   at B=32 T=128; (b) GPT-3 1.3B's widths at depth 2 saved once and run
+   through ``jit.load``'s ``TranslatedLayer`` at (2, 512) and (1, 1024):
+   logits within rel 1e-5 of eager, K1 twice a call, the files removed;
+   (c) ``jit.to_static`` on that GPT: outputs equal to eager,
+   ``program_cache_size`` 2 after the two signatures, one training step's
+   loss and gradients as the eager step's; ``--phase58`` runs it alone
+   (after phase 2);
+59. an ``amp`` JSON line (phases 18-21), an ``encoders`` JSON line (phases
    23-26), a ``vision`` JSON line (phases 27-30), a ``generation`` JSON
    line (phases 31-34), a ``layer`` JSON line (phases 35-37), a
    ``distributed`` JSON line (phases 38-39), a ``pipeline`` JSON line
@@ -397,14 +412,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
    (phase 46), an ``a3`` JSON line (phase 47), an ``auto_parallel`` JSON
    line (phase 48), a ``serving`` JSON line (phase 49), an
    ``mpmd_elastic_ps`` JSON line (phases 50-52), an ``mp_sep_hapi`` JSON
-   line (phase 54), a ``phase55``, a ``phase56`` and a ``phase57`` JSON
-   line, a ``kernels`` JSON line
+   line (phase 54), a ``phase55``, a ``phase56``, a ``phase57`` and a
+   ``phase58`` JSON line, a ``kernels`` JSON line
    (the GPT, encoder and MoE shapes, the K1 / K2 rows with their launches
    in phases 38-48, 50-51 and 54 (``launches_mpmd``, ``launches_elastic``,
    ``launches_mp_sep_hapi``), the K3 rows with phase 49's as
    ``launches_serving`` and 54a's as ``launches_mp_serving``, 56a's
    bf16-query times and 56b's launches, 57a's and 57c's as
-   ``launches_phase57``, the K4 rows with 56c's bf16
+   ``launches_phase57``, the 1.3B K1 / K2 rows with phase 58's as
+   ``launches_phase58``, the K4 rows with 56c's bf16
    launches as ``launches_o2_bf16``; no TPU
    kernel lies on the vision path, the capacity MoE path or phase 52's
    table), then the result line.
@@ -11467,6 +11483,255 @@ def phase_57(pa, fa, smi, serving=None):
     return out
 
 
+
+# -- phase 58: the deployment path -------------------------------------------
+
+#: 58a: phase 23's padded batch and a smaller one from the same artifact,
+#: and the batch the CPU runs it at
+P58_ERNIE_SHAPES = ((ERNIE_BATCH, ERNIE_SEQ), (8, 64))
+P58_CPU_SHAPE = (2, 32)
+#: 58b / 58c: GPT-3 1.3B's widths at this depth, at these (B, T)
+P58_GPT_LAYERS = 2
+P58_GPT_SHAPES = ((2, 512), (1, 1024))
+#: loaded program vs the eager model on the card, max |err| / max |logit|:
+#: the same kernels on the same weights, the program's aten ops where the
+#: eager model's run (cuBLAS may pick another algorithm for a matmul
+#: whose operand is laid out otherwise)
+P58_RTOL = 1e-5
+#: the artifact on the CPU vs on the card: K1 (TF32 tensor cores, three
+#: passes) against the CPU's f32 routes through 12 post-LN layers
+P58_CPU_RTOL = 1e-4
+#: 58c: the to_static step's loss and gradients vs the eager step's: the
+#: same eager calls, so equal up to the kernels' run-to-run order
+P58_STEP_RTOL = 1e-6
+P58_TIMED_RUNS = 10
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| in f64, on ``want``'s device (an
+    array is read as a tensor)."""
+    want = torch.as_tensor(want).detach()
+    got = torch.as_tensor(got).detach().to(want.device, torch.float64)
+    want = want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def file_bytes(prefix):
+    import os
+
+    return sum(os.path.getsize(prefix + ext)
+               for ext in (".pdmodel", ".pdiparams", ".pdmeta"))
+
+
+def median_ms(fn, n=P58_TIMED_RUNS):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def phase_deploy_ernie(fa, smi, tmp):
+    """Phase 58a (see the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn.functional import attention as tattn
+
+    t0 = time.perf_counter()
+    net = build_ernie().eval()
+    vocab = net.config.vocab_size
+    prefix = f"{tmp}/ernie"
+    spec = [paddle.jit.InputSpec([None, None], "int64", n)
+            for n in ("input_ids", "token_type_ids", "attention_mask")]
+    t1 = time.perf_counter()
+    paddle.jit.save(net, prefix, input_spec=spec)
+    save_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    predictor = paddle.inference.create_predictor(
+        paddle.inference.Config(prefix))
+    load_s = time.perf_counter() - t1
+    layers = net.config.num_hidden_layers
+    runs, batches = {}, []
+    for i, (b, t) in enumerate(P58_ERNIE_SHAPES):
+        data = PairData(b, vocab, t, SEED + 58 + i)
+        inputs = [data.ids, data.types, data.mask]
+        batches.append(inputs)
+        reset_flash(fa)
+        got = predictor.run(inputs)[0]
+        launches = fa.launches_fwd
+        with torch.no_grad():
+            want = net(*(torch.from_numpy(a).to(DEVICE) for a in inputs))
+        err = rel_err(got, want)
+        same = bool(np.array_equal(got.argmax(-1),
+                                   want.argmax(-1).cpu().numpy()))
+        if err > P58_RTOL or not same or launches != layers:
+            raise AssertionError(
+                f"58a: B={b} T={t}: logits rel err {err:.3e} (gate "
+                f"{P58_RTOL}), argmax equal {same}, K1 launches {launches} "
+                f"(want {layers})")
+        runs[f"B{b}_T{t}"] = dict(rel_err=err, k1_launches=launches)
+    # the same artifact on the CPU: the dense route, then K1's plain version
+    data = PairData(P58_CPU_SHAPE[0], vocab, P58_CPU_SHAPE[1], SEED + 60)
+    inputs = [data.ids, data.types, data.mask]
+    card = predictor.run(inputs)[0]
+    config = paddle.inference.Config(prefix + ".pdmodel")
+    config.disable_gpu()
+    cpu = paddle.inference.create_predictor(config)
+    cpu_err = {}
+    for route in ("dense", "flash_plain"):
+        tattn._FLASH_ON_CPU = route == "flash_plain"
+        try:
+            reset_flash(fa)
+            cpu_err[route] = rel_err(cpu.run(inputs)[0], card)
+        finally:
+            tattn._FLASH_ON_CPU = False
+        if cpu_err[route] > P58_CPU_RTOL or fa.launches_fwd:
+            raise AssertionError(
+                f"58a: the CPU's {route} route vs the card: rel err "
+                f"{cpu_err[route]:.3e} (gate {P58_CPU_RTOL}), K1 launches "
+                f"{fa.launches_fwd} (want 0)")
+    del cpu
+    # ms a batch at phase 23's shape: the predictor on staged handles
+    # (uploaded once), the eager model on the same tensors on the card
+    for name, a in zip(predictor.get_input_names(), batches[0]):
+        predictor.get_input_handle(name).copy_from_cpu(a)
+    dev = [torch.from_numpy(a).to(DEVICE) for a in batches[0]]
+    with torch.no_grad():
+        pred_ms = median_ms(predictor.run)
+        eager_ms = median_ms(lambda: net(*dev))
+    out = dict(card=smi, layers=layers, save_s=save_s, load_s=load_s,
+               bytes=file_bytes(prefix), runs=runs, cpu_rel_err=cpu_err,
+               predictor_ms=pred_ms, eager_ms=eager_ms,
+               timed_shape=f"B={P58_ERNIE_SHAPES[0][0]} "
+                           f"T={P58_ERNIE_SHAPES[0][1]}",
+               k1_launches=sum(r["k1_launches"] for r in runs.values()),
+               seconds=time.perf_counter() - t0)
+    log(f"# phase 58a: ERNIE-3.0-base saved (export + save {save_s:.2f} s, "
+        f"{out['bytes']:,} B) and loaded by create_predictor "
+        f"({load_s:.2f} s); {runs} against eager, K1 {layers} a run; the "
+        f"CPU's routes at B=2 T=32 vs the card {cpu_err}; "
+        f"{out['timed_shape']}: predictor {pred_ms:.3f} ms a batch vs "
+        f"eager {eager_ms:.3f} ms (median of {P58_TIMED_RUNS}); "
+        f"{out['seconds']:.1f} s  [{smi}]")
+    del predictor, net, dev
+    free_card()
+    return out
+
+
+def phase_deploy_gpt(fa, smi, tmp):
+    """Phases 58b and 58c (see the module docstring); removes ``tmp``
+    (58a's files too) after 58b."""
+    import shutil
+
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    model = build_model(P58_GPT_LAYERS).eval()
+    prefix = f"{tmp}/gpt"
+    t1 = time.perf_counter()
+    paddle.jit.save(model, prefix, input_spec=[
+        paddle.jit.InputSpec([None, None], "int64", "input_ids")])
+    save_s = time.perf_counter() - t1
+    nbytes = file_bytes(prefix)
+    t1 = time.perf_counter()
+    loaded = paddle.jit.load(prefix)
+    load_s = time.perf_counter() - t1
+    rng = np.random.default_rng(SEED + 61)
+    batches = [torch.from_numpy(rng.integers(0, model.config.vocab_size,
+                                             shape)).to(DEVICE)
+               for shape in P58_GPT_SHAPES]
+    translated = {}
+    for ids in batches:
+        reset_flash(fa)
+        got = loaded(ids)
+        launches = fa.launches_fwd
+        with torch.no_grad():
+            want = model(ids)
+        err = rel_err(got, want)
+        if err > P58_RTOL or launches != P58_GPT_LAYERS:
+            raise AssertionError(
+                f"58b: {tuple(ids.shape)}: logits rel err {err:.3e} (gate "
+                f"{P58_RTOL}), K1 launches {launches} (want "
+                f"{P58_GPT_LAYERS})")
+        translated[f"B{ids.shape[0]}_T{ids.shape[1]}"] = dict(
+            rel_err=err, k1_launches=launches)
+        del got, want
+    del loaded
+    shutil.rmtree(tmp)
+    b_s = time.perf_counter() - t0
+    log(f"# phase 58b: GPT-3 1.3B widths at depth {P58_GPT_LAYERS} saved "
+        f"(export + save {save_s:.2f} s, {nbytes:,} B), jit.load "
+        f"{load_s:.2f} s; TranslatedLayer {translated} against eager; the "
+        f"files removed; {b_s:.1f} s  [{smi}]")
+
+    # 58c: to_static on the same model
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eager_out = [model(ids) for ids in batches]
+    ids = batches[0]
+    model.train()
+    reset_flash(fa)
+    loss = model(ids, labels=ids)
+    loss.backward()
+    eager_step = (loss.item(), {n: p.grad for n, p in
+                                model.named_parameters()})
+    for p in model.parameters():
+        p.grad = None
+    model.eval()
+    paddle.jit.to_static(model)
+    try:
+        with torch.no_grad():
+            equal = [bool(torch.equal(model(x), e))
+                     for x, e in zip(batches, eager_out)]
+        cache = model.forward.program_cache_size
+        model.train()
+        loss = model(ids, labels=ids)
+        loss.backward()
+        loss_err = abs(loss.item() - eager_step[0]) / abs(eager_step[0])
+        grad_err = max(rel_err(p.grad, eager_step[1][n])
+                       for n, p in model.named_parameters())
+    finally:
+        del model.forward
+    launches = {k: getattr(fa, f"launches_{k}") for k in ("fwd", "dq", "dkv")}
+    if (not all(equal) or cache != len(P58_GPT_SHAPES)
+            or loss_err > P58_STEP_RTOL or grad_err > P58_STEP_RTOL):
+        raise AssertionError(
+            f"58c: outputs equal {equal}, program_cache_size {cache} (want "
+            f"{len(P58_GPT_SHAPES)}), loss rel err {loss_err:.3e}, "
+            f"gradients rel err {grad_err:.3e} (gate {P58_STEP_RTOL})")
+    c_s = time.perf_counter() - t0
+    log(f"# phase 58c: to_static outputs equal to eager {equal}, "
+        f"program_cache_size {cache}; one step's loss rel err "
+        f"{loss_err:.3e}, gradients {grad_err:.3e}; K1 / K2a / K2b "
+        f"{launches} over 58c's eager and to_static steps; {c_s:.1f} s  "
+        f"[{smi}]")
+    del model, eager_out, eager_step, batches
+    free_card()
+    return dict(
+        translated=dict(card=smi, layers=P58_GPT_LAYERS, save_s=save_s,
+                        load_s=load_s, bytes=nbytes, runs=translated,
+                        seconds=b_s),
+        to_static=dict(card=smi, outputs_equal=equal, program_cache_size=cache,
+                       loss_rel_err=loss_err, grad_rel_err=grad_err,
+                       launches=launches, seconds=c_s))
+
+
+def phase_58(fa, smi):
+    """Phase 58 (a-c); returns the ``phase58`` JSON line's numbers."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p58_")
+    out = dict(ernie=phase_deploy_ernie(fa, smi, tmp))
+    out.update(phase_deploy_gpt(fa, smi, tmp))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 58: {out['seconds']:.1f} s")
+    return out
+
+
 def main(only=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -11508,6 +11773,11 @@ def main(only=None) -> int:
     if only == "--phase57":  # phase 57 alone, for development
         p57 = phase_57(pa, fa, smi)
         log(json.dumps({"phase57": p57}, default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if only == "--phase58":  # phase 58 alone, for development
+        p58 = phase_58(fa, smi)
+        log(json.dumps({"phase58": p58}, default=str))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -11580,6 +11850,8 @@ def main(only=None) -> int:
     p56 = phase_56(pa, fa, gm, smi, peaks, served, llama_served, moe_trained)
     torch.cuda.empty_cache()
     p57 = phase_57(pa, fa, smi, serving)
+    torch.cuda.empty_cache()
+    p58 = phase_58(fa, smi)
     log(json.dumps({"llama3_8b": {
         "card": smi,
         "serving": {k: llama_served[k] for k in ("tokens_per_s", "decode_ms",
@@ -11684,6 +11956,18 @@ def main(only=None) -> int:
                           for k, r in tr["routes"].items()})
         return out
 
+    def flash_p58(kind):
+        """Phase 58's K1 / K2 launches of one kind: K1 in 58a's two
+        gated predictor runs and in 58b's two TranslatedLayer calls; 58c
+        from the eager step to the to_static step."""
+        out = {"to_static": p58["to_static"]["launches"][kind]}
+        if kind == "fwd":
+            out.update(ernie_predictor=p58["ernie"]["k1_launches"],
+                       gpt_translated=sum(
+                           r["k1_launches"]
+                           for r in p58["translated"]["runs"].values()))
+        return out
+
     def flash_mp(kind):
         """Phase 54's K1 / K2 launches of one kind a rank: the masked ring
         probes and BERT at sep 2 (54b), ERNIE's fit at dp 2 (54c)."""
@@ -11786,7 +12070,8 @@ def main(only=None) -> int:
                 f"mpmd_width{t['width']}_{j}": t["launches"][kind]
                 for j, t in enumerate(live_sup["supervisor"]["train"])},
             launches_mp_sep_hapi=flash_mp(kind),
-            launches_phase55=flash_p55(kind)))
+            launches_phase55=flash_p55(kind),
+            launches_phase58=flash_p58(kind)))
     # the same three kernels at ViT-B/16's shape (phase 55c): the main
     # path's f32 launches (fit, and K1 in evaluate and predict)
     vit = p55["vit"]
@@ -11855,6 +12140,7 @@ def main(only=None) -> int:
     log(json.dumps({"phase55": p55}, default=str))
     log(json.dumps({"phase56": p56}, default=str))
     log(json.dumps({"phase57": p57}, default=str))
+    log(json.dumps({"phase58": p58}, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -11869,4 +12155,4 @@ if __name__ == "__main__":
         elastic_worker(sys.argv[2])
         sys.exit(0)
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
-        ["--phase56"], ["--phase57"]) else None))
+        ["--phase56"], ["--phase57"], ["--phase58"]) else None))

@@ -15,7 +15,9 @@ names that the port has: the subpackages, the dtype names (as
 ``to_tensor``, ``set_device`` / ``get_device``, the grad switches,
 ``grad`` (``autograd.grad``),
 ``Model``, ``DataParallel``, ``save`` / ``load``, ``profiler`` and
-``callbacks`` (``hapi/callbacks.py``).
+``callbacks`` (``hapi/callbacks.py``); ``jit`` / ``static`` /
+``inference`` save a model and serve it (``jit.save`` ->
+``inference.create_predictor``).
 
 Entry points run on the default device: the CUDA card, unless
 ``set_device("cpu")`` was called or the caller passes ``device="cpu"``;
@@ -25,7 +27,8 @@ device and the ``places`` / ``device`` given.
 import torch as _torch
 
 from . import (amp, autograd, device, distributed, incubate, inference, io,
-               jit, metric, nn, optimizer, profiler, tensor, text, vision)
+               jit, metric, nn, optimizer, profiler, static, tensor, text,
+               vision)
 from .device import get_device, resolve_device, set_device
 from .distributed.parallel import DataParallel
 from .framework.io_state import load, save
@@ -67,7 +70,7 @@ __all__ = (["DataParallel", "Model", "amp", "autograd", "callbacks",
             "is_grad_enabled", "jit", "linalg", "load", "metric", "nn",
             "no_grad", "optimizer", "profiler", "resolve_device", "save",
             "seed", "set_device", "set_grad_enabled", "set_rng_state",
-            "tensor", "text", "vision", "bool", "uint8", "int8", "int16",
-            "int32", "int64", "float16", "bfloat16", "float32", "float64",
-            "complex64", "complex128"]
+            "static", "tensor", "text", "vision", "bool", "uint8", "int8",
+            "int16", "int32", "int64", "float16", "bfloat16", "float32",
+            "float64", "complex64", "complex128"]
            + list(tensor.__all__))

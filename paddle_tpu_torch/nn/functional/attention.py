@@ -17,6 +17,11 @@ sep group: the flash route on the kernels, the dense route on the ring's
 plain version, each under a mask or bias in the layouts
 ``ring_attention.split_bias`` names; attention dropout there runs on the
 plain ring, as the unsplit route runs it on the dense version.
+
+While a trace records the call (``torch.export`` through ``jit.save``, or
+``jit.to_static``'s trace on fake tensors), both routes at dropout 0 call
+``ops/library.py::attention`` instead, which a loaded program runs as K1
+on the card; the ring refuses to be recorded.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 
 from ...framework.op import amp_op
 from ...ops import flash_attention as _fa
+from ...ops import library as _library
 from ...ops import paged_attention as _pa
 from ...ops.paged_attention import mask_fill_value
 from . import ring_attention as _ring
@@ -82,29 +88,60 @@ def _ring_route(q, k, v, mask, dropout_p, causal, scale, training, flash):
                                 dropout_p=p)
 
 
+def _flash(q, k, v, mask, causal, scale):
+    """The flash route at dropout 0: K1 / K2 on CUDA tensors (or a
+    raise), their plain versions on CPU tensors; a float mask is an
+    additive bias that takes no gradient."""
+    if mask is not None and mask.dim() < 4:
+        mask = mask.reshape((1,) * (4 - mask.dim()) + tuple(mask.shape))
+    if mask is None:
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    if mask.dtype == torch.bool:
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   mask=mask)
+    # an additive mask, not a trained bias: the dS pass is skipped
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                               bias=mask, bias_needs_grad=False)
+
+
+def _attend_cpu(q, k, v, mask, causal, scale):
+    """What an eager call at dropout 0 runs on CPU tensors: the dense
+    ``_sdpa_reference``, or the kernels' plain versions under
+    ``_FLASH_ON_CPU``. The CPU body of ``ops/library.py::attention``."""
+    if _FLASH_ON_CPU:
+        return _flash(q, k, v, mask, causal, scale)
+    return _sdpa_reference(q, k, v, mask, 0.0, causal, scale, False)
+
+
+def _record(q, dropout_p):
+    """True when a trace is recording this call (``ops/library.py::
+    recording``) and the recorded op serves it: dropout 0, no sequence
+    split (which refuses to be recorded)."""
+    if not _library.recording(q):
+        return False
+    if _ring.split_group() is not None:
+        raise NotImplementedError(
+            "exporting attention under a sequence split (the ring over the "
+            "sep group) is not ported, see ROADMAP.md §A.9b")
+    return dropout_p == 0.0
+
+
 @amp_op("sdpa_op", "white", uncast=("raw_mask",))
 def _sdpa(q, k, v, mask, dropout_p, causal, scale, training, raw_mask=None):
     if raw_mask is not None:
         mask = raw_mask
-    if _ring.split_group() is not None:
-        return _ring_route(q, k, v, mask, dropout_p, causal, scale, training,
-                           flash=_fa._is_cuda(q) or _FLASH_ON_CPU)
     if mask is not None and mask.dtype != torch.bool:
         # mask semantics on every route: a float mask is never
         # differentiated
         mask = mask.detach()
+    if _record(q, dropout_p):
+        return _library.attention(q, k, v, mask, causal, scale)
+    if _ring.split_group() is not None:
+        return _ring_route(q, k, v, mask, dropout_p, causal, scale, training,
+                           flash=_fa._is_cuda(q) or _FLASH_ON_CPU)
     flash = _fa._is_cuda(q) or _FLASH_ON_CPU  # other devices raise
     if flash and dropout_p == 0.0:
-        if mask is not None and mask.dim() < 4:
-            mask = mask.reshape((1,) * (4 - mask.dim()) + tuple(mask.shape))
-        if mask is None:
-            return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
-        if mask.dtype == torch.bool:
-            return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
-                                       mask=mask)
-        # an additive mask, not a trained bias: the dS pass is skipped
-        return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
-                                   bias=mask, bias_needs_grad=False)
+        return _flash(q, k, v, mask, causal, scale)
     return _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training)
 
 
@@ -113,9 +150,12 @@ def _sdpa_dense(q, k, v, mask, dropout_p, causal, scale, training,
                 raw_mask=None):
     """The dense route on every device, for a model built with
     ``use_flash_attention=False``; cast as ``sdpa_op`` like the flash
-    route."""
+    route. A recorded trace holds the op of ``ops/library.py`` as the
+    flash route's does."""
     if raw_mask is not None:
         mask = raw_mask
+    if _record(q, dropout_p):
+        return _library.attention(q, k, v, mask, causal, scale)
     return _sdpa_reference(q, k, v, mask, dropout_p, causal, scale, training)
 
 

@@ -5,9 +5,11 @@
   and, when ``ProfilerTarget.GPU`` is a target and a card is present, the
   CUDA activity (CUPTI): the card's kernels, copies and the host's
   ``record_function`` spans on one timeline. The paddle scheduler's
-  ``RECORD`` states start and stop it; each stop synchronizes the card
-  (every kernel launched in the window lands in the trace) and writes the
-  window's chrome trace to ``{worker_}device_trace.json`` in the export
+  ``READY`` state prepares it (``prepare_trace``: CUPTI collecting, as in
+  torch's own warm-up, whose records the window drops), its ``RECORD``
+  states start and stop it; each stop synchronizes the card (every kernel
+  launched in the window lands in the trace) and writes the window's
+  chrome trace to ``{worker_}device_trace.json`` in the export
   directory.
 - The host tracer is the native trace buffer (``runtime.trace_*``):
   ``RecordEvent`` spans recorded while a window is open, written at each
@@ -244,6 +246,10 @@ class Profiler:
     def stop(self):
         if self._tracing:
             self._stop_trace()
+        elif self._device_prof is not None:  # prepared, never started
+            prof, self._device_prof = self._device_prof, None
+            prof.start_trace()
+            prof.stop_trace()
         if self._on_trace_ready is not None:
             self._on_trace_ready(self)
         return self
@@ -264,18 +270,35 @@ class Profiler:
                 self._start_trace()
         elif self._tracing:
             self._stop_trace()
+        if state == ProfilerState.READY:
+            self._prepare_trace()
 
     def _file(self, kind: str) -> str:
         name = (f"{self._worker_name}_{kind}_trace.json" if self._worker_name
                 else f"{kind}_trace.json")
         return os.path.join(self._export_dir, name)
 
+    def _prepare_trace(self):
+        """The device tracer made and collecting before the window opens,
+        so a record lost as CUPTI starts is the warm-up step's, which the
+        window drops (without it, ``chip_smoke.py`` phase 57c's window
+        lost its first step's first two layers of kernels after phases
+        1-57b had run in the process)."""
+        if self._device_prof is not None:
+            return
+        try:
+            prof = torch.profiler.profile(activities=self._activities,
+                                          **self._torch_kw)
+            prof.prepare_trace()
+            self._device_prof = prof
+        except Exception:
+            self._device_prof = None
+
     def _start_trace(self):
         _runtime.trace_start()
         try:
-            self._device_prof = torch.profiler.profile(
-                activities=self._activities, **self._torch_kw)
-            self._device_prof.start()
+            self._prepare_trace()
+            self._device_prof.start_trace()
             self._tracing = True
         except Exception:
             # keep the host tracer symmetric with the failed device trace,

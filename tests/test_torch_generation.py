@@ -16,7 +16,9 @@ weights (``torch_port_utils``):
   through it and give the reference loop's greedy stream (the engine
   samples on the device, so only greedy streams are compared);
   ``use_engine=False``, ``disable_decode_engine`` and a request the engine
-  cannot hold take the loop;
+  cannot hold take the loop; an engine attached from an
+  ``inference.Config`` (``Config.enable_decode_engine``) gives the same
+  streams;
 * eos / pad filling and the early stop on every route; the length check
   raising past ``max_position_embeddings`` on the loops; the model's
   training flag restored and no output requiring grad.
@@ -181,8 +183,21 @@ def test_engine_routing_falls_back_to_the_loop(models, engine):
     assert tm._decode_engine is None
     assert TG._engine_for(tm, None, 7, 17) is None
     assert TG.generate(tm, ids, NEW).dtype == ids.dtype
-    with pytest.raises(NotImplementedError, match="A.9b"):
-        tinf.enable_decode_engine(tm, config=object())
+    # attached from an inference.Config: its engine settings on its device
+    config = tinf.Config()
+    config.disable_gpu()
+    config.enable_decode_engine(num_slots=3, max_length=POSITIONS,
+                                page_size=4)
+    eng = tinf.enable_decode_engine(tm, config)
+    try:
+        assert tm._decode_engine is eng and eng.device.type == "cpu"
+        assert (eng.config.num_slots, eng.config.page_size) == (3, 4)
+        assert TG._engine_for(tm, None, 7, 17) is eng
+        np.testing.assert_array_equal(
+            TG.generate(tm, ids, NEW),
+            RG.generate(jm, ids, NEW, use_engine=False))
+    finally:
+        tinf.disable_decode_engine(tm)
 
 
 @pytest.fixture(scope="module")

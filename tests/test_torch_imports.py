@@ -202,6 +202,37 @@ def test_generation_without_device_raises_on_cpu_only_machine(no_cuda):
 
 
 @pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.save_load",
+    "paddle_tpu_torch.static", "paddle_tpu_torch.ops.library"])
+def test_deployment_modules_are_guarded(module):
+    """The deployment slice's modules (``jit.save`` / ``load``,
+    ``paddle.static``'s export, the op that export records) are among
+    those the guards above walk."""
+    assert module in MODULES
+
+
+def test_deployment_without_device_raises_on_cpu_only_machine(no_cuda,
+                                                               tmp_path):
+    """A saved model loads on the card unless the CPU is asked for."""
+    import paddle_tpu_torch as paddle
+
+    prefix = str(tmp_path / "tiny")
+    paddle.jit.save(_tiny("cpu"), prefix, input_spec=[
+        paddle.jit.InputSpec([None, None], "int64")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.jit.load(prefix)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.inference.create_predictor(paddle.inference.Config(prefix))
+    config = paddle.inference.Config(prefix)
+    config.enable_use_gpu(100, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle.inference.PredictorPool(config, 2)
+    config.disable_gpu()
+    assert paddle.inference.create_predictor(config).run(
+        [[[1, 2, 3]]])[0].shape == (1, 3, 11)
+
+
+@pytest.mark.parametrize("module", [
     "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.tensor.creation",
     "paddle_tpu_torch.tensor.logic", "paddle_tpu_torch.tensor.random",
     "paddle_tpu_torch.tensor.manipulation", "paddle_tpu_torch.tensor.math",

@@ -262,6 +262,30 @@ def test_real_window_records_device_and_host_spans(tmp_path, capsys):
     capsys.readouterr()
 
 
+def test_ready_prepares_the_device_tracer(tmp_path):
+    """READY makes the device tracer and starts it collecting (torch's
+    warm-up) before the window; RECORD starts that same tracer; a READY
+    never followed by RECORD is discarded at stop()."""
+    prof = P.Profiler(scheduler=P.make_scheduler(closed=1, ready=1, record=1),
+                      on_trace_ready=P.export_chrome_tracing(str(tmp_path)))
+    prof.start()                              # step 0: CLOSED
+    assert prof._device_prof is None
+    prof.step()                               # step 1: READY
+    warm = prof._device_prof
+    assert warm is not None and not prof._tracing
+    prof.step()                               # step 2: RECORD
+    assert prof._device_prof is warm and prof._tracing
+    prof.step()
+    prof.stop()
+    assert prof._device_prof is None and not prof._tracing
+    cold = P.Profiler(scheduler=P.make_scheduler(closed=0, ready=1, record=1))
+    cold.start()                              # step 0: READY
+    assert cold._device_prof is not None
+    cold.stop()
+    assert cold._device_prof is None and cold.device_trace_path is None
+    P.reset_host_events()
+
+
 def test_repeat_windows_and_worker_names(tmp_path):
     prof = _window(tmp_path, 2, worker="w1")
     assert prof.device_trace_path.endswith("w1_device_trace.json")
